@@ -1,0 +1,77 @@
+"""Configuration read by the ported nuclei stage.
+
+A copy of the fields of ``path_gene_multimodal_tpu/config.py`` that this
+package reads (the port imports nothing of the JAX package), plus the
+model configuration that lives in the JAX package's
+``models/convnext.py`` and ``models/hovernext.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+# HoverNeXt nucleus type ids → names (reference aggregated_hovernet_run.py:76-82).
+TYPE_NAMES: dict[int, str] = {
+    1: "neoplastic",
+    2: "inflammatory",
+    3: "connective",
+    4: "dead",
+    5: "epithelial",
+}
+
+
+@dataclass(frozen=True)
+class NucleiConfig:
+    """The ``hovernext`` section of the pipeline config (fields read here)."""
+
+    batch_size: int = 128
+    tta: int = 4
+    max_instances_per_tile: int = 512
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Root pipeline config (fields read by the nuclei stage)."""
+
+    patch_size: int = 224
+    hovernext: NucleiConfig = field(default_factory=NucleiConfig)
+
+
+def default_config(**overrides: Any) -> PipelineConfig:
+    return PipelineConfig(**overrides)
+
+
+@dataclass(frozen=True)
+class ConvNeXtConfig:
+    depths: tuple[int, ...] = (3, 3, 9, 3)
+    dims: tuple[int, ...] = (96, 192, 384, 768)
+    # GELU flavor for the whole network: False = tanh approximation (the
+    # JAX package's default), True = exact erf (torch ``nn.GELU()``).
+    exact_gelu: bool = False
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.depths)
+
+
+CONVNEXTV2_TINY = ConvNeXtConfig()
+
+
+@dataclass(frozen=True)
+class HoverNeXtConfig:
+    encoder: ConvNeXtConfig = field(default_factory=lambda: CONVNEXTV2_TINY)
+    decoder_dims: tuple[int, ...] = (384, 192, 96, 64)
+    num_types: int = 5  # PanNuke nucleus types (ids 1..5)
+    input_size: int = 256
+
+    @property
+    def tp_channels(self) -> int:
+        return self.num_types + 1
+
+    @property
+    def exact_gelu(self) -> bool:
+        return self.encoder.exact_gelu
+
+
+HOVERNEXT_TINY = HoverNeXtConfig()

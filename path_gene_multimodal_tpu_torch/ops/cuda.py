@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (``build/kernels/lib<name>.so``
+beside the package, a directory git ignores) and loaded with ``ctypes``.
+Nothing is built when this module is imported: ``library(name)`` builds at
+first use, and ``build_all()`` starts one ``nvcc`` per source at once.
+A library is rebuilt when a source is newer than it.
+
+Wrappers pass tensor pointers (``data_ptr()``) and the current stream as
+``ctypes.c_void_p``; every launcher returns the ``cudaError_t`` of its
+launch, and ``launch`` raises on anything but success.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def gpu_supported() -> bool:
+    """True when a CUDA device of compute capability >= 9.0 is present
+    (the counterpart of the JAX package's ``pallas_supported``)."""
+    return torch.cuda.is_available() and torch.cuda.get_device_capability(0) >= (9, 0)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return lib.stat().st_mtime < newest
+
+
+def _start_build(name: str) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu"),
+    ]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(name: str, proc: subprocess.Popen) -> None:
+    out, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.build.log").write_text(out)
+    tmp = Path(proc.args[proc.args.index("-o") + 1])
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, _lib_path(name))
+
+
+def build_all(names=KERNELS) -> None:
+    """Compile every stale kernel library, all ``nvcc`` runs in parallel."""
+    procs = {n: _start_build(n) for n in names if _stale(n)}
+    errors = []
+    for n, proc in procs.items():
+        try:
+            _finish_build(n, proc)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``name`` (register and shared-memory use
+    from ``-Xptxas -v``), if it was built in this checkout."""
+    p = BUILD_DIR / f"{name}.build.log"
+    return p.read_text() if p.exists() else ""
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """Load ``lib<name>.so``, building it first if it is missing or stale."""
+    if _stale(name):
+        build_all((name,))
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib.pgm_error_string.argtypes = [ctypes.c_int]
+    lib.pgm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call launcher ``fn`` of library ``name``; arguments are ints (passed
+    as ``c_int``) or ``ctypes.c_void_p``. Raises on a failed launch."""
+    lib = library(name)
+    f = getattr(lib, fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [type(a) if isinstance(a, ctypes.c_void_p) else ctypes.c_int for a in args]
+    err = f(*args)
+    if err != 0:
+        msg = lib.pgm_error_string(err).decode()
+        raise RuntimeError(f"{name}.{fn}: CUDA error {err} ({msg})")
+
+
+def size_query(name: str, fn: str, *ints: int) -> int:
+    """Call a ``size_t f(int, ...)`` helper of library ``name``."""
+    f = getattr(library(name), fn)
+    f.restype = ctypes.c_size_t
+    f.argtypes = [ctypes.c_int] * len(ints)
+    return int(f(*ints))
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``), 32-byte aligned as the kernels' vector and wmma loads need."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 32:
+        raise ValueError(f"{name}: expected a 32-byte aligned tensor")

@@ -1,0 +1,54 @@
+"""The port stands alone: importing any of its modules (or chip_smoke.py)
+loads neither ``jax`` nor anything of the JAX package, and its sources
+name neither. Importing builds no kernel and needs no card."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "path_gene_multimodal_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import path_gene_multimodal_tpu_torch as port
+
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # noqa: F401  (defines functions only; runs under __main__)
+
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "flax"
+             or m == "path_gene_multimodal_tpu" or m.startswith("path_gene_multimodal_tpu."))
+print("MODULES=" + str(len(names)))
+print("BAD=" + ",".join(bad))
+"""
+
+_FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M),
+    re.compile(r"path_gene_multimodal_tpu\."),
+    re.compile(r"^\s*(import|from)\s+path_gene_multimodal_tpu(\s|$)", re.M),
+]
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True, timeout=300,
+        cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = dict(line.partition("=")[::2] for line in proc.stdout.splitlines() if "=" in line)
+    assert int(lines["MODULES"]) >= 20
+    assert lines["BAD"] == "", lines["BAD"]
+
+
+def test_port_sources_name_no_jax():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        text = f.read_text()
+        for pat in _FORBIDDEN:
+            m = pat.search(text)
+            assert m is None, f"{f.relative_to(ROOT)}: {m.group(0)!r}"
