@@ -6,10 +6,11 @@ official FCMAE ConvNeXtV2 layout (``downsample_layers`` / ``stages`` /
 ``dwconv`` / ``grn``) that the JAX package's ``convert_convnextv2`` reads,
 so a ``state_dict`` of this module converts with nothing left over.
 
-Activations are NHWC between blocks. Blocks of the stages in
-``fused_stages`` (default 0-2, the JAX package's ``DEFAULT_FUSED_STAGES``)
-run as one K1 call (``ops/convnext_block.py``); the others run as plain
-torch ops, like the JAX package's ``_block_unfused``.
+Activations are NHWC between blocks. After ``ConvNeXtV2.fuse()`` the
+blocks of stages 0-2 (the JAX package's ``DEFAULT_FUSED_STAGES``) run as
+one K1 call each (``ops/convnext_block.py``); the others, and every block
+of an unfused encoder, run as plain torch ops, like the JAX package's
+``_block_unfused``.
 """
 
 from __future__ import annotations
@@ -69,24 +70,23 @@ class Block(nn.Module):
         self.grn = GRN(4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
         self.exact_gelu = exact_gelu
+        self.k1_weights: tuple[torch.Tensor, ...] | None = None  # set by ConvNeXtV2.fuse
 
-    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
-        """x (B, H, W, C) → same. ``fused``: one K1 call (bf16 inside)."""
-        if fused:
-            return convnext_block(
-                x.to(torch.bfloat16),
-                self.dwconv.weight[:, 0].permute(1, 2, 0),
-                self.dwconv.bias,
-                self.norm.weight,
-                self.norm.bias,
-                self.pwconv1.weight.t(),
-                self.pwconv1.bias,
-                self.grn.gamma.reshape(-1),
-                self.grn.beta.reshape(-1),
-                self.pwconv2.weight.t(),
-                self.pwconv2.bias,
-                exact_gelu=self.exact_gelu,
-            ).to(x.dtype)
+    @torch.no_grad()
+    def kernel_weights(self) -> tuple[torch.Tensor, ...]:
+        """The block's weights as K1 takes them: bf16, contiguous, dw
+        (7, 7, C), w1 (C, 4C), w2 (4C, C), the vectors flat."""
+        ws = (self.dwconv.weight[:, 0].permute(1, 2, 0), self.dwconv.bias, self.norm.weight,
+              self.norm.bias, self.pwconv1.weight.t(), self.pwconv1.bias,
+              self.grn.gamma.reshape(-1), self.grn.beta.reshape(-1), self.pwconv2.weight.t(),
+              self.pwconv2.bias)
+        return tuple(t.detach().to(torch.bfloat16).contiguous() for t in ws)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C) → same; one K1 call (bf16 inside) once fused."""
+        if self.k1_weights is not None:
+            return convnext_block(x.to(torch.bfloat16), *self.k1_weights,
+                                  exact_gelu=self.exact_gelu).to(x.dtype)
         y = self.norm(self.dwconv(x))
         y = gelu(self.pwconv1(y), self.exact_gelu)
         y = self.pwconv2(self.grn(y))
@@ -96,11 +96,9 @@ class Block(nn.Module):
 class ConvNeXtV2(nn.Module):
     """Returns the stage features [/4, /8, /16, /32], NHWC."""
 
-    def __init__(self, cfg: ConvNeXtConfig = CONVNEXTV2_TINY,
-                 fused_stages: tuple[int, ...] = DEFAULT_FUSED_STAGES):
+    def __init__(self, cfg: ConvNeXtConfig = CONVNEXTV2_TINY):
         super().__init__()
         d = cfg.dims
-        self.fused_stages = tuple(fused_stages)
         self.downsample_layers = nn.ModuleList(
             [nn.Sequential(Conv2dNHWC(3, d[0], 4, stride=4), LayerNormNHWC(d[0]))]
             + [
@@ -113,11 +111,17 @@ class ConvNeXtV2(nn.Module):
             for s in range(cfg.num_stages)
         )
 
+    def fuse(self) -> None:
+        """Run the blocks of ``DEFAULT_FUSED_STAGES`` as K1 from now on, with
+        their weights held once in the kernel's layout. Call it when the
+        weights, device and dtype are final: later changes do not reach K1."""
+        for s in DEFAULT_FUSED_STAGES:
+            for blk in self.stages[s]:
+                blk.k1_weights = blk.kernel_weights()
+
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = []
-        for s, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
-            x = down(x)
-            for blk in stage:
-                x = blk(x, fused=s in self.fused_stages)
+        for down, stage in zip(self.downsample_layers, self.stages):
+            x = stage(down(x))
             feats.append(x)
         return feats

@@ -20,12 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, HoverNeXtConfig
-from path_gene_multimodal_tpu_torch.models.convnext import (
-    DEFAULT_FUSED_STAGES,
-    Conv2dNHWC,
-    ConvNeXtV2,
-    LayerNormNHWC,
-)
+from path_gene_multimodal_tpu_torch.models.convnext import Conv2dNHWC, ConvNeXtV2, LayerNormNHWC
 from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu
 
 FINAL_CHUNK = 128  # images per final-stage call (see HoverNeXt._final)
@@ -56,12 +51,11 @@ class DecoderBlock(nn.Module):
 
 
 class HoverNeXt(nn.Module):
-    def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY,
-                 fused_stages: tuple[int, ...] = DEFAULT_FUSED_STAGES):
+    def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY):
         super().__init__()
         self.cfg = cfg
         d, dec = cfg.encoder.dims, cfg.decoder_dims
-        self.encoder = ConvNeXtV2(cfg.encoder, fused_stages)
+        self.encoder = ConvNeXtV2(cfg.encoder)
         skip_chs = [d[2], d[1], d[0], 0]
         in_chs = [d[-1]] + list(dec[:-1])
         self.decoder = nn.ModuleList(

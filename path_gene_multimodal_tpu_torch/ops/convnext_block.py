@@ -6,7 +6,9 @@ Counterpart of the JAX package's ``ops/pallas/convnext_block.py``
 the hand-written kernel in ``csrc/convnext_block.cu``; on a CPU tensor it
 runs ``convnext_block_plain``, which repeats the TPU kernel's arithmetic
 op for op (bf16 storage, f32 accumulation, bf16 rounding of each pointwise
-product's operand).
+product's operand), and also rounds the GELU output y2 to bf16 before the
+GRN affine, where the CUDA kernel stores it between its two launches (the
+GRN sums of squares stay on the f32 values, in both).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def convnext_block_plain(
     y2 = _gelu_kernel(y2, exact_gelu).reshape(b, h * w, 4 * c)
     gx = torch.sqrt(y2.square().sum(1, keepdim=True) + 1e-12)
     nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
-    y3 = y2 * (f(grn_gamma) * nx + 1.0) + f(grn_beta)
+    y3 = f(y2) * (f(grn_gamma) * nx + 1.0) + f(grn_beta)
     y4 = f(y3).reshape(-1, 4 * c) @ f(w2) + f(b2)
     return (xf + y4.reshape(b, h, w, c)).to(bf)
 
@@ -76,7 +78,9 @@ def convnext_block(
     exact_gelu: bool = False,
 ) -> torch.Tensor:
     """ConvNeXtV2 block on (B, H, W, C) → bf16 (B, H, W, C): the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor. The kernel
+    takes its weights as ``Block.kernel_weights`` holds them (bf16,
+    contiguous, the plain version's shapes) and raises on anything else."""
     if not x.is_cuda:
         return convnext_block_plain(
             x, dw, dwb, ln_gamma, ln_beta, w1, b1, grn_gamma, grn_beta, w2, b2,
@@ -88,8 +92,7 @@ def convnext_block(
     bf = torch.bfloat16
     xb = x if x.dtype == bf else x.to(bf)
     xb = xb.contiguous()
-    wt = [t.to(bf).contiguous() for t in (dw, dwb, ln_gamma, ln_beta, w1, b1,
-                                           grn_gamma, grn_beta, w2, b2)]
+    wt = (dw, dwb, ln_gamma, ln_beta, w1, b1, grn_gamma, grn_beta, w2, b2)
     shapes = [(KERNEL_SIZE, KERNEL_SIZE, c), (c,), (c,), (c,), (c, 4 * c), (4 * c,),
               (4 * c,), (4 * c,), (4 * c, c), (c,)]
     cuda.check(xb, "x", bf, (b, h, w, c))

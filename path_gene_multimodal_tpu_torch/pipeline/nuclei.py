@@ -43,7 +43,6 @@ from path_gene_multimodal_tpu_torch.core.artifacts import (
     write_nuclei_table,
 )
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
-from path_gene_multimodal_tpu_torch.models.convnext import DEFAULT_FUSED_STAGES
 from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
 from path_gene_multimodal_tpu_torch.ops import watershed as ws
 from path_gene_multimodal_tpu_torch.ops.components import INF
@@ -98,13 +97,14 @@ class NucleiModel:
         bf16 model runs the encoder blocks of stages 0-2 as K1; K1 is bf16
         inside, so an f32 model keeps plain blocks."""
         device = torch.device(device)
-        fused = DEFAULT_FUSED_STAGES if dtype == torch.bfloat16 else ()
-        model = HoverNeXt(cfg, fused_stages=fused)
+        model = HoverNeXt(cfg)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
         model = model.to(device=device, dtype=dtype).eval()
+        if dtype == torch.bfloat16:
+            model.encoder.fuse()
         return cls(cfg=cfg, model=model, device=device, tta=tta, **kw)
 
     def cc_overflow_tiles(self, reset: bool = False) -> int:

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from path_gene_multimodal_tpu_torch.config import HoverNeXtConfig
-from path_gene_multimodal_tpu_torch.models.convnext import DEFAULT_FUSED_STAGES
 from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
+from path_gene_multimodal_tpu_torch.pipeline.nuclei import NucleiModel
 
 NUCLEUS_COLOR = (96, 50, 130)  # io.slide.synthetic_wsi default nucleus fill
 _COLOR_TOL = 60.0  # L2 radius around the nucleus colour
@@ -122,9 +122,7 @@ def fit_heads(
     sel = np.concatenate([pos, neg])
     cal = rng.choice(len(m), min(len(m), 2 * _MAX_PIXELS), replace=False)
 
-    model = HoverNeXt(cfg, fused_stages=DEFAULT_FUSED_STAGES if dtype == torch.bfloat16 else ())
-    model.load_state_dict(state_dict)
-    model = model.to(device=device, dtype=dtype).eval()
+    model = NucleiModel.build(cfg, state_dict=state_dict, dtype=dtype, device=device).model
     gathered = _head_features(model, tiles, np.concatenate([sel, cal]), device)
     f_sel, f_cal = gathered[: len(sel)], gathered[len(sel):]
 

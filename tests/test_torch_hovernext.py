@@ -49,7 +49,7 @@ def _jax_params(jcfg, seed=0):
 
 
 def _port_model(tcfg, sd):
-    model = HoverNeXt(tcfg, fused_stages=()).eval()
+    model = HoverNeXt(tcfg).eval()
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -113,8 +113,9 @@ def test_fused_blocks_track_plain_blocks():
     jcfg, tcfg = _configs(False)
     sd = params_from_jax(_jax_params(jcfg, seed=5), tcfg)
     plain = _port_model(tcfg, sd)
-    fused = HoverNeXt(tcfg, fused_stages=(0, 1, 2)).eval()
+    fused = HoverNeXt(tcfg).eval()
     fused.load_state_dict(sd)
+    fused.encoder.fuse()
     x = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, size=(1, 64, 64, 3)).astype(np.float32))
     with torch.no_grad():
         a, b = plain(x), fused(x)
