@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-1. builds the four kernels of the nuclei stage from
+1. builds every kernel of the port from
    ``path_gene_multimodal_tpu_torch/csrc`` with nvcc (one process per
    source, in parallel) into ``build/kernels/``;
 2. drives the nuclei stage the way a user would: ``synthetic_wsi`` →
@@ -18,7 +18,19 @@
    kernel, plain version and (where one exists) one PyTorch library call
    computing the same function;
 4. checks the slice's output (the kernels' post-processing against the
-   plain versions on the same maps; a non-empty, finite nuclei table).
+   plain versions on the same maps; a non-empty, finite nuclei table);
+5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
+   K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
+   through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
+   tiles each, with the counts set to 0 just before each run and read just
+   after, holds each configuration's forward against the default's, and
+   times each forward by part (encoder / decoder / final stage + heads);
+6. holds K7 (its 8 call shapes), K8, K10 and K11 against their plain
+   versions on that batch's own activations at full shape, in both GELU
+   modes, with biases and LayerNorm vectors drawn from a seed, and runs
+   mutants (a dropped bias, LayerNorm scale 1, K7's skip half zeroed, a
+   dropped head bias) that the check must catch; times each kernel, its
+   plain version and cuDNN's conv at the same shape (conv only).
 
 Prints the kernels' JSON line, the slice's tiles/s and the card's name and
 power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -52,6 +64,19 @@ N_TILES = 256  # two full batches of 128
 # rounding, plus a flipped rounding of an operand of pw1 or pw2) + this
 # absolute slack for outputs near zero
 K1_ATOL = 4e-3
+# K7/K8 (and the K10/K11 heads): 2 bf16 ulp + this slack. The kernel and the
+# plain version sum the same bf16 products in f32 in other orders, which can
+# flip the final rounding; K10/K11 add, per logit, two flipped roundings of
+# a GELU output y feeding the head product: 2 ulp(max_c |y[pixel, c]|) *
+# max_c |w_head[c, n]|
+DEC_ATOL = 1e-3
+CHUNK = 128  # images per final-stage call (models.hovernext.FINAL_CHUNK)
+# the decoder configurations, and the kernels each adds to the main path
+CONFIGS = {
+    "fused_decoder": ({"fused_decoder": True}, {"decoder_conv": 8, "final_conv_gelu": 4}),
+    "heads": ({"fused_final": "heads"}, {"final_heads": 4}),
+    "pallas": ({"fused_final": "pallas"}, {"composite_final_heads": 4}),
+}
 
 
 def _sync_time(fn, reps: int, warm: int = 1) -> float:
@@ -138,11 +163,355 @@ def _check_weights(blk, seed: int) -> list[torch.Tensor]:
     return wts
 
 
-def _k1_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got - ref| / (2 bf16 ulp(|ref|) + K1_ATOL), elementwise; the
-    check passes at <= 1."""
-    tol = 2 * _bf16_ulp(ref) + K1_ATOL
+def _excess(got: torch.Tensor, ref: torch.Tensor, atol: float) -> float:
+    """max |got - ref| / (2 bf16 ulp(|ref|) + atol), elementwise; the check
+    passes at <= 1."""
+    tol = 2 * _bf16_ulp(ref) + atol
     return float(((got.float() - ref.float()).abs() / tol).max())
+
+
+def _seeded(like: torch.Tensor, seed: int, mean: float = 0.0, std: float = 0.1) -> torch.Tensor:
+    """A vector of ``like``'s shape, device and dtype drawn from ``seed``."""
+    v = mean + std * torch.randn(like.shape, generator=torch.Generator().manual_seed(seed))
+    return v.to(device=like.device, dtype=like.dtype)
+
+
+def _table_failures(nuclei, patch: int, what: str) -> list[str]:
+    """A nuclei table must be non-empty, finite, and inside its tiles."""
+    if len(nuclei) == 0:
+        return [f"{what}: empty nuclei table"]
+    out = []
+    num = nuclei[["centroid_x", "centroid_y", "area", "eccentricity", "major_axis_length"]]
+    if not np.isfinite(num.to_numpy(np.float64)).all():
+        out.append(f"{what}: non-finite values in the nuclei table")
+    if not ((nuclei["centroid_x"].between(0, patch)) & (nuclei["centroid_y"].between(0, patch))
+            & (nuclei["area"] > 0)).all():
+        out.append(f"{what}: nuclei outside their tile or of zero area")
+    return out
+
+
+def _forward_parts(model, stacked: torch.Tensor):
+    """One forward of the TTA-folded batch, timed by part with CUDA events:
+    (outputs, last decoder map, {part: ms})."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        ev[0].record()
+        feats = model.encoder(stacked.to(torch.bfloat16))
+        ev[1].record()
+        x = model.decode(feats)
+        ev[2].record()
+        out = model.final_stage(x)
+        ev[3].record()
+    torch.cuda.synchronize()
+    parts = ("encoder", "decoder", "final_stage_and_heads")
+    return out, x, {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(parts)}
+
+
+def _rel_span(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |a - ref| / (max ref - min ref)."""
+    span = float(ref.max() - ref.min()) or 1.0
+    return float((a - ref).abs().max()) / span
+
+
+def _subset(n: int) -> torch.Tensor:
+    """The images a plain version is held to when it cannot take the whole
+    TTA batch: 16 of each rotation's 128 views, the batch's last 16 among
+    them (their offsets pass 2^31 elements in K8)."""
+    return torch.cat([torch.arange(k * CHUNK, k * CHUNK + 16) for k in range(3)]
+                     + [torch.arange(n - 16, n)])
+
+
+def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failures):
+    """Section 5: each decoder configuration through the nuclei stage over
+    one batch, its forward against the default's, and its forward by part.
+    Returns the configurations' NucleiModels (the default's first) and the
+    launch counts of each configuration's run."""
+    from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
+    from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei import (
+        NucleiModel, run_hovernet_pipeline_on_wsi_tiles,
+    )
+
+    dev = pixels.device
+    bsz = cfg.hovernext.batch_size
+    ann1 = _annotations(slide, cfg.patch_size, bsz, tmp / "batch_annotations_with_coords.csv")
+
+    def build(opt):
+        m = HoverNeXt(HOVERNEXT_TINY, **opt)
+        m.load_state_dict(sd)
+        m = m.to(device=dev, dtype=torch.bfloat16).eval()
+        m.fuse()
+        return m
+
+    models = {"default": model}
+    for name, (opt, _) in CONFIGS.items():
+        models[name] = NucleiModel(cfg=HOVERNEXT_TINY, model=build(opt), device=dev,
+                                   tta=cfg.hovernext.tta,
+                                   max_instances=cfg.hovernext.max_instances_per_tile)
+    lowres = build({"fused_final": "lowres"})  # the JAX default, plain: timed only
+
+    stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(4)], dim=0)
+    breakdown, vs_default, ref = {}, {}, None
+    for name, m in [(n, nm.model) for n, nm in models.items()] + [("lowres", lowres)]:
+        _forward_parts(m, stacked)  # warm-up: cuDNN plans, allocator
+        out, _, parts = _forward_parts(m, stacked)
+        breakdown[name] = {**parts, "total": sum(parts.values())}
+        if ref is None:
+            ref = out
+            continue
+        vs_default[name] = {k: _rel_span(out[k], ref[k]) for k in ref}
+        for k, v in vs_default[name].items():
+            if not v < 2e-2:
+                failures.append(f"{name}: forward differs from the default's in {k} by "
+                                f"{v:.3g} of its span (bar 2e-2)")
+        del out
+    del ref, stacked
+
+    runs, counts = {}, {}
+    for name, nm in models.items():
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        nuclei = run_hovernet_pipeline_on_wsi_tiles(slide, ann1, tmp, f"cfg_{name}", nm, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[name] = {n: w.launches for n, w in wrappers.items()}
+        runs[name] = {"tiles": bsz, "s": dt, "tiles_per_s": bsz / dt, "nuclei": len(nuclei),
+                      "launches": counts[name]}
+        failures.extend(_table_failures(nuclei, cfg.patch_size, name))
+        expect = CONFIGS[name][1] if name in CONFIGS else {}
+        for n, k in expect.items():
+            if counts[name][n] != k:
+                failures.append(f"{name}: {n} launched {counts[name][n]} times over one batch, "
+                                f"expected {k}")
+        print(f"config {name}: {bsz} tiles in {dt:.3f} s, {len(nuclei)} nuclei", flush=True)
+    report["configs"] = {"runs": runs, "forward_ms": breakdown, "vs_default": vs_default}
+    print(json.dumps({"configs": {n: {"tiles_per_s": r["tiles_per_s"], "nuclei": r["nuclei"]}
+                                  for n, r in runs.items()},
+                      "forward_ms": {n: b["total"] for n, b in breakdown.items()}}), flush=True)
+    return models, counts
+
+
+def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
+    """Section 6: K7, K8, K10, K11 against their plain versions on this
+    batch's activations at full shape, both GELU modes, with mutants;
+    timings. Returns the kernels' entries of the JSON line."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    bf = torch.bfloat16
+    stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(4)], dim=0)
+    n = stacked.shape[0]
+    idx = _subset(n).to(pixels.device)
+    src = "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu"
+    pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
+    entries = []
+
+    def conv_lib(x_nhwc, w_hwio):
+        """cuDNN's conv at the same shape: bf16, channels-last, no epilogue."""
+        w = w_hwio.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return lambda: F.conv2d(x_nhwc.permute(0, 3, 1, 2), w, padding=1)
+
+    def modes(name, kernel, plain, atol_of, mutants, rec):
+        """Both GELU modes (tanh last: its plain output is the mutants'
+        reference); each mutant must fail the same tolerance."""
+        for exact in (True, False):
+            got, ref = kernel(exact), plain(exact)
+            mode = "erf" if exact else "tanh"
+            atol = atol_of(exact)
+            rec[f"max_abs_err_{mode}"] = float((got.float() - ref.float()).abs().max())
+            rec[f"excess_{mode}"] = _excess(got, ref, atol)
+            rec[f"max_atol_{mode}"] = float(torch.as_tensor(atol).max())
+            if rec[f"excess_{mode}"] > 1.0:
+                failures.append(f"{name} ({mode} GELU): |kernel - plain| exceeds 2 ulp + atol "
+                                f"(<= {rec[f'max_atol_{mode}']:.3g}) by "
+                                f"x{rec[f'excess_{mode}']:.3g}")
+            del got
+        for what, bad in mutants.items():
+            rec[f"excess_if_{what}"] = _excess(bad(), ref, atol)
+            if rec[f"excess_if_{what}"] <= 1.0:
+                failures.append(f"{name}: the check does not see {what}")
+        return max(rec["max_abs_err_erf"], rec["max_abs_err_tanh"])
+
+    def entry(name, replaces, err, ms, pms, bnd, by, lms, note, **extra):
+        entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bnd, "bound_by": by, "library_ms": lms, "note": note,
+                        **extra})
+
+    # K7: the 8 decoder conv steps of the fused_decoder configuration
+    m = models["fused_decoder"].model
+    calls = []
+    with torch.inference_mode():
+        feats = m.encoder(stacked.to(bf))
+        x = feats[-1]
+        for i, (blk, skip, (w0, w1)) in enumerate(
+                zip(m.decoder, [feats[2], feats[1], feats[0], None], m.fused_weights["k7"])):
+            xu = dec.upsample2x_nearest(x)
+            x = dec.decoder_conv(xu, skip, *w0)
+            calls.append((f"dec{i}.conv0", xu, skip, w0[0]))
+            calls.append((f"dec{i}.conv1", x, None, w1[0]))
+            x = dec.decoder_conv(x, None, *w1)
+        x_dec = x
+        del feats
+    k7 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "err": 0.0, "calls": []}
+    by_t = {"bytes": 0.0, "operations": 0.0}
+    for j, (cname, xin, skip, w) in enumerate(calls):
+        b, h, wd, cx = xin.shape
+        cs = 0 if skip is None else skip.shape[-1]
+        cout = w.shape[-1]
+        vb, vg, vl = (_seeded(w[0, 0, 0], 200 + 3 * j), _seeded(w[0, 0, 0], 201 + 3 * j, 1.0),
+                      _seeded(w[0, 0, 0], 202 + 3 * j))
+        rec = {"call": cname, "shape": [b, h, wd, cx, cs, cout]}
+        with torch.inference_mode():
+            mut = {"no_bias": lambda: dec.decoder_conv_plain(xin, skip, w, 0 * vb, vg, vl),
+                   "ln_scale=1": lambda: dec.decoder_conv_plain(xin, skip, w, vb, 1 + 0 * vg, vl)}
+            if cs:
+                w_noskip = w.clone()
+                w_noskip[:, :, cx:] = 0
+                mut["skip_half_zeroed"] = lambda: dec.decoder_conv_plain(xin, skip, w_noskip, vb,
+                                                                         vg, vl)
+            err = modes(
+                f"decoder_conv {cname}",
+                lambda e: dec.decoder_conv(xin, skip, w, vb, vg, vl, exact_gelu=e),
+                lambda e: dec.decoder_conv_plain(xin, skip, w, vb, vg, vl, exact_gelu=e),
+                lambda e: DEC_ATOL, mut, rec)
+            ms = _sync_time(lambda: dec.decoder_conv(xin, skip, w, vb, vg, vl), reps=3)
+            pms = _sync_time(lambda: dec.decoder_conv_plain(xin, skip, w, vb, vg, vl), reps=1)
+            xcat = xin if skip is None else torch.cat([xin, skip], dim=-1)
+            lms = _sync_time(conv_lib(xcat, w), reps=3)
+            del xcat
+        px = b * h * wd
+        cin = cx + cs
+        nbytes = 2 * px * (cin + cout) + 2 * w.numel()
+        bnd, by = _bound_ms(nbytes, [(2 * px * 9 * cin * cout, PEAK_BF16),
+                                     (20 * px * cout, PEAK_F32)])
+        rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+        k7["calls"].append(rec)
+        for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bnd), ("library_ms", lms)):
+            k7[key] += v
+        k7["err"] = max(k7["err"], err)
+        by_t[by] += bnd
+    del calls
+    entry("decoder_conv", f"{pallas}:168", k7["err"], k7["ms"], k7["plain_ms"], k7["bound_ms"],
+          max(by_t, key=by_t.get), k7["library_ms"],
+          "per batch: the 8 calls of one forward (512 images); library_ms: cuDNN conv2d alone "
+          "at each call's shape on the concatenated input (conv only, no bias/LN/GELU); "
+          "vectors drawn from a seed; both GELU modes: |kernel - plain| <= 2 bf16 ulp + "
+          f"{DEC_ATOL}, elementwise, all 512 images", calls=k7["calls"])
+
+    # K8: once over the whole 512-image batch (2^31 elements in and out)
+    w8, b8 = m.fused_weights["k8"]
+    with torch.inference_mode():
+        xf = torch.cat([dec.upsample2x_bilinear(c) for c in x_dec.split(CHUNK)])
+        vb = _seeded(b8, 300)
+        rec = {"shape": list(xf.shape), "numel": xf.numel(), "subset": idx.tolist()}
+        xs = xf[idx]
+        err = modes("final_conv_gelu",
+                    lambda e: dec.final_conv_gelu(xf, w8, vb, exact_gelu=e)[idx],
+                    lambda e: dec.final_conv_gelu_plain(xs, w8, vb, exact_gelu=e),
+                    lambda e: DEC_ATOL,
+                    {"no_bias": lambda: dec.final_conv_gelu_plain(xs, w8, 0 * vb)}, rec)
+        del xs
+        rec["upsample_ms_per_batch"] = _sync_time(
+            lambda: [dec.upsample2x_bilinear(c) for c in x_dec.split(CHUNK)], reps=2)
+        rec["ms_per_call"] = _sync_time(lambda: dec.final_conv_gelu(xf[:CHUNK], w8, vb), reps=3)
+        rec["ms_whole_batch_one_call"] = _sync_time(lambda: dec.final_conv_gelu(xf, w8, vb), reps=2)
+        ms = _sync_time(lambda: [dec.final_conv_gelu(c, w8, vb) for c in xf.split(CHUNK)], reps=2)
+        pms = _sync_time(lambda: [dec.final_conv_gelu_plain(c, w8, vb) for c in xf.split(CHUNK)],
+                         reps=1)
+        lms = _sync_time(lambda: [conv_lib(c, w8)() for c in xf.split(CHUNK)], reps=2)
+    px = xf.shape[0] * xf.shape[1] * xf.shape[2]
+    cin, cout = w8.shape[2:]
+    bnd, by = _bound_ms(2 * px * (cin + cout) + 2 * w8.numel(),
+                        [(2 * px * 9 * cin * cout, PEAK_BF16), (10 * px * cout, PEAK_F32)])
+    del xf
+    entry("final_conv_gelu", f"{pallas}:591", err, ms, pms, bnd, by, lms,
+          "per batch: 4 calls of 128 images as the forward makes them; the check runs one call "
+          "over all 512 images (2^31 elements) and compares the subset; library_ms: cuDNN "
+          f"conv2d alone (conv only); tolerance 2 bf16 ulp + {DEC_ATOL}", **rec)
+
+    # K10 and K11 on the plain decoder's output (the heads and pallas configurations)
+    with torch.inference_mode():
+        mh = models["heads"].model
+        x_pl = mh.decode(mh.encoder(stacked.to(bf)))
+        xs = x_pl[idx]
+    del stacked
+
+    def head_atol(y, wh):
+        """Per logit (pixel, n): DEC_ATOL + two flipped bf16 roundings of the
+        pixel's largest GELU output, each through column n's largest head
+        weight."""
+        return (DEC_ATOL + 2 * _bf16_ulp(y.float().abs().amax(-1, keepdim=True))
+                * wh.float().abs().amax(0))
+
+    w10, b10, wh, bh = mh.fused_weights["k10"]
+    with torch.inference_mode():
+        vb, vbh = _seeded(b10, 400), _seeded(bh, 401)
+        rec = {"subset": "as final_conv_gelu"}
+        err = modes(
+            "final_heads",
+            lambda e: dec.final_heads(x_pl, w10, vb, wh, vbh, exact_gelu=e)[idx],
+            lambda e: dec.final_heads_plain(xs, w10, vb, wh, vbh, exact_gelu=e),
+            lambda e: head_atol(dec.final_conv_gelu_plain(dec.upsample2x_bilinear(xs), w10, vb,
+                                                          exact_gelu=e), wh),
+            {"no_bias": lambda: dec.final_heads_plain(xs, w10, 0 * vb, wh, vbh),
+             "no_head_bias": lambda: dec.final_heads_plain(xs, w10, vb, wh, 0 * vbh)}, rec)
+        rec["ms_per_call"] = _sync_time(lambda: dec.final_heads(x_pl[:CHUNK], w10, vb, wh, vbh),
+                                        reps=3)
+        ms = _sync_time(lambda: [dec.final_heads(c, w10, vb, wh, vbh) for c in x_pl.split(CHUNK)],
+                        reps=2)
+        pms = _sync_time(lambda: [dec.final_heads_plain(c, w10, vb, wh, vbh)
+                                  for c in x_pl.split(CHUNK)], reps=1)
+        up = dec.upsample2x_bilinear(x_pl[:CHUNK])
+        lib = conv_lib(up, w10)
+        lms = _sync_time(lambda: [lib() for _ in range(n // CHUNK)], reps=2)
+        del up, lib
+    px = n * 4 * x_pl.shape[1] * x_pl.shape[2]
+    cin, cout, n_out = w10.shape[2], w10.shape[3], wh.shape[-1]
+    # scalar work: each upsampled element once (6 ops), bias + GELU (10)
+    bnd, by = _bound_ms(2 * (x_pl.numel() + px * n_out) + 2 * (w10.numel() + wh.numel()),
+                        [(2 * px * (9 * cin * cout + cout * n_out), PEAK_BF16),
+                         (6 * px * cin + 10 * px * cout, PEAK_F32)])
+    entry("final_heads", f"{pallas}:392", err, ms, pms, bnd, by, lms,
+          "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
+          "the subset; library_ms: cuDNN conv2d alone on the upsampled map (conv only, no "
+          "upsample/GELU/heads); tolerance per logit: 2 bf16 ulp + DEC_ATOL + two flipped "
+          "roundings of the pixel's largest GELU output through the column's largest head "
+          "weight", **rec)
+
+    wc, b4, whb, bh4 = models["pallas"].model.fused_weights["k11"][:4]
+    with torch.inference_mode():
+        vb, vbh = _seeded(b4, 500), _seeded(bh4, 501)
+        rec = {"subset": "as final_conv_gelu"}
+        err = modes(
+            "composite_final_heads",
+            lambda e: dec.composite_final_heads(x_pl, wc, vb, whb, vbh, exact_gelu=e)[idx],
+            lambda e: dec.composite_final_heads_plain(xs, wc, vb, whb, vbh, exact_gelu=e),
+            lambda e: head_atol(dec.final_conv_gelu_plain(xs, wc, vb, exact_gelu=e), whb),
+            {"no_bias": lambda: dec.composite_final_heads_plain(xs, wc, 0 * vb, whb, vbh),
+             "no_head_bias": lambda: dec.composite_final_heads_plain(xs, wc, vb, whb, 0 * vbh)},
+            rec)
+        rec["ms_per_call"] = _sync_time(
+            lambda: dec.composite_final_heads(x_pl[:CHUNK], wc, vb, whb, vbh), reps=3)
+        ms = _sync_time(lambda: [dec.composite_final_heads(c, wc, vb, whb, vbh)
+                                 for c in x_pl.split(CHUNK)], reps=2)
+        pms = _sync_time(lambda: [dec.composite_final_heads_plain(c, wc, vb, whb, vbh)
+                                  for c in x_pl.split(CHUNK)], reps=1)
+        lms = _sync_time(lambda: [conv_lib(c, wc)() for c in x_pl.split(CHUNK)], reps=2)
+    px = n * x_pl.shape[1] * x_pl.shape[2]
+    c4, n4 = whb.shape
+    # the block-diagonal head counts its four nonzero (c4/4, n4/4) blocks only
+    bnd, by = _bound_ms(2 * (x_pl.numel() + px * n4) + 2 * (wc.numel() + whb.numel()),
+                        [(2 * px * (9 * wc.shape[2] * c4 + c4 * n4 // 4), PEAK_BF16),
+                         (10 * px * c4, PEAK_F32)])
+    entry("composite_final_heads", f"{pallas}:462", err, ms, pms, bnd, by, lms,
+          "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
+          "the subset; bound counts the head's nonzero blocks only (the kernel multiplies the "
+          "whole (256, 40) matrix); library_ms: cuDNN conv2d alone (conv only); tolerance as "
+          "final_heads", **rec)
+    return entries
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -170,6 +539,7 @@ def main(argv: list[str] | None = None) -> int:
     from path_gene_multimodal_tpu_torch.ops.convnext_block import (
         convnext_block, convnext_block_plain,
     )
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
     from path_gene_multimodal_tpu_torch.ops.flood import marker_watershed, marker_watershed_plain
     from path_gene_multimodal_tpu_torch.ops.instance_stats import (
         instance_stats, instance_stats_plain,
@@ -187,7 +557,10 @@ def main(argv: list[str] | None = None) -> int:
                     "device": torch.cuda.get_device_name(0), "smi": _smi()}
     dev = torch.device("cuda")
     wrappers = {"convnext_block": convnext_block, "cc_sizes": cc_sizes,
-                "flood": marker_watershed, "instance_stats": instance_stats}
+                "flood": marker_watershed, "instance_stats": instance_stats,
+                "decoder_conv": dec.decoder_conv, "final_conv_gelu": dec.final_conv_gelu,
+                "final_heads": dec.final_heads,
+                "composite_final_heads": dec.composite_final_heads}
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -224,21 +597,18 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
+    main_kernels = ("convnext_block", "cc_sizes", "flood", "instance_stats")
     n_batches = -(-N_TILES // cfg.hovernext.batch_size)
     report.update(main_path_s=dt, tiles=N_TILES, batches=n_batches,
                   tiles_per_s=N_TILES / dt, nuclei=len(nuclei), launches=launches,
                   cc_slot_overflow_tiles=nuclei.attrs.get("cc_slot_overflow_tiles"))
     print(f"main path: {N_TILES} tiles in {dt:.3f} s, {len(nuclei)} nuclei, "
           f"launches {launches}", flush=True)
-    failures = [f"{n} never launched on the main path" for n, k in launches.items() if k <= 0]
-    if len(nuclei) == 0:
-        failures.append("empty nuclei table")
-    num = nuclei[["centroid_x", "centroid_y", "area", "eccentricity", "major_axis_length"]]
-    if not np.isfinite(num.to_numpy(np.float64)).all():
-        failures.append("non-finite values in the nuclei table")
-    if not ((nuclei["centroid_x"].between(0, cfg.patch_size))
-            & (nuclei["centroid_y"].between(0, cfg.patch_size)) & (nuclei["area"] > 0)).all():
-        failures.append("nuclei outside their tile or of zero area")
+    failures = [f"{n} never launched on the main path" for n in main_kernels
+                if launches[n] <= 0]
+    failures += [f"{n} launched on the default path" for n, k in launches.items()
+                 if n not in main_kernels and k]
+    failures += _table_failures(nuclei, cfg.patch_size, "main path")
 
     # one batch of the main path's own data, stage by stage
     coords = pd.read_csv(ann).query("in_tme_roi")[["x", "y"]].to_numpy()[:128].tolist()
@@ -294,7 +664,7 @@ def main(argv: list[str] | None = None) -> int:
                 ref = convnext_block_plain(x, *wts, exact_gelu=exact)
                 mode = "erf" if exact else "tanh"
                 st[f"max_abs_err_{mode}"] = float((got.float() - ref.float()).abs().max())
-                st[f"excess_{mode}"] = _k1_excess(got, ref)
+                st[f"excess_{mode}"] = _excess(got, ref, K1_ATOL)
                 k1["abs_err"] = max(k1["abs_err"], st[f"max_abs_err_{mode}"])
                 if st[f"excess_{mode}"] > 1.0:
                     failures.append(f"K1 stage {s} ({mode} GELU): |kernel - plain| exceeds "
@@ -304,7 +674,7 @@ def main(argv: list[str] | None = None) -> int:
             for what, i, v in (("grn_gamma=0", 6, 0.0), ("no_b2", 9, 0.0)):
                 bad = list(wts)
                 bad[i] = torch.full_like(wts[i], v)
-                st[f"excess_if_{what}"] = _k1_excess(convnext_block_plain(x, *bad), ref)
+                st[f"excess_if_{what}"] = _excess(convnext_block_plain(x, *bad), ref, K1_ATOL)
                 if st[f"excess_if_{what}"] <= 1.0:
                     failures.append(f"K1 stage {s}: the check does not see {what}")
             del ref
@@ -438,6 +808,13 @@ def main(argv: list[str] | None = None) -> int:
     if ferr > 1e-3:
         failures.append(f"instance features differ between card and CPU by {ferr:.3g}")
 
+    # -- 5./6. the decoder configurations and their kernels -----------------
+    del out, np_prob, hv, blb, overall, dist, mmask, mdense, markers, lbl, li, ti, lk, lp
+    models, counts = _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report,
+                                      failures)
+    config_launches = {n: counts[cname][n] for cname, (_, ks) in CONFIGS.items() for n in ks}
+    kernels += _check_decoder_kernels(models, pixels, config_launches, failures)
+
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
     report["failures"] = failures
@@ -450,8 +827,9 @@ def main(argv: list[str] | None = None) -> int:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{k: v for k, v in kk.items() if k not in ("note", "per_stage")}
-                                  for kk in kernels]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in kernels]}))
     print(report["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,25 @@ static inline cudaError_t pgm_set_smem(K kernel, size_t bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
+// GELU as the TPU kernels compute it: tanh by default; exact erf through
+// the Abramowitz-Stegun 7.1.26 polynomial of the TPU kernel
+// (path_gene_multimodal_tpu/ops/pallas/convnext_block.py:65-83).
+__device__ inline float pgm_gelu(float x, int exact) {
+    if (exact) {
+        const float z = x * 0.7071067811865476f;
+        const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
+                    a4 = -1.453152027f, a5 = 1.061405429f, pp = 0.3275911f;
+        const float az = fabsf(z);
+        const float t = 1.0f / (1.0f + pp * az);
+        const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
+        const float e = 1.0f - poly * expf(-az * az);
+        const float erf_z = z > 0.0f ? e : (z < 0.0f ? -e : 0.0f);
+        return 0.5f * x * (1.0f + erf_z);
+    }
+    const float k = 0.7978845608028654f;
+    return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
 // Inclusive prefix sum of one int per thread over a block of up to 1024
 // threads (blockDim.x a multiple of 32). `warp_tot` is shared scratch of 32
 // ints. Every thread of the block must call it.

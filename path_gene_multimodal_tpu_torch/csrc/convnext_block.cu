@@ -52,23 +52,6 @@ constexpr int kTile = 64;      // pixels per block (4 wmma row tiles)
 constexpr int kChunk = 64;     // K chunk of launch B
 constexpr int kMaxStrips = 3;  // 16-column strips of C per warp (C <= 384)
 
-__device__ inline float gelu(float x, int exact) {
-    if (exact) {
-        // erf via Abramowitz-Stegun 7.1.26, as the TPU kernel
-        const float z = x * 0.7071067811865476f;
-        const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
-                    a4 = -1.453152027f, a5 = 1.061405429f, pp = 0.3275911f;
-        const float az = fabsf(z);
-        const float t = 1.0f / (1.0f + pp * az);
-        const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-        const float e = 1.0f - poly * expf(-az * az);
-        const float erf_z = z > 0.0f ? e : (z < 0.0f ? -e : 0.0f);
-        return 0.5f * x * (1.0f + erf_z);
-    }
-    const float k = 0.7978845608028654f;
-    return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
-}
-
 __device__ inline void load8(const bf16* p, float* v) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -184,7 +167,7 @@ block_pw1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dw,
             for (int r = lane >> 4; r < 16; r += 2) {
                 const int p = p0 + m * 16 + r;
                 if (p < hw) {
-                    const float v = gelu(scr[r * 16 + col] + bias, exact);
+                    const float v = pgm_gelu(scr[r * 16 + col] + bias, exact);
                     y2[(static_cast<long long>(img) * hw + p) * c4 + n] = __float2bfloat16(v);
                     sq += v * v;
                 }

@@ -1,0 +1,464 @@
+// The HoverNeXt decoder and final-stage kernels for the H100: one 3x3 conv
+// core with three input prologues and two epilogues.
+//
+// Replaces four TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py:
+//   K7  fused_decoder_conv     (:168, pallas_call :220): skip concat by split
+//       weights + 3x3 SAME conv + bias + LayerNorm (eps 1e-6, two-pass
+//       variance) + GELU -> bf16;
+//   K8  fused_final_conv_gelu  (:591, :620): 3x3 SAME conv + bias + GELU -> bf16;
+//   K10 fused_final_heads      (:392, :415): bilinear 2x (f32, rounded to
+//       bf16) + 3x3 conv + bias + GELU -> bf16 -> head product + bias -> bf16;
+//   K11 composite_final_heads  (:462, :506): 3x3 conv with parity-folded
+//       weights + bias + GELU -> bf16 -> block-diagonal head product + bias.
+//
+// Numerics follow the TPU kernels: bf16 inputs, weights and vectors, f32
+// accumulation, bf16 outputs; K10 rounds the upsampled map to bf16 before the
+// conv, K10/K11 round the GELU output to bf16 before the head product. GELU by
+// flag (pgm_gelu: tanh, or the Abramowitz-Stegun erf of the TPU kernel).
+//
+// What bounds them here: operations. At HoverNeXt-tiny widths the convs do
+// 9 * cin * cout multiply-adds per output pixel (K7 5.7 TFLOP, K8/K10/K11
+// ~2.5 TFLOP each per 512-image batch); only K8, whose bf16 input and output
+// at 256^2 x 64 are 2^31 elements each, comes close to its byte bound.
+//
+// Design: an implicit GEMM. A block owns BM consecutive output pixels of one
+// image and ALL cout channels (cout <= 384), so the epilogue sees whole pixel
+// rows: the LayerNorm over cout (K7) and the head product (K10/K11) need no
+// second pass. K runs over (source, tap, 32-channel chunk); each step stages
+// a BM x 32 input tile and a 32 x cout weight tile in shared memory with
+// cp.async (a ring of three: the next two steps' copies fly while this
+// step's bf16 wmma products run, one barrier per step). Zero padding is
+// cp.async's zero fill. K7's second source (the skip) reads its weight rows
+// at an offset of cx inside the one (3, 3, cx + cs, cout) tensor, so the
+// concat is never built. K10's prologue
+// computes the bilinear 2x value of each staged input element from the
+// half-resolution map (f32, the TPU kernel's operation order, no FMA
+// contraction) instead of copying. The epilogue stages the f32 accumulators
+// through shared memory (64 x 384 x 4 = 96 KB at K7 dec0, above the 48 KB
+// default, hence the dynamic shared memory attribute), one warp per pixel.
+// All offsets into activations are 64-bit: K8's full batch holds 2^31
+// elements. Not yet here: wgmma, TMA, a persistent schedule.
+#include "common.cuh"
+
+#include <climits>
+#include <cuda_bf16.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kBK = 32;        // input channels per K step
+constexpr int kLdA = kBK + 8;  // shared row stride of the input tile (bf16)
+constexpr int kStages = 3;     // cp.async ring depth
+
+constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+
+struct Src {
+    const bf16* x;  // NHWC; half resolution for the upsampling prologue
+    int cin;
+    int row0;       // first weight row of this source within a tap
+};
+
+struct ConvArgs {
+    Src src[2];
+    int nsrc;
+    const bf16* w;    // (3, 3, ktap, cout): row tap * ktap + row0 + ci
+    int ktap;
+    int h, w_;        // conv (output) spatial size
+    const bf16* bias;                  // (cout,)
+    const bf16* lng;  const bf16* lnb;  // (cout,) LayerNorm, or null
+    const bf16* wh;   const bf16* bh;   // (cout, nout), (nout,) head, or null
+    int nout;
+    bf16* out;        // (B, h, w_, nout if head else cout)
+    int exact;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = ok ? 16 : 0;  // 0: zero-fill the 16 bytes
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+    }
+}
+
+// a * u + b * v, each product and the sum rounded on its own (no FMA), as
+// the TPU kernel's and the plain version's separate f32 operations round
+__device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
+    return __fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v));
+}
+
+// One axis of the bilinear 2x with half-pixel centres and edge clamp:
+// out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]
+__device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a0, float& a1) {
+    const int i = o >> 1;
+    if (o & 1) {
+        i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
+    } else {
+        i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
+    }
+}
+
+template <int BM, int BN>
+struct Smem {
+    static constexpr int kLdB = BN + 8;  // bf16
+    static constexpr int kLdE = BN + 4;  // f32
+    static constexpr int kLdY = BN + 8;  // bf16
+    static constexpr size_t a_bytes = size_t(BM) * kLdA * 2;
+    static constexpr size_t b_bytes = size_t(kBK) * kLdB * 2;
+    static constexpr size_t pipe = kStages * (a_bytes + b_bytes);
+    static constexpr size_t e_bytes = size_t(BM) * kLdE * 4;
+    // region 0: the pipeline ring, later the f32 epilogue tile, later
+    // the f32 head tile; then (head only) the bf16 GELU tile and head weights
+    static constexpr size_t region0 = align128(pipe > e_bytes ? pipe : e_bytes);
+    static constexpr size_t y_bytes = align128(size_t(BM) * kLdY * 2);
+    static size_t total(int nout) {
+        if (nout == 0) return region0;
+        const int np = (nout + 15) / 16 * 16;
+        return region0 + y_bytes + align128(size_t(BN) * (np + 8) * 2);
+    }
+};
+
+// WM x WN warps, each owning FM x FN 16x16 accumulator tiles: the block
+// covers BM = 16 FM WM pixels and BN = 16 FN WN = cout channels.
+template <int WM, int WN, int FM, int FN, bool UP>
+__global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
+    constexpr int BM = 16 * FM * WM;
+    constexpr int BN = 16 * FN * WN;
+    using S = Smem<BM, BN>;
+    static_assert(WM * WN == kWarps, "8 warps");
+    extern __shared__ __align__(128) unsigned char smem[];
+    // stage i: input tile at i * (a + b) bytes, weight tile right after it
+    auto As = [&](int i) {
+        return reinterpret_cast<bf16*>(smem + i * (S::a_bytes + S::b_bytes));
+    };
+    auto Bs = [&](int i) {
+        return reinterpret_cast<bf16*>(smem + i * (S::a_bytes + S::b_bytes) + S::a_bytes);
+    };
+    float* E = reinterpret_cast<float*>(smem);
+    bf16* Y = reinterpret_cast<bf16*>(smem + S::region0);
+    bf16* H = reinterpret_cast<bf16*>(smem + S::region0 + S::y_bytes);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wm = warp / WN, wn = warp % WN;
+    const int hw = a.h * a.w_;
+    const int tiles = (hw + BM - 1) / BM;
+    const long long img = blockIdx.x / tiles;
+    const int p0 = (blockIdx.x % tiles) * BM;
+    const int np = (a.nout + 15) / 16 * 16;
+    const int ldh = np + 8;
+
+    if (a.wh != nullptr) {  // head weights, zero-padded to np columns
+        for (int i = tid; i < BN * np; i += kThreads) {
+            const int r = i / np, c = i % np;
+            H[r * ldh + c] = c < a.nout ? a.wh[r * a.nout + c] : __float2bfloat16(0.0f);
+        }
+    }
+
+    const int nsteps = 9 * (a.src[0].cin / kBK) + (a.nsrc > 1 ? 9 * (a.src[1].cin / kBK) : 0);
+
+    // The thread's input-tile chunks: rows tid/4 + 64 j, channels c8..c8+7 of
+    // each step; their pixels' (y, x), y = INT_MIN/2 past the image's end.
+    constexpr int kAPer = BM * (kBK / 8) / kThreads;
+    static_assert(kAPer * kThreads == BM * (kBK / 8), "whole input-tile chunks per thread");
+    const int c8 = (tid % (kBK / 8)) * 8;
+    int py[kAPer], px[kAPer];
+#pragma unroll
+    for (int j = 0; j < kAPer; ++j) {
+        const int p = p0 + tid / (kBK / 8) + j * (kThreads / (kBK / 8));
+        py[j] = p < hw ? p / a.w_ : INT_MIN / 2;
+        px[j] = p % a.w_;
+    }
+
+    // the next step to load: source, tap, first channel; advanced per load
+    // (fields picked without indexing the parameter struct, which would
+    // copy it to local memory)
+    const bf16* lx = a.src[0].x;
+    int lcin = a.src[0].cin, lrow0 = a.src[0].row0, ltap = 0, lk0 = 0;
+
+    auto load_next = [&](int buf) {
+        const int dy = ltap / 3 - 1, dx = ltap % 3 - 1;
+#pragma unroll
+        for (int j = 0; j < kAPer; ++j) {
+            const int r = tid / (kBK / 8) + j * (kThreads / (kBK / 8));
+            const int y = py[j] + dy, x = px[j] + dx;
+            const bool ok = y >= 0 && y < a.h && x >= 0 && x < a.w_;
+            bf16* dst = As(buf) + r * kLdA + c8;
+            if constexpr (UP) {
+                __align__(16) bf16 v[8];
+                if (ok) {
+                    const int hin = a.h >> 1, win = a.w_ >> 1;
+                    int r0, r1, c0, c1;
+                    float ra, rb, ca, cb;
+                    up_taps(y, hin, r0, r1, ra, rb);
+                    up_taps(x, win, c0, c1, ca, cb);
+                    const bf16* base = lx + img * hin * win * lcin + lk0 + c8;
+                    float v00[8], v10[8], v01[8], v11[8];
+                    load8(base + (static_cast<long long>(r0) * win + c0) * lcin, v00);
+                    load8(base + (static_cast<long long>(r1) * win + c0) * lcin, v10);
+                    load8(base + (static_cast<long long>(r0) * win + c1) * lcin, v01);
+                    load8(base + (static_cast<long long>(r1) * win + c1) * lcin, v11);
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) {  // rows first, then columns
+                        const float u0 = lerp_rn(ra, v00[k], rb, v10[k]);
+                        const float u1 = lerp_rn(ra, v01[k], rb, v11[k]);
+                        v[k] = __float2bfloat16(lerp_rn(ca, u0, cb, u1));
+                    }
+                } else {
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) v[k] = __float2bfloat16(0.0f);
+                }
+                *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+            } else {
+                const bf16* g =
+                    ok ? lx + ((img * a.h + y) * a.w_ + x) * lcin + lk0 + c8 : lx;
+                cp_async16(dst, g, ok);
+            }
+        }
+        const bf16* wrow = a.w + (static_cast<size_t>(ltap) * a.ktap + lrow0 + lk0) * BN;
+        for (int i = tid; i < kBK * (BN / 8); i += kThreads) {
+            const int r = i / (BN / 8), cb8 = (i % (BN / 8)) * 8;
+            cp_async16(Bs(buf) + r * S::kLdB + cb8, wrow + static_cast<size_t>(r) * BN + cb8, true);
+        }
+        lk0 += kBK;
+        if (lk0 == lcin) {
+            lk0 = 0;
+            if (++ltap == 9) {  // on to the second source (K7's skip)
+                ltap = 0;
+                lx = a.src[1].x;
+                lcin = a.src[1].cin;
+                lrow0 = a.src[1].row0;
+            }
+        }
+    };
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+    // one commit group per step (empty past the end), so that waiting for
+    // all but the newest group leaves this step's tiles complete
+    for (int i = 0; i < kStages - 1; ++i) {
+        if (i < nsteps) load_next(i);
+        cp_async_commit();
+    }
+    for (int step = 0; step < nsteps; ++step) {
+        const int buf = step % kStages;
+        cp_async_wait<kStages - 2>();
+        // also: every warp is done with the stage the next load overwrites
+        __syncthreads();
+        if (step + kStages - 1 < nsteps) load_next((step + kStages - 1) % kStages);
+        cp_async_commit();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[FN];
+#pragma unroll
+            for (int i = 0; i < FM; ++i)
+                wmma::load_matrix_sync(af[i], As(buf) + (wm * FM + i) * 16 * kLdA + kk * 16, kLdA);
+#pragma unroll
+            for (int j = 0; j < FN; ++j)
+                wmma::load_matrix_sync(bfr[j], Bs(buf) + kk * 16 * S::kLdB + (wn * FN + j) * 16,
+                                       S::kLdB);
+#pragma unroll
+            for (int i = 0; i < FM; ++i)
+#pragma unroll
+                for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring becomes the epilogue tile
+
+    // epilogue: f32 tile -> bias [-> LN] -> GELU, one warp per pixel
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+            wmma::store_matrix_sync(E + (wm * FM + i) * 16 * S::kLdE + (wn * FN + j) * 16,
+                                    acc[i][j], S::kLdE, wmma::mem_row_major);
+    __syncthreads();
+    constexpr int PER = BN / 32;
+    for (int r = warp; r < BM; r += kWarps) {
+        const int p = p0 + r;
+        if (p >= hw) continue;
+        float v[PER];
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+            const int ch = lane + 32 * k;
+            v[k] = E[r * S::kLdE + ch] + __bfloat162float(a.bias[ch]);
+        }
+        if (a.lng != nullptr) {
+            float s = 0.0f;
+#pragma unroll
+            for (int k = 0; k < PER; ++k) s += v[k];
+            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+            const float mu = s / BN;
+            float q = 0.0f;
+#pragma unroll
+            for (int k = 0; k < PER; ++k) q += (v[k] - mu) * (v[k] - mu);
+            for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+            const float rs = rsqrtf(q / BN + 1e-6f);
+#pragma unroll
+            for (int k = 0; k < PER; ++k) {
+                const int ch = lane + 32 * k;
+                v[k] = (v[k] - mu) * rs * __bfloat162float(a.lng[ch]) +
+                       __bfloat162float(a.lnb[ch]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+            const int ch = lane + 32 * k;
+            const bf16 g = __float2bfloat16(pgm_gelu(v[k], a.exact));
+            if (a.wh != nullptr)
+                Y[r * S::kLdY + ch] = g;
+            else
+                a.out[(img * hw + p) * BN + ch] = g;
+        }
+    }
+    if (a.wh == nullptr) return;
+
+    // head: Z = Y (BM x BN, bf16) @ H (BN x np, bf16), f32, over region 0
+    __syncthreads();
+    float* Z = E;
+    const int ldz = np + 4;
+    for (int f = warp; f < (BM / 16) * (np / 16); f += kWarps) {
+        const int mi = f / (np / 16), nj = f % (np / 16);
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> z;
+        wmma::fill_fragment(z, 0.0f);
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+            wmma::load_matrix_sync(af, Y + mi * 16 * S::kLdY + k * 16, S::kLdY);
+            wmma::load_matrix_sync(bfr, H + k * 16 * ldh + nj * 16, ldh);
+            wmma::mma_sync(z, af, bfr, z);
+        }
+        wmma::store_matrix_sync(Z + mi * 16 * ldz + nj * 16, z, ldz, wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * a.nout; i += kThreads) {
+        const int r = i / a.nout, n = i % a.nout;
+        const int p = p0 + r;
+        if (p < hw)
+            a.out[(img * hw + p) * a.nout + n] =
+                __float2bfloat16(Z[r * ldz + n] + __bfloat162float(a.bh[n]));
+    }
+}
+
+template <int WM, int WN, int FM, int FN, bool UP>
+cudaError_t run(const ConvArgs& a, int batch, cudaStream_t st) {
+    constexpr int BM = 16 * FM * WM;
+    const size_t smem = Smem<BM, 16 * FN * WN>::total(a.nout);
+    auto kernel = conv3x3_kernel<WM, WN, FM, FN, UP>;
+    cudaError_t e = pgm_set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const long long blocks = static_cast<long long>(batch) * ((a.h * a.w_ + BM - 1) / BM);
+    if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+// Tile shapes by cout (the block holds all of cout): 64 x 384, 64 x 256,
+// 64 x 192, 128 x 96, 128 x 64 pixels x channels.
+cudaError_t dispatch(const ConvArgs& a, int batch, int cout, bool up, cudaStream_t st) {
+    for (int s = 0; s < a.nsrc; ++s)
+        if (a.src[s].cin <= 0 || a.src[s].cin % kBK) return cudaErrorInvalidValue;
+    if (a.nout > cout) return cudaErrorInvalidValue;
+    if (up) return cout == 64 ? run<4, 2, 2, 2, true>(a, batch, st) : cudaErrorInvalidValue;
+    switch (cout) {
+        case 384: return run<1, 8, 4, 3, false>(a, batch, st);
+        case 256: return run<2, 4, 2, 4, false>(a, batch, st);
+        case 192: return run<2, 4, 2, 3, false>(a, batch, st);
+        case 96: return run<4, 2, 2, 3, false>(a, batch, st);
+        case 64: return run<4, 2, 2, 2, false>(a, batch, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+ConvArgs args(const void* x, int cin, const void* w, const void* b, void* out, int h, int w_,
+              int exact) {
+    ConvArgs a{};
+    a.src[0] = Src{static_cast<const bf16*>(x), cin, 0};
+    a.nsrc = 1;
+    a.w = static_cast<const bf16*>(w);
+    a.ktap = cin;
+    a.h = h;
+    a.w_ = w_;
+    a.bias = static_cast<const bf16*>(b);
+    a.out = static_cast<bf16*>(out);
+    a.exact = exact;
+    return a;
+}
+
+}  // namespace
+
+// K7. x (B, H, W, cx), skip (B, H, W, cs) or null with cs = 0, w (3, 3,
+// cx + cs, cout), vectors (cout,), ln_scale/ln_bias null for no LayerNorm;
+// out (B, H, W, cout). All bf16.
+PGM_EXPORT int decoder_conv_launch(const void* x, const void* skip, const void* w, const void* b,
+                                   const void* lng, const void* lnb, void* out, int batch, int h,
+                                   int w_, int cx, int cs, int cout, int exact, void* stream) {
+    ConvArgs a = args(x, cx, w, b, out, h, w_, exact);
+    if (cs > 0) {
+        a.src[1] = Src{static_cast<const bf16*>(skip), cs, cx};
+        a.nsrc = 2;
+    }
+    a.ktap = cx + cs;
+    a.lng = static_cast<const bf16*>(lng);
+    a.lnb = static_cast<const bf16*>(lnb);
+    return static_cast<int>(dispatch(a, batch, cout, false, static_cast<cudaStream_t>(stream)));
+}
+
+// K8. x (B, H, W, cin), w (3, 3, cin, cout), b (cout,); out (B, H, W, cout).
+PGM_EXPORT int final_conv_gelu_launch(const void* x, const void* w, const void* b, void* out,
+                                      int batch, int h, int w_, int cin, int cout, int exact,
+                                      void* stream) {
+    const ConvArgs a = args(x, cin, w, b, out, h, w_, exact);
+    return static_cast<int>(dispatch(a, batch, cout, false, static_cast<cudaStream_t>(stream)));
+}
+
+// K10. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,),
+// wh (cout, nout), bh (nout,); out (B, 2H, 2W, nout) NHWC.
+PGM_EXPORT int final_heads_launch(const void* x, const void* w, const void* b, const void* wh,
+                                  const void* bh, void* out, int batch, int h, int w_, int cin,
+                                  int cout, int nout, int exact, void* stream) {
+    ConvArgs a = args(x, cin, w, b, out, 2 * h, 2 * w_, exact);
+    a.wh = static_cast<const bf16*>(wh);
+    a.bh = static_cast<const bf16*>(bh);
+    a.nout = nout;
+    return static_cast<int>(dispatch(a, batch, cout, true, static_cast<cudaStream_t>(stream)));
+}
+
+// K11. x (B, H, W, cin), wc (3, 3, cin, c4), b4 (c4,), wh (c4, n4), bh4
+// (n4,); out (B, H, W, n4).
+PGM_EXPORT int composite_final_heads_launch(const void* x, const void* wc, const void* b4,
+                                            const void* wh, const void* bh4, void* out, int batch,
+                                            int h, int w_, int cin, int c4, int n4, int exact,
+                                            void* stream) {
+    ConvArgs a = args(x, cin, wc, b4, out, h, w_, exact);
+    a.wh = static_cast<const bf16*>(wh);
+    a.bh = static_cast<const bf16*>(bh4);
+    a.nout = n4;
+    return static_cast<int>(dispatch(a, batch, c4, false, static_cast<cudaStream_t>(stream)));
+}

@@ -2,12 +2,11 @@
 + NP/HV/TP heads, and rotation test-time augmentation.
 
 Counterpart of the JAX package's ``models/hovernext.py`` (``HoverNeXt``,
-``hv_rot_invert``, ``tta_forward``). Parameter names follow the torch
-layout that the JAX package's ``convert_hovernext`` reads
+``hv_rot_invert``, ``tta_forward``) and of the decoder configurations of
+its ``models/hovernext_fn.py::hovernext_forward``. Parameter names follow
+the torch layout that the JAX package's ``convert_hovernext`` reads
 (``models/weights_hovernext.py:10-17``), so ``state_dict()`` converts with
-nothing left over. The final stage is the plain bilinear 2x resize + 3x3
-conv + GELU + 1x1 heads, which the JAX package proves equal to its default
-low-res composite (``tests/test_hovernext_fused.py:258``).
+nothing left over.
 
 Public layouts are the JAX package's: pixels (B, H, W, 3) in [0, 1], maps
 NHWC. Convs run on the NCHW view of NHWC (channels-last) tensors.
@@ -20,17 +19,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, HoverNeXtConfig
+from path_gene_multimodal_tpu_torch.models import hovernext_fn as fn
 from path_gene_multimodal_tpu_torch.models.convnext import Conv2dNHWC, ConvNeXtV2, LayerNormNHWC
 from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu
+from path_gene_multimodal_tpu_torch.ops.decoder import (
+    decoder_conv,
+    final_conv_gelu,
+    final_heads,
+    upsample2x_bilinear,
+    upsample2x_nearest,
+)
 
-FINAL_CHUNK = 128  # images per final-stage call (see HoverNeXt._final)
+FINAL_CHUNK = 128  # images per final-stage call (see HoverNeXt.final_stage)
+FUSED_FINAL = (False, "lowres", "pallas", "heads")
 
 
-def _resize2x(x: torch.Tensor, mode: str) -> torch.Tensor:
-    """2x upsample of an NHWC map (``jax.image.resize`` semantics: nearest,
-    or bilinear with half-pixel centres and edge clamping)."""
-    kw = {"align_corners": False} if mode == "bilinear" else {}
-    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode=mode, **kw).permute(0, 2, 3, 1)
+def _bilinear2x(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of an NHWC map (``jax.image.resize`` semantics:
+    half-pixel centres, edge clamping), ``F.interpolate``'s own kernel."""
+    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1)
+
+
+def _bf16(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return tuple(t.detach().to(torch.bfloat16).contiguous() for t in ts)
 
 
 class DecoderBlock(nn.Module):
@@ -42,8 +54,24 @@ class DecoderBlock(nn.Module):
         self.norm1 = LayerNormNHWC(out_ch)
         self.exact_gelu = exact_gelu
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor | None) -> torch.Tensor:
-        x = _resize2x(x, "nearest")
+    @torch.no_grad()
+    def kernel_weights(self) -> tuple[tuple[torch.Tensor, ...], ...]:
+        """conv0 and conv1 as K7 takes them: bf16, contiguous, w (3, 3, cin,
+        cout) (conv0's x and skip halves are its [:, :, :cx] and [:, :, cx:]),
+        bias and LayerNorm vectors (cout,)."""
+        return tuple(
+            _bf16(conv.weight.permute(2, 3, 1, 0), conv.bias, norm.weight, norm.bias)
+            for conv, norm in ((self.conv0, self.norm0), (self.conv1, self.norm1))
+        )
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None,
+                k7_weights: tuple | None = None) -> torch.Tensor:
+        """Plain convs, or two K7 calls (bf16 out) given ``k7_weights``."""
+        x = upsample2x_nearest(x)
+        if k7_weights is not None:
+            w0, w1 = k7_weights
+            x = decoder_conv(x, skip, *w0, exact_gelu=self.exact_gelu)
+            return decoder_conv(x, None, *w1, exact_gelu=self.exact_gelu)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
         x = gelu(self.norm0(self.conv0(x)), self.exact_gelu)
@@ -51,9 +79,42 @@ class DecoderBlock(nn.Module):
 
 
 class HoverNeXt(nn.Module):
-    def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY):
+    """HoverNeXt with the decoder configurations of the JAX package's
+    ``hovernext_forward``:
+
+    - ``fused_decoder=True``: each decoder conv step through K7, then a
+      bilinear 2x and the final conv + GELU through K8;
+    - ``fused_final``: ``False`` the plain resize → conv → GELU → heads;
+      ``"lowres"`` the composite-weight low-res final stage (plain torch);
+      ``"pallas"`` the same through K11; ``"heads"`` upsample, conv, GELU
+      and heads through K10. ``True`` would be K9, not ported yet.
+
+    ``None`` means the port's default, the plain path (``False``), which is
+    NOT the JAX default ``"lowres"``: the nuclei stage keeps the final stage
+    it has been measured with. ``fused_decoder`` runs its own final stage,
+    so it takes no ``fused_final``. Call ``fuse()`` once the weights, device
+    and dtype are final, to hold the kernels' weights in their layout.
+    """
+
+    def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY, fused_decoder: bool = False,
+                 fused_final: bool | str | None = None):
         super().__init__()
+        if fused_decoder and fused_final is not None:
+            raise ValueError(
+                "fused_decoder=True runs the whole decoder + final stage as its own kernels; "
+                f"fused_final={fused_final!r} would be silently ignored: leave it at None")
+        if fused_final is None:
+            fused_final = False
+        if fused_final is True:
+            raise NotImplementedError(
+                "fused_final=True runs K9 (fused_upsample_final), which is not ported yet "
+                "(ROADMAP, Queue 2)")
+        if fused_final not in FUSED_FINAL:
+            raise ValueError(f"fused_final must be one of {FUSED_FINAL} or None, got "
+                             f"{fused_final!r}")
         self.cfg = cfg
+        self.fused_decoder = fused_decoder
+        self.fused_final = fused_final
         d, dec = cfg.encoder.dims, cfg.decoder_dims
         self.encoder = ConvNeXtV2(cfg.encoder)
         skip_chs = [d[2], d[1], d[0], 0]
@@ -65,13 +126,46 @@ class HoverNeXt(nn.Module):
         self.head_np = Conv2dNHWC(dec[-1], 2, 1)
         self.head_hv = Conv2dNHWC(dec[-1], 2, 1)
         self.head_tp = Conv2dNHWC(dec[-1], cfg.tp_channels, 1)
+        self.fused_weights: dict | None = None  # set by fuse()
 
-    def _decode(self, pixels: torch.Tensor) -> torch.Tensor:
-        """Encoder + U-Net decoder → the half-resolution map, NHWC."""
-        feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
+    @torch.no_grad()
+    def kernel_weights(self) -> dict:
+        """The weights the configured decoder kernels take, in their layout:
+        ``k7`` (per decoder block) and ``k8`` (final conv) for
+        ``fused_decoder``; ``k10`` (final conv and concatenated heads) for
+        ``"heads"``; ``k11`` (``hovernext_fn.k11_weights``: composite
+        weights folded in f32 from the module's weights, then cast) for
+        ``"pallas"``."""
+        kw: dict = {}
+        dtype = self.final_conv.weight.dtype
+        if self.fused_decoder:
+            kw["k7"] = [blk.kernel_weights() for blk in self.decoder]
+            kw["k8"] = _bf16(self.final_conv.weight.permute(2, 3, 1, 0), self.final_conv.bias)
+        p = fn.final_params(self)
+        if self.fused_final == "heads":
+            wcat, bcat = fn._head_cat(p, self.final_conv.out_channels, dtype)
+            kw["k10"] = _bf16(p["final_conv"]["kernel"], p["final_conv"]["bias"], wcat, bcat)
+        if self.fused_final == "pallas":
+            kw["k11"] = fn.k11_weights(p, dtype)
+        return kw
+
+    def fuse(self) -> None:
+        """Run the encoder blocks of stages 0-2 as K1 (``ConvNeXtV2.fuse``)
+        and hold the configured decoder kernels' weights once in their
+        layout. Later changes to the weights, device or dtype reach neither."""
+        self.encoder.fuse()
+        self.fused_weights = self.kernel_weights()
+
+    def _kw(self) -> dict:
+        return self.fused_weights if self.fused_weights is not None else self.kernel_weights()
+
+    def decode(self, feats: list[torch.Tensor]) -> torch.Tensor:
+        """Encoder features → the last decoder map (half resolution), NHWC;
+        bf16 when the decoder runs through K7."""
+        k7 = self._kw().get("k7", [None] * len(self.decoder))
         x = feats[-1]
-        for blk, skip in zip(self.decoder, [feats[2], feats[1], feats[0], None]):
-            x = blk(x, skip)
+        for blk, skip, w in zip(self.decoder, [feats[2], feats[1], feats[0], None], k7):
+            x = blk(x, skip, w)
         return x
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,23 +174,52 @@ class HoverNeXt(nn.Module):
         a TTA x4 batch of 128 tiles (512 x 256 x 256 x 64) passes INT_MAX
         elements, more than one upsample call takes."""
         return torch.cat([
-            gelu(self.final_conv(_resize2x(c, "bilinear")), self.cfg.exact_gelu)
+            gelu(self.final_conv(_bilinear2x(c)), self.cfg.exact_gelu)
             for c in x.split(FINAL_CHUNK)
         ])
 
+    def _heads(self, f: torch.Tensor) -> dict[str, torch.Tensor]:
+        return {"np": self.head_np(f).float(), "hv": self.head_hv(f).float(),
+                "tp": self.head_tp(f).float()}
+
+    def _final_chunk(self, x: torch.Tensor, kw: dict) -> dict[str, torch.Tensor]:
+        dtype = self.final_conv.weight.dtype
+        exact = self.cfg.exact_gelu
+        if self.fused_decoder:
+            return self._heads(final_conv_gelu(upsample2x_bilinear(x), *kw["k8"],
+                                               exact_gelu=exact).to(dtype))
+        if self.fused_final == "heads":
+            out = final_heads(x, *kw["k10"], exact_gelu=exact).float()
+        elif self.fused_final == "pallas":
+            out = fn._final_heads_lowres_pallas(fn.final_params(self), x, dtype, exact,
+                                                kw["k11"])
+        elif self.fused_final == "lowres":
+            out = fn._final_heads_lowres(fn.final_params(self), x, dtype, exact)
+        else:
+            return self._heads(self._final(x))
+        return {"np": out[..., :2], "hv": out[..., 2:4], "tp": out[..., 4:]}
+
+    def final_stage(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The last decoder map → {"np", "hv", "tp"} f32 at input
+        resolution, over FINAL_CHUNK images at a time."""
+        kw = self._kw()
+        parts = [self._final_chunk(c, kw) for c in x.split(FINAL_CHUNK)]
+        return {n: torch.cat([p[n] for p in parts]) for n in parts[0]}
+
     def features(self, pixels: torch.Tensor) -> torch.Tensor:
-        """The shared pre-head map (post-GELU final conv), NHWC."""
-        return self._final(self._decode(pixels))
+        """The shared pre-head map (post-GELU final conv), NHWC, through the
+        plain decoder and final stage whatever ``fused_final`` says (the
+        head-folded variants never build it); not with ``fused_decoder``."""
+        if self.fused_decoder:
+            raise ValueError("features() is not supported with fused_decoder")
+        feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
+        return self._final(self.decode(feats))
 
     def forward(self, pixels: torch.Tensor) -> dict[str, torch.Tensor]:
         """pixels (B, H, W, 3) in [0, 1] → {"np", "hv", "tp"} NHWC f32
         logits / regression at input resolution."""
-        heads = (("np", self.head_np), ("hv", self.head_hv), ("tp", self.head_tp))
-        parts = [
-            {name: head(f).float() for name, head in heads}
-            for f in (self._final(c) for c in self._decode(pixels).split(FINAL_CHUNK))
-        ]
-        return {name: torch.cat([p[name] for p in parts]) for name, _ in heads}
+        feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
+        return self.final_stage(self.decode(feats))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

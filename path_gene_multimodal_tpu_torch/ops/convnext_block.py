@@ -36,7 +36,9 @@ def _erf_as(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
 
 
-def _gelu_kernel(x: torch.Tensor, exact: bool) -> torch.Tensor:
+def gelu_kernel(x: torch.Tensor, exact: bool) -> torch.Tensor:
+    """GELU as the TPU kernels compute it: tanh, or exact through the
+    Abramowitz-Stegun erf polynomial (not ``torch.erf``)."""
     if exact:
         return 0.5 * x * (1.0 + _erf_as(x * 0.7071067811865476))
     k = 0.7978845608028654
@@ -65,7 +67,7 @@ def convnext_block_plain(
     var = (acc - mu).square().mean(-1, keepdim=True)
     y = (acc - mu) * torch.rsqrt(var + 1e-6) * f(ln_gamma) + f(ln_beta)
     y2 = f(y).reshape(-1, c) @ f(w1) + f(b1)
-    y2 = _gelu_kernel(y2, exact_gelu).reshape(b, h * w, 4 * c)
+    y2 = gelu_kernel(y2, exact_gelu).reshape(b, h * w, 4 * c)
     gx = torch.sqrt(y2.square().sum(1, keepdim=True) + 1e-12)
     nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
     y3 = f(y2) * (f(grn_gamma) * nx + 1.0) + f(grn_beta)

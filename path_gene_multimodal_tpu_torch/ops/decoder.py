@@ -1,0 +1,231 @@
+"""K7, K8, K10, K11: the HoverNeXt decoder and final-stage kernels.
+
+Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
+launches its hand-written kernel in ``csrc/decoder_conv.cu`` on a CUDA
+tensor and runs its ``*_plain`` twin on a CPU tensor:
+
+- ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
+  + bias + LayerNorm + GELU, the concat never built;
+- ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU;
+- ``final_heads`` (K10, ``fused_final_heads``): bilinear 2x + conv3x3 +
+  bias + GELU + head product, logits NHWC (the JAX kernel writes NCHW,
+  which its caller transposes to this);
+- ``composite_final_heads`` (K11, ``composite_final_heads``): conv3x3 with
+  parity-folded weights + bias + GELU + block-diagonal head product.
+
+The plain versions repeat the TPU kernels' rounding points: inputs,
+weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
+upsampled input and K10/K11 their GELU output to bf16 before the next
+product; GELU through ``gelu_kernel`` (the TPU kernel's erf polynomial in
+exact mode). Their f32 convolutions go through ``F.conv2d``: on a card, turn
+TF32 off (``torch.backends.cudnn.allow_tf32``) before holding a kernel
+against them.
+
+``upsample2x_nearest`` and ``upsample2x_bilinear`` are plain torch, as in
+the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
+K9 (``fused_upsample_final``) is not ported yet (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from path_gene_multimodal_tpu_torch.ops import cuda
+from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
+
+_BF = torch.bfloat16
+KERNEL_COUTS = (64, 96, 192, 256, 384)  # the conv core's tile widths
+CIN_MULTIPLE = 32  # input channels per K step of the conv core
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, 2H, 2W, C), nearest."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def _up_axis(v: torch.Tensor, axis: int, dtype: torch.dtype) -> torch.Tensor:
+    """2x along ``axis`` of f32 ``v``, each output rounded once to ``dtype``:
+    even[i] = 0.25 v[i-1] + 0.75 v[i], odd[i] = 0.75 v[i] + 0.25 v[i+1],
+    edges clamped (the products in f32, their sum in f32, then the cast)."""
+    n = v.shape[axis]
+    q, t = 0.25 * v, 0.75 * v
+    shape = list(v.shape)
+    shape.insert(axis + 1, 2)
+    out = torch.empty(shape, dtype=dtype, device=v.device)
+    even, odd = out.select(axis + 1, 0), out.select(axis + 1, 1)
+    torch.add(q.narrow(axis, 0, n - 1), t.narrow(axis, 1, n - 1), out=even.narrow(axis, 1, n - 1))
+    torch.add(q.narrow(axis, 0, 1), t.narrow(axis, 0, 1), out=even.narrow(axis, 0, 1))
+    torch.add(t.narrow(axis, 0, n - 1), q.narrow(axis, 1, n - 1), out=odd.narrow(axis, 0, n - 1))
+    torch.add(t.narrow(axis, n - 1, 1), q.narrow(axis, n - 1, 1), out=odd.narrow(axis, n - 1, 1))
+    return out.flatten(axis, axis + 1)
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, 2H, 2W, C), bilinear with half-pixel centres and
+    edge clamp, computed in f32 (rows, then columns) and cast back:
+    out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]."""
+    return _up_axis(_up_axis(x.float(), 1, torch.float32), 2, x.dtype)
+
+
+def _f(t: torch.Tensor) -> torch.Tensor:
+    """Rounded to bf16, held in f32."""
+    return t.to(_BF).float()
+
+
+def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv, f32: x (B, H, W, Ci), w (3, 3, Ci, Co) → (B, H, W, Co)."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+
+def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
+    xin = _f(x) if skip is None else torch.cat([_f(x), _f(skip)], dim=-1)
+    acc = _conv3x3(xin, _f(w)) + _f(b)
+    if ln_scale is not None:
+        mu = acc.mean(-1, keepdim=True)
+        var = (acc - mu).square().mean(-1, keepdim=True)
+        acc = (acc - mu) * torch.rsqrt(var + 1e-6) * _f(ln_scale) + _f(ln_bias)
+    return gelu_kernel(acc, exact_gelu).to(_BF)
+
+
+def final_conv_gelu_plain(x, w, b, exact_gelu: bool = False):
+    return gelu_kernel(_conv3x3(_f(x), _f(w)) + _f(b), exact_gelu).to(_BF)
+
+
+def final_heads_plain(x, w, b, wh, bh, exact_gelu: bool = False):
+    up = upsample2x_bilinear(x.to(_BF)).float()
+    y = gelu_kernel(_conv3x3(up, _f(w)) + _f(b), exact_gelu)
+    return (_f(y) @ _f(wh) + _f(bh)).to(_BF)
+
+
+def composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
+    y = gelu_kernel(_conv3x3(_f(x), _f(wc)) + _f(bias4), exact_gelu)
+    return (_f(y) @ _f(wh_bd) + _f(bh4)).to(_BF)
+
+
+def _act(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.to(_BF).contiguous()
+
+
+def _check_conv(cins: list[int], cout: int, name: str) -> None:
+    if cout not in KERNEL_COUTS or any(c <= 0 or c % CIN_MULTIPLE for c in cins):
+        raise ValueError(f"{name} kernel takes cout in {KERNEL_COUTS} and input channels that "
+                         f"are multiples of {CIN_MULTIPLE}, got cin {cins}, cout {cout}")
+
+
+def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
+    """One decoder conv step: x (B, H, W, cx) at the output resolution,
+    skip (B, H, W, cs) or None, w (3, 3, cx + cs, cout), b and the optional
+    LayerNorm vectors (cout,) → (B, H, W, cout) bf16. The kernel takes the
+    weights bf16 and contiguous (``HoverNeXt.fuse``) and raises on anything
+    else; it reads the skip's weight rows at an offset of cx."""
+    if not x.is_cuda:
+        return decoder_conv_plain(x, skip, w, b, ln_scale, ln_bias, exact_gelu)
+    bsz, h, wd, cx = x.shape
+    cs = 0 if skip is None else skip.shape[-1]
+    cout = w.shape[-1]
+    _check_conv([cx] + ([cs] if cs else []), cout, "decoder_conv")
+    xb, sb = _act(x), _act(skip)
+    cuda.check(xb, "x", _BF, (bsz, h, wd, cx))
+    if sb is not None:
+        cuda.check(sb, "skip", _BF, (bsz, h, wd, cs))
+    cuda.check(w, "w", _BF, (3, 3, cx + cs, cout))
+    cuda.check(b, "b", _BF, (cout,))
+    if ln_scale is not None:
+        cuda.check(ln_scale, "ln_scale", _BF, (cout,))
+        cuda.check(ln_bias, "ln_bias", _BF, (cout,))
+    out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
+    cuda.launch(
+        "decoder_conv", "decoder_conv_launch", cuda.ptr(xb), cuda.ptr(sb), cuda.ptr(w),
+        cuda.ptr(b), cuda.ptr(ln_scale), cuda.ptr(ln_bias), cuda.ptr(out),
+        bsz, h, wd, cx, cs, cout, int(exact_gelu), cuda.stream(),
+    )
+    decoder_conv.launches += 1
+    return out
+
+
+def final_conv_gelu(x, w, b, exact_gelu: bool = False):
+    """Full-resolution 3x3 conv + bias + GELU: x (B, H, W, cin), w (3, 3,
+    cin, cout) → (B, H, W, cout) bf16. Any H, W and batch: offsets are
+    64-bit, so one call takes a TTA x4 batch of 128 tiles (2^31 elements)."""
+    if not x.is_cuda:
+        return final_conv_gelu_plain(x, w, b, exact_gelu)
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    _check_conv([cin], cout, "final_conv_gelu")
+    xb = _act(x)
+    cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
+    cuda.check(w, "w", _BF, (3, 3, cin, cout))
+    cuda.check(b, "b", _BF, (cout,))
+    out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
+    cuda.launch(
+        "decoder_conv", "final_conv_gelu_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), cuda.stream(),
+    )
+    final_conv_gelu.launches += 1
+    return out
+
+
+def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
+    """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
+    product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
+    The kernel computes each upsampled input element where it loads it; it
+    takes cout = 64."""
+    if not x.is_cuda:
+        return final_heads_plain(x, w, b, wh, bh, exact_gelu)
+    bsz, h, wd, cin = x.shape
+    cout, n_out = w.shape[-1], wh.shape[-1]
+    _check_conv([cin], cout, "final_heads")
+    if cout != 64 or n_out > cout:
+        raise ValueError(f"final_heads kernel takes cout = 64 and n_out <= cout, got "
+                         f"{cout}, {n_out}")
+    xb = _act(x)
+    cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
+    cuda.check(w, "w", _BF, (3, 3, cin, cout))
+    cuda.check(b, "b", _BF, (cout,))
+    cuda.check(wh, "wh", _BF, (cout, n_out))
+    cuda.check(bh, "bh", _BF, (n_out,))
+    out = torch.empty((bsz, 2 * h, 2 * wd, n_out), dtype=_BF, device=x.device)
+    cuda.launch(
+        "decoder_conv", "final_heads_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        cuda.ptr(wh), cuda.ptr(bh), cuda.ptr(out), bsz, h, wd, cin, cout, n_out,
+        int(exact_gelu), cuda.stream(),
+    )
+    final_heads.launches += 1
+    return out
+
+
+def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
+    """The final stage in the low-res parity domain: x (B, H, W, cin), wc
+    (3, 3, cin, 4 cout) parity-folded weights, bias4 (4 cout,), wh_bd
+    (4 cout, 4 n_out) block-diagonal heads, bh4 (4 n_out,) → (B, H, W,
+    4 n_out) bf16 parity logits, phase-major (a, b) = 00, 01, 10, 11. The
+    kernel computes the whole (4 cout, 4 n_out) product, zero blocks too."""
+    if not x.is_cuda:
+        return composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu)
+    bsz, h, wd, cin = x.shape
+    c4, n4 = wc.shape[-1], wh_bd.shape[-1]
+    _check_conv([cin], c4, "composite_final_heads")
+    if n4 > c4:
+        raise ValueError(f"composite_final_heads kernel takes n4 <= c4, got {n4}, {c4}")
+    xb = _act(x)
+    cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
+    cuda.check(wc, "wc", _BF, (3, 3, cin, c4))
+    cuda.check(bias4, "bias4", _BF, (c4,))
+    cuda.check(wh_bd, "wh_bd", _BF, (c4, n4))
+    cuda.check(bh4, "bh4", _BF, (n4,))
+    out = torch.empty((bsz, h, wd, n4), dtype=_BF, device=x.device)
+    cuda.launch(
+        "decoder_conv", "composite_final_heads_launch", cuda.ptr(xb), cuda.ptr(wc),
+        cuda.ptr(bias4), cuda.ptr(wh_bd), cuda.ptr(bh4), cuda.ptr(out), bsz, h, wd, cin, c4, n4,
+        int(exact_gelu), cuda.stream(),
+    )
+    composite_final_heads.launches += 1
+    return out
+
+
+decoder_conv.launches = 0
+final_conv_gelu.launches = 0
+final_heads.launches = 0
+composite_final_heads.launches = 0

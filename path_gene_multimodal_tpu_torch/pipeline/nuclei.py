@@ -95,7 +95,10 @@ class NucleiModel:
     ) -> "NucleiModel":
         """Random weights from ``seed`` unless ``state_dict`` is given. A
         bf16 model runs the encoder blocks of stages 0-2 as K1; K1 is bf16
-        inside, so an f32 model keeps plain blocks."""
+        inside, so an f32 model keeps plain blocks. The model takes the
+        default decoder configuration; for another, build the ``HoverNeXt``
+        (``fused_decoder`` / ``fused_final``), call its ``fuse()`` and pass
+        it to ``NucleiModel(cfg=..., model=..., device=...)``."""
         device = torch.device(device)
         model = HoverNeXt(cfg)
         if state_dict is None:
@@ -104,7 +107,7 @@ class NucleiModel:
             model.load_state_dict(state_dict)
         model = model.to(device=device, dtype=dtype).eval()
         if dtype == torch.bfloat16:
-            model.encoder.fuse()
+            model.fuse()
         return cls(cfg=cfg, model=model, device=device, tta=tta, **kw)
 
     def cc_overflow_tiles(self, reset: bool = False) -> int:

@@ -23,6 +23,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "flax"
              or m == "path_gene_multimodal_tpu" or m.startswith("path_gene_multimodal_tpu."))
 print("MODULES=" + str(len(names)))
+print("NAMES=" + ",".join(names))
 print("BAD=" + ",".join(bad))
 """
 
@@ -40,13 +41,17 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = dict(line.partition("=")[::2] for line in proc.stdout.splitlines() if "=" in line)
-    assert int(lines["MODULES"]) >= 20
+    assert int(lines["MODULES"]) >= 22
+    names = set(lines["NAMES"].split(","))
+    for mod in ("ops.decoder", "models.hovernext_fn", "models.hovernext", "ops.convnext_block"):
+        assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
 
 def test_port_sources_name_no_jax():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert PORT / "csrc" / "decoder_conv.cu" in files
     for f in files:
         text = f.read_text()
         for pat in _FORBIDDEN:
