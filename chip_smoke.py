@@ -25,12 +25,31 @@
    tiles each, with the counts set to 0 just before each run and read just
    after, holds each configuration's forward against the default's, and
    times each forward by part (encoder / decoder / final stage + heads);
-6. holds K7 (its 8 call shapes), K8, K10 and K11 against their plain
+6. holds K7 (its 8 call shapes), K8, K9, K10 and K11 against their plain
    versions on that batch's own activations at full shape, in both GELU
    modes, with biases and LayerNorm vectors drawn from a seed, and runs
    mutants (a dropped bias, LayerNorm scale 1, K7's skip half zeroed, a
-   dropped head bias) that the check must catch; times each kernel, its
-   plain version and cuDNN's conv at the same shape (conv only).
+   dropped head bias, K9 in the other GELU mode) that the check must
+   catch; times each kernel, its plain version and cuDNN's conv at the
+   same shape (conv only). ``fused_final=True`` (K9) runs through the
+   nuclei stage like the configurations of 5, and ``lowres_decoder=True``
+   gets its forward row;
+7. drives the tissue-boundary / islands path
+   (``pipeline/morphology.py::process_one_slide_make_csv_and_plot``) on the
+   slide's 2000 x 2000 thumbnail, at ``max_work_dim`` 1024 (K5 on three
+   1024^2 masks) and 2048 (three 2048^2 masks, 16 tiles each), with an
+   islands GeoJSON written from the slide's own tissue (its mask cut by a
+   grid into pieces, their rings in level-0 px), the counts
+   set to 0 just before each run and read just after; holds its tissue
+   mask against the CPU run of the same path;
+8. holds K5 against its plain version on the path's three masks, on a
+   seeded 2048^2 mask whose lines cross every tile border (connectivity 1
+   and 2) and on a spiral where the relaxation caps bind, and K6 on the
+   nuclei batch's 128 foreground masks and on seeded masks (connectivity 1
+   and 2; at 1 also against K2's labels): labels equal in every pixel,
+   relaxation and round counts equal; K6's launches come from one call of
+   its entry point on the foreground masks (it has no pipeline caller, as
+   in the JAX package).
 
 Prints the kernels' JSON line, the slice's tiles/s and the card's name and
 power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -64,6 +83,11 @@ N_TILES = 256  # two full batches of 128
 # rounding, plus a flipped rounding of an operand of pw1 or pw2) + this
 # absolute slack for outputs near zero
 K1_ATOL = 4e-3
+# K9: 2 bf16 ulp + this slack. Its plain version and the kernel differ only
+# in the order of f32 sums (errors ~1e-6), so the slack can be small enough
+# that the other GELU mode (up to 4.7e-4 apart near x = -2.7) fails the
+# check; the bias is drawn around -1 so that many outputs sit there
+K9_ATOL = 1e-4
 # K7/K8 (and the K10/K11 heads): 2 bf16 ulp + this slack. The kernel and the
 # plain version sum the same bf16 products in f32 in other orders, which can
 # flip the final rounding; K10/K11 add, per logit, two flipped roundings of
@@ -76,7 +100,10 @@ CONFIGS = {
     "fused_decoder": ({"fused_decoder": True}, {"decoder_conv": 8, "final_conv_gelu": 4}),
     "heads": ({"fused_final": "heads"}, {"final_heads": 4}),
     "pallas": ({"fused_final": "pallas"}, {"composite_final_heads": 4}),
+    "k9": ({"fused_final": True}, {"upsample_final": 4}),
 }
+THUMB = (2000, 2000)  # the islands path's thumbnail (the JAX default)
+ISLAND_CLASSES = ("Tumor", "TILs", "TLS", "Stroma")  # groups tumor / til / tls, and none
 
 
 def _sync_time(fn, reps: int, warm: int = 1) -> float:
@@ -248,11 +275,12 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
         models[name] = NucleiModel(cfg=HOVERNEXT_TINY, model=build(opt), device=dev,
                                    tta=cfg.hovernext.tta,
                                    max_instances=cfg.hovernext.max_instances_per_tile)
-    lowres = build({"fused_final": "lowres"})  # the JAX default, plain: timed only
+    timed_only = [("lowres", build({"fused_final": "lowres"})),  # the JAX default, plain
+                  ("lowres_decoder", build({"lowres_decoder": True}))]
 
     stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(4)], dim=0)
     breakdown, vs_default, ref = {}, {}, None
-    for name, m in [(n, nm.model) for n, nm in models.items()] + [("lowres", lowres)]:
+    for name, m in [(n, nm.model) for n, nm in models.items()] + timed_only:
         _forward_parts(m, stacked)  # warm-up: cuDNN plans, allocator
         out, _, parts = _forward_parts(m, stacked)
         breakdown[name] = {**parts, "total": sum(parts.values())}
@@ -265,7 +293,7 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
                 failures.append(f"{name}: forward differs from the default's in {k} by "
                                 f"{v:.3g} of its span (bar 2e-2)")
         del out
-    del ref, stacked
+    del ref, stacked, timed_only
 
     runs, counts = {}, {}
     for name, nm in models.items():
@@ -511,6 +539,270 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
           "the subset; bound counts the head's nonzero blocks only (the kernel multiplies the "
           "whole (256, 40) matrix); library_ms: cuDNN conv2d alone (conv only); tolerance as "
           "final_heads", **rec)
+
+    # K9 on the plain decoder's output (the fused_final=True configuration)
+    w9, b9 = models["k9"].model.fused_weights["k9"]
+    with torch.inference_mode():
+        vb = _seeded(b9, 600, mean=-1.0, std=1.0)
+        rec = {"subset": "as final_conv_gelu"}
+        err = modes(
+            "upsample_final",
+            lambda e: dec.upsample_final(x_pl, w9, vb, exact_gelu=e)[idx],
+            lambda e: dec.upsample_final_plain(xs, w9, vb, exact_gelu=e),
+            lambda e: K9_ATOL,
+            {"no_bias": lambda: dec.upsample_final_plain(xs, w9, 0 * vb),
+             "other_gelu_mode": lambda: dec.upsample_final_plain(xs, w9, vb, exact_gelu=True)},
+            rec)
+        rec["ms_per_call"] = _sync_time(lambda: dec.upsample_final(x_pl[:CHUNK], w9, vb), reps=3)
+        ms = _sync_time(lambda: [dec.upsample_final(c, w9, vb) for c in x_pl.split(CHUNK)], reps=2)
+        pms = _sync_time(lambda: [dec.upsample_final_plain(c, w9, vb) for c in x_pl.split(CHUNK)],
+                         reps=1)
+        up = dec.upsample2x_bilinear(x_pl[:CHUNK])
+        lib = conv_lib(up, w9)
+        lms = _sync_time(lambda: [lib() for _ in range(n // CHUNK)], reps=2)
+        del up, lib
+    px = n * 4 * x_pl.shape[1] * x_pl.shape[2]
+    cin, cout = w9.shape[2], w9.shape[3]
+    bnd, by = _bound_ms(2 * (x_pl.numel() + px * cout) + 2 * w9.numel(),
+                        [(2 * px * 9 * cin * cout, PEAK_BF16),
+                         (6 * px * cin + 10 * px * cout, PEAK_F32)])
+    entry("upsample_final", f"{pallas}:307", err, ms, pms, bnd, by, lms,
+          "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
+          f"the subset; bias drawn around -1; tolerance 2 bf16 ulp + {K9_ATOL}; library_ms: "
+          "cuDNN conv2d alone on the upsampled map (conv only, no upsample/GELU)", **rec)
+    return entries
+
+
+def _spiral(n: int) -> np.ndarray:
+    """A 1-px square spiral with 1-px gaps between its arms: its labels need
+    about one relaxation per turn, so small caps bind."""
+    m = np.zeros((n, n), bool)
+    y = x = d = turns = 0
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    m[0, 0] = True
+    while turns < 2:
+        dy, dx = dirs[d]
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        if (0 <= ny < n and 0 <= nx < n and not m[ny, nx]
+                and not (0 <= ay < n and 0 <= ax < n and m[ay, ax])):
+            y, x, turns = ny, nx, 0
+            m[y, x] = True
+        else:
+            d, turns = (d + 1) % 4, turns + 1
+    return m
+
+
+def _line_mask(n: int, seed: int) -> np.ndarray:
+    """Random foreground (30%) with full-length lines every 600 px and a
+    serpentine over the corner of four 512-px tiles: components that cross
+    every tile border."""
+    m = np.random.default_rng(seed).random((n, n)) < 0.3
+    for k in range(100, n, 600):
+        m[k, :] = True
+        m[:, min(k + 100, n - 1)] = True
+    for i, r in enumerate(range(400, 640, 4)):
+        m[r, 380:660] = True
+        c = 659 if i % 2 == 0 else 380
+        m[r : r + 5, c] = True
+    return m
+
+
+def _cc_bound(px: int, relaxes: int, tile_px: int, rounds: int, conn: int):
+    """K5/K6 bound: the mask in (1 byte) and the labels out (4 bytes) per
+    pixel; per relaxation and tile pixel 4 integer minima (row and column
+    runs, each way) + 4 diagonal ones at connectivity 2; per border-min
+    exchange (every round after the first) and pixel 4 or 8 neighbour
+    minima; at the scalar rate."""
+    per_px = 4 if conn == 1 else 8
+    return _bound_ms(5 * px, [(relaxes * tile_px * per_px + max(rounds - 1, 0) * px * per_px,
+                               PEAK_F32)])
+
+
+def _islands(slide, tmp, wrappers, report, failures):
+    """Section 7: the islands path at the real thumbnail size, at
+    max_work_dim 1024 and 2048. Returns the three masks the path hands K5
+    (max_work_dim 1024) and the launch counts of the 1024 run."""
+    from path_gene_multimodal_tpu_torch.core.artifacts import export_geojson
+    from path_gene_multimodal_tpu_torch.ops import cc
+    from path_gene_multimodal_tpu_torch.pipeline import morphology as morph
+
+    t0 = time.perf_counter()
+    thumb = slide.get_thumbnail(THUMB)
+    thumb_s = time.perf_counter() - t0
+    scale = slide.level_dimensions[0][0] / thumb.shape[1]
+    # a first run records the masks the path hands K5 and gives the tissue
+    # rings the islands GeoJSON is made of
+    seen, orig = [], cc.label_components_tiled
+
+    def record(mask, *a, **k):
+        seen.append(mask.clone())
+        return orig(mask, *a, **k)
+
+    record.launches = 0  # K5's wrapper counts into the name it is called by
+    cc.label_components_tiled = morph.label_components_tiled = record
+    try:
+        mask = morph.tissue_boundary_mask(thumb)
+        rings = morph.mask_to_thumb_polygons(mask)
+    finally:
+        cc.label_components_tiled = morph.label_components_tiled = orig
+    # islands: the tissue cut by a 250-px grid of 3-px lines into pieces,
+    # their classes taken in turn from ISLAND_CLASSES
+    cut = mask.copy()
+    for k in range(0, max(cut.shape), 250):
+        cut[k : k + 3, :] = False
+        cut[:, k : k + 3] = False
+    pieces = morph.mask_to_thumb_polygons(cut)
+    feats = [{"class_name": ISLAND_CLASSES[i % 4], "exterior": r * scale}
+             for i, r in enumerate(pieces)]
+    gj = export_geojson(tmp / "islands.geojson", feats)
+    n_rows = sum(f["class_name"] != "Stroma" for f in feats)
+    if len(seen) != 3 or not rings or len(pieces) < 8:
+        failures.append(f"islands: {len(seen)} K5 calls, {len(rings)} tissue rings and "
+                        f"{len(pieces)} islands on the first run, expected 3, >= 1 and >= 8")
+    t0 = time.perf_counter()
+    cpu_mask = morph.tissue_boundary_mask(thumb, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(cpu_mask, mask):
+        failures.append(f"islands: the tissue mask differs between card and CPU in "
+                        f"{int((cpu_mask != mask).sum())} pixels")
+
+    runs, counts = {}, {}
+    for dim in (1024, 2048):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        df = morph.process_one_slide_make_csv_and_plot(
+            slide, gj, tmp / f"islands_{dim}", f"islands_{dim}", ["Tumor"], ["TILs"], ["TLS"],
+            thumb_size=THUMB, max_work_dim=dim)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[dim] = {n: w.launches for n, w in wrappers.items()}
+        txt = morph.write_basic_size_burden_metrics_txt(df, "smoke", tmp / f"burden_{dim}.txt")
+        png = tmp / f"islands_{dim}" / f"islands_{dim}_boundaries.png"
+        num = df.drop(columns=["slide_id", "type"]).to_numpy(np.float64)
+        tissue = float(df["tissue_area_px2"].iloc[0]) if len(df) else 0.0
+        runs[dim] = {"s": dt, "rows": len(df), "tissue_area_px2": tissue,
+                     "tissue_fraction": tissue / (slide.level_dimensions[0][0] ** 2),
+                     "launches": counts[dim], "png_bytes": png.stat().st_size if png.exists() else 0,
+                     "burden_lines": len(txt.read_text().splitlines())}
+        if len(df) != n_rows or not np.isfinite(num).all() or not tissue > 0:
+            failures.append(f"islands {dim}: {len(df)} rows (expected {n_rows}), finite "
+                            f"{bool(np.isfinite(num).all())}, tissue area {tissue}")
+        if not png.exists() or png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+            failures.append(f"islands {dim}: no PNG written")
+        expect = {n: (3 if n == "label_components_tiled" else 0) for n in wrappers}
+        if counts[dim] != expect:
+            failures.append(f"islands {dim}: launches {counts[dim]}, expected {expect}")
+        print(f"islands max_work_dim={dim}: {dt:.3f} s, {len(df)} islands", flush=True)
+    if runs[1024]["tissue_area_px2"] <= 0 or abs(
+            runs[2048]["tissue_area_px2"] / runs[1024]["tissue_area_px2"] - 1) > 0.05:
+        failures.append("islands: the tissue areas at max_work_dim 1024 and 2048 differ by "
+                        "more than 5%")
+    report["islands"] = {"thumbnail": list(thumb.shape), "thumbnail_s": thumb_s,
+                         "cpu_tissue_mask_s": cpu_s, "tissue_rings": len(rings),
+                         "islands": len(pieces), "runs": runs}
+    return seen, counts[1024]
+
+
+def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
+    """Section 8: K5 and K6 against their plain versions; timings. Returns
+    their entries of the JSON line."""
+    from path_gene_multimodal_tpu_torch.ops.cc import (
+        label_components_batch, label_components_batch_plain, label_components_tiled,
+        label_components_tiled_plain,
+    )
+    from path_gene_multimodal_tpu_torch.ops.cc_sizes import cc_sizes_adaptive
+
+    dev = fg.device
+    src = "path_gene_multimodal_tpu_torch/csrc/cc.cu"
+    pallas = "path_gene_multimodal_tpu/ops/pallas/cc.py"
+    new_counts = lambda: torch.zeros(2, dtype=torch.int64, device=dev)  # noqa: E731
+    entries = []
+
+    def compare(kernel, plain, m, conn, **kw):
+        ck, cp = new_counts(), new_counts()
+        a, p = kernel(m, conn, counts=ck, **kw), plain(m, conn, counts=cp, **kw)
+        rec = {"shape": list(m.shape), "connectivity": conn, "relaxes": int(ck[0]),
+               "rounds": int(ck[1]), "diff": int((a != p).sum()), **kw}
+        if rec["diff"] or ck.tolist() != cp.tolist():
+            failures.append(f"{kernel.__name__} {rec}: {rec['diff']} labels differ from the plain "
+                            f"version; counts {ck.tolist()} vs plain {cp.tolist()}")
+        return a, rec
+
+    # K5: the path's masks, a 2048^2 mask crossing every tile border, a capped spiral
+    cases = []
+    with torch.inference_mode():
+        for i, m in enumerate(path_masks):
+            cases.append(compare(label_components_tiled, label_components_tiled_plain, m, 1)[1])
+            cases[-1]["mask"] = f"path_{i}"
+        lines = torch.from_numpy(_line_mask(2048, seed=5)).to(dev)
+        for conn in (1, 2):
+            cases.append(compare(label_components_tiled, label_components_tiled_plain, lines,
+                                 conn)[1])
+            cases[-1]["mask"] = "lines_2048"
+        sp = torch.from_numpy(_spiral(768)).to(dev)
+        capped, rec = compare(label_components_tiled, label_components_tiled_plain, sp, 1,
+                              tile=256, max_iters=16, max_outer=3)
+        rec["mask"] = "spiral_768"
+        rec["caps_bind"] = not torch.equal(capped, label_components_tiled(sp, 1, tile=256))
+        cases.append(rec)
+        if not rec["caps_bind"]:
+            failures.append("K5: the capped spiral equals its uncapped labels: the caps do not bind")
+        ms = _sync_time(lambda: [label_components_tiled(m) for m in path_masks], reps=3)
+        pms = _sync_time(lambda: [label_components_tiled_plain(m) for m in path_masks], reps=1)
+        ms_lines = _sync_time(lambda: label_components_tiled(lines), reps=3)
+        del lines, sp, capped
+    path = [c for c in cases if c["mask"].startswith("path_")]
+    px = sum(m.numel() for m in path_masks)
+    bnd, by = _cc_bound(px, sum(c["relaxes"] for c in path), 512 * 512,
+                        sum(c["rounds"] for c in path), 1)
+    entries.append({
+        "name": "label_components_tiled", "route": "cuda", "source": src,
+        "replaces": f"{pallas}:146", "launches": path_launches["label_components_tiled"],
+        "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "note": "per slide: the islands path's 3 calls on its 1024^2 masks (max_work_dim 1024), "
+                "host loop included (one flag read per round); bound from this run's relaxation "
+                f"and round counts; the 2048^2 lines mask: {ms_lines:.3f} ms per call; labels "
+                "equal to the plain version in every pixel on every case",
+        "cases": cases,
+    })
+
+    # K6: the nuclei batch's foreground masks and seeded masks
+    rnd = torch.from_numpy(np.random.default_rng(6).random((64, 256, 256)) < 0.5).to(dev)
+    cases = []
+    with torch.inference_mode():
+        for conn in (1, 2):
+            for name, m in (("nuclei_fg", fg), ("seeded", rnd)):
+                a, rec = compare(label_components_batch, label_components_batch_plain, m, conn)
+                rec["mask"] = name
+                if conn == 1 and name == "nuclei_fg":
+                    rec["diff_vs_k2"] = int((a != cc_sizes_adaptive(m)[0]).sum())
+                    if rec["diff_vs_k2"]:
+                        failures.append(f"K6: {rec['diff_vs_k2']} labels differ from K2's")
+                cases.append(rec)
+        # K6 has no pipeline caller: its path is its entry point on the masks
+        for w in wrappers.values():
+            w.launches = 0
+        label_components_batch(fg)
+        torch.cuda.synchronize()
+        k6_launches = {n: w.launches for n, w in wrappers.items()}
+        ms = _sync_time(lambda: label_components_batch(fg), reps=10)
+        pms = _sync_time(lambda: label_components_batch_plain(fg), reps=1)
+    if k6_launches["label_components_batch"] != 1 or sum(k6_launches.values()) != 1:
+        failures.append(f"K6 entry point: launches {k6_launches}")
+    fg1 = cases[0]
+    bnd, by = _cc_bound(fg.numel(), fg1["relaxes"], fg.shape[1] * fg.shape[2], 0, 1)
+    entries.append({
+        "name": "label_components_batch", "route": "cuda", "source": src,
+        "replaces": f"{pallas}:112", "launches": k6_launches["label_components_batch"],
+        "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "note": "one call on the nuclei batch's (128,256,256) foreground masks, connectivity 1; "
+                "no pipeline caller (as in the JAX package): launches from one call of its entry "
+                "point; labels equal to the plain version and (connectivity 1) to K2's",
+        "cases": cases,
+    })
     return entries
 
 
@@ -530,7 +822,7 @@ def main(argv: list[str] | None = None) -> int:
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, default_config
     from path_gene_multimodal_tpu_torch.io.slide import synthetic_wsi
     from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
-    from path_gene_multimodal_tpu_torch.ops import cuda
+    from path_gene_multimodal_tpu_torch.ops import cc, cuda
     from path_gene_multimodal_tpu_torch.ops import watershed as ws
     from path_gene_multimodal_tpu_torch.ops.cc_sizes import (
         cc_sizes, cc_sizes_adaptive, cc_sizes_adaptive_plain, cc_sizes_plain,
@@ -559,8 +851,10 @@ def main(argv: list[str] | None = None) -> int:
     wrappers = {"convnext_block": convnext_block, "cc_sizes": cc_sizes,
                 "flood": marker_watershed, "instance_stats": instance_stats,
                 "decoder_conv": dec.decoder_conv, "final_conv_gelu": dec.final_conv_gelu,
-                "final_heads": dec.final_heads,
-                "composite_final_heads": dec.composite_final_heads}
+                "upsample_final": dec.upsample_final, "final_heads": dec.final_heads,
+                "composite_final_heads": dec.composite_final_heads,
+                "label_components_tiled": cc.label_components_tiled,
+                "label_components_batch": cc.label_components_batch}
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -814,13 +1108,20 @@ def main(argv: list[str] | None = None) -> int:
                                       failures)
     config_launches = {n: counts[cname][n] for cname, (_, ks) in CONFIGS.items() for n in ks}
     kernels += _check_decoder_kernels(models, pixels, config_launches, failures)
+    del models
+    torch.cuda.empty_cache()
+
+    # -- 7./8. the islands path, K5 and K6 -----------------------------------
+    path_masks, island_launches = _islands(slide, tmp, wrappers, report, failures)
+    kernels += _check_cc(path_masks, fg, island_launches, wrappers, failures)
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
     report["failures"] = failures
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     print(json.dumps({"batch_breakdown_ms": report["batch_breakdown_ms"],
-                      "postproc_label_diff": diff, "features_max_abs_diff": ferr}))
+                      "postproc_label_diff": diff, "features_max_abs_diff": ferr,
+                      "islands_s": {d: r["s"] for d, r in report["islands"]["runs"].items()}}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

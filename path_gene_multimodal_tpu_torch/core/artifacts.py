@@ -1,14 +1,102 @@
-"""Tabular artifacts of the nuclei stage: a copy of the annotations-CSV
-contract and ``write_nuclei_table`` from the JAX package's
-``core/artifacts.py`` (lines 402-448)."""
+"""Artifacts: a copy of the GeoJSON helpers (``polygon_ring_area_perimeter``,
+``export_geojson``, ``load_geojson``), the annotations-CSV contract and
+``write_nuclei_table`` from the JAX package's ``core/artifacts.py`` (lines
+301-397, 402-448)."""
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 import pandas as pd
+
+
+def polygon_ring_area_perimeter(ring: np.ndarray) -> tuple[float, float]:
+    """Shoelace area (absolute) and perimeter of a closed ring (K, 2)."""
+    ring = np.asarray(ring, dtype=np.float64)
+    if len(ring) < 3:
+        return 0.0, 0.0
+    x, y = ring[:, 0], ring[:, 1]
+    x2, y2 = np.roll(x, -1), np.roll(y, -1)
+    area = 0.5 * abs(np.sum(x * y2 - x2 * y))
+    perimeter = float(np.sum(np.hypot(x2 - x, y2 - y)))
+    return float(area), perimeter
+
+
+def export_geojson(path: str | Path, polygons: Iterable[Mapping[str, Any]]) -> Path:
+    """Write a FeatureCollection. Each input mapping needs ``class_name`` and
+    ``exterior`` (K, 2 level-0 px); optional ``holes`` (list of rings),
+    ``area_px2``, ``perimeter_px`` (computed if absent; shapely semantics:
+    holes subtract from the area and add to the perimeter). Rings of fewer
+    than 3 points are dropped. Schema: the reference's
+    create_and_overlay_polygon_from_prediction.py:359-397."""
+    features = []
+    for poly in polygons:
+        ext = np.asarray(poly["exterior"], dtype=np.float64)
+        if len(ext) < 3:
+            continue
+        rings = [ext] + [
+            h2 for h in poly.get("holes", [])
+            if len(h2 := np.asarray(h, dtype=np.float64)) >= 3
+        ]
+        area = poly.get("area_px2")
+        perim = poly.get("perimeter_px")
+        if area is None:
+            area = polygon_ring_area_perimeter(ext)[0]
+            for hole in rings[1:]:
+                area -= polygon_ring_area_perimeter(hole)[0]
+        if perim is None:
+            perim = polygon_ring_area_perimeter(ext)[1]
+            for hole in rings[1:]:
+                perim += polygon_ring_area_perimeter(hole)[1]
+        coords = []
+        for ring in rings:
+            ring_closed = ring
+            if not np.array_equal(ring[0], ring[-1]):
+                ring_closed = np.concatenate([ring, ring[:1]], axis=0)
+            coords.append([[float(x), float(y)] for x, y in ring_closed])
+        features.append(
+            {
+                "type": "Feature",
+                "properties": {
+                    "class": str(poly["class_name"]),
+                    "area_px2": float(area),
+                    "perimeter_px": float(perim),
+                },
+                "geometry": {"type": "Polygon", "coordinates": coords},
+            }
+        )
+    path = Path(path)
+    path.write_text(json.dumps({"type": "FeatureCollection", "features": features}))
+    return path
+
+
+def load_geojson(path: str | Path) -> list[dict[str, Any]]:
+    """Load a FeatureCollection back into ``[{class_name, exterior, holes,
+    area_px2, perimeter_px}]`` with numpy rings."""
+    fc = json.loads(Path(path).read_text())
+    out = []
+    for feat in fc.get("features", []):
+        geom = feat.get("geometry") or {}
+        if geom.get("type") != "Polygon":
+            continue
+        rings = [np.asarray(r, dtype=np.float64) for r in geom.get("coordinates", [])]
+        if not rings:
+            continue
+        props = feat.get("properties") or {}
+        out.append(
+            {
+                "class_name": props.get("class"),
+                "exterior": rings[0],
+                "holes": rings[1:],
+                "area_px2": props.get("area_px2"),
+                "perimeter_px": props.get("perimeter_px"),
+            }
+        )
+    return out
+
 
 #: required columns of the annotations CSV (checked by the reference's
 #: aggregated_hovernet_run.py:41-44).

@@ -1,11 +1,14 @@
 // The HoverNeXt decoder and final-stage kernels for the H100: one 3x3 conv
 // core with three input prologues and two epilogues.
 //
-// Replaces four TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py:
+// Replaces five TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py:
 //   K7  fused_decoder_conv     (:168, pallas_call :220): skip concat by split
 //       weights + 3x3 SAME conv + bias + LayerNorm (eps 1e-6, two-pass
 //       variance) + GELU -> bf16;
 //   K8  fused_final_conv_gelu  (:591, :620): 3x3 SAME conv + bias + GELU -> bf16;
+//   K9  fused_upsample_final   (:307, :325): bilinear 2x (f32, rounded to
+//       bf16) + 3x3 conv + bias + GELU -> bf16: K10's input prologue with
+//       K8's epilogue;
 //   K10 fused_final_heads      (:392, :415): bilinear 2x (f32, rounded to
 //       bf16) + 3x3 conv + bias + GELU -> bf16 -> head product + bias -> bf16;
 //   K11 composite_final_heads  (:462, :506): 3x3 conv with parity-folded
@@ -436,6 +439,15 @@ PGM_EXPORT int final_conv_gelu_launch(const void* x, const void* w, const void* 
                                       void* stream) {
     const ConvArgs a = args(x, cin, w, b, out, h, w_, exact);
     return static_cast<int>(dispatch(a, batch, cout, false, static_cast<cudaStream_t>(stream)));
+}
+
+// K9. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,);
+// out (B, 2H, 2W, cout).
+PGM_EXPORT int upsample_final_launch(const void* x, const void* w, const void* b, void* out,
+                                     int batch, int h, int w_, int cin, int cout, int exact,
+                                     void* stream) {
+    const ConvArgs a = args(x, cin, w, b, out, 2 * h, 2 * w_, exact);
+    return static_cast<int>(dispatch(a, batch, cout, true, static_cast<cudaStream_t>(stream)));
 }
 
 // K10. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,),

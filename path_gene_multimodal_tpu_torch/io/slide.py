@@ -1,14 +1,19 @@
-"""Slide reading: a copy of ``SlideReader``, ``ArraySlide`` and
-``synthetic_wsi`` from the JAX package's ``io/slide.py`` (lines 47-272).
+"""Slide reading: a copy of ``SlideReader``, ``ArraySlide`` (thumbnails
+included) and ``synthetic_wsi`` from the JAX package's ``io/slide.py``
+(lines 47-272).
 
 ``synthetic_wsi`` must stay byte-identical to the JAX package's for the
-same seed: the tests feed one slide to both packages. The tiled-TIFF
-reader, the native JPEG decoder, the planar 4:2:0 feed and thumbnails are
-not ported yet (ROADMAP.md, Queue 1).
+same seed: the tests feed one slide to both packages. The JAX package
+resizes with cv2; the port does not use cv2, and ``resize_area`` /
+``resize_nearest`` reproduce ``cv2.resize`` with ``INTER_AREA`` (downscale)
+and ``INTER_NEAREST`` in numpy, bit for bit on the shapes the tests check.
+The tiled-TIFF reader, the native JPEG decoder and the planar 4:2:0 feed
+are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Protocol, Sequence, runtime_checkable
 
@@ -51,8 +56,87 @@ class SlideReader(Protocol):
         ``size`` = (width, height) in LEVEL pixels — openslide semantics."""
         ...
 
+    def get_thumbnail(self, max_size: tuple[int, int]) -> np.ndarray:
+        ...
+
     def get_best_level_for_downsample(self, downsample: float) -> int:
         ...
+
+
+def _area_tab(ssize: int, dsize: int, scale: float):
+    """cv2's ``computeResizeAreaTab``: (destination, source, weight)
+    triples in cv2's order, each weight a source cell's fractional coverage
+    over the destination cell's width, rounded to float32."""
+    di, si, al = [], [], []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            di.append(dx), si.append(sx1 - 1), al.append((sx1 - fsx1) / cell)
+        for sx in range(sx1, sx2):
+            di.append(dx), si.append(sx), al.append(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            di.append(dx), si.append(sx2), al.append(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    di = np.asarray(di, np.int64)
+    # per destination: its sources in order, padded with weight 0 (adding
+    # +0.0 to a float32 sum is exact)
+    counts = np.bincount(di, minlength=dsize)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(di)) - start[di]
+    idx = np.zeros((dsize, counts.max()), np.int64)
+    wts = np.zeros((dsize, counts.max()), np.float32)
+    idx[di, pos] = si
+    wts[di, pos] = np.asarray(al, np.float64).astype(np.float32)
+    return idx, wts
+
+
+def resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)`` for
+    a uint8 (H, W) or (H, W, C) image, downscaling only. Integer factors
+    average whole blocks (cv2's fast path: (sum + 2) >> 2 at 2x2, else the
+    float32 mean); other factors sum fractional coverage weights in float32
+    in cv2's order, rows first, then columns. Rounded half to even."""
+    src = np.asarray(img)
+    sh, sw = src.shape[:2]
+    if (sh, sw) == (out_h, out_w):
+        return src.copy()
+    if out_w > sw or out_h > sh or out_w < 1 or out_h < 1:
+        raise ValueError(f"resize_area downscales only: {sw}x{sh} -> {out_w}x{out_h}")
+    scale_x, scale_y = 1.0 / (out_w / sw), 1.0 / (out_h / sh)  # cv2's arithmetic
+    kx, ky = round(scale_x), round(scale_y)
+    if abs(scale_x - kx) < 2.220446049250313e-16 and abs(scale_y - ky) < 2.220446049250313e-16:
+        blocks = src[: out_h * ky, : out_w * kx].reshape((out_h, ky, out_w, kx) + src.shape[2:])
+        tot = blocks.astype(np.int64).sum(axis=(1, 3))
+        if kx == 2 and ky == 2:
+            return ((tot + 2) >> 2).astype(np.uint8)
+        mean = tot.astype(np.float32) * np.float32(1.0 / (kx * ky))
+        return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+    xi, xw = _area_tab(sw, out_w, scale_x)
+    yi, yw = _area_tab(sh, out_h, scale_y)
+    tail = (1,) * (src.ndim - 2)
+    s = src.astype(np.float32)
+    buf = np.zeros((sh, out_w) + src.shape[2:], np.float32)
+    for j in range(xi.shape[1]):
+        buf = buf + s[:, xi[:, j]] * xw[:, j].reshape((1, out_w) + tail)
+    acc = np.zeros((out_h, out_w) + src.shape[2:], np.float32)
+    for j in range(yi.shape[1]):
+        acc = acc + yw[:, j].reshape((out_h, 1) + tail) * buf[yi[:, j]]
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+
+
+def resize_nearest(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_NEAREST)``:
+    source index floor(dst * (1 / (out / in))), clamped."""
+    src = np.asarray(img)
+    sh, sw = src.shape[:2]
+    ifx, ify = 1.0 / (out_w / sw), 1.0 / (out_h / sh)
+    xs = np.minimum(np.floor(np.arange(out_w) * ifx).astype(np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(out_h) * ify).astype(np.int64), sh - 1)
+    return src[ys[:, None], xs[None, :]]
 
 
 class ArraySlide:
@@ -106,6 +190,16 @@ class ArraySlide:
         if sy1 > sy0 and sx1 > sx0:
             out[sy0 - ly : sy1 - ly, sx0 - lx : sx1 - lx] = lv[sy0:sy1, sx0:sx1]
         return out
+
+    def get_thumbnail(self, max_size: tuple[int, int]) -> np.ndarray:
+        """Highest pyramid level that fits, then area-resize to fit max_size
+        preserving aspect (tiffslide get_thumbnail semantics)."""
+        tw, th = max_size
+        w0, h0 = self.level_dimensions[0]
+        scale = min(tw / w0, th / h0, 1.0)
+        out_w, out_h = max(int(w0 * scale), 1), max(int(h0 * scale), 1)
+        level = self.get_best_level_for_downsample(1.0 / scale if scale < 1 else 1.0)
+        return resize_area(self._levels[level], out_w, out_h)
 
     def get_best_level_for_downsample(self, downsample: float) -> int:
         return best_level_for_downsample(self.level_downsamples, downsample)

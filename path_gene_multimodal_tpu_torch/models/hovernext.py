@@ -28,10 +28,11 @@ from path_gene_multimodal_tpu_torch.ops.decoder import (
     final_heads,
     upsample2x_bilinear,
     upsample2x_nearest,
+    upsample_final,
 )
 
 FINAL_CHUNK = 128  # images per final-stage call (see HoverNeXt.final_stage)
-FUSED_FINAL = (False, "lowres", "pallas", "heads")
+FUSED_FINAL = (False, True, "lowres", "pallas", "heads")
 
 
 def _bilinear2x(x: torch.Tensor) -> torch.Tensor:
@@ -65,8 +66,14 @@ class DecoderBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None,
-                k7_weights: tuple | None = None) -> torch.Tensor:
-        """Plain convs, or two K7 calls (bf16 out) given ``k7_weights``."""
+                k7_weights: tuple | None = None, lowres: bool = False) -> torch.Tensor:
+        """Plain convs, or two K7 calls (bf16 out) given ``k7_weights``;
+        ``lowres``: conv0 with the nearest upsample folded into the low-res
+        parity domain (``hovernext_fn._dec_conv0_lowres``), plain."""
+        if lowres:
+            x = fn._dec_conv0_lowres(fn.conv_params(self.conv0), x, skip, self.conv0.weight.dtype)
+            x = gelu(self.norm0(x), self.exact_gelu)
+            return gelu(self.norm1(self.conv1(x)), self.exact_gelu)
         x = upsample2x_nearest(x)
         if k7_weights is not None:
             w0, w1 = k7_weights
@@ -85,36 +92,39 @@ class HoverNeXt(nn.Module):
     - ``fused_decoder=True``: each decoder conv step through K7, then a
       bilinear 2x and the final conv + GELU through K8;
     - ``fused_final``: ``False`` the plain resize → conv → GELU → heads;
+      ``True`` upsample, conv and GELU through K9, then the heads;
       ``"lowres"`` the composite-weight low-res final stage (plain torch);
       ``"pallas"`` the same through K11; ``"heads"`` upsample, conv, GELU
-      and heads through K10. ``True`` would be K9, not ported yet.
+      and heads through K10;
+    - ``lowres_decoder=True``: each decoder block's conv0 with the nearest
+      upsample folded into the low-res parity domain (plain torch, exact up
+      to rounding).
 
     ``None`` means the port's default, the plain path (``False``), which is
     NOT the JAX default ``"lowres"``: the nuclei stage keeps the final stage
-    it has been measured with. ``fused_decoder`` runs its own final stage,
-    so it takes no ``fused_final``. Call ``fuse()`` once the weights, device
-    and dtype are final, to hold the kernels' weights in their layout.
+    it has been measured with. ``fused_decoder`` runs its own decoder and
+    final stage, so it takes neither ``fused_final`` nor ``lowres_decoder``.
+    Call ``fuse()`` once the weights, device and dtype are final, to hold
+    the kernels' weights in their layout.
     """
 
     def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY, fused_decoder: bool = False,
-                 fused_final: bool | str | None = None):
+                 fused_final: bool | str | None = None, lowres_decoder: bool = False):
         super().__init__()
-        if fused_decoder and fused_final is not None:
+        if fused_decoder and (fused_final is not None or lowres_decoder):
             raise ValueError(
                 "fused_decoder=True runs the whole decoder + final stage as its own kernels; "
-                f"fused_final={fused_final!r} would be silently ignored: leave it at None")
+                f"fused_final={fused_final!r} / lowres_decoder={lowres_decoder} would be "
+                "silently ignored: leave both at their defaults")
         if fused_final is None:
             fused_final = False
-        if fused_final is True:
-            raise NotImplementedError(
-                "fused_final=True runs K9 (fused_upsample_final), which is not ported yet "
-                "(ROADMAP, Queue 2)")
         if fused_final not in FUSED_FINAL:
             raise ValueError(f"fused_final must be one of {FUSED_FINAL} or None, got "
                              f"{fused_final!r}")
         self.cfg = cfg
         self.fused_decoder = fused_decoder
         self.fused_final = fused_final
+        self.lowres_decoder = lowres_decoder
         d, dec = cfg.encoder.dims, cfg.decoder_dims
         self.encoder = ConvNeXtV2(cfg.encoder)
         skip_chs = [d[2], d[1], d[0], 0]
@@ -132,15 +142,18 @@ class HoverNeXt(nn.Module):
     def kernel_weights(self) -> dict:
         """The weights the configured decoder kernels take, in their layout:
         ``k7`` (per decoder block) and ``k8`` (final conv) for
-        ``fused_decoder``; ``k10`` (final conv and concatenated heads) for
-        ``"heads"``; ``k11`` (``hovernext_fn.k11_weights``: composite
-        weights folded in f32 from the module's weights, then cast) for
-        ``"pallas"``."""
+        ``fused_decoder``; ``k9`` (final conv) for ``fused_final=True``;
+        ``k10`` (final conv and concatenated heads) for ``"heads"``; ``k11``
+        (``hovernext_fn.k11_weights``: composite weights folded in f32 from
+        the module's weights, then cast) for ``"pallas"``."""
         kw: dict = {}
         dtype = self.final_conv.weight.dtype
+        final = _bf16(self.final_conv.weight.permute(2, 3, 1, 0), self.final_conv.bias)
         if self.fused_decoder:
             kw["k7"] = [blk.kernel_weights() for blk in self.decoder]
-            kw["k8"] = _bf16(self.final_conv.weight.permute(2, 3, 1, 0), self.final_conv.bias)
+            kw["k8"] = final
+        if self.fused_final is True:
+            kw["k9"] = final
         p = fn.final_params(self)
         if self.fused_final == "heads":
             wcat, bcat = fn._head_cat(p, self.final_conv.out_channels, dtype)
@@ -165,7 +178,7 @@ class HoverNeXt(nn.Module):
         k7 = self._kw().get("k7", [None] * len(self.decoder))
         x = feats[-1]
         for blk, skip, w in zip(self.decoder, [feats[2], feats[1], feats[0], None], k7):
-            x = blk(x, skip, w)
+            x = blk(x, skip, w, self.lowres_decoder)
         return x
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,6 +201,8 @@ class HoverNeXt(nn.Module):
         if self.fused_decoder:
             return self._heads(final_conv_gelu(upsample2x_bilinear(x), *kw["k8"],
                                                exact_gelu=exact).to(dtype))
+        if self.fused_final is True:
+            return self._heads(upsample_final(x, *kw["k9"], exact_gelu=exact).to(dtype))
         if self.fused_final == "heads":
             out = final_heads(x, *kw["k10"], exact_gelu=exact).float()
         elif self.fused_final == "pallas":

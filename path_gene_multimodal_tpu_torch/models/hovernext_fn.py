@@ -12,7 +12,10 @@ maps are NHWC.
   2-px border ring recomputed exactly;
 - ``_final_heads_lowres_pallas`` (``fused_final="pallas"``): the same
   through K11 (``ops.decoder.composite_final_heads``), with the border ring
-  recomputed here, after the kernel, in the model dtype.
+  recomputed here, after the kernel, in the model dtype;
+- ``_dec_conv0_lowres`` (``lowres_decoder=True``, plain torch): a decoder
+  block's conv0 over concat(nearest 2x of x, skip) with the upsample folded
+  into one 2x2 conv in the low-res parity domain.
 """
 
 from __future__ import annotations
@@ -36,11 +39,43 @@ def final_params(model) -> dict[str, dict[str, torch.Tensor]]:
     return {n: conv_params(getattr(model, n)) for n in ("final_conv",) + HEADS}
 
 
-def _conv(p, x, pad: int, dtype) -> torch.Tensor:
-    """SAME conv in ``dtype`` (NHWC, HWIO) + bias."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), p["kernel"].to(dtype).permute(3, 2, 0, 1),
+def _conv2d(x, kernel, pad: int, dtype) -> torch.Tensor:
+    """Conv in ``dtype``, NHWC input, HWIO kernel, zero padding ``pad``."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), kernel.to(dtype).permute(3, 2, 0, 1),
                  padding=pad)
-    return y.permute(0, 2, 3, 1) + p["bias"].to(dtype)
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv(p, x, pad: int, dtype) -> torch.Tensor:
+    """Conv in ``dtype`` (NHWC, HWIO) + bias."""
+    return _conv2d(x, p["kernel"], pad, dtype) + p["bias"].to(dtype)
+
+
+def _dec_conv0_lowres(dp, x, skip, dtype) -> torch.Tensor:
+    """``conv0(concat(nearest_up2x(x), skip))`` without the upsampled
+    tensor: nearest 2x + zero-pad SAME compose exactly, so the x-path of
+    conv0 is one VALID 2x2 conv in the low-res parity domain (4 phase
+    outputs on the channel axis), then depth-to-space; the skip path is a
+    plain hi-res conv with the kernel's skip slice. The fold runs in f32.
+    Returns the pre-LayerNorm conv0 output (B, 2H, 2W, cout)."""
+    w = dp["kernel"].float()  # (3, 3, cin_total, cout)
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    # per-axis fold (nearest): phase 0 2-tap = [w(-1), w(0)+w(1)],
+    #                          phase 1 2-tap = [w(-1)+w(0), w(1)]
+    a0 = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 1.0]], device=w.device)
+    a1 = torch.tensor([[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device=w.device)
+    mats = (a0, a1)
+    wc = torch.cat([torch.einsum("yxio,ty,sx->tsio", w[:, :, :cin], mats[a], mats[bb])
+                    for a in (0, 1) for bb in (0, 1)], dim=-1)  # (2, 2, cin, 4 cout)
+    z = _conv2d(F.pad(x, (0, 0, 1, 1, 1, 1)), wc, 0, dtype)  # (B, H+1, W+1, 4 cout)
+    phases = [z[:, a : a + h, bb : bb + wd, p * cout : (p + 1) * cout]
+              for p, (a, bb) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)))]
+    y = (torch.stack(phases, dim=3).reshape(b, h, wd, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+         .reshape(b, 2 * h, 2 * wd, cout))
+    if skip is not None:
+        y = y + _conv2d(skip, w[:, :, cin:], 1, dtype)
+    return y + dp["bias"].to(dtype)
 
 
 def _head_cat(p, ch: int, dtype):

@@ -11,7 +11,8 @@ Semantics notes (deliberate parity with the reference's net behavior):
 - Saddle cells (two diagonal foreground corners) resolve as *disconnected*,
   matching 4-connected components.
 - The reference fills every hole of a traced polygon, so only the
-  exterior ring per component is returned (``exterior_ring``).
+  exterior ring per component is returned (``exterior_ring``;
+  ``component_rings`` for every component of a compact label map).
 """
 from __future__ import annotations
 
@@ -168,3 +169,21 @@ def _dp_open(pts: np.ndarray, tol: float) -> np.ndarray:
             stack.append((s, k))
             stack.append((k, e))
     return pts[keep]
+
+
+def component_rings(lbl: np.ndarray, n: int) -> list[np.ndarray]:
+    """Exterior ring per compact label 1..n, traced on each component's
+    bbox crop and offset back to mask (row, col) coordinates. Degenerate
+    (<3-vertex) components are skipped. Bboxes come from one
+    ``scipy.ndimage.find_objects`` pass."""
+    from scipy import ndimage
+
+    rings: list[np.ndarray] = []
+    for k, sl in enumerate(ndimage.find_objects(lbl, max_label=n), start=1):
+        if sl is None:
+            continue
+        ring = exterior_ring(lbl[sl] == k)
+        if ring is None or len(ring) < 3:
+            continue
+        rings.append(ring + np.asarray([sl[0].start, sl[1].start], dtype=ring.dtype))
+    return rings

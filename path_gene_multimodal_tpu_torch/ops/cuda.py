@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv")
+KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv", "cc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 

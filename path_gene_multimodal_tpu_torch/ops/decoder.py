@@ -1,4 +1,4 @@
-"""K7, K8, K10, K11: the HoverNeXt decoder and final-stage kernels.
+"""K7-K11: the HoverNeXt decoder and final-stage kernels.
 
 Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
 launches its hand-written kernel in ``csrc/decoder_conv.cu`` on a CUDA
@@ -7,6 +7,9 @@ tensor and runs its ``*_plain`` twin on a CPU tensor:
 - ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
   + bias + LayerNorm + GELU, the concat never built;
 - ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU;
+- ``upsample_final`` (K9, ``fused_upsample_final``): bilinear 2x + conv3x3 +
+  bias + GELU, the upsampled map never built (K10's prologue, K8's
+  epilogue);
 - ``final_heads`` (K10, ``fused_final_heads``): bilinear 2x + conv3x3 +
   bias + GELU + head product, logits NHWC (the JAX kernel writes NCHW,
   which its caller transposes to this);
@@ -19,11 +22,10 @@ upsampled input and K10/K11 their GELU output to bf16 before the next
 product; GELU through ``gelu_kernel`` (the TPU kernel's erf polynomial in
 exact mode). Their f32 convolutions go through ``F.conv2d``: on a card, turn
 TF32 off (``torch.backends.cudnn.allow_tf32``) before holding a kernel
-against them.
+against them. K9 and K10 round their upsampled input to bf16.
 
 ``upsample2x_nearest`` and ``upsample2x_bilinear`` are plain torch, as in
 the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
-K9 (``fused_upsample_final``) is not ported yet (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -91,6 +93,10 @@ def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: b
 
 def final_conv_gelu_plain(x, w, b, exact_gelu: bool = False):
     return gelu_kernel(_conv3x3(_f(x), _f(w)) + _f(b), exact_gelu).to(_BF)
+
+
+def upsample_final_plain(x, w, b, exact_gelu: bool = False):
+    return final_conv_gelu_plain(upsample2x_bilinear(x.to(_BF)), w, b, exact_gelu)
 
 
 def final_heads_plain(x, w, b, wh, bh, exact_gelu: bool = False):
@@ -167,6 +173,33 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     return out
 
 
+def upsample_final(x, w, b, exact_gelu: bool = False):
+    """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → (B, 2H,
+    2W, cout) bf16. The kernel computes each upsampled input element where
+    it loads it; it takes cout = 64. 2H must be a multiple of 4, as the TPU
+    kernel requires (it writes the output in 4 row chunks)."""
+    bsz, h, wd, cin = x.shape
+    if (2 * h) % 4:
+        raise ValueError(f"2*H must be a multiple of 4, got H={h}")
+    if not x.is_cuda:
+        return upsample_final_plain(x, w, b, exact_gelu)
+    cout = w.shape[-1]
+    _check_conv([cin], cout, "upsample_final")
+    if cout != 64:
+        raise ValueError(f"upsample_final kernel takes cout = 64, got {cout}")
+    xb = _act(x)
+    cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
+    cuda.check(w, "w", _BF, (3, 3, cin, cout))
+    cuda.check(b, "b", _BF, (cout,))
+    out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=_BF, device=x.device)
+    cuda.launch(
+        "decoder_conv", "upsample_final_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), cuda.stream(),
+    )
+    upsample_final.launches += 1
+    return out
+
+
 def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
     product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
@@ -227,5 +260,6 @@ def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
 
 decoder_conv.launches = 0
 final_conv_gelu.launches = 0
+upsample_final.launches = 0
 final_heads.launches = 0
 composite_final_heads.launches = 0

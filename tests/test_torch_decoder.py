@@ -1,5 +1,5 @@
-"""The port's decoder kernels (K7, K8, K10, K11) and decoder configurations
-against the JAX package, on the CPU.
+"""The port's decoder kernels (K7-K11) and decoder configurations against
+the JAX package, on the CPU.
 
 Each plain version is held against its Pallas kernel run as
 ``tests/test_hovernext_fused.py`` runs it (``interpret=True``), elementwise
@@ -108,6 +108,37 @@ def test_k8_plain_matches_pallas_interpret(h, exact_gelu):
         *_jnp(x, wk, bias), rows=32, exact_gelu=exact_gelu, interpret=True).astype(jnp.float32))
     got = tdec.final_conv_gelu(T(x), T(wk), T(bias), exact_gelu=exact_gelu)
     _assert_elementwise(got.float().numpy(), ref)
+
+
+# ---------------------------------------------------------------- K9
+
+
+@GELU_MODES
+def test_k9_plain_matches_pallas_interpret(exact_gelu):
+    """The pattern of ``test_hovernext_fused.py:134``; the Pallas kernel
+    honours ``exact_gelu``, so both modes go against it."""
+    rng = np.random.default_rng(90 + exact_gelu)
+    b, h, w, cin, cout = 2, 8, 12, 6, 8
+    x = _normal(rng, (b, h, w, cin))
+    wk, bias = _normal(rng, (3, 3, cin, cout), 0.2), _normal(rng, cout, 0.1)
+    ref = np.asarray(jdec.fused_upsample_final(*_jnp(x, wk, bias), exact_gelu=exact_gelu,
+                                               interpret=True).astype(jnp.float32))
+    got = tdec.upsample_final(T(x), T(wk), T(bias), exact_gelu=exact_gelu)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 2 * h, 2 * w, cout)
+    _assert_elementwise(got.float().numpy(), ref)
+    other = tdec.upsample_final_plain(T(x), T(wk), T(bias), exact_gelu=not exact_gelu)
+    assert not torch.equal(got, other)
+
+
+def test_k9_rejects_2h_not_multiple_of_4():
+    """As the TPU kernel (``decoder.py:318-322``): its 4 row chunks would
+    leave rows unwritten."""
+    x = torch.zeros(1, 3, 4, 32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tdec.upsample_final(x, torch.zeros(3, 3, 32, 64), torch.zeros(64))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        jdec.fused_upsample_final(jnp.asarray(x.numpy()), jnp.zeros((3, 3, 32, 64)),
+                                  jnp.zeros(64), interpret=True)
 
 
 # ---------------------------------------------------------------- K10
@@ -225,7 +256,8 @@ def test_kernel_weights_match_the_jax_kernel_operands(jax_params):
     p = params["params"]
     bf = lambda a: np.asarray(a).astype(jnp.bfloat16).astype(np.float32)  # noqa: E731
     sd = params_from_jax(params, tcfg)
-    for kwargs in ({"fused_decoder": True}, {"fused_final": "heads"}, {"fused_final": "pallas"}):
+    for kwargs in ({"fused_decoder": True}, {"fused_final": "heads"}, {"fused_final": "pallas"},
+                   {"fused_final": True}):
         model = HoverNeXt(tcfg, **kwargs).eval()
         model.load_state_dict(sd)
         model.fuse()
@@ -240,6 +272,9 @@ def test_kernel_weights_match_the_jax_kernel_operands(jax_params):
                 np.testing.assert_array_equal(w0[2].float().numpy(), bf(p[f"dec{i}"]["norm0"]["scale"]))
                 np.testing.assert_array_equal(w1[0].float().numpy(), bf(p[f"dec{i}"]["conv1"]["kernel"]))
             np.testing.assert_array_equal(kw["k8"][0].float().numpy(), bf(p["final_conv"]["kernel"]))
+        if "k9" in kw:
+            np.testing.assert_array_equal(kw["k9"][0].float().numpy(), bf(p["final_conv"]["kernel"]))
+            np.testing.assert_array_equal(kw["k9"][1].float().numpy(), bf(p["final_conv"]["bias"]))
         if "k10" in kw:
             wcat, bcat = jfn._head_cat(p, tcfg.decoder_dims[-1], jnp.float32)
             np.testing.assert_array_equal(kw["k10"][2].float().numpy(), bf(wcat))
@@ -275,8 +310,9 @@ def _run(jcfg, tcfg, params, x, sd, port_kw, jax_kw):
 
 
 @GELU_MODES
-@pytest.mark.parametrize("option", [{"fused_decoder": True}, {"fused_final": "pallas"}],
-                         ids=["fused_decoder", "pallas"])
+@pytest.mark.parametrize("option", [{"fused_decoder": True}, {"fused_final": "pallas"},
+                                    {"fused_final": True}],
+                         ids=["fused_decoder", "pallas", "k9"])
 def test_slice_kernel_configs_match_jax(jax_params, option, exact_gelu):
     """bf16-level: max |port - jax| / span < 2e-2, the JAX package's own bar
     for its kernel configurations (``test_hovernext_fused.py:304``, :322)."""
@@ -307,6 +343,27 @@ def test_slice_lowres_matches_jax(jax_params, exact_gelu):
         np.testing.assert_allclose(got, ref, atol=5e-4, rtol=1e-3, err_msg=k)
 
 
+@GELU_MODES
+def test_slice_lowres_decoder_matches_jax(jax_params, exact_gelu):
+    """``lowres_decoder=True`` is f32 plain on both sides; it also equals
+    the port's hi-res decoder up to f32 rounding
+    (``test_hovernext_fused.py:153``)."""
+    jcfg, tcfg, params, x, sd = _slice(jax_params, exact_gelu, seed=19)
+    res = _run(jcfg, tcfg, params, x, sd, {"lowres_decoder": True}, {"lowres_decoder": True})
+    for k, (got, ref) in res.items():
+        np.testing.assert_allclose(got, ref, atol=5e-4, rtol=1e-3, err_msg=k)
+    hires = HoverNeXt(tcfg).eval()
+    hires.load_state_dict(sd)
+    with torch.no_grad():
+        ref = hires(T(x))
+    lowres = HoverNeXt(tcfg, lowres_decoder=True).eval()
+    lowres.load_state_dict(sd)
+    with torch.no_grad():
+        got = lowres(T(x))
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], atol=1e-4, rtol=1e-4)
+
+
 def test_fused_weights_give_the_same_forward(jax_params):
     """``fuse()`` changes where the decoder kernels' weights come from, not
     what the forward computes (the encoder runs K1 on both sides)."""
@@ -332,14 +389,18 @@ def test_fused_decoder_with_fused_final_raises():
     for ff in (False, "lowres", "pallas", "heads", True):
         with pytest.raises(ValueError, match="fused_decoder"):
             HoverNeXt(tcfg, fused_decoder=True, fused_final=ff)
+    with pytest.raises(ValueError, match="lowres_decoder"):
+        HoverNeXt(tcfg, fused_decoder=True, lowres_decoder=True)
     with pytest.raises(ValueError, match="features"):
         HoverNeXt(tcfg, fused_decoder=True).features(torch.zeros(1, 64, 64, 3))
 
 
 def test_fused_final_true_is_not_ported():
+    """``fused_final=True`` (K9) builds and holds K9's weights; an unknown
+    option still raises."""
     _, tcfg = _configs(False)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        HoverNeXt(tcfg, fused_final=True)
+    model = HoverNeXt(tcfg, fused_final=True)
+    assert model.fused_final is True and set(model.kernel_weights()) == {"k9"}
     with pytest.raises(ValueError, match="fused_final"):
         HoverNeXt(tcfg, fused_final="xla")
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py)
-loads neither ``jax`` nor anything of the JAX package, and its sources
-name neither. Importing builds no kernel and needs no card."""
+loads neither ``jax`` nor anything of the JAX package, nor cv2 or
+matplotlib (the machine with the card has neither), and its sources name
+none of them. Importing builds no kernel and needs no card."""
 
 import re
 import subprocess
@@ -20,8 +21,7 @@ for n in names:
 import chip_smoke  # noqa: F401  (defines functions only; runs under __main__)
 
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "flax"
-             or m == "path_gene_multimodal_tpu" or m.startswith("path_gene_multimodal_tpu."))
+             if m.split(".")[0] in ("jax", "flax", "path_gene_multimodal_tpu", "cv2", "matplotlib"))
 print("MODULES=" + str(len(names)))
 print("NAMES=" + ",".join(names))
 print("BAD=" + ",".join(bad))
@@ -31,6 +31,8 @@ _FORBIDDEN = [
     re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M),
     re.compile(r"path_gene_multimodal_tpu\."),
     re.compile(r"^\s*(import|from)\s+path_gene_multimodal_tpu(\s|$)", re.M),
+    re.compile(r"^\s*(import|from)\s+(cv2|matplotlib)\b", re.M),
+    re.compile(r"(__import__|import_module)\(\s*[\"'](cv2|matplotlib)"),
 ]
 
 
@@ -41,9 +43,10 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = dict(line.partition("=")[::2] for line in proc.stdout.splitlines() if "=" in line)
-    assert int(lines["MODULES"]) >= 22
+    assert int(lines["MODULES"]) >= 26
     names = set(lines["NAMES"].split(","))
-    for mod in ("ops.decoder", "models.hovernext_fn", "models.hovernext", "ops.convnext_block"):
+    for mod in ("ops.decoder", "models.hovernext_fn", "models.hovernext", "ops.convnext_block",
+                "ops.cc", "ops.masking", "ops.morphology", "pipeline.morphology"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
@@ -52,6 +55,7 @@ def test_port_sources_name_no_jax():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert PORT / "csrc" / "decoder_conv.cu" in files
+    assert PORT / "csrc" / "cc.cu" in files
     for f in files:
         text = f.read_text()
         for pat in _FORBIDDEN:
