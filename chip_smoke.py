@@ -7,7 +7,8 @@
    source, in parallel) into ``build/kernels/``;
 2. drives the nuclei stage the way a user would: ``synthetic_wsi`` →
    ``fit_heads`` on HoverNeXt-tiny → ``NucleiModel.build(HOVERNEXT_TINY,
-   tta=4, dtype=bfloat16, device="cuda")`` →
+   tta=4, dtype=bfloat16, device="cuda")`` (K1 blocks and the low-res
+   final stage, as the JAX package's accelerator path) →
    ``run_hovernet_pipeline_on_wsi_tiles`` over full batches of 128 tiles,
    with every kernel's launch count set to 0 just before and read just
    after;
@@ -31,9 +32,12 @@
    mutants (a dropped bias, LayerNorm scale 1, K7's skip half zeroed, a
    dropped head bias, K9 in the other GELU mode) that the check must
    catch; times each kernel, its plain version and cuDNN's conv at the
-   same shape (conv only). ``fused_final=True`` (K9) runs through the
-   nuclei stage like the configurations of 5, and ``lowres_decoder=True``
-   gets its forward row;
+   same shape (conv only). K9 and K10 (``csrc/upsample_conv.cu``) are also
+   checked at shapes whose output is no multiple of their tile,
+   and against a mutant that pads the upsampled map by edge replication
+   instead of zeros. ``fused_final=True`` (K9) runs through the nuclei
+   stage like the configurations of 5; ``fused_final=False`` (the plain
+   resize path) and ``lowres_decoder=True`` get forward rows;
 7. drives the tissue-boundary / islands path
    (``pipeline/morphology.py::process_one_slide_make_csv_and_plot``) on the
    slide's 2000 x 2000 thumbnail, at ``max_work_dim`` 1024 (K5 on three
@@ -275,7 +279,7 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
         models[name] = NucleiModel(cfg=HOVERNEXT_TINY, model=build(opt), device=dev,
                                    tta=cfg.hovernext.tta,
                                    max_instances=cfg.hovernext.max_instances_per_tile)
-    timed_only = [("lowres", build({"fused_final": "lowres"})),  # the JAX default, plain
+    timed_only = [("resize", build({"fused_final": False})),  # the plain resize path
                   ("lowres_decoder", build({"lowres_decoder": True}))]
 
     stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(4)], dim=0)
@@ -320,10 +324,25 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
     return models, counts
 
 
+def _edge_padded(x, w, b, exact_gelu=False):
+    """A mutant of K9's plain version: the upsampled map padded by edge
+    replication instead of the conv's zeros."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+    from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
+
+    up = F.pad(dec.upsample2x_bilinear(x.to(torch.bfloat16)).float().permute(0, 3, 1, 2),
+               (1, 1, 1, 1), mode="replicate")
+    y = F.conv2d(up, w.float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1) + b.float()
+    return gelu_kernel(y, exact_gelu).to(torch.bfloat16)
+
+
 def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
-    """Section 6: K7, K8, K10, K11 against their plain versions on this
-    batch's activations at full shape, both GELU modes, with mutants;
-    timings. Returns the kernels' entries of the JSON line."""
+    """Section 6: K7, K8, K9, K10, K11 against their plain versions on this
+    batch's activations at full shape, both GELU modes, with mutants; K9
+    and K10 also at ragged shapes; timings. Returns the kernels' entries of
+    the JSON line."""
     import torch.nn.functional as F
 
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
@@ -333,6 +352,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     n = stacked.shape[0]
     idx = _subset(n).to(pixels.device)
     src = "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu"
+    src_up = "path_gene_multimodal_tpu_torch/csrc/upsample_conv.cu"
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     entries = []
 
@@ -362,8 +382,8 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
                 failures.append(f"{name}: the check does not see {what}")
         return max(rec["max_abs_err_erf"], rec["max_abs_err_tanh"])
 
-    def entry(name, replaces, err, ms, pms, bnd, by, lms, note, **extra):
-        entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+    def entry(name, replaces, err, ms, pms, bnd, by, lms, note, source=src, **extra):
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bnd, "bound_by": by, "library_ms": lms, "note": note,
                         **extra})
@@ -485,7 +505,9 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
             lambda e: head_atol(dec.final_conv_gelu_plain(dec.upsample2x_bilinear(xs), w10, vb,
                                                           exact_gelu=e), wh),
             {"no_bias": lambda: dec.final_heads_plain(xs, w10, 0 * vb, wh, vbh),
-             "no_head_bias": lambda: dec.final_heads_plain(xs, w10, vb, wh, 0 * vbh)}, rec)
+             "no_head_bias": lambda: dec.final_heads_plain(xs, w10, vb, wh, 0 * vbh),
+             "edge_replicated": lambda: (_edge_padded(xs, w10, vb).float() @ wh.float()
+                                         + vbh.float()).to(bf)}, rec)
         rec["ms_per_call"] = _sync_time(lambda: dec.final_heads(x_pl[:CHUNK], w10, vb, wh, vbh),
                                         reps=3)
         ms = _sync_time(lambda: [dec.final_heads(c, w10, vb, wh, vbh) for c in x_pl.split(CHUNK)],
@@ -502,12 +524,16 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     bnd, by = _bound_ms(2 * (x_pl.numel() + px * n_out) + 2 * (w10.numel() + wh.numel()),
                         [(2 * px * (9 * cin * cout + cout * n_out), PEAK_BF16),
                          (6 * px * cin + 10 * px * cout, PEAK_F32)])
+    rec["geometry"] = dict(zip(("tile_h", "tile_w", "grid", "smem_bytes"),
+                               dec.UpsampleTiling(CHUNK, *x_pl.shape[1:3], head=True,
+                                                  n_sm=dec.cuda.sm_count(x_pl.device)
+                                                  ).launch_args()))
     entry("final_heads", f"{pallas}:392", err, ms, pms, bnd, by, lms,
           "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
-          "the subset; library_ms: cuDNN conv2d alone on the upsampled map (conv only, no "
-          "upsample/GELU/heads); tolerance per logit: 2 bf16 ulp + DEC_ATOL + two flipped "
-          "roundings of the pixel's largest GELU output through the column's largest head "
-          "weight", **rec)
+          "the subset, and ragged shapes (see ragged); library_ms: cuDNN conv2d alone on the "
+          "upsampled map (conv only, no upsample/GELU/heads); tolerance per logit: 2 bf16 ulp + "
+          "DEC_ATOL + two flipped roundings of the pixel's largest GELU output through the "
+          "column's largest head weight", source=src_up, **rec)
 
     wc, b4, whb, bh4 = models["pallas"].model.fused_weights["k11"][:4]
     with torch.inference_mode():
@@ -551,7 +577,8 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
             lambda e: dec.upsample_final_plain(xs, w9, vb, exact_gelu=e),
             lambda e: K9_ATOL,
             {"no_bias": lambda: dec.upsample_final_plain(xs, w9, 0 * vb),
-             "other_gelu_mode": lambda: dec.upsample_final_plain(xs, w9, vb, exact_gelu=True)},
+             "other_gelu_mode": lambda: dec.upsample_final_plain(xs, w9, vb, exact_gelu=True),
+             "edge_replicated": lambda: _edge_padded(xs, w9, vb)},
             rec)
         rec["ms_per_call"] = _sync_time(lambda: dec.upsample_final(x_pl[:CHUNK], w9, vb), reps=3)
         ms = _sync_time(lambda: [dec.upsample_final(c, w9, vb) for c in x_pl.split(CHUNK)], reps=2)
@@ -566,10 +593,41 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     bnd, by = _bound_ms(2 * (x_pl.numel() + px * cout) + 2 * w9.numel(),
                         [(2 * px * 9 * cin * cout, PEAK_BF16),
                          (6 * px * cin + 10 * px * cout, PEAK_F32)])
+    rec["geometry"] = dict(zip(("tile_h", "tile_w", "grid", "smem_bytes"),
+                               dec.UpsampleTiling(CHUNK, *x_pl.shape[1:3],
+                                                  n_sm=dec.cuda.sm_count(x_pl.device)
+                                                  ).launch_args()))
+
+    # K9 and K10 where the output is no multiple of their tile: halo, window
+    # and edge faults show at the ragged last tiles
+    ragged = []
+    for j, (rb, rh, rw) in enumerate(((3, 34, 34), (2, 6, 10))):
+        gen = torch.Generator().manual_seed(700 + j)
+        xr = torch.randn((rb, rh, rw, w9.shape[2]), generator=gen).to(x_pl.device, bf)
+        with torch.inference_mode():
+            vb, vb10, vbh = (_seeded(b9, 710 + j, mean=-1.0, std=1.0), _seeded(b10, 720 + j),
+                             _seeded(bh, 730 + j))
+            r9 = {"kernel": "upsample_final", "shape": [rb, rh, rw]}
+            r10 = {"kernel": "final_heads", "shape": [rb, rh, rw]}
+            modes(f"upsample_final {rb}x{rh}x{rw}",
+                  lambda e: dec.upsample_final(xr, w9, vb, exact_gelu=e),
+                  lambda e: dec.upsample_final_plain(xr, w9, vb, exact_gelu=e),
+                  lambda e: K9_ATOL, {"edge_replicated": lambda: _edge_padded(xr, w9, vb)}, r9)
+            modes(f"final_heads {rb}x{rh}x{rw}",
+                  lambda e: dec.final_heads(xr, w10, vb10, wh, vbh, exact_gelu=e),
+                  lambda e: dec.final_heads_plain(xr, w10, vb10, wh, vbh, exact_gelu=e),
+                  lambda e: head_atol(dec.upsample_final_plain(xr, w10, vb10, exact_gelu=e), wh),
+                  {"edge_replicated": lambda: (_edge_padded(xr, w10, vb10).float() @ wh.float()
+                                               + vbh.float()).to(bf)}, r10)
+        ragged += [r9, r10]
+    k10 = next(e for e in entries if e["name"] == "final_heads")
+    k10["ragged"] = [r for r in ragged if r["kernel"] == "final_heads"]
     entry("upsample_final", f"{pallas}:307", err, ms, pms, bnd, by, lms,
           "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
-          f"the subset; bias drawn around -1; tolerance 2 bf16 ulp + {K9_ATOL}; library_ms: "
-          "cuDNN conv2d alone on the upsampled map (conv only, no upsample/GELU)", **rec)
+          f"the subset, and ragged shapes (see ragged); bias drawn around -1; tolerance 2 bf16 "
+          f"ulp + {K9_ATOL}; library_ms: cuDNN conv2d alone on the upsampled map (conv only, no "
+          "upsample/GELU)", source=src_up,
+          ragged=[r for r in ragged if r["kernel"] == "upsample_final"], **rec)
     return entries
 
 
@@ -864,6 +922,7 @@ def main(argv: list[str] | None = None) -> int:
                            if "registers" in ln or "bytes stack" in ln]
                        for n in cuda.KERNELS}
     print(f"built {len(cuda.KERNELS)} kernels in {report['build_s']:.1f} s", flush=True)
+    print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"]}), flush=True)
 
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()

@@ -1,42 +1,35 @@
 // The HoverNeXt decoder and final-stage kernels for the H100: one 3x3 conv
-// core with three input prologues and two epilogues.
+// core with two input prologues and two epilogues.
 //
-// Replaces five TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py:
+// Replaces three TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py
+// (K9 and K10, the upsampling final stage, are csrc/upsample_conv.cu):
 //   K7  fused_decoder_conv     (:168, pallas_call :220): skip concat by split
 //       weights + 3x3 SAME conv + bias + LayerNorm (eps 1e-6, two-pass
 //       variance) + GELU -> bf16;
 //   K8  fused_final_conv_gelu  (:591, :620): 3x3 SAME conv + bias + GELU -> bf16;
-//   K9  fused_upsample_final   (:307, :325): bilinear 2x (f32, rounded to
-//       bf16) + 3x3 conv + bias + GELU -> bf16: K10's input prologue with
-//       K8's epilogue;
-//   K10 fused_final_heads      (:392, :415): bilinear 2x (f32, rounded to
-//       bf16) + 3x3 conv + bias + GELU -> bf16 -> head product + bias -> bf16;
 //   K11 composite_final_heads  (:462, :506): 3x3 conv with parity-folded
 //       weights + bias + GELU -> bf16 -> block-diagonal head product + bias.
 //
 // Numerics follow the TPU kernels: bf16 inputs, weights and vectors, f32
-// accumulation, bf16 outputs; K10 rounds the upsampled map to bf16 before the
-// conv, K10/K11 round the GELU output to bf16 before the head product. GELU by
-// flag (pgm_gelu: tanh, or the Abramowitz-Stegun erf of the TPU kernel).
+// accumulation, bf16 outputs; K11 rounds the GELU output to bf16 before the
+// head product. GELU by flag (pgm_gelu: tanh, or the Abramowitz-Stegun erf of
+// the TPU kernel).
 //
 // What bounds them here: operations. At HoverNeXt-tiny widths the convs do
-// 9 * cin * cout multiply-adds per output pixel (K7 5.7 TFLOP, K8/K10/K11
+// 9 * cin * cout multiply-adds per output pixel (K7 5.7 TFLOP, K8/K11
 // ~2.5 TFLOP each per 512-image batch); only K8, whose bf16 input and output
 // at 256^2 x 64 are 2^31 elements each, comes close to its byte bound.
 //
 // Design: an implicit GEMM. A block owns BM consecutive output pixels of one
 // image and ALL cout channels (cout <= 384), so the epilogue sees whole pixel
-// rows: the LayerNorm over cout (K7) and the head product (K10/K11) need no
+// rows: the LayerNorm over cout (K7) and the head product (K11) need no
 // second pass. K runs over (source, tap, 32-channel chunk); each step stages
 // a BM x 32 input tile and a 32 x cout weight tile in shared memory with
 // cp.async (a ring of three: the next two steps' copies fly while this
 // step's bf16 wmma products run, one barrier per step). Zero padding is
 // cp.async's zero fill. K7's second source (the skip) reads its weight rows
 // at an offset of cx inside the one (3, 3, cx + cs, cout) tensor, so the
-// concat is never built. K10's prologue
-// computes the bilinear 2x value of each staged input element from the
-// half-resolution map (f32, the TPU kernel's operation order, no FMA
-// contraction) instead of copying. The epilogue stages the f32 accumulators
+// concat is never built. The epilogue stages the f32 accumulators
 // through shared memory (64 x 384 x 4 = 96 KB at K7 dec0, above the 48 KB
 // default, hence the dynamic shared memory attribute), one warp per pixel.
 // All offsets into activations are 64-bit: K8's full batch holds 2^31
@@ -61,7 +54,7 @@ constexpr int kStages = 3;     // cp.async ring depth
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 struct Src {
-    const bf16* x;  // NHWC; half resolution for the upsampling prologue
+    const bf16* x;  // NHWC
     int cin;
     int row0;       // first weight row of this source within a tap
 };
@@ -93,34 +86,6 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float* v) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h2[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-    }
-}
-
-// a * u + b * v, each product and the sum rounded on its own (no FMA), as
-// the TPU kernel's and the plain version's separate f32 operations round
-__device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
-    return __fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v));
-}
-
-// One axis of the bilinear 2x with half-pixel centres and edge clamp:
-// out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]
-__device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a0, float& a1) {
-    const int i = o >> 1;
-    if (o & 1) {
-        i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
-    } else {
-        i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
-    }
-}
-
 template <int BM, int BN>
 struct Smem {
     static constexpr int kLdB = BN + 8;  // bf16
@@ -143,7 +108,7 @@ struct Smem {
 
 // WM x WN warps, each owning FM x FN 16x16 accumulator tiles: the block
 // covers BM = 16 FM WM pixels and BN = 16 FN WN = cout channels.
-template <int WM, int WN, int FM, int FN, bool UP>
+template <int WM, int WN, int FM, int FN>
 __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
     constexpr int BM = 16 * FM * WM;
     constexpr int BN = 16 * FN * WN;
@@ -206,36 +171,8 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
             const int y = py[j] + dy, x = px[j] + dx;
             const bool ok = y >= 0 && y < a.h && x >= 0 && x < a.w_;
             bf16* dst = As(buf) + r * kLdA + c8;
-            if constexpr (UP) {
-                __align__(16) bf16 v[8];
-                if (ok) {
-                    const int hin = a.h >> 1, win = a.w_ >> 1;
-                    int r0, r1, c0, c1;
-                    float ra, rb, ca, cb;
-                    up_taps(y, hin, r0, r1, ra, rb);
-                    up_taps(x, win, c0, c1, ca, cb);
-                    const bf16* base = lx + img * hin * win * lcin + lk0 + c8;
-                    float v00[8], v10[8], v01[8], v11[8];
-                    load8(base + (static_cast<long long>(r0) * win + c0) * lcin, v00);
-                    load8(base + (static_cast<long long>(r1) * win + c0) * lcin, v10);
-                    load8(base + (static_cast<long long>(r0) * win + c1) * lcin, v01);
-                    load8(base + (static_cast<long long>(r1) * win + c1) * lcin, v11);
-#pragma unroll
-                    for (int k = 0; k < 8; ++k) {  // rows first, then columns
-                        const float u0 = lerp_rn(ra, v00[k], rb, v10[k]);
-                        const float u1 = lerp_rn(ra, v01[k], rb, v11[k]);
-                        v[k] = __float2bfloat16(lerp_rn(ca, u0, cb, u1));
-                    }
-                } else {
-#pragma unroll
-                    for (int k = 0; k < 8; ++k) v[k] = __float2bfloat16(0.0f);
-                }
-                *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-            } else {
-                const bf16* g =
-                    ok ? lx + ((img * a.h + y) * a.w_ + x) * lcin + lk0 + c8 : lx;
-                cp_async16(dst, g, ok);
-            }
+            const bf16* g = ok ? lx + ((img * a.h + y) * a.w_ + x) * lcin + lk0 + c8 : lx;
+            cp_async16(dst, g, ok);
         }
         const bf16* wrow = a.w + (static_cast<size_t>(ltap) * a.ktap + lrow0 + lk0) * BN;
         for (int i = tid; i < kBK * (BN / 8); i += kThreads) {
@@ -369,11 +306,11 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
     }
 }
 
-template <int WM, int WN, int FM, int FN, bool UP>
+template <int WM, int WN, int FM, int FN>
 cudaError_t run(const ConvArgs& a, int batch, cudaStream_t st) {
     constexpr int BM = 16 * FM * WM;
     const size_t smem = Smem<BM, 16 * FN * WN>::total(a.nout);
-    auto kernel = conv3x3_kernel<WM, WN, FM, FN, UP>;
+    auto kernel = conv3x3_kernel<WM, WN, FM, FN>;
     cudaError_t e = pgm_set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     const long long blocks = static_cast<long long>(batch) * ((a.h * a.w_ + BM - 1) / BM);
@@ -384,17 +321,16 @@ cudaError_t run(const ConvArgs& a, int batch, cudaStream_t st) {
 
 // Tile shapes by cout (the block holds all of cout): 64 x 384, 64 x 256,
 // 64 x 192, 128 x 96, 128 x 64 pixels x channels.
-cudaError_t dispatch(const ConvArgs& a, int batch, int cout, bool up, cudaStream_t st) {
+cudaError_t dispatch(const ConvArgs& a, int batch, int cout, cudaStream_t st) {
     for (int s = 0; s < a.nsrc; ++s)
         if (a.src[s].cin <= 0 || a.src[s].cin % kBK) return cudaErrorInvalidValue;
     if (a.nout > cout) return cudaErrorInvalidValue;
-    if (up) return cout == 64 ? run<4, 2, 2, 2, true>(a, batch, st) : cudaErrorInvalidValue;
     switch (cout) {
-        case 384: return run<1, 8, 4, 3, false>(a, batch, st);
-        case 256: return run<2, 4, 2, 4, false>(a, batch, st);
-        case 192: return run<2, 4, 2, 3, false>(a, batch, st);
-        case 96: return run<4, 2, 2, 3, false>(a, batch, st);
-        case 64: return run<4, 2, 2, 2, false>(a, batch, st);
+        case 384: return run<1, 8, 4, 3>(a, batch, st);
+        case 256: return run<2, 4, 2, 4>(a, batch, st);
+        case 192: return run<2, 4, 2, 3>(a, batch, st);
+        case 96: return run<4, 2, 2, 3>(a, batch, st);
+        case 64: return run<4, 2, 2, 2>(a, batch, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -430,7 +366,7 @@ PGM_EXPORT int decoder_conv_launch(const void* x, const void* skip, const void* 
     a.ktap = cx + cs;
     a.lng = static_cast<const bf16*>(lng);
     a.lnb = static_cast<const bf16*>(lnb);
-    return static_cast<int>(dispatch(a, batch, cout, false, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch(a, batch, cout, static_cast<cudaStream_t>(stream)));
 }
 
 // K8. x (B, H, W, cin), w (3, 3, cin, cout), b (cout,); out (B, H, W, cout).
@@ -438,28 +374,7 @@ PGM_EXPORT int final_conv_gelu_launch(const void* x, const void* w, const void* 
                                       int batch, int h, int w_, int cin, int cout, int exact,
                                       void* stream) {
     const ConvArgs a = args(x, cin, w, b, out, h, w_, exact);
-    return static_cast<int>(dispatch(a, batch, cout, false, static_cast<cudaStream_t>(stream)));
-}
-
-// K9. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,);
-// out (B, 2H, 2W, cout).
-PGM_EXPORT int upsample_final_launch(const void* x, const void* w, const void* b, void* out,
-                                     int batch, int h, int w_, int cin, int cout, int exact,
-                                     void* stream) {
-    const ConvArgs a = args(x, cin, w, b, out, 2 * h, 2 * w_, exact);
-    return static_cast<int>(dispatch(a, batch, cout, true, static_cast<cudaStream_t>(stream)));
-}
-
-// K10. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,),
-// wh (cout, nout), bh (nout,); out (B, 2H, 2W, nout) NHWC.
-PGM_EXPORT int final_heads_launch(const void* x, const void* w, const void* b, const void* wh,
-                                  const void* bh, void* out, int batch, int h, int w_, int cin,
-                                  int cout, int nout, int exact, void* stream) {
-    ConvArgs a = args(x, cin, w, b, out, 2 * h, 2 * w_, exact);
-    a.wh = static_cast<const bf16*>(wh);
-    a.bh = static_cast<const bf16*>(bh);
-    a.nout = nout;
-    return static_cast<int>(dispatch(a, batch, cout, true, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch(a, batch, cout, static_cast<cudaStream_t>(stream)));
 }
 
 // K11. x (B, H, W, cin), wc (3, 3, cin, c4), b4 (c4,), wh (c4, n4), bh4
@@ -472,5 +387,5 @@ PGM_EXPORT int composite_final_heads_launch(const void* x, const void* wc, const
     a.wh = static_cast<const bf16*>(wh);
     a.bh = static_cast<const bf16*>(bh4);
     a.nout = n4;
-    return static_cast<int>(dispatch(a, batch, c4, false, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch(a, batch, c4, static_cast<cudaStream_t>(stream)));
 }

@@ -1,0 +1,535 @@
+// The HoverNeXt upsampling final-stage kernels for the H100: bilinear 2x ->
+// 3x3 SAME conv 64 -> 64 -> bias -> GELU, with an optional head product.
+//
+// Replaces two TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py:
+//   K9  fused_upsample_final (:307, pallas_call :325): bilinear 2x (f32,
+//       rounded to bf16) + 3x3 conv + bias + GELU -> bf16 (B, 2H, 2W, 64);
+//   K10 fused_final_heads    (:392, pallas_call :415): the same, the GELU
+//       output rounded to bf16 -> head product (64 -> nout <= 16) + bias ->
+//       bf16 logits, NHWC (the TPU kernel writes NCHW).
+//
+// Numerics as the TPU kernels: the upsample in f32, rows first, then columns,
+// each product and sum rounded on its own (no FMA contraction), rounded once
+// to bf16; bf16 weights and vectors, f32 accumulation. GELU by flag, as
+// pgm_gelu, each exponential through ex2.approx (tanh mode in the closed form
+// x / (1 + exp(-2u)) of 0.5 x (1 + tanh(u))): within ~1e-6 |x| of pgm_gelu.
+//
+// What bounds them here: operations. 2 * 9 * 64 * 64 = 73,728 flops per
+// output pixel against 256 bytes moved (K9), far above the card's ~295
+// flops per byte: 0.62 TFLOP per 128-image call, 0.63 ms at the bf16 peak.
+//
+// Design (the TPU kernel's idea, upsample once into fast memory and run the
+// taps from there, cut to a tile that fits an SM):
+//  1. Persistent blocks: one block of two warpgroups per SM (the shared
+//     memory below allows one) walks output tiles tile = blockIdx.x,
+//     += gridDim.x over (image, tile row, tile col). A tile is 8 x 64 output
+//     pixels; warpgroup g owns its rows 4g .. 4g + 3, each row one m64 tile.
+//  2. Operands in shared memory in wgmma's canonical no-swizzle K-major
+//     layout: core matrices of 8 rows (pixels or output channels) x 8
+//     channels (16 B), 128 B each. The whole (3, 3, 64, 64) weight is
+//     resident (73,728 B), copied once per block. The upsampled halo is held
+//     planar, [channel / 8][halo pixel][8], so the A operand of any tap,
+//     64 consecutive pixels of a halo row shifted by (dy, dx), is a canonical
+//     operand: its 8-pixel groups 128 B apart, its two 8-channel halves one
+//     plane apart. No operand passes through registers.
+//  3. The low-res window a tile needs, (8/2 + 2) x (64/2 + 2) pixels x 64
+//     channels, is copied with cp.async into one of two buffers (planar as
+//     the halo); the next tile's copy is issued before the current tile is
+//     computed. Its origin is (tile row0 / 2 - 1, tile col0 / 2 - 1): the
+//     bilinear taps of the halo's rows row0 - 1 .. row0 + 8 read low-res rows
+//     row0/2 - 1 .. row0/2 + 4 after the edge clamp
+//     (ops/decoder.py::UpsampleTiling states the same geometry and the tests
+//     check its coverage). Pixels outside the low-res image are zero-filled
+//     and never read.
+//  4. The upsampled halo, 10 x 66 x 64 bf16, is built once per tile from the
+//     window: each upsampled element once (1.29x the tile's elements instead
+//     of the 9x of a per-tap prologue). Halo pixels outside the upsampled
+//     image are zero: the conv's SAME padding of the upsampled map, not the
+//     upsample's clamp.
+//  5. Tensor cores: per tile each warpgroup issues 36 k-steps (9 taps x four
+//     16-channel chunks) x 4 rows of wgmma m64n64k16 (bf16, f32 accumulate),
+//     both operands by descriptor, back to back, then one commit and one
+//     wait. The K loop has no barrier, no ldmatrix and no global access.
+//  6. Epilogue: bias + GELU in registers, rounded to bf16. K9 stages each
+//     warp's 64 x 64 tile over the halo (free once every warpgroup's wgmma
+//     has finished) and writes 16-B chunks to consecutive addresses. K10
+//     runs the head product on the tensor cores (mma.sync m16n8k16: the
+//     accumulator layout of a warp's 16 rows is mma's A layout), adds the
+//     head bias and writes bf16 logits. Activation offsets are 64-bit: one
+//     K9 call takes a 512-image TTA batch, 2^31 output elements.
+// Shared memory: weights 73,728 B + halo 84,480 + 2 windows 52,224 (+ K10
+// head weights 3,072) = 210,432 (213,504) B; K9's output staging lies over
+// the halo.
+// Not yet here: overlap of the halo build and the epilogue with the products
+// (warp specialisation), TMA.
+#include "common.cuh"
+
+#include <climits>
+#include <cuda_bf16.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kC = 64;                       // cin = cout
+constexpr int kTH = 8, kTW = 64;             // output tile (rows, cols)
+constexpr int kHH = kTH + 2, kHW = kTW + 2;  // upsampled halo tile
+constexpr int kHPx = kHH * kHW;
+constexpr int kWH = kTH / 2 + 2, kWW = kTW / 2 + 2;  // low-res window
+constexpr int kWPx = kWH * kWW;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = kWarps / 4;          // warpgroups
+constexpr int kRows = kTH / kGroups;         // output rows (m64 tiles) per warpgroup
+constexpr int kSteps = 9 * (kC / 16);        // k16 steps
+constexpr int kLd = kC + 8;                  // bf16 row stride of the output staging
+constexpr int kNP = 16;                      // head columns, zero-padded
+constexpr int kLdHead = kNP + 8;             // bf16 row stride of the head weights (48 B)
+static_assert(kTW == 64, "a tile row is one m64 wgmma tile");
+static_assert(kRows * kGroups == kTH, "whole rows per warpgroup");
+
+constexpr size_t kWBytes = size_t(kSteps) * 16 * kC * 2;
+constexpr size_t kPlane = size_t(kHPx) * 16;  // bytes of one 8-channel halo plane
+constexpr size_t kHaloBytes = 8 * kPlane;
+constexpr size_t kWinBytes = size_t(kWPx) * kC * 2;
+constexpr size_t kStgElems = size_t(kRows) * 16 * kLd;  // per warp: 4 rows x 16 pixels
+static_assert(kWarps * kStgElems * 2 <= kHaloBytes, "the staging fits over the halo");
+constexpr size_t kHeadBytes = size_t(kC) * kLdHead * 2;
+constexpr size_t kOffHalo = kWBytes;
+constexpr size_t kOffWin = kOffHalo + kHaloBytes;
+constexpr size_t kOffHead = kOffWin + 2 * kWinBytes;
+
+constexpr size_t smem_bytes(bool head) { return kOffHead + (head ? kHeadBytes : 0); }
+
+struct Args {
+    const bf16* x;   // (B, h, w_, 64), half resolution
+    const bf16* w;   // (3, 3, 64, 64)
+    const bf16* b;   // (64,)
+    const bf16* wh;  // (64, nout), K10
+    const bf16* bh;  // (nout,), K10
+    bf16* out;       // (B, 2h, 2w_, 64) or (B, 2h, 2w_, nout)
+    int h, w_;
+    int oh, ow;
+    int tiles_x, tiles_per_img, n_tiles;
+    int nout;
+    int exact;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+    const int n = ok ? 16 : 0;  // 0: zero-fill the 16 bytes
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma shared-memory matrix descriptor, no swizzle: start address, the
+// byte offset between core matrices along K (leading) and along M or N
+// (stride), each in 16-B units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>((lead & 0x3FFFF) >> 4) << 16) |
+           (static_cast<uint64_t>((stride & 0x3FFFF) >> 4) << 32);
+}
+
+// d (64 x 64 f32 over the warpgroup) = (acc ? d : 0) + A (64 x 16) B (16 x 64)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of r above the wait
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// GELU as pgm_gelu computes it, each exponential through ex2.approx
+__device__ __forceinline__ float gelu_fast(float x, int exact) {
+    if (exact) {
+        const float z = x * 0.7071067811865476f;
+        const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
+                    a4 = -1.453152027f, a5 = 1.061405429f, pp = 0.3275911f;
+        const float az = fabsf(z);
+        const float t = __fdividef(1.0f, 1.0f + pp * az);
+        const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
+        const float e = 1.0f - poly * __expf(-az * az);
+        return 0.5f * x * (1.0f + copysignf(e, z));
+    }
+    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+    return __fdividef(x, 1.0f + __expf(-2.0f * u));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a * u + b * v, each product and the sum rounded on its own (no FMA), as
+// the TPU kernel's and the plain version's separate f32 operations round
+__device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
+    return __fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v));
+}
+
+// One axis of the bilinear 2x with half-pixel centres and edge clamp:
+// out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]
+__device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a0, float& a1) {
+    const int i = o >> 1;
+    if (o & 1) {
+        i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
+    } else {
+        i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
+    }
+}
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float* v) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+    }
+}
+
+struct Tile {
+    long long img;
+    int oy0, ox0;  // first output row / col
+};
+
+__device__ __forceinline__ Tile tile_at(const Args& a, int t) {
+    const int img = t / a.tiles_per_img, rem = t - img * a.tiles_per_img;
+    const int ty = rem / a.tiles_x;
+    return Tile{img, ty * kTH, (rem - ty * a.tiles_x) * kTW};
+}
+
+// the low-res window of tile t into `win`, planar: pixel (wy0 + sy, wx0 + sx),
+// channels 8 c .. 8 c + 7 at (c * kWPx + sy * kWW + sx) * 8, zero-filled
+// outside the image
+__device__ __forceinline__ void load_window(const Args& a, int t, bf16* win) {
+    const Tile tl = tile_at(a, t);
+    const int wy0 = (tl.oy0 >> 1) - 1, wx0 = (tl.ox0 >> 1) - 1;
+    for (int i = threadIdx.x; i < kWPx * 8; i += kThreads) {
+        const int s = i >> 3, c = i & 7;
+        const int y = wy0 + s / kWW, x = wx0 + s % kWW;
+        const bool ok = y >= 0 && y < a.h && x >= 0 && x < a.w_;
+        const bf16* src = ok ? a.x + ((tl.img * a.h + y) * a.w_ + x) * kC + c * 8 : a.x;
+        cp_async16(win + (c * kWPx + s) * 8, src, ok);
+    }
+}
+
+// the upsampled halo of tile t from its window, planar as the window: halo
+// pixel p = hr * kHW + hc is output pixel (oy0 - 1 + hr, ox0 - 1 + hc), zero
+// outside the output image
+__device__ __forceinline__ void build_halo(const Args& a, int t, const bf16* win, bf16* halo) {
+    const Tile tl = tile_at(a, t);
+    const int wy0 = (tl.oy0 >> 1) - 1, wx0 = (tl.ox0 >> 1) - 1;
+    for (int i = threadIdx.x; i < kHPx * 8; i += kThreads) {
+        const int c = i / kHPx, p = i - c * kHPx;
+        const int oy = tl.oy0 - 1 + p / kHW, ox = tl.ox0 - 1 + p % kHW;
+        uint4 res = make_uint4(0u, 0u, 0u, 0u);
+        if (oy >= 0 && oy < a.oh && ox >= 0 && ox < a.ow) {
+            int r0, r1, c0, c1;
+            float ra, rb, ca, cb;
+            up_taps(oy, a.h, r0, r1, ra, rb);
+            up_taps(ox, a.w_, c0, c1, ca, cb);
+            const bf16* pl = win + c * kWPx * 8;
+            r0 = (r0 - wy0) * kWW; r1 = (r1 - wy0) * kWW;
+            c0 -= wx0; c1 -= wx0;
+            float v00[8], v10[8], v01[8], v11[8];
+            unpack8(*reinterpret_cast<const uint4*>(pl + (r0 + c0) * 8), v00);
+            unpack8(*reinterpret_cast<const uint4*>(pl + (r1 + c0) * 8), v10);
+            unpack8(*reinterpret_cast<const uint4*>(pl + (r0 + c1) * 8), v01);
+            unpack8(*reinterpret_cast<const uint4*>(pl + (r1 + c1) * 8), v11);
+            uint32_t o[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // rows first, then columns
+                float u[2];
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int e = 2 * k + j;
+                    const float u0 = lerp_rn(ra, v00[e], rb, v10[e]);
+                    const float u1 = lerp_rn(ra, v01[e], rb, v11[e]);
+                    u[j] = lerp_rn(ca, u0, cb, u1);
+                }
+                o[k] = pack_bf16(u[0], u[1]);
+            }
+            res = make_uint4(o[0], o[1], o[2], o[3]);
+        }
+        *reinterpret_cast<uint4*>(halo + (c * kHPx + p) * 8) = res;
+    }
+}
+
+template <bool HEAD>
+__global__ void __launch_bounds__(kThreads, 1) upsample_conv_kernel(const Args a) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* Ws = reinterpret_cast<bf16*>(smem);
+    bf16* Hs = reinterpret_cast<bf16*>(smem + kOffHalo);
+    bf16* Win = reinterpret_cast<bf16*>(smem + kOffWin);
+    bf16* Hw = reinterpret_cast<bf16*>(smem + kOffHead);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int grp = warp >> 2, wq = warp & 3;  // warpgroup, warp within it
+    const int g = lane >> 2, q = lane & 3;     // accumulator row group, column pair
+    bf16* stg = Hs + warp * kStgElems;         // the warp's output staging, over the halo
+
+    // resident weights, canonical K-major: step s = tap * 4 + ci / 16, then
+    // the 8-channel half (ci / 8) % 2 (1,024 B apart), the 8-cout group co / 8
+    // (128 B apart), cout co % 8 (16 B apart), ci % 8
+    for (int i = tid; i < kSteps * 2 * 8 * 8; i += kThreads) {
+        const int n = i & 63, half = (i >> 6) & 1, s = i >> 7;
+        const int tap = s >> 2, ci0 = (s & 3) * 16 + half * 8;
+        const bf16* src = a.w + (static_cast<size_t>(tap) * kC + ci0) * kC + n;
+        __align__(16) bf16 v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = src[k * kC];
+        *reinterpret_cast<uint4*>(Ws + (s * 2 + half) * 512 + n * 8) =
+            *reinterpret_cast<const uint4*>(v);
+    }
+    if (HEAD) {
+        for (int i = tid; i < kC * kNP; i += kThreads) {
+            const int r = i / kNP, c = i % kNP;
+            Hw[r * kLdHead + c] = c < a.nout ? a.wh[r * a.nout + c] : __float2bfloat16(0.0f);
+        }
+    }
+    const uint32_t ws = smem_u32(Ws), hs = smem_u32(Hs);
+    // head B fragments by ldmatrix.trans: lane l gives row (l & 7) + 8 ((l >> 3) & 1)
+    const uint32_t h_base =
+        smem_u32(Hw + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLdHead + (lane >> 4) * 8);
+
+    int tile = blockIdx.x;
+    if (tile < a.n_tiles) load_window(a, tile, Win);
+    cp_async_commit();
+    for (int it = 0; tile < a.n_tiles; tile += gridDim.x, ++it) {
+        const bf16* win = Win + (it & 1) * (kWinBytes / 2);
+        const int next = tile + gridDim.x;
+        if (next < a.n_tiles) load_window(a, next, Win + ((it + 1) & 1) * (kWinBytes / 2));
+        cp_async_commit();
+        cp_async_wait<1>();  // this tile's window has landed
+        // also: every warp is done with the previous tile's staging
+        __syncthreads();
+        build_halo(a, tile, win, Hs);
+        fence_async_shared();  // the halo (and, first, the weights) to the tensor cores
+        __syncthreads();
+
+        // rows grp * kRows + r of the tile; k-step s = (tap, 16-channel chunk kc):
+        // A = halo row (row + dy), pixels dx .. dx + 63, channel planes 2 kc, 2 kc + 1
+        float acc[kRows][32];
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+            const int tap = s >> 2, kc = s & 3, dy = tap / 3, dx = tap % 3;
+            const uint64_t db = desc(ws + s * 2048, 1024, 128);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                const uint32_t aa =
+                    hs + 2 * kc * kPlane + ((grp * kRows + r + dy) * kHW + dx) * 16;
+                wgmma_m64n64k16(acc[r], desc(aa, kPlane, 128), db, s > 0);
+            }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int j = 0; j < 32; ++j) pin(acc[r][j]);
+
+        // bias + GELU, rounded to bf16 pairs; accumulator (r, 4 nf + j): pixel
+        // 16 wq + g + 8 (j >> 1) of row r, channel 8 nf + 2q + (j & 1)
+        uint32_t y[kRows][8][2];
+#pragma unroll
+        for (int nf = 0; nf < 8; ++nf) {
+            const float b0 = __bfloat162float(a.b[nf * 8 + 2 * q]);
+            const float b1 = __bfloat162float(a.b[nf * 8 + 2 * q + 1]);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf)
+                    y[r][nf][hf] =
+                        pack_bf16(gelu_fast(acc[r][4 * nf + 2 * hf] + b0, a.exact),
+                                  gelu_fast(acc[r][4 * nf + 2 * hf + 1] + b1, a.exact));
+        }
+        __syncthreads();  // every warpgroup is done with the halo: it becomes the staging
+
+        // the warp's 64 pixels: rows grp * kRows + r, columns 16 wq .. 16 wq + 15
+        const Tile tl = tile_at(a, tile);
+        const int oy = tl.oy0 + grp * kRows, ox = tl.ox0 + 16 * wq;
+        if (!HEAD) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r)
+#pragma unroll
+                for (int nf = 0; nf < 8; ++nf)
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf)
+                        *reinterpret_cast<uint32_t*>(stg + (r * 16 + g + 8 * hf) * kLd + nf * 8 +
+                                                     2 * q) = y[r][nf][hf];
+            __syncwarp();
+            // 64 pixels x 8 chunks of 16 B; 8 lanes write one pixel's 128 B
+#pragma unroll
+            for (int k = 0; k < kRows * 4; ++k) {
+                const int i = k * 32 + lane, p = i >> 3, c8 = (i & 7) * 8;
+                const int yy = oy + (p >> 4), x = ox + (p & 15);
+                if (yy < a.oh && x < a.ow)
+                    *reinterpret_cast<uint4*>(a.out + ((tl.img * a.oh + yy) * a.ow + x) * kC + c8) =
+                        *reinterpret_cast<const uint4*>(stg + p * kLd + c8);
+            }
+        } else {
+            // head: Z (64 x 16) = Y (64 x 64, bf16) @ Wh (64 x 16) per warp
+            float z[kRows][2][4];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r)
+#pragma unroll
+                for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) z[r][nf][j] = 0.0f;
+#pragma unroll
+            for (int kk = 0; kk < kC / 16; ++kk) {
+                uint32_t hb[4];
+                ldsm_x4_trans(hb, h_base + kk * 16 * kLdHead * 2);
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                    const uint32_t af[4] = {y[r][2 * kk][0], y[r][2 * kk][1],
+                                            y[r][2 * kk + 1][0], y[r][2 * kk + 1][1]};
+                    mma_bf16(z[r][0], af, hb[0], hb[1]);
+                    mma_bf16(z[r][1], af, hb[2], hb[3]);
+                }
+            }
+#pragma unroll
+            for (int nf = 0; nf < 2; ++nf) {
+                const int n0 = nf * 8 + 2 * q;
+                const float h0 = n0 < a.nout ? __bfloat162float(a.bh[n0]) : 0.0f;
+                const float h1 = n0 + 1 < a.nout ? __bfloat162float(a.bh[n0 + 1]) : 0.0f;
+#pragma unroll
+                for (int r = 0; r < kRows; ++r)
+#pragma unroll
+                    for (int hf = 0; hf < 2; ++hf)
+                        *reinterpret_cast<uint32_t*>(stg + (r * 16 + g + 8 * hf) * kNP + n0) =
+                            pack_bf16(z[r][nf][2 * hf] + h0, z[r][nf][2 * hf + 1] + h1);
+            }
+            __syncwarp();
+            for (int i = lane; i < kRows * 16 * a.nout; i += 32) {
+                const int p = i / a.nout, n = i - p * a.nout;
+                const int yy = oy + (p >> 4), x = ox + (p & 15);
+                if (yy < a.oh && x < a.ow)
+                    a.out[((tl.img * a.oh + yy) * a.ow + x) * a.nout + n] = stg[p * kNP + n];
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
+// Checks the geometry the wrapper computed (ops/decoder.py::UpsampleTiling)
+// against this source's own, then launches.
+cudaError_t launch(Args a, bool head, int batch, int cin, int cout, int tile_h, int tile_w,
+                   int grid, int smem, cudaStream_t st) {
+    if (cin != kC || cout != kC || tile_h != kTH || tile_w != kTW) return cudaErrorInvalidValue;
+    if (a.h <= 0 || a.w_ <= 0 || batch <= 0) return cudaErrorInvalidValue;
+    if (head && (a.nout <= 0 || a.nout > kNP)) return cudaErrorInvalidValue;
+    if (static_cast<size_t>(smem) != smem_bytes(head)) return cudaErrorInvalidValue;
+    a.oh = 2 * a.h;
+    a.ow = 2 * a.w_;
+    a.tiles_x = (a.ow + kTW - 1) / kTW;
+    a.tiles_per_img = ((a.oh + kTH - 1) / kTH) * a.tiles_x;
+    const long long n_tiles = static_cast<long long>(batch) * a.tiles_per_img;
+    if (n_tiles > INT_MAX || grid < 1 || grid > n_tiles) return cudaErrorInvalidValue;
+    a.n_tiles = static_cast<int>(n_tiles);
+    void (*kernel)(const Args) = head ? upsample_conv_kernel<true> : upsample_conv_kernel<false>;
+    cudaError_t e = pgm_set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// K9. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,);
+// out (B, 2H, 2W, cout); cin = cout = 64. tile_h, tile_w, grid, smem: the
+// launch geometry of ops/decoder.py::UpsampleTiling.
+PGM_EXPORT int upsample_final_launch(const void* x, const void* w, const void* b, void* out,
+                                     int batch, int h, int w_, int cin, int cout, int exact,
+                                     int tile_h, int tile_w, int grid, int smem, void* stream) {
+    Args a{};
+    a.x = static_cast<const bf16*>(x);
+    a.w = static_cast<const bf16*>(w);
+    a.b = static_cast<const bf16*>(b);
+    a.out = static_cast<bf16*>(out);
+    a.h = h;
+    a.w_ = w_;
+    a.exact = exact;
+    return static_cast<int>(launch(a, false, batch, cin, cout, tile_h, tile_w, grid, smem,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// K10. x (B, H, W, cin) at half resolution, w (3, 3, cin, cout), b (cout,),
+// wh (cout, nout), bh (nout,); out (B, 2H, 2W, nout) NHWC; cin = cout = 64,
+// nout <= 16. Geometry as K9's.
+PGM_EXPORT int final_heads_launch(const void* x, const void* w, const void* b, const void* wh,
+                                  const void* bh, void* out, int batch, int h, int w_, int cin,
+                                  int cout, int nout, int exact, int tile_h, int tile_w, int grid,
+                                  int smem, void* stream) {
+    Args a{};
+    a.x = static_cast<const bf16*>(x);
+    a.w = static_cast<const bf16*>(w);
+    a.b = static_cast<const bf16*>(b);
+    a.wh = static_cast<const bf16*>(wh);
+    a.bh = static_cast<const bf16*>(bh);
+    a.out = static_cast<bf16*>(out);
+    a.h = h;
+    a.w_ = w_;
+    a.nout = nout;
+    a.exact = exact;
+    return static_cast<int>(launch(a, true, batch, cin, cout, tile_h, tile_w, grid, smem,
+                                   static_cast<cudaStream_t>(stream)));
+}

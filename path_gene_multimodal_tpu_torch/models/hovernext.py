@@ -100,10 +100,12 @@ class HoverNeXt(nn.Module):
       upsample folded into the low-res parity domain (plain torch, exact up
       to rounding).
 
-    ``None`` means the port's default, the plain path (``False``), which is
-    NOT the JAX default ``"lowres"``: the nuclei stage keeps the final stage
-    it has been measured with. ``fused_decoder`` runs its own decoder and
-    final stage, so it takes neither ``fused_final`` nor ``lowres_decoder``.
+    ``None`` means ``False``, the plain path: the counterpart of the flax
+    module, not of ``hovernext_forward``, whose default is ``"lowres"``
+    (``NucleiModel.build`` asks for ``"lowres"`` in bf16, as the JAX nuclei
+    stage runs ``hovernext_forward`` there). ``fused_decoder`` runs its own
+    decoder and final stage, so it takes neither ``fused_final`` nor
+    ``lowres_decoder``.
     Call ``fuse()`` once the weights, device and dtype are final, to hold
     the kernels' weights in their layout.
     """

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv", "cc")
+KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv",
+           "upsample_conv", "cc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
@@ -33,6 +34,12 @@ def gpu_supported() -> bool:
     """True when a CUDA device of compute capability >= 9.0 is present
     (the counterpart of the JAX package's ``pallas_supported``)."""
     return torch.cuda.is_available() and torch.cuda.get_device_capability(0) >= (9, 0)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (persistent kernels size
+    their grid by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

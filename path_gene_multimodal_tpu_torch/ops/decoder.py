@@ -1,15 +1,17 @@
 """K7-K11: the HoverNeXt decoder and final-stage kernels.
 
 Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
-launches its hand-written kernel in ``csrc/decoder_conv.cu`` on a CUDA
-tensor and runs its ``*_plain`` twin on a CPU tensor:
+launches its hand-written kernel (K7, K8, K11: ``csrc/decoder_conv.cu``; K9,
+K10: ``csrc/upsample_conv.cu``) on a CUDA tensor and runs its ``*_plain``
+twin on a CPU tensor:
 
 - ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
   + bias + LayerNorm + GELU, the concat never built;
 - ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU;
 - ``upsample_final`` (K9, ``fused_upsample_final``): bilinear 2x + conv3x3 +
-  bias + GELU, the upsampled map never built (K10's prologue, K8's
-  epilogue);
+  bias + GELU, the upsampled map never built (each tile's halo is
+  upsampled once in shared memory; ``UpsampleTiling`` is the launch
+  geometry);
 - ``final_heads`` (K10, ``fused_final_heads``): bilinear 2x + conv3x3 +
   bias + GELU + head product, logits NHWC (the JAX kernel writes NCHW,
   which its caller transposes to this);
@@ -30,6 +32,9 @@ the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import ClassVar
+
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +44,82 @@ from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
 _BF = torch.bfloat16
 KERNEL_COUTS = (64, 96, 192, 256, 384)  # the conv core's tile widths
 CIN_MULTIPLE = 32  # input channels per K step of the conv core
+UP_CHANNELS = 64  # K9/K10 kernel: cin = cout
+UP_HEAD_COLS = 16  # K10 kernel: head columns, zero-padded
+SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
+
+
+@dataclass(frozen=True)
+class UpsampleTiling:
+    """Launch geometry of the K9/K10 kernel (``csrc/upsample_conv.cu``) on a
+    (batch, h, w, 64) half-resolution input: persistent blocks, one per SM,
+    walk the tile_h x tile_w output tiles (image by image, tile rows, then
+    tile columns), each with one halo and two window buffers (the next
+    tile's window is copied while this one's products run). Tile (ty, tx)
+    covers output rows ty * tile_h .. and upsamples a (tile_h + 2) x
+    (tile_w + 2) halo, origin ``halo_origin``, from a (tile_h / 2 + 2) x
+    (tile_w / 2 + 2) low-res window, origin ``window_origin``: the bilinear
+    taps of the halo's rows oy0 - 1 .. oy0 + tile_h read low-res rows
+    oy0/2 - 1 .. oy0/2 + tile_h/2 after the edge clamp. Window pixels
+    outside the input are zero-filled and never read; halo pixels outside
+    the output are zero (the conv's padding). The kernel is compiled for
+    this tile and checks what it is given against its own layout."""
+
+    tile_h: ClassVar[int] = 8
+    tile_w: ClassVar[int] = 64
+
+    batch: int
+    h: int
+    w: int
+    head: bool = False  # K10: the head weights stay resident too
+    n_sm: int = 132
+
+    @property
+    def out_hw(self) -> tuple[int, int]:
+        return 2 * self.h, 2 * self.w
+
+    @property
+    def tiles_yx(self) -> tuple[int, int]:
+        oh, ow = self.out_hw
+        return -(-oh // self.tile_h), -(-ow // self.tile_w)
+
+    @property
+    def n_tiles(self) -> int:
+        ty, tx = self.tiles_yx
+        return self.batch * ty * tx
+
+    @property
+    def grid(self) -> int:
+        return min(self.n_tiles, self.n_sm)
+
+    @property
+    def halo_shape(self) -> tuple[int, int]:
+        return self.tile_h + 2, self.tile_w + 2
+
+    @property
+    def window_shape(self) -> tuple[int, int]:
+        return self.tile_h // 2 + 2, self.tile_w // 2 + 2
+
+    def halo_origin(self, ty: int, tx: int) -> tuple[int, int]:
+        return ty * self.tile_h - 1, tx * self.tile_w - 1
+
+    def window_origin(self, ty: int, tx: int) -> tuple[int, int]:
+        return ty * self.tile_h // 2 - 1, tx * self.tile_w // 2 - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        """The resident weights, the halo, two windows (the output staging
+        lies over the halo) and, for K10, the head weights (rows of 16 + 8
+        bf16)."""
+        (hh, hw), (wh, ww) = self.halo_shape, self.window_shape
+        weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
+        halo_windows = (hh * hw + 2 * wh * ww) * UP_CHANNELS * 2
+        head = UP_CHANNELS * (UP_HEAD_COLS + 8) * 2 if self.head else 0
+        return weights + halo_windows + head
+
+    def launch_args(self) -> tuple[int, int, int, int]:
+        """(tile_h, tile_w, grid, shared memory bytes), as the launchers take them."""
+        return self.tile_h, self.tile_w, self.grid, self.smem_bytes
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -173,28 +254,33 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     return out
 
 
+def _check_up(cin: int, cout: int, name: str) -> None:
+    if cin != UP_CHANNELS or cout != UP_CHANNELS:
+        raise ValueError(f"{name} kernel takes cin = cout = {UP_CHANNELS}, got {cin}, {cout}")
+
+
 def upsample_final(x, w, b, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → (B, 2H,
-    2W, cout) bf16. The kernel computes each upsampled input element where
-    it loads it; it takes cout = 64. 2H must be a multiple of 4, as the TPU
-    kernel requires (it writes the output in 4 row chunks)."""
+    2W, cout) bf16. The kernel upsamples each output tile's halo once into
+    shared memory; it takes cin = cout = 64. 2H must be a multiple of 4, as
+    the TPU kernel requires (it writes the output in 4 row chunks)."""
     bsz, h, wd, cin = x.shape
     if (2 * h) % 4:
         raise ValueError(f"2*H must be a multiple of 4, got H={h}")
     if not x.is_cuda:
         return upsample_final_plain(x, w, b, exact_gelu)
     cout = w.shape[-1]
-    _check_conv([cin], cout, "upsample_final")
-    if cout != 64:
-        raise ValueError(f"upsample_final kernel takes cout = 64, got {cout}")
+    _check_up(cin, cout, "upsample_final")
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
     out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=_BF, device=x.device)
+    geo = UpsampleTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device))
     cuda.launch(
-        "decoder_conv", "upsample_final_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
-        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), cuda.stream(),
+        "upsample_conv", "upsample_final_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
+        cuda.stream(),
     )
     upsample_final.launches += 1
     return out
@@ -203,16 +289,15 @@ def upsample_final(x, w, b, exact_gelu: bool = False):
 def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
     product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
-    The kernel computes each upsampled input element where it loads it; it
-    takes cout = 64."""
+    The kernel (K9's, with the head product in its epilogue) takes cin =
+    cout = 64 and n_out <= 16."""
     if not x.is_cuda:
         return final_heads_plain(x, w, b, wh, bh, exact_gelu)
     bsz, h, wd, cin = x.shape
     cout, n_out = w.shape[-1], wh.shape[-1]
-    _check_conv([cin], cout, "final_heads")
-    if cout != 64 or n_out > cout:
-        raise ValueError(f"final_heads kernel takes cout = 64 and n_out <= cout, got "
-                         f"{cout}, {n_out}")
+    _check_up(cin, cout, "final_heads")
+    if not 0 < n_out <= UP_HEAD_COLS:
+        raise ValueError(f"final_heads kernel takes 0 < n_out <= {UP_HEAD_COLS}, got {n_out}")
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
@@ -220,10 +305,11 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     cuda.check(wh, "wh", _BF, (cout, n_out))
     cuda.check(bh, "bh", _BF, (n_out,))
     out = torch.empty((bsz, 2 * h, 2 * wd, n_out), dtype=_BF, device=x.device)
+    geo = UpsampleTiling(bsz, h, wd, head=True, n_sm=cuda.sm_count(x.device))
     cuda.launch(
-        "decoder_conv", "final_heads_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        "upsample_conv", "final_heads_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(wh), cuda.ptr(bh), cuda.ptr(out), bsz, h, wd, cin, cout, n_out,
-        int(exact_gelu), cuda.stream(),
+        int(exact_gelu), *geo.launch_args(), cuda.stream(),
     )
     final_heads.launches += 1
     return out

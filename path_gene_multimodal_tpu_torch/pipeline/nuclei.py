@@ -93,20 +93,26 @@ class NucleiModel:
         seed: int = 0, dtype: torch.dtype = torch.bfloat16, tta: int = 4,
         device: str | torch.device = "cuda", **kw,
     ) -> "NucleiModel":
-        """Random weights from ``seed`` unless ``state_dict`` is given. A
-        bf16 model runs the encoder blocks of stages 0-2 as K1; K1 is bf16
-        inside, so an f32 model keeps plain blocks. The model takes the
-        default decoder configuration; for another, build the ``HoverNeXt``
-        (``fused_decoder`` / ``fused_final``), call its ``fuse()`` and pass
-        it to ``NucleiModel(cfg=..., model=..., device=...)``."""
+        """Random weights from ``seed`` unless ``state_dict`` is given.
+        Builds what the JAX package's ``NucleiModel.build`` runs on its
+        accelerator: a bf16 model runs the encoder blocks of stages 0-2 as
+        K1 and the composite-weight low-res final stage
+        (``fused_final="lowres"``), as ``hovernext_forward(...,
+        fused_blocks=True)`` does; K1 is bf16 inside, so an f32 model keeps
+        plain blocks and the plain resize final stage (JAX's
+        ``model.apply``). For another decoder configuration, build the
+        ``HoverNeXt`` (``fused_decoder`` / ``fused_final``), call its
+        ``fuse()`` and pass it to ``NucleiModel(cfg=..., model=...,
+        device=...)``."""
         device = torch.device(device)
-        model = HoverNeXt(cfg)
+        fused = dtype == torch.bfloat16
+        model = HoverNeXt(cfg, fused_final="lowres" if fused else False)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
         model = model.to(device=device, dtype=dtype).eval()
-        if dtype == torch.bfloat16:
+        if fused:
             model.fuse()
         return cls(cfg=cfg, model=model, device=device, tta=tta, **kw)
 

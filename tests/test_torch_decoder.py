@@ -212,6 +212,83 @@ def test_k11_plain_matches_pallas_interpret(exact_gelu):
     _assert_elementwise(got.float().numpy(), ref)
 
 
+# ------------------------------------------- K9/K10 kernel tiling geometry
+
+
+def _taps(o: np.ndarray, n: int):
+    """The bilinear 2x taps of output indices ``o`` along an axis of ``n``
+    input samples, edge clamped (``jax.image.resize`` at 2x)."""
+    i, odd = o // 2, o % 2 == 1
+    i0 = np.where(odd, i, np.maximum(i - 1, 0))
+    i1 = np.where(odd, np.minimum(i + 1, n - 1), i)
+    a0 = np.where(odd, 0.75, 0.25).astype(np.float32)
+    return i0, i1, a0, (1 - a0).astype(np.float32)
+
+
+@pytest.mark.parametrize("hw", [(4, 4), (6, 10), (34, 34), (128, 128), (9, 21)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_upsample_tiling_windows_cover_the_halo_taps(hw):
+    """``UpsampleTiling``, the K9/K10 kernel's launch geometry, on half-res
+    inputs whose output is and is not a multiple of the 8 x 64 tile: every
+    output pixel lies in exactly one tile; every low-res index that the
+    bilinear taps of a tile's halo read (edge clamp included) lies in the
+    tile's window; a halo built from the window alone (NaN outside it), the
+    kernel's way, equals the upsampled map zero-padded, so its out-of-image
+    ring is exactly the conv's zero padding; a 3x3 conv over the halos
+    reassembles the conv of the whole map; shared memory fits a block."""
+    h, w = hw
+    geo = tdec.UpsampleTiling(2, h, w, n_sm=132)
+    oh, ow = geo.out_hw
+    ty_n, tx_n = geo.tiles_yx
+    assert (oh, ow) == (2 * h, 2 * w)
+    assert (ty_n - 1) * geo.tile_h < oh <= ty_n * geo.tile_h
+    assert (tx_n - 1) * geo.tile_w < ow <= tx_n * geo.tile_w
+    assert geo.n_tiles == 2 * ty_n * tx_n and geo.grid == min(geo.n_tiles, 132)
+    assert geo.smem_bytes == 210_432
+    head = tdec.UpsampleTiling(2, h, w, head=True)
+    assert head.smem_bytes == 213_504 <= tdec.SMEM_PER_BLOCK
+    assert head.launch_args() == (8, 64, head.grid, 213_504)
+
+    rng = np.random.default_rng(h * 100 + w)
+    c = 3
+    x = _normal(rng, (1, h, w, c))
+    up = tdec.upsample2x_bilinear(T(x))[0].numpy()
+    th, tw = geo.tile_h, geo.tile_w
+    zpad = np.zeros((ty_n * th + 2, tx_n * tw + 2, c), np.float32)
+    zpad[1 : oh + 1, 1 : ow + 1] = up
+    wk = _normal(rng, (3, 3, c, 4), 0.2)
+    whole = tdec._conv3x3(T(up[None]), T(wk))[0].numpy()
+    tiled = np.full((ty_n * th, tx_n * tw, 4), np.nan, np.float32)
+    (hh, hw_), (wh, ww) = geo.halo_shape, geo.window_shape
+    for ty in range(ty_n):
+        for tx in range(tx_n):
+            wy0, wx0 = geo.window_origin(ty, tx)
+            win = np.full((wh, ww, c), np.nan, np.float32)
+            ys, xs = np.arange(wy0, wy0 + wh), np.arange(wx0, wx0 + ww)
+            iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w)
+            win[np.ix_(iy, ix)] = x[0][np.ix_(ys[iy], xs[ix])]
+            hy0, hx0 = geo.halo_origin(ty, tx)
+            oy, ox = np.arange(hy0, hy0 + hh), np.arange(hx0, hx0 + hw_)
+            in_y, in_x = (oy >= 0) & (oy < oh), (ox >= 0) & (ox < ow)
+            r0, r1, ra, rb = _taps(oy[in_y], h)
+            c0, c1, ca, cb = _taps(ox[in_x], w)
+            for t in (r0, r1):
+                assert ((t - wy0 >= 0) & (t - wy0 < wh)).all(), (ty, tx, t, wy0)
+            for t in (c0, c1):
+                assert ((t - wx0 >= 0) & (t - wx0 < ww)).all(), (ty, tx, t, wx0)
+            r0, r1, c0, c1 = r0 - wy0, r1 - wy0, c0 - wx0, c1 - wx0
+            # rows first, then columns, each product and sum in f32
+            u0 = ra[:, None, None] * win[r0][:, c0] + rb[:, None, None] * win[r1][:, c0]
+            u1 = ra[:, None, None] * win[r0][:, c1] + rb[:, None, None] * win[r1][:, c1]
+            halo = np.zeros((hh, hw_, c), np.float32)
+            halo[np.ix_(in_y, in_x)] = ca[None, :, None] * u0 + cb[None, :, None] * u1
+            np.testing.assert_array_equal(halo, zpad[hy0 + 1 : hy0 + 1 + hh, hx0 + 1 : hx0 + 1 + hw_])
+            conv = torch.nn.functional.conv2d(T(halo).permute(2, 0, 1)[None],
+                                              T(wk).permute(3, 2, 0, 1))
+            tiled[ty * th : (ty + 1) * th, tx * tw : (tx + 1) * tw] = conv[0].permute(1, 2, 0).numpy()
+    np.testing.assert_allclose(tiled[:oh, :ow], whole, atol=1e-5, rtol=0)
+
+
 # ------------------------------------------------------- upsample, folds
 
 
@@ -395,7 +472,7 @@ def test_fused_decoder_with_fused_final_raises():
         HoverNeXt(tcfg, fused_decoder=True).features(torch.zeros(1, 64, 64, 3))
 
 
-def test_fused_final_true_is_not_ported():
+def test_fused_final_true_builds_k9_weights():
     """``fused_final=True`` (K9) builds and holds K9's weights; an unknown
     option still raises."""
     _, tcfg = _configs(False)

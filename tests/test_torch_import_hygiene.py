@@ -55,6 +55,7 @@ def test_port_sources_name_no_jax():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert PORT / "csrc" / "decoder_conv.cu" in files
+    assert PORT / "csrc" / "upsample_conv.cu" in files
     assert PORT / "csrc" / "cc.cu" in files
     for f in files:
         text = f.read_text()
