@@ -1,339 +1,667 @@
 // ConvNeXtV2 block (dw 7x7 + LN + pw1 + GELU + GRN + pw2 + residual) for
-// the H100.
+// the H100, as three launches.
 //
 // Replaces the TPU kernel `fused_convnext_block`
 // (path_gene_multimodal_tpu/ops/pallas/convnext_block.py:174, pallas_call
 // at :210), which keeps one whole image VMEM-resident per grid step.
 //
-// Numerics follow the TPU kernel: bf16 storage, f32 accumulation, LN over C
-// (eps 1e-6), bf16 rounding of the operand of each pointwise product, GELU
-// by flag (tanh default; exact erf through the same Abramowitz-Stegun
-// polynomial the TPU kernel uses, convnext_block.py:65-83), GRN per image
+// Numerics follow the TPU kernel: bf16 storage, f32 accumulation, the dw
+// taps summed dx-major (:114-121), LN over C in two passes (mean, then the
+// centred variance; eps 1e-6, :123-126), bf16 rounding of the operand of
+// each pointwise product (:131, :144-148), GELU by flag with pgm_gelu's
+// arithmetic (tanh default; exact erf through the Abramowitz-Stegun
+// polynomial of :65-83), GRN per image
 // (gx = sqrt(sum_hw y^2 + 1e-12), nx = gx / (mean_c gx + 1e-6),
 // y * (gamma * nx + 1) + beta). One difference: the pw1 output y2 is stored
-// in bf16 between the two launches, so the GRN affine reads bf16(y2) where
-// the TPU kernel reads the f32 value (its sum of squares is taken in f32
-// here as there).
+// in bf16 between launches 1 and 2, so the GRN affine reads bf16(y2) where
+// the TPU kernel reads the f32 value (its sum of squares is taken on the
+// f32 values here as there); the plain version models it. The LN output
+// `a` is stored in bf16 between launches 0 and 1, which is no rounding
+// point of its own: it is the operand the TPU kernel rounds before pw1.
 //
-// What bounds it here: operations. pw1 and pw2 are 2 x 4C^2 multiply-adds
-// per pixel (HoverNeXt-tiny stage 0: 0.31 TFLOP per block over 512 images),
-// well above the card's ~295 flop/byte balance point once the weights are
-// reused across a 64-pixel tile.
-//
-// Design: the per-image GRN reduction sits between the two products, and
-// the 4C activation of one image (stage 0: 64*64*384 bf16 = 3 MB) is far
-// beyond an SM's 227 KB, so the TPU's one-image residency cannot carry
-// over. The block is split into two launches over 64-pixel tiles:
-//   A: dw 7x7 + bias -> LN -> pw1 (bf16 wmma, f32 accumulate) + b1 -> GELU;
-//      writes y2 (bf16) and adds each tile's per-channel sum of y2^2 into a
-//      per-image (B, 4C) f32 buffer (atomics);
-//   B: per image, nx from that buffer; y3 = bf16(y2 * scale + beta) staged
-//      through shared memory in 64-wide K chunks -> pw2 (wmma) + b2 +
-//      residual -> bf16 out.
-// Storing y2 (2 x 2 bytes per 4C element per pixel: write then read) was
-// chosen over recomputing dw + LN + pw1 in launch B: the recompute doubles
-// pw1's 4C^2 multiply-adds per pixel and the dw conv, while the store costs
-// ~1 ms of HBM traffic per stage-0 block and keeps each launch simple.
-// The products use the warp-level wmma API (mma.sync underneath); wgmma,
-// TMA and a persistent schedule are later work.
+// Why three launches: the per-image GRN reduction sits between the two
+// products, and an image's 4C activation (stage 0: 64*64*384 bf16 = 3 MB)
+// is far beyond an SM's 227 KB, so the TPU's one-image residency cannot
+// carry over; and an f32 C-wide dw tile beside a weight ring does not fit
+// either at C = 384. So each launch is what the card does simply:
+//   0 (dw_ln_kernel): dw 7x7 + bias + LN -> bf16 a (B, H*W, C). CUDA cores.
+//     A block walks a strip of rows of one column tile, four output rows
+//     per step; the input rows they need slide through a ring of 14 rows in
+//     shared memory (10 read, the next step's 4 copied ahead with
+//     cp.async, zeros outside the image: the conv's padding), so each input
+//     value is read from device memory once per column tile. A thread owns
+//     4 channels of one column for the 4 rows: each value it loads serves
+//     up to 4 taps, each weight 4 rows. Bound by bytes (x in, a out) in
+//     principle; in practice by the CUDA cores' issue rate (49 taps).
+//   1 (pw1_kernel): a @ w1 + b1 -> GELU -> bf16 y2 (B, H*W, 4C), and the
+//     per-image, per-channel sums of y2^2 (f32, unrounded) into gsum with one
+//     atomic per (tile, channel). An ordinary pipelined GEMM: 128-pixel x
+//     128-channel tiles, two consumer warpgroups of m64 each on wgmma
+//     (m64n128k16), A and B through a 4-stage cp.async ring of 32-deep K
+//     chunks in wgmma's canonical no-swizzle K-major layout, one wgmma group
+//     kept in flight; y2 leaves through shared memory in 16-byte row stores.
+//   2 (pw2_kernel<NT>): per image scale = gamma * nx + 1 and shift = beta
+//     from gsum; each y2 chunk turned into bf16(y2 * scale + shift) in
+//     shared memory (the TPU's rounding point; the scale is not folded into
+//     w2, which would move it) before wgmma reads it; [px x 4C] @ [4C x NT]
+//     on a ring of 6 or 8 stages, NT = C up to 192 (C = 384 as two
+//     halves); + b2 + the residual x, bf16 out through shared memory.
+// What bounds them: launch 0 and stage 0's launches 1-2 by bytes (y2 is
+// 4C wide: 1.6 GB written and read per stage-0 call of 512 images), the
+// stage-2 products (C = 384: 2 x 4C^2 multiply-adds per pixel) by
+// operations. A 128-pixel tile lies in one image (H*W = 4096, 1024, 256 at
+// the stages; any other H*W gets a masked last tile per image).
+// The weights of the products come as nn.Linear keeps them: w1t (4C, C)
+// and w2t (C, 4C), K contiguous, which is what a K-major B operand is.
+// The launch geometry is ops/convnext_block.py::ConvNeXtTiling; each
+// launcher refuses a geometry that differs from its own.
+// Not yet here: TMA, warp specialisation (the GELU epilogue of pw1 does not
+// overlap its products and copies but by a second block on the SM).
 #include "common.cuh"
+#include "hopper.cuh"
 
+#include <climits>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kM = 128;        // pixels per GEMM tile: two m64 warpgroups
+constexpr int kN1 = 128;       // pw1 output channels per tile
+constexpr int kKc = 32;        // K chunk per ring stage: two k16 steps
+// ring depth: kStages - 2 chunks copied ahead, one wgmma group in flight; pw2
+// holds one block per SM at N = 128 or 192 (its accumulators), so it goes deeper
+constexpr int kStages1 = 4;
+__host__ __device__ constexpr int stages2(int nt) { return nt >= 128 ? 8 : 6; }
+constexpr int kThreads = 256;  // GEMM blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;      // pixels per block (4 wmma row tiles)
-constexpr int kChunk = 64;     // K chunk of launch B
-constexpr int kMaxStrips = 3;  // 16-column strips of C per warp (C <= 384)
+constexpr int kRows = 4;       // dw output rows a thread computes per step
+constexpr int kRing = 14;      // dw input rows held: kRows + 6 read, kRows copied ahead
+constexpr int kMaxC = 384;
+constexpr int kMaxStrip = 64;  // dw rows per block
+constexpr int kDwMaxThreads = 768;
+constexpr int kLdY = kN1 + 8;  // bf16 row stride of pw1's output staging
+constexpr size_t kChunkA = size_t(kM) * kKc;  // bf16 elements of one A chunk
 
-__device__ inline void load8(const bf16* p, float* v) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+bool channels_ok(int c) { return c > 0 && c % kKc == 0 && c <= kMaxC; }
+
+// ------------------------------------------------------------ geometry
+
+int dw_tile_w(int c) {
+    int tw = 64;
+    while (tw * c / 4 > kDwMaxThreads) tw /= 2;
+    return tw;
+}
+int dw_strip(int h) { return h < kMaxStrip ? h : kMaxStrip; }
+size_t dw_smem(int c) {
+    const int tw = dw_tile_w(c), threads = tw * c / 4;
+    return size_t(kRing) * (tw + 6) * c * 2 + size_t(49) * c * 4 +
+           size_t(kRows) * (threads / 8 + tw) * 4;
+}
+size_t pw1_smem() { return size_t(kStages1) * (kChunkA + size_t(kN1) * kKc) * 2 + kWarps * kN1 * 4; }
+int pw2_n_tile(int c) {
+    constexpr int kTiles[] = {192, 128, 96, 64, 32};
+    for (int nt : kTiles)
+        if (c % nt == 0) return nt;
+    return 0;
+}
+size_t pw2_smem(int c, int nt) {
+    return size_t(stages2(nt)) * (kChunkA + size_t(nt) * kKc) * 2 + size_t(8) * c * 4;
+}
+static_assert(kM * kLdY * 2 <= kStages1 * (kChunkA + kN1 * kKc) * 2, "pw1 staging fits the ring");
+
+// ------------------------------------------------------------ launch 0
+
+// vector loads from shared memory as one instruction each (the compiler
+// otherwise splits a vector load whose lanes are used one by one)
+__device__ __forceinline__ float4 lds_f4(const float* p) {
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(smem_u32(p))
+                 : "memory");
+    return v;
+}
+__device__ __forceinline__ uint2 lds_u2(const void* p) {
+    uint2 v;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(smem_u32(p))
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void unpack4(const uint2& raw, float* v) {
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+struct DwArgs {
+    const bf16* x;    // (B, H, W, C)
+    const bf16* dw;   // (7, 7, C)
+    const bf16* dwb;  // (C,)
+    const bf16* lng;
+    const bf16* lnb;
+    bf16* a;          // (B, H * W, C)
+    int h, w, c, tile_w, strip, strips, ctiles;
+};
+
+// One block: image img, rows y0 .. y0 + strip - 1, columns x0 .. x0 +
+// tile_w - 1; thread (px, g) = (tid / (C/4), tid % (C/4)) owns column
+// x0 + px and channels 4 g .. 4 g + 3, and computes kRows output rows per
+// step: each input value it loads serves up to 4 taps, each weight 4. The
+// 8 threads of 32 consecutive channels (C/4 is a multiple of 8) sum the LN
+// statistics by shuffles. smem: ring [kRing][tile_w + 6][C] bf16 | dw f32
+// [49][C] | partial sums f32 [kRows][tile_w][C/32] | statistic f32
+// [kRows][tile_w]
+__global__ void __launch_bounds__(kDwMaxThreads, 1) dw_ln_kernel(const DwArgs p) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int c = p.c, G = c / 4, NG = G / 8, tw = p.tile_w;
+    const int slot = (tw + 6) * c;
+    bf16* ring = reinterpret_cast<bf16*>(smem);
+    float* wts = reinterpret_cast<float*>(ring + kRing * slot);
+    float* part = wts + 49 * c;
+    float* stat = part + kRows * tw * NG;
+
+    int bid = blockIdx.x;
+    const int ct = bid % p.ctiles;
+    bid /= p.ctiles;
+    const int y0 = (bid % p.strips) * p.strip;
+    const long long img = bid / p.strips;
+    const int x0 = ct * tw;
+    const int y1 = min(y0 + p.strip, p.h);
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int px = tid / G, g = tid % G;
+    const bf16* xi = p.x + img * p.h * p.w * c;
+
+    // input row r (>= -3) into its ring slot, zero outside the image
+    auto load_row = [&](int r) {
+        bf16* dst = ring + ((r + kRing) % kRing) * slot;
+        const bool row_ok = r >= 0 && r < p.h;
+        const int c8 = c / 8;
+        for (int i = tid; i < (tw + 6) * c8; i += nthr) {
+            const int col = i / c8, cg = i - col * c8;
+            const int sx = x0 - 3 + col;
+            const bool ok = row_ok && sx >= 0 && sx < p.w;
+            const bf16* src = ok ? xi + (static_cast<long long>(r) * p.w + sx) * c + cg * 8 : p.x;
+            cp_async16(dst + col * c + cg * 8, src, ok);
+        }
+    };
+    for (int r = y0 - 3; r < y0 + kRows + 3; ++r) load_row(r);
+    cp_async_commit();
+    for (int i = tid; i < 49 * c / 8; i += nthr) {
+        float v[8];
+        unpack8(reinterpret_cast<const uint4*>(p.dw)[i], v);
+        reinterpret_cast<float4*>(wts)[2 * i] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(wts)[2 * i + 1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    float bias[4];
+    unpack4(reinterpret_cast<const uint2*>(p.dwb)[g], bias);
+    const bool col_ok = x0 + px < p.w;
+    const float inv_c = 1.0f / c;
+
+    for (int y = y0; y < y1; y += kRows) {
+        // the slots of rows y + 7 .. y + 10 held rows y - 7 .. y - 4, last
+        // read by the previous step
+        if (y + kRows < y1)
+            for (int r = y + kRows + 3; r < y + 2 * kRows + 3; ++r) load_row(r);
+        cp_async_commit();
+        cp_async_wait<1>();  // rows up to y + kRows + 2 have landed
+        __syncthreads();
+
+        // taps summed dx-major, as the TPU kernel: input row y - 3 + r is
+        // tap dy = r - o of output row y + o
+        const int s0 = (y - 3 + kRing) % kRing;
+        float acc[kRows][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h2[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
+        for (int o = 0; o < kRows; ++o)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[o][i] = 0.0f;
+#pragma unroll
+        for (int dx = 0; dx < 7; ++dx) {
+            // tap dy is read by input rows dy .. dy + kRows - 1: a rolling
+            // window of kRows weights (slot dy % kRows) is live at a time
+            float4 wv[kRows];
+#pragma unroll
+            for (int r = 0; r < kRows + 6; ++r) {
+                if (r < 7) wv[r % kRows] = lds_f4(wts + (r * 7 + dx) * c + 4 * g);
+                int sl = s0 + r;
+                if (sl >= kRing) sl -= kRing;
+                float xv[4];
+                unpack4(lds_u2(ring + sl * slot + (px + dx) * c + 4 * g), xv);
+#pragma unroll
+                for (int o = 0; o < kRows; ++o) {
+                    const int dy = r - o;
+                    if (dy >= 0 && dy < 7) {
+                        const float4 wd = wv[dy % kRows];
+                        acc[o][0] += xv[0] * wd.x;
+                        acc[o][1] += xv[1] * wd.y;
+                        acc[o][2] += xv[2] * wd.z;
+                        acc[o][3] += xv[3] * wd.w;
+                    }
+                }
+            }
+        }
+
+        // LayerNorm over C of each output row: the mean, then the centred variance
+        float sm[kRows];
+#pragma unroll
+        for (int o = 0; o < kRows; ++o) {
+            sm[o] = 0.0f;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                acc[o][i] += bias[i];
+                sm[o] += acc[o][i];
+            }
+        }
+        for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+            for (int o = 0; o < kRows; ++o)
+#pragma unroll
+                for (int off = 1; off < 8; off <<= 1)
+                    sm[o] += __shfl_xor_sync(0xffffffffu, sm[o], off);
+            if ((tid & 7) == 0)
+#pragma unroll
+                for (int o = 0; o < kRows; ++o) part[(o * tw + px) * NG + g / 8] = sm[o];
+            __syncthreads();
+            if (tid < kRows * tw) {
+                float t = 0.0f;
+                for (int k = 0; k < NG; ++k) t += part[tid * NG + k];
+                stat[tid] = pass == 0 ? t * inv_c : rsqrtf(t * inv_c + 1e-6f);
+            }
+            __syncthreads();
+            if (pass == 0) {
+#pragma unroll
+                for (int o = 0; o < kRows; ++o) {
+                    const float mu = stat[o * tw + px];
+                    sm[o] = 0.0f;
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        acc[o][i] -= mu;
+                        sm[o] += acc[o][i] * acc[o][i];
+                    }
+                }
+            }
+        }
+        float lg[4], lb[4];
+        unpack4(reinterpret_cast<const uint2*>(p.lng)[g], lg);
+        unpack4(reinterpret_cast<const uint2*>(p.lnb)[g], lb);
+#pragma unroll
+        for (int o = 0; o < kRows; ++o) {
+            const float rs = stat[o * tw + px];
+            if (col_ok && y + o < y1) {
+                float v[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) v[i] = acc[o][i] * rs * lg[i] + lb[i];
+                *reinterpret_cast<uint2*>(p.a + ((img * p.h + y + o) * p.w + x0 + px) * c + 4 * g) =
+                    make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------ launches 1, 2
+
+// Chunk kc of a GEMM tile into a ring stage, canonical K-major: element
+// (row, k) of a 32-deep chunk at ((k / 8) * rows + row) * 8 + k % 8. Two
+// threads copy one 32-byte sector of a row; rows past `valid` are zero.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long ld, int rows,
+                                          int valid, int k0) {
+    for (int i = threadIdx.x; i < rows * 4; i += kThreads) {
+        const int r = (i >> 1) % rows, kg = (i / (2 * rows)) * 2 + (i & 1);
+        const bool ok = r < valid;
+        cp_async16(dst + (kg * rows + r) * 8, ok ? src + r * ld + k0 + kg * 8 : src, ok);
     }
 }
 
-// Launch A: one block = 64 consecutive pixels of one image.
-// smem: dwo f32 [64][C] (reused as per-warp 16x16 f32 scratch) |
-//       a bf16 [64][C + 8]
-__global__ void __launch_bounds__(kThreads)
-block_pw1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dw,
-                 const bf16* __restrict__ dwb, const bf16* __restrict__ lng,
-                 const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, bf16* __restrict__ y2,
-                 float* __restrict__ gsum, int h, int w, int c, int exact) {
+// pw1: block (m tile, n tile), n fastest; smem: ring | reduction f32 [8][128]
+__global__ void __launch_bounds__(kThreads, 2)
+pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
+           bf16* __restrict__ y2, float* __restrict__ gsum, int hw, int c, int tiles_per_img,
+           int exact) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int hw = h * w;
-    const int tiles = (hw + kTile - 1) / kTile;
-    const int img = blockIdx.x / tiles;
-    const int p0 = (blockIdx.x % tiles) * kTile;
-    const int c4 = 4 * c;
-    const int lda = c + 8;
-    float* dwo = reinterpret_cast<float*>(smem);
-    bf16* a = reinterpret_cast<bf16*>(smem + static_cast<size_t>(kTile) * c * 4);
-    const bf16* xi = x + static_cast<long long>(img) * hw * c;
+    bf16* ring = reinterpret_cast<bf16*>(smem);
+    constexpr size_t kStage = kChunkA + size_t(kN1) * kKc;
+    float* red = reinterpret_cast<float*>(ring + kStages1 * kStage);
 
-    // depthwise 7x7, zero padding 3; taps summed dx-major as the TPU kernel
-    const int groups = c / 8;
-    for (int it = threadIdx.x; it < kTile * groups; it += kThreads) {
-        const int pix = it / groups;
-        const int g = it % groups;
-        const int p = p0 + pix;
-        float acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-        if (p < hw) {
-            const int yy = p / w, xx = p % w;
-            for (int dx = 0; dx < 7; ++dx) {
-                const int sx = xx + dx - 3;
-                if (sx < 0 || sx >= w) continue;
-                for (int dy = 0; dy < 7; ++dy) {
-                    const int sy = yy + dy - 3;
-                    if (sy < 0 || sy >= h) continue;
-                    float xv[8], wv[8];
-                    load8(xi + (static_cast<long long>(sy) * w + sx) * c + g * 8, xv);
-                    load8(dw + (dy * 7 + dx) * c + g * 8, wv);
+    const int c4 = 4 * c, ntiles = c4 / kN1;
+    const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
+    const long long img = mt / tiles_per_img;
+    const int p0 = (mt % tiles_per_img) * kM, n0 = nt * kN1;
+    const int valid = min(kM, hw - p0);
+    const bf16* ai = a + (img * hw + p0) * c;
+    const bf16* bi = w1t + static_cast<long long>(n0) * c;
+    const int nk = c / kKc;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, q = lane & 3;
+
+    auto load = [&](int kc) {
+        bf16* st = ring + (kc % kStages1) * kStage;
+        load_rows(st, ai, c, kM, valid, kc * kKc);
+        load_rows(st + kChunkA, bi, c, kN1, kN1, kc * kKc);
+    };
 #pragma unroll
-                    for (int i = 0; i < 8; ++i) acc[i] += xv[i] * wv[i];
-                }
-            }
-            float bv[8];
-            load8(dwb + g * 8, bv);
+    for (int s = 0; s < kStages1 - 2; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+    float acc[kN1 / 2];
 #pragma unroll
-            for (int i = 0; i < 8; ++i) acc[i] += bv[i];
+    for (int j = 0; j < kN1 / 2; ++j) acc[j] = 0.0f;
+    for (int kc = 0; kc < nk; ++kc) {
+        cp_async_wait<kStages1 - 3>();  // chunk kc has landed
+        fence_async_shared();
+        __syncthreads();  // ... for every thread; chunk kc - 2's wgmma is done
+        if (kc + kStages1 - 2 < nk) load(kc + kStages1 - 2);
+        cp_async_commit();
+        const uint32_t sa = smem_u32(ring + (kc % kStages1) * kStage);
+        const uint32_t sb = sa + kChunkA * 2;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kKc / 16; ++s)
+            wgmma_bf16<kN1>(acc, desc(sa + (2 * s * kM + 64 * wg) * 16, kM * 16, 128),
+                            desc(sb + 2 * s * kN1 * 16, kN1 * 16, 128), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kN1 / 2; ++j) pin(acc[j]);
+    cp_async_wait<0>();
+    __syncthreads();  // both warpgroups are done with the ring: it becomes the staging
+
+    // + b1, GELU; y2 rounded to bf16 into the staging, its square summed
+    // unrounded over this tile's valid pixels per channel
+    bf16* stg = ring;
+    const int r0 = 64 * wg + 16 * wq + g;
+    const bool v0 = r0 < valid, v1 = r0 + 8 < valid;
+#pragma unroll
+    for (int nf = 0; nf < kN1 / 8; ++nf) {
+        const int col = nf * 8 + 2 * q;
+        const float bb0 = __bfloat162float(b1[n0 + col]), bb1 = __bfloat162float(b1[n0 + col + 1]);
+        const float e00 = pgm_gelu(acc[4 * nf] + bb0, exact);
+        const float e01 = pgm_gelu(acc[4 * nf + 1] + bb1, exact);
+        const float e10 = pgm_gelu(acc[4 * nf + 2] + bb0, exact);
+        const float e11 = pgm_gelu(acc[4 * nf + 3] + bb1, exact);
+        *reinterpret_cast<uint32_t*>(stg + r0 * kLdY + col) = pack_bf16(e00, e01);
+        *reinterpret_cast<uint32_t*>(stg + (r0 + 8) * kLdY + col) = pack_bf16(e10, e11);
+        float s0 = (v0 ? e00 * e00 : 0.0f) + (v1 ? e10 * e10 : 0.0f);
+        float s1 = (v0 ? e01 * e01 : 0.0f) + (v1 ? e11 * e11 : 0.0f);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, o);
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dwo[pix * c + g * 8 + i] = acc[i];
+        if (g == 0) {
+            red[warp * kN1 + col] = s0;
+            red[warp * kN1 + col + 1] = s1;
+        }
     }
     __syncthreads();
-
-    // LayerNorm over C, one warp per pixel; bf16 result is pw1's operand
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int pix = warp; pix < kTile; pix += kWarps) {
-        const float* row = dwo + pix * c;
-        float s = 0.0f;
-        for (int ch = lane; ch < c; ch += 32) s += row[ch];
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        const float mu = s / c;
-        float v = 0.0f;
-        for (int ch = lane; ch < c; ch += 32) {
-            const float d = row[ch] - mu;
-            v += d * d;
-        }
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        const float rs = rsqrtf(v / c + 1e-6f);
-        const bool valid = p0 + pix < hw;
-        for (int ch = lane; ch < c; ch += 32) {
-            const float y = (row[ch] - mu) * rs * __bfloat162float(lng[ch]) +
-                            __bfloat162float(lnb[ch]);
-            a[pix * lda + ch] = __float2bfloat16(valid ? y : 0.0f);
-        }
+    bf16* yo = y2 + (img * hw + p0) * c4 + n0;
+    for (int i = tid; i < kM * (kN1 / 8); i += kThreads) {
+        const int r = i / (kN1 / 8), ch = i % (kN1 / 8);
+        if (r < valid)
+            *reinterpret_cast<uint4*>(yo + static_cast<long long>(r) * c4 + ch * 8) =
+                *reinterpret_cast<const uint4*>(stg + r * kLdY + ch * 8);
     }
-    __syncthreads();
-
-    // pw1: [64 x C] @ [C x 4C]; warp w owns 16-column strips w, w+8, ...
-    float* scr = dwo + warp * 256;
-    const int ksteps = c / 16;
-    for (int j = warp; j < c4 / 16; j += kWarps) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    if (tid < kN1) {
+        float t = 0.0f;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) wmma::fill_fragment(acc[m], 0.0f);
-        for (int k = 0; k < ksteps; ++k) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(bfr, w1 + static_cast<long long>(k) * 16 * c4 + j * 16, c4);
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-                wmma::load_matrix_sync(afr, a + m * 16 * lda + k * 16, lda);
-                wmma::mma_sync(acc[m], afr, bfr, acc[m]);
-            }
-        }
-        const int col = lane & 15;
-        const int n = j * 16 + col;
-        const float bias = __bfloat162float(b1[n]);
-        float sq = 0.0f;
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-            wmma::store_matrix_sync(scr, acc[m], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int r = lane >> 4; r < 16; r += 2) {
-                const int p = p0 + m * 16 + r;
-                if (p < hw) {
-                    const float v = pgm_gelu(scr[r * 16 + col] + bias, exact);
-                    y2[(static_cast<long long>(img) * hw + p) * c4 + n] = __float2bfloat16(v);
-                    sq += v * v;
-                }
-            }
-            __syncwarp();
-        }
-        sq += __shfl_xor_sync(0xffffffffu, sq, 16);
-        if (lane < 16) atomicAdd(&gsum[static_cast<long long>(img) * c4 + n], sq);
+        for (int w = 0; w < kWarps; ++w) t += red[w * kN1 + tid];
+        atomicAdd(gsum + img * c4 + n0 + tid, t);
     }
 }
 
-// Launch B: one block = 64 consecutive pixels of one image.
-// smem: scale f32 [4C] | shift f32 [4C] | a bf16 [64][kChunk + 8] |
-//       per-warp 16x16 f32 scratch
-__global__ void __launch_bounds__(kThreads)
-block_pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
-                 const bf16* __restrict__ gg, const bf16* __restrict__ gb,
-                 const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                 const bf16* __restrict__ x, bf16* __restrict__ out, int hw, int c) {
+// pw2: block (m tile, n tile), n fastest; smem: ring | scale f32 [4C] |
+// shift f32 [4C]
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
+           const bf16* __restrict__ gg, const bf16* __restrict__ gb, const bf16* __restrict__ w2t,
+           const bf16* __restrict__ b2, const bf16* __restrict__ x, bf16* __restrict__ out,
+           int hw, int c, int tiles_per_img) {
     extern __shared__ __align__(128) unsigned char smem[];
-    const int tiles = (hw + kTile - 1) / kTile;
-    const int img = blockIdx.x / tiles;
-    const int p0 = (blockIdx.x % tiles) * kTile;
+    constexpr int kS = stages2(NT);
+    constexpr size_t kStage = kChunkA + size_t(NT) * kKc;
+    constexpr int kLdO = NT + 8;
+    static_assert(kM * kLdO <= kS * kStage, "pw2 staging fits the ring");
+    bf16* ring = reinterpret_cast<bf16*>(smem);
     const int c4 = 4 * c;
-    constexpr int lda = kChunk + 8;
-    float* scale = reinterpret_cast<float*>(smem);
+    float* scale = reinterpret_cast<float*>(ring + kS * kStage);
     float* shift = scale + c4;
-    bf16* a = reinterpret_cast<bf16*>(shift + c4);
-    float* scr_all = reinterpret_cast<float*>(a + kTile * lda);
     __shared__ float warp_sum[kWarps];
-    __shared__ float mean_gx;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-    // GRN: nx = gx / (mean_c gx + 1e-6) for this image
+    const int ntiles = c / NT;
+    const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
+    const long long img = mt / tiles_per_img;
+    const int p0 = (mt % tiles_per_img) * kM, n0 = nt * NT;
+    const int valid = min(kM, hw - p0);
+    const bf16* ai = y2 + (img * hw + p0) * c4;
+    const bf16* bi = w2t + static_cast<long long>(n0) * c4;
+    const int nk = c4 / kKc;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, q = lane & 3;
+
+    auto load = [&](int kc) {
+        bf16* st = ring + (kc % kS) * kStage;
+        load_rows(st, ai, c4, kM, valid, kc * kKc);
+        load_rows(st + kChunkA, bi, c4, NT, NT, kc * kKc);
+    };
+#pragma unroll
+    for (int s = 0; s < kS - 2; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+
+    // GRN of this image: scale = gamma * nx + 1, shift = beta
     float s = 0.0f;
-    for (int n = threadIdx.x; n < c4; n += kThreads) {
-        const float gx = sqrtf(gsum[static_cast<long long>(img) * c4 + n] + 1e-12f);
+    for (int n = tid; n < c4; n += kThreads) {
+        const float gx = sqrtf(gsum[img * c4 + n] + 1e-12f);
         scale[n] = gx;
         s += gx;
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) warp_sum[warp] = s;
     __syncthreads();
-    if (threadIdx.x == 0) {
-        float t = 0.0f;
-        for (int i = 0; i < kWarps; ++i) t += warp_sum[i];
-        mean_gx = t / c4;
-    }
-    __syncthreads();
-    for (int n = threadIdx.x; n < c4; n += kThreads) {
-        const float nx = scale[n] / (mean_gx + 1e-6f);
+    float tot = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) tot += warp_sum[w];
+    const float denom = tot / c4 + 1e-6f;
+    for (int n = tid; n < c4; n += kThreads) {
+        const float nx = scale[n] / denom;
         scale[n] = __bfloat162float(gg[n]) * nx + 1.0f;
         shift[n] = __bfloat162float(gb[n]);
     }
     __syncthreads();
 
-    const int nstrips = c / 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxStrips][4];
+    float acc[NT / 2];
 #pragma unroll
-    for (int si = 0; si < kMaxStrips; ++si)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) wmma::fill_fragment(acc[si][m], 0.0f);
-
-    const bf16* yi = y2 + static_cast<long long>(img) * hw * c4;
-    for (int k0 = 0; k0 < c4; k0 += kChunk) {
-        // y3 = bf16(y2 * scale + shift) for a 64 x kChunk operand chunk
-        for (int it = threadIdx.x; it < kTile * (kChunk / 8); it += kThreads) {
-            const int r = it / (kChunk / 8);
-            const int cc = (it % (kChunk / 8)) * 8;
-            const int p = p0 + r;
-            float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-            if (p < hw) {
-                load8(yi + static_cast<long long>(p) * c4 + k0 + cc, v);
-#pragma unroll
-                for (int i = 0; i < 8; ++i) v[i] = v[i] * scale[k0 + cc + i] + shift[k0 + cc + i];
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i) a[r * lda + cc + i] = __float2bfloat16(v[i]);
+    for (int j = 0; j < NT / 2; ++j) acc[j] = 0.0f;
+    for (int kc = 0; kc < nk; ++kc) {
+        cp_async_wait<kS - 3>();  // this thread's copies of chunk kc have landed
+        // y3 = bf16(y2 * scale + shift) in place, on the A pieces this thread copied
+        bf16* st = ring + (kc % kS) * kStage;
+        const int k0 = kc * kKc;
+        for (int i = tid; i < kM * 4; i += kThreads) {
+            const int r = (i >> 1) % kM, kg = (i / (2 * kM)) * 2 + (i & 1);
+            uint4* pv = reinterpret_cast<uint4*>(st + (kg * kM + r) * 8);
+            float v[8];
+            unpack8(*pv, v);
+            const float* sc = scale + k0 + kg * 8;
+            const float* sh = shift + k0 + kg * 8;
+            const float4 s0 = lds_f4(sc), s1 = lds_f4(sc + 4), h0 = lds_f4(sh), h1 = lds_f4(sh + 4);
+            v[0] = v[0] * s0.x + h0.x; v[1] = v[1] * s0.y + h0.y;
+            v[2] = v[2] * s0.z + h0.z; v[3] = v[3] * s0.w + h0.w;
+            v[4] = v[4] * s1.x + h1.x; v[5] = v[5] * s1.y + h1.y;
+            v[6] = v[6] * s1.z + h1.z; v[7] = v[7] * s1.w + h1.w;
+            *pv = pack8(v);
         }
-        __syncthreads();
+        fence_async_shared();
+        __syncthreads();  // chunk kc complete for every thread; chunk kc - 2's wgmma is done
+        if (kc + kS - 2 < nk) load(kc + kS - 2);
+        cp_async_commit();
+        const uint32_t sa = smem_u32(st);
+        const uint32_t sb = sa + kChunkA * 2;
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kChunk / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr[4];
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-                wmma::load_matrix_sync(afr[m], a + m * 16 * lda + kk * 16, lda);
-#pragma unroll
-            for (int si = 0; si < kMaxStrips; ++si) {
-                const int j = warp + si * kWarps;
-                if (j < nstrips) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-                    wmma::load_matrix_sync(
-                        bfr, w2 + static_cast<long long>(k0 + kk * 16) * c + j * 16, c);
-#pragma unroll
-                    for (int m = 0; m < 4; ++m) wmma::mma_sync(acc[si][m], afr[m], bfr, acc[si][m]);
-                }
-            }
-        }
-        __syncthreads();
+        for (int k = 0; k < kKc / 16; ++k)
+            wgmma_bf16<NT>(acc, desc(sa + (2 * k * kM + 64 * wg) * 16, kM * 16, 128),
+                           desc(sb + 2 * k * NT * 16, NT * 16, 128), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) pin(acc[j]);
+    cp_async_wait<0>();
+    __syncthreads();  // the ring becomes the output staging
 
-    // + b2 + residual, bf16 out
-    float* scr = scr_all + warp * 256;
-    const int col = lane & 15;
+    // + b2 + residual x, rounded once to bf16
+    bf16* stg = ring;
+    const int r0 = 64 * wg + 16 * wq + g;
 #pragma unroll
-    for (int si = 0; si < kMaxStrips; ++si) {
-        const int j = warp + si * kWarps;
-        if (j >= nstrips) continue;
-        const int n = j * 16 + col;
-        const float bias = __bfloat162float(b2[n]);
+    for (int nf = 0; nf < NT / 8; ++nf) {
+        const int col = nf * 8 + 2 * q;
+        const float bb0 = __bfloat162float(b2[n0 + col]), bb1 = __bfloat162float(b2[n0 + col + 1]);
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-            wmma::store_matrix_sync(scr, acc[si][m], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int r = lane >> 4; r < 16; r += 2) {
-                const int p = p0 + m * 16 + r;
-                if (p < hw) {
-                    const long long o = (static_cast<long long>(img) * hw + p) * c + n;
-                    out[o] = __float2bfloat16(__bfloat162float(x[o]) + (scr[r * 16 + col] + bias));
-                }
+        for (int hf = 0; hf < 2; ++hf) {
+            const int r = r0 + 8 * hf;
+            float o0 = 0.0f, o1 = 0.0f;
+            if (r < valid) {
+                const uint32_t xw = __ldg(reinterpret_cast<const unsigned int*>(
+                    x + (img * hw + p0 + r) * c + n0 + col));
+                const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw));
+                o0 = xr.x + (acc[4 * nf + 2 * hf] + bb0);
+                o1 = xr.y + (acc[4 * nf + 2 * hf + 1] + bb1);
             }
-            __syncwarp();
+            *reinterpret_cast<uint32_t*>(stg + r * kLdO + col) = pack_bf16(o0, o1);
         }
+    }
+    __syncthreads();
+    bf16* oo = out + (img * hw + p0) * c + n0;
+    for (int i = tid; i < kM * (NT / 8); i += kThreads) {
+        const int r = i / (NT / 8), ch = i % (NT / 8);
+        if (r < valid)
+            *reinterpret_cast<uint4*>(oo + static_cast<long long>(r) * c + ch * 8) =
+                *reinterpret_cast<const uint4*>(stg + r * kLdO + ch * 8);
     }
 }
 
-size_t pw1_smem(int c) {
-    return static_cast<size_t>(kTile) * c * 4 + static_cast<size_t>(kTile) * (c + 8) * 2;
+// the block counts of launches 1 and 2, INT_MAX-checked
+bool gemm_blocks(int b, int hw, int ntiles, int* tiles_per_img, int* blocks) {
+    *tiles_per_img = (hw + kM - 1) / kM;
+    const long long n = static_cast<long long>(b) * *tiles_per_img * ntiles;
+    if (b <= 0 || hw <= 0 || n > INT_MAX) return false;
+    *blocks = static_cast<int>(n);
+    return true;
 }
 
-size_t pw2_smem(int c) {
-    return static_cast<size_t>(8) * c * 4 + static_cast<size_t>(kTile) * (kChunk + 8) * 2 +
-           static_cast<size_t>(kWarps) * 256 * 4;
+template <int NT>
+cudaError_t launch_pw2(const void* y2, const void* gsum, const void* gg, const void* gb,
+                       const void* w2t, const void* b2, const void* x, void* out, int b, int hw,
+                       int c, size_t smem, cudaStream_t st) {
+    int tiles, blocks;
+    if (!gemm_blocks(b, hw, c / NT, &tiles, &blocks)) return cudaErrorInvalidValue;
+    cudaError_t e = pgm_set_smem(pw2_kernel<NT>, smem);
+    if (e != cudaSuccess) return e;
+    pw2_kernel<NT><<<blocks, kThreads, smem, st>>>(
+        static_cast<const bf16*>(y2), static_cast<const float*>(gsum),
+        static_cast<const bf16*>(gg), static_cast<const bf16*>(gb),
+        static_cast<const bf16*>(w2t), static_cast<const bf16*>(b2),
+        static_cast<const bf16*>(x), static_cast<bf16*>(out), hw, c, tiles);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-PGM_EXPORT int convnext_block_max_dim() { return 16 * kWarps * kMaxStrips; }
-
-// x, out: (B, H, W, C) bf16; y2: (B, H*W, 4C) bf16 scratch; gsum: (B, 4C)
-// f32, zeroed by the caller. Weights bf16: dw (7, 7, C), w1 (C, 4C),
-// w2 (4C, C); vectors (C,) or (4C,).
-PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* dwb,
-                                     const void* lng, const void* lnb, const void* w1,
-                                     const void* b1, const void* gg, const void* gb,
-                                     const void* w2, const void* b2, void* y2, void* gsum,
-                                     void* out, int b, int h, int w, int c, int exact,
+// Launch 0. x (B, H, W, C); dw (7, 7, C); dwb, lng, lnb (C,); a (B, H*W, C)
+// out. tile_w, strip, threads, smem: ConvNeXtTiling's dw geometry.
+PGM_EXPORT int convnext_dw_ln_launch(const void* x, const void* dw, const void* dwb,
+                                     const void* lng, const void* lnb, void* a, int b, int h,
+                                     int w, int c, int tile_w, int strip, int threads, int smem,
                                      void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int tiles = (h * w + kTile - 1) / kTile;
-    cudaError_t e = pgm_set_smem(block_pw1_kernel, pw1_smem(c));
+    if (!channels_ok(c) || b <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
+    if (tile_w != dw_tile_w(c) || strip != dw_strip(h) || threads != tile_w * c / 4 ||
+        threads > kDwMaxThreads || static_cast<size_t>(smem) != dw_smem(c))
+        return cudaErrorInvalidValue;
+    DwArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(dw),
+             static_cast<const bf16*>(dwb), static_cast<const bf16*>(lng),
+             static_cast<const bf16*>(lnb), static_cast<bf16*>(a), h, w, c, tile_w, strip,
+             (h + strip - 1) / strip, (w + tile_w - 1) / tile_w};
+    const long long blocks = static_cast<long long>(b) * p.strips * p.ctiles;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    cudaError_t e = pgm_set_smem(dw_ln_kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = pgm_set_smem(block_pw2_kernel, pw2_smem(c));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    block_pw1_kernel<<<b * tiles, kThreads, pw1_smem(c), st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dw),
-        static_cast<const bf16*>(dwb), static_cast<const bf16*>(lng),
-        static_cast<const bf16*>(lnb), static_cast<const bf16*>(w1),
-        static_cast<const bf16*>(b1), static_cast<bf16*>(y2), static_cast<float*>(gsum), h,
-        w, c, exact);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    block_pw2_kernel<<<b * tiles, kThreads, pw2_smem(c), st>>>(
-        static_cast<const bf16*>(y2), static_cast<const float*>(gsum),
-        static_cast<const bf16*>(gg), static_cast<const bf16*>(gb),
-        static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-        static_cast<const bf16*>(x), static_cast<bf16*>(out), h * w, c);
+    dw_ln_kernel<<<static_cast<int>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Launch 1. a (B, H*W, C); w1t (4C, C); b1 (4C,); y2 (B, H*W, 4C) out;
+// gsum (B, 4C) f32, added to (zeroed by the caller). m_tile, n_tile, smem:
+// ConvNeXtTiling's pw1 geometry.
+PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b1, void* y2,
+                                   void* gsum, int b, int hw, int c, int exact, int m_tile,
+                                   int n_tile, int smem, void* stream) {
+    if (!channels_ok(c) || m_tile != kM || n_tile != kN1 ||
+        static_cast<size_t>(smem) != pw1_smem())
+        return cudaErrorInvalidValue;
+    int tiles, blocks;
+    if (!gemm_blocks(b, hw, 4 * c / kN1, &tiles, &blocks)) return cudaErrorInvalidValue;
+    cudaError_t e = pgm_set_smem(pw1_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pw1_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(w1t), static_cast<const bf16*>(b1),
+        static_cast<bf16*>(y2), static_cast<float*>(gsum), hw, c, tiles, exact);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Launch 2. y2 (B, H*W, 4C); gsum (B, 4C) f32 from launch 1; gg, gb (4C,);
+// w2t (C, 4C); b2 (C,); x, out (B, H*W, C). m_tile, n_tile, smem:
+// ConvNeXtTiling's pw2 geometry.
+PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void* gg,
+                                   const void* gb, const void* w2t, const void* b2, const void* x,
+                                   void* out, int b, int hw, int c, int m_tile, int n_tile,
+                                   int smem, void* stream) {
+    if (!channels_ok(c) || m_tile != kM || n_tile != pw2_n_tile(c) ||
+        static_cast<size_t>(smem) != pw2_smem(c, n_tile))
+        return cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t e;
+    switch (n_tile) {
+        case 192: e = launch_pw2<192>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+        case 128: e = launch_pw2<128>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+        case 96: e = launch_pw2<96>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+        case 64: e = launch_pw2<64>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+        case 32: e = launch_pw2<32>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+        default: e = cudaErrorInvalidValue;
+    }
+    return static_cast<int>(e);
+}
+
+// The block: launches 0, 1, 2, with gsum zeroed first. x, out (B, H, W, C);
+// weights bf16: dw (7, 7, C), w1t (4C, C), w2t (C, 4C), vectors (C,) or
+// (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C), gsum (B, 4C) f32. The
+// geometry arguments are ConvNeXtTiling.launch_args().
+PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* dwb,
+                                     const void* lng, const void* lnb, const void* w1t,
+                                     const void* b1, const void* gg, const void* gb,
+                                     const void* w2t, const void* b2, void* a, void* y2,
+                                     void* gsum, void* out, int b, int h, int w, int c, int exact,
+                                     int dw_tile, int dw_rows, int dw_threads, int dw_smem_b,
+                                     int m_tile, int n1_tile, int n2_tile, int pw1_smem_b,
+                                     int pw2_smem_b, void* stream) {
+    if (!channels_ok(c) || b <= 0) return cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(gsum, 0, sizeof(float) * size_t(b) * 4 * c,
+                                    static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int r = convnext_dw_ln_launch(x, dw, dwb, lng, lnb, a, b, h, w, c, dw_tile, dw_rows,
+                                  dw_threads, dw_smem_b, stream);
+    if (r) return r;
+    r = convnext_pw1_launch(a, w1t, b1, y2, gsum, b, h * w, c, exact, m_tile, n1_tile, pw1_smem_b,
+                            stream);
+    if (r) return r;
+    return convnext_pw2_launch(y2, gsum, gg, gb, w2t, b2, x, out, b, h * w, c, m_tile, n2_tile,
+                               pw2_smem_b, stream);
 }

@@ -63,6 +63,7 @@
 // Not yet here: overlap of the halo build and the epilogue with the products
 // (warp specialisation), TMA.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -115,70 +116,6 @@ struct Args {
     int exact;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-    const int n = ok ? 16 : 0;  // 0: zero-fill the 16 bytes
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-                 "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy writes to shared memory become visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A wgmma shared-memory matrix descriptor, no swizzle: start address, the
-// byte offset between core matrices along K (leading) and along M or N
-// (stride), each in 16-B units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead, uint32_t stride) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           (static_cast<uint64_t>((lead & 0x3FFFF) >> 4) << 16) |
-           (static_cast<uint64_t>((stride & 0x3FFFF) >> 4) << 32);
-}
-
-// d (64 x 64 f32 over the warpgroup) = (acc ? d : 0) + A (64 x 16) B (16 x 64)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
-                                                int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads of r above the wait
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -196,27 +133,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// GELU as pgm_gelu computes it, each exponential through ex2.approx
-__device__ __forceinline__ float gelu_fast(float x, int exact) {
-    if (exact) {
-        const float z = x * 0.7071067811865476f;
-        const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
-                    a4 = -1.453152027f, a5 = 1.061405429f, pp = 0.3275911f;
-        const float az = fabsf(z);
-        const float t = __fdividef(1.0f, 1.0f + pp * az);
-        const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-        const float e = 1.0f - poly * __expf(-az * az);
-        return 0.5f * x * (1.0f + copysignf(e, z));
-    }
-    const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return __fdividef(x, 1.0f + __expf(-2.0f * u));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // a * u + b * v, each product and the sum rounded on its own (no FMA), as
 // the TPU kernel's and the plain version's separate f32 operations round
 __device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
@@ -231,16 +147,6 @@ __device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a
         i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
     } else {
         i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
-    }
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float* v) {
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h2[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
     }
 }
 
@@ -376,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) upsample_conv_kernel(const Args a
             for (int r = 0; r < kRows; ++r) {
                 const uint32_t aa =
                     hs + 2 * kc * kPlane + ((grp * kRows + r + dy) * kHW + dx) * 16;
-                wgmma_m64n64k16(acc[r], desc(aa, kPlane, 128), db, s > 0);
+                wgmma_bf16<64>(acc[r], desc(aa, kPlane, 128), db, s > 0);
             }
         }
         wgmma_commit();

@@ -20,9 +20,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from path_gene_multimodal_tpu_torch.config import CONVNEXTV2_TINY, ConvNeXtConfig
-from path_gene_multimodal_tpu_torch.ops.convnext_block import convnext_block, gelu
+from path_gene_multimodal_tpu_torch.ops.convnext_block import check_channels, convnext_block, gelu
 
 DEFAULT_FUSED_STAGES = (0, 1, 2)
+
+
+def on_card(module: nn.Module) -> bool:
+    """True when ``module``'s weights lie on a CUDA device, where its
+    kernels run (on the CPU they run their plain versions)."""
+    return next(module.parameters()).is_cuda
 
 
 class LayerNormNHWC(nn.Module):
@@ -74,13 +80,17 @@ class Block(nn.Module):
 
     @torch.no_grad()
     def kernel_weights(self) -> tuple[torch.Tensor, ...]:
-        """The block's weights as K1 takes them: bf16, contiguous, dw
-        (7, 7, C), w1 (C, 4C), w2 (4C, C), the vectors flat."""
+        """The block's weights as K1 takes them: bf16, dw (7, 7, C), w1
+        (C, 4C), w2 (4C, C), the vectors flat; all contiguous but w1 and
+        w2, which are the transposes of contiguous tensors (nn.Linear's
+        (out, in) layout: K contiguous, the kernel's B operand)."""
         ws = (self.dwconv.weight[:, 0].permute(1, 2, 0), self.dwconv.bias, self.norm.weight,
-              self.norm.bias, self.pwconv1.weight.t(), self.pwconv1.bias,
-              self.grn.gamma.reshape(-1), self.grn.beta.reshape(-1), self.pwconv2.weight.t(),
+              self.norm.bias, self.pwconv1.weight, self.pwconv1.bias,
+              self.grn.gamma.reshape(-1), self.grn.beta.reshape(-1), self.pwconv2.weight,
               self.pwconv2.bias)
-        return tuple(t.detach().to(torch.bfloat16).contiguous() for t in ws)
+        ws = [t.detach().to(torch.bfloat16).contiguous() for t in ws]
+        ws[4], ws[8] = ws[4].t(), ws[8].t()
+        return tuple(ws)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, C) → same; one K1 call (bf16 inside) once fused."""
@@ -114,7 +124,12 @@ class ConvNeXtV2(nn.Module):
     def fuse(self) -> None:
         """Run the blocks of ``DEFAULT_FUSED_STAGES`` as K1 from now on, with
         their weights held once in the kernel's layout. Call it when the
-        weights, device and dtype are final: later changes do not reach K1."""
+        weights, device and dtype are final: later changes do not reach K1.
+        With the weights on the card, refuses a stage whose width K1's
+        kernel cannot take (``ops/convnext_block.py::check_channels``)."""
+        if on_card(self):
+            for s in DEFAULT_FUSED_STAGES:
+                check_channels(self.stages[s][0].dwconv.in_channels, f"encoder stage {s}")
         for s in DEFAULT_FUSED_STAGES:
             for blk in self.stages[s]:
                 blk.k1_weights = blk.kernel_weights()

@@ -14,15 +14,23 @@ NHWC. Convs run on the NCHW view of NHWC (channels-last) tensors.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, HoverNeXtConfig
 from path_gene_multimodal_tpu_torch.models import hovernext_fn as fn
-from path_gene_multimodal_tpu_torch.models.convnext import Conv2dNHWC, ConvNeXtV2, LayerNormNHWC
+from path_gene_multimodal_tpu_torch.models.convnext import (
+    Conv2dNHWC, ConvNeXtV2, LayerNormNHWC, on_card,
+)
 from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu
 from path_gene_multimodal_tpu_torch.ops.decoder import (
+    CIN_MULTIPLE,
+    KERNEL_COUTS,
+    UP_CHANNELS,
+    UP_HEAD_COLS,
     decoder_conv,
     final_conv_gelu,
     final_heads,
@@ -44,6 +52,50 @@ def _bilinear2x(x: torch.Tensor) -> torch.Tensor:
 
 def _bf16(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(t.detach().to(torch.bfloat16).contiguous() for t in ts)
+
+
+def kernel_width_errors(cfg: HoverNeXtConfig, fused_decoder: bool,
+                        fused_final: bool | str) -> list[str]:
+    """Why the card's kernels of a decoder configuration cannot take
+    ``cfg``'s widths (empty if they can). The Pallas kernels take any
+    width; the card's are compiled for the widths below."""
+    d, dec = cfg.encoder.dims, cfg.decoder_dims
+    last, n_out = dec[-1], 4 + cfg.tp_channels
+    errs = []
+    if fused_final in (True, "heads"):
+        kernel = "K9 (fused_final=True)" if fused_final is True else 'K10 (fused_final="heads")'
+        if last != UP_CHANNELS:
+            errs.append(f"{kernel} takes a last decoder width of {UP_CHANNELS}, got {last}")
+        if fused_final == "heads" and n_out > UP_HEAD_COLS:
+            errs.append(f"{kernel} takes at most {UP_HEAD_COLS} head columns, got {n_out}")
+    if fused_final == "pallas":
+        kernel = 'K11 (fused_final="pallas")'
+        if 4 * last not in KERNEL_COUTS:
+            errs.append(f"{kernel} takes 4 x the last decoder width in {KERNEL_COUTS}, got "
+                        f"4 x {last} = {4 * last}")
+        if last % CIN_MULTIPLE:
+            errs.append(f"{kernel} takes a last decoder width that is a multiple of "
+                        f"{CIN_MULTIPLE}, got {last}")
+        if n_out > last:
+            errs.append(f"{kernel} takes at most {last} head columns, got {n_out}")
+    if fused_decoder:
+        ins = [(f"dec{i}.conv0 input", cx) for i, cx in enumerate([d[-1]] + list(dec[:-1]))]
+        ins += [(f"dec{i}.conv0 skip", cs) for i, cs in enumerate((d[2], d[1], d[0]))]
+        ins += [(f"dec{i}.conv1 input", c) for i, c in enumerate(dec)]
+        for what, c in ins:
+            if c % CIN_MULTIPLE:
+                errs.append(f"K7/K8 (fused_decoder) take input widths that are multiples of "
+                            f"{CIN_MULTIPLE}, got {c} ({what})")
+        for i, c in enumerate(dec):
+            if c not in KERNEL_COUTS:
+                errs.append(f"K7/K8 (fused_decoder) take widths in {KERNEL_COUTS}, got {c} "
+                            f"(decoder_dims[{i}])")
+    return errs
+
+
+def _refuse_widths(errs: list[str]) -> None:
+    if errs:
+        raise ValueError("the card's kernels cannot run this configuration: " + "; ".join(errs))
 
 
 class DecoderBlock(nn.Module):
@@ -108,10 +160,25 @@ class HoverNeXt(nn.Module):
     ``lowres_decoder``.
     Call ``fuse()`` once the weights, device and dtype are final, to hold
     the kernels' weights in their layout.
+
+    The card's kernels take fewer widths than the Pallas kernels
+    (``kernel_width_errors``). ``run_on``, the device the model will run
+    on (the module is built on the CPU; ``.to()`` moves it), makes the
+    constructor refuse a configuration whose kernels cannot take
+    ``cfg.decoder_dims`` there; ``fuse()`` refuses it too, for weights on
+    the card. On the CPU every kernel runs its plain version, which takes
+    any width.
+
+    An f32 forward runs its convolutions with cuDNN's TF32 off
+    (``torch.backends.cudnn.flags(allow_tf32=False)``, scoped to the
+    forward and restored after it), so that an f32 model on the card
+    computes in f32 as the reference does; f32 matrix products stay at
+    torch's default, ``torch.backends.cuda.matmul.allow_tf32 = False``.
     """
 
     def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY, fused_decoder: bool = False,
-                 fused_final: bool | str | None = None, lowres_decoder: bool = False):
+                 fused_final: bool | str | None = None, lowres_decoder: bool = False,
+                 run_on: str | torch.device | None = None):
         super().__init__()
         if fused_decoder and (fused_final is not None or lowres_decoder):
             raise ValueError(
@@ -123,6 +190,8 @@ class HoverNeXt(nn.Module):
         if fused_final not in FUSED_FINAL:
             raise ValueError(f"fused_final must be one of {FUSED_FINAL} or None, got "
                              f"{fused_final!r}")
+        if run_on is not None and torch.device(run_on).type == "cuda":
+            _refuse_widths(kernel_width_errors(cfg, fused_decoder, fused_final))
         self.cfg = cfg
         self.fused_decoder = fused_decoder
         self.fused_final = fused_final
@@ -167,7 +236,10 @@ class HoverNeXt(nn.Module):
     def fuse(self) -> None:
         """Run the encoder blocks of stages 0-2 as K1 (``ConvNeXtV2.fuse``)
         and hold the configured decoder kernels' weights once in their
-        layout. Later changes to the weights, device or dtype reach neither."""
+        layout. Later changes to the weights, device or dtype reach neither.
+        With the weights on the card, refuses widths its kernels cannot take."""
+        if on_card(self):
+            _refuse_widths(kernel_width_errors(self.cfg, self.fused_decoder, self.fused_final))
         self.encoder.fuse()
         self.fused_weights = self.kernel_weights()
 
@@ -229,14 +301,24 @@ class HoverNeXt(nn.Module):
         head-folded variants never build it); not with ``fused_decoder``."""
         if self.fused_decoder:
             raise ValueError("features() is not supported with fused_decoder")
-        feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
-        return self._final(self.decode(feats))
+        with self._f32_convs():
+            feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
+            return self._final(self.decode(feats))
+
+    def _f32_convs(self):
+        """cuDNN without TF32 for an f32 model, scoped (see the class)."""
+        if self.final_conv.weight.dtype != torch.float32:
+            return contextlib.nullcontext()
+        cudnn = torch.backends.cudnn
+        return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic, allow_tf32=False)
 
     def forward(self, pixels: torch.Tensor) -> dict[str, torch.Tensor]:
         """pixels (B, H, W, 3) in [0, 1] → {"np", "hv", "tp"} NHWC f32
         logits / regression at input resolution."""
-        feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
-        return self.final_stage(self.decode(feats))
+        with self._f32_convs():
+            feats = self.encoder(pixels.to(self.final_conv.weight.dtype))
+            return self.final_stage(self.decode(feats))
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -46,6 +46,7 @@ KERNEL_COUTS = (64, 96, 192, 256, 384)  # the conv core's tile widths
 CIN_MULTIPLE = 32  # input channels per K step of the conv core
 UP_CHANNELS = 64  # K9/K10 kernel: cin = cout
 UP_HEAD_COLS = 16  # K10 kernel: head columns, zero-padded
+FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
 SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
 
 
@@ -234,11 +235,15 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
 
 def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     """Full-resolution 3x3 conv + bias + GELU: x (B, H, W, cin), w (3, 3,
-    cin, cout) → (B, H, W, cout) bf16. Any H, W and batch: offsets are
-    64-bit, so one call takes a TTA x4 batch of 128 tiles (2^31 elements)."""
+    cin, cout) → (B, H, W, cout) bf16. H must be a multiple of 32, on both
+    devices, as the TPU kernel requires at its default ``rows=32``; any W
+    and batch: offsets are 64-bit, so one call takes a TTA x4 batch of 128
+    tiles (2^31 elements)."""
+    bsz, h, wd, cin = x.shape
+    if h % FINAL_CONV_ROWS:
+        raise ValueError(f"H={h} must be a multiple of rows={FINAL_CONV_ROWS}")
     if not x.is_cuda:
         return final_conv_gelu_plain(x, w, b, exact_gelu)
-    bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
     _check_conv([cin], cout, "final_conv_gelu")
     xb = _act(x)
@@ -290,10 +295,13 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
     product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
     The kernel (K9's, with the head product in its epilogue) takes cin =
-    cout = 64 and n_out <= 16."""
+    cout = 64 and n_out <= 16. 2H must be a multiple of 4, on both devices,
+    as the TPU kernel requires (it writes the output in 4 row chunks)."""
+    bsz, h, wd, cin = x.shape
+    if (2 * h) % 4:
+        raise ValueError(f"2*H must be a multiple of 4, got H={h}")
     if not x.is_cuda:
         return final_heads_plain(x, w, b, wh, bh, exact_gelu)
-    bsz, h, wd, cin = x.shape
     cout, n_out = w.shape[-1], wh.shape[-1]
     _check_up(cin, cout, "final_heads")
     if not 0 < n_out <= UP_HEAD_COLS:

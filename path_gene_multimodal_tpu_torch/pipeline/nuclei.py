@@ -106,7 +106,7 @@ class NucleiModel:
         device=...)``."""
         device = torch.device(device)
         fused = dtype == torch.bfloat16
-        model = HoverNeXt(cfg, fused_final="lowres" if fused else False)
+        model = HoverNeXt(cfg, fused_final="lowres" if fused else False, run_on=device)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:

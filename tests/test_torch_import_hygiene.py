@@ -57,6 +57,7 @@ def test_port_sources_name_no_jax():
     assert PORT / "csrc" / "decoder_conv.cu" in files
     assert PORT / "csrc" / "upsample_conv.cu" in files
     assert PORT / "csrc" / "cc.cu" in files
+    assert PORT / "csrc" / "hopper.cuh" in files
     for f in files:
         text = f.read_text()
         for pat in _FORBIDDEN:
