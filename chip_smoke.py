@@ -32,16 +32,21 @@
    times each forward by part (encoder / decoder / final stage + heads);
 6. holds K7 (its 8 call shapes), K8, K9, K10 and K11 against their plain
    versions on that batch's own activations at full shape, in both GELU
-   modes, with biases and LayerNorm vectors drawn from a seed, and runs
-   mutants (a dropped bias, LayerNorm scale 1, K7's skip half zeroed, a
-   dropped head bias, K9 in the other GELU mode) that the check must
-   catch; times each kernel, its plain version and cuDNN's conv at the
-   same shape (conv only). K9 and K10 (``csrc/upsample_conv.cu``) are also
-   checked at shapes whose output is no multiple of their tile,
-   and against a mutant that pads the upsampled map by edge replication
-   instead of zeros. ``fused_final=True`` (K9) runs through the nuclei
-   stage like the configurations of 5; ``fused_final=False`` (the plain
-   resize path) and ``lowres_decoder=True`` get forward rows;
+   modes, with biases and LayerNorm vectors drawn from a seed (K11 also
+   with a different head block per phase), and runs mutants (a dropped
+   bias, LayerNorm scale 1, K7's skip half zeroed, a dropped head bias, K9
+   in the other GELU mode, K11's head blocks applied to the wrong phases)
+   that the check must catch; times each kernel, its plain version and
+   cuDNN's conv at the same shape (conv only). K9 and K10
+   (``csrc/upsample_conv.cu``) and K8 and K11 (``csrc/conv64.cu``) are also
+   checked at shapes whose output is no multiple of their tile or strip,
+   and against a mutant that pads the conv's input by edge replication
+   instead of zeros; the JSON holds the ptxas registers and spills of
+   ``csrc/conv64.cu`` (a spill of K8/K11's kernel fails the run).
+   ``fused_final=True``
+   (K9) runs through the nuclei stage like the configurations of 5;
+   ``fused_final=False`` (the plain resize path) and
+   ``lowres_decoder=True`` get forward rows;
 7. drives the tissue-boundary / islands path
    (``pipeline/morphology.py::process_one_slide_make_csv_and_plot``) on the
    slide's 2000 x 2000 thumbnail, at ``max_work_dim`` 1024 (K5 on three
@@ -66,17 +71,19 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 
     python3 chip_smoke.py --ab PARENT
 
-times K1 (at the three encoder stage shapes, 512 images) and K9/K10 (one
-batch of 4 calls) of the package copy whose root is PARENT (e.g. an earlier
-commit unpacked with ``git archive``) against this checkout's, in turns
+times K1 (at the three encoder stage shapes, 512 images), K7 (its 8 call
+shapes) and K8-K11 (one batch of 4 calls each) of the package copy whose
+root is PARENT (e.g. an earlier commit unpacked with ``git archive``)
+against this checkout's, in turns
 (parent, this, this, parent), each in its own process with its own build,
 on seeded inputs; the first run of this checkout also holds K1 against its
-plain version at the stage shapes and at ragged shapes. Prints one JSON line
-per run and exits non-zero if a check fails.
+plain version at the stage shapes and at ragged shapes, and K8/K11 on 16
+images. Prints one JSON line per run and exits non-zero if a run fails.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import shutil
 import subprocess
@@ -105,6 +112,13 @@ K1_ATOL = 4e-3
 # K1's ragged shapes (B, H, W, C): H*W no multiple of the 128-pixel tile
 K1_STAGES = ((64, 96), (32, 192), (16, 384))
 K1_RAGGED = ((3, 13, 11, 96), (2, 5, 7, 384))
+# K8's ragged shapes (B, H, W; H a multiple of its 32 rows, W no multiple of
+# its 64-column strip) and K9/K10/K11's (B, H, W at half resolution)
+K8_RAGGED = ((3, 32, 70), (2, 64, 10))
+HALF_RAGGED = ((3, 34, 34), (2, 6, 10))
+# (H = W, cx, cs, cout) of K7's 8 calls per forward at a 256-px input
+K7_CALLS = ((16, 768, 384, 384), (16, 384, 0, 384), (32, 384, 192, 192), (32, 192, 0, 192),
+            (64, 192, 96, 96), (64, 96, 0, 96), (128, 96, 0, 64), (128, 64, 0, 64))
 # K9: 2 bf16 ulp + this slack. Its plain version and the kernel differ only
 # in the order of f32 sums (errors ~1e-6), so the slack can be small enough
 # that the other GELU mode (up to 4.7e-4 apart near x = -2.7) fails the
@@ -362,8 +376,9 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 
 
 def _ab_child(root: Path, check: bool) -> int:
-    """One A/B run: K1 and K9/K10 of the package under ``root``, timed on
-    seeded inputs; with ``check``, K1 held against its plain version."""
+    """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
+    on seeded inputs; with ``check``, K1 held against its plain version
+    and K8/K11 on 16 images."""
     sys.path.insert(0, str(root))
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
     from path_gene_multimodal_tpu_torch.models.convnext import Block
@@ -378,8 +393,10 @@ def _ab_child(root: Path, check: bool) -> int:
     dev = torch.device("cuda")
     bf = torch.bfloat16
     t0 = time.perf_counter()
-    cuda.build_all(("convnext_block", "upsample_conv"))
+    cuda.build_all()
     res = {"root": str(root), "build_s": time.perf_counter() - t0, "k1": []}
+    if "conv64" in cuda.KERNELS:
+        res["ptxas_conv64"] = _ptxas_entries(cuda.build_log("conv64"))
     # the checks here run on seeded weights, not the model's: what exceeds
     # the tolerance is reported for comparing the versions, and fails no run
     # (the contract's checks are the main run's, on the main path's data)
@@ -408,18 +425,60 @@ def _ab_child(root: Path, check: bool) -> int:
                                            _block_weights(Block, c, 920 + j, dev), over,
                                            mutants=hasattr(k1, "pw_plain")))
         res["ptxas"] = _k1_ptxas(cuda)
-    x = torch.randn((512, 128, 128, 64), generator=gen).to(dev, bf)
-    w = (0.05 * torch.randn((3, 3, 64, 64), generator=gen)).to(dev, bf)
-    b, bh = (0.1 * torch.randn(64, generator=gen)).to(dev, bf), torch.zeros(10, device=dev, dtype=bf)
-    wh = (0.1 * torch.randn((64, 10), generator=gen)).to(dev, bf)
+    gen_d = torch.Generator(device=dev).manual_seed(901)
+    rnd = lambda shape, std=1.0: (  # noqa: E731
+        std * torch.randn(shape, generator=gen_d, device=dev)).to(bf)
+    res["k7"] = []
+    for hh, cx, cs, cout in K7_CALLS:
+        x, skip = rnd((512, hh, hh, cx)), rnd((512, hh, hh, cs)) if cs else None
+        w7 = rnd((3, 3, cx + cs, cout), (9 * (cx + cs)) ** -0.5)
+        vec = [rnd(cout, 0.1), (1 + rnd(cout, 0.1).float()).to(bf), rnd(cout, 0.1)]
+        with torch.inference_mode():
+            res["k7"].append(_sync_time(lambda: dec.decoder_conv(x, skip, w7, *vec), reps=3))
+        del x, skip
+    res["k7_batch_ms"] = sum(res["k7"])
+    x = rnd((512, 128, 128, 64))
+    w = rnd((3, 3, 64, 64), 0.05)
+    b, bh = rnd(64, 0.1), torch.zeros(10, device=dev, dtype=bf)
+    wh = rnd((64, 10), 0.1)
+    wc, b4, bh4 = rnd((3, 3, 64, 256), 0.05), rnd(256, 0.1), rnd(40, 0.1)
+    wh_bd = torch.block_diag(*[rnd((64, 10), 0.1) for _ in range(4)]).contiguous()
+    # a head built block-diagonal needs no device check per call, where the
+    # wrapper can skip it
+    k11_kw = ({"block_diagonal": True} if "block_diagonal"
+              in inspect.signature(dec.composite_final_heads).parameters else {})
     with torch.inference_mode():
         res["k9_batch_ms"] = _sync_time(
             lambda: [dec.upsample_final(c_, w, b) for c_ in x.split(CHUNK)], reps=2)
         res["k10_batch_ms"] = _sync_time(
             lambda: [dec.final_heads(c_, w, b, wh, bh) for c_ in x.split(CHUNK)], reps=2)
+        res["k11_batch_ms"] = _sync_time(
+            lambda: [dec.composite_final_heads(c_, wc, b4, wh_bd, bh4, **k11_kw)
+                     for c_ in x.split(CHUNK)], reps=2)
+        if check:  # tolerance as the main run's head checks
+            got = dec.composite_final_heads(x[:16], wc, b4, wh_bd, bh4)
+            ref = dec.composite_final_heads_plain(x[:16], wc, b4, wh_bd, bh4)
+            y = dec.final_conv_gelu_plain(x[:16], wc, b4).float()
+            atol = (DEC_ATOL + 2 * _bf16_ulp(y.abs().amax(-1, keepdim=True))
+                    * wh_bd.float().abs().amax(0))
+            res["k11_excess"] = _excess(got, ref, atol)
+        del x
+        x8 = rnd((512, 256, 256, 64))
+        res["k8_batch_ms"] = _sync_time(
+            lambda: [dec.final_conv_gelu(c_, w, b) for c_ in x8.split(CHUNK)], reps=2)
+        if check:
+            got = dec.final_conv_gelu(x8[:16], w, b)
+            res["k8_excess"] = _excess(got, dec.final_conv_gelu_plain(x8[:16], w, b), DEC_ATOL)
+    for k in ("k8_excess", "k11_excess"):
+        if res.get(k, 0.0) > 1.0:
+            over.append(f"{k} {res[k]:.3g}")
     res["checks_over_tolerance"] = over
     print(json.dumps(res), flush=True)
     return 0
+
+
+AB_KEYS = ("k1_batch_ms", "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms",
+           "k11_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
@@ -439,11 +498,10 @@ def _ab(parent: Path, out_dir: Path) -> int:
                      "result": json.loads(line) if line else None})
         r = runs[-1]["result"] or {}
         print(json.dumps({"root": str(root), "rc": proc.returncode,
-                          **{k: r.get(k) for k in ("k1_batch_ms", "k9_batch_ms", "k10_batch_ms",
-                                                   "checks_over_tolerance")}}), flush=True)
+                          **{k: r.get(k) for k in AB_KEYS + ("checks_over_tolerance",)}}),
+              flush=True)
     print(_smi())
-    summary = {r["root"] + f"#{i}": {k: r["result"][k] for k in
-                                    ("k1_batch_ms", "k9_batch_ms", "k10_batch_ms")}
+    summary = {r["root"] + f"#{i}": {k: r["result"][k] for k in AB_KEYS}
                for i, r in enumerate(runs) if r["result"]}
     print(json.dumps({"ab": summary}))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -581,18 +639,49 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
     return models, counts
 
 
+def _conv_edge(x, w, b, exact_gelu=False):
+    """GELU(conv3x3(x) + b) in f32 with x padded by edge replication instead
+    of the conv's zeros: the edge mutant of the final-stage kernels' plain
+    versions (x, w, b bf16)."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
+
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    y = F.conv2d(xp, w.float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1) + b.float()
+    return gelu_kernel(y, exact_gelu)
+
+
 def _edge_padded(x, w, b, exact_gelu=False):
     """A mutant of K9's plain version: the upsampled map padded by edge
     replication instead of the conv's zeros."""
-    import torch.nn.functional as F
-
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
-    from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
 
-    up = F.pad(dec.upsample2x_bilinear(x.to(torch.bfloat16)).float().permute(0, 3, 1, 2),
-               (1, 1, 1, 1), mode="replicate")
-    y = F.conv2d(up, w.float().permute(3, 2, 0, 1)).permute(0, 2, 3, 1) + b.float()
-    return gelu_kernel(y, exact_gelu).to(torch.bfloat16)
+    up = dec.upsample2x_bilinear(x.to(torch.bfloat16))
+    return _conv_edge(up, w, b, exact_gelu).to(torch.bfloat16)
+
+
+def _heads_edge(x, w, b, wh, bh):
+    """The edge mutant of a conv + GELU + head plain version (K11 at low
+    resolution): the GELU output rounded to bf16 through the head."""
+    y = _conv_edge(x, w, b).to(torch.bfloat16).float()
+    return (y @ wh.float() + bh.float()).to(torch.bfloat16)
+
+
+def _k11_head(whb: torch.Tensor, seed: int) -> torch.Tensor:
+    """A block-diagonal head of whb's shape with a different block per
+    phase, drawn from ``seed`` at the scale of whb's nonzero entries: the
+    model repeats one block, under which a phase mix-up would not show."""
+    c4, n4 = whb.shape
+    gen = torch.Generator().manual_seed(seed)
+    std = float(whb.float()[whb != 0].std())
+    blocks = [std * torch.randn((c4 // 4, n4 // 4), generator=gen) for _ in range(4)]
+    return torch.block_diag(*blocks).to(whb.device, whb.dtype).contiguous()
+
+
+def _conv64_ptxas(cuda) -> dict[str, dict]:
+    """ptxas registers, stack and spills of ``csrc/conv64.cu``'s kernels."""
+    return _ptxas_entries(cuda.build_log("conv64"))
 
 
 def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
@@ -610,6 +699,14 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     idx = _subset(n).to(pixels.device)
     src = "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu"
     src_up = "path_gene_multimodal_tpu_torch/csrc/upsample_conv.cu"
+    src_64 = "path_gene_multimodal_tpu_torch/csrc/conv64.cu"
+    ptxas_64 = _conv64_ptxas(dec.cuda)
+    # K8/K11's kernel (every instantiation) must not spill
+    for kname, info in ptxas_64.items():
+        if "conv64_kernel" in kname and (info.get("spill_stores", 0) or info.get("spill_loads", 0)):
+            failures.append(f"conv64 kernel {kname} spills: {info}")
+    if not any("conv64_kernel" in k for k in ptxas_64):
+        failures.append("conv64: no ptxas lines for conv64_kernel in its build log")
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     entries = []
 
@@ -717,7 +814,8 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
                     lambda e: dec.final_conv_gelu(xf, w8, vb, exact_gelu=e)[idx],
                     lambda e: dec.final_conv_gelu_plain(xs, w8, vb, exact_gelu=e),
                     lambda e: DEC_ATOL,
-                    {"no_bias": lambda: dec.final_conv_gelu_plain(xs, w8, 0 * vb)}, rec)
+                    {"no_bias": lambda: dec.final_conv_gelu_plain(xs, w8, 0 * vb),
+                     "edge_replicated": lambda: _conv_edge(xs, w8, vb).to(bf)}, rec)
         del xs
         rec["upsample_ms_per_batch"] = _sync_time(
             lambda: [dec.upsample2x_bilinear(c) for c in x_dec.split(CHUNK)], reps=2)
@@ -731,11 +829,31 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     cin, cout = w8.shape[2:]
     bnd, by = _bound_ms(2 * px * (cin + cout) + 2 * w8.numel(),
                         [(2 * px * 9 * cin * cout, PEAK_BF16), (10 * px * cout, PEAK_F32)])
+    rec["geometry"] = dict(zip(("strip_h", "strip_w", "step_rows", "ring", "grid", "smem_bytes"),
+                               dec.StripTiling(CHUNK, *xf.shape[1:3],
+                                               n_sm=dec.cuda.sm_count(xf.device)).launch_args()))
     del xf
+    # K8 where W is no multiple of its 64-column strip (H must stay a
+    # multiple of 32): strip, ring and edge faults show at the last strip
+    rec["ragged"] = []
+    for j, (rb, rh, rw) in enumerate(K8_RAGGED):
+        xr = torch.randn((rb, rh, rw, cin), generator=torch.Generator().manual_seed(740 + j))
+        xr = xr.to(x_dec.device, bf)
+        r8 = {"shape": [rb, rh, rw]}
+        with torch.inference_mode():
+            vr = _seeded(b8, 750 + j)
+            modes(f"final_conv_gelu {rb}x{rh}x{rw}",
+                  lambda e: dec.final_conv_gelu(xr, w8, vr, exact_gelu=e),
+                  lambda e: dec.final_conv_gelu_plain(xr, w8, vr, exact_gelu=e),
+                  lambda e: DEC_ATOL,
+                  {"no_bias": lambda: dec.final_conv_gelu_plain(xr, w8, 0 * vr),
+                   "edge_replicated": lambda: _conv_edge(xr, w8, vr).to(bf)}, r8)
+        rec["ragged"].append(r8)
     entry("final_conv_gelu", f"{pallas}:591", err, ms, pms, bnd, by, lms,
           "per batch: 4 calls of 128 images as the forward makes them; the check runs one call "
-          "over all 512 images (2^31 elements) and compares the subset; library_ms: cuDNN "
-          f"conv2d alone (conv only); tolerance 2 bf16 ulp + {DEC_ATOL}", **rec)
+          "over all 512 images (2^31 elements) and compares the subset, and ragged shapes (see "
+          "ragged); library_ms: cuDNN conv2d alone (conv only); tolerance 2 bf16 ulp + "
+          f"{DEC_ATOL}", source=src_64, ptxas=ptxas_64, **rec)
 
     # K10 and K11 on the plain decoder's output (the heads and pallas configurations)
     with torch.inference_mode():
@@ -792,21 +910,29 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
           "DEC_ATOL + two flipped roundings of the pixel's largest GELU output through the "
           "column's largest head weight", source=src_up, **rec)
 
+    # K11 with a different head block per phase, so that the check sees
+    # which phase's block each phase takes
     wc, b4, whb, bh4 = models["pallas"].model.fused_weights["k11"][:4]
+    whs = _k11_head(whb, 502)
     with torch.inference_mode():
         vb, vbh = _seeded(b4, 500), _seeded(bh4, 501)
         rec = {"subset": "as final_conv_gelu"}
         err = modes(
             "composite_final_heads",
-            lambda e: dec.composite_final_heads(x_pl, wc, vb, whb, vbh, exact_gelu=e)[idx],
-            lambda e: dec.composite_final_heads_plain(xs, wc, vb, whb, vbh, exact_gelu=e),
-            lambda e: head_atol(dec.final_conv_gelu_plain(xs, wc, vb, exact_gelu=e), whb),
-            {"no_bias": lambda: dec.composite_final_heads_plain(xs, wc, 0 * vb, whb, vbh),
-             "no_head_bias": lambda: dec.composite_final_heads_plain(xs, wc, vb, whb, 0 * vbh)},
+            lambda e: dec.composite_final_heads(x_pl, wc, vb, whs, vbh, exact_gelu=e)[idx],
+            lambda e: dec.composite_final_heads_plain(xs, wc, vb, whs, vbh, exact_gelu=e),
+            lambda e: head_atol(dec.final_conv_gelu_plain(xs, wc, vb, exact_gelu=e), whs),
+            {"no_bias": lambda: dec.composite_final_heads_plain(xs, wc, 0 * vb, whs, vbh),
+             "no_head_bias": lambda: dec.composite_final_heads_plain(xs, wc, vb, whs, 0 * vbh),
+             "edge_replicated": lambda: _heads_edge(xs, wc, vb, whs, vbh),
+             "phase_permuted": lambda: dec.composite_final_heads_by_phase(
+                 xs, wc, vb, whs, vbh, head_of=(1, 2, 3, 0))},
             rec)
-        rec["ms_per_call"] = _sync_time(
-            lambda: dec.composite_final_heads(x_pl[:CHUNK], wc, vb, whb, vbh), reps=3)
-        ms = _sync_time(lambda: [dec.composite_final_heads(c, wc, vb, whb, vbh)
+        rec["ms_per_call"] = _sync_time(lambda: dec.composite_final_heads(
+            x_pl[:CHUNK], wc, vb, whb, vbh, block_diagonal=True), reps=3)
+        # the model's head, as the path passes it (block-diagonal as built)
+        ms = _sync_time(lambda: [dec.composite_final_heads(c, wc, vb, whb, vbh,
+                                                           block_diagonal=True)
                                  for c in x_pl.split(CHUNK)], reps=2)
         pms = _sync_time(lambda: [dec.composite_final_heads_plain(c, wc, vb, whb, vbh)
                                   for c in x_pl.split(CHUNK)], reps=1)
@@ -817,11 +943,46 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     bnd, by = _bound_ms(2 * (x_pl.numel() + px * n4) + 2 * (wc.numel() + whb.numel()),
                         [(2 * px * (9 * wc.shape[2] * c4 + c4 * n4 // 4), PEAK_BF16),
                          (10 * px * c4, PEAK_F32)])
+    rec["geometry"] = dict(zip(("strip_h", "strip_w", "step_rows", "ring", "grid", "smem_bytes"),
+                               dec.StripTiling(CHUNK, *x_pl.shape[1:3], phases=4,
+                                               n_sm=dec.cuda.sm_count(x_pl.device)
+                                               ).launch_args()))
+    # K11 at odd half-resolution shapes: ragged strips and rows
+    rec["ragged"] = []
+    for j, (rb, rh, rw) in enumerate(HALF_RAGGED):
+        xr = torch.randn((rb, rh, rw, wc.shape[2]),
+                         generator=torch.Generator().manual_seed(760 + j)).to(x_pl.device, bf)
+        r11 = {"shape": [rb, rh, rw]}
+        wr = _k11_head(whb, 770 + j)
+        with torch.inference_mode():
+            vr, vrh = _seeded(b4, 780 + j), _seeded(bh4, 790 + j)
+            modes(f"composite_final_heads {rb}x{rh}x{rw}",
+                  lambda e: dec.composite_final_heads(xr, wc, vr, wr, vrh, exact_gelu=e),
+                  lambda e: dec.composite_final_heads_plain(xr, wc, vr, wr, vrh, exact_gelu=e),
+                  lambda e: head_atol(dec.final_conv_gelu_plain(xr, wc, vr, exact_gelu=e), wr),
+                  {"no_bias": lambda: dec.composite_final_heads_plain(xr, wc, 0 * vr, wr, vrh),
+                   "no_head_bias": lambda: dec.composite_final_heads_plain(xr, wc, vr, wr,
+                                                                           0 * vrh),
+                   "edge_replicated": lambda: _heads_edge(xr, wc, vr, wr, vrh),
+                   "phase_permuted": lambda: dec.composite_final_heads_by_phase(
+                       xr, wc, vr, wr, vrh, head_of=(1, 2, 3, 0))}, r11)
+        rec["ragged"].append(r11)
+    # the kernel reads only the diagonal head blocks: a head with a nonzero
+    # block off the diagonal must be refused, not answered
+    dense = whs.clone()
+    dense[0, -1] = 0.5
+    try:
+        dec.composite_final_heads(xr, wc, vr, dense, vrh)
+        failures.append("K11 answered a head with a nonzero off-diagonal block")
+        rec["off_diagonal_head_refused"] = False
+    except ValueError:
+        rec["off_diagonal_head_refused"] = True
     entry("composite_final_heads", f"{pallas}:462", err, ms, pms, bnd, by, lms,
-          "per batch: 4 calls of 128 images; the check runs one call over all 512 and compares "
-          "the subset; bound counts the head's nonzero blocks only (the kernel multiplies the "
-          "whole (256, 40) matrix); library_ms: cuDNN conv2d alone (conv only); tolerance as "
-          "final_heads", **rec)
+          "per batch: 4 calls of 128 images with the model's head; the check runs one call over "
+          "all 512 and compares the subset, and ragged shapes (see ragged), with a seeded head "
+          "block per phase; bound counts the head's nonzero blocks only (the kernel reads only "
+          "those); library_ms: cuDNN conv2d alone (conv only); tolerance as final_heads",
+          source=src_64, ptxas=ptxas_64, **rec)
 
     # K9 on the plain decoder's output (the fused_final=True configuration)
     w9, b9 = models["k9"].model.fused_weights["k9"]
@@ -858,7 +1019,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     # K9 and K10 where the output is no multiple of their tile: halo, window
     # and edge faults show at the ragged last tiles
     ragged = []
-    for j, (rb, rh, rw) in enumerate(((3, 34, 34), (2, 6, 10))):
+    for j, (rb, rh, rw) in enumerate(HALF_RAGGED):
         gen = torch.Generator().manual_seed(700 + j)
         xr = torch.randn((rb, rh, rw, w9.shape[2]), generator=gen).to(x_pl.device, bf)
         with torch.inference_mode():
@@ -1189,7 +1350,8 @@ def main(argv: list[str] | None = None) -> int:
                            if "registers" in ln or "bytes stack" in ln]
                        for n in cuda.KERNELS}
     print(f"built {len(cuda.KERNELS)} kernels in {report['build_s']:.1f} s", flush=True)
-    print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"]}), flush=True)
+    print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"],
+                      "ptxas_conv64": report["ptxas"]["conv64"]}), flush=True)
 
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()

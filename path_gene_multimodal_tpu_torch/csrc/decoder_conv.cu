@@ -1,30 +1,25 @@
-// The HoverNeXt decoder and final-stage kernels for the H100: one 3x3 conv
-// core with two input prologues and two epilogues.
+// The HoverNeXt decoder conv kernel for the H100.
 //
-// Replaces three TPU kernels of path_gene_multimodal_tpu/ops/pallas/decoder.py
-// (K9 and K10, the upsampling final stage, are csrc/upsample_conv.cu):
+// Replaces one TPU kernel of path_gene_multimodal_tpu/ops/pallas/decoder.py
+// (the final-stage kernels are csrc/upsample_conv.cu, K9 and K10, and
+// csrc/conv64.cu, K8 and K11):
 //   K7  fused_decoder_conv     (:168, pallas_call :220): skip concat by split
 //       weights + 3x3 SAME conv + bias + LayerNorm (eps 1e-6, two-pass
-//       variance) + GELU -> bf16;
-//   K8  fused_final_conv_gelu  (:591, :620): 3x3 SAME conv + bias + GELU -> bf16;
-//   K11 composite_final_heads  (:462, :506): 3x3 conv with parity-folded
-//       weights + bias + GELU -> bf16 -> block-diagonal head product + bias.
+//       variance) + GELU -> bf16.
 //
-// Numerics follow the TPU kernels: bf16 inputs, weights and vectors, f32
-// accumulation, bf16 outputs; K11 rounds the GELU output to bf16 before the
-// head product. GELU by flag (pgm_gelu: tanh, or the Abramowitz-Stegun erf of
-// the TPU kernel).
+// Numerics follow the TPU kernel: bf16 inputs, weights and vectors, f32
+// accumulation, bf16 outputs. GELU by flag (pgm_gelu: tanh, or the
+// Abramowitz-Stegun erf of the TPU kernel).
 //
-// What bounds them here: operations. At HoverNeXt-tiny widths the convs do
-// 9 * cin * cout multiply-adds per output pixel (K7 5.7 TFLOP, K8/K11
-// ~2.5 TFLOP each per 512-image batch); only K8, whose bf16 input and output
-// at 256^2 x 64 are 2^31 elements each, comes close to its byte bound.
+// What bounds it here: operations. At HoverNeXt-tiny widths the convs do
+// 9 * cin * cout multiply-adds per output pixel, 5.7 TFLOP per 512-image
+// batch over the 8 calls.
 //
 // Design: an implicit GEMM. A block owns BM consecutive output pixels of one
 // image and ALL cout channels (cout <= 384), so the epilogue sees whole pixel
-// rows: the LayerNorm over cout (K7) and the head product (K11) need no
-// second pass. K runs over (source, tap, 32-channel chunk); each step stages
-// a BM x 32 input tile and a 32 x cout weight tile in shared memory with
+// rows: the LayerNorm over cout needs no second pass. K runs over (source,
+// tap, 32-channel chunk); each step stages a BM x 32 input tile and a
+// 32 x cout weight tile in shared memory with
 // cp.async (a ring of three: the next two steps' copies fly while this
 // step's bf16 wmma products run, one barrier per step). Zero padding is
 // cp.async's zero fill. K7's second source (the skip) reads its weight rows
@@ -32,8 +27,8 @@
 // concat is never built. The epilogue stages the f32 accumulators
 // through shared memory (64 x 384 x 4 = 96 KB at K7 dec0, above the 48 KB
 // default, hence the dynamic shared memory attribute), one warp per pixel.
-// All offsets into activations are 64-bit: K8's full batch holds 2^31
-// elements. Not yet here: wgmma, TMA, a persistent schedule.
+// All offsets into activations are 64-bit. Not yet here: wgmma, TMA, a
+// persistent schedule.
 #include "common.cuh"
 
 #include <climits>
@@ -67,9 +62,7 @@ struct ConvArgs {
     int h, w_;        // conv (output) spatial size
     const bf16* bias;                  // (cout,)
     const bf16* lng;  const bf16* lnb;  // (cout,) LayerNorm, or null
-    const bf16* wh;   const bf16* bh;   // (cout, nout), (nout,) head, or null
-    int nout;
-    bf16* out;        // (B, h, w_, nout if head else cout)
+    bf16* out;        // (B, h, w_, cout)
     int exact;
 };
 
@@ -90,20 +83,12 @@ template <int BM, int BN>
 struct Smem {
     static constexpr int kLdB = BN + 8;  // bf16
     static constexpr int kLdE = BN + 4;  // f32
-    static constexpr int kLdY = BN + 8;  // bf16
     static constexpr size_t a_bytes = size_t(BM) * kLdA * 2;
     static constexpr size_t b_bytes = size_t(kBK) * kLdB * 2;
     static constexpr size_t pipe = kStages * (a_bytes + b_bytes);
     static constexpr size_t e_bytes = size_t(BM) * kLdE * 4;
-    // region 0: the pipeline ring, later the f32 epilogue tile, later
-    // the f32 head tile; then (head only) the bf16 GELU tile and head weights
-    static constexpr size_t region0 = align128(pipe > e_bytes ? pipe : e_bytes);
-    static constexpr size_t y_bytes = align128(size_t(BM) * kLdY * 2);
-    static size_t total(int nout) {
-        if (nout == 0) return region0;
-        const int np = (nout + 15) / 16 * 16;
-        return region0 + y_bytes + align128(size_t(BN) * (np + 8) * 2);
-    }
+    // the pipeline ring, later the f32 epilogue tile
+    static constexpr size_t total = align128(pipe > e_bytes ? pipe : e_bytes);
 };
 
 // WM x WN warps, each owning FM x FN 16x16 accumulator tiles: the block
@@ -123,8 +108,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
         return reinterpret_cast<bf16*>(smem + i * (S::a_bytes + S::b_bytes) + S::a_bytes);
     };
     float* E = reinterpret_cast<float*>(smem);
-    bf16* Y = reinterpret_cast<bf16*>(smem + S::region0);
-    bf16* H = reinterpret_cast<bf16*>(smem + S::region0 + S::y_bytes);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int wm = warp / WN, wn = warp % WN;
@@ -132,15 +115,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
     const int tiles = (hw + BM - 1) / BM;
     const long long img = blockIdx.x / tiles;
     const int p0 = (blockIdx.x % tiles) * BM;
-    const int np = (a.nout + 15) / 16 * 16;
-    const int ldh = np + 8;
-
-    if (a.wh != nullptr) {  // head weights, zero-padded to np columns
-        for (int i = tid; i < BN * np; i += kThreads) {
-            const int r = i / np, c = i % np;
-            H[r * ldh + c] = c < a.nout ? a.wh[r * a.nout + c] : __float2bfloat16(0.0f);
-        }
-    }
 
     const int nsteps = 9 * (a.src[0].cin / kBK) + (a.nsrc > 1 ? 9 * (a.src[1].cin / kBK) : 0);
 
@@ -269,47 +243,15 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
             const int ch = lane + 32 * k;
-            const bf16 g = __float2bfloat16(pgm_gelu(v[k], a.exact));
-            if (a.wh != nullptr)
-                Y[r * S::kLdY + ch] = g;
-            else
-                a.out[(img * hw + p) * BN + ch] = g;
+            a.out[(img * hw + p) * BN + ch] = __float2bfloat16(pgm_gelu(v[k], a.exact));
         }
-    }
-    if (a.wh == nullptr) return;
-
-    // head: Z = Y (BM x BN, bf16) @ H (BN x np, bf16), f32, over region 0
-    __syncthreads();
-    float* Z = E;
-    const int ldz = np + 4;
-    for (int f = warp; f < (BM / 16) * (np / 16); f += kWarps) {
-        const int mi = f / (np / 16), nj = f % (np / 16);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> z;
-        wmma::fill_fragment(z, 0.0f);
-#pragma unroll
-        for (int k = 0; k < BN / 16; ++k) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(af, Y + mi * 16 * S::kLdY + k * 16, S::kLdY);
-            wmma::load_matrix_sync(bfr, H + k * 16 * ldh + nj * 16, ldh);
-            wmma::mma_sync(z, af, bfr, z);
-        }
-        wmma::store_matrix_sync(Z + mi * 16 * ldz + nj * 16, z, ldz, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < BM * a.nout; i += kThreads) {
-        const int r = i / a.nout, n = i % a.nout;
-        const int p = p0 + r;
-        if (p < hw)
-            a.out[(img * hw + p) * a.nout + n] =
-                __float2bfloat16(Z[r * ldz + n] + __bfloat162float(a.bh[n]));
     }
 }
 
 template <int WM, int WN, int FM, int FN>
 cudaError_t run(const ConvArgs& a, int batch, cudaStream_t st) {
     constexpr int BM = 16 * FM * WM;
-    const size_t smem = Smem<BM, 16 * FN * WN>::total(a.nout);
+    const size_t smem = Smem<BM, 16 * FN * WN>::total;
     auto kernel = conv3x3_kernel<WM, WN, FM, FN>;
     cudaError_t e = pgm_set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
@@ -319,15 +261,13 @@ cudaError_t run(const ConvArgs& a, int batch, cudaStream_t st) {
     return cudaGetLastError();
 }
 
-// Tile shapes by cout (the block holds all of cout): 64 x 384, 64 x 256,
-// 64 x 192, 128 x 96, 128 x 64 pixels x channels.
+// Tile shapes by cout (the block holds all of cout): 64 x 384, 64 x 192,
+// 128 x 96, 128 x 64 pixels x channels.
 cudaError_t dispatch(const ConvArgs& a, int batch, int cout, cudaStream_t st) {
     for (int s = 0; s < a.nsrc; ++s)
         if (a.src[s].cin <= 0 || a.src[s].cin % kBK) return cudaErrorInvalidValue;
-    if (a.nout > cout) return cudaErrorInvalidValue;
     switch (cout) {
         case 384: return run<1, 8, 4, 3>(a, batch, st);
-        case 256: return run<2, 4, 2, 4>(a, batch, st);
         case 192: return run<2, 4, 2, 3>(a, batch, st);
         case 96: return run<4, 2, 2, 3>(a, batch, st);
         case 64: return run<4, 2, 2, 2>(a, batch, st);
@@ -367,25 +307,4 @@ PGM_EXPORT int decoder_conv_launch(const void* x, const void* skip, const void* 
     a.lng = static_cast<const bf16*>(lng);
     a.lnb = static_cast<const bf16*>(lnb);
     return static_cast<int>(dispatch(a, batch, cout, static_cast<cudaStream_t>(stream)));
-}
-
-// K8. x (B, H, W, cin), w (3, 3, cin, cout), b (cout,); out (B, H, W, cout).
-PGM_EXPORT int final_conv_gelu_launch(const void* x, const void* w, const void* b, void* out,
-                                      int batch, int h, int w_, int cin, int cout, int exact,
-                                      void* stream) {
-    const ConvArgs a = args(x, cin, w, b, out, h, w_, exact);
-    return static_cast<int>(dispatch(a, batch, cout, static_cast<cudaStream_t>(stream)));
-}
-
-// K11. x (B, H, W, cin), wc (3, 3, cin, c4), b4 (c4,), wh (c4, n4), bh4
-// (n4,); out (B, H, W, n4).
-PGM_EXPORT int composite_final_heads_launch(const void* x, const void* wc, const void* b4,
-                                            const void* wh, const void* bh4, void* out, int batch,
-                                            int h, int w_, int cin, int c4, int n4, int exact,
-                                            void* stream) {
-    ConvArgs a = args(x, cin, wc, b4, out, h, w_, exact);
-    a.wh = static_cast<const bf16*>(wh);
-    a.bh = static_cast<const bf16*>(bh4);
-    a.nout = n4;
-    return static_cast<int>(dispatch(a, batch, c4, static_cast<cudaStream_t>(stream)));
 }

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's wgmma kernels
-// (csrc/upsample_conv.cu: K9, K10; csrc/convnext_block.cu: K1): cp.async
-// copies into shared memory, wgmma's shared-memory descriptors and the
-// wgmma instruction at the widths the kernels use, bf16 packing, and GELU
-// with fast exponentials. Include after common.cuh.
+// (csrc/upsample_conv.cu: K9, K10; csrc/convnext_block.cu: K1;
+// csrc/conv64.cu: K8, K11): cp.async copies into shared memory, mbarriers
+// and TMA copies, wgmma's shared-memory descriptors and the wgmma
+// instruction at the widths the kernels use, bf16 packing, and GELU with
+// fast exponentials. Include after common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +34,65 @@ __device__ __forceinline__ void cp_async_wait() {
 // generic-proxy writes to shared memory become visible to wgmma's reads
 __device__ __forceinline__ void fence_async_shared() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers and the Tensor Memory Accelerator (TMA). A tensor map is a
+// CUtensorMap passed as a __grid_constant__ kernel parameter; coordinates
+// run innermost first and may lie outside the tensor (the load fills
+// zeros there).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// makes mbarrier inits visible to the async proxy (and, after a barrier,
+// to the other threads)
+__device__ __forceinline__ void fence_mbar_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// the GPU's global nanosecond timer
+__device__ __forceinline__ uint64_t global_ns() {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done;
+}
+
+// wait for the completion of the phase of parity `parity`; a phase that
+// has not completed 2 s after the wait began (a copy that never lands)
+// traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    if (mbar_try_wait(bar, parity)) return;
+    const uint64_t t0 = global_ns();
+    while (!mbar_try_wait(bar, parity))
+        if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+// TMA: box at (c0, .., c4) of a 5-D tensor map into shared memory at dst,
+// completing `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, int c0, int c1, int c2,
+                                            int c3, int c4, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+        "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+        : "memory");
 }
 
 // A wgmma shared-memory matrix descriptor, no swizzle: start address, the

@@ -60,10 +60,13 @@
 // Shared memory: weights 73,728 B + halo 84,480 + 2 windows 52,224 (+ K10
 // head weights 3,072) = 210,432 (213,504) B; K9's output staging lies over
 // the halo.
+// The resident weight, the product loop over the planar halo and the
+// epilogue's bias + GELU and head product are the 64-channel conv core
+// shared with K8 and K11 (csrc/conv64.cuh).
 // Not yet here: overlap of the halo build and the epilogue with the products
 // (warp specialisation), TMA.
 #include "common.cuh"
-#include "hopper.cuh"
+#include "conv64.cuh"
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -71,8 +74,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace conv64;
 
-constexpr int kC = 64;                       // cin = cout
 constexpr int kTH = 8, kTW = 64;             // output tile (rows, cols)
 constexpr int kHH = kTH + 2, kHW = kTW + 2;  // upsampled halo tile
 constexpr int kHPx = kHH * kHW;
@@ -82,20 +85,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroups = kWarps / 4;          // warpgroups
 constexpr int kRows = kTH / kGroups;         // output rows (m64 tiles) per warpgroup
-constexpr int kSteps = 9 * (kC / 16);        // k16 steps
-constexpr int kLd = kC + 8;                  // bf16 row stride of the output staging
-constexpr int kNP = 16;                      // head columns, zero-padded
-constexpr int kLdHead = kNP + 8;             // bf16 row stride of the head weights (48 B)
 static_assert(kTW == 64, "a tile row is one m64 wgmma tile");
 static_assert(kRows * kGroups == kTH, "whole rows per warpgroup");
 
-constexpr size_t kWBytes = size_t(kSteps) * 16 * kC * 2;
 constexpr size_t kPlane = size_t(kHPx) * 16;  // bytes of one 8-channel halo plane
 constexpr size_t kHaloBytes = 8 * kPlane;
 constexpr size_t kWinBytes = size_t(kWPx) * kC * 2;
 constexpr size_t kStgElems = size_t(kRows) * 16 * kLd;  // per warp: 4 rows x 16 pixels
 static_assert(kWarps * kStgElems * 2 <= kHaloBytes, "the staging fits over the halo");
-constexpr size_t kHeadBytes = size_t(kC) * kLdHead * 2;
 constexpr size_t kOffHalo = kWBytes;
 constexpr size_t kOffWin = kOffHalo + kHaloBytes;
 constexpr size_t kOffHead = kOffWin + 2 * kWinBytes;
@@ -115,23 +112,6 @@ struct Args {
     int nout;
     int exact;
 };
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // a * u + b * v, each product and the sum rounded on its own (no FMA), as
 // the TPU kernel's and the plain version's separate f32 operations round
@@ -231,29 +211,10 @@ __global__ void __launch_bounds__(kThreads, 1) upsample_conv_kernel(const Args a
     const int g = lane >> 2, q = lane & 3;     // accumulator row group, column pair
     bf16* stg = Hs + warp * kStgElems;         // the warp's output staging, over the halo
 
-    // resident weights, canonical K-major: step s = tap * 4 + ci / 16, then
-    // the 8-channel half (ci / 8) % 2 (1,024 B apart), the 8-cout group co / 8
-    // (128 B apart), cout co % 8 (16 B apart), ci % 8
-    for (int i = tid; i < kSteps * 2 * 8 * 8; i += kThreads) {
-        const int n = i & 63, half = (i >> 6) & 1, s = i >> 7;
-        const int tap = s >> 2, ci0 = (s & 3) * 16 + half * 8;
-        const bf16* src = a.w + (static_cast<size_t>(tap) * kC + ci0) * kC + n;
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = src[k * kC];
-        *reinterpret_cast<uint4*>(Ws + (s * 2 + half) * 512 + n * 8) =
-            *reinterpret_cast<const uint4*>(v);
-    }
-    if (HEAD) {
-        for (int i = tid; i < kC * kNP; i += kThreads) {
-            const int r = i / kNP, c = i % kNP;
-            Hw[r * kLdHead + c] = c < a.nout ? a.wh[r * a.nout + c] : __float2bfloat16(0.0f);
-        }
-    }
+    load_weights<kThreads>(Ws, a.w, kC, 0);  // resident
+    if (HEAD) load_head<kThreads>(Hw, a.wh, a.nout, 0, 0, a.nout);
     const uint32_t ws = smem_u32(Ws), hs = smem_u32(Hs);
-    // head B fragments by ldmatrix.trans: lane l gives row (l & 7) + 8 ((l >> 3) & 1)
-    const uint32_t h_base =
-        smem_u32(Hw + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLdHead + (lane >> 4) * 8);
+    const uint32_t h_base = head_base(Hw, lane);
 
     int tile = blockIdx.x;
     if (tile < a.n_tiles) load_window(a, tile, Win);
@@ -270,43 +231,13 @@ __global__ void __launch_bounds__(kThreads, 1) upsample_conv_kernel(const Args a
         fence_async_shared();  // the halo (and, first, the weights) to the tensor cores
         __syncthreads();
 
-        // rows grp * kRows + r of the tile; k-step s = (tap, 16-channel chunk kc):
-        // A = halo row (row + dy), pixels dx .. dx + 63, channel planes 2 kc, 2 kc + 1
+        // rows grp * kRows + r of the tile; tap row dy of row r is halo row
+        // grp * kRows + r + dy
         float acc[kRows][32];
-        wgmma_fence();
-#pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-            const int tap = s >> 2, kc = s & 3, dy = tap / 3, dx = tap % 3;
-            const uint64_t db = desc(ws + s * 2048, 1024, 128);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-                const uint32_t aa =
-                    hs + 2 * kc * kPlane + ((grp * kRows + r + dy) * kHW + dx) * 16;
-                wgmma_bf16<64>(acc[r], desc(aa, kPlane, 128), db, s > 0);
-            }
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-            for (int j = 0; j < 32; ++j) pin(acc[r][j]);
-
-        // bias + GELU, rounded to bf16 pairs; accumulator (r, 4 nf + j): pixel
-        // 16 wq + g + 8 (j >> 1) of row r, channel 8 nf + 2q + (j & 1)
+        products<kRows>(
+            acc, ws, [&](int i) { return hs + (grp * kRows + i) * kHW * 16; }, kPlane);
         uint32_t y[kRows][8][2];
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf) {
-            const float b0 = __bfloat162float(a.b[nf * 8 + 2 * q]);
-            const float b1 = __bfloat162float(a.b[nf * 8 + 2 * q + 1]);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r)
-#pragma unroll
-                for (int hf = 0; hf < 2; ++hf)
-                    y[r][nf][hf] =
-                        pack_bf16(gelu_fast(acc[r][4 * nf + 2 * hf] + b0, a.exact),
-                                  gelu_fast(acc[r][4 * nf + 2 * hf + 1] + b1, a.exact));
-        }
+        bias_act<kRows>(y, acc, a.b, q, [&](float v) { return gelu_fast(v, a.exact); });
         __syncthreads();  // every warpgroup is done with the halo: it becomes the staging
 
         // the warp's 64 pixels: rows grp * kRows + r, columns 16 wq .. 16 wq + 15
@@ -332,38 +263,9 @@ __global__ void __launch_bounds__(kThreads, 1) upsample_conv_kernel(const Args a
                         *reinterpret_cast<const uint4*>(stg + p * kLd + c8);
             }
         } else {
-            // head: Z (64 x 16) = Y (64 x 64, bf16) @ Wh (64 x 16) per warp
             float z[kRows][2][4];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r)
-#pragma unroll
-                for (int nf = 0; nf < 2; ++nf)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) z[r][nf][j] = 0.0f;
-#pragma unroll
-            for (int kk = 0; kk < kC / 16; ++kk) {
-                uint32_t hb[4];
-                ldsm_x4_trans(hb, h_base + kk * 16 * kLdHead * 2);
-#pragma unroll
-                for (int r = 0; r < kRows; ++r) {
-                    const uint32_t af[4] = {y[r][2 * kk][0], y[r][2 * kk][1],
-                                            y[r][2 * kk + 1][0], y[r][2 * kk + 1][1]};
-                    mma_bf16(z[r][0], af, hb[0], hb[1]);
-                    mma_bf16(z[r][1], af, hb[2], hb[3]);
-                }
-            }
-#pragma unroll
-            for (int nf = 0; nf < 2; ++nf) {
-                const int n0 = nf * 8 + 2 * q;
-                const float h0 = n0 < a.nout ? __bfloat162float(a.bh[n0]) : 0.0f;
-                const float h1 = n0 + 1 < a.nout ? __bfloat162float(a.bh[n0 + 1]) : 0.0f;
-#pragma unroll
-                for (int r = 0; r < kRows; ++r)
-#pragma unroll
-                    for (int hf = 0; hf < 2; ++hf)
-                        *reinterpret_cast<uint32_t*>(stg + (r * 16 + g + 8 * hf) * kNP + n0) =
-                            pack_bf16(z[r][nf][2 * hf] + h0, z[r][nf][2 * hf + 1] + h1);
-            }
+            head_product<kRows>(z, y, h_base);
+            stage_head<kRows>(stg, z, a.bh, a.nout, g, q);
             __syncwarp();
             for (int i = lane; i < kRows * 16 * a.nout; i += 32) {
                 const int p = i / a.nout, n = i - p * a.nout;

@@ -62,22 +62,14 @@ def kernel_width_errors(cfg: HoverNeXtConfig, fused_decoder: bool,
     d, dec = cfg.encoder.dims, cfg.decoder_dims
     last, n_out = dec[-1], 4 + cfg.tp_channels
     errs = []
-    if fused_final in (True, "heads"):
-        kernel = "K9 (fused_final=True)" if fused_final is True else 'K10 (fused_final="heads")'
+    final = {True: "K9 (fused_final=True)", "heads": 'K10 (fused_final="heads")',
+             "pallas": 'K11 (fused_final="pallas")'}
+    if fused_final in final:
+        kernel = final[fused_final]
         if last != UP_CHANNELS:
             errs.append(f"{kernel} takes a last decoder width of {UP_CHANNELS}, got {last}")
-        if fused_final == "heads" and n_out > UP_HEAD_COLS:
+        if fused_final is not True and n_out > UP_HEAD_COLS:
             errs.append(f"{kernel} takes at most {UP_HEAD_COLS} head columns, got {n_out}")
-    if fused_final == "pallas":
-        kernel = 'K11 (fused_final="pallas")'
-        if 4 * last not in KERNEL_COUTS:
-            errs.append(f"{kernel} takes 4 x the last decoder width in {KERNEL_COUTS}, got "
-                        f"4 x {last} = {4 * last}")
-        if last % CIN_MULTIPLE:
-            errs.append(f"{kernel} takes a last decoder width that is a multiple of "
-                        f"{CIN_MULTIPLE}, got {last}")
-        if n_out > last:
-            errs.append(f"{kernel} takes at most {last} head columns, got {n_out}")
     if fused_decoder:
         ins = [(f"dec{i}.conv0 input", cx) for i, cx in enumerate([d[-1]] + list(dec[:-1]))]
         ins += [(f"dec{i}.conv0 skip", cs) for i, cs in enumerate((d[2], d[1], d[0]))]
@@ -90,6 +82,9 @@ def kernel_width_errors(cfg: HoverNeXtConfig, fused_decoder: bool,
             if c not in KERNEL_COUTS:
                 errs.append(f"K7/K8 (fused_decoder) take widths in {KERNEL_COUTS}, got {c} "
                             f"(decoder_dims[{i}])")
+        if last != UP_CHANNELS:
+            errs.append(f"K7/K8 (fused_decoder): K8 takes a last decoder width of "
+                        f"{UP_CHANNELS}, got {last}")
     return errs
 
 

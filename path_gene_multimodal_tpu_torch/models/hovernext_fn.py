@@ -124,11 +124,9 @@ def _lowres_head_weights(p, p_final, dtype):
 
 def _block_diag_heads(wcat: torch.Tensor, bcat: torch.Tensor):
     """The head matrix repeated block-diagonally over the four parity
-    phases, (4 cout, 4 n_out), and the 4x-tiled head bias."""
-    cout, n_out = wcat.shape
-    eye = torch.eye(4, dtype=wcat.dtype, device=wcat.device)
-    wh_bd = torch.einsum("pq,cn->pcqn", eye, wcat).reshape(4 * cout, 4 * n_out)
-    return wh_bd, bcat.repeat(4)
+    phases, (4 cout, 4 n_out), zeros off the diagonal whatever wcat
+    holds, and the 4x-tiled head bias."""
+    return torch.block_diag(*[wcat] * 4), bcat.repeat(4)
 
 
 def _parity_to_fullres(z: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -141,7 +139,9 @@ def _parity_to_fullres(z: torch.Tensor, n_out: int) -> torch.Tensor:
 def k11_weights(p, dtype) -> tuple[torch.Tensor, ...]:
     """What ``_final_heads_lowres_pallas`` takes: K11's (wc, bias4, wh_bd,
     bh4), folded in f32 and cast to bf16 once, contiguous; then the head
-    matrix and bias in ``dtype`` for the border ring."""
+    matrix and bias in ``dtype`` for the border ring. wh_bd is
+    block-diagonal by construction (``_block_diag_heads``), which K11's
+    kernel requires, so its callers need not check it on the device."""
     wc, bias4, wcat, bcat = _lowres_head_weights(p, p["final_conv"], dtype)
     wh_bd, bh4 = _block_diag_heads(wcat, bcat)
     k11 = tuple(t.to(torch.bfloat16).contiguous() for t in (wc, bias4, wh_bd, bh4))
@@ -153,7 +153,8 @@ def _final_heads_lowres_pallas(p, x, dtype, exact_gelu: bool, weights):
     n_out) f32. ``weights``: ``k11_weights(p, dtype)``, folded once by the
     caller."""
     wc, bias4, wh_bd, bh4, wcat, bcat = weights
-    z = composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu=exact_gelu)
+    z = composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu=exact_gelu,
+                              block_diagonal=True)
     # f32 before the border fix: the ring comes out in dtype, the kernel in bf16
     out = _parity_to_fullres(z, wcat.shape[-1]).float()
     return _exact_border_heads(out, p["final_conv"], x, wcat, bcat, dtype, exact_gelu)

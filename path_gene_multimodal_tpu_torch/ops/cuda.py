@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv",
-           "upsample_conv", "cc")
+           "upsample_conv", "conv64", "cc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 

@@ -1,13 +1,15 @@
 """K7-K11: the HoverNeXt decoder and final-stage kernels.
 
 Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
-launches its hand-written kernel (K7, K8, K11: ``csrc/decoder_conv.cu``; K9,
-K10: ``csrc/upsample_conv.cu``) on a CUDA tensor and runs its ``*_plain``
-twin on a CPU tensor:
+launches its hand-written kernel (K7: ``csrc/decoder_conv.cu``; K9, K10:
+``csrc/upsample_conv.cu``; K8, K11: ``csrc/conv64.cu``; the last two share
+the 64-channel conv core ``csrc/conv64.cuh``) on a CUDA tensor and runs its
+``*_plain`` twin on a CPU tensor:
 
 - ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
   + bias + LayerNorm + GELU, the concat never built;
-- ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU;
+- ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU
+  (``StripTiling`` is the launch geometry);
 - ``upsample_final`` (K9, ``fused_upsample_final``): bilinear 2x + conv3x3 +
   bias + GELU, the upsampled map never built (each tile's halo is
   upsampled once in shared memory; ``UpsampleTiling`` is the launch
@@ -16,7 +18,9 @@ twin on a CPU tensor:
   bias + GELU + head product, logits NHWC (the JAX kernel writes NCHW,
   which its caller transposes to this);
 - ``composite_final_heads`` (K11, ``composite_final_heads``): conv3x3 with
-  parity-folded weights + bias + GELU + block-diagonal head product.
+  parity-folded weights + bias + GELU + block-diagonal head product; the
+  kernel runs each parity phase as its own 64-channel conv with its
+  diagonal head block (``StripTiling`` with four phases).
 
 The plain versions repeat the TPU kernels' rounding points: inputs,
 weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
@@ -42,10 +46,11 @@ from path_gene_multimodal_tpu_torch.ops import cuda
 from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
 
 _BF = torch.bfloat16
-KERNEL_COUTS = (64, 96, 192, 256, 384)  # the conv core's tile widths
-CIN_MULTIPLE = 32  # input channels per K step of the conv core
-UP_CHANNELS = 64  # K9/K10 kernel: cin = cout
-UP_HEAD_COLS = 16  # K10 kernel: head columns, zero-padded
+KERNEL_COUTS = (64, 96, 192, 384)  # K7's tile widths
+CIN_MULTIPLE = 32  # input channels per K step of K7
+UP_CHANNELS = 64  # K8-K11 kernels: cin = cout (per phase, K11)
+UP_HEAD_COLS = 16  # K10/K11 kernels: head columns (per phase, K11), zero-padded
+K11_PHASES = 4  # the parity phases of K11's composite weights
 FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
 SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
 
@@ -123,6 +128,113 @@ class UpsampleTiling:
         return self.tile_h, self.tile_w, self.grid, self.smem_bytes
 
 
+@dataclass(frozen=True)
+class StripTiling:
+    """Launch geometry of the K8/K11 kernel (``csrc/conv64.cu``) on a
+    (batch, h, w, 64) input: persistent blocks, one per SM, block b holding
+    the weight of phase b % phases (K8: 1; K11: 4, one 64-channel conv per
+    parity phase); each of a block's ``groups`` warpgroups is a worker of
+    its own, worker (b // phases) * groups + g walking work items t = worker,
+    += workers per phase. Item t is a strip of strip_h rows x strip_w
+    columns of one image (images, then row segments, then column strips),
+    walked downwards in steps of step_rows output rows, each reading input
+    rows oy0 - 1 .. oy0 + step_rows and columns x0 - 1 .. x0 + strip_w. A
+    worker's input rows form one stream (item after item, rows y0 - 1 ..
+    y0 + step_rows * steps), position s held in slot s % ring of its ring;
+    before a step's products the worker copies the stream up to the ring's
+    free slots, after them the rest of the next step's rows
+    (``worker_schedule`` states the order), by TMA. Input pixels outside
+    the image are zero-filled (the conv's padding); output rows and columns
+    past the image are not written. The kernel is compiled for this
+    geometry and checks what it is given against its own."""
+
+    strip_h: ClassVar[int] = 32
+    strip_w: ClassVar[int] = 64
+    step_rows: ClassVar[int] = 4
+    ring: ClassVar[int] = 8
+    groups: ClassVar[int] = 2
+
+    batch: int
+    h: int
+    w: int
+    phases: int = 1
+    n_sm: int = 132
+
+    @property
+    def strips_yx(self) -> tuple[int, int]:
+        return -(-self.h // self.strip_h), -(-self.w // self.strip_w)
+
+    @property
+    def n_items(self) -> int:
+        sy, sx = self.strips_yx
+        return self.batch * sy * sx
+
+    @property
+    def grid(self) -> int:
+        return self.phases * min(-(-self.n_items // self.groups), self.n_sm // self.phases)
+
+    def item(self, t: int) -> tuple[int, int, int, int]:
+        """(image, first row, first column, steps) of work item t."""
+        sy_n, sx_n = self.strips_yx
+        img, rem = divmod(t, sy_n * sx_n)
+        sy, sx = divmod(rem, sx_n)
+        y0 = sy * self.strip_h
+        return img, y0, sx * self.strip_w, -(-min(self.strip_h, self.h - y0) // self.step_rows)
+
+    def worker_schedule(self, block: int, group: int):
+        """The kernel's order of work in warpgroup ``group`` of ``block``:
+        ("copy", position, image, input row, x0) as each row's copy is
+        issued and ("step", position of its first input row, image, first
+        output row, x0) where a step's products read the ring (every copy
+        issued before it has landed by then)."""
+        stride = self.grid // self.phases * self.groups
+        first = block // self.phases * self.groups + group
+        win = self.step_rows + 2
+        items = range(first, self.n_items, stride)
+        rows = ((t, k) for t in items for k in range(self.step_rows * self.item(t)[3] + 2))
+        pos = 0
+
+        def issue_until(limit):
+            nonlocal pos
+            while pos < limit:
+                nxt = next(rows, None)
+                if nxt is None:
+                    return
+                img, y0, x0, _ = self.item(nxt[0])
+                yield "copy", pos, img, y0 - 1 + nxt[1], x0
+                pos += 1
+
+        yield from issue_until(win)
+        p = 0
+        for t in items:
+            img, y0, x0, steps = self.item(t)
+            for j in range(steps):
+                yield from issue_until(p + self.ring)
+                yield "step", p, img, y0 + j * self.step_rows, x0
+                p_next = p + (win if j + 1 == steps else self.step_rows)
+                yield from issue_until(p_next + win)
+                p = p_next
+
+    @property
+    def smem_bytes(self) -> int:
+        """The resident weights, a ring of planar input rows per worker, a
+        staging row of 16 output pixels (64 + 8 bf16 each) per warp, an
+        mbarrier per ring slot and, for K11, the head weights (rows of
+        16 + 8 bf16)."""
+        weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
+        rings = self.groups * self.ring * (self.strip_w + 2) * UP_CHANNELS * 2
+        staging = 8 * 16 * (UP_CHANNELS + 8) * 2
+        barriers = self.groups * self.ring * 8
+        head = UP_CHANNELS * (UP_HEAD_COLS + 8) * 2 if self.phases > 1 else 0
+        return weights + rings + staging + barriers + head
+
+    def launch_args(self) -> tuple[int, int, int, int, int, int]:
+        """(strip_h, strip_w, step_rows, ring, grid, shared memory bytes),
+        as the launchers take them."""
+        return (self.strip_h, self.strip_w, self.step_rows, self.ring, self.grid,
+                self.smem_bytes)
+
+
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) → (B, 2H, 2W, C), nearest."""
     b, h, w, c = x.shape
@@ -192,6 +304,25 @@ def composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = Fal
     return (_f(y) @ _f(wh_bd) + _f(bh4)).to(_BF)
 
 
+def composite_final_heads_by_phase(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
+                                   head_of=None):
+    """K11's kernel decomposition, plain: parity phase p as a conv cin →
+    cout with wc[..., p cout : (p + 1) cout] and its bias slice, GELU rounded
+    to bf16, through diagonal head block ``head_of[p]`` of wh_bd (the
+    identity by default) and its bias slice; the phases' logits side by
+    side. Equals ``composite_final_heads_plain`` for a block-diagonal wh_bd
+    up to the order of the f32 head sums."""
+    c4, n4 = wh_bd.shape
+    c, n = c4 // K11_PHASES, n4 // K11_PHASES
+    outs = []
+    for p, hp in enumerate(head_of or range(K11_PHASES)):
+        y = gelu_kernel(_conv3x3(_f(x), _f(wc[..., p * c : (p + 1) * c]))
+                        + _f(bias4[p * c : (p + 1) * c]), exact_gelu)
+        outs.append(_f(y) @ _f(wh_bd[hp * c : (hp + 1) * c, hp * n : (hp + 1) * n])
+                    + _f(bh4[hp * n : (hp + 1) * n]))
+    return torch.cat(outs, -1).to(_BF)
+
+
 def _act(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(_BF).contiguous()
 
@@ -233,35 +364,37 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     return out
 
 
+def _check_up(cin: int, cout: int, name: str) -> None:
+    if cin != UP_CHANNELS or cout != UP_CHANNELS:
+        raise ValueError(f"{name} kernel takes cin = cout = {UP_CHANNELS}, got {cin}, {cout}")
+
+
 def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     """Full-resolution 3x3 conv + bias + GELU: x (B, H, W, cin), w (3, 3,
     cin, cout) → (B, H, W, cout) bf16. H must be a multiple of 32, on both
     devices, as the TPU kernel requires at its default ``rows=32``; any W
     and batch: offsets are 64-bit, so one call takes a TTA x4 batch of 128
-    tiles (2^31 elements)."""
+    tiles (2^31 elements). The kernel takes cin = cout = 64."""
     bsz, h, wd, cin = x.shape
     if h % FINAL_CONV_ROWS:
         raise ValueError(f"H={h} must be a multiple of rows={FINAL_CONV_ROWS}")
     if not x.is_cuda:
         return final_conv_gelu_plain(x, w, b, exact_gelu)
     cout = w.shape[-1]
-    _check_conv([cin], cout, "final_conv_gelu")
+    _check_up(cin, cout, "final_conv_gelu")
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
     out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
+    geo = StripTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device))
     cuda.launch(
-        "decoder_conv", "final_conv_gelu_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
-        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), cuda.stream(),
+        "conv64", "final_conv_gelu_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
+        cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
+        cuda.stream(),
     )
     final_conv_gelu.launches += 1
     return out
-
-
-def _check_up(cin: int, cout: int, name: str) -> None:
-    if cin != UP_CHANNELS or cout != UP_CHANNELS:
-        raise ValueError(f"{name} kernel takes cin = cout = {UP_CHANNELS}, got {cin}, {cout}")
 
 
 def upsample_final(x, w, b, exact_gelu: bool = False):
@@ -323,30 +456,61 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     return out
 
 
-def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
+def check_block_diagonal(wh_bd: torch.Tensor, phases: int = K11_PHASES) -> None:
+    """Raise unless ``wh_bd`` (phases c, phases n) is zero off its diagonal
+    (c, n) blocks, which K11's kernel does not read. Costs one device sync
+    for a head on the card."""
+    c4, n4 = wh_bd.shape
+    if c4 % phases or n4 % phases:
+        raise ValueError(f"wh_bd {tuple(wh_bd.shape)} is no {phases} x {phases} grid of blocks")
+    blocks = wh_bd.reshape(phases, c4 // phases, phases, n4 // phases).transpose(1, 2)
+    off = ~torch.eye(phases, dtype=torch.bool, device=wh_bd.device)
+    if bool(blocks[off].any()):
+        raise ValueError("composite_final_heads: wh_bd has nonzero blocks off its diagonal; the "
+                         "kernel reads only the diagonal (cout, n_out) block of each phase")
+
+
+def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
+                          block_diagonal: bool = False):
     """The final stage in the low-res parity domain: x (B, H, W, cin), wc
     (3, 3, cin, 4 cout) parity-folded weights, bias4 (4 cout,), wh_bd
     (4 cout, 4 n_out) block-diagonal heads, bh4 (4 n_out,) → (B, H, W,
-    4 n_out) bf16 parity logits, phase-major (a, b) = 00, 01, 10, 11. The
-    kernel computes the whole (4 cout, 4 n_out) product, zero blocks too."""
+    4 n_out) bf16 parity logits, phase-major (a, b) = 00, 01, 10, 11.
+
+    Precondition, as the TPU kernel's: wh_bd is block-diagonal (the head
+    repeated per phase, ``hovernext_fn._block_diag_heads``), so that phase
+    p's logits depend only on its own cout channels. The plain version
+    multiplies the whole matrix; the kernel runs each phase as a conv
+    cin → cout with its diagonal head block and reads no other block, so
+    on the card a head with nonzero off-diagonal blocks is refused
+    (``check_block_diagonal``, one device sync) rather than answered
+    wrongly. ``block_diagonal=True`` states that wh_bd was built
+    block-diagonal, as ``hovernext_fn.k11_weights`` builds it, and skips
+    that check, so that the call is enqueued without waiting for the
+    device. The kernel takes cin = cout = 64 and n_out <= 16."""
     if not x.is_cuda:
         return composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu)
     bsz, h, wd, cin = x.shape
     c4, n4 = wc.shape[-1], wh_bd.shape[-1]
-    _check_conv([cin], c4, "composite_final_heads")
-    if n4 > c4:
-        raise ValueError(f"composite_final_heads kernel takes n4 <= c4, got {n4}, {c4}")
+    _check_up(cin, c4 // K11_PHASES, "composite_final_heads")
+    if c4 % K11_PHASES or n4 % K11_PHASES or not 0 < n4 // K11_PHASES <= UP_HEAD_COLS:
+        raise ValueError(f"composite_final_heads kernel takes c4 = {K11_PHASES} x {UP_CHANNELS} "
+                         f"and n4 = {K11_PHASES} x n_out, 0 < n_out <= {UP_HEAD_COLS}, got "
+                         f"{c4}, {n4}")
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(wc, "wc", _BF, (3, 3, cin, c4))
     cuda.check(bias4, "bias4", _BF, (c4,))
     cuda.check(wh_bd, "wh_bd", _BF, (c4, n4))
     cuda.check(bh4, "bh4", _BF, (n4,))
+    if not block_diagonal:
+        check_block_diagonal(wh_bd)
     out = torch.empty((bsz, h, wd, n4), dtype=_BF, device=x.device)
+    geo = StripTiling(bsz, h, wd, phases=K11_PHASES, n_sm=cuda.sm_count(x.device))
     cuda.launch(
-        "decoder_conv", "composite_final_heads_launch", cuda.ptr(xb), cuda.ptr(wc),
+        "conv64", "composite_final_heads_launch", cuda.ptr(xb), cuda.ptr(wc),
         cuda.ptr(bias4), cuda.ptr(wh_bd), cuda.ptr(bh4), cuda.ptr(out), bsz, h, wd, cin, c4, n4,
-        int(exact_gelu), cuda.stream(),
+        int(exact_gelu), *geo.launch_args(), cuda.stream(),
     )
     composite_final_heads.launches += 1
     return out
