@@ -34,10 +34,13 @@
    versions on that batch's own activations at full shape, in both GELU
    modes, with biases and LayerNorm vectors drawn from a seed (K11 also
    with a different head block per phase), and runs mutants (a dropped
-   bias, LayerNorm scale 1, K7's skip half zeroed, a dropped head bias, K9
-   in the other GELU mode, K11's head blocks applied to the wrong phases)
-   that the check must catch; times each kernel, its plain version and
-   cuDNN's conv at the same shape (conv only). K9 and K10
+   bias, LayerNorm scale 1, K7's skip half zeroed, its skip's weights read
+   at offset 0, its LayerNorm statistics over half of cout and its input
+   edge-replicated, a dropped head bias, K9 in the other GELU mode, K11's
+   head blocks applied to the wrong phases) that the check must catch;
+   times each kernel, its plain version and cuDNN's conv at the same shape
+   (conv only); K7 also at two ragged shapes, with its per-call L2 bytes,
+   geometry and ptxas lines (a spill fails the run). K9 and K10
    (``csrc/upsample_conv.cu``) and K8 and K11 (``csrc/conv64.cu``) are also
    checked at shapes whose output is no multiple of their tile or strip,
    and against a mutant that pads the conv's input by edge replication
@@ -76,9 +79,12 @@ shapes) and K8-K11 (one batch of 4 calls each) of the package copy whose
 root is PARENT (e.g. an earlier commit unpacked with ``git archive``)
 against this checkout's, in turns
 (parent, this, this, parent), each in its own process with its own build,
-on seeded inputs; the first run of this checkout also holds K1 against its
-plain version at the stage shapes and at ragged shapes, and K8/K11 on 16
-images. Prints one JSON line per run and exits non-zero if a run fails.
+on seeded inputs, each timed group after the card has idled (1-2 s, its
+SM clock and power read then), so that no group inherits the clock and
+power state of the one before it; the first run of each version also
+holds K1 against its plain version at the stage shapes and at ragged
+shapes, and K8/K11 on 16 images. Prints one JSON line per run and exits
+non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -116,9 +122,11 @@ K1_RAGGED = ((3, 13, 11, 96), (2, 5, 7, 384))
 # its 64-column strip) and K9/K10/K11's (B, H, W at half resolution)
 K8_RAGGED = ((3, 32, 70), (2, 64, 10))
 HALF_RAGGED = ((3, 34, 34), (2, 6, 10))
-# (H = W, cx, cs, cout) of K7's 8 calls per forward at a 256-px input
+# (H = W, cx, cs, cout) of K7's 8 calls per forward at a 256-px input, and
+# K7's ragged shapes (B, H, W, cx, cs, cout): H or W no multiple of its tile
 K7_CALLS = ((16, 768, 384, 384), (16, 384, 0, 384), (32, 384, 192, 192), (32, 192, 0, 192),
             (64, 192, 96, 96), (64, 96, 0, 96), (128, 96, 0, 64), (128, 64, 0, 64))
+K7_RAGGED = ((3, 20, 20, 192, 96, 96), (2, 12, 40, 64, 0, 64))
 # K9: 2 bf16 ulp + this slack. Its plain version and the kernel differ only
 # in the order of f32 sums (errors ~1e-6), so the slack can be small enough
 # that the other GELU mode (up to 4.7e-4 apart near x = -2.7) fails the
@@ -168,6 +176,17 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """Spacing of bf16 numbers at |t| (8 significant bits)."""
     m, e = torch.frexp(t.float())
     return torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def _idle(res: dict, key: str, seconds: float = 2.0) -> None:
+    """Let the card idle before a timed group, so that each group starts
+    from the same clock and power state whatever ran before it, and keep
+    the SM clock and power draw read at the group's start under ``key``."""
+    torch.cuda.synchronize()
+    time.sleep(seconds)
+    res.setdefault("clocks", {})[key] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def _smi() -> str:
@@ -406,6 +425,7 @@ def _ab_child(root: Path, check: bool) -> int:
     for s, (hh, c) in enumerate(K1_STAGES):
         x = torch.randn((512, hh, hh, c), generator=gen).to(dev, bf)
         wts = _block_weights(Block, c, 910 + s, dev)
+        _idle(res, f"k1_stage{s}")
         with torch.inference_mode():
             ms = _sync_time(lambda: k1.convnext_block(x, *wts), reps=5)
         st = {"shape": list(x.shape), "ms": ms}
@@ -433,6 +453,7 @@ def _ab_child(root: Path, check: bool) -> int:
         x, skip = rnd((512, hh, hh, cx)), rnd((512, hh, hh, cs)) if cs else None
         w7 = rnd((3, 3, cx + cs, cout), (9 * (cx + cs)) ** -0.5)
         vec = [rnd(cout, 0.1), (1 + rnd(cout, 0.1).float()).to(bf), rnd(cout, 0.1)]
+        _idle(res, f"k7_{hh}_{cx}_{cs}_{cout}", 1.0)
         with torch.inference_mode():
             res["k7"].append(_sync_time(lambda: dec.decoder_conv(x, skip, w7, *vec), reps=3))
         del x, skip
@@ -448,10 +469,13 @@ def _ab_child(root: Path, check: bool) -> int:
     k11_kw = ({"block_diagonal": True} if "block_diagonal"
               in inspect.signature(dec.composite_final_heads).parameters else {})
     with torch.inference_mode():
+        _idle(res, "k9")
         res["k9_batch_ms"] = _sync_time(
             lambda: [dec.upsample_final(c_, w, b) for c_ in x.split(CHUNK)], reps=2)
+        _idle(res, "k10")
         res["k10_batch_ms"] = _sync_time(
             lambda: [dec.final_heads(c_, w, b, wh, bh) for c_ in x.split(CHUNK)], reps=2)
+        _idle(res, "k11")
         res["k11_batch_ms"] = _sync_time(
             lambda: [dec.composite_final_heads(c_, wc, b4, wh_bd, bh4, **k11_kw)
                      for c_ in x.split(CHUNK)], reps=2)
@@ -464,6 +488,7 @@ def _ab_child(root: Path, check: bool) -> int:
             res["k11_excess"] = _excess(got, ref, atol)
         del x
         x8 = rnd((512, 256, 256, 64))
+        _idle(res, "k8")
         res["k8_batch_ms"] = _sync_time(
             lambda: [dec.final_conv_gelu(c_, w, b) for c_ in x8.split(CHUNK)], reps=2)
         if check:
@@ -652,6 +677,55 @@ def _conv_edge(x, w, b, exact_gelu=False):
     return gelu_kernel(y, exact_gelu)
 
 
+def _k7_mutant(x, skip, w, b, ln_scale, ln_bias, exact_gelu=False, edge=False, ln_half=False):
+    """A mutant of K7's plain version: the input padded by edge replication
+    instead of zeros (``edge``), or the LayerNorm statistics taken over the
+    first half of cout only (``ln_half``)."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
+
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    xin = f(x) if skip is None else torch.cat([f(x), f(skip)], dim=-1)
+    xin = xin.permute(0, 3, 1, 2)
+    wk = f(w).permute(3, 2, 0, 1)
+    if edge:
+        acc = F.conv2d(F.pad(xin, (1, 1, 1, 1), mode="replicate"), wk)
+    else:
+        acc = F.conv2d(xin, wk, padding=1)
+    del xin
+    acc = acc.permute(0, 2, 3, 1) + f(b)
+    stats = acc[..., : acc.shape[-1] // 2] if ln_half else acc
+    mu = stats.mean(-1, keepdim=True)
+    var = (stats - mu).square().mean(-1, keepdim=True)
+    acc = (acc - mu) * torch.rsqrt(var + 1e-6) * f(ln_scale) + f(ln_bias)
+    return gelu_kernel(acc, exact_gelu).to(torch.bfloat16)
+
+
+def _k7_mutants(x, skip, w, vb, vg, vl) -> dict:
+    """The mutants K7's check must catch: a dropped bias, LayerNorm scale 1,
+    the input edge-replicated, the LayerNorm statistics over half of cout,
+    and with a skip, its half of the weight zeroed or read at offset 0
+    (x's rows) instead of cx."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    mut = {"no_bias": lambda: dec.decoder_conv_plain(x, skip, w, 0 * vb, vg, vl),
+           "ln_scale=1": lambda: dec.decoder_conv_plain(x, skip, w, vb, 1 + 0 * vg, vl),
+           "edge_replicated": lambda: _k7_mutant(x, skip, w, vb, vg, vl, edge=True),
+           "ln_stats_half_cout": lambda: _k7_mutant(x, skip, w, vb, vg, vl, ln_half=True)}
+    if skip is not None:
+        cx, cs = x.shape[-1], skip.shape[-1]
+
+        def skip_rows(fill):
+            bad = w.clone()
+            bad[:, :, cx:] = fill
+            return dec.decoder_conv_plain(x, skip, bad, vb, vg, vl)
+
+        mut["skip_half_zeroed"] = lambda: skip_rows(0)
+        mut["skip_weights_at_offset_0"] = lambda: skip_rows(w[:, :, :cs])
+    return mut
+
+
 def _edge_padded(x, w, b, exact_gelu=False):
     """A mutant of K9's plain version: the upsampled map padded by edge
     replication instead of the conv's zeros."""
@@ -701,12 +775,15 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     src_up = "path_gene_multimodal_tpu_torch/csrc/upsample_conv.cu"
     src_64 = "path_gene_multimodal_tpu_torch/csrc/conv64.cu"
     ptxas_64 = _conv64_ptxas(dec.cuda)
-    # K8/K11's kernel (every instantiation) must not spill
-    for kname, info in ptxas_64.items():
-        if "conv64_kernel" in kname and (info.get("spill_stores", 0) or info.get("spill_loads", 0)):
-            failures.append(f"conv64 kernel {kname} spills: {info}")
-    if not any("conv64_kernel" in k for k in ptxas_64):
-        failures.append("conv64: no ptxas lines for conv64_kernel in its build log")
+    ptxas_7 = _ptxas_entries(dec.cuda.build_log("decoder_conv"))
+    # K7's and K8/K11's kernels (every instantiation) must not spill
+    for lib, kern, info_of in (("decoder_conv", "decoder_conv_kernel", ptxas_7),
+                               ("conv64", "conv64_kernel", ptxas_64)):
+        for kname, info in info_of.items():
+            if kern in kname and (info.get("spill_stores", 0) or info.get("spill_loads", 0)):
+                failures.append(f"{lib} kernel {kname} spills: {info}")
+        if not any(kern in k for k in info_of):
+            failures.append(f"{lib}: no ptxas lines for {kern} in its build log")
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     entries = []
 
@@ -767,18 +844,11 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
                       _seeded(w[0, 0, 0], 202 + 3 * j))
         rec = {"call": cname, "shape": [b, h, wd, cx, cs, cout]}
         with torch.inference_mode():
-            mut = {"no_bias": lambda: dec.decoder_conv_plain(xin, skip, w, 0 * vb, vg, vl),
-                   "ln_scale=1": lambda: dec.decoder_conv_plain(xin, skip, w, vb, 1 + 0 * vg, vl)}
-            if cs:
-                w_noskip = w.clone()
-                w_noskip[:, :, cx:] = 0
-                mut["skip_half_zeroed"] = lambda: dec.decoder_conv_plain(xin, skip, w_noskip, vb,
-                                                                         vg, vl)
             err = modes(
                 f"decoder_conv {cname}",
                 lambda e: dec.decoder_conv(xin, skip, w, vb, vg, vl, exact_gelu=e),
                 lambda e: dec.decoder_conv_plain(xin, skip, w, vb, vg, vl, exact_gelu=e),
-                lambda e: DEC_ATOL, mut, rec)
+                lambda e: DEC_ATOL, _k7_mutants(xin, skip, w, vb, vg, vl), rec)
             ms = _sync_time(lambda: dec.decoder_conv(xin, skip, w, vb, vg, vl), reps=3)
             pms = _sync_time(lambda: dec.decoder_conv_plain(xin, skip, w, vb, vg, vl), reps=1)
             xcat = xin if skip is None else torch.cat([xin, skip], dim=-1)
@@ -789,19 +859,47 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         nbytes = 2 * px * (cin + cout) + 2 * w.numel()
         bnd, by = _bound_ms(nbytes, [(2 * px * 9 * cin * cout, PEAK_BF16),
                                      (20 * px * cout, PEAK_F32)])
-        rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by)
+        geo = dec.DecoderConvTiling(b, h, wd, cx, cs, cout,
+                                    slots=dec._k7_slots(cout, xin.device))
+        rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by,
+                   l2_bytes_estimate=geo.l2_bytes(), hbm_bytes=nbytes,
+                   geometry=dict(zip(("tile_h", "tile_w", "taps", "ring_w", "ring_h", "cluster",
+                                      "grid", "smem_bytes"), geo.launch_args())))
         k7["calls"].append(rec)
         for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bnd), ("library_ms", lms)):
             k7[key] += v
         k7["err"] = max(k7["err"], err)
         by_t[by] += bnd
     del calls
+    # K7 where H or W is no multiple of its tile: halo, edge and store faults
+    # show at the ragged last tiles
+    k7["ragged"] = []
+    for j, (rb, rh, rw, cx, cs, cout) in enumerate(K7_RAGGED):
+        gen = torch.Generator().manual_seed(800 + j)
+        xr = torch.randn((rb, rh, rw, cx), generator=gen).to(pixels.device, bf)
+        sr = torch.randn((rb, rh, rw, cs), generator=gen).to(pixels.device, bf) if cs else None
+        wr = (torch.randn((3, 3, cx + cs, cout), generator=gen) * (9 * (cx + cs)) ** -0.5).to(
+            pixels.device, bf)
+        vb, vg, vl = (_seeded(wr[0, 0, 0], 810 + 3 * j), _seeded(wr[0, 0, 0], 811 + 3 * j, 1.0),
+                      _seeded(wr[0, 0, 0], 812 + 3 * j))
+        r7 = {"shape": [rb, rh, rw, cx, cs, cout]}
+        with torch.inference_mode():
+            modes(f"decoder_conv {rb}x{rh}x{rw}x{cx}+{cs}->{cout}",
+                  lambda e: dec.decoder_conv(xr, sr, wr, vb, vg, vl, exact_gelu=e),
+                  lambda e: dec.decoder_conv_plain(xr, sr, wr, vb, vg, vl, exact_gelu=e),
+                  lambda e: DEC_ATOL, _k7_mutants(xr, sr, wr, vb, vg, vl), r7)
+        k7["ragged"].append(r7)
+    print(json.dumps({"k7_calls": [{k: c[k] for k in ("call", "ms", "library_ms", "bound_ms",
+                                                      "l2_bytes_estimate")}
+                                   for c in k7["calls"]]}), flush=True)
     entry("decoder_conv", f"{pallas}:168", k7["err"], k7["ms"], k7["plain_ms"], k7["bound_ms"],
           max(by_t, key=by_t.get), k7["library_ms"],
           "per batch: the 8 calls of one forward (512 images); library_ms: cuDNN conv2d alone "
           "at each call's shape on the concatenated input (conv only, no bias/LN/GELU); "
           "vectors drawn from a seed; both GELU modes: |kernel - plain| <= 2 bf16 ulp + "
-          f"{DEC_ATOL}, elementwise, all 512 images", calls=k7["calls"])
+          f"{DEC_ATOL}, elementwise, all 512 images, and at the ragged shapes (see ragged); "
+          "calls[].l2_bytes_estimate: weights and halos the kernel reads through L2 "
+          "(DecoderConvTiling.l2_bytes)", calls=k7["calls"], ragged=k7["ragged"], ptxas=ptxas_7)
 
     # K8: once over the whole 512-image batch (2^31 elements in and out)
     w8, b8 = m.fused_weights["k8"]
@@ -1289,8 +1387,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for chip_smoke.json and scratch files")
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="only time K1, K9 and K10 of the package copy under PARENT against "
-                         "this checkout's")
+                    help="only time K1, K7 and K8-K11 of the package copy under PARENT "
+                         "against this checkout's")
     ap.add_argument("--ab-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1351,7 +1449,8 @@ def main(argv: list[str] | None = None) -> int:
                        for n in cuda.KERNELS}
     print(f"built {len(cuda.KERNELS)} kernels in {report['build_s']:.1f} s", flush=True)
     print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"],
-                      "ptxas_conv64": report["ptxas"]["conv64"]}), flush=True)
+                      "ptxas_conv64": report["ptxas"]["conv64"],
+                      "ptxas_decoder_conv": report["ptxas"]["decoder_conv"]}), flush=True)
 
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()

@@ -73,8 +73,6 @@
 #include "conv64.cuh"
 
 #include <climits>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 
 namespace {
@@ -321,25 +319,6 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (t < a.n_items) it = item_at(a, t);
         }
     }
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-    static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                               cudaEnableDefault, &q);
-#else
-        const cudaError_t e =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-    return fn;
 }
 
 // x (batch, h, w_, 64) bf16 as a 5-D tensor (8 channels, w_, h, 8 channel

@@ -12,12 +12,11 @@
 // arithmetic (tanh default; exact erf through the Abramowitz-Stegun
 // polynomial of :65-83), GRN per image
 // (gx = sqrt(sum_hw y^2 + 1e-12), nx = gx / (mean_c gx + 1e-6),
-// y * (gamma * nx + 1) + beta). One difference: the pw1 output y2 is stored
-// in bf16 between launches 1 and 2, so the GRN affine reads bf16(y2) where
-// the TPU kernel reads the f32 value (its sum of squares is taken on the
-// f32 values here as there); the plain version models it. The LN output
-// `a` is stored in bf16 between launches 0 and 1, which is no rounding
-// point of its own: it is the operand the TPU kernel rounds before pw1.
+// y * (gamma * nx + 1) + beta). The pw1 output y2 is stored in f32 between
+// launches 1 and 2, so the GRN affine reads the f32 value, as the TPU
+// kernel does, and y3 is the first rounding after it. The LN output `a` is
+// stored in bf16 between launches 0 and 1, which is no rounding point of
+// its own: it is the operand the TPU kernel rounds before pw1.
 //
 // Why three launches: the per-image GRN reduction sits between the two
 // products, and an image's 4C activation (stage 0: 64*64*384 bf16 = 3 MB)
@@ -33,7 +32,7 @@
 //     4 channels of one column for the 4 rows: each value it loads serves
 //     up to 4 taps, each weight 4 rows. Bound by bytes (x in, a out) in
 //     principle; in practice by the CUDA cores' issue rate (49 taps).
-//   1 (pw1_kernel): a @ w1 + b1 -> GELU -> bf16 y2 (B, H*W, 4C), and the
+//   1 (pw1_kernel): a @ w1 + b1 -> GELU -> f32 y2 (B, H*W, 4C), and the
 //     per-image, per-channel sums of y2^2 (f32, unrounded) into gsum with one
 //     atomic per (tile, channel). An ordinary pipelined GEMM: 128-pixel x
 //     128-channel tiles, two consumer warpgroups of m64 each on wgmma
@@ -41,13 +40,15 @@
 //     chunks in wgmma's canonical no-swizzle K-major layout, one wgmma group
 //     kept in flight; y2 leaves through shared memory in 16-byte row stores.
 //   2 (pw2_kernel<NT>): per image scale = gamma * nx + 1 and shift = beta
-//     from gsum; each y2 chunk turned into bf16(y2 * scale + shift) in
-//     shared memory (the TPU's rounding point; the scale is not folded into
-//     w2, which would move it) before wgmma reads it; [px x 4C] @ [4C x NT]
-//     on a ring of 6 or 8 stages, NT = C up to 192 (C = 384 as two
-//     halves); + b2 + the residual x, bf16 out through shared memory.
+//     from gsum; each f32 y2 chunk lands in the ring stage as it is, and the
+//     thread that copied a piece turns it into bf16(y2 * scale + shift) in
+//     the stage's bf16 A tile (the TPU's rounding point; the scale is not
+//     folded into w2, which would move it) before wgmma reads it;
+//     [px x 4C] @ [4C x NT] on a ring of 5 or 6 stages, NT = C up to 192
+//     (C = 384 as two halves); + b2 + the residual x, bf16 out through
+//     shared memory.
 // What bounds them: launch 0 and stage 0's launches 1-2 by bytes (y2 is
-// 4C wide: 1.6 GB written and read per stage-0 call of 512 images), the
+// 4C wide and f32: 3.2 GB written and read per stage-0 call of 512 images), the
 // stage-2 products (C = 384: 2 x 4C^2 multiply-adds per pixel) by
 // operations. A 128-pixel tile lies in one image (H*W = 4096, 1024, 256 at
 // the stages; any other H*W gets a masked last tile per image).
@@ -70,10 +71,11 @@ using bf16 = __nv_bfloat16;
 constexpr int kM = 128;        // pixels per GEMM tile: two m64 warpgroups
 constexpr int kN1 = 128;       // pw1 output channels per tile
 constexpr int kKc = 32;        // K chunk per ring stage: two k16 steps
-// ring depth: kStages - 2 chunks copied ahead, one wgmma group in flight; pw2
-// holds one block per SM at N = 128 or 192 (its accumulators), so it goes deeper
+// ring depth: kStages - 2 chunks copied ahead, one wgmma group in flight; a
+// pw2 stage holds the f32 y2 chunk beside its bf16 A tile, so at N = 192 five
+// stages fit a block's shared memory
 constexpr int kStages1 = 4;
-__host__ __device__ constexpr int stages2(int nt) { return nt >= 128 ? 8 : 6; }
+__host__ __device__ constexpr int stages2(int nt) { return nt >= 192 ? 5 : 6; }
 constexpr int kThreads = 256;  // GEMM blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;       // dw output rows a thread computes per step
@@ -81,7 +83,7 @@ constexpr int kRing = 14;      // dw input rows held: kRows + 6 read, kRows copi
 constexpr int kMaxC = 384;
 constexpr int kMaxStrip = 64;  // dw rows per block
 constexpr int kDwMaxThreads = 768;
-constexpr int kLdY = kN1 + 8;  // bf16 row stride of pw1's output staging
+constexpr int kLdY = kN1 + 4;  // f32 row stride of pw1's output staging
 constexpr size_t kChunkA = size_t(kM) * kKc;  // bf16 elements of one A chunk
 
 bool channels_ok(int c) { return c > 0 && c % kKc == 0 && c <= kMaxC; }
@@ -99,17 +101,24 @@ size_t dw_smem(int c) {
     return size_t(kRing) * (tw + 6) * c * 2 + size_t(49) * c * 4 +
            size_t(kRows) * (threads / 8 + tw) * 4;
 }
-size_t pw1_smem() { return size_t(kStages1) * (kChunkA + size_t(kN1) * kKc) * 2 + kWarps * kN1 * 4; }
+constexpr size_t kRing1 = size_t(kStages1) * (kChunkA + size_t(kN1) * kKc) * 2;
+constexpr size_t kStaging1 = size_t(kM) * kLdY * 4;
+// the ring, which the f32 y2 staging later lies over, and the per-warp sums
+constexpr size_t kRegion1 = kRing1 > kStaging1 ? kRing1 : kStaging1;
+size_t pw1_smem() { return kRegion1 + kWarps * kN1 * 4; }
 int pw2_n_tile(int c) {
     constexpr int kTiles[] = {192, 128, 96, 64, 32};
     for (int nt : kTiles)
         if (c % nt == 0) return nt;
     return 0;
 }
-size_t pw2_smem(int c, int nt) {
-    return size_t(stages2(nt)) * (kChunkA + size_t(nt) * kKc) * 2 + size_t(8) * c * 4;
+// a pw2 stage: the f32 y2 chunk, its bf16 A tile, the bf16 w2 chunk
+__host__ __device__ constexpr size_t stage2_elems(int nt) {
+    return kChunkA * 2 + kChunkA + size_t(nt) * kKc;
 }
-static_assert(kM * kLdY * 2 <= kStages1 * (kChunkA + kN1 * kKc) * 2, "pw1 staging fits the ring");
+size_t pw2_smem(int c, int nt) {
+    return size_t(stages2(nt)) * stage2_elems(nt) * 2 + size_t(8) * c * 4;
+}
 
 // ------------------------------------------------------------ launch 0
 
@@ -315,15 +324,32 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
     }
 }
 
-// pw1: block (m tile, n tile), n fastest; smem: ring | reduction f32 [8][128]
+// The f32 twin of load_rows: element (row, k) of a 32-deep chunk at
+// ((k / 8) * rows + row) * 8 + k % 8 floats, each thread copying the two
+// 16-byte halves of one 8-float group (so that it can convert the group
+// alone once its own copies have landed); rows past `valid` are zero.
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long ld,
+                                              int rows, int valid, int k0) {
+    for (int i = threadIdx.x; i < rows * 4; i += kThreads) {
+        const int r = (i >> 1) % rows, kg = (i / (2 * rows)) * 2 + (i & 1);
+        const bool ok = r < valid;
+        const float* s = ok ? src + r * ld + k0 + kg * 8 : src;
+        float* d = dst + (kg * rows + r) * 8;
+        cp_async16(d, s, ok);
+        cp_async16(d + 4, ok ? s + 4 : s, ok);
+    }
+}
+
+// pw1: block (m tile, n tile), n fastest; smem: ring (later the f32 staging)
+// | reduction f32 [8][128]
 __global__ void __launch_bounds__(kThreads, 2)
 pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
-           bf16* __restrict__ y2, float* __restrict__ gsum, int hw, int c, int tiles_per_img,
+           float* __restrict__ y2, float* __restrict__ gsum, int hw, int c, int tiles_per_img,
            int exact) {
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* ring = reinterpret_cast<bf16*>(smem);
     constexpr size_t kStage = kChunkA + size_t(kN1) * kKc;
-    float* red = reinterpret_cast<float*>(ring + kStages1 * kStage);
+    float* red = reinterpret_cast<float*>(smem + kRegion1);
 
     const int c4 = 4 * c, ntiles = c4 / kN1;
     const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
@@ -371,9 +397,9 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
     cp_async_wait<0>();
     __syncthreads();  // both warpgroups are done with the ring: it becomes the staging
 
-    // + b1, GELU; y2 rounded to bf16 into the staging, its square summed
-    // unrounded over this tile's valid pixels per channel
-    bf16* stg = ring;
+    // + b1, GELU; y2 into the f32 staging, its square summed over this
+    // tile's valid pixels per channel
+    float* stg = reinterpret_cast<float*>(smem);
     const int r0 = 64 * wg + 16 * wq + g;
     const bool v0 = r0 < valid, v1 = r0 + 8 < valid;
 #pragma unroll
@@ -384,8 +410,8 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
         const float e01 = pgm_gelu(acc[4 * nf + 1] + bb1, exact);
         const float e10 = pgm_gelu(acc[4 * nf + 2] + bb0, exact);
         const float e11 = pgm_gelu(acc[4 * nf + 3] + bb1, exact);
-        *reinterpret_cast<uint32_t*>(stg + r0 * kLdY + col) = pack_bf16(e00, e01);
-        *reinterpret_cast<uint32_t*>(stg + (r0 + 8) * kLdY + col) = pack_bf16(e10, e11);
+        *reinterpret_cast<float2*>(stg + r0 * kLdY + col) = make_float2(e00, e01);
+        *reinterpret_cast<float2*>(stg + (r0 + 8) * kLdY + col) = make_float2(e10, e11);
         float s0 = (v0 ? e00 * e00 : 0.0f) + (v1 ? e10 * e10 : 0.0f);
         float s1 = (v0 ? e01 * e01 : 0.0f) + (v1 ? e11 * e11 : 0.0f);
 #pragma unroll
@@ -399,12 +425,12 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
         }
     }
     __syncthreads();
-    bf16* yo = y2 + (img * hw + p0) * c4 + n0;
-    for (int i = tid; i < kM * (kN1 / 8); i += kThreads) {
-        const int r = i / (kN1 / 8), ch = i % (kN1 / 8);
+    float* yo = y2 + (img * hw + p0) * c4 + n0;
+    for (int i = tid; i < kM * (kN1 / 4); i += kThreads) {
+        const int r = i / (kN1 / 4), ch = i % (kN1 / 4);
         if (r < valid)
-            *reinterpret_cast<uint4*>(yo + static_cast<long long>(r) * c4 + ch * 8) =
-                *reinterpret_cast<const uint4*>(stg + r * kLdY + ch * 8);
+            *reinterpret_cast<float4*>(yo + static_cast<long long>(r) * c4 + ch * 4) =
+                *reinterpret_cast<const float4*>(stg + r * kLdY + ch * 4);
     }
     if (tid < kN1) {
         float t = 0.0f;
@@ -414,17 +440,17 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
     }
 }
 
-// pw2: block (m tile, n tile), n fastest; smem: ring | scale f32 [4C] |
-// shift f32 [4C]
+// pw2: block (m tile, n tile), n fastest; smem: ring of stages [f32 y2
+// chunk | bf16 A tile | w2 chunk] | scale f32 [4C] | shift f32 [4C]
 template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
+pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
            const bf16* __restrict__ gg, const bf16* __restrict__ gb, const bf16* __restrict__ w2t,
            const bf16* __restrict__ b2, const bf16* __restrict__ x, bf16* __restrict__ out,
            int hw, int c, int tiles_per_img) {
     extern __shared__ __align__(128) unsigned char smem[];
     constexpr int kS = stages2(NT);
-    constexpr size_t kStage = kChunkA + size_t(NT) * kKc;
+    constexpr size_t kStage = stage2_elems(NT);  // bf16 units
     constexpr int kLdO = NT + 8;
     static_assert(kM * kLdO <= kS * kStage, "pw2 staging fits the ring");
     bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -438,7 +464,7 @@ pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
     const long long img = mt / tiles_per_img;
     const int p0 = (mt % tiles_per_img) * kM, n0 = nt * NT;
     const int valid = min(kM, hw - p0);
-    const bf16* ai = y2 + (img * hw + p0) * c4;
+    const float* ai = y2 + (img * hw + p0) * c4;
     const bf16* bi = w2t + static_cast<long long>(n0) * c4;
     const int nk = c4 / kKc;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -446,8 +472,8 @@ pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
 
     auto load = [&](int kc) {
         bf16* st = ring + (kc % kS) * kStage;
-        load_rows(st, ai, c4, kM, valid, kc * kKc);
-        load_rows(st + kChunkA, bi, c4, NT, NT, kc * kKc);
+        load_rows_f32(reinterpret_cast<float*>(st), ai, c4, kM, valid, kc * kKc);
+        load_rows(st + 3 * kChunkA, bi, c4, NT, NT, kc * kKc);
     };
 #pragma unroll
     for (int s = 0; s < kS - 2; ++s) {
@@ -481,14 +507,17 @@ pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
     for (int j = 0; j < NT / 2; ++j) acc[j] = 0.0f;
     for (int kc = 0; kc < nk; ++kc) {
         cp_async_wait<kS - 3>();  // this thread's copies of chunk kc have landed
-        // y3 = bf16(y2 * scale + shift) in place, on the A pieces this thread copied
+        // y3 = bf16(y2 * scale + shift) into the bf16 A tile, from the f32
+        // groups this thread copied
         bf16* st = ring + (kc % kS) * kStage;
+        const float* fa = reinterpret_cast<const float*>(st);
+        bf16* ab = st + 2 * kChunkA;
         const int k0 = kc * kKc;
         for (int i = tid; i < kM * 4; i += kThreads) {
             const int r = (i >> 1) % kM, kg = (i / (2 * kM)) * 2 + (i & 1);
-            uint4* pv = reinterpret_cast<uint4*>(st + (kg * kM + r) * 8);
-            float v[8];
-            unpack8(*pv, v);
+            const int e = (kg * kM + r) * 8;
+            const float4 y0 = lds_f4(fa + e), y1 = lds_f4(fa + e + 4);
+            float v[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
             const float* sc = scale + k0 + kg * 8;
             const float* sh = shift + k0 + kg * 8;
             const float4 s0 = lds_f4(sc), s1 = lds_f4(sc + 4), h0 = lds_f4(sh), h1 = lds_f4(sh + 4);
@@ -496,13 +525,13 @@ pw2_kernel(const bf16* __restrict__ y2, const float* __restrict__ gsum,
             v[2] = v[2] * s0.z + h0.z; v[3] = v[3] * s0.w + h0.w;
             v[4] = v[4] * s1.x + h1.x; v[5] = v[5] * s1.y + h1.y;
             v[6] = v[6] * s1.z + h1.z; v[7] = v[7] * s1.w + h1.w;
-            *pv = pack8(v);
+            *reinterpret_cast<uint4*>(ab + e) = pack8(v);
         }
         fence_async_shared();
         __syncthreads();  // chunk kc complete for every thread; chunk kc - 2's wgmma is done
         if (kc + kS - 2 < nk) load(kc + kS - 2);
         cp_async_commit();
-        const uint32_t sa = smem_u32(st);
+        const uint32_t sa = smem_u32(ab);
         const uint32_t sb = sa + kChunkA * 2;
         wgmma_fence();
 #pragma unroll
@@ -567,7 +596,7 @@ cudaError_t launch_pw2(const void* y2, const void* gsum, const void* gg, const v
     cudaError_t e = pgm_set_smem(pw2_kernel<NT>, smem);
     if (e != cudaSuccess) return e;
     pw2_kernel<NT><<<blocks, kThreads, smem, st>>>(
-        static_cast<const bf16*>(y2), static_cast<const float*>(gsum),
+        static_cast<const float*>(y2), static_cast<const float*>(gsum),
         static_cast<const bf16*>(gg), static_cast<const bf16*>(gb),
         static_cast<const bf16*>(w2t), static_cast<const bf16*>(b2),
         static_cast<const bf16*>(x), static_cast<bf16*>(out), hw, c, tiles);
@@ -598,7 +627,7 @@ PGM_EXPORT int convnext_dw_ln_launch(const void* x, const void* dw, const void* 
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 1. a (B, H*W, C); w1t (4C, C); b1 (4C,); y2 (B, H*W, 4C) out;
+// Launch 1. a (B, H*W, C); w1t (4C, C); b1 (4C,); y2 (B, H*W, 4C) f32 out;
 // gsum (B, 4C) f32, added to (zeroed by the caller). m_tile, n_tile, smem:
 // ConvNeXtTiling's pw1 geometry.
 PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b1, void* y2,
@@ -613,11 +642,11 @@ PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b
     if (e != cudaSuccess) return static_cast<int>(e);
     pw1_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(w1t), static_cast<const bf16*>(b1),
-        static_cast<bf16*>(y2), static_cast<float*>(gsum), hw, c, tiles, exact);
+        static_cast<float*>(y2), static_cast<float*>(gsum), hw, c, tiles, exact);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 2. y2 (B, H*W, 4C); gsum (B, 4C) f32 from launch 1; gg, gb (4C,);
+// Launch 2. y2 (B, H*W, 4C) f32; gsum (B, 4C) f32 from launch 1; gg, gb (4C,);
 // w2t (C, 4C); b2 (C,); x, out (B, H*W, C). m_tile, n_tile, smem:
 // ConvNeXtTiling's pw2 geometry.
 PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void* gg,
@@ -642,7 +671,7 @@ PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void*
 
 // The block: launches 0, 1, 2, with gsum zeroed first. x, out (B, H, W, C);
 // weights bf16: dw (7, 7, C), w1t (4C, C), w2t (C, 4C), vectors (C,) or
-// (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C), gsum (B, 4C) f32. The
+// (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C) f32, gsum (B, 4C) f32. The
 // geometry arguments are ConvNeXtTiling.launch_args().
 PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* dwb,
                                      const void* lng, const void* lnb, const void* w1t,

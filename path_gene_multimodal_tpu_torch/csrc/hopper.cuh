@@ -1,11 +1,14 @@
 // Hopper building blocks shared by the port's wgmma kernels
 // (csrc/upsample_conv.cu: K9, K10; csrc/convnext_block.cu: K1;
-// csrc/conv64.cu: K8, K11): cp.async copies into shared memory, mbarriers
-// and TMA copies, wgmma's shared-memory descriptors and the wgmma
-// instruction at the widths the kernels use, bf16 packing, and GELU with
-// fast exponentials. Include after common.cuh.
+// csrc/conv64.cu: K8, K11; csrc/decoder_conv.cu: K7): cp.async copies into
+// shared memory, mbarriers, TMA and bulk copies (multicast to a thread block
+// cluster too), cluster barriers, wgmma's shared-memory descriptors and the
+// wgmma instruction at the widths the kernels use, bf16 packing, GELU with
+// fast exponentials, and the tensor-map encoder. Include after common.cuh.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -56,6 +59,32 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
                  : "memory");
 }
 
+// one plain arrival on a barrier of this block
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival on the barrier at bar's offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+    asm volatile(
+        "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+        "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+        "r"(rank)
+        : "memory");
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// every thread of every block of the cluster (each warp converged)
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // the GPU's global nanosecond timer
 __device__ __forceinline__ uint64_t global_ns() {
     uint64_t t;
@@ -92,6 +121,18 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, int c
         "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
         "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+        : "memory");
+}
+
+// bulk copy of `bytes` contiguous bytes (a multiple of 16) from src into
+// the shared memory of every block of the cluster named in `mask`, at dst's
+// offset in each, each block's barrier at bar's offset completing the bytes
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
         : "memory");
 }
 
@@ -256,4 +297,23 @@ __device__ __forceinline__ float gelu_fast(float x, int exact) {
     }
     const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
     return __fdividef(x, 1.0f + __expf(-2.0f * u));
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+    static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                               cudaEnableDefault, &q);
+#else
+        const cudaError_t e =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+    return fn;
 }

@@ -4,14 +4,13 @@ residual) as one kernel call.
 Counterpart of the JAX package's ``ops/pallas/convnext_block.py``
 (``fused_convnext_block``). On a CUDA tensor ``convnext_block`` launches
 the hand-written kernel in ``csrc/convnext_block.cu`` (three launches: dw
-7x7 + LayerNorm into a bf16 ``a``, pw1 + GELU into a bf16 ``y2`` with the
+7x7 + LayerNorm into a bf16 ``a``, pw1 + GELU into an f32 ``y2`` with the
 per-image sums of its squares, GRN + pw2 + residual; ``ConvNeXtTiling`` is
 their geometry); on a CPU tensor it runs ``convnext_block_plain``, which
 repeats the TPU kernel's arithmetic op for op (bf16 storage, f32
-accumulation, bf16 rounding of each pointwise product's operand), and also
-rounds the GELU output y2 to bf16 before the GRN affine, where the CUDA
-kernel stores it between its launches (the GRN sums of squares stay on the
-f32 values, in both).
+accumulation, bf16 rounding of each pointwise product's operand: the GRN
+affine reads the f32 GELU output y2, and its result y3 is rounded before
+pw2, in all three).
 
 The kernel takes C a multiple of 32 up to 384 (``check_channels``); the
 Pallas kernel and the plain version take any C.
@@ -81,8 +80,8 @@ def layer_norm_plain(acc, ln_gamma, ln_beta) -> torch.Tensor:
 
 def pw_plain(x, y, w1, b1, grn_gamma, grn_beta, w2, b2, exact_gelu: bool = False) -> torch.Tensor:
     """Launches 1 and 2's function on the LayerNorm output y: pw1 on
-    bf16(y) + GELU, y2 rounded to bf16 before the GRN affine (its sums of
-    squares on the f32 values), pw2 on bf16(y3) + bias + the residual x."""
+    bf16(y) + GELU, the GRN affine on the f32 y2 (and its sums of squares),
+    pw2 on bf16(y3) + bias + the residual x."""
     bf = torch.bfloat16
     f = lambda t: t.to(bf).float()  # noqa: E731
     b, h, w, c = x.shape
@@ -90,7 +89,7 @@ def pw_plain(x, y, w1, b1, grn_gamma, grn_beta, w2, b2, exact_gelu: bool = False
     y2 = gelu_kernel(y2, exact_gelu).reshape(b, h * w, 4 * c)
     gx = torch.sqrt(y2.square().sum(1, keepdim=True) + 1e-12)
     nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
-    y3 = f(y2) * (f(grn_gamma) * nx + 1.0) + f(grn_beta)
+    y3 = y2 * (f(grn_gamma) * nx + 1.0) + f(grn_beta)
     y4 = f(y3).reshape(-1, 4 * c) @ f(w2) + f(b2)
     return (f(x) + y4.reshape(b, h, w, c)).to(bf)
 
@@ -135,7 +134,9 @@ class ConvNeXtTiling:
       tiles, the last one masked, so no tile holds two images. N tiles are
       128 wide in pw1 (of 4C) and ``pw2_n_tile`` in pw2 (of C). A and B
       stream through a ring of ``pw1_stages`` / ``pw2_stages`` K chunks of
-      32.
+      32. y2 lies in device memory in f32 between them: pw1 writes it
+      through an f32 staging, and a pw2 stage holds the f32 chunk beside
+      the bf16 A tile it is turned into.
     """
 
     m_tile: ClassVar[int] = 128
@@ -203,15 +204,20 @@ class ConvNeXtTiling:
         return self.batch * self.tiles_per_img * (4 * self.c // self.n1_tile)
 
     @property
-    def pw1_smem(self) -> int:
-        """The ring (A and B chunks) and the per-warp sums of y2^2; the y2
-        staging (128 x (128 + 8) bf16) lies over the ring."""
+    def pw1_ring(self) -> int:
+        """The region of the ring (A and B chunks), which the f32 y2
+        staging later lies over: the larger of the two."""
         ring = self.pw1_stages * (self.m_tile + self.n1_tile) * self.k_chunk * 2
-        return ring + self.gemm_warps * self.n1_tile * 4
+        return max(ring, self.pw1_staging)
+
+    @property
+    def pw1_smem(self) -> int:
+        """The ring region and the per-warp sums of y2^2."""
+        return self.pw1_ring + self.gemm_warps * self.n1_tile * 4
 
     @property
     def pw1_staging(self) -> int:
-        return self.m_tile * (self.n1_tile + 8) * 2
+        return self.m_tile * (self.n1_tile + 4) * 4
 
     @property
     def pw2_n_tile(self) -> int:
@@ -219,19 +225,26 @@ class ConvNeXtTiling:
 
     @property
     def pw2_stages(self) -> int:
-        """Deeper at N tiles of 128 or more, where one block fills an SM."""
-        return 8 if self.pw2_n_tile >= 128 else 6
+        """Five at the 192-wide N tile, where six stages of f32 y2 chunks
+        would not fit a block's shared memory; six otherwise."""
+        return 5 if self.pw2_n_tile >= 192 else 6
 
     @property
     def pw2_grid(self) -> int:
         return self.batch * self.tiles_per_img * (self.c // self.pw2_n_tile)
 
     @property
+    def pw2_ring(self) -> int:
+        """The ring: per stage the f32 y2 chunk, its bf16 A tile and the
+        bf16 w2 chunk."""
+        stage = self.m_tile * self.k_chunk * (4 + 2) + self.pw2_n_tile * self.k_chunk * 2
+        return self.pw2_stages * stage
+
+    @property
     def pw2_smem(self) -> int:
         """The ring and the per-channel GRN scale and shift (f32, 4C each);
         the output staging (128 x (N tile + 8) bf16) lies over the ring."""
-        ring = self.pw2_stages * (self.m_tile + self.pw2_n_tile) * self.k_chunk * 2
-        return ring + 2 * 4 * self.c * 4
+        return self.pw2_ring + 2 * 4 * self.c * 4
 
     @property
     def pw2_staging(self) -> int:
@@ -252,8 +265,8 @@ class ConvNeXtTiling:
         read once and its outputs written once (weights included)."""
         px, c = self.batch * self.hw, self.c
         return {"dw_ln": 2 * px * c * 2 + 2 * (49 * c + 3 * c),
-                "pw1": 2 * px * c + 2 * px * 4 * c + 2 * (4 * c * c + 4 * c) + 4 * self.batch * 4 * c,
-                "pw2": 2 * px * 4 * c + 2 * 2 * px * c + 2 * (4 * c * c + 9 * c)
+                "pw1": 2 * px * c + 4 * px * 4 * c + 2 * (4 * c * c + 4 * c) + 4 * self.batch * 4 * c,
+                "pw2": 4 * px * 4 * c + 2 * 2 * px * c + 2 * (4 * c * c + 9 * c)
                 + 4 * self.batch * 4 * c}
 
     def flops(self) -> dict[str, int]:
@@ -297,7 +310,7 @@ def launch_parts(x, wts, exact_gelu: bool = False) -> dict:
     geo = ConvNeXtTiling(b, h, w, c)
     dev = xb.device
     a = torch.empty((b, h * w, c), dtype=torch.bfloat16, device=dev)
-    y2 = torch.empty((b, h * w, 4 * c), dtype=torch.bfloat16, device=dev)
+    y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=dev)
     gsum = torch.zeros((b, 4 * c), dtype=torch.float32, device=dev)
     out = torch.empty_like(xb)
     dw, dwb, lng, lnb, w1t, b1, gg, gb, w2t, b2 = ptrs
@@ -337,7 +350,7 @@ def convnext_block(
     geo = ConvNeXtTiling(b, h, w, c)
     bf = torch.bfloat16
     a = torch.empty((b, h * w, c), dtype=bf, device=x.device)
-    y2 = torch.empty((b, h * w, 4 * c), dtype=bf, device=x.device)
+    y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=x.device)
     gsum = torch.empty((b, 4 * c), dtype=torch.float32, device=x.device)  # zeroed by the launcher
     out = torch.empty_like(xb)
     cuda.launch(

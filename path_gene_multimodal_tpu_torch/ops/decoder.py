@@ -7,7 +7,8 @@ the 64-channel conv core ``csrc/conv64.cuh``) on a CUDA tensor and runs its
 ``*_plain`` twin on a CPU tensor:
 
 - ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
-  + bias + LayerNorm + GELU, the concat never built;
+  + bias + LayerNorm + GELU, the concat never built (``DecoderConvTiling``
+  is the launch geometry, ``k7_weight_layout`` the weight's layout);
 - ``final_conv_gelu`` (K8, ``fused_final_conv_gelu``): conv3x3 + bias + GELU
   (``StripTiling`` is the launch geometry);
 - ``upsample_final`` (K9, ``fused_upsample_final``): bilinear 2x + conv3x3 +
@@ -36,6 +37,7 @@ the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import ClassVar
 
@@ -47,12 +49,191 @@ from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
 
 _BF = torch.bfloat16
 KERNEL_COUTS = (64, 96, 192, 384)  # K7's tile widths
-CIN_MULTIPLE = 32  # input channels per K step of K7
+CIN_MULTIPLE = 32  # input channels per K chunk of K7
 UP_CHANNELS = 64  # K8-K11 kernels: cin = cout (per phase, K11)
 UP_HEAD_COLS = 16  # K10/K11 kernels: head columns (per phase, K11), zero-padded
 K11_PHASES = 4  # the parity phases of K11's composite weights
 FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
 SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
+
+
+def k7_weight_layout(w: torch.Tensor) -> torch.Tensor:
+    """K7's weight (3, 3, K, cout) as the kernel reads it: (K / 32, 9, 4,
+    cout, 8), chunk c of 32 input channels, tap dy * 3 + dx, 8-channel plane,
+    output channel, channel within the plane (wgmma's canonical K-major B),
+    so that the k-slice of (chunk, taps) is contiguous. The skip's rows (K
+    from cx on) follow x's as they do in w."""
+    k, cout = w.shape[2], w.shape[3]
+    return (w.reshape(9, k // CIN_MULTIPLE, 4, 8, cout).permute(1, 0, 2, 4, 3)
+            .contiguous())
+
+
+# K7's geometry per cout: cout split over the two consumer warpgroups (2)
+# or not (1), m64 blocks (8 x 8 pixels) per warpgroup, tile rows and
+# columns, taps per weight slice, weight and halo ring slots
+_K7_GEOMETRY = {
+    384: (2, 1, 8, 8, 1, 8, 2),
+    192: (1, 1, 8, 16, 3, 4, 2),
+    96: (1, 2, 16, 16, 3, 6, 3),
+    64: (1, 2, 16, 16, 3, 6, 3),
+}
+
+
+@dataclass(frozen=True)
+class DecoderConvTiling:
+    """Launch geometry of the K7 kernel (``csrc/decoder_conv.cu``) on x
+    (batch, h, w, cx) and skip (batch, h, w, cs), cout output channels.
+
+    Output tiles of tile_h x tile_w pixels of one image (images, tile rows,
+    tile columns; ragged tiles at the right and bottom edge) each cover all
+    of cout. A tile is cut into 8 x 8 pixel blocks, one wgmma M tile each:
+    the two consumer warpgroups split cout between them on one block
+    (``split`` 2, cout 384) or take ``m_tiles`` blocks each. K runs over
+    (32-channel chunk, tap): the chunks of x, then the skip's (whose weight
+    rows start at cx). Per chunk the tile's halo, (tile_h + 2) x (tile_w +
+    2) pixels x 32 channels, origin one pixel up and left of the tile (zero
+    outside the image: the conv's padding), lands in one of ``ring_h``
+    slots; the weight streams in slices of ``taps`` taps x 32 channels x
+    cout through ``ring_w`` slots. ``cluster`` blocks on consecutive tiles
+    (a group) share each slice: block ``rank`` copies the slice's rank-th
+    part into every block of the cluster. Persistent: ``grid`` blocks,
+    whole clusters, no more than ``slots`` (the blocks that fit the card at
+    once); cluster k walks groups k, k + grid / cluster, ...; a block whose
+    tile passes the last one repeats the last and writes nothing. The
+    kernel is compiled for this geometry and checks what it is given
+    against its own."""
+
+    k_chunk: ClassVar[int] = CIN_MULTIPLE
+    cluster: ClassVar[int] = 2  # clusters of 4 ran slower: fewer of them fit the card at once
+
+    batch: int
+    h: int
+    w: int
+    cx: int
+    cs: int
+    cout: int
+    slots: int = 132
+
+    def __post_init__(self):
+        _check_conv([self.cx] + ([self.cs] if self.cs else []), self.cout, "decoder_conv")
+
+    @property
+    def _geo(self) -> tuple[int, ...]:
+        return _K7_GEOMETRY[self.cout]
+
+    split = property(lambda self: self._geo[0])
+    m_tiles = property(lambda self: self._geo[1])
+    tile_h = property(lambda self: self._geo[2])
+    tile_w = property(lambda self: self._geo[3])
+    taps = property(lambda self: self._geo[4])
+    ring_w = property(lambda self: self._geo[5])
+    ring_h = property(lambda self: self._geo[6])
+
+    @property
+    def n_width(self) -> int:
+        """Output channels of one warpgroup's accumulators."""
+        return self.cout // self.split
+
+    @property
+    def tiles_yx(self) -> tuple[int, int]:
+        return -(-self.h // self.tile_h), -(-self.w // self.tile_w)
+
+    @property
+    def n_tiles(self) -> int:
+        ty, tx = self.tiles_yx
+        return self.batch * ty * tx
+
+    @property
+    def groups(self) -> int:
+        return -(-self.n_tiles // self.cluster)
+
+    @property
+    def grid(self) -> int:
+        return self.cluster * min(self.groups, self.slots // self.cluster)
+
+    @property
+    def chunks(self) -> tuple[int, int]:
+        """32-channel chunks of x and of the skip."""
+        return self.cx // self.k_chunk, self.cs // self.k_chunk
+
+    def tile(self, t: int) -> tuple[int, int, int]:
+        """(image, first row, first column) of tile t."""
+        ty_n, tx_n = self.tiles_yx
+        img, rem = divmod(t, ty_n * tx_n)
+        ty, tx = divmod(rem, tx_n)
+        return img, ty * self.tile_h, tx * self.tile_w
+
+    def block_tiles(self, block: int) -> list[tuple[int, bool]]:
+        """(tile, writes) in the order block ``block`` walks them."""
+        k, rank = divmod(block, self.cluster)
+        stride = self.grid // self.cluster
+        return [(min(g * self.cluster + rank, self.n_tiles - 1),
+                 g * self.cluster + rank < self.n_tiles)
+                for g in range(k, self.groups, stride)]
+
+    def warpgroup_blocks(self, group: int) -> list[tuple[int, int, int]]:
+        """(block row, block column, first output channel) of the 8 x 8
+        pixel blocks whose products warpgroup ``group`` holds."""
+        bx_n = self.tile_w // 8
+        if self.split == 2:
+            return [(0, 0, group * self.n_width)]
+        return [(*divmod(group * self.m_tiles + m, bx_n), 0) for m in range(self.m_tiles)]
+
+    def k_slices(self) -> list[tuple[int, int, int, int, tuple[int, ...]]]:
+        """Per weight slice, in the kernel's order: (chunk, source (0 x, 1
+        skip), first channel in the source, first weight row of K, taps)."""
+        nx, ns = self.chunks
+        out = []
+        for c in range(nx + ns):
+            src, c0 = (0, c) if c < nx else (1, c - nx)
+            for s in range(9 // self.taps):
+                taps = tuple(range(s * self.taps, (s + 1) * self.taps))
+                out.append((c, src, c0 * self.k_chunk, c * self.k_chunk, taps))
+        return out
+
+    @property
+    def slice_bytes(self) -> int:
+        return self.taps * self.k_chunk * self.cout * 2
+
+    def multicast_parts(self) -> list[tuple[int, int]]:
+        """(byte offset, bytes) of the part of each slice that each rank of
+        a cluster copies into every block of it."""
+        part = self.slice_bytes // self.cluster
+        return [(r * part, part) for r in range(self.cluster)]
+
+    @property
+    def halo_shape(self) -> tuple[int, int]:
+        return self.tile_h + 2, self.tile_w + 2
+
+    @property
+    def halo_bytes(self) -> int:
+        hh, hw = self.halo_shape
+        return hh * hw * self.k_chunk * 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """The weight ring, the halo ring, a staging of 16 pixels x (32 + 8)
+        bf16 per consumer warp, the LayerNorm partial sums (2 passes x 2
+        warpgroups x 64 rows, f32) and an mbarrier per slot, full and
+        empty."""
+        staging = 8 * 16 * (self.k_chunk + 8) * 2
+        return (self.ring_w * self.slice_bytes + self.ring_h * self.halo_bytes + staging
+                + 2 * 2 * 64 * 4 + 2 * (self.ring_w + self.ring_h) * 8)
+
+    def l2_bytes(self) -> dict[str, int]:
+        """Bytes the call reads through L2: each group reads the whole
+        weight once (its blocks share it), each block a halo per chunk of
+        each tile it walks (repeats included)."""
+        nx, ns = self.chunks
+        weights = 9 * (self.cx + self.cs) * self.cout * 2
+        return {"weights": self.groups * weights,
+                "activations": self.groups * self.cluster * (nx + ns) * self.halo_bytes}
+
+    def launch_args(self) -> tuple[int, ...]:
+        """(tile_h, tile_w, taps, ring_w, ring_h, cluster, grid, shared
+        memory bytes), as the launcher takes them."""
+        return (self.tile_h, self.tile_w, self.taps, self.ring_w, self.ring_h, self.cluster,
+                self.grid, self.smem_bytes)
 
 
 @dataclass(frozen=True)
@@ -338,7 +519,8 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     skip (B, H, W, cs) or None, w (3, 3, cx + cs, cout), b and the optional
     LayerNorm vectors (cout,) → (B, H, W, cout) bf16. The kernel takes the
     weights bf16 and contiguous (``HoverNeXt.fuse``) and raises on anything
-    else; it reads the skip's weight rows at an offset of cx."""
+    else; it reads them laid out by ``k7_weight_layout`` (one copy per
+    call), the skip's rows at an offset of cx."""
     if not x.is_cuda:
         return decoder_conv_plain(x, skip, w, b, ln_scale, ln_bias, exact_gelu)
     bsz, h, wd, cx = x.shape
@@ -355,13 +537,26 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
         cuda.check(ln_scale, "ln_scale", _BF, (cout,))
         cuda.check(ln_bias, "ln_bias", _BF, (cout,))
     out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
+    geo = DecoderConvTiling(bsz, h, wd, cx, cs, cout, slots=_k7_slots(cout, x.device))
+    wl = k7_weight_layout(w)
     cuda.launch(
-        "decoder_conv", "decoder_conv_launch", cuda.ptr(xb), cuda.ptr(sb), cuda.ptr(w),
+        "decoder_conv", "decoder_conv_launch", cuda.ptr(xb), cuda.ptr(sb), cuda.ptr(wl),
         cuda.ptr(b), cuda.ptr(ln_scale), cuda.ptr(ln_bias), cuda.ptr(out),
-        bsz, h, wd, cx, cs, cout, int(exact_gelu), cuda.stream(),
+        bsz, h, wd, cx, cs, cout, int(exact_gelu), *geo.launch_args(), cuda.stream(),
     )
     decoder_conv.launches += 1
     return out
+
+
+@functools.cache
+def _k7_slots(cout: int, device: torch.device) -> int:
+    """Blocks of K7's kernel for ``cout`` that fit the card at once, in
+    whole clusters (the kernel's own occupancy query)."""
+    with torch.cuda.device(device):
+        n = cuda.size_query("decoder_conv", "decoder_conv_slots", cout)
+    if n <= 0:
+        raise RuntimeError(f"decoder_conv: no cluster of the cout {cout} kernel fits the card")
+    return n
 
 
 def _check_up(cin: int, cout: int, name: str) -> None:

@@ -59,9 +59,12 @@ def test_shared_memory_fits_a_block(c):
     geo = k1.ConvNeXtTiling(512, 64, 64, c)
     for smem in (geo.dw_smem, geo.pw1_smem, geo.pw2_smem):
         assert smem <= SMEM_PER_BLOCK, smem
+    # the rings hold their chunks (pw2's the f32 y2 chunk beside its bf16
+    # A tile), and each output staging lies over its ring
     ring1 = geo.pw1_stages * (geo.m_tile + geo.n1_tile) * geo.k_chunk * 2
-    ring2 = geo.pw2_stages * (geo.m_tile + geo.pw2_n_tile) * geo.k_chunk * 2
-    assert geo.pw1_staging <= ring1 and geo.pw2_staging <= ring2  # staging over the ring
+    ring2 = geo.pw2_stages * (geo.m_tile * (4 + 2) + geo.pw2_n_tile * 2) * geo.k_chunk
+    assert geo.pw1_ring >= ring1 and geo.pw2_ring == ring2
+    assert geo.pw1_staging <= geo.pw1_ring and geo.pw2_staging <= geo.pw2_ring
     assert len(geo.launch_args()) == 9
 
 
