@@ -21,7 +21,18 @@
    times kernel, plain version and (where one exists) one PyTorch library
    call computing the same function (for K1 a chain of them); K1's three
    launches are also timed one by one, with their bytes, share of peak and
-   ptxas registers and spills;
+   ptxas registers and spills. K2 and K3 are held to their plain versions
+   in every output and in their counts (K2's relaxation passes, K3's
+   synchronous steps and pixels grown, summed and per tile) on the batch
+   and on ragged cases (K3: 2 x 40 x 56, 3 x 100 x 70 with min-index
+   labels over 65,535, two 1 x 100 strips where its 65-step cap binds,
+   2 x 512 x 512 whose bit planes do not fit in shared memory; K2:
+   3 x 100 x 70, a spiral, a serpentine of 17 passes, staircases that reach
+   its 257-pass cap), against mutants that must fail the same check (K3
+   updating labels in place, without phase 0's fresh-marker rule, with the
+   XLA flood's 64-step cap; K2 combining its column segments one pass
+   late); their bounds come from the counted steps and passes, and the
+   batch's masks, energy and markers are saved for ``--ab``;
 4. checks the slice's output (the kernels' post-processing against the
    plain versions on the same maps; a non-empty, finite nuclei table);
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
@@ -74,17 +85,18 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 
     python3 chip_smoke.py --ab PARENT
 
-times K1 (at the three encoder stage shapes, 512 images), K7 (its 8 call
-shapes) and K8-K11 (one batch of 4 calls each) of the package copy whose
-root is PARENT (e.g. an earlier commit unpacked with ``git archive``)
-against this checkout's, in turns
+times K1 (at the three encoder stage shapes, 512 images), K2 and K3 (on
+the main path's batch that a main run with the same ``--out`` saved), K7
+(its 8 call shapes) and K8-K11 (one batch of 4 calls each) of the package
+copy whose root is PARENT (e.g. an earlier commit unpacked with ``git
+archive``) against this checkout's, in turns
 (parent, this, this, parent), each in its own process with its own build,
 on seeded inputs, each timed group after the card has idled (1-2 s, its
 SM clock and power read then), so that no group inherits the clock and
 power state of the one before it; the first run of each version also
 holds K1 against its plain version at the stage shapes and at ragged
-shapes, and K8/K11 on 16 images. Prints one JSON line per run and exits
-non-zero if a run fails.
+shapes, K8/K11 on 16 images and K2/K3 on the saved batch. Prints one JSON
+line per run and exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -394,10 +406,11 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
     return list(blk.to(device=dev, dtype=torch.bfloat16).kernel_weights())
 
 
-def _ab_child(root: Path, check: bool) -> int:
+def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
-    on seeded inputs; with ``check``, K1 held against its plain version
-    and K8/K11 on 16 images."""
+    on seeded inputs, and K2 and K3 on the main path's masks, energy and
+    markers saved in ``inputs``; with ``check``, K1 held against its plain
+    version, K8/K11 on 16 images and K2/K3 on the saved batch."""
     sys.path.insert(0, str(root))
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
     from path_gene_multimodal_tpu_torch.models.convnext import Block
@@ -494,25 +507,56 @@ def _ab_child(root: Path, check: bool) -> int:
         if check:
             got = dec.final_conv_gelu(x8[:16], w, b)
             res["k8_excess"] = _excess(got, dec.final_conv_gelu_plain(x8[:16], w, b), DEC_ATOL)
+        del x8
+    from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
+    from path_gene_multimodal_tpu_torch.ops import flood as k3
+
+    t = {k: v.to(dev) for k, v in torch.load(inputs).items()}
+    fg, mmask, dist, markers, blb = (t[k] for k in ("fg", "mmask", "dist", "markers", "blb"))
+    with torch.inference_mode():
+        _idle(res, "k2")
+        res["k2_batch_ms"] = _sync_time(lambda: (k2.cc_sizes_adaptive(fg),
+                                                 k2.cc_sizes_adaptive(mmask, min_size=3)), reps=10)
+        _idle(res, "k3")
+        res["k3_batch_ms"] = _sync_time(lambda: k3.marker_watershed(dist, markers, blb), reps=5)
+        if check:  # integers: any difference is a fault
+            res["k2_diff"] = sum(
+                int((a.long() != p.long()).sum())
+                for m, ms_ in ((fg, 0), (mmask, 3))
+                for a, p in zip(k2.cc_sizes_adaptive(m, min_size=ms_),
+                                k2.cc_sizes_adaptive_plain(m, min_size=ms_)))
+            res["k3_diff"] = int((k3.marker_watershed(dist, markers, blb)
+                                  != k3.marker_watershed_plain(dist, markers, blb)).sum())
     for k in ("k8_excess", "k11_excess"):
         if res.get(k, 0.0) > 1.0:
             over.append(f"{k} {res[k]:.3g}")
+    for k in ("k2_diff", "k3_diff"):
+        if res.get(k, 0):
+            over.append(f"{k} {res[k]}")
     res["checks_over_tolerance"] = over
     print(json.dumps(res), flush=True)
     return 0
 
 
-AB_KEYS = ("k1_batch_ms", "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms",
-           "k11_batch_ms")
+AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k7_batch_ms", "k8_batch_ms",
+           "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
     """Parent, this checkout, this checkout, parent: one process each, the
-    first of each version also checked; all results to ``out_dir/ab.json``."""
+    first of each version also checked; all results to ``out_dir/ab.json``.
+    K2 and K3 run on the main path's batch that a main run with the same
+    ``--out`` saved (``k23_inputs.pt``)."""
+    inputs = out_dir / "k23_inputs.pt"
+    if not inputs.exists():
+        print(f"chip_smoke --ab: {inputs} is missing; run chip_smoke.py --out {out_dir} first",
+              file=sys.stderr)
+        return 1
     runs, rc = [], 0
     order = [(parent, True), (ROOT, True), (ROOT, False), (parent, False)]
     for i, (root, check) in enumerate(order):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--ab-child", str(root)]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--ab-child", str(root),
+               "--inputs", str(inputs)]
         proc = subprocess.run(cmd + (["--check"] if check else []), capture_output=True,
                               text=True, timeout=900)
         line = next((ln for ln in reversed(proc.stdout.splitlines()) if ln.startswith("{")), None)
@@ -1147,6 +1191,290 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     return entries
 
 
+def _flood_mutant(dist, markers, mask, kind: str, levels: int = 64):
+    """A mutant of K3's plain version that the label-and-count check must
+    catch: ``"gauss_seidel"`` updates labels in place (even rows, then the
+    odd rows reading the even rows' new labels, so a label can cross two
+    rows in one step), ``"no_fresh"`` lets phase 0 grow from markers whose
+    own q is the level, ``"cap64"`` stops a phase after 64 steps (the XLA
+    flood's cap). Returns (labels, counts as the kernel's)."""
+    from path_gene_multimodal_tpu_torch.ops.components import INF
+    from path_gene_multimodal_tpu_torch.ops.flood import _neighbor_min, quantize
+
+    q = quantize(dist, levels)
+    lbl = torch.where(markers >= INF, INF, markers).to(torch.int32)
+    is_marker = lbl < INF
+    mask = mask.bool()
+    steps = torch.zeros(lbl.shape[0], dtype=torch.int64, device=lbl.device)
+    max_rounds = 63 if kind == "cap64" else 64
+    even = (torch.arange(lbl.shape[1], device=lbl.device) % 2 == 0)[None, :, None]
+    for level in range(levels - 1, -1, -1):
+        eligible = mask & (q >= level)
+        fresh = is_marker & (q == level)
+        for allow_fresh in (False, True):
+            base = q >= level
+            if not (allow_fresh or kind == "no_fresh"):
+                base = base & ~fresh
+
+            def grow(l, rows):
+                nb = _neighbor_min(torch.where((l < INF) & base, l, INF))
+                return torch.where(eligible & (l == INF) & (nb < INF) & rows, nb, l)
+
+            def step(l):
+                return grow(grow(l, even), ~even) if kind == "gauss_seidel" else grow(l, True)
+
+            new = step(lbl)
+            ch = (new != lbl).flatten(1).any(1)
+            steps += 1
+            lbl, it = new, 0
+            while bool(ch.any()) and it < max_rounds:
+                new = step(lbl)
+                steps += ch
+                ch = (new != lbl).flatten(1).any(1)
+                lbl, it = new, it + 1
+    counts = torch.stack([steps.sum(), steps.max(), (lbl < INF).sum() - is_marker.sum()])
+    return lbl, counts
+
+
+def _cc_late_mutant(mask, seg_len: int, max_iters: int = 256):
+    """A mutant of K2's relaxation that the label-and-count check must
+    catch: column runs cut every ``seg_len`` rows, each segment taking the
+    other segments' minima one pass late (the full column runs' minima of
+    the pass before). Returns (labels, counts as the kernel's)."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops.components import INF, _run_min_lastdim, index_seeds
+
+    mask = mask.bool()
+    b, h, w = mask.shape
+    mt = mask.transpose(-1, -2).contiguous()
+    pad = -h % seg_len
+    mseg = F.pad(mt, (0, pad)).reshape(b, -1, seg_len)
+
+    def relax(lbl, late):
+        lbl = _run_min_lastdim(lbl, mask).transpose(-1, -2).contiguous()
+        full = _run_min_lastdim(lbl, mt)
+        seg = _run_min_lastdim(F.pad(lbl, (0, pad), value=INF).reshape(b, -1, seg_len), mseg)
+        seg = seg.reshape(b, w, h + pad)[..., :h]
+        new = torch.where(mt, torch.minimum(seg, late), INF)
+        return new.transpose(-1, -2).contiguous(), full.transpose(-1, -2).contiguous()
+
+    seeds = index_seeds(mask)
+    lbl, late = relax(seeds, torch.full_like(seeds.transpose(-1, -2), INF))
+    ch = (lbl != seeds).flatten(1).any(1)
+    passes = torch.ones(b, dtype=torch.int64, device=mask.device)
+    it = 0
+    while bool(ch.any()) and it < max_iters:
+        new, late = relax(lbl, late.transpose(-1, -2))
+        passes += ch
+        ch = (new != lbl).flatten(1).any(1)
+        lbl, it = new, it + 1
+    return lbl, torch.stack([passes.sum(), passes.max()])
+
+
+def _smooth(gen: torch.Generator, b: int, h: int, w: int) -> torch.Tensor:
+    """Seeded noise blurred by three 7 x 7 box filters and scaled to [0, 1]
+    per batch: a smooth field with blob-like level sets."""
+    import torch.nn.functional as F
+
+    x = torch.rand((b, 1, h, w), generator=gen)
+    for _ in range(3):
+        x = F.avg_pool2d(F.pad(x, (3, 3, 3, 3), mode="replicate"), 7, stride=1)
+    x = x[:, 0]
+    return (x - x.min()) / (x.max() - x.min())
+
+
+def _flood_cases(gen: torch.Generator) -> dict[str, tuple]:
+    """K3's ragged cases (dist, markers, mask on the CPU): seeded fields at
+    2 x 40 x 56 and at 3 x 100 x 70 with min-index labels over 65,535, the
+    1 x 100 strips where the 65-step cap binds (dist 1: at level 63, then
+    level 62 grows the rest; dist 0: at the last level), and 2 x 512 x 512,
+    whose planes do not fit in shared memory."""
+    from path_gene_multimodal_tpu_torch.ops.components import INF
+
+    def field(b, h, w, n, base):
+        d = _smooth(gen, b, h, w)
+        m = d > 0.15
+        mk = torch.full((b, h, w), INF, dtype=torch.int32)
+        for i in range(b):
+            ys = torch.randint(0, h, (n,), generator=gen)
+            xs = torch.randint(0, w, (n,), generator=gen)
+            mk[i, ys, xs] = base + 1000 * torch.arange(1, n + 1, dtype=torch.int32)
+        return d, torch.where(m, mk, INF), m
+
+    cases = {"2x40x56": field(2, 40, 56, 6, 0), "3x100x70_min_index": field(3, 100, 70, 8, 70_000),
+             "2x512x512_global_planes": field(2, 512, 512, 40, 0)}
+    for name, v in (("strip_cap_level63", 1.0), ("strip_cap_level0", 0.0)):
+        mk = torch.full((1, 1, 100), INF, dtype=torch.int32)
+        mk[0, 0, 0] = 1
+        cases[name] = (torch.full((1, 1, 100), v), mk, torch.ones((1, 1, 100), dtype=torch.bool))
+    return cases
+
+
+def _check_k3(dist, markers, blb, launches, failures) -> dict:
+    """K3 on the main path's batch and on ragged cases against its plain
+    version: labels and counts (steps summed and per tile, pixels grown)
+    equal; three mutants must fail the same check; timings and the bound
+    from the counted steps."""
+    from path_gene_multimodal_tpu_torch.ops.flood import (
+        FloodTiling, marker_watershed, marker_watershed_plain,
+    )
+
+    dev = dist.device
+    new = lambda: torch.zeros(3, dtype=torch.int64, device=dev)  # noqa: E731
+    cases = {"main_batch": (dist, markers, blb)}
+    cases.update({k: tuple(t.to(dev) for t in v)
+                  for k, v in _flood_cases(torch.Generator().manual_seed(30)).items()})
+    expect = {"strip_cap_level63": [226, 226, 99], "strip_cap_level0": [192, 192, 65]}
+    rec, worst, refs = {}, 0, {}
+    with torch.inference_mode():
+        for name, (d, mk, m) in cases.items():
+            ck, cp = new(), new()
+            a = marker_watershed(d, mk, m, counts=ck)
+            p = marker_watershed_plain(d, mk, m, counts=cp)
+            diff = int((a != p).sum())
+            worst = max(worst, diff)
+            refs[name] = (p, cp.tolist())
+            rec[name] = {"shape": list(d.shape), "diff": diff, "counts": ck.tolist(),
+                         "plain_counts": cp.tolist(),
+                         "shared_planes": FloodTiling(*d.shape[1:]).shared}
+            if diff or ck.tolist() != cp.tolist() or cp.tolist() != expect.get(name, cp.tolist()):
+                failures.append(f"K3 {name}: {diff} labels differ from the plain version; counts "
+                                f"{ck.tolist()}, plain {cp.tolist()}, expected {expect.get(name)}")
+        if rec["2x512x512_global_planes"]["shared_planes"]:
+            failures.append("K3: the 512 x 512 case kept its planes in shared memory")
+        mutants = {}
+        for kind in ("gauss_seidel", "no_fresh", "cap64"):
+            caught = []
+            for name, (d, mk, m) in cases.items():
+                ml, mc = _flood_mutant(d, mk, m, kind)
+                if bool((ml != refs[name][0]).any()) or mc.tolist() != refs[name][1]:
+                    caught.append(name)
+            mutants[kind] = caught
+            if not caught:
+                failures.append(f"K3: the {kind} mutant passes the check on every case")
+        ms = _sync_time(lambda: marker_watershed(dist, markers, blb), reps=5)
+        pms = _sync_time(lambda: marker_watershed_plain(dist, markers, blb), reps=1)
+    steps, steps_max, grown = rec["main_batch"]["counts"]
+    b, h, w = dist.shape
+    # per counted step and pixel: the eligibility test and the test of the
+    # neighbours' activity; per grown pixel 8 neighbour label reads
+    bnd, by = _bound_ms(b * h * w * 13, [(steps * h * w * 2 + grown * 8, PEAK_F32)])
+    return {
+        "name": "flood", "route": "cuda",
+        "source": "path_gene_multimodal_tpu_torch/csrc/flood.cu",
+        "replaces": "path_gene_multimodal_tpu/ops/pallas/flood.py:131",
+        "launches": launches["flood"], "max_abs_err": float(worst),
+        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "note": f"({b},{h},{w}); counted steps {steps} (mean {steps / b:.1f}, max {steps_max} per "
+                f"tile, {steps / (b * 2 * 64):.2f} per phase), {grown} pixels grown; operations "
+                "bound: per counted step and pixel 2 tests (eligible, active neighbour), per grown "
+                "pixel 8 label reads, at the f32 scalar rate; bytes 13 per pixel",
+        "counts": {"steps": steps, "steps_max_per_tile": steps_max, "grown": grown},
+        "cases": rec, "mutants_caught_on": mutants,
+    }
+
+
+def _k2_cases(gen: torch.Generator) -> dict[str, torch.Tensor]:
+    """K2's ragged cases (masks on the CPU): seeded blobs at 3 x 100 x 70,
+    ``_spiral(256)``, the serpentine of 17 passes and two staircases that
+    need more than the 257 passes of the cap."""
+    s = torch.zeros((1, 32, 32), dtype=torch.bool)
+    for r in range(0, 32, 2):
+        s[0, r, :] = True
+        s[0, min(r + 1, 31), 31 if (r // 2) % 2 == 0 else 0] = True
+    st = torch.zeros((1, 160, 400), dtype=torch.bool)
+    for i in range(160):
+        st[0, i, i : i + 2] = True
+        st[0, 159 - i, 161 + i : 163 + i] = True
+    blobs = _smooth(gen, 3, 100, 70)
+    return {"3x100x70": blobs > blobs.flatten(1).median(1).values[:, None, None],
+            "spiral_256": torch.from_numpy(_spiral(256))[None], "serpentine_32": s,
+            "staircases_160x400": st}
+
+
+def _check_k2(fg, mmask, launches, failures) -> dict:
+    """K2 on the main path's two masks (adaptive calls at the default
+    budgets and at budgets around the batch's median root count, under
+    which the gated re-run fires and tiles overflow) and on ragged cases
+    against its plain version: labels, sizes, dense ids, n_roots or
+    overflow, and pass counts equal; the late-segment mutant must fail the
+    same check; timings and the bound from the counted passes."""
+    from path_gene_multimodal_tpu_torch.ops.cc_sizes import (
+        CcSizesTiling, cc_sizes, cc_sizes_adaptive, cc_sizes_adaptive_plain, cc_sizes_plain,
+    )
+
+    dev = fg.device
+    new = lambda: torch.zeros(2, dtype=torch.int64, device=dev)  # noqa: E731
+    worst, rec, overflow = 0, {}, {}
+
+    def compare(name, kernel, plain, *args, **kw):
+        nonlocal worst
+        ck, cp = new(), new()
+        a, p = kernel(*args, counts=ck, **kw), plain(*args, counts=cp, **kw)
+        diff = max(int((x.long() != y.long()).sum()) for x, y in zip(a, p))
+        worst = max(worst, diff)
+        rec[name] = {"shape": list(args[0].shape), "diff": diff, "counts": ck.tolist(), **kw}
+        if diff or ck.tolist() != cp.tolist():
+            failures.append(f"K2 {name}: {diff} values differ from the plain version; counts "
+                            f"{ck.tolist()}, plain {cp.tolist()}")
+        return p, cp.tolist()
+
+    with torch.inference_mode():
+        big = int(cc_sizes_plain(fg)[3].median())
+        budgets = {"default": (512, 4096), "median": (max(1, big // 4), big)}
+        for mname, m, ms_ in (("fg", fg, 0), ("markers", mmask, 3)):
+            for key, (small_, big_) in budgets.items():
+                p, _ = compare(f"{mname}_{key}", cc_sizes_adaptive, cc_sizes_adaptive_plain, m,
+                               min_size=ms_, small=small_, big=big_)
+                overflow[f"{mname}_{key}"] = int(p[3].sum())
+        if not 0 < overflow["fg_median"] < len(fg):
+            failures.append(f"K2: median budgets {budgets['median']} left the overflow flags "
+                            f"all equal ({overflow})")
+        ragged = _k2_cases(torch.Generator().manual_seed(31))
+        for name, m in ragged.items():
+            compare(name, cc_sizes, cc_sizes_plain, m.to(dev), s_slots=512, min_size=3)
+        for name, want in (("serpentine_32", [17, 17]), ("staircases_160x400", [257, 257])):
+            if rec[name]["counts"] != want:
+                failures.append(f"K2 {name}: counts {rec[name]['counts']}, expected {want}")
+        caught = []
+        masks = [("fg", fg), ("markers", mmask)] + [(k, v.to(dev)) for k, v in ragged.items()]
+        for name, m in masks:
+            cp = new()
+            lbl = cc_sizes_plain(m, counts=cp)[0]
+            ml, mc = _cc_late_mutant(m, CcSizesTiling(*m.shape[1:], 512).seg_len)
+            if bool((ml != lbl).any()) or mc.tolist() != cp.tolist():
+                caught.append(name)
+        if not caught:
+            failures.append("K2: the late-segment mutant passes the check on every case")
+        fired = bool((cc_sizes_plain(fg, 512)[3] > 512).any())
+        ms = _sync_time(lambda: cc_sizes_adaptive(fg), reps=10)
+        pms = _sync_time(lambda: cc_sizes_adaptive_plain(fg), reps=1)
+    passes, passes_max = rec["fg_default"]["counts"]
+    b, h, w = fg.shape
+    runs = 2 if fired else 1
+    # per counted pass two run-minimum scans over the tile, at the scalar
+    # rate; bytes: the mask in and three int32 maps out per relaxation run
+    bnd, by = _bound_ms(runs * b * h * w * 13, [(passes * h * w * 2, PEAK_F32)])
+    m_passes, m_max = rec["markers_default"]["counts"]
+    return {
+        "name": "cc_sizes", "route": "cuda",
+        "source": "path_gene_multimodal_tpu_torch/csrc/cc_sizes.cu",
+        "replaces": "path_gene_multimodal_tpu/ops/pallas/cc_sizes.py:174",
+        "launches": launches["cc_sizes"], "max_abs_err": float(worst),
+        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "note": f"one cc_sizes_adaptive call (512-slot launch + gated 4096-slot launch, which "
+                f"{'ran' if fired else 'returned at once'}) on the ({b},{h},{w}) foreground; 2 "
+                f"calls per batch; counted passes {passes} (max {passes_max} per tile; the marker "
+                f"masks {m_passes}, max {m_max}); bound: bytes 13 per pixel per relaxation run, "
+                "2 run-min scans per pixel per counted pass; also checked at budgets "
+                f"{budgets['median']}, overflow tiles {overflow}",
+        "counts": {"passes_fg": passes, "passes_max_fg": passes_max, "passes_markers": m_passes,
+                   "passes_max_markers": m_max},
+        "cases": rec, "mutant_caught_on": caught,
+    }
+
+
 def _spiral(n: int) -> np.ndarray:
     """A 1-px square spiral with 1-px gaps between its arms: its labels need
     about one relaxation per turn, so small caps bind."""
@@ -1387,17 +1715,18 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for chip_smoke.json and scratch files")
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="only time K1, K7 and K8-K11 of the package copy under PARENT "
-                         "against this checkout's")
+                    help="only time K1-K3 and K7-K11 of the package copy under PARENT "
+                         "against this checkout's (after a main run with the same --out)")
     ap.add_argument("--ab-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     out_dir = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.ab_child is not None:
-        return _ab_child(args.ab_child, args.check)
+        return _ab_child(args.ab_child, args.check, args.inputs)
     if args.ab is not None:
         return _ab(args.ab, out_dir)
 
@@ -1408,15 +1737,13 @@ def main(argv: list[str] | None = None) -> int:
     from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
     from path_gene_multimodal_tpu_torch.ops import cc, cuda
     from path_gene_multimodal_tpu_torch.ops import watershed as ws
-    from path_gene_multimodal_tpu_torch.ops.cc_sizes import (
-        cc_sizes, cc_sizes_adaptive, cc_sizes_adaptive_plain, cc_sizes_plain,
-    )
+    from path_gene_multimodal_tpu_torch.ops.cc_sizes import cc_sizes, cc_sizes_adaptive
     from path_gene_multimodal_tpu_torch.ops.components import INF
     from path_gene_multimodal_tpu_torch.ops.convnext_block import (
         convnext_block, convnext_block_plain,
     )
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
-    from path_gene_multimodal_tpu_torch.ops.flood import marker_watershed, marker_watershed_plain
+    from path_gene_multimodal_tpu_torch.ops.flood import marker_watershed
     from path_gene_multimodal_tpu_torch.ops.instance_stats import (
         instance_stats, instance_stats_plain,
     )
@@ -1527,7 +1854,6 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 3. kernels against their plain versions -------------------------
     kernels = []
-    npix = blb.numel()
 
     # K1 at the three encoder stage shapes (512 images = 128 tiles x TTA 4),
     # then at ragged shapes
@@ -1589,61 +1915,14 @@ def main(argv: list[str] | None = None) -> int:
         "per_stage": k1["per_stage"], "ragged": k1["ragged"], "ptxas": k1["ptxas"],
     })
 
-    # K2 on the foreground and marker masks of this batch
-    with torch.inference_mode():
-        fg = np_prob > 0.5
-        worst = 0
-        # the default budgets (512/4096) and budgets around this batch's
-        # median root count, under which the gated launch runs and some
-        # tiles overflow
-        big = int(cc_sizes_plain(fg)[3].median())
-        k2_budgets = {"default": (512, 4096), "median": (max(1, big // 4), big)}
-        k2_overflow = {}
-        for m, ms_ in ((fg, 0), (mmask, 3)):
-            for key, (small_, big_) in k2_budgets.items():
-                a = cc_sizes_adaptive(m, min_size=ms_, small=small_, big=big_)
-                p = cc_sizes_adaptive_plain(m, min_size=ms_, small=small_, big=big_)
-                for t_a, t_p in zip(a, p):
-                    worst = max(worst, int((t_a.long() != t_p.long()).sum()))
-                k2_overflow[f"{key}_min{ms_}"] = int(p[3].sum())
-        if not 0 < k2_overflow["median_min0"] < len(fg):
-            failures.append(f"K2: median budgets {k2_budgets['median']} left the overflow flags "
-                            f"all equal ({k2_overflow})")
-        ms = _sync_time(lambda: cc_sizes_adaptive(fg), reps=10)
-        pms = _sync_time(lambda: cc_sizes_adaptive_plain(fg), reps=1)
-    if worst:
-        failures.append(f"K2: {worst} values differ from the plain version")
-    bnd, by = _bound_ms(npix * 13, [(npix * 4, PEAK_F32)])
-    kernels.append({
-        "name": "cc_sizes", "route": "cuda",
-        "source": "path_gene_multimodal_tpu_torch/csrc/cc_sizes.cu",
-        "replaces": "path_gene_multimodal_tpu/ops/pallas/cc_sizes.py:174",
-        "launches": launches["cc_sizes"], "max_abs_err": float(worst),
-        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "note": "one cc_sizes_adaptive call (512-slot launch + gated 4096-slot launch) on "
-                "(128,256,256) foreground; 2 calls per batch; also checked at budgets "
-                f"{k2_budgets['median']}, overflow tiles {k2_overflow}",
-    })
-
-    # K3 on this batch's energy, markers and foreground
-    with torch.inference_mode():
-        a = marker_watershed(dist, markers, blb)
-        p = marker_watershed_plain(dist, markers, blb)
-        worst = int((a != p).sum())
-        ms = _sync_time(lambda: marker_watershed(dist, markers, blb), reps=5)
-        pms = _sync_time(lambda: marker_watershed_plain(dist, markers, blb), reps=1)
-    if worst:
-        failures.append(f"K3: {worst} labels differ from the plain version")
-    bnd, by = _bound_ms(npix * 13, [(128 * npix * 9, PEAK_F32)])
-    kernels.append({
-        "name": "flood", "route": "cuda",
-        "source": "path_gene_multimodal_tpu_torch/csrc/flood.cu",
-        "replaces": "path_gene_multimodal_tpu/ops/pallas/flood.py:131",
-        "launches": launches["flood"], "max_abs_err": float(worst),
-        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "note": "(128,256,256); operations bound: 64 levels x 2 phases x 1 step x 9 "
-                "neighbour reads per pixel at the f32 scalar rate",
-    })
+    # K2 on the foreground and marker masks of this batch, K3 on its energy,
+    # markers and foreground; their inputs kept for --ab
+    fg = np_prob > 0.5
+    torch.save({"fg": fg.cpu(), "mmask": mmask.cpu(), "dist": dist.cpu(),
+                "markers": markers.cpu(), "blb": blb.cpu()}, out_dir / "k23_inputs.pt")
+    kernels.append(_check_k2(fg, mmask, launches, failures))
+    kernels.append(_check_k3(dist, markers, blb, launches, failures))
+    print(json.dumps({k["name"]: k["counts"] for k in kernels[-2:]}), flush=True)
 
     # K4 on this batch's cropped labels and types
     with torch.inference_mode():

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv",
            "upsample_conv", "conv64", "cc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
 
 
 def gpu_supported() -> bool:

@@ -54,7 +54,7 @@ UP_CHANNELS = 64  # K8-K11 kernels: cin = cout (per phase, K11)
 UP_HEAD_COLS = 16  # K10/K11 kernels: head columns (per phase, K11), zero-padded
 K11_PHASES = 4  # the parity phases of K11's composite weights
 FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
-SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
+SMEM_PER_BLOCK = cuda.SMEM_PER_BLOCK
 
 
 def k7_weight_layout(w: torch.Tensor) -> torch.Tensor:
