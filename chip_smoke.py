@@ -76,7 +76,17 @@
    and 2; at 1 also against K2's labels): labels equal in every pixel,
    relaxation and round counts equal; K6's launches come from one call of
    its entry point on the foreground masks (it has no pipeline caller, as
-   in the JAX package).
+   in the JAX package). Also K5 on each path mask under both round drivers
+   (a launch a round, whose flag the host reads; one launch for all
+   rounds), on the lines mask at tile 1024 (bands in global memory) and
+   tile 128 (more clusters than fit at once), K6 at 3 x 100 x 70 and
+   2 x 512 x 512; each case also checks that the kernel ran on clusters of
+   the size ``CcTiling`` names, and the path's masks that their bands sat
+   in shared memory. Two mutants of the banded design (band records joined
+   a pass late; the band border read as background) must fail the check.
+   The JSON holds each K5 launch's device time and the host loop's share,
+   both cluster sizes and drivers timed against each other, and ptxas's
+   registers and spills of ``csrc/cc.cu`` (a spill fails the run).
 
 Prints the kernels' JSON line, the slice's tiles/s and the card's name and
 power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -86,7 +96,8 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
     python3 chip_smoke.py --ab PARENT
 
 times K1 (at the three encoder stage shapes, 512 images), K2 and K3 (on
-the main path's batch that a main run with the same ``--out`` saved), K7
+the main path's batch that a main run with the same ``--out`` saved), K5
+(the islands path's three masks) and K6 (the batch's foreground), K7
 (its 8 call shapes) and K8-K11 (one batch of 4 calls each) of the package
 copy whose root is PARENT (e.g. an earlier commit unpacked with ``git
 archive``) against this checkout's, in turns
@@ -95,7 +106,7 @@ on seeded inputs, each timed group after the card has idled (1-2 s, its
 SM clock and power read then), so that no group inherits the clock and
 power state of the one before it; the first run of each version also
 holds K1 against its plain version at the stage shapes and at ragged
-shapes, K8/K11 on 16 images and K2/K3 on the saved batch. Prints one JSON
+shapes, K8/K11 on 16 images and K2/K3/K5/K6 on the saved inputs. Prints one JSON
 line per run and exits non-zero if a run fails.
 """
 
@@ -408,9 +419,12 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 
 def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
-    on seeded inputs, and K2 and K3 on the main path's masks, energy and
-    markers saved in ``inputs``; with ``check``, K1 held against its plain
-    version, K8/K11 on 16 images and K2/K3 on the saved batch."""
+    on seeded inputs, K2 and K3 on the main path's masks, energy and
+    markers saved in ``inputs``, and K5 (the islands path's three masks)
+    and K6 (the batch's foreground) on those beside them in
+    ``cc_inputs.pt``, with ``csrc/cc.cu``'s ptxas lines; with ``check``, K1
+    held against its plain version, K8/K11 on 16 images and K2, K3, K5 and
+    K6 on the saved inputs."""
     sys.path.insert(0, str(root))
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
     from path_gene_multimodal_tpu_torch.models.convnext import Block
@@ -527,10 +541,31 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
                                 k2.cc_sizes_adaptive_plain(m, min_size=ms_)))
             res["k3_diff"] = int((k3.marker_watershed(dist, markers, blb)
                                   != k3.marker_watershed_plain(dist, markers, blb)).sum())
+    cc_inputs = inputs.parent / "cc_inputs.pt"
+    if cc_inputs.exists():  # K5 on the islands path's masks, K6 on the batch's foreground
+        from path_gene_multimodal_tpu_torch.ops import cc
+
+        t = torch.load(cc_inputs)
+        path_masks, fg6 = [m.to(dev) for m in t["path_masks"]], t["fg"].to(dev)
+        res["ptxas_cc"] = _ptxas_entries(cuda.build_log("cc"))
+        with torch.inference_mode():
+            _idle(res, "k5")
+            res["k5_slide_ms"] = _sync_time(
+                lambda: [cc.label_components_tiled(m) for m in path_masks], reps=10)
+            res["k5_call_ms"] = [_sync_time(lambda: cc.label_components_tiled(m), reps=10)
+                                 for m in path_masks]
+            _idle(res, "k6")
+            res["k6_ms"] = _sync_time(lambda: cc.label_components_batch(fg6), reps=10)
+            if check:
+                res["k5_diff"] = sum(int((cc.label_components_tiled(m)
+                                          != cc.label_components_tiled_plain(m)).sum())
+                                     for m in path_masks)
+                res["k6_diff"] = int((cc.label_components_batch(fg6)
+                                      != cc.label_components_batch_plain(fg6)).sum())
     for k in ("k8_excess", "k11_excess"):
         if res.get(k, 0.0) > 1.0:
             over.append(f"{k} {res[k]:.3g}")
-    for k in ("k2_diff", "k3_diff"):
+    for k in ("k2_diff", "k3_diff", "k5_diff", "k6_diff"):
         if res.get(k, 0):
             over.append(f"{k} {res[k]}")
     res["checks_over_tolerance"] = over
@@ -538,15 +573,15 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     return 0
 
 
-AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k7_batch_ms", "k8_batch_ms",
-           "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
+AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k5_slide_ms", "k6_ms", "k7_batch_ms",
+           "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
     """Parent, this checkout, this checkout, parent: one process each, the
     first of each version also checked; all results to ``out_dir/ab.json``.
-    K2 and K3 run on the main path's batch that a main run with the same
-    ``--out`` saved (``k23_inputs.pt``)."""
+    K2, K3, K5 and K6 run on the inputs that a main run with the same
+    ``--out`` saved (``k23_inputs.pt``, ``cc_inputs.pt``)."""
     inputs = out_dir / "k23_inputs.pt"
     if not inputs.exists():
         print(f"chip_smoke --ab: {inputs} is missing; run chip_smoke.py --out {out_dir} first",
@@ -570,7 +605,7 @@ def _ab(parent: Path, out_dir: Path) -> int:
                           **{k: r.get(k) for k in AB_KEYS + ("checks_over_tolerance",)}}),
               flush=True)
     print(_smi())
-    summary = {r["root"] + f"#{i}": {k: r["result"][k] for k in AB_KEYS}
+    summary = {r["root"] + f"#{i}": {k: r["result"].get(k) for k in AB_KEYS}
                for i, r in enumerate(runs) if r["result"]}
     print(json.dumps({"ab": summary}))
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1606,11 +1641,97 @@ def _islands(slide, tmp, wrappers, report, failures):
     return seen, counts[1024]
 
 
-def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
-    """Section 8: K5 and K6 against their plain versions; timings. Returns
-    their entries of the JSON line."""
+def _cc_band_mutant(mask, bh: int, kind: str, max_iters: int = 256):
+    """A mutant of K6's banded relaxation (connectivity 1) that the
+    label-and-count check must catch: ``"late"`` joins the column runs of
+    bands of ``bh`` rows one pass late (``_cc_late_mutant`` with segments of
+    a band), ``"cut"`` reads the band border as background (no run crosses
+    it). Returns (labels, counts as the kernel's: relaxations, 1 round)."""
+    from path_gene_multimodal_tpu_torch.ops.components import _run_min_lastdim, index_seeds
+
+    if kind == "late":
+        lbl, c = _cc_late_mutant(mask, bh, max_iters)
+        return lbl, torch.stack([c[0], torch.ones_like(c[0])])
+    import torch.nn.functional as F
+
+    mask = mask.bool()
+    b, h, w = mask.shape
+    mt = mask.transpose(-1, -2).contiguous()
+    pad = -h % bh
+    mseg = F.pad(mt, (0, pad)).reshape(b, -1, bh)
+
+    def relax(lbl):
+        lbl = _run_min_lastdim(lbl, mask).transpose(-1, -2).contiguous()
+        seg = _run_min_lastdim(F.pad(lbl, (0, pad), value=2**30).reshape(b, -1, bh), mseg)
+        return seg.reshape(b, w, h + pad)[..., :h].transpose(-1, -2).contiguous()
+
+    seeds = index_seeds(mask)
+    lbl = relax(seeds)
+    ch = (lbl != seeds).flatten(1).any(1)
+    n = torch.ones(b, dtype=torch.int64, device=mask.device)
+    it = 0
+    while bool(ch.any()) and it < max_iters:
+        new = relax(lbl)
+        n += ch
+        ch = (new != lbl).flatten(1).any(1)
+        lbl, it = new, it + 1
+    return lbl, torch.stack([n.sum(), torch.ones_like(n[0])])
+
+
+def _cc_ptxas(cuda) -> dict[str, dict]:
+    """ptxas registers, stack and spills of ``csrc/cc.cu``'s kernels."""
+    return _ptxas_entries(cuda.build_log("cc"))
+
+
+def _k5_launch_times(mask, **kw) -> dict:
+    """One K5 call's launches each timed on the device alone (queued behind
+    a sleep kernel, so that CUDA events around a launch see neither the
+    host's launch path nor its flag reads), the call's ms (events around a
+    call run as the path runs it, median of 5) and the share of the call
+    outside the launches (the host loop: flag reads and launch gaps)."""
+    from path_gene_multimodal_tpu_torch.ops import cc
+
+    orig, evs = cc._launch, []
+
+    def timed(*a, **k):
+        torch.cuda._sleep(1_000_000)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        orig(*a, **k)
+        e1.record()
+        evs.append((e0, e1))
+
+    calls = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        cc.label_components_tiled(mask, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append(start.elapsed_time(end))
+    call = sorted(calls[1:])[2]
+    cc._launch = timed
+    try:
+        cc.label_components_tiled(mask, **kw)
+        torch.cuda.synchronize()
+    finally:
+        cc._launch = orig
+    launches = [a.elapsed_time(b) for a, b in evs]
+    return {"rounds": cc.label_components_tiled.last["rounds"], "launch_ms": launches,
+            "call_ms": call, "host_share": max(0.0, 1 - sum(launches) / call)}
+
+
+def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> list[dict]:
+    """Section 8: K5 and K6 against their plain versions (labels and counts
+    in every case; the clusters they ran on, their bands in shared memory
+    on the path's masks, both of K5's round drivers, a global band at tile
+    1024, mutants of the banded design that must fail the same check);
+    launch times, cluster sizes timed against each other; ptxas (a spill
+    fails the run). Returns their entries of the JSON line."""
+    from path_gene_multimodal_tpu_torch.ops import cc, cuda
     from path_gene_multimodal_tpu_torch.ops.cc import (
-        label_components_batch, label_components_batch_plain, label_components_tiled,
+        CcTiling, label_components_batch, label_components_batch_plain, label_components_tiled,
         label_components_tiled_plain,
     )
     from path_gene_multimodal_tpu_torch.ops.cc_sizes import cc_sizes_adaptive
@@ -1620,28 +1741,53 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
     pallas = "path_gene_multimodal_tpu/ops/pallas/cc.py"
     new_counts = lambda: torch.zeros(2, dtype=torch.int64, device=dev)  # noqa: E731
     entries = []
+    torch.save({"path_masks": [m.cpu() for m in path_masks], "fg": fg.cpu()},
+               out_dir / "cc_inputs.pt")
+    ptxas = _cc_ptxas(cuda)
+    spills = {k: v for k, v in ptxas.items() if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    if not ptxas or spills:
+        failures.append(f"cc: ptxas lines {ptxas}; spills {spills}")
 
-    def compare(kernel, plain, m, conn, **kw):
+    def compare(kernel, plain, m, conn, kernel_kw=None, **kw):
         ck, cp = new_counts(), new_counts()
-        a, p = kernel(m, conn, counts=ck, **kw), plain(m, conn, counts=cp, **kw)
+        a = kernel(m, conn, counts=ck, **kw, **(kernel_kw or {}))
+        p = plain(m, conn, counts=cp, **kw)
+        last = kernel.last
         rec = {"shape": list(m.shape), "connectivity": conn, "relaxes": int(ck[0]),
-               "rounds": int(ck[1]), "diff": int((a != p).sum()), **kw}
+               "rounds": int(ck[1]), "diff": int((a != p).sum()), **kw,
+               "forced": kernel_kw or {}, "cluster": last["tiling"].n,
+               "cluster_seen": int(last["flags"][3]), "band_in_shared": last["tiling"].shared,
+               "driver": last["rounds"]}
         if rec["diff"] or ck.tolist() != cp.tolist():
             failures.append(f"{kernel.__name__} {rec}: {rec['diff']} labels differ from the plain "
                             f"version; counts {ck.tolist()} vs plain {cp.tolist()}")
+        if rec["cluster_seen"] != rec["cluster"]:
+            failures.append(f"{kernel.__name__} {rec}: ran on clusters of {rec['cluster_seen']}, "
+                            f"CcTiling names {rec['cluster']}")
         return a, rec
 
-    # K5: the path's masks, a 2048^2 mask crossing every tile border, a capped spiral
+    # K5: the path's masks (the geometry's driver, then each driver forced),
+    # a 2048^2 mask crossing every tile border, a capped spiral, a global band
     cases = []
     with torch.inference_mode():
         for i, m in enumerate(path_masks):
             cases.append(compare(label_components_tiled, label_components_tiled_plain, m, 1)[1])
             cases[-1]["mask"] = f"path_{i}"
+            if not cases[-1]["band_in_shared"]:
+                failures.append(f"K5 path_{i}: its bands are not in shared memory")
+            for drv in ("host", "device"):
+                cases.append(compare(label_components_tiled, label_components_tiled_plain, m, 1,
+                                     kernel_kw={"rounds": drv})[1])
+                cases[-1]["mask"] = f"path_{i}"
         lines = torch.from_numpy(_line_mask(2048, seed=5)).to(dev)
         for conn in (1, 2):
             cases.append(compare(label_components_tiled, label_components_tiled_plain, lines,
                                  conn)[1])
             cases[-1]["mask"] = "lines_2048"
+            for tile in (1024, 128):  # a global band; 256 tiles, more than fit at once
+                cases.append(compare(label_components_tiled, label_components_tiled_plain, lines,
+                                     conn, tile=tile)[1])
+                cases[-1]["mask"] = "lines_2048"
         sp = torch.from_numpy(_spiral(768)).to(dev)
         capped, rec = compare(label_components_tiled, label_components_tiled_plain, sp, 1,
                               tile=256, max_iters=16, max_outer=3)
@@ -1650,11 +1796,22 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
         cases.append(rec)
         if not rec["caps_bind"]:
             failures.append("K5: the capped spiral equals its uncapped labels: the caps do not bind")
-        ms = _sync_time(lambda: [label_components_tiled(m) for m in path_masks], reps=3)
+        if not any(c.get("tile") == 1024 and not c["band_in_shared"] for c in cases):
+            failures.append("K5: no case ran with its bands in global memory")
+        for drv in ("host", "device"):
+            if not any(c["driver"] == drv and not c["forced"] for c in cases):
+                failures.append(f"K5: the geometry chose the {drv} driver on no case")
+        ms = _sync_time(lambda: [label_components_tiled(m) for m in path_masks], reps=5)
+        path_last = cc.label_components_tiled.last
         pms = _sync_time(lambda: [label_components_tiled_plain(m) for m in path_masks], reps=1)
         ms_lines = _sync_time(lambda: label_components_tiled(lines), reps=3)
+        by_cluster = {f"{n}_{drv}": _sync_time(lambda: [label_components_tiled(
+            m, cluster=n, rounds=drv) for m in path_masks], reps=5)
+            for n in (8, 16) for drv in ("host", "device")}
+        launch_times = {f"path_{i}_{drv}": _k5_launch_times(m, rounds=drv)
+                        for i, m in enumerate(path_masks) for drv in ("host", "device")}
         del lines, sp, capped
-    path = [c for c in cases if c["mask"].startswith("path_")]
+    path = [c for c in cases if c["mask"].startswith("path_") and not c["forced"]]
     px = sum(m.numel() for m in path_masks)
     bnd, by = _cc_bound(px, sum(c["relaxes"] for c in path), 512 * 512,
                         sum(c["rounds"] for c in path), 1)
@@ -1664,18 +1821,26 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
         "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "note": "per slide: the islands path's 3 calls on its 1024^2 masks (max_work_dim 1024), "
-                "host loop included (one flag read per round); bound from this run's relaxation "
-                f"and round counts; the 2048^2 lines mask: {ms_lines:.3f} ms per call; labels "
-                "equal to the plain version in every pixel on every case",
-        "cases": cases,
+                f"clusters of {path_last['tiling'].n}, {path_last['rounds']} driver; bound "
+                "from this run's relaxation and round counts; the 2048^2 lines mask: "
+                f"{ms_lines:.3f} ms per call; labels and counts equal to the plain version on "
+                "every case",
+        "per_call": [{k: c[k] for k in ("mask", "relaxes", "rounds", "cluster", "driver")}
+                     for c in path],
+        "ms_by_cluster_and_driver": by_cluster, "launch_times": launch_times,
+        "ptxas": ptxas, "cases": cases,
     })
 
-    # K6: the nuclei batch's foreground masks and seeded masks
-    rnd = torch.from_numpy(np.random.default_rng(6).random((64, 256, 256)) < 0.5).to(dev)
+    # K6: the nuclei batch's foreground masks, seeded and ragged masks
+    gen = np.random.default_rng(6)
+    rnd = torch.from_numpy(gen.random((64, 256, 256)) < 0.5).to(dev)
+    ragged = {"ragged_3x100x70": torch.from_numpy(gen.random((3, 100, 70)) < 0.55).to(dev),
+              "ragged_2x512x512": torch.from_numpy(
+                  (gen.random((2, 512, 512)) < 0.5) | _spiral(512)[None]).to(dev)}
     cases = []
     with torch.inference_mode():
         for conn in (1, 2):
-            for name, m in (("nuclei_fg", fg), ("seeded", rnd)):
+            for name, m in (("nuclei_fg", fg), ("seeded", rnd), *ragged.items()):
                 a, rec = compare(label_components_batch, label_components_batch_plain, m, conn)
                 rec["mask"] = name
                 if conn == 1 and name == "nuclei_fg":
@@ -1683,6 +1848,19 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
                     if rec["diff_vs_k2"]:
                         failures.append(f"K6: {rec['diff_vs_k2']} labels differ from K2's")
                 cases.append(rec)
+        # the banded design's mutants must fail the same check somewhere
+        caught = {}
+        for kind in ("late", "cut"):
+            caught[kind] = []
+            for name, m in (("nuclei_fg", fg), ("seeded", rnd[:8]), *ragged.items()):
+                cp = new_counts()
+                lbl = label_components_batch_plain(m, 1, counts=cp)
+                bh = CcTiling(*m.shape[1:], tiles=m.shape[0], sms=cuda.sm_count(dev)).bh
+                ml, mc = _cc_band_mutant(m, bh, kind)
+                if bool((ml != lbl).any()) or mc.tolist() != cp.tolist():
+                    caught[kind].append(name)
+            if not caught[kind]:
+                failures.append(f"K6: the {kind} band mutant passes the check on every case")
         # K6 has no pipeline caller: its path is its entry point on the masks
         for w in wrappers.values():
             w.launches = 0
@@ -1691,6 +1869,9 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
         k6_launches = {n: w.launches for n, w in wrappers.items()}
         ms = _sync_time(lambda: label_components_batch(fg), reps=10)
         pms = _sync_time(lambda: label_components_batch_plain(fg), reps=1)
+        geo = label_components_batch.last["tiling"]
+        by_cluster = {n: _sync_time(lambda: label_components_batch(fg, cluster=n), reps=10)
+                      for n in (2, 4)}
     if k6_launches["label_components_batch"] != 1 or sum(k6_launches.values()) != 1:
         failures.append(f"K6 entry point: launches {k6_launches}")
     fg1 = cases[0]
@@ -1700,10 +1881,11 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures) -> list[dict]:
         "replaces": f"{pallas}:112", "launches": k6_launches["label_components_batch"],
         "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
-        "note": "one call on the nuclei batch's (128,256,256) foreground masks, connectivity 1; "
-                "no pipeline caller (as in the JAX package): launches from one call of its entry "
-                "point; labels equal to the plain version and (connectivity 1) to K2's",
-        "cases": cases,
+        "note": f"one call on the nuclei batch's {tuple(fg.shape)} foreground masks, connectivity "
+                f"1, clusters of {geo.n}; no pipeline caller (as in the JAX package): launches "
+                "from one call of its entry point; labels equal to the plain version and "
+                "(connectivity 1) to K2's",
+        "ms_by_cluster": by_cluster, "mutant_caught_on": caught, "cases": cases,
     })
     return entries
 
@@ -1982,7 +2164,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- 7./8. the islands path, K5 and K6 -----------------------------------
     path_masks, island_launches = _islands(slide, tmp, wrappers, report, failures)
-    kernels += _check_cc(path_masks, fg, island_launches, wrappers, failures)
+    kernels += _check_cc(path_masks, fg, island_launches, wrappers, failures, out_dir)
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels

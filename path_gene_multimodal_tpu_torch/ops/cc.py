@@ -24,16 +24,166 @@ connectivity 2 the diagonal relax runs in the order (1,1), (1,-1), (-1,1),
 given, gets the relaxations (summed over tiles) and the propagate rounds
 added to it, by the kernel on the card.
 
-On the card the outer loop of K5 reads its "changed" flag on the host once
-per round (at most ``max_outer`` + 1 synchronisations).
+On the card both run one core (``csrc/cc.cu``): each tile's rows cut into
+bands over a thread-block cluster, the labels in shared memory (geometry:
+``CcTiling``). K5's rounds run in one launch with a grid-wide barrier
+between them when every tile's cluster fits the card at once, else one
+launch a round, whose "changed" flag the host reads (at most
+``max_outer`` + 1 synchronisations).
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
 from path_gene_multimodal_tpu_torch.ops import cuda
 from path_gene_multimodal_tpu_torch.ops.components import INF, index_seeds, relax_fixpoint, shift
+
+
+CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes (16 is the card's non-portable largest)
+MIN_BAND_ROWS = 32  # a row a warp in the row runs
+MAX_SEG = 64  # rows of a column segment: its mask bits are one 64-bit word
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclass(frozen=True)
+class CcTiling:
+    """Launch geometry of K5/K6 (``csrc/cc.cu``) on th x tw tiles: a tile's
+    rows cut into ``n`` bands of ``bh`` rows (the last ones shorter or
+    empty), one block of ``threads`` a band, the ``n`` blocks of a tile one
+    thread-block cluster. A band's region holds its labels (int32, rows of
+    ``ls`` = tw rounded up to 8), mask bits (``wpr`` words a row), dirty
+    rows and columns, the records and mask bits of its column segments (``segs``
+    segments of ``seg_len`` <= 64 rows a column, as many a column as the
+    threads allow) and the copies of warp-edge columns the
+    diagonal steps read; it lives in shared memory when it fits beside the
+    part that the cluster reads (the band records and edge rows), else in a
+    global scratch of ``scratch_bytes`` a block. ``n`` is the smallest
+    cluster whose band fits, or where none fits the largest that the tile's
+    height allows. A launch of ``tiles`` tiles on a card of ``sms``
+    multiprocessors then doubles ``n`` while the doubled grid still fits
+    the card in one wave and a band keeps at least ``MIN_BAND_ROWS`` rows
+    (more blocks a tile, each relaxation shorter). ``cluster`` picks
+    another. The kernel checks what it is given against its own
+    geometry."""
+
+    threads: ClassVar[int] = 1024
+
+    th: int
+    tw: int
+    cluster: int | None = None
+    tiles: int = 1
+    sms: int = 132
+
+    def __post_init__(self):
+        if self.th <= 0 or self.tw <= 0:
+            raise ValueError(f"CcTiling: empty tile {self.th}x{self.tw}")
+        if self.cluster is not None and self.cluster not in CLUSTERS:
+            raise ValueError(f"CcTiling: cluster must be one of {CLUSTERS}, got {self.cluster}")
+        if self.shared_bytes > cuda.SMEM_PER_BLOCK:
+            raise ValueError(f"CcTiling: a {self.th}x{self.tw} tile needs {self.shared_bytes} B "
+                             f"of shared memory for its band records, more than "
+                             f"{cuda.SMEM_PER_BLOCK}")
+
+    @functools.cached_property
+    def ls(self) -> int:
+        return -(-self.tw // 8) * 8
+
+    @functools.cached_property
+    def wpr(self) -> int:
+        return -(-self.tw // 32)
+
+    def _seg_len(self, bh: int) -> int:
+        cols = max(1, self.threads // self.tw)
+        return min(MAX_SEG, -(-bh // cols))
+
+    def _band_bytes(self, n: int) -> int:
+        bh = -(-self.th // n)
+        items = -(-bh // self._seg_len(bh)) * self.tw
+        return (_r16(bh * self.ls * 4) + 2 * _r16(bh * self.wpr * 4) + _r16(bh)
+                + _r16(2 * self.ls) + _r16(3 * items * 4) + _r16(8 * items))
+
+    @functools.cached_property
+    def n(self) -> int:
+        if self.cluster is not None:
+            return self.cluster
+        fit = [n for n in CLUSTERS
+               if self._band_bytes(n) + self.shared_bytes <= cuda.SMEM_PER_BLOCK]
+        if not fit:
+            return max(n for n in CLUSTERS if n <= self.th or n == 1)
+        n = fit[0]
+        while (n < CLUSTERS[-1] and self.tiles * 2 * n <= self.sms
+               and -(-self.th // (2 * n)) >= MIN_BAND_ROWS):
+            n *= 2
+        return n
+
+    @functools.cached_property
+    def bh(self) -> int:
+        return -(-self.th // self.n)
+
+    @functools.cached_property
+    def seg_len(self) -> int:
+        return self._seg_len(self.bh)
+
+    @functools.cached_property
+    def segs(self) -> int:
+        return -(-self.bh // self.seg_len)
+
+    @functools.cached_property
+    def band_bytes(self) -> int:
+        """Labels, mask bits, dirty rows, dirty columns (two relaxations'
+        worth), segment records (head, tail, first background row) and mask
+        bits, and warp-edge column copies of one band."""
+        return self._band_bytes(self.n)
+
+    @functools.cached_property
+    def shared_bytes(self) -> int:
+        """What the cluster reads of a block: band records (head, tail, all
+        foreground) a column, two edge-row copies, the changed flag."""
+        return _r16(3 * self.tw * 4) + _r16(2 * self.ls * 4) + 16
+
+    @functools.cached_property
+    def shared(self) -> bool:
+        return self.band_bytes + self.shared_bytes <= cuda.SMEM_PER_BLOCK
+
+    @functools.cached_property
+    def smem_bytes(self) -> int:
+        return self.shared_bytes + (self.band_bytes if self.shared else 0)
+
+    @functools.cached_property
+    def scratch_bytes(self) -> int:
+        return 0 if self.shared else self.band_bytes
+
+    def device_rounds(self, tiles: int, max_clusters: int) -> bool:
+        """K5's driver: all rounds in one launch (grid-wide barriers) when
+        the ``tiles`` clusters can all be resident at once, else a launch a
+        round."""
+        return tiles <= max_clusters
+
+
+@functools.cache
+def tiling(th: int, tw: int, cluster: int | None, tiles: int, sms: int) -> CcTiling:
+    """The wrappers' geometries, built once each (a call's host time)."""
+    return CcTiling(th, tw, cluster, tiles=tiles, sms=sms)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return cuda.sm_count(torch.device("cuda", index))
+
+
+@functools.cache
+def max_clusters(n: int, smem: int, shared: bool) -> int:
+    """Clusters of ``n`` blocks with ``smem`` bytes of shared memory each
+    (their bands in shared memory or not) that the card holds at once."""
+    return cuda.size_query("cc", "cc_max_clusters", n, smem, int(shared))
 
 
 def _count(counts: torch.Tensor | None, relaxes, rounds: int) -> None:
@@ -119,33 +269,53 @@ def _check_args(connectivity: int, counts: torch.Tensor | None, device) -> None:
             raise ValueError(f"counts: expected {device}, got {counts.device}")
 
 
+def _launch(m, lbl0, lbl1, flags, bar, counts, geo: CcTiling, b, h, w, connectivity, max_iters,
+            max_outer, rnd, device_rounds) -> None:
+    tiles = b * -(-h // geo.th) * -(-w // geo.tw)
+    scratch = (torch.empty(tiles * geo.n * geo.scratch_bytes, dtype=torch.uint8, device=m.device)
+               if not geo.shared else None)
+    cuda.launch("cc", "cc_label_launch", cuda.ptr(m), cuda.ptr(lbl0), cuda.ptr(lbl1),
+                cuda.ptr(scratch), cuda.ptr(flags), cuda.ptr(bar), cuda.ptr(counts), b, h, w,
+                geo.th, geo.tw, connectivity, max_iters, max_outer, rnd, int(device_rounds),
+                geo.n, geo.bh, geo.ls, geo.seg_len, geo.segs, int(geo.shared), geo.smem_bytes,
+                geo.band_bytes, cuda.stream())
+
+
 def label_components_batch(mask: torch.Tensor, connectivity: int = 1, max_iters: int = 256,
-                           counts: torch.Tensor | None = None) -> torch.Tensor:
+                           counts: torch.Tensor | None = None,
+                           cluster: int | None = None) -> torch.Tensor:
     """K6: (B, H, W) bool → (B, H, W) int32 labels; the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor (one cluster an image, of ``CcTiling(H, W, cluster)``), the
+    plain version on a CPU tensor."""
     if not mask.is_cuda:
         return label_components_batch_plain(mask, connectivity, max_iters, counts)
     b, h, w = mask.shape
     _check_args(connectivity, counts, mask.device)
+    if h * w >= INF:
+        raise ValueError(f"label_components_batch takes images of fewer than 2^30 pixels, "
+                         f"got {h}x{w}")
     m = _mask_u8(mask)
     cuda.check(m, "mask", torch.uint8, (b, h, w))
-    new = lambda: torch.empty((b, h, w), dtype=torch.int32, device=mask.device)  # noqa: E731
-    out, tmp, tmp2 = new(), new(), new()
-    cuda.launch("cc", "cc_label_batch_launch", cuda.ptr(m), cuda.ptr(out), cuda.ptr(tmp),
-                cuda.ptr(tmp2), cuda.ptr(counts), b, h, w, connectivity, max_iters,
-                cuda.stream())
+    geo = tiling(h, w, cluster, b, _sms(mask.device.index or 0))
+    out = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
+    flags = torch.zeros(4, dtype=torch.int32, device=mask.device)
+    _launch(m, out, out, flags, None, counts, geo, b, h, w, connectivity, max_iters, 0, 0, False)
     label_components_batch.launches += 1
+    label_components_batch.last = {"tiling": geo, "rounds": "single", "flags": flags}
     return out
 
 
 def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int = 512,
                            max_iters: int = 128, max_outer: int = 64,
-                           counts: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: one (H, W) bool mask → (H, W) int32 labels; the CUDA kernels on
-    a CUDA tensor, the plain version on a CPU tensor. On the card: a seed
-    launch, then per round a border-min launch (from the second round on)
-    and a propagate launch (one block per tile), whose "changed" flag the
-    host reads."""
+                           counts: torch.Tensor | None = None, cluster: int | None = None,
+                           rounds: str | None = None) -> torch.Tensor:
+    """K5: one (H, W) bool mask → (H, W) int32 labels; the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor. On the card every tile
+    is a cluster of ``CcTiling(tile, tile, cluster)``; ``rounds`` is
+    ``"device"`` (one launch runs every round, grid-wide barriers between
+    them: every tile's cluster must fit the card at once), ``"host"`` (a
+    launch a round, whose flag the host reads) or None (``"device"`` where
+    it fits)."""
     if not mask.is_cuda:
         return label_components_tiled_plain(mask, connectivity, tile, max_iters, max_outer,
                                             counts)
@@ -154,38 +324,40 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int 
     if tile <= 0 or h * w >= INF:
         raise ValueError(f"label_components_tiled takes tile > 0 and fewer than 2^30 pixels, "
                          f"got tile {tile}, {h}x{w}")
+    if rounds not in (None, "host", "device"):
+        raise ValueError(f"rounds must be None, 'host' or 'device', got {rounds!r}")
     dev = mask.device
     m = _mask_u8(mask)
     cuda.check(m, "mask", torch.uint8, (h, w))
-    ph, pw = -(-h // tile) * tile, -(-w // tile) * tile
-    maskp = torch.empty((ph, pw), dtype=torch.uint8, device=dev)
-    new = lambda: torch.empty((ph, pw), dtype=torch.int32, device=dev)  # noqa: E731
-    seeds, cur, other, tmp, tmp2 = new(), new(), new(), new(), new()
-    flag = torch.empty((1,), dtype=torch.int32, device=dev)
-    st = cuda.stream()
-    cuda.launch("cc", "cc_seed_launch", cuda.ptr(m), cuda.ptr(maskp), cuda.ptr(seeds), h, w,
-                ph, pw, st)
+    tiles = -(-h // tile) * -(-w // tile)
+    geo = tiling(tile, tile, cluster, tiles, _sms(dev.index or 0))
+    fits = geo.device_rounds(tiles, max_clusters(geo.n, geo.smem_bytes, geo.shared))
+    if rounds == "device" and not fits:
+        raise ValueError(f"label_components_tiled: {tiles} clusters of {geo.n} cannot all be "
+                         "resident at once, as device rounds need")
+    device_rounds = fits if rounds is None else rounds == "device"
+    lbl = torch.empty((2, h, w), dtype=torch.int32, device=dev)
+    state = torch.zeros(5, dtype=torch.int32, device=dev)  # flags [4], the grid barrier
+    flags = state[:4]
 
-    def propagate(prev, out):
-        cuda.launch("cc", "cc_propagate_launch", cuda.ptr(maskp), cuda.ptr(seeds),
-                    cuda.ptr(prev), cuda.ptr(out), cuda.ptr(tmp), cuda.ptr(tmp2), cuda.ptr(flag),
-                    cuda.ptr(counts), ph, pw, tile, connectivity, max_iters, st)
+    def launch(k, all_rounds=False):
+        _launch(m, lbl[0], lbl[1], flags, state[4:] if all_rounds else None, counts, geo, 1, h,
+                w, connectivity, max_iters, max_outer, k, all_rounds)
 
-    def border_min(lbl):
-        cuda.launch("cc", "cc_border_min_launch", cuda.ptr(maskp), cuda.ptr(lbl),
-                    cuda.ptr(seeds), ph, pw, connectivity, st)
-
-    propagate(None, other)
-    border_min(other)
-    propagate(other, cur)
-    i = 1
-    while bool(flag.item()) and i < max_outer:
-        border_min(cur)
-        propagate(cur, other)
-        cur, other = other, cur
-        i += 1
+    if device_rounds:
+        launch(0, True)
+        k = max(max_outer, 1)  # a round that changes nothing leaves both buffers equal
+    else:
+        launch(0)
+        launch(1)
+        k = 1
+        while k < max_outer and bool(flags[k % 3].item()):
+            k += 1
+            launch(k)
     label_components_tiled.launches += 1
-    return cur[:h, :w].contiguous()
+    label_components_tiled.last = {"tiling": geo, "rounds": "device" if device_rounds else "host",
+                                   "flags": flags}
+    return lbl[k & 1]
 
 
 label_components_batch.launches = 0
