@@ -68,7 +68,9 @@
    islands GeoJSON written from the slide's own tissue (its mask cut by a
    grid into pieces, their rings in level-0 px), the counts
    set to 0 just before each run and read just after; holds its tissue
-   mask against the CPU run of the same path;
+   mask against the CPU run of the same path, and K5's launches against
+   its calls' drivers (one launch a call that runs its rounds on the card,
+   one a round where the host drives, as the kernel counts them);
 8. holds K5 against its plain version on the path's three masks, on a
    seeded 2048^2 mask whose lines cross every tile border (connectivity 1
    and 2) and on a spiral where the relaxation caps bind, and K6 on the
@@ -76,17 +78,21 @@
    and 2; at 1 also against K2's labels): labels equal in every pixel,
    relaxation and round counts equal; K6's launches come from one call of
    its entry point on the foreground masks (it has no pipeline caller, as
-   in the JAX package). Also K5 on each path mask under both round drivers
-   (a launch a round, whose flag the host reads; one launch for all
-   rounds), on the lines mask at tile 1024 (bands in global memory) and
-   tile 128 (more clusters than fit at once), K6 at 3 x 100 x 70 and
-   2 x 512 x 512; each case also checks that the kernel ran on clusters of
-   the size ``CcTiling`` names, and the path's masks that their bands sat
-   in shared memory. Two mutants of the banded design (band records joined
-   a pass late; the band border read as background) must fail the check.
-   The JSON holds each K5 launch's device time and the host loop's share,
-   both cluster sizes and drivers timed against each other, and ptxas's
-   registers and spills of ``csrc/cc.cu`` (a spill fails the run).
+   in the JAX package). K5's two round drivers as the geometry chooses
+   them (the path's masks: one launch for all rounds; the lines mask at
+   tile 512: a launch a round, whose flag the host reads), the lines mask
+   at tile 1024 (bands in global memory) and tile 128 (256 tiles), the
+   device driver on four streams at once (more blocks than the card holds
+   ask for a grid barrier together), K6 at 3 x 100 x 70, 2 x 512 x 512
+   and 2 x 8 x 12,000 (bands in global memory); each case also checks that
+   the kernel ran on clusters of the size ``CcTiling`` names, and the
+   path's masks that their bands sat in shared memory. Two mutants of the
+   banded design (band records joined a pass late; the band border read
+   as background) must fail the check. The JSON holds each K5 launch's
+   device time and the host loop's share under both drivers, the cluster
+   size the geometry did not choose timed through the core's launcher,
+   and ptxas's registers and spills of ``csrc/cc.cu`` (a spill fails the
+   run).
 
 Prints the kernels' JSON line, the slice's tiles/s and the card's name and
 power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -1608,28 +1614,36 @@ def _islands(slide, tmp, wrappers, report, failures):
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        df = morph.process_one_slide_make_csv_and_plot(
-            slide, gj, tmp / f"islands_{dim}", f"islands_{dim}", ["Tumor"], ["TILs"], ["TLS"],
-            thumb_size=THUMB, max_work_dim=dim)
-        torch.cuda.synchronize()
+        with _cc_spy() as spy:
+            df = morph.process_one_slide_make_csv_and_plot(
+                slide, gj, tmp / f"islands_{dim}", f"islands_{dim}", ["Tumor"], ["TILs"], ["TLS"],
+                thumb_size=THUMB, max_work_dim=dim)
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts[dim] = {n: w.launches for n, w in wrappers.items()}
+        # K5's calls as its kernel saw them: the driver each ran, the rounds
+        # it counted; a call is one launch (device rounds) or one a round
+        k5 = [{"driver": "device" if c["device_rounds"] else "host", "rounds": int(c["counts"][1]),
+               "cluster": c["geo"].n, "shape": c["shape"]} for c in spy.calls()]
         txt = morph.write_basic_size_burden_metrics_txt(df, "smoke", tmp / f"burden_{dim}.txt")
         png = tmp / f"islands_{dim}" / f"islands_{dim}_boundaries.png"
         num = df.drop(columns=["slide_id", "type"]).to_numpy(np.float64)
         tissue = float(df["tissue_area_px2"].iloc[0]) if len(df) else 0.0
         runs[dim] = {"s": dt, "rows": len(df), "tissue_area_px2": tissue,
                      "tissue_fraction": tissue / (slide.level_dimensions[0][0] ** 2),
-                     "launches": counts[dim], "png_bytes": png.stat().st_size if png.exists() else 0,
+                     "launches": counts[dim], "k5_calls": k5,
+                     "png_bytes": png.stat().st_size if png.exists() else 0,
                      "burden_lines": len(txt.read_text().splitlines())}
         if len(df) != n_rows or not np.isfinite(num).all() or not tissue > 0:
             failures.append(f"islands {dim}: {len(df)} rows (expected {n_rows}), finite "
                             f"{bool(np.isfinite(num).all())}, tissue area {tissue}")
         if not png.exists() or png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
             failures.append(f"islands {dim}: no PNG written")
-        expect = {n: (3 if n == "label_components_tiled" else 0) for n in wrappers}
-        if counts[dim] != expect:
-            failures.append(f"islands {dim}: launches {counts[dim]}, expected {expect}")
+        k5_launches = sum(1 if c["driver"] == "device" else c["rounds"] for c in k5)
+        expect = {n: (k5_launches if n == "label_components_tiled" else 0) for n in wrappers}
+        if counts[dim] != expect or len(k5) != 3:
+            failures.append(f"islands {dim}: launches {counts[dim]}, expected {expect} from "
+                            f"{len(k5)} K5 calls (expected 3): {k5}")
         print(f"islands max_work_dim={dim}: {dt:.3f} s, {len(df)} islands", flush=True)
     if runs[1024]["tissue_area_px2"] <= 0 or abs(
             runs[2048]["tissue_area_px2"] / runs[1024]["tissue_area_px2"] - 1) > 0.05:
@@ -1678,12 +1692,46 @@ def _cc_band_mutant(mask, bh: int, kind: str, max_iters: int = 256):
     return lbl, torch.stack([n.sum(), torch.ones_like(n[0])])
 
 
+class _cc_spy:  # noqa: N801 (a context manager, named as one)
+    """The launches of K5/K6's core (``ops/cc.py::_launch``) while it is
+    installed: each launch's geometry, round, driver, its flags tensor (the
+    spy's own where the wrapper passes none; the kernel sets its last word
+    to the cluster size it ran on) and counts tensor (the spy's own, one a
+    call, where the wrapper passes none)."""
+
+    def __enter__(self):
+        from path_gene_multimodal_tpu_torch.ops import cc
+
+        self.cc, self.orig, self.launches = cc, cc._launch, []
+        cc._launch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cc._launch = self.orig
+        return False
+
+    def __call__(self, m, lbl0, lbl1, flags, bar, counts, geo, b, h, w, *rest):
+        rnd, device_rounds = rest[-2], rest[-1]
+        if flags is None:
+            flags = torch.zeros(4, dtype=torch.int32, device=m.device)
+        if counts is None:  # a call starts at round 0; its rounds share one tensor
+            counts = (torch.zeros(2, dtype=torch.int64, device=m.device)
+                      if rnd == 0 or not self.launches else self.launches[-1]["counts"])
+        self.launches.append({"geo": geo, "round": rnd, "device_rounds": bool(device_rounds),
+                              "flags": flags, "counts": counts, "shape": [b, h, w]})
+        self.orig(m, lbl0, lbl1, flags, bar, counts, geo, b, h, w, *rest)
+
+    def calls(self) -> list[dict]:
+        """One entry a call: its first launch's record."""
+        return [r for r in self.launches if r["round"] == 0]
+
+
 def _cc_ptxas(cuda) -> dict[str, dict]:
     """ptxas registers, stack and spills of ``csrc/cc.cu``'s kernels."""
     return _ptxas_entries(cuda.build_log("cc"))
 
 
-def _k5_launch_times(mask, **kw) -> dict:
+def _k5_launch_times(mask) -> dict:
     """One K5 call's launches each timed on the device alone (queued behind
     a sleep kernel, so that CUDA events around a launch see neither the
     host's launch path nor its flag reads), the call's ms (events around a
@@ -1706,30 +1754,78 @@ def _k5_launch_times(mask, **kw) -> dict:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        cc.label_components_tiled(mask, **kw)
+        cc.label_components_tiled(mask)
         end.record()
         torch.cuda.synchronize()
         calls.append(start.elapsed_time(end))
     call = sorted(calls[1:])[2]
     cc._launch = timed
     try:
-        cc.label_components_tiled(mask, **kw)
+        cc.label_components_tiled(mask)
         torch.cuda.synchronize()
     finally:
         cc._launch = orig
     launches = [a.elapsed_time(b) for a, b in evs]
-    return {"rounds": cc.label_components_tiled.last["rounds"], "launch_ms": launches,
+    device_rounds = cc.k5_plan(*mask.shape, 512, mask.device)[1]
+    return {"driver": "device" if device_rounds else "host", "launch_ms": launches,
             "call_ms": call, "host_share": max(0.0, 1 - sum(launches) / call)}
+
+
+def _k5_call_on(m, geo):
+    """One K5 call (connectivity 1, the path's caps) on geometry ``geo``,
+    every round in one launch, through the core's launcher: the timing of a
+    cluster size the geometry did not choose."""
+    from path_gene_multimodal_tpu_torch.ops import cc
+
+    h, w = m.shape
+    lbl = torch.empty((2, h, w), dtype=torch.int32, device=m.device)
+    state = torch.zeros(5, dtype=torch.int32, device=m.device)
+    cc._launch(cc._mask_u8(m), lbl[0], lbl[1], state[:4], state[4:], None, geo, 1, h, w, 1, 128,
+               64, 0, True)
+    return lbl[0]  # after max_outer (even) rounds, as the wrapper returns
+
+
+def _k6_call_on(m, geo):
+    """One K6 call (connectivity 1) on geometry ``geo`` through the core's
+    launcher."""
+    from path_gene_multimodal_tpu_torch.ops import cc
+
+    out = torch.empty(m.shape, dtype=torch.int32, device=m.device)
+    cc._launch(cc._mask_u8(m), out, out, None, None, None, geo, *m.shape, 1, 256, 0, 0, False)
+    return out
+
+
+def _k5_concurrent(masks, want, streams: int = 4) -> dict:
+    """K5's device-rounds driver on ``streams`` streams at once, each
+    stream's calls queued behind a sleep kernel so that they start
+    together: more blocks than the card holds ask for a grid barrier at
+    once. The cooperative launch must keep each grid whole (no trap) and
+    every label must equal ``want``."""
+    from path_gene_multimodal_tpu_torch.ops.cc import label_components_tiled
+
+    ss = [torch.cuda.Stream() for _ in range(streams)]
+    torch.cuda.synchronize()
+    outs = []
+    t0 = time.perf_counter()
+    for s in ss:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            outs.append([label_components_tiled(m) for m in masks])
+    torch.cuda.synchronize()
+    return {"streams": streams, "s": time.perf_counter() - t0,
+            "diff": sum(int((a != b).sum()) for o in outs for a, b in zip(o, want))}
 
 
 def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> list[dict]:
     """Section 8: K5 and K6 against their plain versions (labels and counts
     in every case; the clusters they ran on, their bands in shared memory
-    on the path's masks, both of K5's round drivers, a global band at tile
-    1024, mutants of the banded design that must fail the same check);
-    launch times, cluster sizes timed against each other; ptxas (a spill
-    fails the run). Returns their entries of the JSON line."""
-    from path_gene_multimodal_tpu_torch.ops import cc, cuda
+    on the path's masks, both of K5's round drivers as the geometry chooses
+    them, global bands at tile 1024 and on 12,000-px rows, the device driver
+    on four streams at once, mutants of the banded design that must fail
+    the same check); launch times, the cluster size the geometry did not
+    choose; ptxas (a spill fails the run). Returns their entries of the
+    JSON line."""
+    from path_gene_multimodal_tpu_torch.ops import cuda
     from path_gene_multimodal_tpu_torch.ops.cc import (
         CcTiling, label_components_batch, label_components_batch_plain, label_components_tiled,
         label_components_tiled_plain,
@@ -1748,26 +1844,34 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
     if not ptxas or spills:
         failures.append(f"cc: ptxas lines {ptxas}; spills {spills}")
 
-    def compare(kernel, plain, m, conn, kernel_kw=None, **kw):
+    def compare(kernel, plain, m, conn, **kw):
         ck, cp = new_counts(), new_counts()
-        a = kernel(m, conn, counts=ck, **kw, **(kernel_kw or {}))
+        with _cc_spy() as spy:
+            a = kernel(m, conn, counts=ck, **kw)
         p = plain(m, conn, counts=cp, **kw)
-        last = kernel.last
+        geo = spy.launches[0]["geo"]
+        seen = {int(r["flags"][3]) for r in spy.launches}
         rec = {"shape": list(m.shape), "connectivity": conn, "relaxes": int(ck[0]),
-               "rounds": int(ck[1]), "diff": int((a != p).sum()), **kw,
-               "forced": kernel_kw or {}, "cluster": last["tiling"].n,
-               "cluster_seen": int(last["flags"][3]), "band_in_shared": last["tiling"].shared,
-               "driver": last["rounds"]}
+               "rounds": int(ck[1]), "diff": int((a != p).sum()), **kw, "cluster": geo.n,
+               "cluster_seen": sorted(seen), "band_in_shared": geo.shared,
+               "launches": len(spy.launches),
+               "driver": ("single" if kernel is label_components_batch else
+                          "device" if spy.launches[0]["device_rounds"] else "host")}
         if rec["diff"] or ck.tolist() != cp.tolist():
             failures.append(f"{kernel.__name__} {rec}: {rec['diff']} labels differ from the plain "
                             f"version; counts {ck.tolist()} vs plain {cp.tolist()}")
-        if rec["cluster_seen"] != rec["cluster"]:
-            failures.append(f"{kernel.__name__} {rec}: ran on clusters of {rec['cluster_seen']}, "
-                            f"CcTiling names {rec['cluster']}")
+        if seen != {geo.n}:
+            failures.append(f"{kernel.__name__} {rec}: ran on clusters of {sorted(seen)}, "
+                            f"CcTiling names {geo.n}")
+        if rec["driver"] == "host" and rec["launches"] != rec["rounds"]:
+            failures.append(f"{kernel.__name__} {rec}: {rec['launches']} launches for "
+                            f"{rec['rounds']} rounds of the host driver")
         return a, rec
 
-    # K5: the path's masks (the geometry's driver, then each driver forced),
-    # a 2048^2 mask crossing every tile border, a capped spiral, a global band
+    # K5: the path's masks, a 2048^2 mask crossing every tile border (tile
+    # 512: the host driver, its 16 clusters of 8 do not fit at once; 1024:
+    # global bands; 128: 256 tiles), a capped spiral, the device driver on
+    # four streams at once
     cases = []
     with torch.inference_mode():
         for i, m in enumerate(path_masks):
@@ -1775,18 +1879,11 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
             cases[-1]["mask"] = f"path_{i}"
             if not cases[-1]["band_in_shared"]:
                 failures.append(f"K5 path_{i}: its bands are not in shared memory")
-            for drv in ("host", "device"):
-                cases.append(compare(label_components_tiled, label_components_tiled_plain, m, 1,
-                                     kernel_kw={"rounds": drv})[1])
-                cases[-1]["mask"] = f"path_{i}"
         lines = torch.from_numpy(_line_mask(2048, seed=5)).to(dev)
         for conn in (1, 2):
-            cases.append(compare(label_components_tiled, label_components_tiled_plain, lines,
-                                 conn)[1])
-            cases[-1]["mask"] = "lines_2048"
-            for tile in (1024, 128):  # a global band; 256 tiles, more than fit at once
+            for tile in (512, 1024, 128):
                 cases.append(compare(label_components_tiled, label_components_tiled_plain, lines,
-                                     conn, tile=tile)[1])
+                                     conn, **({"tile": tile} if tile != 512 else {}))[1])
                 cases[-1]["mask"] = "lines_2048"
         sp = torch.from_numpy(_spiral(768)).to(dev)
         capped, rec = compare(label_components_tiled, label_components_tiled_plain, sp, 1,
@@ -1799,19 +1896,27 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
         if not any(c.get("tile") == 1024 and not c["band_in_shared"] for c in cases):
             failures.append("K5: no case ran with its bands in global memory")
         for drv in ("host", "device"):
-            if not any(c["driver"] == drv and not c["forced"] for c in cases):
+            if not any(c["driver"] == drv for c in cases):
                 failures.append(f"K5: the geometry chose the {drv} driver on no case")
+        want = [label_components_tiled_plain(m) for m in path_masks]
+        concurrent = _k5_concurrent(path_masks, want)
+        if concurrent["diff"]:
+            failures.append(f"K5: the device driver on {concurrent['streams']} streams at once: "
+                            f"{concurrent['diff']} labels differ from the plain version")
         ms = _sync_time(lambda: [label_components_tiled(m) for m in path_masks], reps=5)
-        path_last = cc.label_components_tiled.last
         pms = _sync_time(lambda: [label_components_tiled_plain(m) for m in path_masks], reps=1)
         ms_lines = _sync_time(lambda: label_components_tiled(lines), reps=3)
-        by_cluster = {f"{n}_{drv}": _sync_time(lambda: [label_components_tiled(
-            m, cluster=n, rounds=drv) for m in path_masks], reps=5)
-            for n in (8, 16) for drv in ("host", "device")}
-        launch_times = {f"path_{i}_{drv}": _k5_launch_times(m, rounds=drv)
-                        for i, m in enumerate(path_masks) for drv in ("host", "device")}
+        # the cluster size the geometry did not choose (8 where it names 16)
+        chosen = next(c["cluster"] for c in cases if c["mask"] == "path_0")
+        alt = CcTiling(512, 512, tiles=16 if chosen == 16 else 4, sms=cuda.sm_count(dev))
+        alt_diff = sum(int((_k5_call_on(m, alt) != p).sum()) for m, p in zip(path_masks, want))
+        alt_ms = _sync_time(lambda: [_k5_call_on(m, alt) for m in path_masks], reps=5)
+        if alt_diff:
+            failures.append(f"K5 on clusters of {alt.n}: {alt_diff} labels differ")
+        launch_times = {f"path_{i}": _k5_launch_times(m) for i, m in enumerate(path_masks)}
+        launch_times["lines_2048"] = _k5_launch_times(lines)
         del lines, sp, capped
-    path = [c for c in cases if c["mask"].startswith("path_") and not c["forced"]]
+    path = [c for c in cases if c["mask"].startswith("path_")]
     px = sum(m.numel() for m in path_masks)
     bnd, by = _cc_bound(px, sum(c["relaxes"] for c in path), 512 * 512,
                         sum(c["rounds"] for c in path), 1)
@@ -1821,14 +1926,13 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
         "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "note": "per slide: the islands path's 3 calls on its 1024^2 masks (max_work_dim 1024), "
-                f"clusters of {path_last['tiling'].n}, {path_last['rounds']} driver; bound "
-                "from this run's relaxation and round counts; the 2048^2 lines mask: "
-                f"{ms_lines:.3f} ms per call; labels and counts equal to the plain version on "
-                "every case",
+                f"clusters of {path[0]['cluster']}, {path[0]['driver']} driver; bound from this "
+                f"run's relaxation and round counts; the 2048^2 lines mask: {ms_lines:.3f} ms per "
+                "call; labels and counts equal to the plain version on every case",
         "per_call": [{k: c[k] for k in ("mask", "relaxes", "rounds", "cluster", "driver")}
                      for c in path],
-        "ms_by_cluster_and_driver": by_cluster, "launch_times": launch_times,
-        "ptxas": ptxas, "cases": cases,
+        "ms_other_cluster": {"cluster": alt.n, "ms": alt_ms}, "launch_times": launch_times,
+        "concurrent": concurrent, "ptxas": ptxas, "cases": cases,
     })
 
     # K6: the nuclei batch's foreground masks, seeded and ragged masks
@@ -1836,7 +1940,8 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
     rnd = torch.from_numpy(gen.random((64, 256, 256)) < 0.5).to(dev)
     ragged = {"ragged_3x100x70": torch.from_numpy(gen.random((3, 100, 70)) < 0.55).to(dev),
               "ragged_2x512x512": torch.from_numpy(
-                  (gen.random((2, 512, 512)) < 0.5) | _spiral(512)[None]).to(dev)}
+                  (gen.random((2, 512, 512)) < 0.5) | _spiral(512)[None]).to(dev),
+              "wide_2x8x12000": torch.from_numpy(gen.random((2, 8, 12_000)) < 0.6).to(dev)}
     cases = []
     with torch.inference_mode():
         for conn in (1, 2):
@@ -1848,6 +1953,8 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
                     if rec["diff_vs_k2"]:
                         failures.append(f"K6: {rec['diff_vs_k2']} labels differ from K2's")
                 cases.append(rec)
+        if not any(c["mask"].startswith("wide") and not c["band_in_shared"] for c in cases):
+            failures.append("K6: the 12,000-px rows did not run with their bands in global memory")
         # the banded design's mutants must fail the same check somewhere
         caught = {}
         for kind in ("late", "cut"):
@@ -1869,12 +1976,16 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
         k6_launches = {n: w.launches for n, w in wrappers.items()}
         ms = _sync_time(lambda: label_components_batch(fg), reps=10)
         pms = _sync_time(lambda: label_components_batch_plain(fg), reps=1)
-        geo = label_components_batch.last["tiling"]
-        by_cluster = {n: _sync_time(lambda: label_components_batch(fg, cluster=n), reps=10)
-                      for n in (2, 4)}
+        fg1 = cases[0]
+        # the cluster size the geometry did not choose (4 where it names 2)
+        alt = CcTiling(*fg.shape[1:], tiles=32 if fg1["cluster"] == 2 else fg.shape[0],
+                       sms=cuda.sm_count(dev))
+        alt_diff = int((_k6_call_on(fg, alt) != label_components_batch(fg)).sum())
+        alt_ms = _sync_time(lambda: _k6_call_on(fg, alt), reps=10)
+        if alt_diff:
+            failures.append(f"K6 on clusters of {alt.n}: {alt_diff} labels differ")
     if k6_launches["label_components_batch"] != 1 or sum(k6_launches.values()) != 1:
         failures.append(f"K6 entry point: launches {k6_launches}")
-    fg1 = cases[0]
     bnd, by = _cc_bound(fg.numel(), fg1["relaxes"], fg.shape[1] * fg.shape[2], 0, 1)
     entries.append({
         "name": "label_components_batch", "route": "cuda", "source": src,
@@ -1882,10 +1993,11 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
         "max_abs_err": float(max(c["diff"] for c in cases)), "ms": ms, "plain_ms": pms,
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "note": f"one call on the nuclei batch's {tuple(fg.shape)} foreground masks, connectivity "
-                f"1, clusters of {geo.n}; no pipeline caller (as in the JAX package): launches "
-                "from one call of its entry point; labels equal to the plain version and "
-                "(connectivity 1) to K2's",
-        "ms_by_cluster": by_cluster, "mutant_caught_on": caught, "cases": cases,
+                f"1, clusters of {fg1['cluster']}; no pipeline caller (as in the JAX package): "
+                "launches from one call of its entry point; labels equal to the plain version "
+                "and (connectivity 1) to K2's",
+        "ms_other_cluster": {"cluster": alt.n, "ms": alt_ms}, "mutant_caught_on": caught,
+        "cases": cases,
     })
     return entries
 

@@ -31,7 +31,8 @@
 // chain of dependent passes over the tile. On the H100 this core is bound
 // by the instructions of those passes on the CUDA cores (~75 a pixel in a
 // full relaxation: the scans, the run bookkeeping, the dirty flags), ~19 us
-// for a full relaxation of a 128 x 256 band (tools/cc_phase_probe.py).
+// for a full relaxation of a 128 x 256 band (phase timers read on an H100,
+// PERF.md).
 //
 // Design (geometry: ops/cc.py::CcTiling; the launcher refuses any other).
 // A tile's rows are cut into N bands (N in 1, 2, 4, 8, 16: the smallest
@@ -39,11 +40,14 @@
 // fits the card in one wave and a band keeps 32 rows), one block of 1024
 // threads per band, the N blocks of a tile one thread-block cluster. A
 // band's int32 labels, its mask bits, its dirty rows and columns and its
-// column segments' records live in shared memory; where no N fits (tile
-// 1024 and larger) they live in a global scratch (one region per block,
-// the same code; the kernel is compiled for each place, so that accesses
-// to shared memory are shared-memory instructions) and N is the largest
-// that the tile's height allows, up to 16.
+// column segments' records live in shared memory, and beside them what the
+// other blocks read (the band's records and edge rows, through distributed
+// shared memory); where no N fits (tile 1024 and larger, or rows of some
+// 10,000 pixels) both live in a global scratch (one region per block, the
+// other blocks read it past L1; the same code, compiled for each place, so
+// that accesses to shared memory are shared-memory instructions) and N is
+// the largest that the tile's height allows, up to 16. No tile width is
+// refused.
 // - Row runs (rows never cross a band): a warp per row, 8 consecutive
 //   pixels a lane. A row of at most 256 pixels in one pass: each lane's
 //   run minima, then a forward and a backward shuffle segmented scan carry
@@ -61,7 +65,7 @@
 //   tail run minima and whether the band's column is all foreground; after
 //   a cluster barrier the backward walk chains the records of the segments
 //   above and below in its band and, past the band's edge, those of the
-//   other bands through distributed shared memory, so a run crosses
+//   other bands (through distributed shared memory), so a run crosses
 //   segments and bands in both directions within the pass. A column of the
 //   band that nothing lowered since its last column runs is skipped but for
 //   its end runs (dirty flags; see column_runs).
@@ -71,7 +75,7 @@
 //   from the neighbouring lane by a shuffle, at a warp's edge from a copy of
 //   that column taken before the step, and beyond the band from the
 //   neighbouring band's edge row, copied before the step (two copies that
-//   alternate) and read through distributed shared memory.
+//   alternate) and read from the other block.
 // - Change detection without a copy: every step takes a minimum that
 //   includes the pixel's own value, so labels only fall, and a relaxation
 //   changed the tile exactly when some step lowered some pixel; that is
@@ -85,7 +89,8 @@
 //   sets flags[k % 3]; block 0 clears flags[(k + 1) % 3] (three words, so
 //   that no block clears a word that another may still read). Two drivers
 //   of the same kernel: a launch per round, whose flag the host reads, or,
-//   when every tile's cluster can be resident at once, one launch running
+//   when every tile's cluster can be resident at once, one cooperative
+//   launch (the runtime places every block at once or refuses it) running
 //   all rounds with a grid-wide barrier between them (a barrier still open
 //   after 2 s traps instead of hanging the card).
 //
@@ -122,10 +127,13 @@ struct Geo {
     // = row i of the segment) [seg_items] of 64 bits, column copies
     // [bh][wpr]
     int o_mask, o_dirty, o_cdirty, o_seg, o_sbits, o_col, band_bytes;
-    // shared region: band records (head, tail, full) [3][tw], edge rows
-    // [2][ls], changed flag
-    int o_rows, o_flag, shared_bytes;
+    // peer region, right after the band region and where it lives (the
+    // part the other blocks of the cluster read): band records (head,
+    // tail, full) [3][tw], edge rows [2][ls]
+    int o_rows, peer_bytes;
 };
+
+constexpr int kFlagBytes = 16;  // the changed flag, always in shared memory
 
 __host__ __device__ inline Geo geometry(int th, int tw, int n) {
     Geo g;
@@ -155,9 +163,7 @@ __host__ __device__ inline Geo geometry(int th, int tw, int n) {
     size_t s = r16(3 * static_cast<size_t>(tw) * 4);
     g.o_rows = static_cast<int>(s);
     s += r16(2 * static_cast<size_t>(g.ls) * 4);
-    g.o_flag = static_cast<int>(s);
-    s += 16;
-    g.shared_bytes = static_cast<int>(s);
+    g.peer_bytes = static_cast<int>(s);
     return g;
 }
 
@@ -208,7 +214,24 @@ struct Band {
     int* rows;       // [2][ls] edge rows (read by the cluster)
     int* flag;       // changed (read by the cluster)
     int rank, n, rows_n, tw, ls, wpr, seg_len, segs;
+    int stride;      // ints from one block's global regions to the next's
 };
+
+// The peer region of block q of the cluster at `own`'s place in this
+// block's: through distributed shared memory, or (regions in the global
+// scratch, consecutive by rank) in global memory, read past L1 (pv) since
+// the cluster barrier orders the writes at L2.
+template <bool kShared>
+__device__ __forceinline__ int* peer(const Band& B, cg::cluster_group& cl, int* own, int q) {
+    if constexpr (kShared) return cl.map_shared_rank(own, q);
+    else return own + static_cast<ptrdiff_t>(q - B.rank) * B.stride;
+}
+
+template <bool kShared>
+__device__ __forceinline__ int pv(const int* p) {
+    if constexpr (kShared) return *p;
+    else return __ldcg(p);
+}
 
 __device__ __forceinline__ bool fg_at(const Band& B, int r, int c) {
     return (B.mbits[r * B.wpr + (c >> 5)] >> (c & 31)) & 1u;
@@ -396,6 +419,7 @@ __device__ __forceinline__ bool row_runs(const Band& B, bool first, uint8_t* cd)
 // its backward walks lower only the runs that touch a segment's ends.
 // Clears nd, the column flags of the next relaxation. Returns whether a
 // pixel fell.
+template <bool kShared>
 __device__ __forceinline__ bool column_runs(const Band& B, cg::cluster_group& cl, bool first,
                                             const uint8_t* cd, uint8_t* nd) {
     bool ch = false;
@@ -472,9 +496,9 @@ __device__ __forceinline__ bool column_runs(const Band& B, cg::cluster_group& cl
                 open = B.seg_fbg[ik] == min((k + 1) * B.seg_len, B.rows_n);
             }
             for (int q = B.rank - 1; q >= 0 && open; --q) {
-                const int* rec = cl.map_shared_rank(B.rec, q);
-                top = min(top, rec[B.tw + col]);
-                open = rec[2 * B.tw + col] != 0;
+                const int* rec = peer<kShared>(B, cl, B.rec, q);
+                top = min(top, pv<kShared>(rec + B.tw + col));
+                open = pv<kShared>(rec + 2 * B.tw + col) != 0;
             }
         }
         const uint64_t sb = B.sbits[it];
@@ -487,9 +511,9 @@ __device__ __forceinline__ bool column_runs(const Band& B, cg::cluster_group& cl
                 open = B.seg_fbg[ik] == kb;
             }
             for (int q = B.rank + 1; q < B.n && open; ++q) {
-                const int* rec = cl.map_shared_rank(B.rec, q);
-                bottom = min(bottom, rec[col]);
-                open = rec[2 * B.tw + col] != 0;
+                const int* rec = peer<kShared>(B, cl, B.rec, q);
+                bottom = min(bottom, pv<kShared>(rec + col));
+                open = pv<kShared>(rec + 2 * B.tw + col) != 0;
             }
         }
         if (!first && !cd[col]) {  // uniform runs: only those at the ends can fall
@@ -548,6 +572,7 @@ __device__ __forceinline__ bool column_runs(const Band& B, cg::cluster_group& cl
 // One diagonal step b[y][x] = where(fg, min(a[y][x], a[y - dy][x - dx]), INF)
 // over the band, a = the state before the step. `par` picks the edge-row
 // copy. Marks the columns it lowers in nd. Returns whether a pixel fell.
+template <bool kShared>
 __device__ __forceinline__ bool diagonal_step(const Band& B, cg::cluster_group& cl, int dy,
                                               int dx, int par, uint8_t* nd) {
     const int lane = threadIdx.x & 31;
@@ -569,7 +594,7 @@ __device__ __forceinline__ bool diagonal_step(const Band& B, cg::cluster_group& 
     }
     const int nb_rank = B.rank - dy;
     const int* far = nb_rank >= 0 && nb_rank < B.n
-                         ? cl.map_shared_rank(B.rows, nb_rank) + par * B.ls : nullptr;
+                         ? peer<kShared>(B, cl, B.rows, nb_rank) + par * B.ls : nullptr;
     bool ch = false;
     const int span = (B.tw + 31) / 32 * 32;
     for (int col = threadIdx.x; col < span; col += kThreads) {  // warp-uniform bounds
@@ -585,7 +610,7 @@ __device__ __forceinline__ bool diagonal_step(const Band& B, cg::cluster_group& 
             int nb;
             int nxt = kInf;
             if (yr < 0 || yr >= B.rows_n) {  // uniform: the neighbouring band's edge row
-                nb = far != nullptr && nc_in ? far[nc] : kInf;
+                nb = far != nullptr && nc_in ? pv<kShared>(far + nc) : kInf;
             } else {
                 nxt = in ? B.lbl[yr * B.ls + col] : kInf;  // also the next row's own value
                 nb = dx == 1 ? __shfl_up_sync(kFull, nxt, 1) : __shfl_down_sync(kFull, nxt, 1);
@@ -607,17 +632,18 @@ __device__ __forceinline__ bool diagonal_step(const Band& B, cg::cluster_group& 
 // same in every block of the cluster). par: the relaxation's parity, which
 // picks its column flags (marked by its row runs and by the diagonal steps
 // of the relaxation before).
+template <bool kShared>
 __device__ __forceinline__ bool relax(const Band& B, cg::cluster_group& cl, int conn, bool first,
                                       int par) {
     uint8_t* cd = B.cdirty + par * B.ls;
     uint8_t* nd = B.cdirty + (par ^ 1) * B.ls;
     bool ch = row_runs(B, first, cd);
     __syncthreads();
-    ch |= column_runs(B, cl, first, cd, nd);
+    ch |= column_runs<kShared>(B, cl, first, cd, nd);
     if (conn == 2) {
 #pragma unroll 1
         for (int k = 0; k < 4; ++k)  // (1,1), (1,-1), (-1,1), (-1,-1)
-            ch |= diagonal_step(B, cl, k < 2 ? 1 : -1, k & 1 ? -1 : 1, k & 1, nd);
+            ch |= diagonal_step<kShared>(B, cl, k < 2 ? 1 : -1, k & 1 ? -1 : 1, k & 1, nd);
     }
     int any = __syncthreads_or(ch);
     if (B.n > 1) {
@@ -651,8 +677,10 @@ __device__ void grid_barrier(unsigned* bar, unsigned target) {
     __syncthreads();
 }
 
-// kShared: the band region in shared memory (so that every access to it is
-// a shared-memory one), else in the global scratch.
+// kShared: the band and peer regions in shared memory (so that every
+// access to them is a shared-memory one), else in the global scratch (one
+// band_bytes + peer_bytes region a block); the changed flag always in
+// shared memory.
 template <bool kShared>
 __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -663,8 +691,9 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
     const int tx = static_cast<int>(blockIdx.x) / g.n, ty = blockIdx.y;
     const long long block_id =
         (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    unsigned char* band = kShared ? smem : p.scratch + block_id * g.band_bytes;
-    unsigned char* sh = kShared ? smem + g.band_bytes : smem;
+    const int region = g.band_bytes + g.peer_bytes;
+    unsigned char* band = kShared ? smem : p.scratch + block_id * region;
+    unsigned char* sh = band + g.band_bytes;
     Band B;
     B.lbl = reinterpret_cast<int*>(band);
     B.mbits = reinterpret_cast<uint32_t*>(band + g.o_mask);
@@ -677,7 +706,7 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
     B.colc = reinterpret_cast<int*>(band + g.o_col);
     B.rec = reinterpret_cast<int*>(sh);
     B.rows = reinterpret_cast<int*>(sh + g.o_rows);
-    B.flag = reinterpret_cast<int*>(sh + g.o_flag);
+    B.flag = reinterpret_cast<int*>(kShared ? smem + region : smem);
     B.rank = rank;
     B.n = g.n;
     B.rows_n = max(0, min(g.bh, p.th - rank * g.bh));
@@ -686,6 +715,7 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
     B.wpr = g.wpr;
     B.seg_len = g.seg_len;
     B.segs = g.segs;
+    B.stride = region / 4;
     const int y0 = ty * p.th + rank * g.bh, x0 = tx * p.tw;  // the band's origin in the mask
     const long long img = static_cast<long long>(blockIdx.z) * p.h * p.w;
     const bool block0 = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
@@ -695,7 +725,6 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
 
     for (int k = p.device_rounds ? 0 : p.round;; ++k) {
         const int* prev = k == 0 ? nullptr : (k & 1 ? p.lbl0 : p.lbl1) + img;
-        int* dst = (k & 1 ? p.lbl1 : p.lbl0) + img;
         // seeds and mask bits; whether a seed fell below the last round's
         // label. A warp takes kWords words of 32 pixels at once, every load
         // of them issued before any is used (fewer with the band in global
@@ -744,7 +773,11 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
                 }
             }
         }
-        const bool seeds_fell = __syncthreads_or(lower);
+        // the round changed the mask where a seed fell or the tile's first
+        // relaxation changed something: flags[k % 3] is set as soon as
+        // either is known (nothing kept live across the relaxations)
+        const bool set_flag = k >= 1 && p.flags != nullptr && threadIdx.x == 0;
+        if (__syncthreads_or(lower) && set_flag) p.flags[k % 3] = 1;
         for (int it = threadIdx.x; it < g.seg_items; it += kThreads) {
             const int seg = it / p.tw, col = it - seg * p.tw;
             const int ra = seg * g.seg_len, rb = min(ra + g.seg_len, B.rows_n);
@@ -755,15 +788,15 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
         }
 
         int relaxes = 0;
-        bool first_changed = false;
         while (true) {
-            const bool ch = relax(B, cl, p.conn, relaxes == 0, relaxes & 1);
-            if (relaxes == 0) first_changed = ch;
+            const bool ch = relax<kShared>(B, cl, p.conn, relaxes == 0, relaxes & 1);
+            if (relaxes == 0 && ch && set_flag) p.flags[k % 3] = 1;
             ++relaxes;
             if (!ch || relaxes >= 1 + p.max_iters) break;
         }
 
         // the labels out
+        int* dst = (k & 1 ? p.lbl1 : p.lbl0) + img;
         for (int r = warp; r < B.rows_n; r += kWarps) {
             const int Y = y0 + r;
             if (Y >= p.h) break;
@@ -771,10 +804,7 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
                 dst[static_cast<long long>(Y) * p.w + x0 + x] = B.lbl[r * g.ls + x];
         }
         if (threadIdx.x == 0) {
-            if (p.flags != nullptr) {
-                if (k >= 1 && (seeds_fell || first_changed)) p.flags[k % 3] = 1;
-                if (block0) p.flags[(k + 1) % 3] = 0;
-            }
+            if (p.flags != nullptr && block0) p.flags[(k + 1) % 3] = 0;
             if (p.counts != nullptr) {
                 if (rank == 0)
                     atomicAdd(reinterpret_cast<unsigned long long*>(p.counts),
@@ -789,19 +819,24 @@ __global__ void __launch_bounds__(kThreads, 1) cc_cluster_kernel(const Params p)
     if (g.n > 1) cl.sync();  // no block leaves while another may read its shared memory
 }
 
+// clusters of n; cooperative: the runtime makes every block of the grid
+// resident at once, or refuses the launch (the device-rounds driver's grid
+// barrier needs that, also while other work holds multiprocessors)
 cudaLaunchConfig_t launch_config(dim3 grid, int n, int smem, cudaStream_t st,
-                                 cudaLaunchAttribute* attr) {
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = n;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
+                                 cudaLaunchAttribute (&attr)[2], bool cooperative) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
     cudaLaunchConfig_t cfg{};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem);
     cfg.stream = st;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = cooperative ? 2 : 1;
     return cfg;
 }
 
@@ -831,8 +866,8 @@ bool valid_cluster(int n) { return n == 1 || n == 2 || n == 4 || n == 8 || n == 
 // device-rounds driver needs every tile's cluster resident.
 PGM_EXPORT size_t cc_max_clusters(int n, int smem, int shared) {
     if (!valid_cluster(n) || prepare(shared, smem) != cudaSuccess) return 0;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(dim3(n), n, smem, nullptr, &attr);
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = launch_config(dim3(n), n, smem, nullptr, attr, false);
     int clusters = 0;
     if (cudaOccupancyMaxActiveClusters(&clusters, kernel_of(shared), &cfg) != cudaSuccess) return 0;
     return static_cast<size_t>(clusters);
@@ -840,7 +875,8 @@ PGM_EXPORT size_t cc_max_clusters(int n, int smem, int shared) {
 
 // One launch of the core. mask (b, h, w) uint8; lbl0, lbl1 (b, h, w) int32
 // (round k writes lbl0 if k is even, else lbl1, and reads the other);
-// scratch: band_bytes per block when the bands are not in shared memory;
+// scratch: band_bytes + the peer region's bytes per block when the bands
+// are not in shared memory;
 // flags int32[4] (round flags, then the cluster size the kernel ran on) or
 // null; bar uint32 (zeroed) for device rounds; counts
 // int64[2] or null. Tiles th x tw (K6: th = h, tw = w, one tile an image).
@@ -857,7 +893,7 @@ PGM_EXPORT int cc_label_launch(const void* mask, void* lbl0, void* lbl1, void* s
         static_cast<long long>(h) * w >= kInf)
         return static_cast<int>(cudaErrorInvalidValue);
     const Geo g = geometry(th, tw, n);
-    const int want_smem = g.shared_bytes + (shared ? g.band_bytes : 0);
+    const int want_smem = kFlagBytes + (shared ? g.band_bytes + g.peer_bytes : 0);
     if (bh != g.bh || ls != g.ls || seg_len != g.seg_len || segs != g.segs || smem != want_smem ||
         band_bytes != g.band_bytes || (!shared && scratch == nullptr) ||
         (device_rounds && (flags == nullptr || bar == nullptr)) || (round > 0 && flags == nullptr))
@@ -885,10 +921,10 @@ PGM_EXPORT int cc_label_launch(const void* mask, void* lbl0, void* lbl1, void* s
     p.round = round;
     p.device_rounds = device_rounds;
     p.g = g;
-    cudaLaunchAttribute attr;
+    cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg =
         launch_config(dim3(static_cast<unsigned>(tiles_x * n), static_cast<unsigned>(tiles_y), b),
-                      n, smem, static_cast<cudaStream_t>(stream), &attr);
+                      n, smem, static_cast<cudaStream_t>(stream), attr, device_rounds != 0);
     e = cudaLaunchKernelEx(&cfg, kernel_of(shared), p);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

@@ -26,10 +26,11 @@ added to it, by the kernel on the card.
 
 On the card both run one core (``csrc/cc.cu``): each tile's rows cut into
 bands over a thread-block cluster, the labels in shared memory (geometry:
-``CcTiling``). K5's rounds run in one launch with a grid-wide barrier
-between them when every tile's cluster fits the card at once, else one
-launch a round, whose "changed" flag the host reads (at most
-``max_outer`` + 1 synchronisations).
+``CcTiling``). K5's rounds run in one cooperative launch with a grid-wide
+barrier between them when every tile's cluster fits the card at once, else
+one launch a round, whose "changed" flag the host reads (at most
+``max_outer`` + 1 synchronisations). The geometry chooses the cluster and
+the driver (``k5_plan``); the wrappers take no other.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from path_gene_multimodal_tpu_torch.ops.components import INF, index_seeds, rela
 CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes (16 is the card's non-portable largest)
 MIN_BAND_ROWS = 32  # a row a warp in the row runs
 MAX_SEG = 64  # rows of a column segment: its mask bits are one 64-bit word
+FLAG_BYTES = 16  # the changed flag, always in shared memory
 
 
 def _r16(n: int) -> int:
@@ -63,34 +65,28 @@ class CcTiling:
     rows and columns, the records and mask bits of its column segments (``segs``
     segments of ``seg_len`` <= 64 rows a column, as many a column as the
     threads allow) and the copies of warp-edge columns the
-    diagonal steps read; it lives in shared memory when it fits beside the
-    part that the cluster reads (the band records and edge rows), else in a
-    global scratch of ``scratch_bytes`` a block. ``n`` is the smallest
-    cluster whose band fits, or where none fits the largest that the tile's
-    height allows. A launch of ``tiles`` tiles on a card of ``sms``
-    multiprocessors then doubles ``n`` while the doubled grid still fits
-    the card in one wave and a band keeps at least ``MIN_BAND_ROWS`` rows
-    (more blocks a tile, each relaxation shorter). ``cluster`` picks
-    another. The kernel checks what it is given against its own
-    geometry."""
+    diagonal steps read; beside it lies the peer region that the other
+    blocks of the cluster read (the band records and edge rows). Both live
+    in shared memory when they fit (``fits``), else in a global scratch of
+    ``scratch_bytes`` a block; the changed flag is always in shared memory.
+    ``n`` is the smallest cluster whose band fits, or where none fits the
+    largest that the tile's height allows. A launch of ``tiles`` tiles on a
+    card of ``sms`` multiprocessors then doubles ``n`` while the doubled
+    grid still fits the card in one wave and a band keeps at least
+    ``MIN_BAND_ROWS`` rows (more blocks a tile, each relaxation shorter).
+    No width is refused. The kernel checks what it is given against its
+    own geometry."""
 
     threads: ClassVar[int] = 1024
 
     th: int
     tw: int
-    cluster: int | None = None
     tiles: int = 1
     sms: int = 132
 
     def __post_init__(self):
         if self.th <= 0 or self.tw <= 0:
             raise ValueError(f"CcTiling: empty tile {self.th}x{self.tw}")
-        if self.cluster is not None and self.cluster not in CLUSTERS:
-            raise ValueError(f"CcTiling: cluster must be one of {CLUSTERS}, got {self.cluster}")
-        if self.shared_bytes > cuda.SMEM_PER_BLOCK:
-            raise ValueError(f"CcTiling: a {self.th}x{self.tw} tile needs {self.shared_bytes} B "
-                             f"of shared memory for its band records, more than "
-                             f"{cuda.SMEM_PER_BLOCK}")
 
     @functools.cached_property
     def ls(self) -> int:
@@ -110,12 +106,14 @@ class CcTiling:
         return (_r16(bh * self.ls * 4) + 2 * _r16(bh * self.wpr * 4) + _r16(bh)
                 + _r16(2 * self.ls) + _r16(3 * items * 4) + _r16(8 * items))
 
+    def fits(self, n: int) -> bool:
+        """Whether a band of a cluster of ``n`` and its peer region fit one
+        block's shared memory."""
+        return self._band_bytes(n) + self.peer_bytes + FLAG_BYTES <= cuda.SMEM_PER_BLOCK
+
     @functools.cached_property
     def n(self) -> int:
-        if self.cluster is not None:
-            return self.cluster
-        fit = [n for n in CLUSTERS
-               if self._band_bytes(n) + self.shared_bytes <= cuda.SMEM_PER_BLOCK]
+        fit = [n for n in CLUSTERS if self.fits(n)]
         if not fit:
             return max(n for n in CLUSTERS if n <= self.th or n == 1)
         n = fit[0]
@@ -144,22 +142,22 @@ class CcTiling:
         return self._band_bytes(self.n)
 
     @functools.cached_property
-    def shared_bytes(self) -> int:
+    def peer_bytes(self) -> int:
         """What the cluster reads of a block: band records (head, tail, all
-        foreground) a column, two edge-row copies, the changed flag."""
-        return _r16(3 * self.tw * 4) + _r16(2 * self.ls * 4) + 16
+        foreground) a column, two edge-row copies."""
+        return _r16(3 * self.tw * 4) + _r16(2 * self.ls * 4)
 
     @functools.cached_property
     def shared(self) -> bool:
-        return self.band_bytes + self.shared_bytes <= cuda.SMEM_PER_BLOCK
+        return self.fits(self.n)
 
     @functools.cached_property
     def smem_bytes(self) -> int:
-        return self.shared_bytes + (self.band_bytes if self.shared else 0)
+        return FLAG_BYTES + (self.band_bytes + self.peer_bytes if self.shared else 0)
 
     @functools.cached_property
     def scratch_bytes(self) -> int:
-        return 0 if self.shared else self.band_bytes
+        return 0 if self.shared else self.band_bytes + self.peer_bytes
 
     def device_rounds(self, tiles: int, max_clusters: int) -> bool:
         """K5's driver: all rounds in one launch (grid-wide barriers) when
@@ -169,9 +167,9 @@ class CcTiling:
 
 
 @functools.cache
-def tiling(th: int, tw: int, cluster: int | None, tiles: int, sms: int) -> CcTiling:
+def tiling(th: int, tw: int, tiles: int, sms: int) -> CcTiling:
     """The wrappers' geometries, built once each (a call's host time)."""
-    return CcTiling(th, tw, cluster, tiles=tiles, sms=sms)
+    return CcTiling(th, tw, tiles=tiles, sms=sms)
 
 
 @functools.cache
@@ -184,6 +182,15 @@ def max_clusters(n: int, smem: int, shared: bool) -> int:
     """Clusters of ``n`` blocks with ``smem`` bytes of shared memory each
     (their bands in shared memory or not) that the card holds at once."""
     return cuda.size_query("cc", "cc_max_clusters", n, smem, int(shared))
+
+
+def k5_plan(h: int, w: int, tile: int, device: torch.device) -> tuple[CcTiling, bool]:
+    """K5's geometry on an h x w mask cut into ``tile`` tiles on the card
+    ``device``, and its driver: True runs every round in one launch (every
+    tile's cluster resident at once), False a launch a round."""
+    tiles = -(-h // tile) * -(-w // tile)
+    geo = tiling(tile, tile, tiles, _sms(device.index or 0))
+    return geo, geo.device_rounds(tiles, max_clusters(geo.n, geo.smem_bytes, geo.shared))
 
 
 def _count(counts: torch.Tensor | None, relaxes, rounds: int) -> None:
@@ -282,11 +289,10 @@ def _launch(m, lbl0, lbl1, flags, bar, counts, geo: CcTiling, b, h, w, connectiv
 
 
 def label_components_batch(mask: torch.Tensor, connectivity: int = 1, max_iters: int = 256,
-                           counts: torch.Tensor | None = None,
-                           cluster: int | None = None) -> torch.Tensor:
+                           counts: torch.Tensor | None = None) -> torch.Tensor:
     """K6: (B, H, W) bool → (B, H, W) int32 labels; the CUDA kernel on a
-    CUDA tensor (one cluster an image, of ``CcTiling(H, W, cluster)``), the
-    plain version on a CPU tensor."""
+    CUDA tensor (one cluster an image, of ``CcTiling(H, W, tiles=B)``),
+    the plain version on a CPU tensor."""
     if not mask.is_cuda:
         return label_components_batch_plain(mask, connectivity, max_iters, counts)
     b, h, w = mask.shape
@@ -296,26 +302,21 @@ def label_components_batch(mask: torch.Tensor, connectivity: int = 1, max_iters:
                          f"got {h}x{w}")
     m = _mask_u8(mask)
     cuda.check(m, "mask", torch.uint8, (b, h, w))
-    geo = tiling(h, w, cluster, b, _sms(mask.device.index or 0))
+    geo = tiling(h, w, b, _sms(mask.device.index or 0))
     out = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
-    flags = torch.zeros(4, dtype=torch.int32, device=mask.device)
-    _launch(m, out, out, flags, None, counts, geo, b, h, w, connectivity, max_iters, 0, 0, False)
+    _launch(m, out, out, None, None, counts, geo, b, h, w, connectivity, max_iters, 0, 0, False)
     label_components_batch.launches += 1
-    label_components_batch.last = {"tiling": geo, "rounds": "single", "flags": flags}
     return out
 
 
 def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int = 512,
                            max_iters: int = 128, max_outer: int = 64,
-                           counts: torch.Tensor | None = None, cluster: int | None = None,
-                           rounds: str | None = None) -> torch.Tensor:
+                           counts: torch.Tensor | None = None) -> torch.Tensor:
     """K5: one (H, W) bool mask → (H, W) int32 labels; the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor. On the card every tile
-    is a cluster of ``CcTiling(tile, tile, cluster)``; ``rounds`` is
-    ``"device"`` (one launch runs every round, grid-wide barriers between
-    them: every tile's cluster must fit the card at once), ``"host"`` (a
-    launch a round, whose flag the host reads) or None (``"device"`` where
-    it fits)."""
+    CUDA tensor, the plain version on a CPU tensor. On the card the
+    geometry and driver are ``k5_plan``'s: one launch runs every round
+    (grid-wide barriers between them) where every tile's cluster fits the
+    card at once, else a launch a round, whose flag the host reads."""
     if not mask.is_cuda:
         return label_components_tiled_plain(mask, connectivity, tile, max_iters, max_outer,
                                             counts)
@@ -324,18 +325,10 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int 
     if tile <= 0 or h * w >= INF:
         raise ValueError(f"label_components_tiled takes tile > 0 and fewer than 2^30 pixels, "
                          f"got tile {tile}, {h}x{w}")
-    if rounds not in (None, "host", "device"):
-        raise ValueError(f"rounds must be None, 'host' or 'device', got {rounds!r}")
     dev = mask.device
     m = _mask_u8(mask)
     cuda.check(m, "mask", torch.uint8, (h, w))
-    tiles = -(-h // tile) * -(-w // tile)
-    geo = tiling(tile, tile, cluster, tiles, _sms(dev.index or 0))
-    fits = geo.device_rounds(tiles, max_clusters(geo.n, geo.smem_bytes, geo.shared))
-    if rounds == "device" and not fits:
-        raise ValueError(f"label_components_tiled: {tiles} clusters of {geo.n} cannot all be "
-                         "resident at once, as device rounds need")
-    device_rounds = fits if rounds is None else rounds == "device"
+    geo, device_rounds = k5_plan(h, w, tile, dev)
     lbl = torch.empty((2, h, w), dtype=torch.int32, device=dev)
     state = torch.zeros(5, dtype=torch.int32, device=dev)  # flags [4], the grid barrier
     flags = state[:4]
@@ -343,6 +336,7 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int 
     def launch(k, all_rounds=False):
         _launch(m, lbl[0], lbl[1], flags, state[4:] if all_rounds else None, counts, geo, 1, h,
                 w, connectivity, max_iters, max_outer, k, all_rounds)
+        label_components_tiled.launches += 1
 
     if device_rounds:
         launch(0, True)
@@ -354,9 +348,6 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 1, tile: int 
         while k < max_outer and bool(flags[k % 3].item()):
             k += 1
             launch(k)
-    label_components_tiled.launches += 1
-    label_components_tiled.last = {"tiling": geo, "rounds": "device" if device_rounds else "host",
-                                   "flags": flags}
     return lbl[k & 1]
 
 

@@ -47,7 +47,7 @@ DIAGONALS = ((1, 1), (1, -1), (-1, 1), (-1, -1))
     (512, 512, 4, 16, 32, 16, 2, True, 101_424, 0),          # K5, the path's 1024^2 masks
     (512, 512, 16, 8, 64, 32, 2, True, 171_088, 0),         # K5 on a 2048^2 mask
     (256, 256, 128, 2, 128, 32, 4, True, 165_520, 0),       # K6 on the nuclei batch
-    (1024, 1024, 4, 16, 64, 64, 1, False, 20_496, 301_120),  # a band too big: global
+    (1024, 1024, 4, 16, 64, 64, 1, False, 16, 321_600),  # a band too big: global
     (100, 70, 3, 2, 50, 4, 13, True, 35_472, 0),            # ragged
     (33, 517, 1, 1, 33, 33, 1, True, 94_976, 0),            # ragged, one segment a column
 ])
@@ -59,8 +59,7 @@ def test_cc_tiling(th, tw, tiles, n, bh, seg_len, segs, shared, smem, scratch):
     assert g.ls % 8 == 0 and g.ls >= tw and g.wpr * 32 >= tw
     # the smallest cluster whose band fits, doubled within one wave
     if shared and g.n > 1:
-        half = CcTiling(th, tw, cluster=g.n // 2)
-        assert not half.shared or tiles * g.n <= 132
+        assert not g.fits(g.n // 2) or tiles * g.n <= 132
 
 
 @pytest.mark.parametrize("th, tw", [(0, 5), (5, 0)])
@@ -69,13 +68,18 @@ def test_cc_tiling_refuses_an_empty_tile(th, tw):
         CcTiling(th, tw)
 
 
-@pytest.mark.parametrize("kw, msg", [
-    (dict(th=8, tw=12_000), "band records"),  # the records the cluster reads outgrow a block
-    (dict(th=64, tw=64, cluster=3), "cluster must be one of"),
+@pytest.mark.parametrize("th, tw, tiles, n, scratch", [
+    (8, 12_000, 1, 8, 555_024),  # the records the cluster reads outgrow a block
+    (1, 16_000, 2, 1, 740_016),  # a K6 strip one row high
 ])
-def test_cc_tiling_refusals(kw, msg):
-    with pytest.raises(ValueError, match=msg):
-        CcTiling(**kw)
+def test_cc_tiling_refusals(th, tw, tiles, n, scratch):
+    """No tile width is refused: where the band's records and edge rows
+    outgrow a block, they go to the global scratch with the band, and only
+    the changed flag stays in shared memory."""
+    g = CcTiling(th, tw, tiles=tiles, sms=132)
+    assert (g.n, g.bh, g.shared, g.smem_bytes, g.scratch_bytes) == (
+        n, -(-th // n), False, 16, scratch)
+    assert g.scratch_bytes == g.band_bytes + g.peer_bytes >= 20 * tw
 
 
 # ------------------------------------------------------- banded replay
@@ -106,8 +110,8 @@ class _Tile:
         self.m = mask
         self.lbl = np.where(mask, seeds, INF).astype(np.int64)
         self.th, self.tw = mask.shape
-        geo = CcTiling(self.th, self.tw, cluster=n)
-        self.n, self.bh, self.seg_len = n, geo.bh, geo.seg_len
+        self.n, self.bh = n, -(-self.th // n)
+        self.seg_len = CcTiling(self.th, self.tw)._seg_len(self.bh)
         self.bands = [(min(r * self.bh, self.th), min((r + 1) * self.bh, self.th))
                       for r in range(n)]
         self.conn, self.mutant = conn, mutant
