@@ -21,7 +21,24 @@
    times kernel, plain version and (where one exists) one PyTorch library
    call computing the same function (for K1 a chain of them); K1's three
    launches are also timed one by one, with their bytes, share of peak and
-   ptxas registers and spills. K2 and K3 are held to their plain versions
+   ptxas registers and spills, and each is held to its own plain part on
+   the kernel's own inputs of that launch, at the stage and ragged shapes
+   in both GELU modes (``_k1_parts_check``: a within 1 bf16 ulp + an f32
+   slack, y2 within an f32 dot-product bound, the GRN sums within an f32
+   sum's, the output of pw2 fed the kernel's own y2 and sums within 1 bf16
+   ulp + an f32 slack), each against a mutant its check must see. The f32
+   plain versions must give the same result with the caller's TF32 flags
+   on as off (``_tf32_scope_check``). K4 is held to its plain version bit
+   for bit in both outputs on the batch, at the cluster sizes on either
+   side of the one its geometry chooses (timed too), and on cases: 3 x 100
+   x 70 (no vector rows), one instance over a whole 224^2 tile, all
+   background, ids alternating every pixel, runs of up to 400 pixels over
+   lanes and warps (2 x 64 x 1004), whole rows of one id on tiles of
+   32-bit sums (2 x 1 x 1500, 1 x 5 x 1025), ids below 0 and at or above
+   S, more than 512 instances, 2 and 9 types, 64 slots, B = 1 and 3; three mutants
+   of its design must differ (a run piece counted by two lanes, extrema
+   from a run's head lane only, a rank's table not merged); a spill in its
+   kernel fails the run. K2 and K3 are held to their plain versions
    in every output and in their counts (K2's relaxation passes, K3's
    synchronous steps and pixels grown, summed and per tile) on the batch
    and on ragged cases (K3: 2 x 40 x 56, 3 x 100 x 70 with min-index
@@ -101,8 +118,8 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 
     python3 chip_smoke.py --ab PARENT
 
-times K1 (at the three encoder stage shapes, 512 images), K2 and K3 (on
-the main path's batch that a main run with the same ``--out`` saved), K5
+times K1 (at the three encoder stage shapes, 512 images), K2, K3 and K4
+(on the main path's batch that a main run with the same ``--out`` saved), K5
 (the islands path's three masks) and K6 (the batch's foreground), K7
 (its 8 call shapes) and K8-K11 (one batch of 4 calls each) of the package
 copy whose root is PARENT (e.g. an earlier commit unpacked with ``git
@@ -112,8 +129,9 @@ on seeded inputs, each timed group after the card has idled (1-2 s, its
 SM clock and power read then), so that no group inherits the clock and
 power state of the one before it; the first run of each version also
 holds K1 against its plain version at the stage shapes and at ragged
-shapes, K8/K11 on 16 images and K2/K3/K5/K6 on the saved inputs. Prints one JSON
-line per run and exits non-zero if a run fails.
+shapes, K8/K11 on 16 images and K2-K6 on the saved inputs, and (this
+checkout) records each of K1's launches against its plain part at stage
+0. Prints one JSON line per run and exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -190,6 +208,27 @@ def _sync_time(fn, reps: int, warm: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _queued_ms(fn, reps: int) -> float:
+    """Mean device ms per call over ``reps`` calls queued behind a sleep
+    kernel: the card runs them back to back, whatever the host's launch
+    path costs (for a kernel shorter than its wrapper's host time). Raises
+    if enqueueing the calls outlasted the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if host > 0.04:
+        raise RuntimeError(f"enqueueing {reps} calls took {host:.3f} s, longer than the sleep")
     return start.elapsed_time(end) / reps
 
 
@@ -408,6 +447,176 @@ def _k1_launch_times(x, wts, reps: int = 5) -> dict:
     return res
 
 
+F32_U = 2.0 ** -24  # f32 unit roundoff
+
+
+def _k1_kernel_parts(x, wts, exact_gelu):
+    """K1's three launches on x, one after the other: the kernel's a (B,
+    pixels, C) bf16, y2 (B, pixels, 4C) f32, its per-image sums of squares
+    gsum (B, 4C) and the output."""
+    from path_gene_multimodal_tpu_torch.ops.convnext_block import launch_parts
+
+    parts = launch_parts(x, wts, exact_gelu=exact_gelu)
+    for name in ("dw_ln", "pw1", "pw2"):
+        parts[name]()
+    torch.cuda.synchronize()
+    return parts["buffers"]
+
+
+def _k1_ln_slack(x, dw, dwb, lng, lnb) -> torch.Tensor:
+    """Elementwise bound on how far two f32 LayerNorms of launch 0's input
+    may fall apart (beside a flipped bf16 rounding): means over C taken in
+    other orders and an rsqrt within a few units move t = (acc - mean) * rs
+    by up to u (2C mean|acc| rs + (C + 8) |t|), and the affine's roundings
+    add 2u (|t gamma| + |beta|). (B, H, W, C)."""
+    from path_gene_multimodal_tpu_torch.ops import convnext_block as k1
+
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    c = x.shape[-1]
+    acc = k1.dw_plain(x, dw, dwb)
+    mu = acc.mean(-1, keepdim=True)
+    rs = torch.rsqrt((acc - mu).square().mean(-1, keepdim=True) + 1e-6)
+    t = ((acc - mu) * rs).abs()
+    t_bound = F32_U * (2 * c * acc.abs().mean(-1, keepdim=True) * rs + (c + 8) * t)
+    return f(lng).abs() * t_bound + 2 * F32_U * (t * f(lng).abs() + f(lnb).abs())
+
+
+def _k1_parts_check(tag, x, wts, exact_gelu, failures, see_unfused=False) -> dict:
+    """Each of K1's launches against its own plain part, on the kernel's
+    own inputs of that launch, each at a bar tighter than the block's
+    end-to-end one (2 bf16 ulp + K1_ATOL), at its own rounding point:
+
+    - launch 0: a within 1 bf16 ulp of bf16(dw_ln_plain) (a flipped
+      rounding where the two f32 LayerNorm outputs straddle a bf16 tie) +
+      ``_k1_ln_slack`` (a pixel whose mean is far from zero against its
+      spread, as deep in the encoder, moves t by many units of itself);
+    - launch 1: y2 against ``pw1_plain`` on the kernel's a, within the f32
+      bound of a C-term dot product and the GELU's evaluation,
+      u (3C + 16) (|a| |w1| + |b1|) elementwise (u = 2^-24);
+    - the GRN sums against the f64 sums of the kernel's own y2 squared,
+      within u * pixels relatively (an f32 sum of that many positive terms);
+    - launch 2: the output against ``pw2_plain`` fed the kernel's own y2
+      and sums (so y3 is the kernel's, bit for bit), within 1 bf16 ulp +
+      u (8C + 2) (|y3| |w2| + |b2| + |x|).
+
+    Each measure is an excess over its bar (passes at <= 1). Mutants the
+    checks must see: the LN bias dropped (launch 0), the pw1 bias dropped
+    (launch 1), the sums of bf16-rounded y2 (the sums), the GRN as the plain
+    version had it before (an f32 mean of gx in its own order, y3 rounded
+    after a separate product and sum) (launch 2).
+    The last changes y3 in a few of every 10^5 values; its change of an
+    output passes the f32 slack of the bar only where y3 and w2 are large,
+    so it is looked for only with ``see_unfused`` (stage 0's 512 images, 2
+    x 10^8 outputs; on 8 images it reads 1.4)."""
+    from path_gene_multimodal_tpu_torch.ops import convnext_block as k1
+
+    dw, dwb, lng, lnb, w1, b1, gg, gb, w2, b2 = wts
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    b, h, w, c = x.shape
+    mode = "erf" if exact_gelu else "tanh"
+    rec: dict = {"shape": list(x.shape), "gelu": mode}
+    with torch.inference_mode():
+        a_k, y2_k, gsum_k, out_k = _k1_kernel_parts(x, wts, exact_gelu)
+        # launch 0
+        tol = _k1_ln_slack(x, dw, dwb, lng, lnb).reshape(b, h * w, c)
+        a_p = f(k1.dw_ln_plain(x, dw, dwb, lng, lnb)).reshape(b, h * w, c)
+        d = (a_k.float() - a_p).abs()
+        rec["a_excess"] = float((d / (_bf16_ulp(a_p) + tol)).max())
+        rec["a_flips"] = int((d > 0).sum())
+        rec["a_elements"] = a_p.numel()
+        bad = f(k1.dw_ln_plain(x, dw, dwb, lng, torch.zeros_like(lnb))).reshape(b, h * w, c)
+        rec["a_excess_if_no_ln_bias"] = float(((a_k.float() - bad).abs()
+                                               / (_bf16_ulp(bad) + tol)).max())
+        del bad, tol
+        # launch 1
+        bound = F32_U * (3 * c + 16) * (a_k.float().abs().reshape(-1, c) @ f(w1).abs()
+                                        + f(b1).abs()).reshape(b, h * w, 4 * c)
+        y2_p = k1.pw1_plain(a_k, w1, b1, exact_gelu)
+        rec["y2_excess"] = float(((y2_k - y2_p).abs() / bound).max())
+        rec["y2_max_abs_diff"] = float((y2_k - y2_p).abs().max())
+        other = k1.pw1_plain(a_k, w1, torch.zeros_like(b1), exact_gelu)
+        rec["y2_excess_if_no_pw1_bias"] = float(((y2_k - other).abs() / bound).max())
+        del other, bound
+        # the GRN sums
+        own = y2_k.double().square().sum(1)
+        tol = F32_U * h * w * own + 1e-30
+        rec["gsum_excess"] = float(((gsum_k.double() - own).abs() / tol).max())
+        rec["gsum_max_rel_diff"] = float(((gsum_k.double() - own).abs() / (own + 1e-30)).max())
+        rounded = f(y2_k).double().square().sum(1)
+        rec["gsum_excess_if_bf16_y2"] = float(((gsum_k.double() - rounded).abs() / tol).max())
+        del own, rounded, tol
+        # launch 2, fed the kernel's own y2 and sums
+        y3 = k1.grn_plain(y2_k, gsum_k, gg, gb)
+        s2 = (y3.reshape(-1, 4 * c).abs() @ f(w2).abs()).reshape(b, h, w, c) + f(b2).abs() \
+            + f(x).abs()
+        ref2 = k1.pw2_plain(x, y2_k, gsum_k, gg, gb, w2, b2)
+        tol2 = _bf16_ulp(ref2) + F32_U * (8 * c + 2) * s2
+        rec["out_excess"] = float(((out_k.float() - ref2.float()).abs() / tol2).max())
+        rec["out_diffs"] = int((out_k != ref2).sum())
+        # the mutant: the GRN as before, an f32 mean of gx and y3 = y2 * scale + beta
+        # rounded after a separate product and sum
+        gx = torch.sqrt(gsum_k + 1e-12)[:, None, :]
+        scale = f(gg) * (gx / (gx.mean(-1, keepdim=True) + 1e-6)) + 1.0
+        y3m = f(y2_k * scale + f(gb))
+        outm = (f(x) + (y3m.reshape(-1, 4 * c) @ f(w2) + f(b2)).reshape(b, h, w, c)).to(
+            torch.bfloat16)
+        rec["out_excess_if_unfused_grn"] = float(((out_k.float() - outm.float()).abs()
+                                                    / tol2).max())
+        rec["y3_diffs_if_unfused_grn"] = int((y3m != y3).sum())
+        del y3m, outm, scale, gx, s2, tol2, ref2
+        del a_k, y2_k, gsum_k, out_k, a_p, y2_p, y3
+    for key in ("a_excess", "y2_excess", "gsum_excess", "out_excess"):
+        if not rec[key] <= 1.0:
+            failures.append(f"K1 {tag} ({mode} GELU): launch check {key} = {rec[key]:.3g} > 1")
+    for key in ("a_excess_if_no_ln_bias", "y2_excess_if_no_pw1_bias", "gsum_excess_if_bf16_y2",
+                "out_excess_if_unfused_grn")[: 4 if see_unfused else 3]:
+        if not rec[key] > 1.0:
+            failures.append(f"K1 {tag} ({mode} GELU): launch check does not see {key}")
+    return rec
+
+
+def _tf32_scope_check(failures) -> dict:
+    """The f32 plain versions compute without TF32 whatever the caller's
+    global flags: K8's plain version (a cuDNN conv) and K1's pw1 (a cuBLAS
+    product), each called with both flags on, equal the same calls with
+    them off, and leave the flags as they found them. The same conv and
+    product called directly under the flags on are recorded beside them
+    (``unscoped_differs``: what the scoping keeps out)."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.ops import convnext_block as k1
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(905)
+    rnd = lambda shape, std=1.0: std * torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    x, w, b = rnd((16, 64, 64, 64)), rnd((3, 3, 64, 64), 0.05), rnd(64, 0.1)
+    a, w1, b1 = rnd((4096, 96)), rnd((96, 384), 0.1), rnd(384, 0.1)
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, mm.allow_tf32
+    res: dict = {}
+    try:
+        outs = {}
+        for on in (False, True):
+            cudnn.allow_tf32 = mm.allow_tf32 = on
+            with torch.inference_mode():
+                outs[on] = (dec.final_conv_gelu_plain(x, w, b), k1.pw1_plain(a, w1, b1),
+                            F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1),
+                            a @ w1)
+            res[f"flags_kept_{'on' if on else 'off'}"] = (cudnn.allow_tf32, mm.allow_tf32) == (
+                on, on)
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = saved
+    res["conv_plain_equal"] = torch.equal(outs[False][0], outs[True][0])
+    res["matmul_plain_equal"] = torch.equal(outs[False][1], outs[True][1])
+    res["unscoped_differs"] = {"conv": not torch.equal(outs[False][2], outs[True][2]),
+                               "matmul": not torch.equal(outs[False][3], outs[True][3])}
+    for key in ("conv_plain_equal", "matmul_plain_equal", "flags_kept_off", "flags_kept_on"):
+        if not res[key]:
+            failures.append(f"TF32 scope: {key} fails")
+    return res
+
+
 def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
     """A ``Block(c)`` with every weight drawn from ``seed`` (LN scale around
     1, GRN vectors and biases around 0), bf16 on ``dev``: its
@@ -426,11 +635,13 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
     on seeded inputs, K2 and K3 on the main path's masks, energy and
-    markers saved in ``inputs``, and K5 (the islands path's three masks)
-    and K6 (the batch's foreground) on those beside them in
-    ``cc_inputs.pt``, with ``csrc/cc.cu``'s ptxas lines; with ``check``, K1
-    held against its plain version, K8/K11 on 16 images and K2, K3, K5 and
-    K6 on the saved inputs."""
+    markers saved in ``inputs``, K4 on the batch's labels and types in
+    ``k4_inputs.pt`` beside it, and K5 (the islands path's three masks)
+    and K6 (the batch's foreground) on those in ``cc_inputs.pt``, with
+    ``csrc/cc.cu``'s ptxas lines; with ``check``, K1 held against its plain
+    version (and, where the package has its parts, each launch against its
+    part at stage 0), K8/K11 on 16 images and K2-K6
+    on the saved inputs."""
     sys.path.insert(0, str(root))
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
     from path_gene_multimodal_tpu_torch.models.convnext import Block
@@ -467,6 +678,10 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
         if check:  # the mutants need this checkout's plain version in parts
             st["check"] = _k1_check(f"stage {s}", x, wts, over,
                                     mutants=hasattr(k1, "pw_plain"))
+            if s == 0 and hasattr(k1, "pw2_plain"):  # each launch against its part
+                st["parts"] = [_k1_parts_check(f"seeded stage {s}", x, wts, exact, over,
+                                               see_unfused=True)
+                               for exact in (True, False)]
         res["k1"].append(st)
         del x
     res["k1_batch_ms"] = sum(d * st["ms"] for d, st in zip(depths, res["k1"]))
@@ -547,6 +762,21 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
                                 k2.cc_sizes_adaptive_plain(m, min_size=ms_)))
             res["k3_diff"] = int((k3.marker_watershed(dist, markers, blb)
                                   != k3.marker_watershed_plain(dist, markers, blb)).sum())
+    k4_inputs = inputs.parent / "k4_inputs.pt"
+    if k4_inputs.exists():  # K4 on the batch's cropped labels and types
+        from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
+
+        t = torch.load(k4_inputs)
+        li, ti, slots = t["li"].to(dev), t["ti"].to(dev), t["slots"]
+        with torch.inference_mode():
+            _idle(res, "k4")
+            res["k4_batch_ms"] = _sync_time(lambda: k4.instance_stats(li, ti, slots), reps=50)
+            _idle(res, "k4_queued")
+            res["k4_device_ms"] = _queued_ms(lambda: k4.instance_stats(li, ti, slots), reps=50)
+            if check:
+                res["k4_diff"] = sum(int((a != p).sum()) for a, p in zip(
+                    k4.instance_stats(li, ti, slots), k4.instance_stats_plain(li, ti, slots)))
+        del li, ti
     cc_inputs = inputs.parent / "cc_inputs.pt"
     if cc_inputs.exists():  # K5 on the islands path's masks, K6 on the batch's foreground
         from path_gene_multimodal_tpu_torch.ops import cc
@@ -571,7 +801,7 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     for k in ("k8_excess", "k11_excess"):
         if res.get(k, 0.0) > 1.0:
             over.append(f"{k} {res[k]:.3g}")
-    for k in ("k2_diff", "k3_diff", "k5_diff", "k6_diff"):
+    for k in ("k2_diff", "k3_diff", "k4_diff", "k5_diff", "k6_diff"):
         if res.get(k, 0):
             over.append(f"{k} {res[k]}")
     res["checks_over_tolerance"] = over
@@ -579,15 +809,16 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     return 0
 
 
-AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k5_slide_ms", "k6_ms", "k7_batch_ms",
-           "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
+AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k4_batch_ms", "k4_device_ms",
+           "k5_slide_ms", "k6_ms",
+           "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
     """Parent, this checkout, this checkout, parent: one process each, the
     first of each version also checked; all results to ``out_dir/ab.json``.
-    K2, K3, K5 and K6 run on the inputs that a main run with the same
-    ``--out`` saved (``k23_inputs.pt``, ``cc_inputs.pt``)."""
+    K2-K6 run on the inputs that a main run with the same ``--out`` saved
+    (``k23_inputs.pt``, ``k4_inputs.pt``, ``cc_inputs.pt``)."""
     inputs = out_dir / "k23_inputs.pt"
     if not inputs.exists():
         print(f"chip_smoke --ab: {inputs} is missing; run chip_smoke.py --out {out_dir} first",
@@ -1516,6 +1747,207 @@ def _check_k2(fg, mmask, launches, failures) -> dict:
     }
 
 
+def _k4_continuation(li: torch.Tensor, slots: int, geo) -> torch.Tensor:
+    """The pixels of K4's run pieces that continue a run of the lane before
+    in the same warp (``csrc/instance_stats.cu``): a span that does not
+    start a row nor a warp's 32 spans, whose first pixel has the id (in [1,
+    S)) of the pixel before it, from its start to its first change of id.
+    (B, H, W) bool."""
+    import torch.nn.functional as F
+
+    b, h, w = li.shape
+    span, spr = geo.span, geo.spans_per_row
+    ids = torch.where((li >= 0) & (li < slots), li, -1)
+    ids = F.pad(ids, (0, spr * span - w), value=-1)
+    eq = ids == F.pad(ids, (1, 0), value=-1)[..., :-1]
+    y = torch.arange(h, device=li.device)  # a row's place among its block's rows
+    place = (y // geo.band) // geo.cluster * geo.band + y % geo.band
+    item = place[:, None] * spr + torch.arange(spr, device=li.device)[None, :]
+    cont = (torch.arange(spr, device=li.device) > 0)[None, :] & (item % 32 > 0)  # (h, spr)
+    eq = eq.reshape(b, h, spr, span)
+    first = eq[..., 0] & (ids.reshape(b, h, spr, span)[..., 0] > 0) & cont
+    run = torch.cat([first[..., None], eq[..., 1:]], dim=-1).long().cumprod(-1).bool()
+    return run.reshape(b, h, spr * span)[..., :w]
+
+
+def _k4_mutant(li, ti, slots: int, num_types: int, kind: str, geo):
+    """A mutant of K4's design that the bit-equality check must catch, from
+    the plain version on masked labels (-1 ids are ignored):
+    ``"lane_double"`` counts the run pieces that continue a run across a
+    lane boundary twice (once in the joined run, once alone);
+    ``"head_extrema"`` takes each joined run's extrema from its head lane's
+    piece only (xmax stops at the head lane's span); ``"rank_unmerged"``
+    never adds rank 1's table into the slots the other ranks own. Returns
+    (sums, mins)."""
+    from path_gene_multimodal_tpu_torch.ops.instance_stats import instance_stats_plain
+
+    sums, mins = instance_stats_plain(li, ti, slots, num_types)
+    if kind == "rank_unmerged":
+        y = torch.arange(li.shape[1], device=li.device)[None, :, None]
+        owner = torch.clamp(li, 0, slots - 1) // geo.owner_chunk
+        drop = ((y // geo.band) % geo.cluster == 1) & (owner != 1)
+        return instance_stats_plain(torch.where(drop, -1, li), ti, slots, num_types)
+    cont = _k4_continuation(li, slots, geo)
+    if kind == "lane_double":
+        extra, _ = instance_stats_plain(torch.where(cont, li, -1), ti, slots, num_types)
+        return sums + extra, mins
+    if kind == "head_extrema":
+        _, head = instance_stats_plain(torch.where(cont, -1, li), ti, slots, num_types)
+        mins = mins.clone()
+        mins[:, 2] = head[:, 2]
+        return sums, mins
+    raise ValueError(kind)
+
+
+def _k4_cases(gen: torch.Generator, dev) -> dict[str, tuple]:
+    """K4's cases beyond the path batch: (labels, types, slots, num_types)."""
+    def blobs(b, h, w, n, max_id, num_types):
+        """n random boxes a tile, each one id in [1, max_id) and one type
+        (a few pixels another), on background."""
+        li = torch.zeros((b, h, w), dtype=torch.int32)
+        ti = torch.randint(0, num_types, (b, h, w), generator=gen, dtype=torch.int32)
+        for i in range(b):
+            ys = torch.randint(0, h, (n, 2), generator=gen).sort(1).values
+            xs = torch.randint(0, w, (n, 2), generator=gen).sort(1).values
+            ids = torch.randint(1, max_id, (n,), generator=gen, dtype=torch.int32)
+            tys = torch.randint(0, num_types, (n,), generator=gen, dtype=torch.int32)
+            for (y0, y1), (x0, x1), k, t in zip(ys.tolist(), xs.tolist(), ids, tys):
+                li[i, y0 : y1 + 1, x0 : x1 + 1] = k
+                keep = ti[i, y0 : y1 + 1, x0 : x1 + 1]
+                ti[i, y0 : y1 + 1, x0 : x1 + 1] = torch.where(keep % 7 == 0, keep, t)
+        return li, ti
+
+    def runs(b, h, w, max_len, lo, hi):
+        """Rows of runs of 1..max_len pixels, each a random id in [lo, hi)."""
+        n = h * w
+        lens = torch.randint(1, max_len + 1, (b * n,), generator=gen)
+        ids = torch.randint(lo, hi, (b * n,), generator=gen, dtype=torch.int32)
+        return torch.repeat_interleave(ids, lens)[: b * n].reshape(b, h, w)
+
+    s = 512
+    cases = {
+        "ragged_3x100x70": (*blobs(3, 100, 70, 40, s, 6), s, 6),
+        "whole_tile_1x224x224": (torch.ones((1, 224, 224), dtype=torch.int32),
+                                 torch.randint(0, 6, (1, 224, 224), generator=gen,
+                                               dtype=torch.int32), s, 6),
+        "background_2x224x224": (torch.zeros((2, 224, 224), dtype=torch.int32),
+                                 torch.randint(0, 6, (2, 224, 224), generator=gen,
+                                               dtype=torch.int32), s, 6),
+        "runs_2x64x1004": (runs(2, 64, 1004, 400, 0, s), torch.randint(
+            0, 6, (2, 64, 1004), generator=gen, dtype=torch.int32), s, 6),
+        "outside_ids_2x96x96": (runs(2, 96, 96, 12, -40, s + 200), torch.randint(
+            -2, 9, (2, 96, 96), generator=gen, dtype=torch.int32), s, 6),
+        "over_512_1x224x224": (*blobs(1, 224, 224, 1500, 1400, 6), s, 6),
+        "types_2_3x224x224": (*blobs(3, 224, 224, 150, s, 2), s, 2),
+        "types_9_1x224x224": (*blobs(1, 224, 224, 150, s, 9), s, 9),
+        "slots_64_2x56x40": (*blobs(2, 56, 40, 30, 80, 6), 64, 6),
+    }
+    # whole rows of one id on narrow tiles (32-bit sums): a slot's run over
+    # a row is longer than a warp's 256 px, and its moment formed in one
+    # piece would pass 2^31 before its division; the table's sum does not
+    for b, h, w in ((2, 1, 1500), (1, 5, 1025)):
+        rows = torch.randint(1, s, (b, h, 1), generator=gen, dtype=torch.int32)
+        cases[f"row_runs_{b}x{h}x{w}"] = (rows.expand(b, h, w).contiguous(), torch.randint(
+            0, 6, (b, h, w), generator=gen, dtype=torch.int32), s, 6)
+    yy, xx = torch.meshgrid(torch.arange(224), torch.arange(224), indexing="ij")
+    alt = (1 + xx % 2 + 2 * (yy % 3)).to(torch.int32)[None].repeat(3, 1, 1)
+    cases["alternating_3x224x224"] = (alt, torch.randint(0, 6, (3, 224, 224), generator=gen,
+                                                         dtype=torch.int32), s, 6)
+    return {k: (li.to(dev), ti.to(dev), sl, nt) for k, (li, ti, sl, nt) in cases.items()}
+
+
+def _bit_equal(a: tuple, b: tuple) -> bool:
+    """(sums, mins) pairs equal bit for bit."""
+    return all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _check_k4(li, ti, slots, launches, failures) -> dict:
+    """K4 against its plain version, bit for bit in both outputs: on the
+    path batch, on ``_k4_cases`` and at the cluster sizes on either side of
+    the chosen one (timed too); the three design mutants must differ; a
+    spill in the kernel fails the run."""
+    from path_gene_multimodal_tpu_torch.ops import cuda
+    from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
+
+    dev = li.device
+    nt = 6
+    geo = k4.tiling(*li.shape, slots, nt, cuda.sm_count(dev))
+    with torch.inference_mode():
+        got = k4.instance_stats(li, ti, slots, nt)
+        want = k4.instance_stats_plain(li, ti, slots, nt)
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        if not _bit_equal(got, want):
+            failures.append(f"K4 on the path batch: kernel and plain differ (max {err:.3g})")
+        ms = _sync_time(lambda: k4.instance_stats(li, ti, slots, nt), reps=50)
+        device_ms = _queued_ms(lambda: k4.instance_stats(li, ti, slots, nt), reps=50)
+        pms = _sync_time(lambda: k4.instance_stats_plain(li, ti, slots, nt), reps=2)
+        other = {}
+        for kk in (geo.cluster // 2, geo.cluster * 2):
+            if kk not in k4.CLUSTERS:
+                continue
+            alt = next(g for g in (k4.InstanceStatsTiling(*li.shape, slots, nt, sms)
+                                   for sms in range(1, 4096)) if g.cluster == kk)
+            out = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+            k4._launch(li, ti, *out, alt)
+            if not _bit_equal(out, want):
+                failures.append(f"K4 on clusters of {kk}: kernel and plain differ")
+            other[kk] = _queued_ms(lambda: k4._launch(li, ti, *out, alt), reps=50)
+        mutants = {kind: not _bit_equal(_k4_mutant(li, ti, slots, nt, kind, geo), want)
+                   for kind in ("lane_double", "head_extrema", "rank_unmerged")}
+        for kind, seen in mutants.items():
+            if not seen:
+                failures.append(f"K4: the bit-equality check does not see the {kind} mutant")
+        cases = []
+        for name, (cl, ct, sl, cn) in _k4_cases(torch.Generator().manual_seed(44), dev).items():
+            before = k4.instance_stats.launches
+            g2 = k4.instance_stats(cl, ct, sl, cn)
+            ok = _bit_equal(g2, k4.instance_stats_plain(cl, ct, sl, cn))
+            cg = k4.tiling(*cl.shape, sl, cn, cuda.sm_count(dev))
+            cases.append({"case": name, "shape": list(cl.shape), "slots": sl, "num_types": cn,
+                          "cluster": cg.cluster, "vector_rows": cg.vector_rows,
+                          "live_slots": int((g2[0][..., 0] > 0).sum()), "bit_equal": ok})
+            if not ok:
+                failures.append(f"K4 case {name}: kernel and plain differ")
+            if k4.instance_stats.launches - before != 1:
+                failures.append(f"K4 case {name}: {k4.instance_stats.launches - before} launches")
+        bsz, h, w = li.shape
+        idx = (li.long() + torch.arange(bsz, device=dev)[:, None, None] * slots).reshape(-1)
+        pix = torch.arange(h * w, device=dev)
+        x_, y_ = (pix % w).float().repeat(bsz), (pix // w).float().repeat(bsz)
+        dx_, dy_ = x_ - w / 2, y_ - h / 2
+        tpf = ti.reshape(-1)
+        vals = torch.stack([torch.ones_like(x_), x_, y_, dx_ * dx_, dy_ * dy_, dx_ * dy_]
+                           + [(tpf == t).float() for t in range(1, nt)], dim=1)
+        acc = torch.zeros((bsz * slots, vals.shape[1]), device=dev)
+        lms = _sync_time(lambda: acc.index_add_(0, idx, vals), reps=20)
+    ptxas = _ptxas_entries(cuda.build_log("instance_stats"))
+    for entry, info in ptxas.items():
+        if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+            failures.append(f"K4: {entry} spills ({info})")
+    nbytes = li.numel() * 8 + got[0].numel() * 4 + got[1].numel() * 4
+    bnd, by = _bound_ms(nbytes, [(li.numel() * 12, PEAK_F32)])
+    return {
+        "name": "instance_stats", "route": "cuda",
+        "source": "path_gene_multimodal_tpu_torch/csrc/instance_stats.cu",
+        "replaces": "path_gene_multimodal_tpu/ops/pallas/instance_stats.py:123",
+        "launches": launches["instance_stats"], "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": lms,
+        "note": f"{tuple(li.shape)} int32, S={slots}, {nt} types: sums and mins bit-equal to "
+                "the plain version; ms: calls back to back through the wrapper, as for every "
+                "kernel; device_ms: the same calls queued behind a sleep kernel (device time, "
+                "the wrapper's host path excluded; ms_other_cluster is timed so too); "
+                "library_ms: index_add_ of the (pixels, 11) value matrix (sums only, no bbox "
+                "extrema)",
+        "device_ms": device_ms,
+        "geometry": {"cluster": geo.cluster, "band": geo.band, "threads": geo.threads,
+                     "span": geo.span, "vector_rows": geo.vector_rows,
+                     "smem_bytes": geo.smem_bytes, "owner_chunk": geo.owner_chunk},
+        "ms_other_cluster": other, "mutants_differ": mutants, "cases": cases, "ptxas": ptxas,
+        "live_slots": int((got[0][..., 0] > 0).sum()),
+    }
+
+
 def _spiral(n: int) -> np.ndarray:
     """A 1-px square spiral with 1-px gaps between its arms: its labels need
     about one relaxation per turn, so small caps bind."""
@@ -2009,7 +2441,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
                     help="directory for chip_smoke.json and scratch files")
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="only time K1-K3 and K7-K11 of the package copy under PARENT "
+                    help="only time K1-K11 of the package copy under PARENT "
                          "against this checkout's (after a main run with the same --out)")
     ap.add_argument("--ab-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
@@ -2038,9 +2470,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
     from path_gene_multimodal_tpu_torch.ops.flood import marker_watershed
-    from path_gene_multimodal_tpu_torch.ops.instance_stats import (
-        instance_stats, instance_stats_plain,
-    )
+    from path_gene_multimodal_tpu_torch.ops.instance_stats import instance_stats
     from path_gene_multimodal_tpu_torch.ops.instances import instance_features_batch
     from path_gene_multimodal_tpu_torch.pipeline.nuclei import (
         NucleiModel, run_hovernet_pipeline_on_wsi_tiles,
@@ -2161,6 +2591,8 @@ def main(argv: list[str] | None = None) -> int:
     for s, x in enumerate(xs):
         wts = _check_weights(model.model.encoder.stages[s][0], seed=100 + s)
         st = _k1_check(f"stage {s}", x, wts, failures)
+        st["parts"] = [_k1_parts_check(f"stage {s}", x, wts, exact, failures,
+                                       see_unfused=s == 0) for exact in (True, False)]
         k1["abs_err"] = max(k1["abs_err"], st["max_abs_err_erf"], st["max_abs_err_tanh"])
         with torch.inference_mode():
             ms = _sync_time(lambda: convnext_block(x, *wts), reps=5)
@@ -2184,8 +2616,10 @@ def main(argv: list[str] | None = None) -> int:
         s = [sc for _, sc in K1_STAGES].index(c)
         wts = _check_weights(model.model.encoder.stages[s][0], seed=110 + j)
         x = torch.randn((rb, rh, rw, c), generator=torch.Generator().manual_seed(120 + j))
-        k1["ragged"].append(_k1_check(f"{rb}x{rh}x{rw}x{c}", x.to(dev, torch.bfloat16), wts,
-                                      failures))
+        x = x.to(dev, torch.bfloat16)
+        k1["ragged"].append(_k1_check(f"{rb}x{rh}x{rw}x{c}", x, wts, failures))
+        k1["ragged"][-1]["parts"] = [_k1_parts_check(f"{rb}x{rh}x{rw}x{c}", x, wts, exact,
+                                                     failures) for exact in (True, False)]
     k1["ptxas"] = _k1_ptxas(cuda)
     print(json.dumps({"k1": {"per_stage": [{k: st[k] for k in ("shape", "ms", "library_ms",
                                                                "launches")}
@@ -2218,36 +2652,15 @@ def main(argv: list[str] | None = None) -> int:
     kernels.append(_check_k3(dist, markers, blb, launches, failures))
     print(json.dumps({k["name"]: k["counts"] for k in kernels[-2:]}), flush=True)
 
-    # K4 on this batch's cropped labels and types
-    with torch.inference_mode():
-        sa, ma = instance_stats(li, ti, model.max_instances)
-        sp, mp = instance_stats_plain(li, ti, model.max_instances)
-        err = max(float((sa - sp).abs().max()), float((ma - mp).abs().max()))
-        ms = _sync_time(lambda: instance_stats(li, ti, model.max_instances), reps=20)
-        pms = _sync_time(lambda: instance_stats_plain(li, ti, model.max_instances), reps=2)
-        bsz, h, w = li.shape
-        idx = (li.long() + torch.arange(bsz, device=dev)[:, None, None] * model.max_instances).reshape(-1)
-        pix = torch.arange(h * w, device=dev)
-        x_, y_ = (pix % w).float().repeat(bsz), (pix // w).float().repeat(bsz)
-        dx_, dy_ = x_ - w / 2, y_ - h / 2
-        tpf = ti.reshape(-1)
-        vals = torch.stack([torch.ones_like(x_), x_, y_, dx_ * dx_, dy_ * dy_, dx_ * dy_]
-                           + [(tpf == t).float() for t in range(1, 6)], dim=1)
-        acc = torch.zeros((bsz * model.max_instances, vals.shape[1]), device=dev)
-        lms = _sync_time(lambda: acc.index_add_(0, idx, vals), reps=20)
-    if err != 0.0:
-        failures.append(f"K4: max |kernel - plain| = {err:.3g} (both sum exact integers)")
-    nbytes = li.numel() * 8 + sa.numel() * 4 + ma.numel() * 4
-    bnd, by = _bound_ms(nbytes, [(li.numel() * 12, PEAK_F32)])
-    kernels.append({
-        "name": "instance_stats", "route": "cuda",
-        "source": "path_gene_multimodal_tpu_torch/csrc/instance_stats.cu",
-        "replaces": "path_gene_multimodal_tpu/ops/pallas/instance_stats.py:123",
-        "launches": launches["instance_stats"], "max_abs_err": err,
-        "ms": ms, "plain_ms": pms, "bound_ms": bnd, "bound_by": by, "library_ms": lms,
-        "note": "(128,224,224) int32, S=512; library_ms: index_add_ of the (pixels, 11) "
-                "value matrix (sums only, no bbox extrema)",
-    })
+    # K4 on this batch's cropped labels and types, kept for --ab
+    torch.save({"li": li.cpu(), "ti": ti.cpu(), "slots": model.max_instances},
+               out_dir / "k4_inputs.pt")
+    kernels.append(_check_k4(li, ti, model.max_instances, launches, failures))
+    print(json.dumps({"instance_stats": {k: kernels[-1][k] for k in (
+        "ms", "device_ms", "geometry", "ms_other_cluster", "mutants_differ", "ptxas")}}), flush=True)
+
+    report["tf32_scope"] = _tf32_scope_check(failures)
+    print(json.dumps({"tf32_scope": report["tf32_scope"]}), flush=True)
 
     # -- 4. the slice's post-processing: kernels vs plain versions -------
     with torch.inference_mode():

@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(kDwMaxThreads, 1) dw_ln_kernel(const DwArgs p)
             if (col_ok && y + o < y1) {
                 float v[4];
 #pragma unroll
-                for (int i = 0; i < 4; ++i) v[i] = acc[o][i] * rs * lg[i] + lb[i];
+                for (int i = 0; i < 4; ++i) v[i] = __fmaf_rn(acc[o][i] * rs, lg[i], lb[i]);
                 *reinterpret_cast<uint2*>(p.a + ((img * p.h + y + o) * p.w + x0 + px) * c + 4 * g) =
                     make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
             }
@@ -457,7 +457,7 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
     const int c4 = 4 * c;
     float* scale = reinterpret_cast<float*>(ring + kS * kStage);
     float* shift = scale + c4;
-    __shared__ float warp_sum[kWarps];
+    __shared__ double warp_sum[kWarps];
 
     const int ntiles = c / NT;
     const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
@@ -481,8 +481,12 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
         cp_async_commit();
     }
 
-    // GRN of this image: scale = gamma * nx + 1, shift = beta
-    float s = 0.0f;
+    // GRN of this image: scale = gamma * nx + 1, shift = beta. The mean of
+    // gx over 4C is summed in f64 and rounded once to f32, so that it does
+    // not depend on the order of the sum (the plain version takes the same
+    // value); the affine steps are fused multiply-adds, rounded once, as the
+    // plain version and the JAX reference on the CPU compute them.
+    double s = 0.0;
     for (int n = tid; n < c4; n += kThreads) {
         const float gx = sqrtf(gsum[img * c4 + n] + 1e-12f);
         scale[n] = gx;
@@ -491,13 +495,13 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) warp_sum[warp] = s;
     __syncthreads();
-    float tot = 0.0f;
+    double tot = 0.0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) tot += warp_sum[w];
-    const float denom = tot / c4 + 1e-6f;
+    const float denom = static_cast<float>(tot / c4) + 1e-6f;
     for (int n = tid; n < c4; n += kThreads) {
         const float nx = scale[n] / denom;
-        scale[n] = __bfloat162float(gg[n]) * nx + 1.0f;
+        scale[n] = __fmaf_rn(__bfloat162float(gg[n]), nx, 1.0f);
         shift[n] = __bfloat162float(gb[n]);
     }
     __syncthreads();
@@ -521,10 +525,10 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
             const float* sc = scale + k0 + kg * 8;
             const float* sh = shift + k0 + kg * 8;
             const float4 s0 = lds_f4(sc), s1 = lds_f4(sc + 4), h0 = lds_f4(sh), h1 = lds_f4(sh + 4);
-            v[0] = v[0] * s0.x + h0.x; v[1] = v[1] * s0.y + h0.y;
-            v[2] = v[2] * s0.z + h0.z; v[3] = v[3] * s0.w + h0.w;
-            v[4] = v[4] * s1.x + h1.x; v[5] = v[5] * s1.y + h1.y;
-            v[6] = v[6] * s1.z + h1.z; v[7] = v[7] * s1.w + h1.w;
+            v[0] = __fmaf_rn(v[0], s0.x, h0.x); v[1] = __fmaf_rn(v[1], s0.y, h0.y);
+            v[2] = __fmaf_rn(v[2], s0.z, h0.z); v[3] = __fmaf_rn(v[3], s0.w, h0.w);
+            v[4] = __fmaf_rn(v[4], s1.x, h1.x); v[5] = __fmaf_rn(v[5], s1.y, h1.y);
+            v[6] = __fmaf_rn(v[6], s1.z, h1.z); v[7] = __fmaf_rn(v[7], s1.w, h1.w);
             *reinterpret_cast<uint4*>(ab + e) = pack8(v);
         }
         fence_async_shared();

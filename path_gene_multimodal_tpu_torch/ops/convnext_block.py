@@ -10,7 +10,19 @@ their geometry); on a CPU tensor it runs ``convnext_block_plain``, which
 repeats the TPU kernel's arithmetic op for op (bf16 storage, f32
 accumulation, bf16 rounding of each pointwise product's operand: the GRN
 affine reads the f32 GELU output y2, and its result y3 is rounded before
-pw2, in all three).
+pw2, in all three). The plain version is also cut at the kernel's launches
+(``dw_ln_plain``, ``pw1_plain``, ``pw2_plain``) so that each launch can be
+held against its own part.
+
+Where a product is followed by a sum (the LayerNorm affine, the GRN scale
+``gamma * nx + 1`` and ``y3 = y2 * scale + beta``), the kernel and the
+JAX reference on the CPU (XLA fuses them) round once, as a fused
+multiply-add: the plain version does too (``_fma``). The GRN mean over the
+channels is the correctly rounded f32 of a double sum in the kernel and
+here (the reference's is an f32 sum in XLA's order, which no other order
+repeats), so that pw2 fed the same y2 and sums rounds y3 exactly as the
+kernel does. The f32 products run with TF32 off whatever the caller's flags
+(``cuda.exact_f32``).
 
 The kernel takes C a multiple of 32 up to 384 (``check_channels``); the
 Pallas kernel and the plain version take any C.
@@ -53,10 +65,15 @@ def gelu_kernel(x: torch.Tensor, exact: bool) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(k * (x + 0.044715 * x * x * x)))
 
 
-def dw_ln_plain(x, dw, dwb, ln_gamma, ln_beta) -> torch.Tensor:
-    """Launch 0's function: dw 7x7 (zero padding, taps summed dx-major) +
-    bias + LayerNorm over C, in f32 (the kernel stores it rounded to bf16,
-    the operand pw1 rounds to)."""
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as a fused multiply-add: a and b are
+    f32 (or bf16-valued), so their product is exact in f64."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def dw_plain(x, dw, dwb) -> torch.Tensor:
+    """dw 7x7 (zero padding, taps summed dx-major) + bias, in f32: the
+    LayerNorm's input in launch 0."""
     f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
     b, h, w, c = x.shape
     xf = f(x)
@@ -66,32 +83,68 @@ def dw_ln_plain(x, dw, dwb, ln_gamma, ln_beta) -> torch.Tensor:
     for dx in range(KERNEL_SIZE):
         for dy in range(KERNEL_SIZE):
             acc = acc + xp[:, dy : dy + h, dx : dx + w, :] * dwk[dy, dx]
-    return layer_norm_plain(acc + f(dwb), ln_gamma, ln_beta)
+    return acc + f(dwb)
+
+
+def dw_ln_plain(x, dw, dwb, ln_gamma, ln_beta) -> torch.Tensor:
+    """Launch 0's function: dw 7x7 + bias + LayerNorm over C, in f32 (the
+    kernel stores it rounded to bf16, the operand pw1 rounds to)."""
+    return layer_norm_plain(dw_plain(x, dw, dwb), ln_gamma, ln_beta)
 
 
 def layer_norm_plain(acc, ln_gamma, ln_beta) -> torch.Tensor:
     """LayerNorm over the last axis in two passes (mean, then the centred
-    variance), eps 1e-6, as the TPU kernel takes it."""
+    variance), eps 1e-6, as the TPU kernel takes it; the affine as one
+    fused multiply-add."""
     f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
     mu = acc.mean(-1, keepdim=True)
     var = (acc - mu).square().mean(-1, keepdim=True)
-    return (acc - mu) * torch.rsqrt(var + 1e-6) * f(ln_gamma) + f(ln_beta)
+    t = (acc - mu) * torch.rsqrt(var + 1e-6)
+    return _fma(t, f(ln_gamma).expand_as(t), f(ln_beta).expand_as(t))
+
+
+@cuda.exact_f32()
+def pw1_plain(a, w1, b1, exact_gelu: bool = False) -> torch.Tensor:
+    """Launch 1's function: pw1 on bf16(a) + bias + GELU, f32 y2 of shape
+    (B, pixels, 4C) from a (B, H, W, C) or (B, pixels, C)."""
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    b, c = a.shape[0], a.shape[-1]
+    y2 = f(a).reshape(-1, c) @ f(w1) + f(b1)
+    return gelu_kernel(y2, exact_gelu).reshape(b, -1, 4 * c)
+
+
+def grn_plain(y2, gsum, grn_gamma, grn_beta) -> torch.Tensor:
+    """The GRN affine of launch 2 on the f32 y2 (B, pixels, 4C), given the
+    per-image sums of its squares gsum (B, 4C): y3 = y2 * (gamma * nx + 1)
+    + beta, each a fused multiply-add, rounded to bf16 (held in f32)."""
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    gx = torch.sqrt(gsum.float() + 1e-12)[:, None, :]
+    mean = (gx.double().sum(-1, keepdim=True) / gx.shape[-1]).float()
+    nx = gx / (mean + 1e-6)
+    scale = _fma(f(grn_gamma).expand_as(nx), nx, torch.ones_like(nx))
+    beta = f(grn_beta)
+    # image by image: the f64 products of the fused multiply-add stay small
+    return torch.cat([f(_fma(y, s.expand_as(y), beta.expand_as(y)))
+                      for y, s in zip(y2.split(1), scale.split(1))])
+
+
+@cuda.exact_f32()
+def pw2_plain(x, y2, gsum, grn_gamma, grn_beta, w2, b2) -> torch.Tensor:
+    """Launch 2's function: the GRN affine (``grn_plain``), pw2 on bf16(y3)
+    + bias + the residual x, bf16 out (B, H, W, C)."""
+    f = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    b, h, w, c = x.shape
+    y3 = grn_plain(y2, gsum, grn_gamma, grn_beta)
+    y4 = y3.reshape(-1, 4 * c) @ f(w2) + f(b2)
+    return (f(x) + y4.reshape(b, h, w, c)).to(torch.bfloat16)
 
 
 def pw_plain(x, y, w1, b1, grn_gamma, grn_beta, w2, b2, exact_gelu: bool = False) -> torch.Tensor:
     """Launches 1 and 2's function on the LayerNorm output y: pw1 on
     bf16(y) + GELU, the GRN affine on the f32 y2 (and its sums of squares),
     pw2 on bf16(y3) + bias + the residual x."""
-    bf = torch.bfloat16
-    f = lambda t: t.to(bf).float()  # noqa: E731
-    b, h, w, c = x.shape
-    y2 = f(y).reshape(-1, c) @ f(w1) + f(b1)
-    y2 = gelu_kernel(y2, exact_gelu).reshape(b, h * w, 4 * c)
-    gx = torch.sqrt(y2.square().sum(1, keepdim=True) + 1e-12)
-    nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
-    y3 = y2 * (f(grn_gamma) * nx + 1.0) + f(grn_beta)
-    y4 = f(y3).reshape(-1, 4 * c) @ f(w2) + f(b2)
-    return (f(x) + y4.reshape(b, h, w, c)).to(bf)
+    y2 = pw1_plain(y, w1, b1, exact_gelu)
+    return pw2_plain(x, y2, y2.square().sum(1), grn_gamma, grn_beta, w2, b2)
 
 
 def convnext_block_plain(

@@ -14,6 +14,7 @@ launch, and ``launch`` raises on anything but success.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -41,6 +42,22 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (persistent kernels size
     their grid by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 convolutions (cuDNN) and matrix products (cuBLAS) without TF32
+    for the duration, whatever the caller's global flags, which are
+    restored after. The plain versions of the kernels run under it, so that
+    on the card they compute in f32 as the TPU kernels do. Usable as a
+    decorator."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, mm.allow_tf32
+    cudnn.allow_tf32 = mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = saved
 
 
 def _nvcc() -> str:

@@ -27,9 +27,9 @@ The plain versions repeat the TPU kernels' rounding points: inputs,
 weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
 upsampled input and K10/K11 their GELU output to bf16 before the next
 product; GELU through ``gelu_kernel`` (the TPU kernel's erf polynomial in
-exact mode). Their f32 convolutions go through ``F.conv2d``: on a card, turn
-TF32 off (``torch.backends.cudnn.allow_tf32``) before holding a kernel
-against them. K9 and K10 round their upsampled input to bf16.
+exact mode). Their f32 convolutions (``F.conv2d``) and products run with
+TF32 off whatever the caller's flags (``cuda.exact_f32``). K9 and K10 round
+their upsampled input to bf16.
 
 ``upsample2x_nearest`` and ``upsample2x_bilinear`` are plain torch, as in
 the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
@@ -456,6 +456,7 @@ def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
 
 
+@cuda.exact_f32()
 def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
     xin = _f(x) if skip is None else torch.cat([_f(x), _f(skip)], dim=-1)
     acc = _conv3x3(xin, _f(w)) + _f(b)
@@ -466,6 +467,7 @@ def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: b
     return gelu_kernel(acc, exact_gelu).to(_BF)
 
 
+@cuda.exact_f32()
 def final_conv_gelu_plain(x, w, b, exact_gelu: bool = False):
     return gelu_kernel(_conv3x3(_f(x), _f(w)) + _f(b), exact_gelu).to(_BF)
 
@@ -474,17 +476,20 @@ def upsample_final_plain(x, w, b, exact_gelu: bool = False):
     return final_conv_gelu_plain(upsample2x_bilinear(x.to(_BF)), w, b, exact_gelu)
 
 
+@cuda.exact_f32()
 def final_heads_plain(x, w, b, wh, bh, exact_gelu: bool = False):
     up = upsample2x_bilinear(x.to(_BF)).float()
     y = gelu_kernel(_conv3x3(up, _f(w)) + _f(b), exact_gelu)
     return (_f(y) @ _f(wh) + _f(bh)).to(_BF)
 
 
+@cuda.exact_f32()
 def composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
     y = gelu_kernel(_conv3x3(_f(x), _f(wc)) + _f(bias4), exact_gelu)
     return (_f(y) @ _f(wh_bd) + _f(bh4)).to(_BF)
 
 
+@cuda.exact_f32()
 def composite_final_heads_by_phase(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
                                    head_of=None):
     """K11's kernel decomposition, plain: parity phase p as a conv cin →
