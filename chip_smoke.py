@@ -12,6 +12,26 @@
    ``run_hovernet_pipeline_on_wsi_tiles`` over full batches of 128 tiles,
    with every kernel's launch count set to 0 just before and read just
    after;
+2b. drives the chain's embed and graph stages after the nuclei stage, on
+   the same slide and 256 tiles, with the kernel counts set to 0 before
+   and read after (the chain launches none of them): CLIP ViT-B/16 at its
+   published widths (224^2, patch 16, width 768, 12 layers, 12 heads,
+   projection 512; seeded weights) as ``ImageEncoder(dtype=bfloat16,
+   device="cuda")`` through ``run_extract_features`` at the default batch
+   of 512 ((256, 512) finite f32 features; the features H5 is written and
+   read back when h5py is installed, decided once and stated in the JSON);
+   the bf16 features against the f32 forward on the card (under
+   ``exact_f32``) at cosine >= 0.999 per tile, the f32 forward on the card
+   against the CPU's on 4 tiles at atol 5e-4 / rtol 1e-3, and a mutant
+   (the position embedding left out) that the cosine check must see; the
+   forward on 512 tiles timed with CUDA events (second call) beside its
+   bound (FLOP from the config at the bf16 peak); ``build_cell_graph`` and
+   ``analyze_graph`` over the nuclei table (nodes, kNN and radius edges,
+   seconds); ``radius_graph`` with ``max_degree=256`` on 200,000 seeded
+   points over a slide-sized extent, which the module routes to the card,
+   equal edge for edge to a direct cKDTree query with the same cap,
+   nearest first (``_ckdtree_radius_edges``), and timed. Prints a
+   ``chain`` JSON line;
 3. holds each kernel against its plain PyTorch version on the card, on the
    main path's own inputs at its shapes (K1 with its bias, LN and GRN
    vectors drawn from a seed, in both GELU modes, also at two ragged shapes
@@ -111,8 +131,9 @@
    and ptxas's registers and spills of ``csrc/cc.cu`` (a spill fails the
    run).
 
-Prints the kernels' JSON line, the slice's tiles/s and the card's name and
-power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
+Prints the ``chain`` JSON line, the slice's tiles/s, the kernels' JSON
+line and the card's name and power limit, then, as the last line,
+``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 ``build/chip_smoke/``, which git ignores).
 
@@ -193,6 +214,17 @@ CONFIGS = {
     "pallas": ({"fused_final": "pallas"}, {"composite_final_heads": 4}),
     "k9": ({"fused_final": True}, {"upsample_final": 4}),
 }
+# the chain phase's device-route radius graph: seeded nuclei centroids (um)
+# over a slide-sized extent (~96k x 72k px at 0.25 um/px), a fifth spread
+# evenly, the rest in 16 Gaussian tissue blobs (sigma 120-600 um) whose
+# densest parts hold more than 256 neighbours within the radius
+GRAPH_POINTS = 200_000
+GRAPH_EXTENT_UM = (24_000.0, 18_000.0)
+GRAPH_CAP = 256
+# the embed phase's bars: bf16 features against the f32 forward (cosine per
+# tile), the f32 forward on the card against the CPU's (elementwise)
+EMBED_MIN_COS = 0.999
+EMBED_ATOL, EMBED_RTOL = 5e-4, 1e-3
 THUMB = (2000, 2000)  # the islands path's thumbnail (the JAX default)
 ISLAND_CLASSES = ("Tumor", "TILs", "TLS", "Stroma")  # groups tumor / til / tls, and none
 
@@ -875,6 +907,235 @@ def _table_failures(nuclei, patch: int, what: str) -> list[str]:
             & (nuclei["area"] > 0)).all():
         out.append(f"{what}: nuclei outside their tile or of zero area")
     return out
+
+
+def _vit_flops(cfg, images: int) -> float:
+    """FLOP (2 per multiply-add) of the tower's products for ``images``
+    tiles: the patch embed, per layer the fused QKV, QK^T, PV, the output
+    and both MLP products, and the projection."""
+    n, d, g, p = cfg.seq_len, cfg.width, cfg.grid, cfg.patch_size
+    hidden = int(d * cfg.mlp_ratio)
+    macs = g * g * 3 * p * p * d + d * (cfg.out_dim or 0)
+    macs += cfg.layers * (4 * n * d * d + 2 * n * n * d + 2 * n * d * hidden)
+    return 2.0 * macs * images
+
+
+def _graph_points(seed: int = 21) -> np.ndarray:
+    """GRAPH_POINTS seeded centroids (um, f32) over GRAPH_EXTENT_UM."""
+    rng = np.random.default_rng(seed)
+    w, h = GRAPH_EXTENT_UM
+    n_even = GRAPH_POINTS // 5
+    centres = rng.uniform((0.1 * w, 0.1 * h), (0.9 * w, 0.9 * h), (16, 2))
+    sigmas = rng.uniform(120.0, 600.0, 16)
+    blob = rng.integers(0, 16, GRAPH_POINTS - n_even)
+    pts = np.concatenate([rng.uniform((0, 0), (w, h), (n_even, 2)),
+                          centres[blob] + rng.normal(size=(len(blob), 2)) * sigmas[blob, None]])
+    return np.clip(pts, 0, (w, h)).astype(np.float32)
+
+
+def _ckdtree_radius_edges(pts: np.ndarray, radius: float, cap: int, slack: int = 16):
+    """The device route's radius-graph contract from a direct cKDTree query:
+    each point's neighbours within ``radius`` (self excluded), nearest
+    first, the first ``cap`` kept, as (2, E) int64 edges in row order.
+    cKDTree ranks by f64 distance; the card ranks by the f32 distance^2
+    dx*dx + dy*dy with ties to the lower index and cuts at the f32 radius^2,
+    so the tree's ``cap + 1 + slack`` nearest (bound a little past the
+    radius) are ranked and cut by that key. Also returns how many rows
+    differ when the tree's own f64 order and cut are kept instead."""
+    from scipy.spatial import cKDTree
+
+    n = len(pts)
+    d64, j = cKDTree(pts).query(pts, k=cap + 1 + slack,
+                                distance_upper_bound=radius * (1 + 1e-5), workers=-1)
+    jj = np.where(j < n, j, 0)
+    notself = (j < n) & (jj != np.arange(n)[:, None])
+    diff = pts[:, None, :] - pts[jj]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    valid = notself & (d2 <= np.float32(float(radius) ** 2))
+    order = np.lexsort((jj, np.where(valid, d2, np.inf)), axis=-1)
+
+    def capped(idx, ok):  # valid entries first, in their order, then the first ``cap``
+        mat = np.where(ok, idx, -1)
+        return np.take_along_axis(mat, np.argsort(mat < 0, axis=1, kind="stable"), axis=1)[:, :cap]
+
+    ref = capped(np.take_along_axis(jj, order, 1), np.take_along_axis(valid, order, 1))
+    raw = capped(jj, notself & (d64 <= radius))
+    rr, cc = np.nonzero(ref >= 0)
+    edges = np.stack([rr.astype(np.int64), ref[rr, cc].astype(np.int64)])
+    return edges, int((ref != raw).any(axis=1).sum())
+
+
+def _chain(slide, coords, nuclei, tmp: Path, wrappers, failures) -> dict:
+    """The chain's embed and graph stages after the nuclei stage, on the
+    same slide and tiles and on the nuclei table it wrote: CLIP ViT-B/16 at
+    its published widths (seeded weights) through ``run_extract_features``
+    at the default batch of 512, its bf16 features against the f32 forward
+    on the card, that against the CPU's on 4 tiles, a mutant (the position
+    embedding left out) that the cosine check must see, the forward timed
+    at 512 tiles; ``build_cell_graph`` + ``analyze_graph`` over the nuclei
+    table; ``radius_graph`` on GRAPH_POINTS seeded points, capped at
+    GRAPH_CAP, which the module routes to the card (n * (cap + 1) is over
+    ``HOST_TREE_CELL_BUDGET``), edge for edge against cKDTree. The port's
+    kernel counts are set to 0 before the phase and read after: the chain
+    launches none of them."""
+    from importlib.util import find_spec
+
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.config import GraphConfig, default_config
+    from path_gene_multimodal_tpu_torch.core.artifacts import read_features_h5
+    from path_gene_multimodal_tpu_torch.models import clip
+    from path_gene_multimodal_tpu_torch.ops import neighbors
+    from path_gene_multimodal_tpu_torch.ops.cuda import exact_f32
+    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
+    from path_gene_multimodal_tpu_torch.pipeline.graph import build_cell_graph
+    from path_gene_multimodal_tpu_torch.pipeline.graph_stats import analyze_graph
+
+    cfg = default_config()
+    vcfg = clip.CLIP_VIT_B16
+    res: dict = {"tiles": len(coords), "batch": cfg.embedding.batch_size}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # -- embed -------------------------------------------------------------
+    t0 = time.perf_counter()
+    enc = clip.ImageEncoder(vcfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    res["encoder_setup_s"] = time.perf_counter() - t0
+    # whether the stage writes its artifacts (the features H5 needs h5py)
+    # is decided here once, by whether h5py is installed
+    write = find_spec("h5py") is not None
+    res["artifacts_written"] = write
+    out = tmp / "embed"
+    run_extract_features(slide, coords, enc, out, "warm", cfg, write_artifacts=write)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = run_extract_features(slide, coords, enc, out, "smoke", cfg, write_artifacts=write)
+    res["embed_s"] = time.perf_counter() - t0
+    res["embed_tiles_per_s"] = len(coords) / res["embed_s"]
+    if feats.shape != (len(coords), vcfg.out_dim) or feats.dtype != np.float32:
+        failures.append(f"embed: features {feats.shape} {feats.dtype}")
+    if not np.isfinite(feats).all():
+        failures.append("embed: non-finite features")
+    if write:
+        back = read_features_h5(out / "smoke_features.h5")
+        if not np.array_equal(back["features"], feats):
+            failures.append("embed: the features H5 does not read back equal")
+
+    tiles = torch.from_numpy(np.stack([slide.read_region((int(x), int(y)), 0, (224, 224))
+                                       for x, y in coords]))
+    sd = enc.model.state_dict()
+    enc32 = clip.ImageEncoder(vcfg, state_dict=sd, dtype=torch.float32, device="cuda")
+    with exact_f32():
+        f32 = enc32(tiles)
+    bf = torch.from_numpy(feats).to(f32.device)
+    cos = F.cosine_similarity(bf.double(), f32.double(), dim=-1)
+    res["min_cos_bf16_vs_f32"] = float(cos.min())
+    res["mean_cos_bf16_vs_f32"] = float(cos.mean())
+    if res["min_cos_bf16_vs_f32"] < EMBED_MIN_COS:
+        failures.append(f"embed: bf16 vs f32 cosine {res['min_cos_bf16_vs_f32']:.6f} "
+                        f"< {EMBED_MIN_COS}")
+    cpu = clip.ImageEncoder(vcfg, state_dict={k: v.cpu() for k, v in sd.items()},
+                            dtype=torch.float32, device="cpu")(tiles[:4])
+    err = (f32[:4].cpu() - cpu).abs()
+    res["f32_card_vs_cpu_max_abs"] = float(err.max())
+    res["f32_card_vs_cpu_excess"] = float((err / (EMBED_ATOL + EMBED_RTOL * cpu.abs())).max())
+    if res["f32_card_vs_cpu_excess"] > 1:
+        failures.append(f"embed: f32 card vs CPU excess {res['f32_card_vs_cpu_excess']:.3f} > 1")
+    pos = enc.model.visual.positional_embedding
+    saved = pos.detach().clone()
+    with torch.no_grad():
+        pos.zero_()
+        mutant = enc(tiles)
+        pos.copy_(saved)
+    res["mutant_no_pos_embed_min_cos"] = float(
+        F.cosine_similarity(mutant.double(), f32.double(), dim=-1).min())
+    if res["mutant_no_pos_embed_min_cos"] >= EMBED_MIN_COS:
+        failures.append("embed: the check does not see the position embedding left out")
+    del enc32, f32, bf, mutant, cpu
+
+    batch = torch.cat([tiles, tiles]).cuda()  # 512 tiles on the card
+    enc(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    enc(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    res["forward_512_ms"] = ev[0].elapsed_time(ev[1])
+    res["forward_512_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["forward_512_ms_mean_of_3"] = _sync_time(lambda: enc(batch), reps=3, warm=0)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        enc(batch)
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    res["forward_512_device_ms_profiled"] = sum(e.self_device_time_total for e in ops) / 1e3
+    res["forward_512_device_ms_by_op"] = {e.key: [e.self_device_time_total / 1e3, e.count]
+                                          for e in ops[:12]}
+    flops = _vit_flops(vcfg, len(batch))
+    nbytes = batch.numel() + sum(t.numel() * 4 for t in sd.values()) + len(batch) * vcfg.out_dim * 4
+    res["forward_512_bound_ms"], res["forward_512_bound_by"] = _bound_ms(nbytes, [(flops, PEAK_BF16)])
+    res["forward_512_gflop"] = flops / 1e9
+    res["forward_512_tflops"] = flops / res["forward_512_ms"] / 1e9
+    del enc, batch, tiles
+    torch.cuda.empty_cache()
+
+    # -- graph -------------------------------------------------------------
+    gcfg = GraphConfig()
+    t0 = time.perf_counter()
+    graph = build_cell_graph(nuclei, gcfg, tmp / "graph", "smoke", device="cuda")
+    res["graph_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = analyze_graph(graph, tmp / "graph", "smoke")
+    res["graph_stats_s"] = time.perf_counter() - t0
+    n = len(graph.node_ids)
+    res.update(graph_nodes=n, graph_knn_edges=int((graph.knn_index >= 0).sum()),
+               graph_radius_edges=int(graph.edge_index.shape[1]),
+               graph_mean_degree=stats["mean_degree"], graph_mean_clustering=stats["mean_clustering"])
+    if n != len(nuclei) or not np.isfinite(graph.x).all() or not np.isfinite(graph.pos_um).all():
+        failures.append("graph: node count or node features wrong")
+    if graph.edge_index.size and not (0 <= graph.edge_index.min() <= graph.edge_index.max() < n):
+        failures.append("graph: radius edges out of range")
+    json.loads((tmp / "graph" / "smoke_graph_stats.json").read_text())  # strict JSON
+
+    pts = _graph_points()
+    radius = gcfg.radius_um
+    routed = []
+    scan = neighbors._neighbor_indices
+
+    def spy(*a, **k):
+        routed.append(1)
+        return scan(*a, **k)
+
+    neighbors._neighbor_indices = spy
+    try:
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ei, _ = neighbors.radius_graph(pts, radius, max_degree=GRAPH_CAP, device="cuda")
+            times.append(time.perf_counter() - t0)
+    finally:
+        neighbors._neighbor_indices = scan
+    t0 = time.perf_counter()
+    ref, raw_rows = _ckdtree_radius_edges(pts, radius, GRAPH_CAP)
+    deg = np.bincount(ei[0], minlength=len(pts))
+    res.update(device_radius_points=len(pts), device_radius_um=radius,
+               device_radius_cap=GRAPH_CAP, device_radius_routed_to_card=len(routed) == 2,
+               device_radius_s=times, device_radius_edges=int(ei.shape[1]),
+               device_radius_rows_at_cap=int((deg == GRAPH_CAP).sum()),
+               device_radius_equal_ckdtree=bool(ei.shape == ref.shape and np.array_equal(ei, ref)),
+               ckdtree_rows_differing_in_f64_order=raw_rows,
+               ckdtree_s=time.perf_counter() - t0)
+    if len(routed) != 2:
+        failures.append("graph: radius_graph on the seeded points did not take the device route")
+    if not res["device_radius_equal_ckdtree"]:
+        failures.append(f"graph: device-route edges ({ei.shape[1]}) differ from cKDTree's "
+                        f"({ref.shape[1]})")
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    failures += [f"the chain launched {n}" for n, k in res["launches"].items() if k]
+    return res
 
 
 def _forward_parts(model, stacked: torch.Tensor):
@@ -2473,7 +2734,8 @@ def main(argv: list[str] | None = None) -> int:
     from path_gene_multimodal_tpu_torch.ops.instance_stats import instance_stats
     from path_gene_multimodal_tpu_torch.ops.instances import instance_features_batch
     from path_gene_multimodal_tpu_torch.pipeline.nuclei import (
-        NucleiModel, run_hovernet_pipeline_on_wsi_tiles,
+        NucleiModel, load_tile_annotations, run_hovernet_pipeline_on_wsi_tiles,
+        select_tiles_for_hovernet,
     )
     from path_gene_multimodal_tpu_torch.utils.headfit import fit_heads, sample_tissue_tiles
 
@@ -2541,6 +2803,17 @@ def main(argv: list[str] | None = None) -> int:
     failures += [f"{n} launched on the default path" for n, k in launches.items()
                  if n not in main_kernels and k]
     failures += _table_failures(nuclei, cfg.patch_size, "main path")
+
+    # -- 2b. the chain's embed and graph stages, after the nuclei stage ------
+    roi = select_tiles_for_hovernet(load_tile_annotations(ann))[["x", "y"]].to_numpy(np.int64)
+    report["chain"] = _chain(slide, roi, nuclei, tmp, wrappers, failures)
+    chain_line = {k: report["chain"][k] for k in (
+        "tiles", "min_cos_bf16_vs_f32", "f32_card_vs_cpu_excess", "mutant_no_pos_embed_min_cos",
+        "forward_512_ms", "forward_512_bound_ms", "embed_tiles_per_s", "artifacts_written",
+        "graph_nodes", "graph_knn_edges", "graph_radius_edges", "graph_build_s", "graph_stats_s",
+        "device_radius_points", "device_radius_edges", "device_radius_equal_ckdtree",
+        "device_radius_s")}
+    print(json.dumps({"chain": chain_line}), flush=True)
 
     # one batch of the main path's own data, stage by stage
     coords = pd.read_csv(ann).query("in_tme_roi")[["x", "y"]].to_numpy()[:128].tolist()
@@ -2698,6 +2971,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"batch_breakdown_ms": report["batch_breakdown_ms"],
                       "postproc_label_diff": diff, "features_max_abs_diff": ferr,
                       "islands_s": {d: r["s"] for d, r in report["islands"]["runs"].items()}}))
+    print(json.dumps({"chain": chain_line}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

@@ -7,5 +7,9 @@ find. The kernels that the JAX package wrote in Pallas for the TPU are
 hand-written CUDA C++ for Hopper under ``csrc/``, built with ``nvcc`` at
 first use (``ops/cuda.py``).
 
-Ported so far: the HoverNeXt nuclei stage (``pipeline/nuclei.py``).
+Ported so far: the HoverNeXt nuclei stage (``pipeline/nuclei.py``), the
+islands path (``pipeline/morphology.py``), the CLIP tile embedding
+(``models/clip.py``, ``pipeline/embed.py``) and the cell graph with its
+statistics (``ops/neighbors.py``, ``pipeline/graph.py``,
+``pipeline/graph_stats.py``).
 """

@@ -1,9 +1,10 @@
-"""Configuration read by the ported nuclei stage.
+"""Configuration read by the ported stages.
 
 A copy of the fields of ``path_gene_multimodal_tpu/config.py`` that this
-package reads (the port imports nothing of the JAX package), plus the
-model configuration that lives in the JAX package's
-``models/convnext.py`` and ``models/hovernext.py``.
+package reads (the port imports nothing of the JAX package): the nuclei,
+embedding and graph sections and the root fields they use, plus the model
+configuration that lives in the JAX package's ``models/convnext.py`` and
+``models/hovernext.py``.
 """
 
 from __future__ import annotations
@@ -31,11 +32,41 @@ class NucleiConfig:
 
 
 @dataclass(frozen=True)
+class EmbeddingConfig:
+    """Tile feature extraction (reference extract_embedding_from_tiles.py:48-57).
+    The model choice is the root ``PipelineConfig.model_type``; the input
+    size comes from the vision config."""
+
+    # the reference uses BATCH_SIZE=128; 512 is the JAX package's default
+    # (its throughput knee on a TPU, not a measurement of this port)
+    batch_size: int = 512
+    # the ViT-H Virchow2 tower's batch, clamped in pipeline/embed.py when
+    # model_type starts with "virchow" (the JAX package's default)
+    virchow2_batch_size: int = 64
+    dtype: str = "bfloat16"
+    # ship JPEG tiles as raw 4:2:0 planes; the port's slide readers serve
+    # RGB only, so pipeline/embed.py reads no planes yet
+    planar_feed: bool = True
+
+
+@dataclass(frozen=True)
+class GraphConfig:
+    """Spatial cell graph (reference hovernet_tile_inference.ipynb cells 11, 23-27)."""
+
+    knn_k: int = 5
+    radius_um: float = 40.0
+    mpp: float = 0.25
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
-    """Root pipeline config (fields read by the nuclei stage)."""
+    """Root pipeline config (fields read by the ported stages)."""
 
     patch_size: int = 224
+    model_type: str = "CLIP"
+    embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     hovernext: NucleiConfig = field(default_factory=NucleiConfig)
+    graph: GraphConfig = field(default_factory=GraphConfig)
 
 
 def default_config(**overrides: Any) -> PipelineConfig:
