@@ -72,6 +72,28 @@
    batch's masks, energy and markers are saved for ``--ab``;
 4. checks the slice's output (the kernels' post-processing against the
    plain versions on the same maps; a non-empty, finite nuclei table);
+4b. the slide feed from a real file (``_feed``), after the checks of 3
+   and 4: the main run's slide written by
+   the port's ``io/tiff_write.py`` as a tiled JPEG TIFF (256-px tiles,
+   quality 90, 4:2:0, levels /1, /4, /16); the port's tile decoder
+   (``csrc/tiledecode.cpp``, host C++ without libjpeg) rebuilt by g++ and
+   timed, its link line checked for ``-ljpeg``; on all 576 level-0 tiles
+   its fancy RGB equal to PIL's decode bit for bit, its planar form
+   finished by ``ycbcr420_to_rgb`` on the card equal to its nearest RGB
+   and to the same function on the CPU, and a mutant with Cb and Cr
+   swapped that the check must see; one tile split into tables and an
+   abbreviated stream, one with a restart interval, one 4:4:4 and one
+   progressive (refused, then read by ``TiffTileSlide`` through PIL and
+   counted); tiles/s of the three decode forms at all cores and at one
+   thread beside PIL at one thread, bytes per tile, and the
+   host-to-device copy of a batch of 128, planar and RGB; the nuclei
+   stage from the TIFF on the main run's 256 ROI tiles with the planar
+   feed (every chunk planar, no decoder refusal, each batch's model input
+   byte-equal to the host nearest decode padded by
+   ``_pad_tile_to_input``, K1-K4 launched as often as in the main run),
+   timed, and once with ``planar_feed`` off; the embed stage from the TIFF
+   with the planar feed at batch 512, its features equal to those of the
+   RGB feed of the host nearest decode. Prints a ``feed`` JSON line;
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -131,7 +153,7 @@
    and ptxas's registers and spills of ``csrc/cc.cu`` (a spill fails the
    run).
 
-Prints the ``chain`` JSON line, the slice's tiles/s, the kernels' JSON
+Prints the ``chain`` and ``feed`` JSON lines, the slice's tiles/s, the kernels' JSON
 line and the card's name and power limit, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
@@ -1135,6 +1157,288 @@ def _chain(slide, coords, nuclei, tmp: Path, wrappers, failures) -> dict:
                         f"({ref.shape[1]})")
     res["launches"] = {n: w.launches for n, w in wrappers.items()}
     failures += [f"the chain launched {n}" for n, k in res["launches"].items() if k]
+    return res
+
+
+def _split_tables(blob: bytes) -> tuple[bytes, bytes]:
+    """(tables-only stream, abbreviated stream): the DQT/DHT segments of a
+    JPEG moved into SOI ... EOI, as TIFF JPEGTables stores them."""
+    sos = blob.find(b"\xff\xda")
+    tables, rest, i = b"\xff\xd8", b"\xff\xd8", 2
+    while i < sos:
+        seg = blob[i: i + 2 + ((blob[i + 2] << 8) | blob[i + 3])]
+        if seg[1] in (0xDB, 0xC4):
+            tables += seg
+        else:
+            rest += seg
+        i += len(seg)
+    return tables + b"\xff\xd9", rest + blob[sos:]
+
+
+def _pil_rgb(blob: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(blob)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def _rate(fn, n: int, reps: int = 3) -> float:
+    """Items per second of ``fn`` over ``n`` items, best of ``reps`` runs."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return n / best
+
+
+def _feed(slide, roi, ann: Path, model, cfg, main_launches, tmp: Path, wrappers,
+          failures) -> dict:
+    """The slide feed from a real file: the smoke slide written as a tiled
+    JPEG TIFF (256-px tiles, quality 90, 4:2:0, levels /1, /4, /16) by the
+    port's writer; the port's decoder built by g++ (no libjpeg) and held on
+    all 576 level-0 tiles to PIL (fancy RGB, bit for bit) and to itself
+    (planar + ``ycbcr420_to_rgb`` on the card = its nearest RGB = the same
+    on the CPU), on one tile split into tables + abbreviated stream, one
+    with a restart interval, one 4:4:4, one progressive (refused, and
+    counted by the reader, which decodes it through PIL), and a mutant
+    with Cb and Cr swapped that the check must see; decode rates of the
+    three forms at all cores and one thread beside PIL at one thread,
+    bytes per tile and each batch's host-to-device copy, planar and RGB;
+    the nuclei stage from the TIFF on the main run's ROI tiles with the
+    planar feed (every chunk planar, no refusal, each batch's model input
+    byte-equal to the host nearest decode padded by ``_pad_tile_to_input``,
+    K1-K4 launched as often as in the main run), timed, and once with the
+    planar feed off; the embed stage from the TIFF with the planar feed at
+    batch 512, its features equal to the RGB feed of the host nearest
+    decode."""
+    from dataclasses import replace
+
+    from path_gene_multimodal_tpu_torch.io import native
+    from path_gene_multimodal_tpu_torch.io import tiff_write
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models import clip
+    from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei as nuc
+    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
+
+    res: dict = {}
+    dev = model.device
+    # -- the decoder's build and the TIFF ------------------------------------
+    t0 = time.perf_counter()
+    native.build_native(force=True)
+    res["decoder_build_s"] = time.perf_counter() - t0
+    cmd = native.build_command(native.LIB_PATH)
+    res["decoder_link_line"] = " ".join(cmd)
+    if "-ljpeg" in cmd or b"libjpeg" in native.LIB_PATH.read_bytes():
+        failures.append("feed: the decoder links libjpeg")
+    lv0 = slide._levels[0]
+    lv8 = slide._levels[3]
+    h8, w8 = lv8.shape[0] // 2 * 2, lv8.shape[1] // 2 * 2
+    lv16 = lv8[:h8, :w8].reshape(h8 // 2, 2, w8 // 2, 2, 3).mean(axis=(1, 3)).astype(np.uint8)
+    t0 = time.perf_counter()
+    tif = tiff_write.write_tiled_tiff(tmp / "smoke.svs", [lv0, slide._levels[2], lv16],
+                                      tile_size=256, compression=7, jpeg_quality=90,
+                                      description="Aperio smoke |MPP = 0.2500|")
+    res.update(tiff_write_s=time.perf_counter() - t0, tiff_bytes=tif.stat().st_size)
+    reader = TiffTileSlide(tif)
+    page = reader._pages[0]
+    res["tiff_levels"] = reader.level_dimensions
+    blobs = [reader._tile_bytes(page, i) for i in range(len(page.offsets))]
+    n = len(blobs)
+    res["level0_tiles"] = n
+
+    # -- the decoder against PIL and itself ------------------------------------
+    dec, dec1 = native.NativeTileDecoder(), native.NativeTileDecoder(num_threads=1)
+    fancy = dec.decode_jpeg_batch(blobs, 256, 256)
+    near = dec.decode_jpeg_batch_nearest(blobs, 256, 256)
+    planes = dec.decode_jpeg_batch_planar(blobs, 256, 256)
+    if fancy is None or near is None or planes is None:
+        failures.append("feed: the decoder refused a tile of the smoke TIFF")
+        return res
+    pil = np.stack([_pil_rgb(b) for b in blobs])
+    res["fancy_tiles_differing_from_pil"] = int((fancy != pil).reshape(n, -1).any(1).sum())
+    y_d, c_d = torch.from_numpy(planes[0]).to(dev), torch.from_numpy(planes[1]).to(dev)
+    card = ycbcr420_to_rgb(y_d, c_d).cpu().numpy()
+    cpu = ycbcr420_to_rgb(torch.from_numpy(planes[0]), torch.from_numpy(planes[1])).numpy()
+    mutant = ycbcr420_to_rgb(y_d, c_d.flip(-1)).cpu().numpy()
+    res.update(planar_card_tiles_differing_from_nearest=int(
+                   (card != near).reshape(n, -1).any(1).sum()),
+               planar_card_equal_cpu=bool(np.array_equal(card, cpu)),
+               mutant_cb_cr_swapped_tiles_differing=int(
+                   (mutant != near).reshape(n, -1).any(1).sum()),
+               fancy_vs_nearest_max=int(np.abs(fancy.astype(np.int16) - near).max()))
+    if res["fancy_tiles_differing_from_pil"]:
+        failures.append(f"feed: fancy RGB differs from PIL on "
+                        f"{res['fancy_tiles_differing_from_pil']} tiles")
+    if res["planar_card_tiles_differing_from_nearest"] or not res["planar_card_equal_cpu"]:
+        failures.append("feed: planar + ycbcr420_to_rgb on the card differs from the nearest "
+                        "decode or from the CPU")
+    if res["mutant_cb_cr_swapped_tiles_differing"] == 0:
+        failures.append("feed: the check does not see Cb and Cr swapped")
+
+    import io
+
+    from PIL import Image
+
+    tile = lv0[roi[0][1]: roi[0][1] + 256, roi[0][0]: roi[0][0] + 256]
+
+    def encode(**kw) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(tile)).save(buf, "JPEG", quality=90, **kw)
+        return buf.getvalue()
+
+    cases = {}
+    full = encode(subsampling=2)
+    tables, abbrev = _split_tables(full)
+    ref_forms = [dec.decode_jpeg_batch([full], 256, 256), dec.decode_jpeg_batch_nearest(
+        [full], 256, 256), dec.decode_jpeg_batch_planar([full], 256, 256)]
+    got_forms = [dec.decode_jpeg_batch([abbrev], 256, 256, tables),
+                 dec.decode_jpeg_batch_nearest([abbrev], 256, 256, tables),
+                 dec.decode_jpeg_batch_planar([abbrev], 256, 256, tables)]
+    cases["tables_abbreviated"] = all(
+        g is not None and all(np.array_equal(a, b) for a, b in zip(
+            g if isinstance(g, tuple) else (g,), r if isinstance(r, tuple) else (r,)))
+        for g, r in zip(got_forms, ref_forms)) and b"\xff\xdb" not in abbrev
+    rst = encode(subsampling=2, restart_marker_blocks=3)
+    got = dec.decode_jpeg_batch([rst], 256, 256)
+    cases["restart_interval"] = (b"\xff\xdd" in rst and got is not None
+                                 and np.array_equal(got[0], _pil_rgb(rst)))
+    s444 = encode(subsampling=0)
+    got = dec.decode_jpeg_batch([s444], 256, 256)
+    _, st = dec.decode_jpeg_status([s444], 256, 256, form="planar")
+    cases["sampling_444"] = (got is not None and np.array_equal(got[0], _pil_rgb(s444))
+                             and native.REFUSALS.get(int(st[0])) == "not_planar")
+    # a progressive tile: refused by the decoder, read through PIL and counted
+    prog = encode(subsampling=2, progressive=True)
+    _, st = dec.decode_jpeg_status([prog], 256, 256)
+    real = tiff_write.encode_jpeg
+    tiff_write.encode_jpeg = lambda rgb, quality=90: prog
+    try:
+        ptif = tiff_write.write_tiled_tiff(tmp / "prog.svs", [tile], tile_size=256,
+                                           compression=7)
+    finally:
+        tiff_write.encode_jpeg = real
+    pslide = TiffTileSlide(ptif)
+    pread = pslide.read_region((0, 0), 0, (256, 256))
+    cases["progressive_refused"] = native.REFUSALS.get(int(st[0])) == "progressive"
+    cases["progressive_counted"] = (pslide.decoder_refusals == 1 and dict(
+        pslide.decoder_refusal_reasons) == {"progressive": 1})
+    cases["progressive_pixels_equal_pil"] = bool(np.array_equal(pread, _pil_rgb(prog)))
+    res["cases"] = cases
+    failures += [f"feed: decoder case {k} failed" for k, ok in cases.items() if not ok]
+
+    # -- rates, bytes, copies ----------------------------------------------------
+    rates = {}
+    for name, d in (("all_cores", dec), ("one_thread", dec1)):
+        rates[f"fancy_{name}"] = _rate(lambda: d.decode_jpeg_batch(blobs, 256, 256), n)
+        rates[f"nearest_{name}"] = _rate(lambda: d.decode_jpeg_batch_nearest(blobs, 256, 256), n)
+        rates[f"planar_{name}"] = _rate(lambda: d.decode_jpeg_batch_planar(blobs, 256, 256), n)
+    rates["pil_one_thread"] = _rate(lambda: [_pil_rgb(b) for b in blobs], n, reps=1)
+    res["decode_tiles_per_s"] = rates
+    t = cfg.patch_size
+    res["bytes_per_tile"] = {"planar": t * t + (t // 2) * (t // 2) * 2, "rgb": t * t * 3,
+                             "rgb_padded_nuclei_input": 256 * 256 * 3}
+    b = cfg.hovernext.batch_size
+    host = {"planar": (torch.zeros((b, t, t), dtype=torch.uint8).pin_memory(),
+                       torch.zeros((b, t // 2, t // 2, 2), dtype=torch.uint8).pin_memory()),
+            "rgb": (torch.zeros((b, t, t, 3), dtype=torch.uint8).pin_memory(),),
+            "rgb_padded_nuclei_input": (torch.zeros((b, 256, 256, 3), dtype=torch.uint8)
+                                        .pin_memory(),)}
+    res["h2d_ms_per_batch"] = {
+        k: _sync_time(lambda v=v: [x.to(dev, non_blocking=True) for x in v], reps=10)
+        for k, v in host.items()}
+    res["h2d_batch_tiles"] = b
+
+    # -- the nuclei stage from the TIFF ----------------------------------------
+    canvas = np.full((page.tiles_down * 256, page.tiles_across * 256, 3), 255, np.uint8)
+    for i in range(n):
+        ty, tx = divmod(i, page.tiles_across)
+        canvas[ty * 256:(ty + 1) * 256, tx * 256:(tx + 1) * 256] = near[i]
+    inputs = []
+    seg = model.segment_async
+
+    def spy(tiles_u8):
+        inputs.append(tiles_u8.cpu())
+        return seg(tiles_u8)
+
+    model.segment_async = spy
+    try:
+        nuc.run_hovernet_pipeline_on_wsi_tiles(TiffTileSlide(tif), ann, tmp, "feed_check",
+                                               model, cfg)
+    finally:
+        del model.segment_async
+    expect = np.stack([nuc._pad_tile_to_input(canvas[y: y + t, x: x + t],
+                                              model.cfg.input_size)[0] for x, y in roi])
+    got_inputs = torch.cat(inputs).numpy()
+    res["nuclei_input_batches"] = len(inputs)
+    res["nuclei_inputs_equal_host_nearest"] = bool(
+        len(inputs) == -(-len(roi) // b) and np.array_equal(got_inputs[: len(roi)], expect)
+        and not got_inputs[len(roi):].any())
+    if not res["nuclei_inputs_equal_host_nearest"]:
+        failures.append("feed: the nuclei stage's model inputs differ from the host nearest "
+                        "decode padded by _pad_tile_to_input")
+    for w in wrappers.values():
+        w.launches = 0
+    tslide = TiffTileSlide(tif)
+    t0 = time.perf_counter()
+    table = nuc.run_hovernet_pipeline_on_wsi_tiles(tslide, ann, tmp, "feed", model, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    routes = table.attrs["feed_routes"]
+    res.update(nuclei_tiles=len(roi), nuclei_s=dt, nuclei_tiles_per_s=len(roi) / dt,
+               nuclei=len(table), nuclei_routes=routes, nuclei_launches=launches,
+               nuclei_decoder_refusals=tslide.decoder_refusals)
+    if routes["rgb"] or routes["planar"] != -(-len(roi) // b):
+        failures.append(f"feed: not every nuclei chunk took the planar route: {routes}")
+    if tslide.decoder_refusals:
+        failures.append(f"feed: {tslide.decoder_refusals} decoder refusals on the smoke TIFF")
+    for k in ("convnext_block", "cc_sizes", "flood", "instance_stats"):
+        if launches[k] != main_launches[k]:
+            failures.append(f"feed: {k} launched {launches[k]} times, the main run "
+                            f"{main_launches[k]}")
+    failures += [f"feed: {k} launched on the nuclei path" for k, v in launches.items()
+                 if k not in ("convnext_block", "cc_sizes", "flood", "instance_stats") and v]
+    failures += _table_failures(table, t, "feed nuclei")
+    rgb_cfg = replace(cfg, hovernext=replace(cfg.hovernext, planar_feed=False))
+    tslide = TiffTileSlide(tif)
+    t0 = time.perf_counter()
+    table_rgb = nuc.run_hovernet_pipeline_on_wsi_tiles(tslide, ann, tmp, "feed_rgb", model,
+                                                       rgb_cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res.update(nuclei_rgb_feed_s=dt, nuclei_rgb_feed_tiles_per_s=len(roi) / dt,
+               nuclei_rgb_feed=len(table_rgb), nuclei_rgb_feed_routes=table_rgb.attrs["feed_routes"])
+    if table_rgb.attrs["feed_routes"]["planar"]:
+        failures.append("feed: the RGB-feed run took the planar route")
+
+    # -- the embed stage from the TIFF -------------------------------------------
+    enc = clip.ImageEncoder(clip.CLIP_VIT_B16, dtype=torch.bfloat16, device=dev, seed=0)
+    eb = cfg.embedding.batch_size
+    run_extract_features(TiffTileSlide(tif), roi, enc, tmp, "feed_warm", cfg,
+                         write_artifacts=False)
+    torch.cuda.synchronize()
+    eslide = TiffTileSlide(tif)
+    t0 = time.perf_counter()
+    feats = run_extract_features(eslide, roi, enc, tmp, "feed", cfg, write_artifacts=False)
+    dt = time.perf_counter() - t0
+    tiles = np.zeros((-(-len(roi) // eb) * eb, t, t, 3), np.uint8)
+    tiles[: len(roi)] = [canvas[y: y + t, x: x + t] for x, y in roi]
+    ref = torch.cat([enc(torch.from_numpy(tiles[i: i + eb])) for i in range(0, len(tiles), eb)])
+    ref = ref.cpu().numpy()[: len(roi)]
+    res.update(embed_tiles=len(roi), embed_batch=eb, embed_s=dt,
+               embed_tiles_per_s=len(roi) / dt,
+               embed_features_equal_rgb_nearest=bool(np.array_equal(feats, ref)),
+               embed_max_abs_diff=float(np.abs(feats - ref).max()),
+               embed_decoder_refusals=eslide.decoder_refusals)
+    if not res["embed_features_equal_rgb_nearest"]:
+        failures.append(f"feed: planar embed features differ from the RGB feed of the host "
+                        f"nearest decode (max {res['embed_max_abs_diff']:.3g})")
+    del enc
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2951,6 +3255,17 @@ def main(argv: list[str] | None = None) -> int:
     if ferr > 1e-3:
         failures.append(f"instance features differ between card and CPU by {ferr:.3g}")
 
+    # -- 4b. the slide feed: a JPEG TIFF through the port's decoder ----------
+    report["feed"] = _feed(slide, roi, ann, model, cfg, launches, tmp, wrappers, failures)
+    feed_line = {k: report["feed"].get(k) for k in (
+        "decoder_build_s", "decoder_link_line", "level0_tiles", "fancy_tiles_differing_from_pil",
+        "planar_card_tiles_differing_from_nearest", "planar_card_equal_cpu",
+        "mutant_cb_cr_swapped_tiles_differing", "cases", "decode_tiles_per_s", "bytes_per_tile",
+        "h2d_ms_per_batch", "nuclei_tiles_per_s", "nuclei", "nuclei_routes",
+        "nuclei_inputs_equal_host_nearest", "nuclei_rgb_feed_tiles_per_s",
+        "embed_tiles_per_s", "embed_features_equal_rgb_nearest")}
+    print(json.dumps({"feed": feed_line}), flush=True)
+
     # -- 5./6. the decoder configurations and their kernels -----------------
     del out, np_prob, hv, blb, overall, dist, mmask, mdense, markers, lbl, li, ti, lk, lp
     models, counts = _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report,
@@ -2972,6 +3287,7 @@ def main(argv: list[str] | None = None) -> int:
                       "postproc_label_diff": diff, "features_max_abs_diff": ferr,
                       "islands_s": {d: r["s"] for d, r in report["islands"]["runs"].items()}}))
     print(json.dumps({"chain": chain_line}))
+    print(json.dumps({"feed": feed_line}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

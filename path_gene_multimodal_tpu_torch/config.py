@@ -29,6 +29,9 @@ class NucleiConfig:
     batch_size: int = 128
     tta: int = 4
     max_instances_per_tile: int = 512
+    # ship JPEG tiles as raw 4:2:0 planes; ycbcr420_to_rgb and the reflect
+    # pad finish them on the model's device (pipeline/nuclei.py)
+    planar_feed: bool = True
 
 
 @dataclass(frozen=True)
@@ -44,8 +47,8 @@ class EmbeddingConfig:
     # model_type starts with "virchow" (the JAX package's default)
     virchow2_batch_size: int = 64
     dtype: str = "bfloat16"
-    # ship JPEG tiles as raw 4:2:0 planes; the port's slide readers serve
-    # RGB only, so pipeline/embed.py reads no planes yet
+    # ship JPEG tiles as raw 4:2:0 planes (half the bytes) and finish their
+    # decode on the encoder's device (pipeline/embed.py)
     planar_feed: bool = True
 
 

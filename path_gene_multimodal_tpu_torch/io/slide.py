@@ -1,14 +1,15 @@
 """Slide reading: a copy of ``SlideReader``, ``ArraySlide`` (thumbnails
-included) and ``synthetic_wsi`` from the JAX package's ``io/slide.py``
-(lines 47-272).
+included), ``synthetic_wsi`` and ``open_slide`` from the JAX package's
+``io/slide.py``.
 
 ``synthetic_wsi`` must stay byte-identical to the JAX package's for the
 same seed: the tests feed one slide to both packages. The JAX package
 resizes with cv2; the port does not use cv2, and ``resize_area`` /
 ``resize_nearest`` reproduce ``cv2.resize`` with ``INTER_AREA`` (downscale)
 and ``INTER_NEAREST`` in numpy, bit for bit on the shapes the tests check.
-The tiled-TIFF reader, the native JPEG decoder and the planar 4:2:0 feed
-are not ported yet (ROADMAP.md, Queue 1).
+``open_slide`` routes TIFF suffixes to ``io/tiff.py::TiffTileSlide``; the
+whole-image fallback for other files (and TIFFs that reader cannot parse)
+decodes through PIL where the JAX package uses cv2.
 """
 
 from __future__ import annotations
@@ -331,3 +332,56 @@ def synthetic_wsi(
                 disk = py**2 + px**2 <= r**2
             img[y0:y1, x0:x1][disk] = palette_u8[t]
     return ArraySlide(img, mpp=mpp)
+
+
+def open_slide(path: str | Path) -> SlideReader:
+    """Open a slide file by extension: ``.npz`` (synthetic fixture), ``.npy``
+    (an (H, W, 3) or (H, W) array), tiled TIFF/SVS through
+    ``TiffTileSlide``, else a whole-image decode through PIL."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".npz":
+        return ArraySlide.load(path)
+    if suffix == ".npy":
+        # the reference's "npy" input type (hovernet_inference.py:72-74):
+        # grayscale broadcasts to RGB; unit-range floats scale to [0,255];
+        # values outside [0,255] are rejected rather than wrapped by a cast
+        arr = np.load(path)
+        if arr.ndim == 2:
+            arr = np.stack([arr] * 3, axis=-1)
+        if arr.dtype != np.uint8 and arr.size:
+            lo, hi = float(arr.min()), float(arr.max())
+            if np.issubdtype(arr.dtype, np.floating) and 0.0 <= lo and hi <= 1.0:
+                arr = arr * 255.0
+            elif lo < 0.0 or hi > 255.0:
+                raise ValueError(
+                    f"{path}: {arr.dtype} image values span [{lo:g}, {hi:g}] "
+                    f"— expected uint8, [0,255], or unit-range float"
+                )
+            arr = np.rint(arr)
+        try:
+            return ArraySlide(arr, path=path)  # casts + validates (H, W, 3)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    if suffix in {".svs", ".tif", ".tiff", ".ndpi"}:
+        from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+
+        try:
+            return TiffTileSlide(path)
+        except Exception as e:
+            # keep the diagnostic: the fallback decodes the whole image
+            # (gigabytes for a real WSI) and would mask the parse error
+            from path_gene_multimodal_tpu_torch.utils.log import get_logger
+
+            get_logger().warning(
+                "%s: tiled-TIFF parse failed (%s: %s) — falling back to "
+                "whole-image decode", path, type(e).__name__, e,
+            )
+    from PIL import Image
+
+    try:
+        with Image.open(path) as img:
+            rgb = np.asarray(img.convert("RGB"))
+    except (OSError, SyntaxError, ValueError) as e:
+        raise ValueError(f"cannot open slide: {path}") from e
+    return ArraySlide(rgb, path=path)

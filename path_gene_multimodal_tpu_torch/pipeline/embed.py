@@ -6,11 +6,13 @@ read tiles on the host in a thread pool ahead of the device, run the
 image tower batched (bf16 by default) on the card, keep every batch's
 features on the device until one copy at the end, and write
 ``<slide>_features.h5`` + the reference's torch ``.pt`` sidecar + an
-``.npy`` sidecar.
+``.npy`` sidecar. With the planar feed (``EmbeddingConfig.planar_feed``,
+a reader with ``supports_planar``), JPEG tiles cross to the card as raw
+4:2:0 planes, half the bytes of RGB, and ``ops.jpegcolor.ycbcr420_to_rgb``
+finishes their decode there.
 
-Not ported yet: the planar 4:2:0 feed (the port's slide readers serve RGB
-only), the class text embeddings (``run_create_class_embeddings``) and the
-zero-shot annotation (``run_annotation``).
+Not ported yet: the class text embeddings (``run_create_class_embeddings``)
+and the zero-shot annotation (``run_annotation``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from path_gene_multimodal_tpu_torch.config import PipelineConfig
 from path_gene_multimodal_tpu_torch.core.artifacts import write_features_h5
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
 from path_gene_multimodal_tpu_torch.models.clip import ImageEncoder
+from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
 from path_gene_multimodal_tpu_torch.pipeline.tessellate import iter_tile_batches
 
 
@@ -41,6 +44,15 @@ def _recorded_model_type(cfg: PipelineConfig, encoder) -> str:
     model_type; without that tower, the configured model_type is the
     tower's."""
     return cfg.model_type
+
+
+def _planes_to_device(planes, device: torch.device) -> list[torch.Tensor]:
+    """Host planes to ``device``: pinned and non-blocking when it is a card,
+    so that the copies do not wait for it."""
+    out = [torch.from_numpy(p) for p in planes]
+    if device.type == "cuda":
+        out = [t.pin_memory() for t in out]
+    return [t.to(device, non_blocking=True) for t in out]
 
 
 def run_extract_features(
@@ -69,6 +81,8 @@ def run_extract_features(
     outs: list[torch.Tensor] = []
     valids: list[np.ndarray] = []
     for tiles_u8, valid in iter_tile_batches(slide, coords, tile, batch, planar=planar):
+        if isinstance(tiles_u8, tuple):  # planes; a chunk may fall back to RGB
+            tiles_u8 = ycbcr420_to_rgb(*_planes_to_device(tiles_u8, encoder.device))
         outs.append(encoder(tiles_u8))  # enqueued on the device
         valids.append(valid)
     if not outs:

@@ -5,7 +5,10 @@ Counterpart of the JAX package's ``pipeline/nuclei.py`` (the per-tile
 mode, dense transfer):
 
 1. select the TME-ROI tiles of the annotations CSV;
-2. read each tile, reflect-pad 224 → 256, batch (threaded);
+2. read each tile, reflect-pad 224 → 256, batch (threaded); with the
+   planar feed (``NucleiConfig.planar_feed``, a reader with
+   ``supports_planar``), a chunk crosses to the card as raw 4:2:0 planes
+   and ``_planar_seg_prep`` finishes the decode and the reflect pad there;
 3. one forward with TTA x4 folded into the batch → NP/HV/TP maps
    (ConvNeXtV2 blocks of stages 0-2 through K1);
 4. ``ops.watershed.hover_instances_batch`` → dense instance ids (K2 twice,
@@ -15,9 +18,9 @@ mode, dense transfer):
 6. rows with tile-local and WSI coordinates, contours, morphology;
    ``<stem>_hovernet_nuclei_wsi.csv`` + ``.parquet``.
 
-Not ported yet: the planar 4:2:0 feed, the sparse label transport (made
-for a slow TPU link; the output is identical either way), per-tile
-artifacts (``save_tile_artifacts``) and the sliding-window WSI mode.
+Not ported yet: the sparse label transport (made for a slow TPU link; the
+output is identical either way), per-tile artifacts
+(``save_tile_artifacts``) and the sliding-window WSI mode.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from path_gene_multimodal_tpu_torch.ops.instances import (
     instance_contours,
     instance_features_batch,
 )
+from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
+from path_gene_multimodal_tpu_torch.pipeline.tessellate import decode_chunk_planar
 from path_gene_multimodal_tpu_torch.utils.log import get_logger
 
 NUCLEI_COLUMNS = [
@@ -158,6 +163,20 @@ def _pad_tile_to_input(tile: np.ndarray, input_size: int) -> tuple[np.ndarray, i
     return out, pad
 
 
+def _planar_seg_prep(yb: torch.Tensor, cbcr: torch.Tensor, pad_lo: int,
+                     pad_hi: int) -> torch.Tensor:
+    """Finish a planar 4:2:0 decode and reflect-pad each tile to the model
+    input, on the planes' device: (B, S, S, 3) uint8, equal to
+    ``_pad_tile_to_input`` of the nearest RGB decode."""
+    rgb = ycbcr420_to_rgb(yb, cbcr)
+    t = rgb.shape[1]
+    if pad_lo == pad_hi == 0:
+        return rgb
+    idx = np.pad(np.arange(t), (pad_lo, pad_hi), mode="reflect")
+    idx = torch.from_numpy(idx).to(rgb.device, non_blocking=True)
+    return rgb.index_select(1, idx).index_select(2, idx)
+
+
 def run_hovernet_pipeline_on_wsi_tiles(
     slide: SlideReader,
     annotations_csv: str | Path,
@@ -168,7 +187,8 @@ def run_hovernet_pipeline_on_wsi_tiles(
     batch_size: int | None = None,
 ) -> pd.DataFrame:
     """The reference's end-to-end nuclei stage (:342-407): returns (and
-    writes) the WSI-space nuclei table."""
+    writes) the WSI-space nuclei table. ``attrs["feed_routes"]`` counts the
+    chunks that took the planar and the RGB route."""
     logger = get_logger()
     model.cc_overflow_tiles(reset=True)
     sel = select_tiles_for_hovernet(load_tile_annotations(annotations_csv))
@@ -184,17 +204,39 @@ def run_hovernet_pipeline_on_wsi_tiles(
     rows: list[dict[str, Any]] = []
     capped = {"tiles": 0}
     pinned = model.device.type == "cuda"
+    # the planar feed: raw 4:2:0 planes to the card; a chunk it cannot
+    # serve (odd coordinates, a tile that is not 4:2:0) is read as RGB
+    planar = (
+        cfg.hovernext.planar_feed
+        and tile_size % 2 == 0
+        and tile_size <= input_size
+        and getattr(slide, "supports_planar", lambda level=0: False)()
+    )
+    pad_hi = input_size - tile_size - off
+    routes = {"planar": 0, "rgb": 0}
+
+    def _pin(t: torch.Tensor) -> torch.Tensor:
+        return t.pin_memory() if pinned else t
 
     def _decode(chunk: np.ndarray):
+        if planar:
+            planes = decode_chunk_planar(slide, chunk, tile_size, batch)
+            if planes is not None:
+                return chunk, tuple(_pin(torch.from_numpy(p)) for p in planes)
         tiles = np.zeros((batch, input_size, input_size, 3), np.uint8)
         for i, (x, y) in enumerate(chunk):
             tile = slide.read_region((int(x), int(y)), 0, (tile_size, tile_size))
             tiles[i] = _pad_tile_to_input(tile, input_size)[0]
-        t = torch.from_numpy(tiles)
-        return chunk, (t.pin_memory() if pinned else t)
+        return chunk, _pin(torch.from_numpy(tiles))
 
     def _step(item):
         chunk, tiles = item
+        if isinstance(tiles, tuple):
+            routes["planar"] += 1
+            yb, cbcr = (p.to(model.device, non_blocking=True) for p in tiles)
+            tiles = _planar_seg_prep(yb, cbcr, off, pad_hi)
+        else:
+            routes["rgb"] += 1
         lbl, tp = model.segment_async(tiles)
         with torch.inference_mode():
             li = lbl[:, off : off + tile_size, off : off + tile_size].contiguous()
@@ -236,6 +278,7 @@ def run_hovernet_pipeline_on_wsi_tiles(
     else:
         write_nuclei_table(out_dir / f"{stem}_hovernet_nuclei_wsi", nuclei)
     nuclei.attrs["cc_slot_overflow_tiles"] = n_over
+    nuclei.attrs["feed_routes"] = routes
     return nuclei
 
 

@@ -58,11 +58,6 @@ def test_iter_tile_batches_matches_jax(slides, prefetch, n):
     assert sum(len(v) for _, v in unpadded) == n
 
 
-def test_iter_tile_batches_planar_not_ported(slides):
-    with pytest.raises(NotImplementedError, match="slide feed"):
-        next(ttess.iter_tile_batches(slides[1], _coords(3), TILE, 4, planar=True))
-
-
 @pytest.fixture(scope="module")
 def weights():
     """Seeded values in the JAX tower's parameter tree (shapes from

@@ -2,8 +2,9 @@
 loads neither ``jax`` nor anything of the JAX package, nor cv2,
 matplotlib or h5py (h5py is imported by the functions that write and read
 the features H5; the machine with the card has no h5py), and its sources
-name none of the first four. Importing builds no kernel and needs no
-card."""
+(Python, CUDA and the host C++ of the tile decoder) name none of the first
+four and include no libjpeg header. Importing builds no kernel and needs
+no card."""
 
 import re
 import subprocess
@@ -37,6 +38,8 @@ _FORBIDDEN = [
     re.compile(r"^\s*(import|from)\s+(cv2|matplotlib)\b", re.M),
     re.compile(r"(__import__|import_module)\(\s*[\"'](cv2|matplotlib)"),
 ]
+# the C++ and CUDA sources link no libjpeg
+_FORBIDDEN_NATIVE = re.compile(r"#\s*include\s*[<\"](jpeglib|turbojpeg)\.h")
 
 
 def test_port_imports_no_jax():
@@ -51,20 +54,24 @@ def test_port_imports_no_jax():
     for mod in ("ops.decoder", "models.hovernext_fn", "models.hovernext", "ops.convnext_block",
                 "ops.cc", "ops.masking", "ops.morphology", "pipeline.morphology",
                 "models.layers", "models.clip", "models.weights_clip", "pipeline.tessellate",
-                "pipeline.embed", "ops.neighbors", "pipeline.graph", "pipeline.graph_stats"):
+                "pipeline.embed", "ops.neighbors", "pipeline.graph", "pipeline.graph_stats",
+                "io.native", "io.tiff", "io.tiff_write", "ops.jpegcolor"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
 
 def test_port_sources_name_no_jax():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu*")) + sorted(PORT.rglob("*.cpp"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 20
+    assert PORT / "csrc" / "tiledecode.cpp" in files
     assert PORT / "csrc" / "decoder_conv.cu" in files
     assert PORT / "csrc" / "upsample_conv.cu" in files
     assert PORT / "csrc" / "cc.cu" in files
     assert PORT / "csrc" / "hopper.cuh" in files
     for f in files:
         text = f.read_text()
-        for pat in _FORBIDDEN:
+        pats = _FORBIDDEN + ([_FORBIDDEN_NATIVE] if f.suffix != ".py" else [])
+        for pat in pats:
             m = pat.search(text)
             assert m is None, f"{f.relative_to(ROOT)}: {m.group(0)!r}"

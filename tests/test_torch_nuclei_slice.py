@@ -93,6 +93,42 @@ def test_nuclei_table_matches_jax(setup, tmp_path):
     about the tile centre, as the TPU kernel does); orientation modulo pi
     where the instance is elongated enough for it to be defined."""
     _, _, jt, tt = _tables(setup, tmp_path)
+    _assert_tables_match(jt, tt)
+
+
+def test_planar_feed_nuclei_table_matches_jax(setup, tmp_path, monkeypatch):
+    """The same slide as a JPEG TIFF (JAX writer, 256-px tiles, q90) read
+    by each package's ``TiffTileSlide``, both nuclei stages on their planar
+    feed (every chunk planar on both sides): the rows meet the bar above."""
+    from path_gene_multimodal_tpu.io.tiff import TiffTileSlide as JSlide
+    from path_gene_multimodal_tpu.io.tiff_write import write_tiled_tiff
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+
+    jcfg, tcfg, jslide, _, params, ann = setup
+    tif = write_tiled_tiff(tmp_path / "s.svs", [jslide._levels[0]], tile_size=256,
+                           compression=7, description="Aperio |MPP = 0.25|")
+    jplanar = []
+    real = jnuc._planar_seg_prep
+    monkeypatch.setattr(jnuc, "_planar_seg_prep", lambda *a: jplanar.append(1) or real(*a))
+    jmodel = jnuc.NucleiModel.build(jcfg, params=params, dtype=jnp.float32, tta=4,
+                                    max_instances=MAX_INST)
+    tmodel = tnuc.NucleiModel.build(tcfg, state_dict=params_from_jax(params, tcfg),
+                                    dtype=torch.float32, tta=4, device="cpu",
+                                    max_instances=MAX_INST)
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    jt = jnuc.run_hovernet_pipeline_on_wsi_tiles(
+        JSlide(tif), ann, tmp_path / "j", "s", jmodel, j_default_config(patch_size=TILE),
+        batch_size=4)
+    tslide = TiffTileSlide(tif)
+    tt = tnuc.run_hovernet_pipeline_on_wsi_tiles(
+        tslide, ann, tmp_path / "t", "s", tmodel, default_config(patch_size=TILE), batch_size=4)
+    assert len(jplanar) == 2 and tt.attrs["feed_routes"] == {"planar": 2, "rgb": 0}
+    assert tslide.decoder_refusals == 0
+    _assert_tables_match(jt, tt)
+
+
+def _assert_tables_match(jt, tt):
     assert len(tt) == len(jt) > 20
     assert list(tt.columns) == list(jt.columns)
     key = ["tile_y", "tile_x", "inst_id"]
