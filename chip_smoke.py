@@ -94,6 +94,30 @@
    timed, and once with ``planar_feed`` off; the embed stage from the TIFF
    with the planar feed at batch 512, its features equal to those of the
    RGB feed of the host nearest decode. Prints a ``feed`` JSON line;
+4c. the sliding-window WSI mode (``_wsi``) on the same TIFF (written
+   again if the feed phase did not leave it): ``run_hovernext_wsi`` over
+   its 25 x 25 = 625 windows of 256^2 at stride 248 (4 batches of 128 and
+   one of 113; every coordinate even, so every chunk planar), timed, with
+   the counts set to 0 just before and read just after (15 K1 calls, 1 K3
+   and 1 K4 a batch, K2's 4 a batch plus any adaptive re-run, no K5-K11);
+   the map against the table (its ids exactly 1..rows, every row owning
+   1..area pixels, the npz equal to the zip, the table finite and inside
+   its windows); a second run on the first two chunks (256 windows) whose
+   packs are caught by a spy on the module's pack functions: each batch's
+   unpacked labels and live feature slots equal the dense device tensors
+   copied whole (a mutant pack that drops its last entry must differ), the
+   budget rung, the bytes and copy ms of each route, and the host ms of
+   ``groups_from_sparse`` against ``_group_instance_pixels``; K4 bit-equal
+   to its plain version on the first batch's 256^2 labels at the cluster
+   size its geometry chooses, timed there; the CLI
+   (``cli.hovernext_infer.main``, in this process) on the 2047 x 2049 crop
+   with the most tissue, written as a second TIFF (81 windows, one chunk
+   with odd coordinates: the RGB route) with the fitted weights saved as a ``.pt``, in ``--mode
+   wsi`` and ``--mode tiles`` (its ROI tiles), each returning 0 and
+   writing its CSV and parquet with rows (and the map's npz and zip), beside a
+   direct ``run_hovernext_wsi`` call's rows. Prints a ``wsi`` JSON line
+   (windows/s beside the per-tile run's tiles/s, the split: decode wait,
+   device ms a batch, host rows, unpack and grouping, stitcher, finalize);
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -153,7 +177,7 @@
    and ptxas's registers and spills of ``csrc/cc.cu`` (a spill fails the
    run).
 
-Prints the ``chain`` and ``feed`` JSON lines, the slice's tiles/s, the kernels' JSON
+Prints the ``chain``, ``feed`` and ``wsi`` JSON lines, the slice's tiles/s, the kernels' JSON
 line and the card's name and power limit, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
@@ -318,9 +342,10 @@ def _smi() -> str:
     ).stdout.strip()
 
 
-def _annotations(slide, tile: int, n: int, path: Path) -> Path:
+def _annotations(slide, tile: int, n: int | None, path: Path) -> Path:
     """The TME-ROI tiles: a tile grid over the slide, in the ROI where at
-    least half the tile is tissue (non-background)."""
+    least half the tile is tissue (non-background); the first ``n`` of them,
+    or all with ``n=None``."""
     import pandas as pd
 
     lv = slide._levels[0]
@@ -333,6 +358,7 @@ def _annotations(slide, tile: int, n: int, path: Path) -> Path:
                          "predicted_class": "tumor", "in_tme_roi": frac > 0.5})
     df = pd.DataFrame(rows)
     roi = df.index[df["in_tme_roi"]]
+    n = len(roi) if n is None else n
     if len(roi) < n:
         raise RuntimeError(f"slide has {len(roi)} tissue tiles, need {n}")
     df.loc[roi[n:], "in_tme_roi"] = False
@@ -1194,6 +1220,19 @@ def _rate(fn, n: int, reps: int = 3) -> float:
     return n / best
 
 
+def _write_smoke_tiff(slide, path: Path) -> Path:
+    """The smoke slide as a tiled JPEG TIFF in the Aperio SVS layout
+    (256-px tiles, quality 90, 4:2:0; levels /1, /4, /16)."""
+    from path_gene_multimodal_tpu_torch.io import tiff_write
+
+    lv8 = slide._levels[3]
+    h8, w8 = lv8.shape[0] // 2 * 2, lv8.shape[1] // 2 * 2
+    lv16 = lv8[:h8, :w8].reshape(h8 // 2, 2, w8 // 2, 2, 3).mean(axis=(1, 3)).astype(np.uint8)
+    return tiff_write.write_tiled_tiff(path, [slide._levels[0], slide._levels[2], lv16],
+                                       tile_size=256, compression=7, jpeg_quality=90,
+                                       description="Aperio smoke |MPP = 0.2500|")
+
+
 def _feed(slide, roi, ann: Path, model, cfg, main_launches, tmp: Path, wrappers,
           failures) -> dict:
     """The slide feed from a real file: the smoke slide written as a tiled
@@ -1235,13 +1274,8 @@ def _feed(slide, roi, ann: Path, model, cfg, main_launches, tmp: Path, wrappers,
     if "-ljpeg" in cmd or b"libjpeg" in native.LIB_PATH.read_bytes():
         failures.append("feed: the decoder links libjpeg")
     lv0 = slide._levels[0]
-    lv8 = slide._levels[3]
-    h8, w8 = lv8.shape[0] // 2 * 2, lv8.shape[1] // 2 * 2
-    lv16 = lv8[:h8, :w8].reshape(h8 // 2, 2, w8 // 2, 2, 3).mean(axis=(1, 3)).astype(np.uint8)
     t0 = time.perf_counter()
-    tif = tiff_write.write_tiled_tiff(tmp / "smoke.svs", [lv0, slide._levels[2], lv16],
-                                      tile_size=256, compression=7, jpeg_quality=90,
-                                      description="Aperio smoke |MPP = 0.2500|")
+    tif = _write_smoke_tiff(slide, tmp / "smoke.svs")
     res.update(tiff_write_s=time.perf_counter() - t0, tiff_bytes=tif.stat().st_size)
     reader = TiffTileSlide(tif)
     page = reader._pages[0]
@@ -1440,6 +1474,393 @@ def _feed(slide, roi, ann: Path, model, cfg, main_launches, tmp: Path, wrappers,
     del enc
     torch.cuda.empty_cache()
     return res
+
+
+def _d2h_ms(tensors: list[torch.Tensor], reps: int = 10) -> float:
+    """Device-to-host copy of ``tensors`` into pinned buffers, ms per copy."""
+    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    return _sync_time(lambda: [b.copy_(t, non_blocking=True) for b, t in zip(bufs, tensors)],
+                      reps=reps)
+
+
+def _groups_equal(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(
+        np.array_equal(a[k][0], b[k][0]) and np.array_equal(a[k][1], b[k][1]) for k in a)
+
+
+def _prefix_equal(count: int, pidx, pvals, flat_dense, budget: int, mask) -> bool:
+    """A pack's truncation contract against the dense arrays: ``count`` is
+    the true count, and its first ``min(count, budget)`` entries are the
+    first set positions of ``mask`` with the dense values there."""
+    true = np.flatnonzero(mask)
+    m = min(count, budget)
+    return (count == len(true) and np.array_equal(pidx[:m].numpy(), true[:m])
+            and all(np.array_equal(v[:m].numpy(), fd[true[:m]])
+                    for v, fd in zip(pvals, flat_dense)))
+
+
+def _sparse_batches(caught: dict, slots: int, nw, inst) -> tuple[list[dict], list[str]]:
+    """Each caught batch of the second WSI run, its packs against the dense
+    device tensors copied whole. At the budget the run packed with: the
+    count is the true count, and the entries are the first ``min(count,
+    budget)`` nonzero pixels (live slots) with their values, in order; a
+    mutant pack that drops its last entry within the budget must differ.
+    At that budget, or where the batch overflowed it at the smallest rung
+    that holds it (packed again), the unpacked labels and live slots equal
+    the dense ones exactly, and ``groups_from_sparse`` equals
+    ``_group_instance_pixels`` (host ms of both). Also the bytes and copy
+    ms of the run's sparse and dense routes."""
+    rows, bad = [], []
+    for k, ((lbl, lb, lpack), (feats, fb, fpack)) in enumerate(
+            zip(caught["labels"], caught["features"])):
+        b, h, w = lbl.shape
+        lbl_ladder, feat_ladder = nw.budget_ladders(b * h * w, b * slots)
+        cnt, idx, ids = (t.cpu() for t in lpack)
+        fcnt, fidx = fpack[0].cpu(), fpack[1].cpu()
+        fpacked = {kk: v.cpu() for kk, v in fpack[2].items()}
+        dense = lbl.cpu().numpy()
+        dfeats = {kk: v.cpu().numpy() for kk, v in feats.items()}
+        n, fn = int(cnt), int(fcnt)
+        row = {"batch": k, "label_rung": lbl_ladder.index(lb), "label_budget": lb,
+               "nonzero_px": n, "feature_rung": feat_ladder.index(fb), "feature_budget": fb,
+               "live_slots": fn, "labels_overflow": n > lb, "features_overflow": fn > fb}
+        flat = dense.reshape(-1)
+        live = dfeats["area"] > 0
+        keys = list(dfeats)
+        row["labels_prefix_equal_dense"] = _prefix_equal(n, idx, [ids], [flat], lb, flat != 0)
+        row["live_slots_prefix_equal_dense"] = _prefix_equal(
+            fn, fidx, [fpacked[kk] for kk in keys], [dfeats[kk].reshape(-1) for kk in keys], fb,
+            live.reshape(-1))
+        if n:
+            mutant = ids.clone()
+            mutant[min(n, lb) - 1] = 0
+            row["mutant_drop_last_differs"] = not _prefix_equal(n, idx, [mutant], [flat], lb,
+                                                                 flat != 0)
+        if n > lb:
+            lb = next(r for r in lbl_ladder + [b * h * w] if r >= n)
+            cnt, idx, ids = (t.cpu() for t in inst.pack_labels_sparse(lbl, lb))
+            row["label_budget_repacked"] = lb
+        if fn > fb:
+            fb = next(r for r in feat_ladder + [b * slots] if r >= fn)
+            fcnt, fidx, fp = inst.pack_features_sparse(feats, fb)
+            fcnt, fidx, fpacked = fcnt.cpu(), fidx.cpu(), {kk: v.cpu() for kk, v in fp.items()}
+            row["feature_budget_repacked"] = fb
+        row["labels_equal_dense"] = bool(np.array_equal(
+            inst.unpack_labels_sparse(cnt, idx, ids, dense.shape), dense))
+        got = inst.unpack_features_sparse(fcnt, fidx, fpacked, b, slots)
+        row["live_slots_equal_dense"] = all(
+            np.array_equal(got[kk][live], v[live]) and not got[kk][~live].any()
+            for kk, v in dfeats.items())
+        t0 = time.perf_counter()
+        sparse_groups = inst.groups_from_sparse(cnt, idx, ids, b, h, w)
+        row["groups_from_sparse_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dense_groups = [nw._group_instance_pixels(dense[i]) for i in range(b)]
+        row["group_instance_pixels_ms"] = (time.perf_counter() - t0) * 1e3
+        row["groups_equal"] = all(_groups_equal(x, y) for x, y in zip(sparse_groups, dense_groups))
+        if not all(row[c] for c in ("labels_prefix_equal_dense", "live_slots_prefix_equal_dense",
+                                    "labels_equal_dense", "live_slots_equal_dense",
+                                    "groups_equal")):
+            bad.append(f"wsi: batch {k}'s packs differ from its dense tensors ({row})")
+        if row.get("mutant_drop_last_differs") is False:
+            bad.append(f"wsi: batch {k}: the check does not see a pack that drops its last "
+                       "entry")
+        sparse_t = [*lpack, fpack[0], fpack[1], *fpack[2].values()]
+        dense_t = [lbl, *feats.values()]
+        row["bytes"] = {"sparse": sum(t.numel() * t.element_size() for t in sparse_t),
+                        "dense": sum(t.numel() * t.element_size() for t in dense_t)}
+        row["copy_ms"] = {"sparse": _d2h_ms(sparse_t), "dense": _d2h_ms(dense_t)}
+        rows.append(row)
+    return rows, bad
+
+
+def _hidden_rows(rows: list, clipped: list, pixels: list, hidden, w0: int, h0: int,
+                 last: tuple[int, int]) -> dict:
+    """Where the rows sat that the stitcher left with no map pixel: each one
+    beside the kept row that covers most of its pixels (the windows, bboxes,
+    areas and views of both, that row's share of the hidden row's pixels,
+    the pair's pixel IoU and centroid distance); and how many kept rows own
+    at most half of their pixels (partly covered by later rows). ``rows``,
+    ``clipped`` and ``pixels`` are the stitcher's rows before painting, in
+    paint order; ``last`` the clamped last window's x and y."""
+    owner = np.zeros(h0 * w0, np.int32)  # the row index + 1, painted in row order
+    lin = [ys * w0 + xs for ys, xs in pixels]
+    for i, li in enumerate(lin):
+        owner[li] = i + 1
+    owned = np.bincount(owner, minlength=len(lin) + 1)[1:]
+    size = np.array([len(li) for li in lin])
+
+    def view(i: int) -> dict:
+        r = rows[i]
+        return {"row": i, "window": [int(r["tile_x"]), int(r["tile_y"])],
+                "bbox": [float(r[f"wsi_bbox_{k}"]) for k in ("xmin", "ymin", "xmax", "ymax")],
+                "area": float(r["area"]), "clipped": bool(clipped[i])}
+
+    out = []
+    for i in np.flatnonzero(hidden):
+        ids, cnt = np.unique(owner[lin[i]], return_counts=True)
+        j = int(ids[np.argmax(cnt)]) - 1
+        inter = np.intersect1d(lin[i], lin[j]).size
+        dist = float(np.hypot(rows[i]["wsi_centroid_x"] - rows[j]["wsi_centroid_x"],
+                              rows[i]["wsi_centroid_y"] - rows[j]["wsi_centroid_y"]))
+        out.append({"hidden": view(int(i)), "cover": view(j), "coverers": len(ids),
+                    "share": float(cnt.max() / size[i]),
+                    "iou": float(inter / (size[i] + size[j] - inter)), "centroid_dist": dist})
+    kept = ~np.asarray(hidden, bool)
+    edge = [any(e["hidden"]["window"][a] == last[a] or e["cover"]["window"][a] == last[a]
+                for a in (0, 1)) for e in out]
+    return {
+        "n": len(out), "rows": out,
+        "single_coverer": sum(e["coverers"] == 1 for e in out),
+        "both_clean": sum(not (e["hidden"]["clipped"] or e["cover"]["clipped"]) for e in out),
+        "in_clamped_edge_windows": int(sum(edge)),
+        "min_share": min((e["share"] for e in out), default=None),
+        "iou_min_median_max": ([float(q) for q in np.quantile([e["iou"] for e in out],
+                                                             [0, 0.5, 1])] if out else None),
+        "max_centroid_dist": max((e["centroid_dist"] for e in out), default=None),
+        "max_area_ratio": max((e["cover"]["area"] / e["hidden"]["area"] for e in out),
+                              default=None),
+        "kept_rows": int(kept.sum()),
+        "kept_owning_at_most_half": int((kept & (owned * 2 <= size)).sum()),
+        "kept_owning_less_than_all": int((kept & (owned < size)).sum()),
+    }
+
+
+def _wsi(slide, tif: Path, sd, model, cfg, main, tmp: Path, wrappers, failures) -> dict:
+    """The sliding-window WSI mode on the smoke TIFF, timed with the
+    kernels' counts, its map against its table; a second run on its first
+    two chunks with the packs caught (sparse = dense on every batch, the
+    transport's bytes and copy ms per route, the grouping's host ms) and K4
+    at 256^2 bit-equal to its plain version; the CLI on an odd-sided crop
+    in both modes."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.cli import hovernext_infer
+    from path_gene_multimodal_tpu_torch.io import tiff_write
+    from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.ops import cuda
+    from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
+    from path_gene_multimodal_tpu_torch.ops import instances as inst
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei as nuc
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei_wsi as nw
+
+    res: dict = {}
+    if not tif.exists():
+        _write_smoke_tiff(slide, tif)
+        res["tiff_written_again"] = True
+    batch, window = cfg.hovernext.batch_size, model.cfg.input_size
+    stride = int(round(window * cfg.hovernext.overlap))
+    tslide = TiffTileSlide(tif)
+    w0, h0 = tslide.level_dimensions[0]
+    windows = nw.iter_windows(w0, h0, window, stride)
+    n_b = -(-len(windows) // batch)
+    res.update(slide=[w0, h0], window=window, stride=stride, windows=len(windows), batches=n_b,
+               batch=batch)
+    main_kernels = ("convnext_block", "cc_sizes", "flood", "instance_stats")
+
+    # -- 1. the timed run, its launches ------------------------------------------
+    out = tmp / "wsi"
+    for w in wrappers.values():
+        w.launches = 0
+    # the stitcher's rows before painting and the paint's hidden rows,
+    # caught by reference (their evidence is taken after the timed run)
+    stitched: dict = {}
+    real_dedup, real_paint = nw._dedup_seam_duplicates, nw._paint
+
+    def dedup(rows, *a, **k):
+        kept = real_dedup(rows, *a, **k)
+        stitched.update(rows=kept, clipped=[bool(r.get("_clipped")) for r in kept])
+        return kept
+
+    def paint(pixels, *a):
+        o = real_paint(pixels, *a)
+        stitched.update(pixels=pixels, hidden=o[2])
+        return o
+
+    nw._dedup_seam_duplicates, nw._paint = dedup, paint
+    try:
+        t0 = time.perf_counter()
+        map_path, table = nw.run_hovernext_wsi(tslide, out, "smoke", model, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        nw._dedup_seam_duplicates, nw._paint = real_dedup, real_paint
+    launches = {k: w.launches for k, w in wrappers.items()}
+    timing = table.attrs["timing"]
+    dev_ms = timing["device_ms"]
+    res.update(
+        s=dt, windows_per_s=len(windows) / dt, per_tile_tiles_per_s=main["tiles_per_s"],
+        nuclei=len(table), launches=launches,
+        cc_sizes_adaptive_reruns=launches["cc_sizes"] - 4 * n_b,
+        routes=table.attrs["feed_routes"], decoder_refusals=tslide.decoder_refusals,
+        cc_slot_overflow_tiles=table.attrs["cc_slot_overflow_tiles"],
+        budget_levels=table.attrs["sparse_budget_levels"], transport=table.attrs["transport"],
+        hidden_rows_dropped=table.attrs["hidden_rows_dropped"],
+        split_s={"decode_wait": timing["decode_wait_s"], "device": sum(dev_ms) / 1e3,
+                 "host_rows": timing["host_rows_s"], "unpack_and_group": timing["unpack_groups_s"],
+                 "stitcher": timing["stitch_s"], "finalize_npz_zip": timing["finalize_s"]},
+        device_ms_per_batch=dev_ms)
+    want = {"convnext_block": 15 * n_b, "flood": n_b, "instance_stats": n_b}
+    failures += [f"wsi: {k} launched {launches[k]} times, expected {v}"
+                 for k, v in want.items() if launches[k] != v]
+    if res["cc_sizes_adaptive_reruns"] < 0:
+        failures.append(f"wsi: cc_sizes launched {launches['cc_sizes']} times, under 4 a batch")
+    failures += [f"wsi: {k} launched on the WSI path" for k, v in launches.items()
+                 if k not in main_kernels and v]
+    if res["routes"] != {"planar": n_b, "rgb": 0} or tslide.decoder_refusals:
+        failures.append(f"wsi: not every chunk took the planar route: {res['routes']}, "
+                        f"{tslide.decoder_refusals} refusals")
+
+    # -- 2. the map against the table ----------------------------------------------
+    m = nw.load_instance_map(map_path)
+    counts = np.bincount(m.ravel(), minlength=len(table) + 1)
+    owned = counts[table["inst_id"].to_numpy()]
+    mz = nw.load_instance_map(out / "smoke_pinst_pp.zip")
+    res.update(
+        map_shape=list(m.shape), map_ids_are_1_to_rows=bool(
+            len(counts) == len(table) + 1 and table["inst_id"].tolist()
+            == list(range(1, len(table) + 1)) and (counts[1:] > 0).all()),
+        rows_owning_no_pixel=int((owned == 0).sum()),
+        rows_owning_more_than_area=int((owned > table["area"].to_numpy()).sum()),
+        npz_equal_zip=bool(np.array_equal(m, mz)))
+    del m, mz
+    res["hidden_rows"] = _hidden_rows(stitched["rows"], stitched["clipped"], stitched["pixels"],
+                                      stitched["hidden"], w0, h0, (windows[-1][0], windows[-1][1]))
+    del stitched
+    if not res["map_ids_are_1_to_rows"]:
+        failures.append("wsi: the map's ids are not exactly 1..rows")
+    if res["rows_owning_no_pixel"] or res["rows_owning_more_than_area"]:
+        failures.append(f"wsi: {res['rows_owning_no_pixel']} rows own no map pixel, "
+                        f"{res['rows_owning_more_than_area']} more than their area")
+    if not res["npz_equal_zip"]:
+        failures.append("wsi: the npz map differs from the zip map")
+    failures += _table_failures(table, window, "wsi")
+
+    # -- 3. the first two chunks again, the packs caught -------------------------------
+    caught: dict = {"labels": [], "features": [], "stats": []}
+    real = {n: getattr(nw, n) for n in ("pack_labels_sparse", "pack_features_sparse",
+                                         "instance_features_batch", "iter_windows")}
+
+    def pack_labels(lbl, budget):
+        o = real["pack_labels_sparse"](lbl, budget)
+        caught["labels"].append((lbl, budget, o))
+        return o
+
+    def pack_features(feats, budget):
+        o = real["pack_features_sparse"](feats, budget)
+        caught["features"].append((feats, budget, o))
+        return o
+
+    def features(li, ti, max_instances):
+        caught["stats"].append((li, ti))
+        return real["instance_features_batch"](li, ti, max_instances=max_instances)
+
+    nw.pack_labels_sparse, nw.pack_features_sparse = pack_labels, pack_features
+    nw.instance_features_batch = features
+    nw.iter_windows = lambda *a: real["iter_windows"](*a)[: 2 * batch]
+    try:
+        nw.run_hovernext_wsi(TiffTileSlide(tif), tmp / "wsi_spy", "spy", model, cfg)
+    finally:
+        for n, f in real.items():
+            setattr(nw, n, f)
+    torch.cuda.synchronize()
+    res["sparse_batches"], bad = _sparse_batches(caught, model.max_instances, nw, inst)
+    failures += bad
+    if len(res["sparse_batches"]) != 2:
+        failures.append(f"wsi: {len(res['sparse_batches'])} packed batches caught, expected 2")
+
+    # -- 4. K4 on the first batch's 256^2 windows ----------------------------------------
+    li, ti = caught["stats"][0]
+    del caught
+    slots, nt = model.max_instances, 6
+    geo = k4.tiling(*li.shape, slots, nt, cuda.sm_count(li.device))
+    with torch.inference_mode():
+        got = k4.instance_stats(li, ti, slots, nt)
+        want_stats = k4.instance_stats_plain(li, ti, slots, nt)
+        res["k4_256"] = {
+            "shape": list(li.shape), "cluster": geo.cluster, "narrow_32bit_sums": geo.narrow,
+            "vector_rows": geo.vector_rows, "bit_equal": _bit_equal(got, want_stats),
+            "live_slots": int((got[0][..., 0] > 0).sum()),
+            "ms": _sync_time(lambda: k4.instance_stats(li, ti, slots, nt), reps=50),
+            "device_ms": _queued_ms(lambda: k4.instance_stats(li, ti, slots, nt), reps=50)}
+    nbytes = li.numel() * 8 + got[0].numel() * 4 + got[1].numel() * 4
+    res["k4_256"]["bound_ms"], res["k4_256"]["bound_by"] = _bound_ms(
+        nbytes, [(li.numel() * 12, PEAK_F32)])
+    if not res["k4_256"]["bit_equal"]:
+        failures.append("wsi: K4 on the 256^2 windows differs from its plain version")
+    del li, ti, got, want_stats
+
+    # -- 5. the CLI on an odd-sided crop, both modes --------------------------------------
+    ck = tmp / "sd.pt"
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, ck)
+    # the 2047 x 2049 region with the most tissue, on a 256-px grid (the
+    # top-left one is background)
+    lv0 = slide._levels[0]
+    tissue = (lv0[::16, ::16] != 243).any(-1)
+    cy, cx = max(((y, x) for y in range(0, lv0.shape[0] - 2049 + 1, 256)
+                  for x in range(0, lv0.shape[1] - 2047 + 1, 256)),
+                 key=lambda p: tissue[p[0] // 16: (p[0] + 2049) // 16,
+                                      p[1] // 16: (p[1] + 2047) // 16].mean())
+    crop = np.ascontiguousarray(lv0[cy: cy + 2049, cx: cx + 2047])
+    tif2 = tiff_write.write_tiled_tiff(tmp / "crop.svs", [crop], tile_size=256, compression=7,
+                                       jpeg_quality=90, description="Aperio crop |MPP = 0.2500|")
+    ann2 = _annotations(ArraySlide(crop), cfg.patch_size, None, tmp / "crop_annotations.csv")
+    cli: dict = {"crop": [2047, 2049], "crop_at": [cx, cy],
+                 "windows": len(nw.iter_windows(2047, 2049, window, stride))}
+    _, direct = nw.run_hovernext_wsi(TiffTileSlide(tif2), tmp / "direct", "crop", model, cfg)
+    cli["direct_wsi_rows"] = len(direct)
+    cli["direct_wsi_routes"] = direct.attrs["feed_routes"]
+    direct_tiles = nuc.run_hovernet_pipeline_on_wsi_tiles(TiffTileSlide(tif2), ann2,
+                                                          tmp / "direct", "crop", model, cfg)
+    cli["direct_tiles_rows"] = len(direct_tiles)
+    cli["roi_tiles"] = int(pd.read_csv(ann2)["in_tme_roi"].sum())
+    for mode, extra in (("wsi", []), ("tiles", ["--annotations-csv", str(ann2)])):
+        dest = tmp / f"cli_{mode}"
+        t0 = time.perf_counter()
+        rc = hovernext_infer.main(["--input", str(tif2), "--output", str(dest), "--mode", mode,
+                                   "--batch-size", str(batch), "--checkpoint", str(ck), *extra])
+        cli[f"{mode}_s"] = time.perf_counter() - t0
+        cli[f"{mode}_rc"] = rc
+        files = ["crop_hovernet_nuclei_wsi.csv", "crop_hovernet_nuclei_wsi.parquet"]
+        if mode == "wsi":
+            files += ["crop_pinst_pp.npz", "crop_pinst_pp.zip"]
+        cli[f"{mode}_files"] = {f: (dest / f).exists() for f in files}
+        cli[f"{mode}_rows"] = (len(pd.read_csv(dest / files[0])) if (dest / files[0]).exists()
+                               else None)
+        if rc != 0 or not all(cli[f"{mode}_files"].values()) or not cli[f"{mode}_rows"]:
+            failures.append(f"wsi: the CLI in --mode {mode} returned {rc}, files "
+                            f"{cli[f'{mode}_files']}, rows {cli[f'{mode}_rows']}")
+    # every row of windows ends at x = 1791, so every chunk takes the RGB route
+    want_routes = {"planar": 0, "rgb": -(-cli["windows"] // batch)}
+    if cli["direct_wsi_routes"] != want_routes or cli["windows"] != 81:
+        failures.append(f"wsi: the odd-sided crop's {cli['windows']} windows took "
+                        f"{cli['direct_wsi_routes']}, expected {want_routes} of 81")
+    res["cli"] = cli
+    torch.cuda.empty_cache()
+    return res
+
+def _wsi_line(res: dict) -> dict:
+    """The ``wsi`` JSON line: rates, the split, launches, checks, and each
+    caught batch's transport."""
+    keys = ("windows", "batches", "s", "windows_per_s", "per_tile_tiles_per_s", "nuclei",
+            "split_s", "device_ms_per_batch", "launches", "cc_sizes_adaptive_reruns", "routes",
+            "budget_levels", "transport", "hidden_rows_dropped", "hidden_rows",
+            "map_ids_are_1_to_rows",
+            "rows_owning_no_pixel",
+            "rows_owning_more_than_area", "npz_equal_zip", "k4_256", "cli")
+    line = {k: res.get(k) for k in keys}
+    if line["hidden_rows"]:  # each row's evidence is in chip_smoke.json
+        line["hidden_rows"] = {k: v for k, v in line["hidden_rows"].items() if k != "rows"}
+    line["sparse_batches"] = [
+        {k: b.get(k) for k in ("label_rung", "nonzero_px", "feature_rung", "live_slots",
+                               "label_budget_repacked", "feature_budget_repacked",
+                               "labels_prefix_equal_dense", "live_slots_prefix_equal_dense",
+                               "labels_equal_dense", "live_slots_equal_dense",
+                               "mutant_drop_last_differs", "groups_equal", "bytes", "copy_ms",
+                               "groups_from_sparse_ms", "group_instance_pixels_ms")}
+        for b in res.get("sparse_batches", [])]
+    return line
 
 
 def _forward_parts(model, stacked: torch.Tensor):
@@ -3266,6 +3687,12 @@ def main(argv: list[str] | None = None) -> int:
         "embed_tiles_per_s", "embed_features_equal_rgb_nearest")}
     print(json.dumps({"feed": feed_line}), flush=True)
 
+    # -- 4c. the sliding-window WSI mode and the CLI --------------------------------
+    report["wsi"] = _wsi(slide, tmp / "smoke.svs", sd, model, cfg, report, tmp, wrappers,
+                         failures)
+    wsi_line = _wsi_line(report["wsi"])
+    print(json.dumps({"wsi": wsi_line}), flush=True)
+
     # -- 5./6. the decoder configurations and their kernels -----------------
     del out, np_prob, hv, blb, overall, dist, mmask, mdense, markers, lbl, li, ti, lk, lp
     models, counts = _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report,
@@ -3288,6 +3715,7 @@ def main(argv: list[str] | None = None) -> int:
                       "islands_s": {d: r["s"] for d, r in report["islands"]["runs"].items()}}))
     print(json.dumps({"chain": chain_line}))
     print(json.dumps({"feed": feed_line}))
+    print(json.dumps({"wsi": wsi_line}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

@@ -24,8 +24,13 @@ TYPE_NAMES: dict[int, str] = {
 
 @dataclass(frozen=True)
 class NucleiConfig:
-    """The ``hovernext`` section of the pipeline config (fields read here)."""
+    """The ``hovernext`` section of the pipeline config (fields read here).
+    ``tile_size`` is the model input/window size (the CLI and the model
+    builders read it); ``max_instances_per_tile`` caps the per-window
+    instance ids."""
 
+    tile_size: int = 256
+    overlap: float = 0.96875
     batch_size: int = 128
     tta: int = 4
     max_instances_per_tile: int = 512

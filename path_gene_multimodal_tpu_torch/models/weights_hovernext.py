@@ -1,6 +1,7 @@
-"""JAX HoverNeXt parameters → the port's ``state_dict``.
+"""JAX HoverNeXt parameters → the port's ``state_dict``, and a
+torch-named state dict's shapes → ``HoverNeXtConfig``.
 
-The inverse of the JAX package's ``convert_hovernext``
+``params_from_jax`` is the inverse of the JAX package's ``convert_hovernext``
 (``models/weights_hovernext.py``): it takes the JAX package's parameter
 tree, given as numpy arrays (``{"params": {...}}`` or the inner dict), and
 returns the torch-named ``state_dict`` of ``models.hovernext.HoverNeXt``.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from path_gene_multimodal_tpu_torch.config import HoverNeXtConfig
+from path_gene_multimodal_tpu_torch.models.weights_convnext import infer_convnext_config
 
 
 def _t(a) -> torch.Tensor:
@@ -65,3 +67,34 @@ def params_from_jax(flax_params: Mapping, cfg: HoverNeXtConfig) -> dict[str, tor
     for name in ("final_conv", "head_np", "head_hv", "head_tp"):
         _conv(p[name], name, sd)
     return sd
+
+
+def infer_hovernext_config(
+    sd: Mapping[str, np.ndarray], input_size: int = 256
+) -> HoverNeXtConfig:
+    """Derive a HoverNeXtConfig from a layout-matching state dict's shapes
+    (a copy of the JAX package's ``infer_hovernext_config``)."""
+    enc_sd = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    if not enc_sd:
+        raise ValueError("no 'encoder.*' keys in state dict")
+    enc = infer_convnext_config(enc_sd)
+    dims = []
+    i = 0
+    while f"decoder.{i}.conv0.weight" in sd:
+        dims.append(int(np.shape(sd[f"decoder.{i}.conv0.weight"])[0]))
+        i += 1
+    if not dims:
+        raise ValueError("no 'decoder.I.conv0.*' keys in state dict")
+    if len(dims) != enc.num_stages:
+        raise ValueError(
+            f"decoder has {len(dims)} levels but encoder has {enc.num_stages} stages"
+        )
+    if "head_tp.weight" not in sd:
+        raise ValueError("missing 'head_tp.weight'")
+    num_types = int(np.shape(sd["head_tp.weight"])[0]) - 1
+    return HoverNeXtConfig(
+        encoder=enc,
+        decoder_dims=tuple(dims),
+        num_types=num_types,
+        input_size=input_size,
+    )

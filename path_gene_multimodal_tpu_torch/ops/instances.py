@@ -1,10 +1,19 @@
-"""Per-instance features from dense instance label maps.
+"""Per-instance features from dense instance label maps, and the sparse
+label and feature transport.
 
 Counterpart of the JAX package's ``ops/instances.py``
-(``instance_features_batch`` with ``use_pallas=True``, and
-``instance_contours``): the segment reduction is K4
+(``instance_features_batch`` with ``use_pallas=True``,
+``instance_contours`` and the sparse transport ``pack_labels_sparse`` ...
+``groups_from_sparse``): the segment reduction is K4
 (``ops/instance_stats.py``), the features are elementwise on its small
 output, and the contours are traced on the host per instance bbox crop.
+
+The packs run on the device without waiting for it: each nonzero entry's
+rank is a prefix sum of the mask, and the entries whose rank is within the
+budget are scattered to that rank in a zero-filled buffer, so the indices
+ascend and the padding is JAX's (index 0); the true count stays a device
+scalar. Ids stay int32 (the JAX package narrows them to uint16), and
+``groups_from_sparse`` groups on (window, id) for any id.
 """
 
 from __future__ import annotations
@@ -60,4 +69,100 @@ def instance_contours(
             # DP collapsed a tiny ring: keep the unsimplified exterior
             simp = ring
         out[inst_id] = np.stack([simp[:, 1] + x0, simp[:, 0] + y0], axis=1)
+    return out
+
+
+def _prefix_pack(mask: torch.Tensor, budget: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(count, idx) of a flat bool ``mask``: ``count`` the true number of
+    set entries (an int32 device scalar), ``idx`` (budget,) int32 the
+    positions of the first ``budget`` of them in ascending order, 0 past
+    ``count``. Enqueued on the device, with no read back to the host."""
+    n = mask.numel()
+    rank = torch.cumsum(mask, 0, dtype=torch.int32 if n < 2**31 else torch.int64)
+    count = rank[-1].to(torch.int32) if n else torch.zeros((), dtype=torch.int32,
+                                                            device=mask.device)
+    # entry j of rank r (1-based) goes to slot r - 1; the others, and the
+    # entries beyond the budget, to a dump slot past the end
+    slot = torch.where(mask & (rank <= budget), rank - 1, budget).to(torch.int64)
+    idx = torch.zeros(budget + 1, dtype=torch.int32, device=mask.device)
+    idx.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=mask.device))
+    return count, idx[:budget]
+
+
+def pack_labels_sparse(lbl: torch.Tensor, budget: int):
+    """Device-side sparse encoding of dense label maps for a small copy to
+    the host (nuclei cover ~1-20% of a window's pixels).
+
+    ``lbl``: (B, H, W) integer labels, 0 = background. Returns
+    ``(count, idx, ids)``: ``count`` int32 device scalar = the TRUE number
+    of nonzero pixels (may exceed ``budget``); ``idx`` (budget,) int32 flat
+    indices into ``lbl.reshape(-1)`` in ascending order; ``ids`` (budget,)
+    int32 label values at those pixels. Entries past ``count`` are padding
+    (index 0 and the label there). If ``count > budget`` the encoding is
+    TRUNCATED to the first ``budget`` pixels: callers must fall back to a
+    dense transfer."""
+    flat = lbl.reshape(-1)
+    count, idx = _prefix_pack(flat != 0, budget)
+    return count, idx, flat.index_select(0, idx).to(torch.int32)
+
+
+def unpack_labels_sparse(count, idx, ids, shape: tuple) -> np.ndarray:
+    """Host-side inverse of :func:`pack_labels_sparse` → dense int32."""
+    n = int(count)
+    out = np.zeros(int(np.prod(shape)), np.int32)
+    out[np.asarray(idx[:n])] = np.asarray(ids[:n])
+    return out.reshape(shape)
+
+
+def pack_features_sparse(feats: dict, budget: int):
+    """Compact a (B, max_instances)-slotted feature dict to its LIVE slots
+    (area > 0) on the device. Returns ``(count, idx, packed)`` with the
+    truncation contract of :func:`pack_labels_sparse` (``idx`` flat into
+    the (B * max_instances,) slot axis). Only live slots round-trip: dead
+    slots unpack to zero, whatever the dense value there (consumers filter
+    on ``area > 0`` before reading any key)."""
+    count, idx = _prefix_pack(feats["area"].reshape(-1) > 0, budget)
+    packed = {k: v.reshape(-1).index_select(0, idx) for k, v in feats.items()}
+    return count, idx, packed
+
+
+def unpack_features_sparse(
+    count, idx, packed: dict, batch: int, max_instances: int
+) -> dict[str, np.ndarray]:
+    """Host-side inverse of :func:`pack_features_sparse` → full
+    (batch, max_instances) numpy slot tables."""
+    n = int(count)
+    sel = np.asarray(idx[:n])
+    out = {}
+    for k, v in packed.items():
+        vn = np.asarray(v)
+        full = np.zeros(batch * max_instances, vn.dtype)
+        full[sel] = vn[:n]
+        out[k] = full.reshape(batch, max_instances)
+    return out
+
+
+def groups_from_sparse(
+    count, idx, ids, batch: int, height: int, width: int
+) -> list[dict[int, tuple[np.ndarray, np.ndarray]]]:
+    """Per-window {id: (ys, xs)} pixel groups straight from a sparse label
+    encoding: one vectorized pass over the nonzero pixels. Groups come in
+    ascending id, each group's pixels in raster order."""
+    n = int(count)
+    sel = np.asarray(idx[:n]).astype(np.int64)
+    idv = np.asarray(ids[:n]).astype(np.int64)
+    hw = height * width
+    b = sel // hw
+    r = sel % hw
+    ys = r // width
+    xs = r % width
+    # (window, id) as one key, free of collisions for any id >= 0
+    key = b * (int(idv.max(initial=0)) + 1) + idv
+    order = np.argsort(key, kind="stable")
+    key, b, ys, xs, idv = key[order], b[order], ys[order], xs[order], idv[order]
+    starts = np.flatnonzero(np.diff(key, prepend=-1))
+    out: list[dict[int, tuple[np.ndarray, np.ndarray]]] = [{} for _ in range(batch)]
+    for j, lo in enumerate(starts):
+        hi = starts[j + 1] if j + 1 < len(starts) else n
+        out[int(b[lo])][int(idv[lo])] = (ys[lo:hi], xs[lo:hi])
     return out

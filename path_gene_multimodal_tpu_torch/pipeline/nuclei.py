@@ -16,15 +16,20 @@ mode, dense transfer):
 5. crop to the tile on the device, ``ops.instances.instance_features_batch``
    (K4); labels and features go to the host;
 6. rows with tile-local and WSI coordinates, contours, morphology;
-   ``<stem>_hovernet_nuclei_wsi.csv`` + ``.parquet``.
+   ``<stem>_hovernet_nuclei_wsi.csv`` + ``.parquet``; with
+   ``save_tile_artifacts``, per tile ``hovernet_tiles/<x>_<y>/`` with
+   ``class_inst.json`` ``{inst_id: [type, [0, cx, cy]]}``, ``pinst_pp.npz``
+   and the zarr ``pinst_pp.zip`` (uint32 instance map).
 
-Not ported yet: the sparse label transport (made for a slow TPU link; the
-output is identical either way), per-tile artifacts
-(``save_tile_artifacts``) and the sliding-window WSI mode.
+The per-tile mode copies its labels and features to the host dense: its
+rows need no pixel groups, and a card's link moves a batch's maps in well
+under a millisecond. The sparse transport (``ops/instances.py``), made for
+a slow TPU link, is the sliding-window mode's (``pipeline/nuclei_wsi.py``).
 """
 
 from __future__ import annotations
 
+import json
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -46,6 +51,7 @@ from path_gene_multimodal_tpu_torch.core.artifacts import (
     write_nuclei_table,
 )
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
+from path_gene_multimodal_tpu_torch.io.zarrzip import write_zarr_zip
 from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
 from path_gene_multimodal_tpu_torch.ops import watershed as ws
 from path_gene_multimodal_tpu_torch.ops.components import INF
@@ -185,16 +191,19 @@ def run_hovernet_pipeline_on_wsi_tiles(
     model: NucleiModel,
     cfg: PipelineConfig,
     batch_size: int | None = None,
+    save_tile_artifacts: bool = False,
+    write_artifacts: bool = True,
 ) -> pd.DataFrame:
-    """The reference's end-to-end nuclei stage (:342-407): returns (and
-    writes) the WSI-space nuclei table. ``attrs["feed_routes"]`` counts the
-    chunks that took the planar and the RGB route."""
+    """The reference's end-to-end nuclei stage (:342-407): returns (and,
+    with ``write_artifacts``, writes) the WSI-space nuclei table.
+    ``attrs["feed_routes"]`` counts the chunks that took the planar and the
+    RGB route."""
     logger = get_logger()
     model.cc_overflow_tiles(reset=True)
     sel = select_tiles_for_hovernet(load_tile_annotations(annotations_csv))
     if len(sel) == 0:
         logger.warning("no TME-ROI tiles for %s; empty nuclei table", stem)
-        return _write_empty(out_dir, stem)
+        return _write_empty(out_dir, stem, write_artifacts)
 
     tile_size = cfg.patch_size
     input_size = model.cfg.input_size
@@ -260,7 +269,8 @@ def run_hovernet_pipeline_on_wsi_tiles(
         capped["tiles"] += int((insts.max(axis=(1, 2), initial=0) >= model.max_instances).sum())
         for bi, (x, y) in enumerate(chunk):
             feats_bi = {k: v[bi] for k, v in chunk_feats.items()}
-            rows.extend(_tile_rows(insts[bi], int(x), int(y), out_dir, feats_bi))
+            rows.extend(_tile_rows(insts[bi], int(x), int(y), out_dir, feats_bi,
+                                   save_tile_artifacts))
 
     coords = sel[["x", "y"]].to_numpy(np.int64)
     chunks = [coords[s : s + batch] for s in range(0, len(coords), batch)]
@@ -274,19 +284,20 @@ def run_hovernet_pipeline_on_wsi_tiles(
                        "nuclei were dropped", stem, capped["tiles"], model.max_instances)
     nuclei = pd.DataFrame(rows)
     if len(nuclei) == 0:
-        nuclei = _write_empty(out_dir, stem)
-    else:
+        nuclei = _write_empty(out_dir, stem, write_artifacts)
+    elif write_artifacts:
         write_nuclei_table(out_dir / f"{stem}_hovernet_nuclei_wsi", nuclei)
     nuclei.attrs["cc_slot_overflow_tiles"] = n_over
     nuclei.attrs["feed_routes"] = routes
     return nuclei
 
 
-def pipelined_batches(chunks, decode_fn, step_fn, process_fn):
-    """Three-stage software pipeline: threaded decode (2 workers, 3-deep
-    prefetch) → ``step_fn(item)`` (enqueues the batch's device work and its
-    copies to the host) → ``process_fn(*args)`` of batch k on the host
-    while batch k+1 computes on the device."""
+def pipelined_batches(chunks, decode_fn, step_fn, process_fn, on_batch=None):
+    """Three-stage software pipeline, shared by the per-tile and the
+    sliding-window modes: threaded decode (2 workers, 3-deep prefetch) →
+    ``step_fn(item)`` (enqueues the batch's device work and its copies to
+    the host) → ``process_fn(*args)`` of batch k on the host while batch
+    k+1 computes on the device; then ``on_batch(i, args)``, if given."""
     pending = None
     with ThreadPoolExecutor(max_workers=2) as pool:
         futures = [pool.submit(decode_fn, c) for c in chunks[:3]]
@@ -301,15 +312,19 @@ def pipelined_batches(chunks, decode_fn, step_fn, process_fn):
             if pending is not None:
                 process_fn(*pending)
             pending = args
+            if on_batch is not None:
+                on_batch(i, args)
         if pending is not None:
             process_fn(*pending)
 
 
 def _tile_rows(inst: np.ndarray, tile_x: int, tile_y: int, out_dir: Path,
-               feats: dict[str, np.ndarray]) -> list[dict[str, Any]]:
+               feats: dict[str, np.ndarray],
+               save_tile_artifacts: bool = False) -> list[dict[str, Any]]:
     contours = instance_contours(inst, feats, simplify_tol=0.5)
     tile_name = f"{tile_x}_{tile_y}"
     rows = []
+    class_inst: dict[str, list] = {}
     for inst_id in np.flatnonzero(np.asarray(feats["area"]) > 0):
         if inst_id == 0:
             continue
@@ -352,6 +367,16 @@ def _tile_rows(inst: np.ndarray, tile_x: int, tile_y: int, out_dir: Path,
             "minor_axis_length": float(feats["minor_axis"][inst_id]),
             "orientation": float(feats["orientation"][inst_id]),
         })
+        class_inst[str(inst_id)] = [t, [0, cx, cy]]
+    if save_tile_artifacts:
+        # the reference's layout: <slide dir>/hovernet_tiles/<tile>/
+        # (aggregated_hovernet_run.py:376); the zip is its consumers' zarr
+        # contract, (1, H, W) uint32 (:163-166 squeeze the leading axis)
+        tdir = out_dir / "hovernet_tiles" / tile_name
+        tdir.mkdir(parents=True, exist_ok=True)
+        (tdir / "class_inst.json").write_text(json.dumps(class_inst))
+        np.savez_compressed(tdir / "pinst_pp.npz", inst_map=inst.astype(np.uint32))
+        write_zarr_zip(tdir / "pinst_pp.zip", inst.astype(np.uint32)[None])
     return rows
 
 
@@ -396,7 +421,10 @@ def _solidity(poly: np.ndarray, area: float) -> float:
     return float(min(area / hull_area, 1.0))
 
 
-def _write_empty(out_dir: str | Path, stem: str) -> pd.DataFrame:
+def _write_empty(out_dir: str | Path, stem: str, write: bool) -> pd.DataFrame:
+    """The table's columns with no rows (written when ``write``), so that
+    every empty path keeps the schema downstream consumers read."""
     empty = pd.DataFrame(columns=NUCLEI_COLUMNS)
-    write_nuclei_table(Path(out_dir) / f"{stem}_hovernet_nuclei_wsi", empty)
+    if write:
+        write_nuclei_table(Path(out_dir) / f"{stem}_hovernet_nuclei_wsi", empty)
     return empty

@@ -70,7 +70,17 @@ def setup(tmp_path_factory):
     return jcfg, tcfg, jslide, tslide, params, ann
 
 
-def _tables(setup, tmp_path):
+def _models(setup):
+    jcfg, tcfg, _, _, params, _ = setup
+    jmodel = jnuc.NucleiModel.build(jcfg, params=params, dtype=jnp.float32, tta=4,
+                                    max_instances=MAX_INST)
+    tmodel = tnuc.NucleiModel.build(tcfg, state_dict=params_from_jax(params, tcfg),
+                                    dtype=torch.float32, tta=4, device="cpu",
+                                    max_instances=MAX_INST)
+    return jmodel, tmodel
+
+
+def _tables(setup, tmp_path, **kw):
     jcfg, tcfg, jslide, tslide, params, ann = setup
     jmodel = jnuc.NucleiModel.build(jcfg, params=params, dtype=jnp.float32, tta=4,
                                     max_instances=MAX_INST)
@@ -80,9 +90,11 @@ def _tables(setup, tmp_path):
     (tmp_path / "j").mkdir()
     (tmp_path / "t").mkdir()
     jt = jnuc.run_hovernet_pipeline_on_wsi_tiles(
-        jslide, ann, tmp_path / "j", "s", jmodel, j_default_config(patch_size=TILE), batch_size=4)
+        jslide, ann, tmp_path / "j", "s", jmodel, j_default_config(patch_size=TILE), batch_size=4,
+        **kw)
     tt = tnuc.run_hovernet_pipeline_on_wsi_tiles(
-        tslide, ann, tmp_path / "t", "s", tmodel, default_config(patch_size=TILE), batch_size=4)
+        tslide, ann, tmp_path / "t", "s", tmodel, default_config(patch_size=TILE), batch_size=4,
+        **kw)
     return jmodel, tmodel, jt, tt
 
 
@@ -204,3 +216,70 @@ def test_headfit_matches_jax(setup):
     tfg = (torch.softmax(out["np"], -1)[..., 1] > 0.5).numpy()
     iou = (jfg & tfg).sum() / max((jfg | tfg).sum(), 1)
     assert jfg.mean() > 0.01 and iou > 0.95, (jfg.mean(), iou)
+
+
+def test_save_tile_artifacts_match_jax(setup, tmp_path):
+    """Per tile, ``hovernet_tiles/<x>_<y>/``: ``class_inst.json`` with the
+    same ids and types (centroids at the table's 1e-4), ``pinst_pp.npz``
+    and the zarr ``pinst_pp.zip`` with the same uint32 map, each package
+    reading the other's zip. ``write_artifacts=False`` writes no table."""
+    import json
+
+    from path_gene_multimodal_tpu.io.zarrzip import read_zarr_zip as j_read_zip
+    from path_gene_multimodal_tpu_torch.io.zarrzip import read_zarr_zip
+
+    _, _, jt, tt = _tables(setup, tmp_path, save_tile_artifacts=True, write_artifacts=False)
+    assert not list((tmp_path / "t").glob("*_hovernet_nuclei_wsi.*"))
+    assert not list((tmp_path / "j").glob("*_hovernet_nuclei_wsi.*"))
+    jtiles = sorted(p.name for p in (tmp_path / "j" / "hovernet_tiles").iterdir())
+    ttiles = sorted(p.name for p in (tmp_path / "t" / "hovernet_tiles").iterdir())
+    assert ttiles == jtiles and len(ttiles) == len(set(tt["tile_name"])) >= 4
+    for name in ttiles:
+        jd, td = tmp_path / "j" / "hovernet_tiles" / name, tmp_path / "t" / "hovernet_tiles" / name
+        assert sorted(p.name for p in td.iterdir()) == \
+            ["class_inst.json", "pinst_pp.npz", "pinst_pp.zip"]
+        jc = json.loads((jd / "class_inst.json").read_text())
+        tc = json.loads((td / "class_inst.json").read_text())
+        assert list(tc) == list(jc) and len(tc) > 0
+        for k in jc:
+            assert tc[k][0] == jc[k][0] and tc[k][1][0] == jc[k][1][0] == 0
+            np.testing.assert_allclose(tc[k][1][1:], jc[k][1][1:], rtol=1e-5, atol=1e-4)
+        with np.load(td / "pinst_pp.npz") as t, np.load(jd / "pinst_pp.npz") as j:
+            assert t["inst_map"].dtype == np.uint32 and t["inst_map"].shape == (TILE, TILE)
+            np.testing.assert_array_equal(t["inst_map"], j["inst_map"])
+            for zp in (td / "pinst_pp.zip", jd / "pinst_pp.zip"):
+                for read in (read_zarr_zip, j_read_zip):
+                    np.testing.assert_array_equal(read(zp), t["inst_map"][None])
+
+
+def test_wsi_table_and_map_match_jax(setup, tmp_path):
+    """The sliding-window mode with the fitted f32 model of both packages
+    on an ``ArraySlide`` crop of the fixture slide with tissue: 380², 16
+    windows of 128 at stride 124, batch 4. The tables meet the per-tile bar
+    row for row, in order (a window or owner that flipped would show), and
+    the instance maps (npz and zip) are equal."""
+    from path_gene_multimodal_tpu.io.slide import ArraySlide as JArraySlide
+    from path_gene_multimodal_tpu.pipeline import nuclei_wsi as jw
+    from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei_wsi as tw
+    from test_torch_nuclei_wsi import assert_maps_match, assert_wsi_tables_match
+
+    _, _, jslide, _, _, _ = setup
+    lv = jslide._levels[0]
+    side = 380
+    starts = range(0, lv.shape[0] - side, 64)
+    y0, x0 = max(((y, x) for y in starts for x in starts),
+                 key=lambda p: (lv[p[0]: p[0] + side, p[1]: p[1] + side] != 243).mean())
+    crop = np.ascontiguousarray(lv[y0: y0 + side, x0: x0 + side])
+    assert len(tw.iter_windows(side, side, SIZE, round(SIZE * 0.96875))) == 16
+    jmodel, tmodel = _models(setup)
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    _, jt = jw.run_hovernext_wsi(JArraySlide(crop), jdir, "c", jmodel, j_default_config(),
+                                 batch_size=4)
+    _, tt = tw.run_hovernext_wsi(ArraySlide(crop), tdir, "c", tmodel, default_config(),
+                                 batch_size=4)
+    assert len(tt) > 20
+    assert_wsi_tables_match(jt, tt, jdir, tdir)
+    m = assert_maps_match(jdir, tdir, "c")
+    assert set(np.unique(m)) == set(range(len(tt) + 1))
+    assert tt.attrs["feed_routes"] == {"planar": 0, "rgb": 4}
