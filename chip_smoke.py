@@ -18,8 +18,8 @@
    published widths (224^2, patch 16, width 768, 12 layers, 12 heads,
    projection 512; seeded weights) as ``ImageEncoder(dtype=bfloat16,
    device="cuda")`` through ``run_extract_features`` at the default batch
-   of 512 ((256, 512) finite f32 features; the features H5 is written and
-   read back when h5py is installed, decided once and stated in the JSON);
+   of 512 ((256, 512) finite f32 features; the features H5 is written by
+   the port's own HDF5 writer, ``io/hdf5.py``, and read back equal);
    the bf16 features against the f32 forward on the card (under
    ``exact_f32``) at cosine >= 0.999 per tile, the f32 forward on the card
    against the CPU's on 4 tiles at atol 5e-4 / rtol 1e-3, and a mutant
@@ -175,10 +175,29 @@
    device time and the host loop's share under both drivers, the cluster
    size the geometry did not choose timed through the core's launcher,
    and ptxas's registers and spills of ``csrc/cc.cu`` (a spill fails the
-   run).
+   run);
+9. drives the 8-step runner (``_runner``): ``pipeline/runner.py::
+   run_one_wsi`` on the smoke TIFF with CLIP ViT-B/16 (bf16) and the CLIP
+   text tower (width 512, 12 layers, context 77, f32) at their published
+   widths, seeded, ``FallbackTokenizer``, the default config but
+   ``tme_classes`` = all classes (``min_polygon_area_px`` 0, printed, if
+   the defaults leave no polygon), with the counts set to 0 just before
+   and read just after (K5 once a class in the polygons' small-object
+   removal, nothing else); every artifact the JAX package's end-to-end test
+   checks, both H5 files read back through the port's reader equal to what
+   the stages returned, the done flag's keys the JAX package's; each K5
+   call held to its plain version on its own mask (labels exactly) and
+   timed; steps 3-8 replayed on the CPU from the card's features and class
+   embeddings (CSV floats within atol 5e-4 / rtol 1e-3, classes, TME flags,
+   rings and overlay bytes equal) and the tessellation on the CPU (coords
+   equal); a second run returns ``already_done``; without the done flag,
+   GeoJSON and overlays a third takes steps 1-2 from the resume manifest;
+   ``python -m path_gene_multimodal_tpu_torch.cli.main --wsi TIFF
+   --outroot D`` in a child process exits 0. K5's launches on the kernels
+   line are the islands path's and the runner's (``launches_by_path``).
 
-Prints the ``chain``, ``feed`` and ``wsi`` JSON lines, the slice's tiles/s, the kernels' JSON
-line and the card's name and power limit, then, as the last line,
+Prints the ``chain``, ``feed``, ``wsi`` and ``runner`` JSON lines, the slice's tiles/s, the
+kernels' JSON line and the card's name and power limit, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 ``build/chip_smoke/``, which git ignores).
@@ -273,6 +292,17 @@ EMBED_MIN_COS = 0.999
 EMBED_ATOL, EMBED_RTOL = 5e-4, 1e-3
 THUMB = (2000, 2000)  # the islands path's thumbnail (the JAX default)
 ISLAND_CLASSES = ("Tumor", "TILs", "TLS", "Stroma")  # groups tumor / til / tls, and none
+# the runner phase: the per-slide artifacts and the done flag's keys that the
+# JAX package's end-to-end test checks (tests/test_runner_e2e.py:49-77)
+RUNNER_ARTIFACTS = ("{s}.h5", "{s}_features.h5", "{s}_classes.npy", "{s}_annotations.csv",
+                    "{s}_annotations_with_coords.csv", "{s}.geojson",
+                    "{s}_all_classes_overlay.png", "mask.png", "thumbnail.png")
+RUNNER_DONE_KEYS = ("wsi_path", "out_dir", "csv_path", "geojson_path", "overlay_all_path",
+                    "per_class_outputs", "num_features", "num_tiles", "classes_processed",
+                    "patch_size", "model_type", "status", "id", "wsi_stem", "timestamp",
+                    "stage_report")
+# the CPU replay's bar for the floats of the runner's CSVs (elementwise)
+REPLAY_ATOL, REPLAY_RTOL = 5e-4, 1e-3
 
 
 def _sync_time(fn, reps: int, warm: int = 1) -> float:
@@ -1026,8 +1056,6 @@ def _chain(slide, coords, nuclei, tmp: Path, wrappers, failures) -> dict:
     ``HOST_TREE_CELL_BUDGET``), edge for edge against cKDTree. The port's
     kernel counts are set to 0 before the phase and read after: the chain
     launches none of them."""
-    from importlib.util import find_spec
-
     import torch.nn.functional as F
 
     from path_gene_multimodal_tpu_torch.config import GraphConfig, default_config
@@ -1049,25 +1077,25 @@ def _chain(slide, coords, nuclei, tmp: Path, wrappers, failures) -> dict:
     t0 = time.perf_counter()
     enc = clip.ImageEncoder(vcfg, dtype=torch.bfloat16, device="cuda", seed=0)
     res["encoder_setup_s"] = time.perf_counter() - t0
-    # whether the stage writes its artifacts (the features H5 needs h5py)
-    # is decided here once, by whether h5py is installed
-    write = find_spec("h5py") is not None
-    res["artifacts_written"] = write
+    # the stage writes its artifacts (the features H5 through the port's
+    # own HDF5 writer) and the H5 is read back
+    res["artifacts_written"] = True
     out = tmp / "embed"
-    run_extract_features(slide, coords, enc, out, "warm", cfg, write_artifacts=write)
+    run_extract_features(slide, coords, enc, out, "warm", cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    feats = run_extract_features(slide, coords, enc, out, "smoke", cfg, write_artifacts=write)
+    feats = run_extract_features(slide, coords, enc, out, "smoke", cfg)
     res["embed_s"] = time.perf_counter() - t0
     res["embed_tiles_per_s"] = len(coords) / res["embed_s"]
     if feats.shape != (len(coords), vcfg.out_dim) or feats.dtype != np.float32:
         failures.append(f"embed: features {feats.shape} {feats.dtype}")
     if not np.isfinite(feats).all():
         failures.append("embed: non-finite features")
-    if write:
-        back = read_features_h5(out / "smoke_features.h5")
-        if not np.array_equal(back["features"], feats):
-            failures.append("embed: the features H5 does not read back equal")
+    back = read_features_h5(out / "smoke_features.h5")
+    res["features_h5_equal"] = bool(np.array_equal(back["features"], feats)
+                                    and back["features"].dtype == feats.dtype)
+    if not res["features_h5_equal"]:
+        failures.append("embed: the features H5 does not read back equal")
 
     tiles = torch.from_numpy(np.stack([slide.read_region((int(x), int(y)), 0, (224, 224))
                                        for x, y in coords]))
@@ -3114,8 +3142,9 @@ class _cc_spy:  # noqa: N801 (a context manager, named as one)
     """The launches of K5/K6's core (``ops/cc.py::_launch``) while it is
     installed: each launch's geometry, round, driver, its flags tensor (the
     spy's own where the wrapper passes none; the kernel sets its last word
-    to the cluster size it ran on) and counts tensor (the spy's own, one a
-    call, where the wrapper passes none)."""
+    to the cluster size it ran on), counts tensor (the spy's own, one a
+    call, where the wrapper passes none) and, at a call's first launch, a
+    copy of its uint8 mask."""
 
     def __enter__(self):
         from path_gene_multimodal_tpu_torch.ops import cc
@@ -3136,7 +3165,8 @@ class _cc_spy:  # noqa: N801 (a context manager, named as one)
             counts = (torch.zeros(2, dtype=torch.int64, device=m.device)
                       if rnd == 0 or not self.launches else self.launches[-1]["counts"])
         self.launches.append({"geo": geo, "round": rnd, "device_rounds": bool(device_rounds),
-                              "flags": flags, "counts": counts, "shape": [b, h, w]})
+                              "flags": flags, "counts": counts, "shape": [b, h, w],
+                              "mask": m.clone() if rnd == 0 else None})
         self.orig(m, lbl0, lbl1, flags, bar, counts, geo, b, h, w, *rest)
 
     def calls(self) -> list[dict]:
@@ -3420,6 +3450,253 @@ def _check_cc(path_masks, fg, path_launches, wrappers, failures, out_dir) -> lis
     return entries
 
 
+def _frames_close(a, b, floats) -> tuple[bool, float]:
+    """(the non-float columns equal, the float columns' excess over the
+    replay bar: passes at <= 1)."""
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False, float("inf")
+    rest = [c for c in a.columns if c not in floats]
+    same = bool(a[rest].equals(b[rest]))
+    x, y = a[floats].to_numpy(np.float64), b[floats].to_numpy(np.float64)
+    excess = float((np.abs(x - y) / (REPLAY_ATOL + REPLAY_RTOL * np.abs(y))).max()) if x.size else 0.0
+    return same, excess
+
+
+def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
+    """Section 9: the 8-step runner (``pipeline/runner.py::run_one_wsi``) on
+    the smoke TIFF with CLIP ViT-B/16 bf16 and the CLIP text tower at full
+    width (f32), seeded, ``FallbackTokenizer``, the default config but
+    ``tme_classes`` = all classes (and ``min_polygon_area_px`` 0 if the
+    defaults leave no polygon), the kernel counts set to 0 just before and
+    read just after (K5 once a class in the polygons' small-object removal,
+    nothing else); every artifact of the JAX e2e test, both H5 files read
+    back equal to what the stages returned, the done flag's keys the JAX
+    package's; each K5 call held to its plain version on its own mask;
+    steps 3-8 replayed on the CPU from the card's features and class
+    embeddings (the CSVs, TME flags, rings and overlays equal) and the
+    tessellation on the CPU (coords equal); a second run skips
+    (``already_done``); without the done flag, GeoJSON and overlays a third
+    run takes steps 1-2 from the resume manifest; ``cli.main`` in a child
+    process exits 0."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.core import artifacts as art
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models.clip import TextEncoder
+    from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
+    from path_gene_multimodal_tpu_torch.ops.cc import (
+        label_components_tiled, label_components_tiled_plain,
+    )
+    from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
+    from path_gene_multimodal_tpu_torch.pipeline import overlay as overlay_stage
+    from path_gene_multimodal_tpu_torch.pipeline import polygons as polygon_stage
+    from path_gene_multimodal_tpu_torch.pipeline import runner as rn
+    from path_gene_multimodal_tpu_torch.pipeline import spatial as spatial_stage
+    from path_gene_multimodal_tpu_torch.pipeline.tessellate import run_tessellation
+
+    res: dict = {"smi": _smi()}
+    if not tif.exists():
+        _write_smoke_tiff(slide, tif)
+        res["tiff_written_again"] = True
+    stem = tif.stem
+    base = default_config()
+    # seeded towers can put every tile in one class: let any class seed the ROI
+    cfg = base.replace(tme_classes=base.classes)
+    classes = list(cfg.classes)
+    t0 = time.perf_counter()
+    models = rn.PipelineModels.build(cfg, tokenizer=FallbackTokenizer(), device="cuda")
+    res["models_setup_s"] = time.perf_counter() - t0
+
+    # what steps 1-2 return, caught on the way, to hold the H5 files to
+    caught: dict = {}
+    real_tess, real_feats = rn.tess_stage.run_tessellation, rn.embed_stage.run_extract_features
+
+    def tess_spy(*a, **k):
+        r = real_tess(*a, **k)
+        caught["coords"] = r.coords.copy()
+        return r
+
+    def feats_spy(*a, **k):
+        f = real_feats(*a, **k)
+        caught["features"] = f.copy()
+        return f
+
+    def counted_run(out_root, run_cfg):
+        for w in wrappers.values():
+            w.launches = 0
+        rn.tess_stage.run_tessellation, rn.embed_stage.run_extract_features = tess_spy, feats_spy
+        try:
+            with _cc_spy() as spy:
+                t0 = time.perf_counter()
+                r = rn.run_one_wsi(tif, out_root, run_cfg, models=models)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            rn.tess_stage.run_tessellation, rn.embed_stage.run_extract_features = (
+                real_tess, real_feats)
+        return r, dt, spy, {n: w.launches for n, w in wrappers.items()}
+
+    result, dt, spy, launches = counted_run(tmp / "runner", cfg)
+    res["min_polygon_area_px_relaxed"] = False
+    if result.status == "done" and result.num_polygons == 0:
+        print(f"runner: no polygon under min_polygon_area_px {cfg.polygon.min_polygon_area_px}; "
+              "relaxed to 0 (as the JAX e2e fixture does)", flush=True)
+        cfg = cfg.replace(polygon=cfg.polygon.__class__(min_polygon_area_px=0))
+        res["min_polygon_area_px_relaxed"] = True
+        result, dt, spy, launches = counted_run(tmp / "runner_relaxed", cfg)
+    out = result.out_dir
+    res.update(status=result.status, error=result.error, run_s=dt, tiles=result.num_tiles,
+               features=result.num_features, polygons=result.num_polygons, launches=launches,
+               stage_s={k: v["seconds"] for k, v in result.stage_report.items()},
+               tiles_per_s=result.num_tiles / dt if dt > 0 else None)
+    if result.status != "done":
+        failures.append(f"runner: status {result.status}: {result.error}")
+        return res
+    print(f"runner: {result.num_tiles} tiles, {result.num_polygons} polygons in {dt:.2f} s, "
+          f"launches {launches}", flush=True)
+
+    # artifacts, done flag, H5 files read back
+    missing = [n.format(s=stem) for n in RUNNER_ARTIFACTS if not (out / n.format(s=stem)).exists()]
+    flag = json.loads((out / f"{stem}._DONE.json").read_text())
+    res["artifacts_missing"] = missing
+    res["done_flag_keys_equal_jax"] = set(flag) == set(RUNNER_DONE_KEYS)
+    if missing or not res["done_flag_keys_equal_jax"] or flag.get("status") != "done":
+        failures.append(f"runner: artifacts missing {missing}; done flag keys {sorted(flag)}")
+    tess_h5 = art.read_tessellation_h5(out / f"{stem}.h5")
+    feats_h5 = art.read_features_h5(out / f"{stem}_features.h5")
+    res["h5_equal"] = {
+        "tessellation": bool(np.array_equal(tess_h5["coords"], caught["coords"])),
+        "features": bool(np.array_equal(feats_h5["features"], caught["features"])
+                         and feats_h5["features"].dtype == np.float32),
+        "tile_index": bool(np.array_equal(feats_h5["tile_index"],
+                                          np.arange(len(caught["features"])))),
+    }
+    if not all(res["h5_equal"].values()):
+        failures.append(f"runner: the H5 files do not read back equal: {res['h5_equal']}")
+    t0 = time.perf_counter()
+    art.write_tessellation_h5(tmp / "h5_w_tess.h5", caught["coords"], tile_size=cfg.patch_size,
+                              mpp=0.25)
+    art.write_features_h5(tmp / "h5_w_feats.h5", caught["features"])
+    res["h5_write_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    art.read_tessellation_h5(tmp / "h5_w_tess.h5")
+    art.read_features_h5(tmp / "h5_w_feats.h5")
+    res["h5_read_ms"] = (time.perf_counter() - t0) * 1e3
+    res["h5_bytes"] = (tmp / "h5_w_tess.h5").stat().st_size + (tmp / "h5_w_feats.h5").stat().st_size
+
+    # K5 on the runner's path: one call a class, each against its plain version
+    calls = spy.calls()
+    k5_launches = sum(1 if c["device_rounds"] else int(c["counts"][1]) for c in calls)
+    res["k5_calls"] = len(calls)
+    res["k5_launches"] = launches["label_components_tiled"]
+    res["k5_drivers"] = ["device" if c["device_rounds"] else "host" for c in calls]
+    res["k5_shapes"] = [c["shape"][1:] for c in calls]
+    expect = {n: (k5_launches if n == "label_components_tiled" else 0) for n in wrappers}
+    if len(calls) != len(classes) or launches != expect or k5_launches < 1:
+        failures.append(f"runner: {len(calls)} K5 calls (expected {len(classes)}), launches "
+                        f"{launches}, expected {expect}")
+    masks = [c["mask"].bool() for c in calls]
+    diffs = []
+    with torch.inference_mode():
+        for m in masks:
+            diffs.append(int((label_components_tiled(m, 1).cpu()
+                              != label_components_tiled_plain(m.cpu(), 1)).sum()))
+        res["k5_ms"] = _sync_time(lambda: [label_components_tiled(m, 1) for m in masks], reps=5)
+        res["k5_plain_ms"] = _sync_time(
+            lambda: [label_components_tiled_plain(m.cpu(), 1) for m in masks], reps=1)
+    res["k5_label_diffs"] = diffs
+    if any(diffs):
+        failures.append(f"runner: K5 labels differ from the plain version on the path's masks: "
+                        f"{diffs}")
+
+    # steps 3-8 replayed on the CPU from the card's features and class embeddings
+    cpu_dir = tmp / "runner_cpu" / stem
+    cpu_dir.mkdir(parents=True)
+    shutil.copy(out / f"{stem}.h5", cpu_dir / f"{stem}.h5")
+    cpu_text = TextEncoder(models.text_encoder.cfg, state_dict={k: v.cpu() for k, v in
+                                                  models.text_encoder.model.state_dict().items()},
+                           device="cpu")
+    card_cls = np.load(out / f"{stem}_classes.npy")
+    cpu_cls = embed_stage.run_create_class_embeddings(classes, cpu_text, FallbackTokenizer(),
+                                                      cpu_dir, stem)
+    res["class_embeddings_cpu_excess"] = float(
+        (np.abs(cpu_cls - card_cls) / (REPLAY_ATOL + REPLAY_RTOL * np.abs(card_cls))).max())
+    embed_stage.run_annotation(feats_h5["features"], card_cls, classes, cpu_dir, stem,
+                               device="cpu")
+    df_cpu = spatial_stage.run_spatial_join(cpu_dir, stem, cfg, device="cpu")
+    feats_cpu = polygon_stage.build_polygons_for_all_classes(df_cpu, classes, cfg, device="cpu")
+    polygon_stage.export_geojson(feats_cpu, cpu_dir, stem)
+    ov = overlay_stage.run_overlays(TiffTileSlide(tif), feats_cpu, classes, cpu_dir, stem,
+                                    thumb_size=cfg.thumb_size)
+    replay = {}
+    for name in (f"{stem}_annotations.csv", f"{stem}_annotations_with_coords.csv"):
+        same, excess = _frames_close(pd.read_csv(cpu_dir / name), pd.read_csv(out / name), classes)
+        replay[name] = {"other_columns_equal": same, "float_excess": excess}
+    card_gj = art.load_geojson(out / f"{stem}.geojson")
+    cpu_gj = art.load_geojson(cpu_dir / f"{stem}.geojson")
+    replay["rings_equal"] = len(card_gj) == len(cpu_gj) and all(
+        a["class_name"] == b["class_name"] and np.array_equal(a["exterior"], b["exterior"])
+        for a, b in zip(card_gj, cpu_gj))
+    pngs = sorted(p.name for p in [ov["overlay_all_path"], *ov["per_class_outputs"].values()])
+    replay["overlays_equal"] = pngs == sorted(
+        Path(p).name for p in [flag["overlay_all_path"], *flag["per_class_outputs"].values()]
+    ) and all((cpu_dir / n).read_bytes() == (out / n).read_bytes() for n in pngs)
+    cpu_tess = run_tessellation(TiffTileSlide(tif), tmp / "runner_tess_cpu", cfg, device="cpu",
+                                write_artifacts=False)
+    replay["tessellation_coords_equal"] = bool(np.array_equal(cpu_tess.coords, caught["coords"]))
+    flags = pd.read_csv(out / f"{stem}_annotations_with_coords.csv")["in_tme_roi"]
+    res.update(replay=replay, tme_roi_tiles=int(flags.sum()),
+               predicted={int(k): int(v) for k, v in sorted(
+                   pd.read_csv(out / f"{stem}_annotations.csv")["predicted_class"]
+                   .map(classes.index).value_counts().items())},
+               polygons_per_class={c: sum(f["class_name"] == c for f in card_gj) for c in classes})
+    bad = [k for k, v in replay.items() if v is False
+           or (isinstance(v, dict) and (not v["other_columns_equal"] or v["float_excess"] > 1))]
+    if bad or res["class_embeddings_cpu_excess"] > 1:
+        failures.append(f"runner: the CPU replay differs from the card in {bad}; class "
+                        f"embeddings excess {res['class_embeddings_cpu_excess']:.3f}")
+
+    # rerun skip, then the resume manifest
+    again = rn.run_one_wsi(tif, out.parent, cfg, models=models)
+    (out / f"{stem}._DONE.json").unlink()
+    (out / f"{stem}.geojson").unlink()
+    for p in out.glob(f"{stem}_*overlay*.png"):
+        p.unlink()
+    t0 = time.perf_counter()
+    resumed = rn.run_one_wsi(tif, out.parent, cfg, models=models)
+    res["resume_run_s"] = time.perf_counter() - t0
+    rep = resumed.stage_report
+    res["rerun_status"] = again.status
+    res["resume"] = {"status": resumed.status,
+                     "tessellation": bool(rep.get("tessellation", {}).get("resumed")),
+                     "extract_features": bool(rep.get("extract_features", {}).get("resumed"))}
+    if again.status != "already_done" or resumed.status != "done" or not (
+            res["resume"]["tessellation"] and res["resume"]["extract_features"]):
+        failures.append(f"runner: rerun {again.status}, resume {res['resume']}")
+
+    # the CLI in a child process, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.main", "--wsi", str(tif),
+         "--outroot", str(tmp / "runner_cli")], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    res.update(cli_rc=proc.returncode, cli_s=time.perf_counter() - t0)
+    if proc.returncode != 0:
+        failures.append(f"runner: cli.main exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return res
+
+
+def _runner_line(res: dict) -> dict:
+    return {k: res.get(k) for k in (
+        "status", "tiles", "features", "polygons", "polygons_per_class", "predicted",
+        "tme_roi_tiles", "min_polygon_area_px_relaxed", "run_s", "tiles_per_s", "stage_s",
+        "k5_calls", "k5_launches", "k5_drivers", "k5_ms", "k5_plain_ms", "k5_label_diffs",
+        "h5_write_ms", "h5_read_ms", "h5_bytes", "h5_equal", "done_flag_keys_equal_jax",
+        "replay", "class_embeddings_cpu_excess", "rerun_status", "resume", "resume_run_s",
+        "cli_rc", "cli_s", "smi")}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3535,6 +3812,7 @@ def main(argv: list[str] | None = None) -> int:
     chain_line = {k: report["chain"][k] for k in (
         "tiles", "min_cos_bf16_vs_f32", "f32_card_vs_cpu_excess", "mutant_no_pos_embed_min_cos",
         "forward_512_ms", "forward_512_bound_ms", "embed_tiles_per_s", "artifacts_written",
+        "features_h5_equal",
         "graph_nodes", "graph_knn_edges", "graph_radius_edges", "graph_build_s", "graph_stats_s",
         "device_radius_points", "device_radius_edges", "device_radius_equal_ckdtree",
         "device_radius_s")}
@@ -3706,6 +3984,18 @@ def main(argv: list[str] | None = None) -> int:
     path_masks, island_launches = _islands(slide, tmp, wrappers, report, failures)
     kernels += _check_cc(path_masks, fg, island_launches, wrappers, failures, out_dir)
 
+    # -- 9. the 8-step runner and its CLI on the smoke TIFF ---------------------
+    torch.cuda.empty_cache()
+    report["runner"] = _runner(slide, tmp / "smoke.svs", wrappers, failures, tmp)
+    runner_line = _runner_line(report["runner"])
+    print(json.dumps({"runner": runner_line}), flush=True)
+    k5 = next(k for k in kernels if k["name"] == "label_components_tiled")
+    k5["launches_by_path"] = {"islands": k5["launches"],
+                              "runner": report["runner"].get("k5_launches", 0)}
+    k5["launches"] = sum(k5["launches_by_path"].values())
+    k5["note"] += ("; launches: the islands path's (max_work_dim 1024) and the runner path's "
+                   "(one call a class on the tile grid), launches_by_path")
+
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
     report["failures"] = failures
@@ -3716,6 +4006,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"chain": chain_line}))
     print(json.dumps({"feed": feed_line}))
     print(json.dumps({"wsi": wsi_line}))
+    print(json.dumps({"runner": runner_line}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

@@ -1,16 +1,38 @@
 """Configuration read by the ported stages.
 
-A copy of the fields of ``path_gene_multimodal_tpu/config.py`` that this
-package reads (the port imports nothing of the JAX package): the nuclei,
-embedding and graph sections and the root fields they use, plus the model
-configuration that lives in the JAX package's ``models/convnext.py`` and
-``models/hovernext.py``.
+A copy of what this package reads of ``path_gene_multimodal_tpu/config.py``
+(the port imports nothing of the JAX package): the class lists, the
+tessellation, embedding, TME, polygon, nuclei, graph and compat sections,
+the root fields of the 8-step runner with ``replace`` and ``content_hash``,
+``resolve_tile_png_name``, ``WSI_EXTS`` and ``slide_paths``; plus the
+model configuration that lives in the JAX package's ``models/convnext.py``
+and ``models/hovernext.py``. The nuclei section keeps the port's own name
+and fields (``NucleiConfig``), so a config hash is the port's own.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
+
+# The five TNBC tissue classes (reference tnbc_config.py:8-14).
+DEFAULT_CLASSES: tuple[str, ...] = (
+    "Invasive tumor epithelium (TNBC) or In situ carcinoma (DCIS / LCIS)",
+    "Tumor-associated stroma",
+    "Lymphocyte-rich stroma / TILs",
+    "Lymphoid aggregate / TLS",
+    "Necrosis / other non-viable tissue",
+)
+
+# Classes whose tiles seed the TME region of interest (tnbc_config.py:16-19).
+DEFAULT_TME_CLASSES: tuple[str, ...] = DEFAULT_CLASSES[:2]
+
+# Recognised pyramidal-slide extensions (tnbc_config.py:28).
+WSI_EXTS: frozenset[str] = frozenset({".svs", ".tif", ".tiff", ".ndpi", ".mrxs"})
 
 # HoverNeXt nucleus type ids → names (reference aggregated_hovernet_run.py:76-82).
 TYPE_NAMES: dict[int, str] = {
@@ -20,6 +42,63 @@ TYPE_NAMES: dict[int, str] = {
     4: "dead",
     5: "epithelial",
 }
+
+
+@dataclass(frozen=True)
+class PolygonConfig:
+    """Polygonization parameters (tnbc_config.py:47-51)."""
+
+    smooth_radius_tiles: float = 1.0
+    blur_sigma: float | None = None
+    area_min_tiles: int = 3
+    simplify_frac: float = 0.2
+    min_polygon_area_px: float = 3 * 224 * 224
+    # Overlap resolution mode: "prob" (argmax of per-class scores) or
+    # "priority" (config class order wins) — reference
+    # create_and_overlay_polygon_from_prediction.py:186-218.
+    overlap_mode: str = "prob"
+
+
+@dataclass(frozen=True)
+class TessellationConfig:
+    """Tissue segmentation + tiling (reference tiling.py:28-42). The tile
+    size itself is the root ``PipelineConfig.patch_size``."""
+
+    use_otsu: bool = True
+    segment_threshold: int = 20
+    thumbnail_size: int = 1024
+    min_foreground_frac: float = 0.5
+    write_patch_pngs: bool = False  # reference writes per-tile PNGs; optional here
+    num_workers: int = 4
+
+
+@dataclass(frozen=True)
+class TMEConfig:
+    """TME region-of-interest geometry (load_annotation_with_coordinates.py:188-222)."""
+
+    # Reference quirk: ROI boxes use the *default* 508 px patch size, not the
+    # actual 224 px tile size, because main.py:215-220 doesn't pass patch_size.
+    roi_patch_size: int = 508
+    buffer_factor: float = 2.0  # buffer = buffer_factor * roi_patch_size
+
+
+@dataclass(frozen=True)
+class CompatConfig:
+    """Behavioral-compatibility switches for reference quirks."""
+
+    # png naming {x}_{y}.png (current) vs legacy {tile_index}.png
+    # (postprocessing.py:107 vs load_annotation_with_coordinates.py:177-180).
+    legacy_png_names: bool = False
+    # tme_classes default = ALL classes (load_annotation_with_coordinates.py:195).
+    tme_classes_default_all: bool = True
+    # tiles_to_grid maps tiles by RANK of unique x/y (gaps collapse) —
+    # create_and_overlay_polygon_from_prediction.py:111-124; False = dense
+    # (x - x0) // tile mapping (geometrically correct for gappy grids).
+    rank_compressed_grid: bool = True
+    # TME margin corner metric: True = shapely's quad_segs=8 inscribed
+    # polygon buffer (load_annotation_with_coordinates.py:216-222, the
+    # reference's ≤0.48% corner inset); False = true Euclidean disc.
+    polygonal_buffer_corners: bool = True
 
 
 @dataclass(frozen=True)
@@ -68,17 +147,58 @@ class GraphConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Root pipeline config (fields read by the ported stages)."""
+    """Root pipeline config (field names follow tnbc_config.py)."""
 
+    classes: tuple[str, ...] = DEFAULT_CLASSES
+    tme_classes: tuple[str, ...] = DEFAULT_TME_CLASSES
+    outroot: str = ""
     patch_size: int = 224
     model_type: str = "CLIP"
+    thumb_size: tuple[int, int] = (2000, 2000)
+    done_flag_name: str = "_DONE.json"
+    stale_lock_hours: float = 48.0
+
+    tessellation: TessellationConfig = field(default_factory=TessellationConfig)
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
+    tme: TMEConfig = field(default_factory=TMEConfig)
+    polygon: PolygonConfig = field(default_factory=PolygonConfig)
     hovernext: NucleiConfig = field(default_factory=NucleiConfig)
     graph: GraphConfig = field(default_factory=GraphConfig)
+    compat: CompatConfig = field(default_factory=CompatConfig)
+
+    def replace(self, **kw: Any) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def content_hash(self) -> str:
+        """Stable hash for step-granular resume manifests."""
+        blob = json.dumps(self.to_dict(), sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
 def default_config(**overrides: Any) -> PipelineConfig:
     return PipelineConfig(**overrides)
+
+
+def resolve_tile_png_name(x: int, y: int, tile_index: int, compat: CompatConfig) -> str:
+    """Tile PNG naming contract: ``{x}_{y}.png`` (current) or
+    ``{tile_index}.png`` (legacy) — load_annotation_with_coordinates.py:177-180."""
+    if compat.legacy_png_names:
+        return f"{tile_index}.png"
+    return f"{x}_{y}.png"
+
+
+def slide_paths(data_path: str | Path) -> list[Path]:
+    """Recursive WSI scan (tnbc_config.py:31-34), as a function instead of an
+    import side effect."""
+    root = Path(data_path)
+    if not root.exists():
+        return []
+    return sorted(
+        p for p in root.rglob("*") if p.is_file() and p.suffix.lower() in WSI_EXTS
+    )
 
 
 @dataclass(frozen=True)

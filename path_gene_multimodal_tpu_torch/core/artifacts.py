@@ -1,10 +1,12 @@
-"""Artifacts: a copy of ``savez_fast`` (line 175), the features H5
-(``write_features_h5``, ``read_features_h5``, lines 266-295), the GeoJSON
-helpers (``polygon_ring_area_perimeter``, ``export_geojson``,
-``load_geojson``), the annotations-CSV contract and ``write_nuclei_table``
-from the JAX package's ``core/artifacts.py`` (lines 301-397, 402-448).
-``h5py`` is imported by the functions that need it, so that this module
-imports without it."""
+"""Artifacts: a copy of the JAX package's ``core/artifacts.py`` without
+``tiles_table`` / ``export_tiles_csv``: the tessellation H5
+(``write_tessellation_h5``, ``read_tessellation_h5`` with the reference's
+five schema variants and column rules), ``infer_tile_size_from_attrs``,
+``savez_fast``, the features H5, the GeoJSON helpers, the annotations-CSV
+contract, ``write_nuclei_table``, ``json_safe`` and
+``sanitize_for_filename``. The H5 files go through the port's own HDF5
+subset (``io/hdf5.py``), which writes h5py's default layout and reads it
+back; the port needs no h5py."""
 
 from __future__ import annotations
 
@@ -14,6 +16,149 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 import pandas as pd
+
+from path_gene_multimodal_tpu_torch.io import hdf5
+
+#: dataset-name probe order for tile coordinates, mirroring the reference's
+#: multi-schema fallback chain (load_annotation_with_coordinates.py:123-129).
+_COORD_KEYS = ("coords", "locations", "tiles/coords")
+_XY_KEYS = (("x", "y"), ("tiles/x", "tiles/y"))
+
+
+def write_tessellation_h5(
+    path: str | Path,
+    coords: np.ndarray,
+    *,
+    tile_size: int,
+    level: int = 0,
+    mpp: float | None = None,
+    downsample: float = 1.0,
+    extra_attrs: Mapping[str, Any] | None = None,
+) -> Path:
+    """Write canonical tessellation H5: ``coords`` (N, 2) int64 level-0
+    top-left pixel coordinates, plus sizing attrs (tiling_info.py:39-54)."""
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    ds_attrs: dict[str, Any] = {"tile_size": tile_size, "patch_size": tile_size,
+                                "level": level, "downsample": downsample}
+    root: dict[str, Any] = {"tile_size": tile_size, "patch_size": tile_size, "level": level}
+    if mpp is not None:
+        ds_attrs["mpp"] = mpp
+        root["mpp"] = mpp
+    root.update(extra_attrs or {})
+    return hdf5.write_h5(path, {"coords": (coords, ds_attrs)}, root)
+
+
+def _coord_column_names(arr: np.ndarray, attrs: Mapping[str, Any]) -> list[str]:
+    """Column names for a 2-D coords array — the reference's rule
+    (tiling_info.py:10-27): an explicit ``columns`` attr wins; otherwise
+    width-based defaults (2→x,y; 3→x,y,level; 4→x,y,w,h; else col{i})."""
+    raw_cols = attrs.get("columns")
+    if raw_cols is not None:
+        cols = [
+            c.decode() if isinstance(c, bytes) else str(c)
+            for c in np.asarray(raw_cols).reshape(-1)
+        ]
+        if len(cols) == arr.shape[1]:
+            return cols
+    n = arr.shape[1]
+    if n == 2:
+        return ["x", "y"]
+    if n == 3:
+        return ["x", "y", "level"]
+    if n == 4:
+        return ["x", "y", "w", "h"]
+    return [f"col{i}" for i in range(n)]
+
+
+def read_tessellation_h5(path: str | Path) -> dict[str, Any]:
+    """Read tile coordinates from any of the five schema variants the
+    reference accepts. Returns ``{"coords": (N,2) int64, "level": array|None,
+    "attrs": dict, "raw_coords": (N,C) array, "columns": list[str]}``.
+
+    Probe order (load_annotation_with_coordinates.py:122-165):
+    1. ``coords`` / ``locations`` / ``tiles/coords`` datasets of shape (N, 2);
+    2. paired 1-D ``x``,``y`` or ``tiles/x``,``tiles/y`` datasets;
+    3. any dataset whose name ends in ``coords`` with shape (N, 2).
+
+    Wider datasets follow the reference's column semantics
+    (tiling_info.py:10-27): width 3 carries a per-tile pyramid ``level``
+    column, width 4 is ``x,y,w,h`` (NOT level), and an explicit ``columns``
+    dataset attr overrides both.
+    """
+    path = Path(path)
+    with hdf5.File(path) as f:
+        coords = None
+        src_attrs: dict[str, Any] = dict(f.attrs)
+
+        for key in _COORD_KEYS:
+            if key in f:
+                ds = f[key]
+                coords = np.asarray(ds[...])
+                src_attrs.update(dict(ds.attrs))
+                break
+        if coords is None:
+            for xk, yk in _XY_KEYS:
+                if xk in f and yk in f:
+                    x = np.asarray(f[xk][...]).reshape(-1)
+                    y = np.asarray(f[yk][...]).reshape(-1)
+                    coords = np.stack([x, y], axis=1)
+                    src_attrs.update(dict(f[xk].attrs))
+                    break
+        if coords is None:
+            # wildcard fallback: first dataset whose name ends in "coords"
+            found: list[str] = []
+
+            def _visit(name: str, obj: Any) -> None:
+                if isinstance(obj, hdf5.Dataset) and name.endswith("coords"):
+                    found.append(name)
+
+            f.visititems(_visit)
+            if found:
+                ds = f[found[0]]
+                coords = np.asarray(ds[...])
+                src_attrs.update(dict(ds.attrs))
+        if coords is None:
+            raise ValueError(
+                f"{path}: no tile-coordinate dataset found "
+                f"(tried {_COORD_KEYS}, x/y pairs, *coords)"
+            )
+
+        coords = np.asarray(coords)
+        if coords.ndim == 1 and coords.size % 2 == 0:
+            # 1-D flattened pairs (tiling_info.py:19 fallback)
+            coords = coords.reshape(-1, 2)
+        if coords.ndim != 2 or coords.shape[1] < 2:
+            raise ValueError(f"{path}: coords has shape {coords.shape}, expected (N, 2)")
+
+        columns = _coord_column_names(coords, src_attrs)
+        xi = columns.index("x") if "x" in columns else 0
+        yi = columns.index("y") if "y" in columns else 1
+        xy = np.stack([coords[:, xi], coords[:, yi]], axis=1)
+
+        level = None
+        if "level" in columns:
+            level = coords[:, columns.index("level")].astype(np.int64)
+        elif "level" in f:
+            level = np.asarray(f["level"][...]).reshape(-1).astype(np.int64)
+
+        return {
+            "coords": xy.astype(np.int64),
+            "level": level,
+            "attrs": src_attrs,
+            "raw_coords": coords,
+            "columns": columns,
+        }
+
+
+def infer_tile_size_from_attrs(attrs: Mapping[str, Any]) -> int | None:
+    """``tile_size``/``patch_size``/``size`` attr probe (tiling_info.py:39)."""
+    for key in ("tile_size", "patch_size", "size"):
+        if key in attrs:
+            try:
+                return int(np.asarray(attrs[key]).reshape(-1)[0])
+            except (TypeError, ValueError):
+                continue
+    return None
 
 
 def savez_fast(path: str | Path, /, compresslevel: int = 1, **arrays: Any) -> Path:
@@ -54,24 +199,15 @@ def write_features_h5(
 ) -> Path:
     """``<slide>_features.h5``: ``features`` (N, D), ``tile_index`` (N,)
     int64, attrs ``model_type`` and ``dim``."""
-    import h5py
-
-    path = Path(path)
     features = np.asarray(features)
-    with h5py.File(path, "w") as f:
-        f.create_dataset("features", data=features)
-        n = features.shape[0]
-        idx = np.arange(n, dtype=np.int64) if tile_index is None else np.asarray(tile_index)
-        f.create_dataset("tile_index", data=idx.astype(np.int64))
-        f.attrs["model_type"] = model_type
-        f.attrs["dim"] = features.shape[-1]
-    return path
+    n = features.shape[0]
+    idx = np.arange(n, dtype=np.int64) if tile_index is None else np.asarray(tile_index)
+    return hdf5.write_h5(path, {"features": features, "tile_index": idx.astype(np.int64)},
+                         {"model_type": model_type, "dim": features.shape[-1]})
 
 
 def read_features_h5(path: str | Path) -> dict[str, Any]:
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path) as f:
         return {
             "features": np.asarray(f["features"][...]),
             "tile_index": np.asarray(f["tile_index"][...])
@@ -215,3 +351,30 @@ def write_nuclei_table(path_base: str | Path, df: pd.DataFrame) -> tuple[Path, P
         )
     pq_df.to_parquet(pq_path, index=False)
     return csv_path, pq_path
+
+
+def json_safe(obj: Any) -> Any:
+    """Recursively convert numpy/Path objects to JSON-serializable Python
+    (reference main.py:33-55)."""
+    if isinstance(obj, Mapping):
+        return {str(k): json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_safe(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return json_safe(obj.tolist())
+    if isinstance(obj, (np.integer,)):
+        return int(obj)
+    if isinstance(obj, (np.floating,)):
+        return float(obj)
+    if isinstance(obj, (np.bool_,)):
+        return bool(obj)
+    if isinstance(obj, Path):
+        return str(obj)
+    return obj
+
+
+def sanitize_for_filename(name: str, max_len: int = 80) -> str:
+    """Class label → safe filename fragment (class names contain '/')."""
+    out = "".join(c if c.isalnum() or c in "-_ " else "_" for c in name)
+    out = "_".join(out.split())
+    return out[:max_len] or "class"

@@ -1,17 +1,23 @@
-"""HoverNeXt checkpoint ingestion: a subset of the JAX package's
+"""Checkpoint ingestion: a subset of the JAX package's
 ``core/checkpoints.py``.
+
+- ``file_fingerprint`` and ``text_sidecar_path``: a weights artifact's
+  identity for the resume manifests, and where its CLIP text tower rides;
 
 - ``load_hovernext_from_torch``: a torch checkpoint in the canonical layout
   (``encoder.*``, ``decoder.I.convJ|normJ.*``, ``final_conv.*``,
   ``head_np|hv|tp.*``; the JAX package's ``convert_hovernext`` names, which
   are the port's own ``state_dict()`` keys) → (config, state dict);
-- ``load_converted``: a ``cli/convert_weights`` ``.npz`` artifact (kind
-  ``hovernext``) → (kind, config, numpy params), which
-  ``models.weights_hovernext.params_from_jax`` turns into a state dict.
+- ``load_converted``: a ``cli/convert_weights`` ``.npz`` artifact →
+  (kind, config, numpy params): kind ``hovernext`` (a ``HoverNeXtConfig``;
+  ``models.weights_hovernext.params_from_jax`` makes its state dict),
+  ``clip`` / ``clip_text`` (a ``VisionConfig`` / ``TextConfig``;
+  ``models.weights_clip`` makes theirs) and ``virchow2`` with a CLIP-style
+  stand-in ``VisionConfig``.
 
-The published smp/timm ``hover_next`` layout is refused: its model
-(``models/hovernext_real.py`` in the JAX package) is not ported yet
-(ROADMAP Queue 1 item 16).
+Refused, as not ported yet: the published smp/timm ``hover_next`` layout
+(its model is ``models/hovernext_real.py`` in the JAX package; ROADMAP
+Queue 1 item 16) and the timm Virchow2 tower (item 15).
 """
 
 from __future__ import annotations
@@ -28,6 +34,36 @@ from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfi
 
 _REAL_LAYOUT = ("the published smp/timm hover_next layout is not ported yet "
                 "(ROADMAP Queue 1 item 16)")
+_TIMM_VIRCHOW2 = ("the timm Virchow2 tower (models/vit_timm.py in the JAX package) is not "
+                  "ported yet (ROADMAP Queue 1 item 15)")
+
+
+def file_fingerprint(path: str | Path, sample: int = 1 << 20) -> str:
+    """Cheap content fingerprint of a weights artifact for resume
+    manifests: sha1 over (size, first ``sample`` bytes, last ``sample``
+    bytes) — content-sensitive without reading multi-GB files whole."""
+    import hashlib
+
+    p = Path(path)
+    size = p.stat().st_size
+    h = hashlib.sha1(str(size).encode())
+    with open(p, "rb") as f:
+        h.update(f.read(sample))
+        if size > sample:
+            f.seek(max(size - sample, 0))
+            h.update(f.read(sample))
+    return h.hexdigest()[:16]
+
+
+def text_sidecar_path(artifact: str | Path) -> Path:
+    """``<artifact minus a literal .npz>_text.npz`` — where the CLIP text
+    tower rides along a converted vision artifact (dotted stems like
+    ``clip.v2`` survive; Path.with_suffix would truncate them)."""
+    p = Path(artifact)
+    name = p.name
+    if name.endswith(".npz"):
+        name = name[: -len(".npz")]
+    return p.parent / f"{name}_text.npz"
 
 
 def _unflatten(flat: dict[str, np.ndarray]) -> dict:
@@ -90,8 +126,8 @@ def load_hovernext_from_torch(
 def load_converted(path: str | Path) -> tuple[str, Any, Any]:
     """→ (kind, config, variables) of a converted-checkpoint ``.npz``
     (flattened ``p:`` params and a JSON ``__meta__`` record). The port
-    reads kind ``hovernext`` (a ``HoverNeXtConfig``); other kinds raise
-    ``NotImplementedError``."""
+    reads kinds ``hovernext``, ``clip``, ``clip_text`` and ``virchow2``
+    (stand-in configs only); other kinds raise ``NotImplementedError``."""
     with np.load(Path(path)) as z:
         if "__meta__" not in z.files:
             raise ValueError(
@@ -103,6 +139,17 @@ def load_converted(path: str | Path) -> tuple[str, Any, Any]:
 
 
 def _config_from_meta(kind: str, d: dict | None) -> Any:
+    if kind in ("clip", "clip_text", "virchow2"):
+        from dataclasses import fields
+
+        from path_gene_multimodal_tpu_torch.models.clip import TextConfig, VisionConfig
+
+        klass = TextConfig if kind == "clip_text" else VisionConfig
+        if d is None or not set(d) <= {f.name for f in fields(klass)}:
+            if kind == "virchow2":
+                raise NotImplementedError(_TIMM_VIRCHOW2)
+            raise ValueError(f"converted {kind} artifact: config {d} is no {klass.__name__}")
+        return klass(**d)
     if kind != "hovernext":
         raise NotImplementedError(f"converted-checkpoint kind {kind!r} is not ported")
     if "branches" in d:

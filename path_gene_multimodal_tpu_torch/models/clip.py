@@ -1,20 +1,25 @@
-"""CLIP image tower: the tile embedding model.
+"""CLIP image and text towers: the tile and class embedding models.
 
-Counterpart of the vision half of the JAX package's ``models/clip.py``:
-``VisionConfig`` and its presets, ``VisionTower`` (conv patchify, cls
-token, optional register tokens, learned position embedding, ln_pre,
-pre-LN transformer, ln_post, linear projection; ``cls`` or ``cls+mean``
-pooling), ``preprocess_tiles`` and ``ImageEncoder``. Its ``state_dict()``
-has the ``visual.*`` names of OpenAI CLIP that the JAX package's
-``convert_clip_vision`` reads (register tokens, which no OpenAI checkpoint
-has, as ``visual.register_tokens``).
+Counterpart of the JAX package's ``models/clip.py``: ``VisionConfig`` and
+its presets, ``VisionTower`` (conv patchify, cls token, optional register
+tokens, learned position embedding, ln_pre, pre-LN transformer, ln_post,
+linear projection; ``cls`` or ``cls+mean`` pooling), ``preprocess_tiles``,
+``ImageEncoder``; ``TextConfig``, ``CLIP_TEXT``, ``TextTower`` (token and
+position embeddings, causal pre-LN transformer with quick_gelu,
+``ln_final``, features at the EOT token, projection) and ``TextEncoder``.
+The towers' ``state_dict()`` have the names of OpenAI CLIP that the JAX
+package's ``convert_clip_vision`` / ``convert_clip_text`` read: ``visual.*``
+(register tokens, which no OpenAI checkpoint has, as
+``visual.register_tokens``) and ``token_embedding``,
+``positional_embedding``, ``transformer.*``, ``ln_final``,
+``text_projection``.
 
 Rounding follows flax (``models/layers.py``): the patch embed is a bf16
 product with f32 accumulation, ``x + pos`` adds in the compute dtype (the
 position embedding rounded first), and the output is cast to f32.
 
-Not ported yet: the text tower and tokenizer, the timm Virchow2 tower and
-the data-parallel ``mesh``.
+Not ported yet: the timm Virchow2 tower (ROADMAP Queue 1 item 15) and the
+data-parallel ``mesh`` (item 18).
 """
 
 from __future__ import annotations
@@ -64,6 +69,17 @@ class VisionConfig:
         return 1 + self.num_registers + self.grid * self.grid
 
 
+@dataclass(frozen=True)
+class TextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    mlp_ratio: float = 4.0
+    out_dim: int = 512
+
+
 # Named presets for the reference's MODEL_TYPE values.
 CLIP_VIT_B16 = VisionConfig()
 CLIP_VIT_B32 = VisionConfig(patch_size=32)
@@ -72,6 +88,7 @@ VIRCHOW2 = VisionConfig(
     patch_size=14, width=1280, layers=32, heads=16, out_dim=None,
     num_registers=4, use_quick_gelu=False, pool="cls+mean",
 )
+CLIP_TEXT = TextConfig()
 
 
 class VisionTower(nn.Module):
@@ -134,7 +151,39 @@ class VisionTower(nn.Module):
         return pooled
 
 
-def init_weights(tower: VisionTower, gen: torch.Generator) -> None:
+class TextTower(nn.Module):
+    """CLIP text encoder: token + position embeddings, causal pre-LN
+    transformer, final LayerNorm, features taken at the EOT token (the
+    highest token id; its first position), projection. ``forward`` takes
+    (B, L) int ids, L <= ``context_length``, and returns (B, out_dim) in
+    ``dtype``."""
+
+    def __init__(self, cfg: TextConfig = CLIP_TEXT, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        c = cfg
+        self.token_embedding = nn.Embedding(c.vocab_size, c.width)
+        self.positional_embedding = nn.Parameter(torch.zeros(c.context_length, c.width))
+        self.transformer = Transformer(c.width, c.layers, c.heads, c.mlp_ratio, quick_gelu, dtype)
+        self.ln_final = nn.LayerNorm(c.width, eps=1e-5)
+        self.text_projection = nn.Parameter(torch.zeros(c.width, c.out_dim))  # (width, out)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        with product_precision(self.dtype):
+            dt = self.dtype
+            b, n = ids.shape
+            x = self.token_embedding.weight.to(dt)[ids.long()]
+            x = x + self.positional_embedding.to(dt)[:n]
+            causal = torch.triu(torch.full((n, n), float("-inf"), device=ids.device), 1)
+            x = self.transformer(x, causal)
+            x = layer_norm(self.ln_final, x, dt)
+            eot = torch.argmax(ids, dim=-1)  # EOT has the highest id in CLIP's vocab
+            pooled = x[torch.arange(b, device=ids.device), eot]
+            return dense(pooled, self.text_projection.t(), None, dt)
+
+
+def init_weights(tower: nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights: kernels N(0, 1/fan_in) (flax's lecun scale),
     token and position embeddings N(0, 0.02) / N(0, 0.01) (flax's
     initializers), and, unlike flax's zeros and ones, biases and LayerNorm
@@ -142,14 +191,14 @@ def init_weights(tower: VisionTower, gen: torch.Generator) -> None:
     every one of them."""
     with torch.no_grad():
         for name, p in tower.named_parameters():
-            if name.endswith(("class_embedding", "register_tokens")):
+            if name.endswith(("class_embedding", "register_tokens", "token_embedding.weight")):
                 std, mean = 0.02, 0.0
             elif name.endswith("positional_embedding"):
                 std, mean = 0.01, 0.0
             elif p.ndim == 1:
-                is_scale = ".ln_" in name and name.endswith("weight")
+                is_scale = name.split(".")[-2].startswith("ln_") and name.endswith("weight")
                 std, mean = 0.02, 1.0 if is_scale else 0.0
-            elif name.endswith("proj"):  # (width, out)
+            elif name.endswith(("proj", "text_projection")):  # (width, out)
                 std, mean = p.shape[0] ** -0.5, 0.0
             else:  # (out, in, ...) torch layout
                 std, mean = (p[0].numel()) ** -0.5, 0.0
@@ -255,3 +304,49 @@ class ImageEncoder:
             # feeding CLIP (extract_embedding_from_tiles.py consumer)
             pixels = resize_bilinear(pixels, s)
         return self.model(pixels).to(torch.float32)
+
+
+class TextEncoder:
+    """The text tower with its weights on one device. ``state_dict`` (the
+    OpenAI text names) or, if it is None, seeded random weights from
+    ``seed``; f32 by default, as the JAX package's. Runs on the card unless
+    the caller passes ``device="cpu"``."""
+
+    def __init__(
+        self,
+        cfg: TextConfig = CLIP_TEXT,
+        state_dict: dict | None = None,
+        dtype: torch.dtype = torch.float32,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = TextTower(cfg, dtype=dtype)
+        if state_dict is None:
+            init_weights(self.model, torch.Generator().manual_seed(seed))
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+
+    @torch.inference_mode()
+    def __call__(self, ids) -> torch.Tensor:
+        """(B, L) int ids (numpy or torch) → (B, out_dim) f32 on the device."""
+        ids = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids) else ids)
+        ids = ids.to(self.device, torch.int64)
+        L = self.cfg.context_length
+        if ids.shape[1] > L:
+            # the BPE tokenizer pads to CLIP's canonical 77: a smaller-
+            # context checkpoint crops with EOT re-pinned at the end (CLIP's
+            # truncation rule; features are read at the FIRST max-id
+            # position, so an earlier EOT still wins)
+            eot = ids.max(dim=1).values
+            ids = ids[:, :L].clone()
+            ids[:, -1] = eot
+        elif ids.shape[1] < L:
+            ids = torch.nn.functional.pad(ids, (0, L - ids.shape[1]))
+        # out-of-vocab ids (a tokenizer wider than the checkpoint, e.g. the
+        # hash fallback against a small test tower) fold into range (no-op
+        # for real CLIP, where every id < vocab_size)
+        ids = ids % self.cfg.vocab_size
+        return self.model(ids).to(torch.float32)

@@ -1,7 +1,9 @@
-"""Step 2 of 8 — tile embeddings.
+"""Steps 2-4 of 8 — tile embeddings, class text embeddings, zero-shot
+annotation.
 
-Counterpart of ``run_extract_features`` of the JAX package's
-``pipeline/embed.py`` (ref ``extract_embedding_from_tiles.py:9-70``):
+Counterpart of the JAX package's ``pipeline/embed.py``.
+
+Step 2, ``run_extract_features`` (ref ``extract_embedding_from_tiles.py:9-70``):
 read tiles on the host in a thread pool ahead of the device, run the
 image tower batched (bf16 by default) on the card, keep every batch's
 features on the device until one copy at the end, and write
@@ -11,8 +13,14 @@ a reader with ``supports_planar``), JPEG tiles cross to the card as raw
 4:2:0 planes, half the bytes of RGB, and ``ops.jpegcolor.ycbcr420_to_rgb``
 finishes their decode there.
 
-Not ported yet: the class text embeddings (``run_create_class_embeddings``)
-and the zero-shot annotation (``run_annotation``).
+Step 3, ``run_create_class_embeddings`` (ref ``create_embedding.py:13-69``):
+tokenize the class prompts, run the text tower once, save
+``<slide>_classes.npy`` + the reference's torch ``.pt``.
+
+Step 4, ``run_annotation`` (ref ``find_annotation_from_embedding.py:9-72``):
+cosine similarity tile × class on the device (f32 products, TF32 off) →
+per-class score columns + ``predicted_class`` argmax →
+``<slide>_annotations.csv``.
 """
 
 from __future__ import annotations
@@ -20,12 +28,14 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import torch
 
 from path_gene_multimodal_tpu_torch.config import PipelineConfig
 from path_gene_multimodal_tpu_torch.core.artifacts import write_features_h5
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
-from path_gene_multimodal_tpu_torch.models.clip import ImageEncoder
+from path_gene_multimodal_tpu_torch.models.clip import ImageEncoder, TextEncoder
+from path_gene_multimodal_tpu_torch.models.layers import product_precision
 from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
 from path_gene_multimodal_tpu_torch.pipeline.tessellate import iter_tile_batches
 
@@ -104,3 +114,71 @@ def run_extract_features(
         if not h5_path.exists():  # output oracle (extract_embedding_from_tiles.py:61-62)
             raise RuntimeError(f"feature extraction failed to produce {h5_path}")
     return feats
+
+
+def run_create_class_embeddings(
+    class_names: list[str],
+    text_encoder: TextEncoder,
+    tokenizer,
+    out_dir: str | Path,
+    stem: str,
+    prompt_template: str = "{}",
+    write_artifacts: bool = True,
+) -> np.ndarray:
+    """One text embedding per class label (ref create_embedding.py:13-69).
+    Returns (C, D) float32."""
+    prompts = [prompt_template.format(c) for c in class_names]
+    ids = tokenizer(prompts)
+    embs = text_encoder(ids).cpu().numpy().astype(np.float32)
+    if write_artifacts:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / f"{stem}_classes.npy"
+        np.save(path, embs)
+        # reference writes a torch .pt (create_embedding.py:65-66)
+        torch.save(torch.from_numpy(embs), out_dir / f"{stem}_classes.pt")
+        if not path.exists():
+            raise RuntimeError(f"class-embedding step failed to produce {path}")
+    return embs
+
+
+def _cosine_scores(tile_embs: torch.Tensor, class_embs: torch.Tensor) -> torch.Tensor:
+    """(N, D) × (C, D) → (N, C) cosine similarities in f32 (norms floored
+    at 1e-8)."""
+    with product_precision(torch.float32):
+        a = tile_embs / torch.clamp(torch.linalg.vector_norm(tile_embs, dim=-1, keepdim=True),
+                                    min=1e-8)
+        b = class_embs / torch.clamp(torch.linalg.vector_norm(class_embs, dim=-1, keepdim=True),
+                                     min=1e-8)
+        return a @ b.t()
+
+
+def run_annotation(
+    tile_features: np.ndarray,
+    class_embeddings: np.ndarray,
+    class_names: list[str],
+    out_dir: str | Path,
+    stem: str,
+    write_artifacts: bool = True,
+    device: str | torch.device = "cuda",
+) -> pd.DataFrame:
+    """Cosine-similarity zero-shot annotation (ref
+    find_annotation_from_embedding.py:9-72): per-class score columns +
+    ``predicted_class`` argmax, the scores computed on ``device``. Returns
+    the annotation frame with ``tile_index``."""
+    if len(tile_features) == 0:
+        raise ValueError("no tile features to annotate (empty slide?)")
+    f32 = dict(dtype=torch.float32, device=device)
+    scores = _cosine_scores(torch.as_tensor(np.asarray(tile_features), **f32),
+                           torch.as_tensor(np.asarray(class_embeddings), **f32)).cpu().numpy()
+    df = pd.DataFrame(scores, columns=list(class_names))
+    df.insert(0, "tile_index", np.arange(len(df), dtype=np.int64))
+    df["predicted_class"] = [class_names[i] for i in scores.argmax(axis=1)]
+    if write_artifacts:
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / f"{stem}_annotations.csv"
+        df.to_csv(path, index=False)
+        if not path.exists():
+            raise RuntimeError(f"annotation step failed to produce {path}")
+    return df

@@ -23,14 +23,12 @@ matplotlib: thumbnails and mask resizes go through ``io/slide.py``'s
 cv2-equal resizes, and ``<stem>_boundaries.png`` is the thumbnail with the
 tissue rings (black) and the tumor / TIL / TLS rings (``#d62728``,
 ``#2ca02c``, ``#1f77b4``) drawn as 1-px polylines, written as an RGB PNG by
-a small zlib encoder. It is not pixel-equal to the JAX package's
+``io/png.py``. It is not pixel-equal to the JAX package's
 matplotlib figure (ROADMAP, Queue 3).
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
 from datetime import datetime
 from pathlib import Path
 from typing import Any, Mapping, Sequence
@@ -43,6 +41,7 @@ from path_gene_multimodal_tpu_torch.core.artifacts import (
     load_geojson,
     polygon_ring_area_perimeter,
 )
+from path_gene_multimodal_tpu_torch.io.png import write_png
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader, resize_area, resize_nearest
 from path_gene_multimodal_tpu_torch.ops import components as cc
 from path_gene_multimodal_tpu_torch.ops import contours as ct
@@ -195,25 +194,6 @@ def draw_polyline(img: np.ndarray, pts: np.ndarray, color: tuple[int, int, int])
     h, w = img.shape[:2]
     ok = (xy[:, 0] >= 0) & (xy[:, 0] < w) & (xy[:, 1] >= 0) & (xy[:, 1] < h)
     img[xy[ok, 1], xy[ok, 0]] = color
-
-
-def write_png(path: str | Path, rgb: np.ndarray) -> Path:
-    """Write an RGB uint8 (H, W, 3) image as a PNG (8-bit truecolour, no
-    filtering, zlib level 6)."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w = rgb.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    path = Path(path)
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
-                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                     + chunk(b"IEND", b""))
-    return path
 
 
 def _hex_rgb(color: str) -> tuple[int, int, int]:

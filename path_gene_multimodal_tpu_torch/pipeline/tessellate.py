@@ -1,20 +1,121 @@
-"""Tile batches for the device stages.
+"""Step 1/8 — tissue segmentation + tiling, and the tile batches of the
+device stages.
 
-Counterpart of ``iter_tile_batches``, ``_decode_batch``,
-``decode_chunk_planar`` and ``_decode_batch_planar`` of the JAX package's
-``pipeline/tessellate.py``: RGB payloads, or planar 4:2:0 payloads (Y and
-CbCr planes, half the bytes, padded black: Y 0, Cb = Cr = 128) that fall
-back to RGB chunk by chunk; the same prefetch thread pool, zero padding to
-the batch and ``valid`` mask. Not ported yet: ``run_tessellation``.
+Counterpart of the JAX package's ``pipeline/tessellate.py`` (the
+reference's Mussel wrapper, ``tiling.py:8-50``):
+
+- ``run_tessellation``: thumbnail → tissue mask on the device (HSV
+  saturation, 3×3 median, Otsu) → tile grid → per-tile foreground
+  fraction (an integral image on the device) → foreground tile coords.
+  Artifacts: ``<slide>.h5`` (canonical coords + attrs, through the port's
+  HDF5 subset), ``mask.png``, ``grid_mask.png``, ``thumbnail.png`` and,
+  optionally, per-tile ``patches/*.png``, written by ``io/png.py`` (the
+  pixels of the JAX package's ``cv2.imwrite``; the bytes differ);
+- ``iter_tile_batches`` and its decoders: RGB payloads, or planar 4:2:0
+  payloads (Y and CbCr planes, half the bytes, padded black: Y 0, Cb = Cr
+  = 128) that fall back to RGB chunk by chunk; the same prefetch thread
+  pool, zero padding to the batch and ``valid`` mask.
+
+The JAX package pads the thumbnail to one canonical shape so that one
+compiled program serves every slide; the port has no compile cache to
+serve and masks the thumbnail as it is (the JAX tests hold both paths
+equal).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
 
+from path_gene_multimodal_tpu_torch.config import PipelineConfig, resolve_tile_png_name
+from path_gene_multimodal_tpu_torch.core.artifacts import write_tessellation_h5
+from path_gene_multimodal_tpu_torch.io.png import write_png
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
+from path_gene_multimodal_tpu_torch.ops import gridops, masking
+
+
+@dataclass
+class TessellationResult:
+    coords: np.ndarray          # (N, 2) int64 level-0 top-left px, row-major
+    tile_size: int
+    slide_dims: tuple[int, int]  # (w, h) level 0
+    mask: np.ndarray            # bool thumbnail-resolution tissue mask
+    mask_scale: float           # level-0 px per mask px
+    h5_path: Path | None = None
+
+    @property
+    def num_tiles(self) -> int:
+        return len(self.coords)
+
+
+def run_tessellation(
+    slide: SlideReader,
+    out_dir: str | Path,
+    cfg: PipelineConfig,
+    stem: str | None = None,
+    write_artifacts: bool = True,
+    device: str | torch.device = "cuda",
+) -> TessellationResult:
+    """Tessellate one slide; the mask and the tile fractions are computed
+    on ``device`` (the card unless the caller passes "cpu")."""
+    out_dir = Path(out_dir)
+    t = cfg.tessellation
+    patch = cfg.patch_size
+    w0, h0 = slide.level_dimensions[0]
+    stem = stem or (Path(getattr(slide, "path", "slide") or "slide").stem)
+
+    s_canon = t.thumbnail_size
+    thumb = slide.get_thumbnail((s_canon, s_canon))
+    th, tw = thumb.shape[:2]
+    mask_dev = masking.tissue_mask(torch.from_numpy(np.ascontiguousarray(thumb)).to(device),
+                                   use_otsu=t.use_otsu, segment_threshold=t.segment_threshold)
+    mask_scale = w0 / tw
+
+    y0, y1, x0, x1, ny, nx = gridops.tile_edges_for_scale(th, tw, patch, mask_scale)
+    frac = gridops.tile_foreground_fraction_edges(mask_dev, y0, y1, x0, x1)
+    keep = (frac >= np.float32(t.min_foreground_frac)).cpu().numpy()
+    mask = mask_dev.cpu().numpy()
+    # np.nonzero on a 2-D array is row-major (y outer, x ascending within y)
+    # — the reference's H5 layout
+    gy, gx = np.nonzero(keep)
+    coords = np.stack([gx * patch, gy * patch], axis=1).astype(np.int64)
+
+    result = TessellationResult(
+        coords=coords,
+        tile_size=patch,
+        slide_dims=(w0, h0),
+        mask=mask,
+        mask_scale=mask_scale,
+    )
+
+    if write_artifacts:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        h5_path = out_dir / f"{stem}.h5"
+        write_tessellation_h5(
+            h5_path,
+            coords,
+            tile_size=patch,
+            mpp=slide.mpp,
+            extra_attrs={"slide_width": w0, "slide_height": h0},
+        )
+        result.h5_path = h5_path
+        write_png(out_dir / "thumbnail.png", thumb)
+        write_png(out_dir / "mask.png", (mask * 255).astype(np.uint8))
+        write_png(out_dir / "grid_mask.png", (keep * 255).astype(np.uint8))
+        if t.write_patch_pngs:
+            patches_dir = out_dir / "patches"
+            patches_dir.mkdir(exist_ok=True)
+            for i, (x, y) in enumerate(coords):
+                tile = slide.read_region((int(x), int(y)), 0, (patch, patch))
+                name = resolve_tile_png_name(int(x), int(y), i, cfg.compat)
+                write_png(patches_dir / name, tile)
+        if not h5_path.exists():  # output-existence oracle (tiling.py:46-50)
+            raise RuntimeError(f"tessellation failed to produce {h5_path}")
+    return result
 
 
 def _decode_batch(
