@@ -118,6 +118,28 @@
    direct ``run_hovernext_wsi`` call's rows. Prints a ``wsi`` JSON line
    (windows/s beside the per-tile run's tiles/s, the split: decode wait,
    device ms a batch, host rows, unpack and grouping, stitcher, finalize);
+4d. the published hover_next layout (``_real``): ``REAL_HOVERNEXT_PANNUKE``
+   (timm ConvNeXtV2-tiny, depths 3/3/9/3, dims 96-768; two smp U-Net
+   decoders 256/128/64/32; a 5-channel instance and a 6-channel type head)
+   at full depth, bf16, TTA x4; seeded weights and BatchNorm statistics,
+   heads fitted by ``_fit_real_heads``, saved as a published-layout ``.pt``
+   and loaded back through ``load_hovernext_from_torch``;
+   ``RealNucleiModel`` through the per-tile mode on the main path's 256 ROI
+   tiles (a warm-up batch, then a run with the counts set to 0 just before and
+   read just after: K2 4, K3 1 and K4 1 a batch, nothing else; at least one
+   nucleus a tile); one batch of 128 stage by stage: the forward timed with
+   CUDA events by part (encoder, each decoder, heads + upsample) beside its
+   FLOP bound at the bf16 peak, the HoVer route's and the three-class
+   decoder's labels (on the batch's instance logits) on the card equal to
+   their plain versions on the CPU on the batch's first 16 tiles (and to
+   the card's whole-batch labels there), K3's steps counted (0 fails), K4's
+   features card = CPU; the bf16 forward against f32 on the card on 64
+   images (cosine >= 0.999 a head) and f32 on the card against the CPU on 4
+   images (atol 5e-4 / rtol 1e-3); ``cli.hovernext_infer.main`` with the
+   ``.pt`` on the ``wsi`` phase's crop TIFF in ``--mode wsi`` and ``--mode
+   tiles``, exit 0 and tables equal to direct calls. Prints a ``real`` JSON
+   line; K2, K3 and K4 carry ``launches_by_path`` (main, real) on the
+   kernels line;
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -196,7 +218,7 @@
    --outroot D`` in a child process exits 0. K5's launches on the kernels
    line are the islands path's and the runner's (``launches_by_path``).
 
-Prints the ``chain``, ``feed``, ``wsi`` and ``runner`` JSON lines, the slice's tiles/s, the
+Prints the ``chain``, ``feed``, ``wsi``, ``real`` and ``runner`` JSON lines, the slice's tiles/s, the
 kernels' JSON line and the card's name and power limit, then, as the last line,
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
@@ -301,6 +323,9 @@ RUNNER_DONE_KEYS = ("wsi_path", "out_dir", "csv_path", "geojson_path", "overlay_
                     "per_class_outputs", "num_features", "num_tiles", "classes_processed",
                     "patch_size", "model_type", "status", "id", "wsi_stem", "timestamp",
                     "stage_report")
+# the real phase's CPU replay of both instance decoders: the batch's first
+# tiles (over the whole batch the plain CC and flood take minutes)
+REAL_REPLAY = 16
 # the CPU replay's bar for the floats of the runner's CSVs (elementwise)
 REPLAY_ATOL, REPLAY_RTOL = 5e-4, 1e-3
 
@@ -1654,6 +1679,27 @@ def _hidden_rows(rows: list, clipped: list, pixels: list, hidden, w0: int, h0: i
     }
 
 
+def _write_crop(slide, cfg, tmp: Path) -> tuple[Path, Path, tuple[int, int]]:
+    """The 2047 x 2049 region of the slide with the most tissue, on a 256-px
+    grid (the top-left one is background), as a JPEG TIFF ``tmp/crop.svs``
+    with its ROI annotations ``tmp/crop_annotations.csv`` → (TIFF, CSV,
+    (x, y) of the region)."""
+    from path_gene_multimodal_tpu_torch.io import tiff_write
+    from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
+
+    lv0 = slide._levels[0]
+    tissue = (lv0[::16, ::16] != 243).any(-1)
+    cy, cx = max(((y, x) for y in range(0, lv0.shape[0] - 2049 + 1, 256)
+                  for x in range(0, lv0.shape[1] - 2047 + 1, 256)),
+                 key=lambda p: tissue[p[0] // 16: (p[0] + 2049) // 16,
+                                      p[1] // 16: (p[1] + 2047) // 16].mean())
+    crop = np.ascontiguousarray(lv0[cy: cy + 2049, cx: cx + 2047])
+    tif = tiff_write.write_tiled_tiff(tmp / "crop.svs", [crop], tile_size=256, compression=7,
+                                      jpeg_quality=90, description="Aperio crop |MPP = 0.2500|")
+    ann = _annotations(ArraySlide(crop), cfg.patch_size, None, tmp / "crop_annotations.csv")
+    return tif, ann, (cx, cy)
+
+
 def _wsi(slide, tif: Path, sd, model, cfg, main, tmp: Path, wrappers, failures) -> dict:
     """The sliding-window WSI mode on the smoke TIFF, timed with the
     kernels' counts, its map against its table; a second run on its first
@@ -1664,8 +1710,6 @@ def _wsi(slide, tif: Path, sd, model, cfg, main, tmp: Path, wrappers, failures) 
     import pandas as pd
 
     from path_gene_multimodal_tpu_torch.cli import hovernext_infer
-    from path_gene_multimodal_tpu_torch.io import tiff_write
-    from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
     from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
     from path_gene_multimodal_tpu_torch.ops import cuda
     from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
@@ -1822,18 +1866,7 @@ def _wsi(slide, tif: Path, sd, model, cfg, main, tmp: Path, wrappers, failures) 
     # -- 5. the CLI on an odd-sided crop, both modes --------------------------------------
     ck = tmp / "sd.pt"
     torch.save({k: v.detach().cpu() for k, v in sd.items()}, ck)
-    # the 2047 x 2049 region with the most tissue, on a 256-px grid (the
-    # top-left one is background)
-    lv0 = slide._levels[0]
-    tissue = (lv0[::16, ::16] != 243).any(-1)
-    cy, cx = max(((y, x) for y in range(0, lv0.shape[0] - 2049 + 1, 256)
-                  for x in range(0, lv0.shape[1] - 2047 + 1, 256)),
-                 key=lambda p: tissue[p[0] // 16: (p[0] + 2049) // 16,
-                                      p[1] // 16: (p[1] + 2047) // 16].mean())
-    crop = np.ascontiguousarray(lv0[cy: cy + 2049, cx: cx + 2047])
-    tif2 = tiff_write.write_tiled_tiff(tmp / "crop.svs", [crop], tile_size=256, compression=7,
-                                       jpeg_quality=90, description="Aperio crop |MPP = 0.2500|")
-    ann2 = _annotations(ArraySlide(crop), cfg.patch_size, None, tmp / "crop_annotations.csv")
+    tif2, ann2, (cx, cy) = _write_crop(slide, cfg, tmp)
     cli: dict = {"crop": [2047, 2049], "crop_at": [cx, cy],
                  "windows": len(nw.iter_windows(2047, 2049, window, stride))}
     _, direct = nw.run_hovernext_wsi(TiffTileSlide(tif2), tmp / "direct", "crop", model, cfg)
@@ -1867,6 +1900,378 @@ def _wsi(slide, tif: Path, sd, model, cfg, main, tmp: Path, wrappers, failures) 
     res["cli"] = cli
     torch.cuda.empty_cache()
     return res
+
+def _fit_real_heads(cfg, state_dict: dict, tiles_u8: np.ndarray, dtype=torch.bfloat16,
+                    device="cuda", seed: int = 0, margin: float = 6.0,
+                    pixels: int = 100_000) -> dict:
+    """Seeded published-layout weights whose heads find the synthetic
+    slide's nuclei: a ridge fit (``utils/headfit._ridge``) of each head's
+    3 x 3 conv (all nine taps) and bias on its decoder's /2 features, over
+    ``tiles_u8`` in all four rotations, against
+    ``utils/headfit.nuclei_ground_truth`` taken at /2. The instance head's
+    first three channels are (background, interior, border) logits at
+    +-``margin`` (border = the mask less its 3 x 3 erosion), its channels 3-4
+    (5-channel head) the HV maps; the type head puts background against
+    type 1. Returns a new state dict; only the heads change. Test
+    scaffolding for runs without a published checkpoint, not a feature of
+    the package (the centre tap alone does not separate the nuclei on
+    seeded decoder features)."""
+    from scipy import ndimage
+
+    from path_gene_multimodal_tpu_torch.models.hovernext_real import RealHoverNeXt
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei import _pick_real_branches
+    from path_gene_multimodal_tpu_torch.utils.headfit import _ridge, nuclei_ground_truth
+
+    tiles = np.concatenate([np.rot90(np.asarray(tiles_u8), k, axes=(1, 2)) for k in range(4)])
+    mask, hv, _ = nuclei_ground_truth(tiles)
+    mask, hv = mask[:, ::2, ::2] > 0.5, hv[:, ::2, ::2].reshape(-1, 2)
+    interior = np.stack([ndimage.binary_erosion(m) for m in mask]).reshape(-1)
+    _, h, w = mask.shape
+    flat = mask.reshape(-1)
+    rng = np.random.default_rng(seed)
+    pos, neg = np.flatnonzero(flat), np.flatnonzero(~flat)
+    n = min(len(pos), len(neg), pixels // 2)
+    if n == 0:
+        raise ValueError("the fitting tiles hold no nucleus pixel")
+    sel = np.sort(np.concatenate([rng.choice(pos, n, replace=False),
+                                  rng.choice(neg, n, replace=False)]))
+    fg = flat[sel]
+
+    # each selected pixel's 3 x 3 neighbourhood of decoder features (zero
+    # padded, as the head conv pads), flattened in the conv weight's
+    # (channel, row, column) order
+    model = RealHoverNeXt(cfg)
+    model.load_state_dict(state_dict)
+    model = model.to(device=device, dtype=dtype).eval()
+    parts: dict[str, list] = {d: [] for d in model.decoder_names}
+    img = torch.from_numpy(sel // (h * w))
+    yx = torch.from_numpy(np.stack([sel % (h * w) // w, sel % w], axis=1))
+    taps = torch.tensor([(dy, dx) for dy in range(3) for dx in range(3)])
+    with torch.inference_mode():
+        for start in range(0, len(tiles), 16):
+            px = torch.from_numpy(np.ascontiguousarray(tiles[start: start + 16])).to(device)
+            feats = model.encoder((px.float() / 255.0).to(dtype))
+            rows = ((img >= start) & (img < start + 16)).nonzero()[:, 0]
+            b = (img[rows] - start)[:, None].to(device)
+            yy = (yx[rows, 0:1] + taps[None, :, 0]).to(device)
+            xx = (yx[rows, 1:2] + taps[None, :, 1]).to(device)
+            for d in parts:
+                f = torch.nn.functional.pad(getattr(model, d)(feats).float(), (0, 0, 1, 1, 1, 1))
+                parts[d].append(f[b, yy, xx].transpose(1, 2).reshape(len(rows), -1).cpu())
+    feats = {d: torch.cat(v).numpy() for d, v in parts.items()}
+    del model, parts
+
+    cls = np.where(interior[sel], 1, np.where(fg, 2, 0))
+    three = np.full((len(sel), 3), -margin, np.float32)
+    three[np.arange(len(sel)), cls] = margin
+    inst_head, _ = _pick_real_branches(cfg)
+    out = dict(state_dict)
+    for dec, head, ch in cfg.branches:
+        if head == inst_head:
+            if ch not in (3, 5):
+                raise ValueError(f"{head}: a {ch}-channel instance head cannot be fitted")
+            y = three if ch == 3 else np.concatenate([three, hv[sel]], axis=1)
+        else:
+            y = np.full((len(sel), ch), -margin, np.float32)
+            y[:, 0] = np.where(fg, -margin, margin)
+            y[:, 1] = np.where(fg, margin, -margin)
+        wts = _ridge(feats[dec], y.astype(np.float32))
+        shape = state_dict[f"{head}.0.weight"].shape
+        out[f"{head}.0.weight"] = torch.from_numpy(np.ascontiguousarray(wts[:-1].T)).reshape(shape)
+        out[f"{head}.0.bias"] = torch.from_numpy(wts[-1].copy())
+    return out
+
+
+def _real_macs(cfg, size: int) -> dict:
+    """Multiply-adds an image of the published layout's forward at a
+    ``size``^2 input: encoder (stem, downsamples, blocks: dw 7x7 + two
+    pointwise 4x), each distinct decoder (two 3 x 3 convs a block), the heads
+    (3 x 3 convs at /2); norms, GELU, GRN, ReLU and the upsamples left out."""
+    e, dims = cfg.encoder, cfg.encoder.dims
+    r = size // 4
+    enc = r * r * dims[0] * 3 * 16
+    for s, (depth, c) in enumerate(zip(e.depths, dims)):
+        if s:
+            r //= 2
+            enc += r * r * c * dims[s - 1] * 4
+        enc += depth * r * r * (49 * c + 8 * c * c)
+    dec = cfg.decoder_channels
+    skips = [dims[2], dims[1], dims[0]] + [0] * (len(dec) - 3)
+    r, one = size // 2 ** len(dims) // 2, 0
+    for cin, skip, cout in zip([dims[-1]] + list(dec[:-1]), skips, dec):
+        r *= 2
+        one += r * r * cout * 9 * (cin + skip + cout)
+    heads = sum((size // 2) ** 2 * ch * dec[-1] * 9 for _, _, ch in cfg.branches)
+    return {"encoder": enc, "decoders": {d: one for d in dict.fromkeys(
+        d for d, _, _ in cfg.branches)}, "heads_and_upsample": heads}
+
+
+def _real_forward_parts(net, stacked: torch.Tensor):
+    """The published layout's forward on the TTA-folded batch, timed by part
+    with CUDA events: (outputs, {part: ms})."""
+    names = ["encoder"] + net.decoder_names + ["heads_and_upsample"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    with torch.inference_mode():
+        ev[0].record()
+        feats = net.encoder(stacked.to(torch.bfloat16))
+        ev[1].record()
+        decoded = {}
+        for i, d in enumerate(net.decoder_names):
+            decoded[d] = getattr(net, d)(feats)
+            ev[2 + i].record()
+        out = net.heads(decoded)
+        ev[-1].record()
+    torch.cuda.synchronize()
+    return out, {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine a tile of two (B, ...) maps, in f64."""
+    a, b = a.double().flatten(1), b.double().flatten(1)
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
+
+
+def _real(slide, ann: Path, cfg, tmp: Path, wrappers, failures) -> dict:
+    """The published hover_next layout at its widths and full depth
+    (``REAL_HOVERNEXT_PANNUKE``), bf16, TTA x4: seeded weights with seeded
+    BatchNorm statistics and fitted heads (``_fit_real_heads``) saved as a
+    published-layout ``.pt`` and loaded back through
+    ``load_hovernext_from_torch``; ``RealNucleiModel`` through the per-tile
+    mode on the main path's 256 ROI tiles (a warm-up batch, then a counted,
+    timed run: K2, K3 and K4 launch, nothing else); one batch stage by stage
+    (the forward by part beside its FLOP bound, both instance decoders on
+    its first ``REAL_REPLAY`` tiles and K4 on the card against their plain
+    versions on the CPU, K3's steps); the bf16
+    forward against f32 on the card, f32 on the card against the CPU; the
+    CLI in both modes on the crop TIFF the ``wsi`` phase wrote."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.cli import hovernext_infer
+    from path_gene_multimodal_tpu_torch.config import REAL_HOVERNEXT_PANNUKE as pub
+    from path_gene_multimodal_tpu_torch.core.checkpoints import load_hovernext_from_torch
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models.hovernext_real import RealHoverNeXt, init_weights
+    from path_gene_multimodal_tpu_torch.ops import flood
+    from path_gene_multimodal_tpu_torch.ops import watershed as ws
+    from path_gene_multimodal_tpu_torch.ops.components import INF
+    from path_gene_multimodal_tpu_torch.ops.instances import instance_features_batch
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei as nuc
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei_wsi as nw
+    from path_gene_multimodal_tpu_torch.utils.headfit import sample_tissue_tiles
+
+    dev = torch.device("cuda")
+    res: dict = {}
+    size, batch = pub.input_size, cfg.hovernext.batch_size
+
+    # -- 1. weights: seeded, heads fitted, through the published-layout loader -----
+    t0 = time.perf_counter()
+    net = RealHoverNeXt(pub)
+    init_weights(net, torch.Generator().manual_seed(0), bn_stats=True)
+    sd = _fit_real_heads(pub, net.state_dict(), sample_tissue_tiles(slide, 16, size, seed=1),
+                         dtype=torch.bfloat16, device=dev)
+    del net
+    ck = tmp / "real.pt"
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, ck)
+    rcfg, rsd = load_hovernext_from_torch(ck)
+    res.update(weights_s=time.perf_counter() - t0, checkpoint_keys=len(rsd),
+               checkpoint_mb=ck.stat().st_size / 2 ** 20,
+               loaded_config={"depths": rcfg.encoder.depths, "dims": rcfg.encoder.dims,
+                              "decoder_channels": rcfg.decoder_channels,
+                              "branches": rcfg.branches, "input_size": rcfg.input_size})
+    if (rcfg.encoder, rcfg.decoder_channels, sorted(rcfg.branches)) != (
+            pub.encoder, pub.decoder_channels, sorted(pub.branches)):
+        failures.append(f"real: the checkpoint loaded as {rcfg}, not the published layout")
+    model = nuc.RealNucleiModel.build(rcfg, state_dict=rsd, tta=cfg.hovernext.tta,
+                                      dtype=torch.bfloat16, device=dev,
+                                      max_instances=cfg.hovernext.max_instances_per_tile)
+    net = model.model
+    res["params_m"] = sum(t.numel() for t in net.parameters()) / 1e6
+
+    # -- 2. the per-tile mode: a warm-up batch (cuDNN plans, allocator), then a
+    # counted, timed run
+    t_runs = time.perf_counter()
+    coords = pd.read_csv(ann).query("in_tme_roi")[["x", "y"]].to_numpy()[:batch].tolist()
+    off = (size - cfg.patch_size) // 2
+    tiles = np.stack([
+        np.pad(slide.read_region((x, y), 0, (cfg.patch_size,) * 2),
+               ((off, off), (off, off), (0, 0)), mode="reflect") for x, y in coords])
+    model.segment_async(torch.from_numpy(tiles).to(dev))
+    model.cc_overflow_tiles(reset=True)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    table = nuc.run_hovernet_pipeline_on_wsi_tiles(slide, ann, tmp, "real", model, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    n_b = -(-N_TILES // batch)
+    res.update(tiles=N_TILES, batches=n_b, s=dt, tiles_per_s=N_TILES / dt, nuclei=len(table),
+               nuclei_per_tile=len(table) / N_TILES, launches=launches,
+               cc_slot_overflow_tiles=table.attrs.get("cc_slot_overflow_tiles"))
+    print(f"real: {N_TILES} tiles in {dt:.3f} s, {len(table)} nuclei, launches {launches}",
+          flush=True)
+    want = {"cc_sizes": 4 * n_b, "flood": n_b, "instance_stats": n_b}
+    failures += [f"real: {k} launched {launches[k]} times, expected {v}"
+                 for k, v in want.items() if launches[k] != v]
+    failures += [f"real: {k} launched on the real path" for k, v in launches.items()
+                 if k not in want and v]
+    if res["nuclei_per_tile"] < 1:
+        failures.append(f"real: {res['nuclei_per_tile']:.2f} nuclei a tile (a degenerate map)")
+    failures += _table_failures(table, cfg.patch_size, "real")
+
+    # -- 3. one batch, stage by stage -------------------------------------------------
+    split = {"weights": res["weights_s"], "per_tile_runs": time.perf_counter() - t_runs}
+    t0 = time.perf_counter()
+    pixels = torch.from_numpy(tiles).to(dev).float() / 255.0
+    stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(4)], dim=0)
+    for _ in range(2):  # the second call is timed
+        raw, parts = _real_forward_parts(net, stacked)
+    del raw
+    macs = _real_macs(rcfg, size)
+    n_img = stacked.shape[0]
+    flops = {"encoder": 2 * macs["encoder"] * n_img,
+             **{d: 2 * m * n_img for d, m in macs["decoders"].items()},
+             "heads_and_upsample": 2 * macs["heads_and_upsample"] * n_img}
+    total = sum(flops.values())
+    nbytes = stacked.numel() * 4 + sum(n_img * size * size * ch * 4 for _, _, ch in rcfg.branches)
+    bnd, by = _bound_ms(nbytes, [(total, PEAK_BF16)])
+    res["forward"] = {"images": n_img, "ms": sum(parts.values()), "parts_ms": parts,
+                      "tflop": total / 1e12, "tflop_parts": {k: v / 1e12 for k, v in flops.items()},
+                      "bound_ms": bnd, "bound_by": by,
+                      "parts_bound_ms": {k: v / PEAK_BF16 * 1e3 for k, v in flops.items()}}
+    # both decoders on the card over the batch; their plain versions on the
+    # CPU over its first REAL_REPLAY tiles (each tile is decoded on its own)
+    n = REAL_REPLAY
+    with torch.inference_mode():
+        out = model.forward(pixels)
+        inst = out[model.inst_head]
+        steps = torch.zeros(3, dtype=torch.int64, device=dev)
+        real_flood = ws.marker_watershed
+        ws.marker_watershed = lambda d, m, k, levels: flood.marker_watershed(
+            d, m, k, levels=levels, counts=steps)
+        try:
+            p3 = torch.softmax(inst[..., :3], dim=-1)
+            fgp, hv = p3[..., 1] + p3[..., 2], inst[..., 3:5].contiguous()
+            lk, _ = ws.hover_instances_batch(fgp, hv, np_threshold=model.fg_threshold)
+        finally:
+            ws.marker_watershed = real_flood
+        tk, _ = ws.threeclass_instances_from_probs(p3)
+        sub_k = ws.hover_instances_batch(fgp[:n], hv[:n], np_threshold=model.fg_threshold)
+        sub_p = ws.hover_instances_batch(fgp[:n].cpu(), hv[:n].cpu(),
+                                         np_threshold=model.fg_threshold)
+        tsub_k = ws.threeclass_instances_from_probs(p3[:n])
+        tsub_p = ws.threeclass_instances_from_probs(p3[:n].cpu())
+        lbl = torch.where(lk < INF, lk, 0)
+        li = lbl[:, off:-off, off:-off].contiguous()
+        ti = out[model.type_head].argmax(-1).to(torch.int32)[:, off:-off, off:-off].contiguous()
+        fk = instance_features_batch(li, ti, model.max_instances)
+        fp = instance_features_batch(li.cpu(), ti.cpu(), model.max_instances)
+    ferr = max(float((fk[k].cpu().float() - fp[k].float()).abs().max()) for k in fk)
+    res["decoders"] = {
+        "cpu_replay_tiles": n,
+        "hover_label_diff": int((sub_k[0].cpu() != sub_p[0]).sum()),
+        "hover_overflow_card_cpu": [int(sub_k[1]), int(sub_p[1])],
+        "hover_subset_equals_batch": bool(torch.equal(sub_k[0], lk[:n])),
+        "hover_instances": int(lbl.amax(dim=(1, 2)).sum()),
+        "threeclass_label_diff": int((tsub_k[0].cpu() != tsub_p[0]).sum()),
+        "threeclass_overflow_card_cpu": [int(tsub_k[1]), int(tsub_p[1])],
+        "threeclass_subset_equals_batch": bool(torch.equal(tsub_k[0], tk[:n])),
+        "threeclass_instances": int(torch.where(tk < INF, tk, 0).amax(dim=(1, 2)).sum()),
+        "flood_steps": {"summed": int(steps[0]), "max_tile": int(steps[1]),
+                        "grown_px": int(steps[2])},
+        "k4_features_max_abs_diff": ferr}
+    dec = res["decoders"]
+    if (dec["hover_label_diff"] or len(set(dec["hover_overflow_card_cpu"])) > 1
+            or not dec["hover_subset_equals_batch"]):
+        failures.append(f"real: HoVer route labels differ between card and CPU: {dec}")
+    if (dec["threeclass_label_diff"] or len(set(dec["threeclass_overflow_card_cpu"])) > 1
+            or not dec["threeclass_subset_equals_batch"]):
+        failures.append(f"real: three-class labels differ between card and CPU: {dec}")
+    if not dec["hover_instances"] or not dec["threeclass_instances"]:
+        failures.append(f"real: a decoder found no instance on the batch: {dec}")
+    if dec["flood_steps"]["summed"] == 0:
+        failures.append("real: the flood took no step on the batch (a degenerate map)")
+    if ferr > 1e-3:
+        failures.append(f"real: instance features differ between card and CPU by {ferr:.3g}")
+    del out, inst, p3, fgp, hv, lk, tk, sub_k, sub_p, tsub_k, tsub_p, lbl, li, ti, fk, fp
+
+    # -- 4. floats: bf16 against f32 on the card, f32 on the card against the CPU ------
+    split["batch_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32 = RealHoverNeXt(rcfg)
+    f32.load_state_dict(rsd)
+    f32 = f32.to(dev).eval()
+    with torch.inference_mode():
+        sub = stacked[::4][:64]
+        lo, hi = net(sub), f32(sub)
+        cos = {h: float(_cosines(lo[h].reshape(1, -1), hi[h].reshape(1, -1))) for h in hi}
+        cos_tile = {h: float(_cosines(lo[h], hi[h]).min()) for h in hi}
+        cpu = RealHoverNeXt(rcfg)
+        cpu.load_state_dict(rsd)
+        few = stacked[:4]
+        on_card, on_cpu = f32(few), cpu.eval()(few.cpu())
+    excess = {h: float(((on_card[h].cpu() - on_cpu[h]).abs()
+                        / (EMBED_ATOL + EMBED_RTOL * on_cpu[h].abs())).max()) for h in on_cpu}
+    res["floats"] = {"cos_bf16_vs_f32": cos, "min_tile_cos_bf16_vs_f32": cos_tile,
+                     "f32_card_vs_cpu_excess": excess, "images": [len(sub), len(few)]}
+    if min(cos.values()) < EMBED_MIN_COS:
+        failures.append(f"real: bf16 against f32 cosine {cos} under {EMBED_MIN_COS}")
+    if max(excess.values()) > 1:
+        failures.append(f"real: f32 on the card differs from the CPU past atol {EMBED_ATOL} / "
+                        f"rtol {EMBED_RTOL}: {excess}")
+    del f32, cpu, lo, hi, on_card, on_cpu, stacked, pixels
+
+    # -- 5. the CLI on the crop TIFF, both modes, against direct calls ------------------
+    split["floats"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tif2, ann2 = tmp / "crop.svs", tmp / "crop_annotations.csv"
+    if not (tif2.exists() and ann2.exists()):
+        tif2, ann2, _ = _write_crop(slide, cfg, tmp)
+        res["crop_written_again"] = True
+    cli: dict = {}
+    key = ["tile_y", "tile_x", "inst_id"]
+    cols = key + ["type", "area", "bbox_xmin", "bbox_ymin", "bbox_xmax", "bbox_ymax"]
+    for mode, extra in (("wsi", []), ("tiles", ["--annotations-csv", str(ann2)])):
+        if mode == "wsi":
+            _, direct = nw.run_hovernext_wsi(TiffTileSlide(tif2), tmp / "real_direct", "crop",
+                                             model, cfg)
+        else:
+            direct = nuc.run_hovernet_pipeline_on_wsi_tiles(
+                TiffTileSlide(tif2), ann2, tmp / "real_direct", "crop", model, cfg)
+        dest = tmp / f"real_cli_{mode}"
+        t0 = time.perf_counter()
+        rc = hovernext_infer.main(["--input", str(tif2), "--output", str(dest), "--mode", mode,
+                                   "--batch-size", str(batch), "--checkpoint", str(ck), *extra])
+        cli[f"{mode}_s"] = time.perf_counter() - t0
+        pq = dest / "crop_hovernet_nuclei_wsi.parquet"
+        got = pd.read_parquet(pq) if pq.exists() else pd.DataFrame(columns=cols)
+        same = (len(got) == len(direct) and len(direct) > 0 and
+                got[cols].sort_values(key).reset_index(drop=True).equals(
+                    direct[cols].sort_values(key).reset_index(drop=True)))
+        cli.update({f"{mode}_rc": rc, f"{mode}_rows": len(got),
+                    f"{mode}_direct_rows": len(direct), f"{mode}_equal_direct": bool(same)})
+        if rc != 0 or not same:
+            failures.append(f"real: the CLI in --mode {mode} returned {rc} with {len(got)} rows, "
+                            f"direct call {len(direct)} rows, equal {same}")
+    res["cli"] = cli
+    split["cli_and_direct_calls"] = time.perf_counter() - t0
+    res["split_s"] = split
+    del model, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def _real_line(res: dict) -> dict:
+    """The ``real`` JSON line."""
+    keys = ("loaded_config", "params_m", "split_s", "tiles", "batches", "s", "tiles_per_s",
+            "nuclei", "nuclei_per_tile", "cc_slot_overflow_tiles", "launches", "forward",
+            "decoders", "floats", "cli")
+    line = {k: res.get(k) for k in keys}
+    if line["launches"]:
+        line["launches"] = {k: v for k, v in line["launches"].items() if v}
+    return line
+
 
 def _wsi_line(res: dict) -> dict:
     """The ``wsi`` JSON line: rates, the split, launches, checks, and each
@@ -3971,6 +4376,12 @@ def main(argv: list[str] | None = None) -> int:
     wsi_line = _wsi_line(report["wsi"])
     print(json.dumps({"wsi": wsi_line}), flush=True)
 
+    # -- 4d. the published hover_next layout through both nuclei modes ---------------
+    torch.cuda.empty_cache()
+    report["real"] = _real(slide, ann, cfg, tmp, wrappers, failures)
+    real_line = _real_line(report["real"])
+    print(json.dumps({"real": real_line}), flush=True)
+
     # -- 5./6. the decoder configurations and their kernels -----------------
     del out, np_prob, hv, blb, overall, dist, mmask, mdense, markers, lbl, li, ti, lk, lp
     models, counts = _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report,
@@ -3995,6 +4406,14 @@ def main(argv: list[str] | None = None) -> int:
     k5["launches"] = sum(k5["launches_by_path"].values())
     k5["note"] += ("; launches: the islands path's (max_work_dim 1024) and the runner path's "
                    "(one call a class on the tile grid), launches_by_path")
+    real_launches = report["real"]["launches"]
+    for k in kernels:
+        if k["name"] in ("cc_sizes", "flood", "instance_stats"):
+            k["launches_by_path"] = {"main": k["launches"], "real": real_launches[k["name"]]}
+            k["launches"] = sum(k["launches_by_path"].values())
+            k["note"] = k.get("note", "") + ("; launches: the main path's (HoverNeXt-tiny) and "
+                                             "the real path's (the published hover_next layout, "
+                                             "RealNucleiModel), launches_by_path")
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
@@ -4006,6 +4425,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"chain": chain_line}))
     print(json.dumps({"feed": feed_line}))
     print(json.dumps({"wsi": wsi_line}))
+    print(json.dumps({"real": real_line}))
     print(json.dumps({"runner": runner_line}))
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
@@ -4015,7 +4435,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in kernels]}))
+    print(json.dumps({"kernels": [{k: kk[k] for k in keys + ("launches_by_path",) if k in kk}
+                                  for kk in kernels]}))
     print(report["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,14 @@ Two modes, matching the reference's input types (``get_input_type``):
 
 Reference-named knobs: ``--tile-size``, ``--overlap``, ``--tta``,
 ``--batch-size``; weights from ``--checkpoint`` (a torch state dict in the
-canonical layout, or a ``.npz`` written by the JAX package's
-``cli.convert_weights``, kind hovernext), random otherwise (logged). The
-model is bf16, as the JAX package builds it (K1 blocks and the low-res
-final stage). It runs on the card (``--device cuda``, the default) and
-exits with an error without one; ``--device cpu`` runs the kernels' plain
-versions. ``--dp`` is not ported yet.
+published smp/timm hover_next layout or the canonical one, or a ``.npz``
+written by the JAX package's ``cli.convert_weights``, kind hovernext),
+random otherwise (logged). The model is bf16, as the JAX package builds
+it: the published layout as ``RealNucleiModel`` (plain encoder, smp
+decoders), the canonical one as ``NucleiModel`` (K1 blocks and the
+low-res final stage). It runs on the card (``--device cuda``, the default)
+and exits with an error without one; ``--device cpu`` runs the kernels'
+plain versions. ``--dp`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--annotations-csv", default=None, help="required for --mode tiles")
     ap.add_argument(
         "--checkpoint", default=None,
-        help="torch state dict in the canonical HoverNeXt layout, or a .npz "
-             "converted-checkpoint artifact (kind=hovernext)",
+        help="torch state dict in the published hover_next layout or the canonical "
+             "HoverNeXt one, or a .npz converted-checkpoint artifact (kind=hovernext)",
     )
     ap.add_argument(
         "--allow-pickle", action="store_true",
@@ -137,10 +139,15 @@ def main(argv: list[str] | None = None) -> int:
         logger.error("no CUDA device: pass --device cpu to run on the CPU")
         return 2
 
-    from path_gene_multimodal_tpu_torch.config import HoverNeXtConfig, default_config
+    from path_gene_multimodal_tpu_torch.config import (
+        HoverNeXtConfig,
+        RealHoverNeXtConfig,
+        default_config,
+    )
     from path_gene_multimodal_tpu_torch.io.slide import open_slide
     from path_gene_multimodal_tpu_torch.pipeline.nuclei import (
         NucleiModel,
+        RealNucleiModel,
         run_hovernet_pipeline_on_wsi_tiles,
     )
     from path_gene_multimodal_tpu_torch.pipeline.nuclei_wsi import run_hovernext_wsi
@@ -154,6 +161,7 @@ def main(argv: list[str] | None = None) -> int:
 
     mcfg = HoverNeXtConfig(input_size=cfg.hovernext.tile_size)
     state_dict = None
+    real = False
     if args.checkpoint:
         from path_gene_multimodal_tpu_torch.core.checkpoints import (
             load_converted,
@@ -162,12 +170,20 @@ def main(argv: list[str] | None = None) -> int:
 
         try:
             if args.checkpoint.endswith(".npz"):
-                from path_gene_multimodal_tpu_torch.models.weights_hovernext import (
-                    params_from_jax,
-                )
-
-                _, loaded_cfg, params = load_converted(args.checkpoint)
-                state_dict = params_from_jax(params, loaded_cfg)
+                kind, loaded_cfg, params = load_converted(args.checkpoint)
+                if kind != "hovernext":
+                    logger.error("%s is a %r artifact, expected kind=hovernext",
+                                 args.checkpoint, kind)
+                    return 2
+                if isinstance(loaded_cfg, RealHoverNeXtConfig):
+                    from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
+                        real_state_dict_from_jax as from_jax,
+                    )
+                else:
+                    from path_gene_multimodal_tpu_torch.models.weights_hovernext import (
+                        params_from_jax as from_jax,
+                    )
+                state_dict = from_jax(params, loaded_cfg)
             else:
                 loaded_cfg, state_dict = load_hovernext_from_torch(
                     args.checkpoint, allow_pickle=args.allow_pickle)
@@ -175,17 +191,22 @@ def main(argv: list[str] | None = None) -> int:
             logger.error("%s: %s", args.checkpoint, e)
             return 2
         mcfg = replace(loaded_cfg, input_size=cfg.hovernext.tile_size)
-        logger.info("loaded pretrained HoverNeXt from %s (encoder dims %s, %d types)",
-                    args.checkpoint, mcfg.encoder.dims, mcfg.num_types)
+        real = isinstance(loaded_cfg, RealHoverNeXtConfig)
+        if real:
+            logger.info("loaded REAL-layout hover_next from %s (encoder dims %s, branches %s)",
+                        args.checkpoint, mcfg.encoder.dims, mcfg.branches)
+        else:
+            logger.info("loaded pretrained HoverNeXt from %s (encoder dims %s, %d types)",
+                        args.checkpoint, mcfg.encoder.dims, mcfg.num_types)
     else:
         logger.warning("no --checkpoint given: running with RANDOM weights "
                        "(plumbing/benchmark mode, not biology)")
     if args.exact_gelu:
         mcfg = replace(mcfg, encoder=replace(mcfg.encoder, exact_gelu=True))
     # one model for the whole input list (the reference rebuilt it per input)
-    model = NucleiModel.build(mcfg, state_dict=state_dict, tta=args.tta,
-                              dtype=torch.bfloat16, device=device,
-                              max_instances=cfg.hovernext.max_instances_per_tile)
+    model = (RealNucleiModel if real else NucleiModel).build(
+        mcfg, state_dict=state_dict, tta=args.tta, dtype=torch.bfloat16, device=device,
+        max_instances=cfg.hovernext.max_instances_per_tile)
 
     stems = _unique_stems(inputs, logger)
     failed = 0

@@ -234,3 +234,30 @@ class HoverNeXtConfig:
 
 
 HOVERNEXT_TINY = HoverNeXtConfig()
+
+
+@dataclass(frozen=True)
+class RealHoverNeXtConfig:
+    """The published ``hover_next`` layout (smp multi-head U-Net on a timm
+    ConvNeXtV2; the JAX package's ``models/hovernext_real.py``), as
+    ``models.weights_hovernext_real.infer_real_config`` reads it from a
+    checkpoint's shapes. ``branches`` holds one (decoder name, head name,
+    output channels) per branch, the names being the checkpoint's module
+    prefixes with dots made underscores; branches may share a decoder."""
+
+    encoder: ConvNeXtConfig = field(default_factory=lambda: CONVNEXTV2_TINY)
+    decoder_channels: tuple[int, ...] = (256, 128, 64, 32)
+    branches: tuple[tuple[str, str, int], ...] = (
+        ("decoder_inst", "head_inst", 5),
+        ("decoder_ct", "head_ct", 6),
+    )
+    head_upsampling: int = 2
+    input_size: int = 256
+
+    @property
+    def exact_gelu(self) -> bool:
+        return self.encoder.exact_gelu
+
+
+# pannuke_convnextv2_tiny_3, the checkpoint the reference's nuclei stage loads
+REAL_HOVERNEXT_PANNUKE = RealHoverNeXtConfig()

@@ -4,20 +4,24 @@
 - ``file_fingerprint`` and ``text_sidecar_path``: a weights artifact's
   identity for the resume manifests, and where its CLIP text tower rides;
 
-- ``load_hovernext_from_torch``: a torch checkpoint in the canonical layout
-  (``encoder.*``, ``decoder.I.convJ|normJ.*``, ``final_conv.*``,
-  ``head_np|hv|tp.*``; the JAX package's ``convert_hovernext`` names, which
-  are the port's own ``state_dict()`` keys) → (config, state dict);
+- ``load_hovernext_from_torch``: a HoverNeXt torch checkpoint → (config,
+  state dict). The published smp/timm ``hover_next`` layout gives a
+  ``RealHoverNeXtConfig`` and a ``models.hovernext_real.RealHoverNeXt``
+  state dict; the canonical layout (``encoder.*``,
+  ``decoder.I.convJ|normJ.*``, ``final_conv.*``, ``head_np|hv|tp.*``; the
+  JAX package's ``convert_hovernext`` names, which are the port's own
+  ``state_dict()`` keys) a ``HoverNeXtConfig`` and a ``HoverNeXt`` one;
 - ``load_converted``: a ``cli/convert_weights`` ``.npz`` artifact →
-  (kind, config, numpy params): kind ``hovernext`` (a ``HoverNeXtConfig``;
-  ``models.weights_hovernext.params_from_jax`` makes its state dict),
+  (kind, config, numpy params): kind ``hovernext`` (a ``HoverNeXtConfig``,
+  whose state dict ``models.weights_hovernext.params_from_jax`` makes, or
+  with ``branches`` a ``RealHoverNeXtConfig``, whose state dict
+  ``models.weights_hovernext_real.real_state_dict_from_jax`` makes),
   ``clip`` / ``clip_text`` (a ``VisionConfig`` / ``TextConfig``;
   ``models.weights_clip`` makes theirs) and ``virchow2`` with a CLIP-style
   stand-in ``VisionConfig``.
 
-Refused, as not ported yet: the published smp/timm ``hover_next`` layout
-(its model is ``models/hovernext_real.py`` in the JAX package; ROADMAP
-Queue 1 item 16) and the timm Virchow2 tower (item 15).
+Refused, as not ported yet: the timm Virchow2 tower (ROADMAP Queue 1
+item 15).
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
+from path_gene_multimodal_tpu_torch.config import (
+    ConvNeXtConfig,
+    HoverNeXtConfig,
+    RealHoverNeXtConfig,
+)
 
-_REAL_LAYOUT = ("the published smp/timm hover_next layout is not ported yet "
-                "(ROADMAP Queue 1 item 16)")
 _TIMM_VIRCHOW2 = ("the timm Virchow2 tower (models/vit_timm.py in the JAX package) is not "
                   "ported yet (ROADMAP Queue 1 item 15)")
 
@@ -86,41 +92,55 @@ def _is_real_hovernext_layout(sd) -> bool:
     )
 
 
+def _load_strict(net: torch.nn.Module, sd: dict, what: str) -> dict[str, torch.Tensor]:
+    """Load ``sd`` (numpy) into ``net`` with ``strict=True``; a key the
+    model does not have raises ``ValueError`` naming it, a missing one
+    ``RuntimeError`` (torch's)."""
+    expected = net.state_dict()
+    leftover = sorted(k for k in sd if k not in expected)
+    if leftover:
+        raise ValueError(
+            f"{len(leftover)} checkpoint keys were not consumed by the {what} mapping "
+            f"(first 10: {leftover[:10]}); re-key the checkpoint to the documented layout"
+        )
+    # f32 (a bf16 checkpoint was upcast on load), BatchNorm's counter int64
+    state = {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith(
+        "num_batches_tracked") else np.float32)) for k, v in sd.items()}
+    net.load_state_dict(state, strict=True)
+    return state
+
+
 def load_hovernext_from_torch(
     path: str | Path, allow_pickle: bool = False
-) -> tuple[HoverNeXtConfig, dict[str, torch.Tensor]]:
-    """A HoverNeXt torch checkpoint in the canonical layout → (config, state
-    dict of f32 tensors), the shapes giving the config
-    (``infer_hovernext_config``) and the state dict loaded into a
-    ``HoverNeXt`` of that config with ``load_state_dict(strict=True)``.
+) -> tuple[HoverNeXtConfig | RealHoverNeXtConfig, dict[str, torch.Tensor]]:
+    """A HoverNeXt torch checkpoint → (config, state dict of tensors), the
+    config read from the shapes and the state dict loaded into its model
+    with ``load_state_dict(strict=True)``: the published smp/timm layout
+    (``models.weights_hovernext_real.normalize_real_state_dict``) into a
+    ``RealHoverNeXt``, the canonical layout (``infer_hovernext_config``)
+    into a ``HoverNeXt``.
 
-    A checkpoint key that is not consumed raises ``ValueError``, so a naming
-    mismatch is loud; a missing key raises too. The published smp/timm
-    layout raises ``NotImplementedError``."""
-    from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
+    A checkpoint key that is not consumed raises ``ValueError`` naming it,
+    so a naming mismatch is loud; a missing key raises ``RuntimeError``."""
     from path_gene_multimodal_tpu_torch.models.weights import load_torch_checkpoint
-    from path_gene_multimodal_tpu_torch.models.weights_hovernext import infer_hovernext_config
 
     sd = load_torch_checkpoint(path, allow_pickle=allow_pickle)
     if _is_real_hovernext_layout(sd):
-        raise NotImplementedError(f"{path}: {_REAL_LAYOUT}")
+        from path_gene_multimodal_tpu_torch.models.hovernext_real import RealHoverNeXt
+        from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
+            normalize_real_state_dict,
+        )
+
+        cfg, sd = normalize_real_state_dict(sd)
+        return cfg, _load_strict(RealHoverNeXt(cfg), sd, "real hover_next")
+    from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
+    from path_gene_multimodal_tpu_torch.models.weights_hovernext import infer_hovernext_config
+
     for prefix in ("module.", "model."):
         if any(k.startswith(prefix + "encoder.") for k in sd):
             sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
     cfg = infer_hovernext_config(sd)
-    net = HoverNeXt(cfg)
-    expected = net.state_dict()
-    leftover = {k: v for k, v in sd.items() if k not in expected}
-    if leftover:
-        raise ValueError(
-            f"{len(leftover)} checkpoint keys were not consumed by the HoverNeXt mapping "
-            f"(first 10: {sorted(leftover)[:10]}); re-key the checkpoint to the documented "
-            "layout"
-        )
-    state = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()
-             if k in expected}
-    net.load_state_dict(state, strict=True)
-    return cfg, state
+    return cfg, _load_strict(HoverNeXt(cfg), sd, "HoverNeXt")
 
 
 def load_converted(path: str | Path) -> tuple[str, Any, Any]:
@@ -152,9 +172,15 @@ def _config_from_meta(kind: str, d: dict | None) -> Any:
         return klass(**d)
     if kind != "hovernext":
         raise NotImplementedError(f"converted-checkpoint kind {kind!r} is not ported")
-    if "branches" in d:
-        raise NotImplementedError(_REAL_LAYOUT)
     enc = ConvNeXtConfig(depths=tuple(d["encoder"]["depths"]), dims=tuple(d["encoder"]["dims"]))
+    if "branches" in d:  # the published smp/timm multi-head layout
+        return RealHoverNeXtConfig(
+            encoder=enc,
+            decoder_channels=tuple(d["decoder_channels"]),
+            branches=tuple((a, b, int(c)) for a, b, c in d["branches"]),
+            head_upsampling=int(d["head_upsampling"]),
+            input_size=int(d["input_size"]),
+        )
     return HoverNeXtConfig(
         encoder=enc,
         decoder_dims=tuple(d["decoder_dims"]),

@@ -53,8 +53,16 @@ class Conv2dNHWC(nn.Conv2d):
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def grn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Global Response Normalization (ConvNeXtV2) of an NHWC ``x``; gamma
+    and beta broadcast over the channel axis, (C,) or (1, 1, 1, C)."""
+    gx = torch.sqrt(x.float().square().sum(dim=(1, 2), keepdim=True) + 1e-12)
+    nx = (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
+    return gamma.to(x.dtype) * (x * nx) + beta.to(x.dtype) + x
+
+
 class GRN(nn.Module):
-    """Global Response Normalization (ConvNeXtV2), NHWC."""
+    """GRN with the FCMAE layout's (1, 1, 1, C) vectors."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -62,9 +70,16 @@ class GRN(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, 1, 1, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gx = torch.sqrt(x.float().square().sum(dim=(1, 2), keepdim=True) + 1e-12)
-        nx = (gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
-        return self.gamma.to(x.dtype) * (x * nx) + self.beta.to(x.dtype) + x
+        return grn(x, self.gamma, self.beta)
+
+
+def block_forward(x: torch.Tensor, dw: nn.Module, norm: nn.Module, fc1: nn.Module,
+                  grn_mod: nn.Module, fc2: nn.Module, exact_gelu: bool) -> torch.Tensor:
+    """A ConvNeXtV2 block as plain torch ops: dw 7x7 → LN → pw 4x → GELU →
+    GRN → pw → residual, whatever names its modules have."""
+    y = norm(dw(x))
+    y = gelu(fc1(y), exact_gelu)
+    return x + fc2(grn_mod(y))
 
 
 class Block(nn.Module):
@@ -97,10 +112,8 @@ class Block(nn.Module):
         if self.k1_weights is not None:
             return convnext_block(x.to(torch.bfloat16), *self.k1_weights,
                                   exact_gelu=self.exact_gelu).to(x.dtype)
-        y = self.norm(self.dwconv(x))
-        y = gelu(self.pwconv1(y), self.exact_gelu)
-        y = self.pwconv2(self.grn(y))
-        return x + y
+        return block_forward(x, self.dwconv, self.norm, self.pwconv1, self.grn, self.pwconv2,
+                             self.exact_gelu)
 
 
 class ConvNeXtV2(nn.Module):
@@ -138,5 +151,81 @@ class ConvNeXtV2(nn.Module):
         feats = []
         for down, stage in zip(self.downsample_layers, self.stages):
             x = stage(down(x))
+            feats.append(x)
+        return feats
+
+
+# -- the same encoder under timm's names ---------------------------------------
+# The published hover_next checkpoint holds its encoder as smp's
+# TimmUniversalEncoder around timm's ConvNeXtV2: ``stem.{0,1}``,
+# ``stages.S.downsample.{0,1}`` (S >= 1), ``stages.S.blocks.B.{conv_dw,
+# norm, mlp.fc1, mlp.grn, mlp.fc2}``, the GRN vectors (4C,). The modules
+# below compute what ``ConvNeXtV2``'s plain blocks compute, under those
+# names; they are never fused (the JAX package runs this encoder plain).
+
+
+class TimmGRN(nn.Module):
+    """GRN with timm's (C,) ``weight`` and ``bias``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return grn(x, self.weight, self.bias)
+
+
+class TimmMlp(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, 4 * dim)
+        self.grn = TimmGRN(4 * dim)
+        self.fc2 = nn.Linear(4 * dim, dim)
+
+
+class TimmBlock(nn.Module):
+    def __init__(self, dim: int, exact_gelu: bool = False):
+        super().__init__()
+        self.conv_dw = Conv2dNHWC(dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNormNHWC(dim)
+        self.mlp = TimmMlp(dim)
+        self.exact_gelu = exact_gelu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.mlp
+        return block_forward(x, self.conv_dw, self.norm, m.fc1, m.grn, m.fc2, self.exact_gelu)
+
+
+class TimmStage(nn.Module):
+    def __init__(self, in_dim: int, dim: int, depth: int, downsample: bool, exact_gelu: bool):
+        super().__init__()
+        self.downsample = (
+            nn.Sequential(LayerNormNHWC(in_dim), Conv2dNHWC(in_dim, dim, 2, stride=2))
+            if downsample else nn.Identity()
+        )
+        self.blocks = nn.Sequential(*[TimmBlock(dim, exact_gelu) for _ in range(depth)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks(self.downsample(x))
+
+
+class TimmConvNeXtV2(nn.Module):
+    """``ConvNeXtV2`` under timm's names: returns [/4, /8, /16, /32], NHWC."""
+
+    def __init__(self, cfg: ConvNeXtConfig = CONVNEXTV2_TINY):
+        super().__init__()
+        d = cfg.dims
+        self.stem = nn.Sequential(Conv2dNHWC(3, d[0], 4, stride=4), LayerNormNHWC(d[0]))
+        self.stages = nn.ModuleList(
+            TimmStage(d[max(s - 1, 0)], d[s], cfg.depths[s], s > 0, cfg.exact_gelu)
+            for s in range(cfg.num_stages)
+        )
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        x = self.stem(x)
+        feats = []
+        for stage in self.stages:
+            x = stage(x)
             feats.append(x)
         return feats

@@ -1,11 +1,13 @@
 """ConvNeXtV2 state-dict shapes → ``ConvNeXtConfig``.
 
-A copy of ``infer_convnext_config`` from the JAX package's
-``models/weights_convnext.py``, for the official-FCMAE naming that
-HoverNeXt's ``pannuke_convnextv2_tiny_3`` encoder uses
-(``downsample_layers.S.*``, ``stages.S.B.{dwconv,norm,pwconv1,grn,pwconv2}``).
-The port's ``models.convnext.ConvNeXtV2`` already takes these key names as
-its own ``state_dict()``, so no conversion is needed beyond the shapes.
+Copies of the JAX package's ``infer_convnext_config`` (the official FCMAE
+naming: ``downsample_layers.S.*``, ``stages.S.B.{dwconv,norm,pwconv1,grn,
+pwconv2}``, which the port's ``models.convnext.ConvNeXtV2`` takes as its
+own ``state_dict()``) and ``infer_convnext_config_timm`` (timm's naming,
+``stages.S.blocks.B.conv_dw``, the published hover_next encoder's, which
+``models.convnext.TimmConvNeXtV2`` takes). ``infer_convnext_config`` routes
+a timm-named state dict to the latter, as the JAX package's
+``load_convnext_encoder_from_torch`` does.
 """
 
 from __future__ import annotations
@@ -27,15 +29,28 @@ def infer_convnext_config(sd: Mapping[str, np.ndarray]) -> ConvNeXtConfig:
         while f"stages.{s}.{b}.dwconv.weight" in sd:
             b += 1
         if b == 0:
-            if any(k.startswith(f"stages.{s}.blocks.") for k in sd):
-                raise NotImplementedError(
-                    "timm 'stages.S.blocks.B.conv_dw' naming (the published hover_next "
-                    "layout) is not ported yet: ROADMAP Queue 1 item 16"
-                )
+            if s == 0 and any(k.startswith("stages.0.blocks.") for k in sd):
+                return infer_convnext_config_timm(sd)
             break
         depths.append(b)
         dims.append(int(np.shape(sd[f"stages.{s}.0.dwconv.weight"])[0]))
         s += 1
     if not depths:
         raise ValueError("no ConvNeXt stages found in state_dict")
+    return ConvNeXtConfig(depths=tuple(depths), dims=tuple(dims))
+
+
+def infer_convnext_config_timm(sd: Mapping[str, np.ndarray]) -> ConvNeXtConfig:
+    """Depths and dims from timm's ``stages.S.blocks.B.conv_dw.weight`` keys."""
+    dims, depths = [], []
+    s = 0
+    while f"stages.{s}.blocks.0.conv_dw.weight" in sd:
+        b = 0
+        while f"stages.{s}.blocks.{b}.conv_dw.weight" in sd:
+            b += 1
+        depths.append(b)
+        dims.append(int(np.shape(sd[f"stages.{s}.blocks.0.conv_dw.weight"])[0]))
+        s += 1
+    if not depths:
+        raise ValueError("no timm ConvNeXt stages found in state_dict")
     return ConvNeXtConfig(depths=tuple(depths), dims=tuple(dims))

@@ -13,6 +13,11 @@ mode, dense transfer):
    (ConvNeXtV2 blocks of stages 0-2 through K1);
 4. ``ops.watershed.hover_instances_batch`` → dense instance ids (K2 twice,
    then K3);
+   ``RealNucleiModel`` takes the published hover_next layout instead
+   (``models/hovernext_real.py``: plain encoder, smp decoders and heads)
+   and decodes its instance head through the HoVer route (5 channels) or
+   ``ops.watershed.threeclass_instances_batch`` (3 channels), with the
+   same kernels;
 5. crop to the tile on the device, ``ops.instances.instance_features_batch``
    (K4); labels and features go to the host;
 6. rows with tile-local and WSI coordinates, contours, morphology;
@@ -45,6 +50,7 @@ from path_gene_multimodal_tpu_torch.config import (
     TYPE_NAMES,
     HoverNeXtConfig,
     PipelineConfig,
+    RealHoverNeXtConfig,
 )
 from path_gene_multimodal_tpu_torch.core.artifacts import (
     read_annotations_csv,
@@ -52,7 +58,13 @@ from path_gene_multimodal_tpu_torch.core.artifacts import (
 )
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
 from path_gene_multimodal_tpu_torch.io.zarrzip import write_zarr_zip
-from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
+from path_gene_multimodal_tpu_torch.models import hovernext_real
+from path_gene_multimodal_tpu_torch.models.hovernext import (
+    HoverNeXt,
+    hv_rot_invert,
+    init_weights,
+    tta_forward,
+)
 from path_gene_multimodal_tpu_torch.ops import watershed as ws
 from path_gene_multimodal_tpu_torch.ops.components import INF
 from path_gene_multimodal_tpu_torch.ops.instances import (
@@ -155,6 +167,122 @@ class NucleiModel:
         """(B, S, S, 3) uint8 → (instance maps, type maps) int32 numpy."""
         lbl, tp = self.segment_async(torch.as_tensor(np.asarray(tiles_u8)))
         return lbl.cpu().numpy(), tp.cpu().numpy().astype(np.int32)
+
+
+@dataclass
+class RealNucleiModel:
+    """The published hover_next layout (``models.hovernext_real.
+    RealHoverNeXt``, loaded from a ``pannuke_convnextv2_tiny_3``-style
+    checkpoint by ``core.checkpoints.load_hovernext_from_torch``) +
+    post-processing, with ``NucleiModel``'s surface (``segment_async``,
+    ``segment``, ``cc_overflow_tiles``, ``cfg.input_size``, ``device``,
+    ``max_instances``), so both nuclei modes take either. Counterpart of
+    the JAX package's ``RealNucleiModel``.
+
+    - The instance branch (the head whose name holds "inst", else the one
+      with 3 or 5 channels): with 5 channels, the first 3 are (background,
+      interior, border) and the last 2 HV maps, decoded by the HoVer route
+      over ``p_interior + p_border`` at ``fg_threshold``; otherwise the
+      three-class decoder (``ops.watershed.threeclass_instances_batch``).
+    - The type branch: (1 + types) logits a pixel, argmax → type id
+      (0 background) as uint8.
+    """
+
+    cfg: RealHoverNeXtConfig
+    model: hovernext_real.RealHoverNeXt
+    device: torch.device
+    tta: int = 4
+    fg_threshold: float = 0.5
+    seed_threshold: float = 0.8
+    max_instances: int = 512
+    _overflow_parts: list = field(default_factory=list, repr=False)
+
+    @classmethod
+    def build(
+        cls, cfg: RealHoverNeXtConfig, state_dict: dict | None = None, seed: int = 0,
+        dtype: torch.dtype = torch.bfloat16, tta: int = 4,
+        device: str | torch.device = "cuda", **kw,
+    ) -> "RealNucleiModel":
+        """Random weights from ``seed`` unless ``state_dict`` (the port's
+        names: ``models.weights_hovernext_real``) is given; loaded strict."""
+        device = torch.device(device)
+        model = hovernext_real.RealHoverNeXt(cfg)
+        if state_dict is None:
+            hovernext_real.init_weights(model, torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        model = model.to(device=device, dtype=dtype).eval()
+        return cls(cfg=cfg, model=model, device=device, tta=tta, **kw)
+
+    def __post_init__(self) -> None:
+        self.inst_head, self.type_head = _pick_real_branches(self.cfg)
+        self.inst_channels = {h: c for _, h, c in self.cfg.branches}[self.inst_head]
+
+    cc_overflow_tiles = NucleiModel.cc_overflow_tiles
+    segment = NucleiModel.segment
+
+    def forward(self, pixels: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Pixels (B, S, S, 3) in [0, 1] → the TTA-averaged head maps."""
+        hv = {self.inst_head: (3, 5)} if self.inst_channels == 5 else {}
+        return _tta_forward_real(self.model, pixels, tta=self.tta, hv_heads=hv)
+
+    def decode(self, inst_logits: torch.Tensor):
+        """The instance head's maps → (labels, overflow), INF background."""
+        if self.inst_channels == 5:
+            p3 = torch.softmax(inst_logits[..., :3], dim=-1)
+            return ws.hover_instances_batch(p3[..., 1] + p3[..., 2], inst_logits[..., 3:5],
+                                            np_threshold=self.fg_threshold)
+        return ws.threeclass_instances_batch(inst_logits, fg_threshold=self.fg_threshold,
+                                             seed_threshold=self.seed_threshold)
+
+    @torch.inference_mode()
+    def segment_async(self, tiles_u8: torch.Tensor):
+        """(B, S, S, 3) uint8 → (labels (B, S, S) int32 dense ids, 0
+        background; types (B, S, S) uint8), enqueued without waiting."""
+        pixels = tiles_u8.to(self.device, non_blocking=True).float() / 255.0
+        out = self.forward(pixels)
+        tp_cls = out[self.type_head].argmax(dim=-1).to(torch.uint8)
+        lbl, n_over = self.decode(out[self.inst_head])
+        self._overflow_parts.append(n_over)
+        return torch.where(lbl < INF, lbl, 0), tp_cls
+
+
+def _pick_real_branches(cfg: RealHoverNeXtConfig) -> tuple[str, str]:
+    """(instance head, type head) of a ``RealHoverNeXtConfig``."""
+    heads = [(h, c) for _, h, c in cfg.branches]
+    if len(heads) == 1:
+        raise ValueError("real hover_next checkpoint has a single branch; "
+                         "need instance + type heads")
+    inst = [h for h, _ in heads if "inst" in h.lower()]
+    if not inst:
+        inst = [h for h, c in heads if c in (3, 5)]
+    if not inst:
+        raise ValueError(f"cannot identify the instance branch among {heads}")
+    others = [h for h, _ in heads if h != inst[0]]
+    return inst[0], others[0]
+
+
+def _tta_forward_real(model, pixels: torch.Tensor, tta: int = 4,
+                      hv_heads: dict | None = None) -> dict[str, torch.Tensor]:
+    """Rotation TTA for a dict-output model whose channels are per-pixel
+    class maps, the rotations folded into one forward; ``hv_heads`` marks
+    the heads whose channels [lo, hi) hold HV vectors, which take the
+    rot-90 sign and swap table (``hv_rot_invert``)."""
+    hv_heads = hv_heads or {}
+    b = pixels.shape[0]
+    stacked = torch.cat([torch.rot90(pixels, k, dims=(1, 2)) for k in range(tta)], dim=0)
+    out = model(stacked)
+
+    def invert(name: str, t: torch.Tensor, k: int) -> torch.Tensor:
+        t = torch.rot90(t, -k, dims=(1, 2))
+        if name in hv_heads:
+            lo, hi = hv_heads[name]
+            h, v = hv_rot_invert(t[..., lo], t[..., lo + 1], k)
+            t = torch.cat([t[..., :lo], torch.stack([h, v], dim=-1), t[..., hi:]], dim=-1)
+        return t
+
+    return {name: sum(invert(name, full[k * b : (k + 1) * b], k) for k in range(tta)) / tta
+            for name, full in out.items()}
 
 
 def _pad_tile_to_input(tile: np.ndarray, input_size: int) -> tuple[np.ndarray, int]:

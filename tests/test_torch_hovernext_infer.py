@@ -2,7 +2,8 @@
 loaders (``core/checkpoints.py``, ``models/weights*.py``) against the JAX
 package's: usage errors, input resolution, a ``--device cpu`` WSI run
 equal to a direct ``run_hovernext_wsi`` call, a JAX converted-checkpoint
-``.npz``, and the refusals (the published real layout, ``--dp``, no GPU)."""
+``.npz``, the published real layout's loading, and the refusals (``--dp``,
+no GPU)."""
 
 import logging
 
@@ -187,16 +188,30 @@ def test_jax_converted_npz_loads_to_params_from_jax(tmp_path, small):
 
 
 def test_checkpoint_refusals(tmp_path, small):
-    """The published smp/timm layout raises, naming its queue item; an
-    unconsumed key raises; a wrapped ``module.`` prefix is taken off."""
+    """The published smp/timm layout loads (strict, into ``RealHoverNeXt``;
+    without its ``num_batches_tracked`` too), and one missing a BatchNorm
+    key raises naming it; in the canonical layout an unconsumed key raises
+    and a wrapped ``module.`` prefix is taken off."""
+    from path_gene_multimodal_tpu_torch.config import RealHoverNeXtConfig
+    from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
+        synthesize_real_state_dict,
+    )
+
     _, ckpt, _ = small
     sd = torch.load(ckpt, weights_only=True)["state_dict"]
-    real = dict(sd, **{"decoder.blocks.0.conv1.0.weight": torch.zeros(4, 4, 3, 3)})
+    real = {k: torch.from_numpy(v) for k, v in synthesize_real_state_dict().items()}
     torch.save(real, tmp_path / "real.pt")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tck.load_hovernext_from_torch(tmp_path / "real.pt")
-    assert tcli.main(["--input", str(small[0]), "--output", str(tmp_path / "r"), "--device",
-                      "cpu", "--checkpoint", str(tmp_path / "real.pt")]) == 2
+    cfg, state = tck.load_hovernext_from_torch(tmp_path / "real.pt")
+    assert isinstance(cfg, RealHoverNeXtConfig) and sorted(state) == sorted(real)
+    for k, v in real.items():
+        assert torch.equal(state[k], v), k
+    untracked = {k: v for k, v in real.items() if not k.endswith("num_batches_tracked")}
+    torch.save(untracked, tmp_path / "untracked.pt")
+    assert sorted(tck.load_hovernext_from_torch(tmp_path / "untracked.pt")[1]) == sorted(real)
+    bn = "decoder_inst.blocks.1.conv2.1.running_var"
+    torch.save({k: v for k, v in real.items() if k != bn}, tmp_path / "real_missing.pt")
+    with pytest.raises(RuntimeError, match=bn):
+        tck.load_hovernext_from_torch(tmp_path / "real_missing.pt")
     wrapped = {f"module.{k}": v for k, v in sd.items()}
     torch.save({"model": wrapped}, tmp_path / "wrapped.pt")
     cfg, state = tck.load_hovernext_from_torch(tmp_path / "wrapped.pt")

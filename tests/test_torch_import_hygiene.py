@@ -60,7 +60,8 @@ def test_port_imports_no_jax():
                 "models.weights", "models.weights_convnext", "utils.log", "io.hdf5", "io.png",
                 "ops.gridops", "ops.tme", "models.tokenizer", "pipeline.spatial",
                 "pipeline.polygons", "pipeline.overlay", "pipeline.runner", "core.jobs",
-                "core.artifacts", "cli.main"):
+                "core.artifacts", "cli.main", "models.hovernext_real",
+                "models.weights_hovernext_real"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
