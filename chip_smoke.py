@@ -215,12 +215,53 @@
    equal); a second run returns ``already_done``; without the done flag,
    GeoJSON and overlays a third takes steps 1-2 from the resume manifest;
    ``python -m path_gene_multimodal_tpu_torch.cli.main --wsi TIFF
-   --outroot D`` in a child process exits 0. K5's launches on the kernels
-   line are the islands path's and the runner's (``launches_by_path``).
+   --outroot D`` in a child process exits 0. Then steps 3-8 once more
+   with more than one class (``run_steps_3_to_7`` + ``run_overlays``, the
+   counts set to 0 just before and read just after): the class
+   embeddings are the features of 5 tiles drawn from the first seed from
+   ``CLASS_TILE_SEED`` on under which, judged on the CPU, every class wins
+   a tile and the TME class (the first) seeds a TME ROI of at most
+   ``CLASS_TILE_ROI`` (0.8) of the tiles (both checked on the card's run,
+   printed with the seed); CSVs,
+   rings and overlay bytes equal to the CPU replay's. K5's launches on the
+   kernels line are the islands path's, the runner's and its second
+   pass's (``launches_by_path``);
+8b. (before 9, whose ViT-B/16 it frees the card for) the real Virchow2
+   tower (``_virchow2``): ``VIRCHOW2_TIMM`` (timm ViT-H/14, 32 layers,
+   width 1280, 16 heads, 4 registers, SwiGLU fc1 6832, LayerScale;
+   631 M parameters drawn on the card from a seed), bf16, as
+   ``ImageEncoder`` through ``run_extract_features`` on the TIFF's 256
+   ROI tiles at the default config (batches of ``virchow2_batch_size``,
+   64), with the counts set to 0 just before and read just after (none
+   launched): (256, 2560) finite features, the H5 records "Virchow2"; the
+   forward timed a batch and over the 256 tiles (CUDA events, second
+   call) beside its FLOP bound (``_vit_flops``), device ms by aten op;
+   bf16 against f32 on the card at cosine >= 0.999 a tile (16 tiles), f32
+   card against CPU on 2 tiles (atol 5e-4 / rtol 1e-3); then
+   ``PipelineModels.build(vision_cfg=VIRCHOW2_TIMM)`` and ``run_one_wsi``
+   on the TIFF: the features H5 equal to a direct call on the runner's
+   tiles, and step 4 failing on 2560-d features against the 512-d CLIP
+   text tower, as the JAX package's does. Prints a ``virchow2`` JSON line;
+10. the molecular step (``_molecular``) on the second runner pass's
+   annotations: six IDaRS ResNet34s at the published shape (3/4/6/3,
+   width 64, 2 classes; 21.3 M parameters each) in bf16, with the weights
+   ``cli.molecular_loop`` draws for a task without converted weights;
+   ``extract_molecular_features`` on its TME-ROI tiles of the TIFF,
+   batches of 256, timed end to end after a warm-up, with the counts set
+   to 0 just before and read just after (none launched), its CSV,
+   overlays and grid written; the ensemble's forward on a batch of 256
+   timed (second call) beside its FLOP bound (``_resnet_macs``), device
+   ms by aten op; the splat timed, card = CPU (counts equal, maps within
+   1e-6); the f32 ensemble card against CPU on 4 tiles (atol 5e-4 / rtol
+   1e-3), bf16 against f32 (max |dp| <= ``MOL_BF16_DP``), task 0 run with
+   task 1's weights (must fail the f32 check); ``python -m
+   path_gene_multimodal_tpu_torch.cli.molecular_loop`` in a child process
+   on a data path holding the TIFF, twice: exit 0 with the direct call's
+   CSV, then the slide skipped as done. Prints a ``molecular`` JSON line.
 
-Prints the ``chain``, ``feed``, ``wsi``, ``real`` and ``runner`` JSON lines, the slice's tiles/s, the
-kernels' JSON line and the card's name and power limit, then, as the last line,
-``{"ok": true, "device": {...}}``.
+Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner`` and ``molecular``
+JSON lines, the script's seconds, the slice's tiles/s, the kernels' JSON line and the card's
+name and power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 ``build/chip_smoke/``, which git ignores).
 
@@ -244,6 +285,7 @@ checkout) records each of K1's launches against its plain part at stage
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import shutil
@@ -257,6 +299,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES = 3.35e12
@@ -328,6 +371,12 @@ RUNNER_DONE_KEYS = ("wsi_path", "out_dir", "csv_path", "geojson_path", "overlay_
 REAL_REPLAY = 16
 # the CPU replay's bar for the floats of the runner's CSVs (elementwise)
 REPLAY_ATOL, REPLAY_RTOL = 5e-4, 1e-3
+# the runner's second pass: the first seed that draws the tiles whose
+# features are the class embeddings, the seeds it may try, and the largest
+# share of the tiles the TME ROI may take (so that its border crosses the grid)
+CLASS_TILE_SEED, CLASS_TILE_TRIES, CLASS_TILE_ROI = 17, 128, 0.8
+# the molecular phase's bar for bf16 against f32 P(class=1) on the card
+MOL_BF16_DP = 0.05
 
 
 def _sync_time(fn, reps: int, warm: int = 1) -> float:
@@ -1015,12 +1064,39 @@ def _table_failures(nuclei, patch: int, what: str) -> list[str]:
 def _vit_flops(cfg, images: int) -> float:
     """FLOP (2 per multiply-add) of the tower's products for ``images``
     tiles: the patch embed, per layer the fused QKV, QK^T, PV, the output
-    and both MLP products, and the projection."""
+    and both MLP products over every token (cls and registers included),
+    and the projection. A timm config's MLP is fc1 (width → mlp_hidden) and
+    fc2 (mlp_hidden, halved for SwiGLU, → width); a CLIP config's is 2 x
+    width x width * mlp_ratio."""
     n, d, g, p = cfg.seq_len, cfg.width, cfg.grid, cfg.patch_size
-    hidden = int(d * cfg.mlp_ratio)
-    macs = g * g * 3 * p * p * d + d * (cfg.out_dim or 0)
-    macs += cfg.layers * (4 * n * d * d + 2 * n * n * d + 2 * n * d * hidden)
+    if hasattr(cfg, "mlp_hidden"):  # models.vit_timm.TimmViTConfig
+        fc2_in = cfg.mlp_hidden // 2 if cfg.mlp_type == "swiglu" else cfg.mlp_hidden
+        mlp, proj = d * (cfg.mlp_hidden + fc2_in), 0
+    else:
+        mlp, proj = 2 * d * int(d * cfg.mlp_ratio), d * (cfg.out_dim or 0)
+    macs = g * g * 3 * p * p * d + proj
+    macs += cfg.layers * (4 * n * d * d + 2 * n * n * d + n * mlp)
     return 2.0 * macs * images
+
+
+def _resnet_macs(cfg, size: int = 224) -> int:
+    """Multiply-adds of one ResNet forward on a size² tile: the 7 x 7 stem
+    (stride 2), each block's two 3 x 3 convs and its 1 x 1 projection where
+    it has one, and the head (the pools and BatchNorms are not products)."""
+    h = size // 2
+    macs = h * h * cfg.width * 3 * 49
+    h //= 2  # max pool
+    cin = cfg.width
+    for s, blocks in enumerate(cfg.stage_sizes):
+        cout = cfg.width * 2 ** s
+        for b in range(blocks):
+            if s > 0 and b == 0:
+                h //= 2
+            macs += h * h * cout * 9 * (cin + cout)
+            if cin != cout or (s > 0 and b == 0):
+                macs += h * h * cout * cin
+            cin = cout
+    return macs + cin * cfg.num_classes
 
 
 def _graph_points(seed: int = 21) -> np.ndarray:
@@ -3867,6 +3943,92 @@ def _frames_close(a, b, floats) -> tuple[bool, float]:
     return same, excess
 
 
+class _TileEmbeddings:
+    """A text encoder whose class embeddings are given rows (tile features):
+    the runner's steps 3-8 with classes that each win some tiles."""
+
+    def __init__(self, rows: np.ndarray, device: str):
+        self.rows = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+
+    def __call__(self, ids) -> torch.Tensor:
+        return self.rows
+
+
+def _class_tiles(feats: np.ndarray, cfg, tess_h5: Path, stem: str, scratch: Path):
+    """(seed, tile indices, seeds tried): the first seed from
+    ``CLASS_TILE_SEED`` on whose ``len(classes)`` drawn tiles, as class
+    embeddings, make every class win a tile and the TME class(es) seed a
+    TME ROI that leaves tiles out, judged by steps 4-5 on
+    the CPU: at most ``CLASS_TILE_ROI`` of them. A TME tile's box and buffer
+    span ~11 tiles, so scattered TME tiles cover the whole grid; the search
+    finds a draw where they do not. Raises if none of CLASS_TILE_TRIES
+    does."""
+    from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
+    from path_gene_multimodal_tpu_torch.pipeline import spatial as spatial_stage
+
+    classes = list(cfg.classes)
+    for k in range(CLASS_TILE_TRIES):
+        seed = CLASS_TILE_SEED + k
+        chosen = np.sort(np.random.default_rng(seed).choice(len(feats), len(classes),
+                                                            replace=False))
+        d = scratch / str(seed)
+        d.mkdir(parents=True)
+        shutil.copy(tess_h5, d / tess_h5.name)
+        embed_stage.run_annotation(feats, feats[chosen], classes, d, stem, device="cpu")
+        try:
+            df = spatial_stage.run_spatial_join(d, stem, cfg, device="cpu")
+        except ValueError:  # no tile of the TME classes
+            continue
+        roi = int(df["in_tme_roi"].sum())
+        if df["predicted_class"].nunique() == len(classes) and 0 < roi <= CLASS_TILE_ROI * len(df):
+            return seed, chosen, k + 1
+    raise RuntimeError(f"no seed in {CLASS_TILE_SEED}..{CLASS_TILE_SEED + CLASS_TILE_TRIES - 1} "
+                       f"gives every class a tile and a TME ROI within {CLASS_TILE_ROI:.0%} of "
+                       "the tiles")
+
+
+def _replay_steps_4_to_8(tif: Path, out: Path, cpu_dir: Path, stem: str, cfg, feats, class_embs,
+                         card_pngs: list[str]) -> dict:
+    """Steps 4-8 on the CPU (``cpu_dir`` holds the step-1 H5) from the
+    card's features and the class embeddings, held against the card's
+    artifacts in ``out``: the two CSVs (floats within the replay bar, the
+    rest equal), the GeoJSON rings, and the overlay files' names and bytes."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.core import artifacts as art
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
+    from path_gene_multimodal_tpu_torch.pipeline import overlay as overlay_stage
+    from path_gene_multimodal_tpu_torch.pipeline import polygons as polygon_stage
+    from path_gene_multimodal_tpu_torch.pipeline import spatial as spatial_stage
+
+    classes = list(cfg.classes)
+    embed_stage.run_annotation(feats, class_embs, classes, cpu_dir, stem, device="cpu")
+    df_cpu = spatial_stage.run_spatial_join(cpu_dir, stem, cfg, device="cpu")
+    feats_cpu = polygon_stage.build_polygons_for_all_classes(df_cpu, classes, cfg, device="cpu")
+    polygon_stage.export_geojson(feats_cpu, cpu_dir, stem)
+    ov = overlay_stage.run_overlays(TiffTileSlide(tif), feats_cpu, classes, cpu_dir, stem,
+                                    thumb_size=cfg.thumb_size)
+    replay = {}
+    for name in (f"{stem}_annotations.csv", f"{stem}_annotations_with_coords.csv"):
+        same, excess = _frames_close(pd.read_csv(cpu_dir / name), pd.read_csv(out / name), classes)
+        replay[name] = {"other_columns_equal": same, "float_excess": excess}
+    card_gj = art.load_geojson(out / f"{stem}.geojson")
+    cpu_gj = art.load_geojson(cpu_dir / f"{stem}.geojson")
+    replay["rings_equal"] = len(card_gj) == len(cpu_gj) and all(
+        a["class_name"] == b["class_name"] and np.array_equal(a["exterior"], b["exterior"])
+        for a, b in zip(card_gj, cpu_gj))
+    pngs = sorted(p.name for p in [ov["overlay_all_path"], *ov["per_class_outputs"].values()])
+    replay["overlays_equal"] = pngs == sorted(card_pngs) and all(
+        (cpu_dir / n).read_bytes() == (out / n).read_bytes() for n in pngs)
+    return replay
+
+
+def _replay_bad(replay: dict) -> list[str]:
+    return [k for k, v in replay.items() if v is False
+            or (isinstance(v, dict) and (not v["other_columns_equal"] or v["float_excess"] > 1))]
+
+
 def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     """Section 9: the 8-step runner (``pipeline/runner.py::run_one_wsi``) on
     the smoke TIFF with CLIP ViT-B/16 bf16 and the CLIP text tower at full
@@ -3882,7 +4044,15 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     tessellation on the CPU (coords equal); a second run skips
     (``already_done``); without the done flag, GeoJSON and overlays a third
     run takes steps 1-2 from the resume manifest; ``cli.main`` in a child
-    process exits 0."""
+    process exits 0. Then steps 3-8 once more from the same features with
+    more than one class (``run_steps_3_to_7`` + ``run_overlays``, the
+    counts set to 0 just before and read just after): the class embeddings
+    are the features of ``len(classes)`` tiles drawn by ``_class_tiles``,
+    the TME class the first; every class must win a tile, the TME ROI must
+    hold at most ``CLASS_TILE_ROI`` of the tiles, and the
+    CSVs, rings and overlay bytes must equal the CPU replay's. Its
+    annotations CSV (``res["multiclass_csv"]``) feeds the molecular
+    phase."""
     import pandas as pd
 
     from path_gene_multimodal_tpu_torch.config import default_config
@@ -3895,9 +4065,7 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     )
     from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
     from path_gene_multimodal_tpu_torch.pipeline import overlay as overlay_stage
-    from path_gene_multimodal_tpu_torch.pipeline import polygons as polygon_stage
     from path_gene_multimodal_tpu_torch.pipeline import runner as rn
-    from path_gene_multimodal_tpu_torch.pipeline import spatial as spatial_stage
     from path_gene_multimodal_tpu_torch.pipeline.tessellate import run_tessellation
 
     res: dict = {"smi": _smi()}
@@ -4027,40 +4195,77 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
                                                       cpu_dir, stem)
     res["class_embeddings_cpu_excess"] = float(
         (np.abs(cpu_cls - card_cls) / (REPLAY_ATOL + REPLAY_RTOL * np.abs(card_cls))).max())
-    embed_stage.run_annotation(feats_h5["features"], card_cls, classes, cpu_dir, stem,
-                               device="cpu")
-    df_cpu = spatial_stage.run_spatial_join(cpu_dir, stem, cfg, device="cpu")
-    feats_cpu = polygon_stage.build_polygons_for_all_classes(df_cpu, classes, cfg, device="cpu")
-    polygon_stage.export_geojson(feats_cpu, cpu_dir, stem)
-    ov = overlay_stage.run_overlays(TiffTileSlide(tif), feats_cpu, classes, cpu_dir, stem,
-                                    thumb_size=cfg.thumb_size)
-    replay = {}
-    for name in (f"{stem}_annotations.csv", f"{stem}_annotations_with_coords.csv"):
-        same, excess = _frames_close(pd.read_csv(cpu_dir / name), pd.read_csv(out / name), classes)
-        replay[name] = {"other_columns_equal": same, "float_excess": excess}
-    card_gj = art.load_geojson(out / f"{stem}.geojson")
-    cpu_gj = art.load_geojson(cpu_dir / f"{stem}.geojson")
-    replay["rings_equal"] = len(card_gj) == len(cpu_gj) and all(
-        a["class_name"] == b["class_name"] and np.array_equal(a["exterior"], b["exterior"])
-        for a, b in zip(card_gj, cpu_gj))
-    pngs = sorted(p.name for p in [ov["overlay_all_path"], *ov["per_class_outputs"].values()])
-    replay["overlays_equal"] = pngs == sorted(
-        Path(p).name for p in [flag["overlay_all_path"], *flag["per_class_outputs"].values()]
-    ) and all((cpu_dir / n).read_bytes() == (out / n).read_bytes() for n in pngs)
+    card_pngs = [Path(p).name for p in [flag["overlay_all_path"],
+                                        *flag["per_class_outputs"].values()]]
+    replay = _replay_steps_4_to_8(tif, out, cpu_dir, stem, cfg, feats_h5["features"], card_cls,
+                                  card_pngs)
     cpu_tess = run_tessellation(TiffTileSlide(tif), tmp / "runner_tess_cpu", cfg, device="cpu",
                                 write_artifacts=False)
     replay["tessellation_coords_equal"] = bool(np.array_equal(cpu_tess.coords, caught["coords"]))
+    card_gj = art.load_geojson(out / f"{stem}.geojson")
     flags = pd.read_csv(out / f"{stem}_annotations_with_coords.csv")["in_tme_roi"]
     res.update(replay=replay, tme_roi_tiles=int(flags.sum()),
                predicted={int(k): int(v) for k, v in sorted(
                    pd.read_csv(out / f"{stem}_annotations.csv")["predicted_class"]
                    .map(classes.index).value_counts().items())},
                polygons_per_class={c: sum(f["class_name"] == c for f in card_gj) for c in classes})
-    bad = [k for k, v in replay.items() if v is False
-           or (isinstance(v, dict) and (not v["other_columns_equal"] or v["float_excess"] > 1))]
+    bad = _replay_bad(replay)
     if bad or res["class_embeddings_cpu_excess"] > 1:
         failures.append(f"runner: the CPU replay differs from the card in {bad}; class "
                         f"embeddings excess {res['class_embeddings_cpu_excess']:.3f}")
+
+    # steps 3-8 again with more than one class: the class embeddings are the
+    # features of len(classes) tiles drawn from a seed, so that each class
+    # wins at least its own tile, and the TME class is the first
+    mc_cfg = cfg.replace(tme_classes=base.tme_classes[:1])
+    feats = feats_h5["features"]
+    seed, chosen, tries = _class_tiles(feats, mc_cfg, out / f"{stem}.h5", stem,
+                                       tmp / "class_tile_search")
+    mc_dir = tmp / "runner_mc" / stem
+    mc_dir.mkdir(parents=True)
+    shutil.copy(out / f"{stem}.h5", mc_dir / f"{stem}.h5")
+    mc_models = dataclasses.replace(models, text_encoder=_TileEmbeddings(feats[chosen], "cuda"))
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    mc_polys, _ = rn.run_steps_3_to_7(feats, mc_models, mc_cfg, mc_dir, stem)
+    mc_ov = overlay_stage.run_overlays(TiffTileSlide(tif), mc_polys, classes, mc_dir, stem,
+                                       thumb_size=cfg.thumb_size)
+    torch.cuda.synchronize()
+    mc = {"s": time.perf_counter() - t0, "class_tile_seed": seed, "seeds_tried": tries,
+          "class_tiles": chosen.tolist(), "launches": {n: w.launches for n, w in wrappers.items()}}
+    mc_cpu = tmp / "runner_mc_cpu" / stem
+    mc_cpu.mkdir(parents=True)
+    shutil.copy(out / f"{stem}.h5", mc_cpu / f"{stem}.h5")
+    cpu_cls = embed_stage.run_create_class_embeddings(
+        classes, _TileEmbeddings(feats[chosen], "cpu"), FallbackTokenizer(), mc_cpu, stem)
+    mc_pngs = [p.name for p in [mc_ov["overlay_all_path"], *mc_ov["per_class_outputs"].values()]]
+    mc["replay"] = _replay_steps_4_to_8(tif, mc_dir, mc_cpu, stem, mc_cfg, feats, cpu_cls, mc_pngs)
+    mc_df = pd.read_csv(mc_dir / f"{stem}_annotations_with_coords.csv")
+    won = mc_df["predicted_class"].value_counts()
+    mc.update(classes_won={c: int(won.get(c, 0)) for c in classes},
+              tiles=len(mc_df), tme_classes=list(mc_cfg.tme_classes),
+              tme_roi_tiles=int(mc_df["in_tme_roi"].sum()),
+              polygons=len(mc_polys),
+              polygons_per_class={c: sum(f["class_name"] == c for f in mc_polys) for c in classes})
+    res["multiclass"] = mc
+    res["multiclass_csv"] = str(mc_dir / f"{stem}_annotations_with_coords.csv")
+    print(f"runner, {len(classes)} classes from tiles {mc['class_tiles']} (seed "
+          f"{seed}): tiles won {mc['classes_won']}; {mc['tme_roi_tiles']} of "
+          f"{mc['tiles']} tiles in_tme_roi", flush=True)
+    bad = _replay_bad(mc["replay"])
+    if bad:
+        failures.append(f"runner (classes from tiles): the CPU replay differs from the card in "
+                        f"{bad}")
+    if min(mc["classes_won"].values()) < 1 or not (
+            0 < mc["tme_roi_tiles"] <= CLASS_TILE_ROI * mc["tiles"]):
+        failures.append(f"runner (classes from tiles): classes won {mc['classes_won']}, "
+                        f"{mc['tme_roi_tiles']} of {mc['tiles']} tiles in the TME ROI (wanted every "
+                        f"class, and at most {CLASS_TILE_ROI:.0%} of the tiles in the ROI)")
+    expect = {n: (len(classes) if n == "label_components_tiled" else 0) for n in wrappers}
+    if any(mc["launches"][n] != k for n, k in expect.items() if n != "label_components_tiled") \
+            or mc["launches"]["label_components_tiled"] < len(classes):
+        failures.append(f"runner (classes from tiles): launches {mc['launches']}")
 
     # rerun skip, then the resume manifest
     again = rn.run_one_wsi(tif, out.parent, cfg, models=models)
@@ -4092,14 +4297,359 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     return res
 
 
+def _virchow2(slide, tif: Path, roi, wrappers, failures, tmp: Path) -> dict:
+    """Section 8b: the real Virchow2 tower (``VIRCHOW2_TIMM``: timm ViT-H/14,
+    32 layers, width 1280, 16 heads, 4 registers, SwiGLU fc1 6832,
+    LayerScale; seeded on the card, bf16) as ``ImageEncoder`` through
+    ``run_extract_features`` on the smoke TIFF's ROI tiles at the default
+    config (the batch clamped to ``virchow2_batch_size``), with the counts
+    set to 0 just before and read just after (it launches none of them):
+    (N, 2560) finite features, the H5 recording "Virchow2"; the forward
+    timed a batch and over the tiles beside its FLOP bound, with the device
+    ms by aten op; bf16 against f32 on the card at cosine >= 0.999 a tile on
+    16 tiles, f32 on the card against the CPU on 2 tiles (atol 5e-4 / rtol
+    1e-3); then ``PipelineModels.build(vision_cfg=VIRCHOW2_TIMM)`` and
+    ``run_one_wsi``: steps 1-2 write the features H5 equal to a direct
+    call on the runner's tiles, and step 4 fails on the 2560-d features
+    against the 512-d text tower, as the JAX package's does."""
+    import torch.nn.functional as F
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.core.artifacts import (
+        read_features_h5, read_tessellation_h5,
+    )
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models.clip import IMAGENET_MEAN, IMAGENET_STD, ImageEncoder
+    from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
+    from path_gene_multimodal_tpu_torch.models.vit_timm import VIRCHOW2_TIMM
+    from path_gene_multimodal_tpu_torch.ops.cuda import exact_f32
+    from path_gene_multimodal_tpu_torch.pipeline import runner as rn
+    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
+
+    cfg = default_config()
+    vcfg = VIRCHOW2_TIMM
+    batch = min(cfg.embedding.batch_size, cfg.embedding.virchow2_batch_size)
+    norm = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD)
+    res: dict = {"tiles": len(roi), "batch": batch, "smi": _smi()}
+    if not tif.exists():
+        _write_smoke_tiff(slide, tif)
+        res["tiff_written_again"] = True
+    slide = TiffTileSlide(tif)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    enc = ImageEncoder(vcfg, dtype=torch.bfloat16, seed=0, device="cuda", **norm)
+    torch.cuda.synchronize()
+    res["encoder_setup_s"] = time.perf_counter() - t0
+    res["parameters"] = sum(t.numel() for t in enc.model.parameters())
+    out = tmp / "virchow2"
+    run_extract_features(slide, roi, enc, out, "warm", cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = run_extract_features(slide, roi, enc, out, "smoke", cfg)
+    res["embed_s"] = time.perf_counter() - t0
+    res["embed_tiles_per_s"] = len(roi) / res["embed_s"]
+    res["embed_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    failures += [f"virchow2: the embed stage launched {n}" for n, k in res["launches"].items() if k]
+    if feats.shape != (len(roi), vcfg.out_width) or not np.isfinite(feats).all():
+        failures.append(f"virchow2: features {feats.shape}, finite {np.isfinite(feats).all()}")
+    h5 = read_features_h5(out / "smoke_features.h5")
+    res["h5_model_type"] = h5["attrs"]["model_type"]
+    res["h5_width"] = int(h5["features"].shape[1])
+    if res["h5_model_type"] != "Virchow2" or res["h5_width"] != 2560 or not np.array_equal(
+            h5["features"], feats):
+        failures.append(f"virchow2: features H5 says {res['h5_model_type']}, width "
+                        f"{res['h5_width']}")
+
+    tiles = torch.from_numpy(np.stack([slide.read_region((int(x), int(y)), 0, (224, 224))
+                                       for x, y in roi]))
+    on_card = tiles.cuda()
+    one = on_card[:batch]
+
+    def forward_all():
+        return [enc(on_card[i:i + batch]) for i in range(0, len(on_card), batch)]
+
+    for name, fn, n in ((f"forward_{batch}", lambda: enc(one), len(one)),
+                        ("forward_tiles", forward_all, len(on_card))):
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        res[f"{name}_ms"] = ev[0].elapsed_time(ev[1])
+        flops = _vit_flops(vcfg, n)
+        nbytes = n * 224 * 224 * 3 + res["parameters"] * 4 + n * vcfg.out_width * 4
+        res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = _bound_ms(nbytes, [(flops, PEAK_BF16)])
+        res[f"{name}_tflops"] = flops / res[f"{name}_ms"] / 1e9
+    res["forward_tiles_ms_mean_of_3"] = _sync_time(forward_all, reps=3, warm=0)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        forward_all()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    res["forward_tiles_device_ms_profiled"] = sum(e.self_device_time_total for e in ops) / 1e3
+    res["forward_tiles_device_ms_by_op"] = {e.key: [e.self_device_time_total / 1e3, e.count]
+                                            for e in ops[:12]}
+
+    sd = enc.model.state_dict()
+    bf = enc(tiles[:16])
+    enc32 = ImageEncoder(vcfg, state_dict=sd, dtype=torch.float32, device="cuda", **norm)
+    with exact_f32():
+        f32 = enc32(tiles[:16])
+    cos = F.cosine_similarity(bf.double(), f32.double(), dim=-1)
+    res["min_cos_bf16_vs_f32"] = float(cos.min())
+    res["mean_cos_bf16_vs_f32"] = float(cos.mean())
+    if res["min_cos_bf16_vs_f32"] < EMBED_MIN_COS:
+        failures.append(f"virchow2: bf16 vs f32 cosine {res['min_cos_bf16_vs_f32']:.6f} "
+                        f"< {EMBED_MIN_COS}")
+    del enc32
+    cpu = ImageEncoder(vcfg, state_dict={k: v.cpu() for k, v in sd.items()}, dtype=torch.float32,
+                       device="cpu", **norm)(tiles[:2])
+    err = (f32[:2].cpu() - cpu).abs()
+    res["f32_card_vs_cpu_max_abs"] = float(err.max())
+    res["f32_card_vs_cpu_excess"] = float((err / (EMBED_ATOL + EMBED_RTOL * cpu.abs())).max())
+    if res["f32_card_vs_cpu_excess"] > 1:
+        failures.append(f"virchow2: f32 card vs CPU excess {res['f32_card_vs_cpu_excess']:.3f} > 1")
+    del enc, sd, on_card, one, bf, f32, cpu
+    torch.cuda.empty_cache()
+
+    # the runner with the timm tower: steps 1-2, then step 4 against the CLIP text tower
+    t0 = time.perf_counter()
+    models = rn.PipelineModels.build(cfg, vision_cfg=vcfg, tokenizer=FallbackTokenizer(),
+                                     device="cuda")
+    res["runner_models_setup_s"] = time.perf_counter() - t0
+    r = rn.run_one_wsi(tif, tmp / "virchow2_runner", cfg, models=models)
+    rdir = r.out_dir
+    coords = read_tessellation_h5(rdir / f"{tif.stem}.h5")["coords"]
+    got = read_features_h5(rdir / f"{tif.stem}_features.h5")
+    direct = run_extract_features(slide, coords, models.image_encoder, tmp, "unused", cfg,
+                                  write_artifacts=False)
+    res["runner"] = {"status": r.status, "error": (r.error or "")[:300],
+                     "stage_s": {k: v["seconds"] for k, v in r.stage_report.items()},
+                     "tiles": len(coords), "h5_model_type": got["attrs"]["model_type"],
+                     "features_equal_direct": bool(np.array_equal(got["features"], direct)),
+                     "error_file": (rdir / f"{tif.stem}_ERROR.txt").exists()}
+    rr = res["runner"]
+    if not rr["features_equal_direct"] or rr["h5_model_type"] != "Virchow2":
+        failures.append(f"virchow2: the runner's features H5 differs from the direct call ({rr})")
+    # steps 1-3 recorded, step 4 raised
+    if r.status != "error" or "2560" not in rr["error"] or not rr["error_file"] or set(
+            r.stage_report) != {"tessellation", "extract_features", "class_embeddings"}:
+        failures.append(f"virchow2: the runner should fail at step 4 on 2560-d features against "
+                        f"the 512-d text tower, as the JAX package does: {rr}")
+    del models, direct
+    torch.cuda.empty_cache()
+    return res
+
+
+def _virchow2_line(res: dict) -> dict:
+    return {k: res.get(k) for k in (
+        "tiles", "batch", "parameters", "encoder_setup_s", "embed_tiles_per_s", "embed_peak_gib",
+        "forward_64_ms", "forward_64_bound_ms", "forward_tiles_ms", "forward_tiles_bound_ms",
+        "forward_tiles_tflops", "min_cos_bf16_vs_f32", "f32_card_vs_cpu_excess",
+        "h5_model_type", "h5_width", "runner", "launches", "smi")}
+
+
+def _molecular(tif: Path, ann_csv: Path, wrappers, failures, tmp: Path) -> dict:
+    """Section 10: the molecular step on the multi-class runner's TME-ROI
+    tiles of the smoke TIFF: six seeded IDaRS ResNet34s at the published
+    shape (3/4/6/3, width 64, 2 classes), bf16, with the weights that
+    ``cli.molecular_loop`` draws for a task without converted weights
+    (seed ``zlib.crc32(task) % 2**31`` on the card).
+    ``extract_molecular_features`` (a warm-up, then a run with the counts
+    set to 0 just before and read just after: it launches none of them),
+    timed end to end, its CSV, overlays and grid written; the ensemble's
+    forward on a batch of 256 timed (second call) beside its FLOP bound,
+    with the device ms by aten op; the splat timed and held to the CPU's
+    (counts equal, maps within 1e-6) on the run's own coordinates; the f32
+    ensemble on the card against the CPU's on 4 tiles (atol 5e-4 / rtol
+    1e-3), bf16 against f32 on the card on the batch (max |dp| <=
+    MOL_BF16_DP), and a mutant (task 0 run with task 1's weights) that the
+    f32 check must see; then ``python -m ...cli.molecular_loop`` in a child
+    process on a data path holding the TIFF and the runner's output root:
+    exit 0, the direct call's CSV, and a second run that skips the slide."""
+    import zlib
+
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models.resnet import (
+        RESNET34_IDARS, IDaRSEnsemble, seeded_resnet,
+    )
+    from path_gene_multimodal_tpu_torch.ops.scatter import footprint_counts, splat_prob_map
+    from path_gene_multimodal_tpu_torch.pipeline import molecular as mol
+
+    cfg = default_config()
+    tasks = list(cfg.molecular.tasks)
+    stem = tif.stem
+    res: dict = {"tasks": tasks, "batch": cfg.molecular.batch_size, "smi": _smi()}
+    t0 = time.perf_counter()
+    sds = [seeded_resnet(RESNET34_IDARS, zlib.crc32(t.encode()) % 2**31, device="cuda")
+           .state_dict() for t in tasks]
+    ens = IDaRSEnsemble(tasks, sds, device="cuda")
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+    res["parameters"] = sum(t.numel() for m in ens.models for t in m.parameters())
+    slide = TiffTileSlide(tif)
+    sel = mol.select_tme_tiles(mol.load_tile_annotations(ann_csv))
+    res["tiles"] = len(sel)
+
+    mol.extract_molecular_features(slide, ann_csv, tmp / "molecular_warm", stem, ens, cfg,
+                                   write_artifacts=False)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    direct_dir = tmp / "molecular_direct"
+    result = mol.extract_molecular_features(slide, ann_csv, direct_dir, stem, ens, cfg)
+    torch.cuda.synchronize()
+    res["extract_s"] = time.perf_counter() - t0
+    res["tiles_per_s"] = len(sel) / res["extract_s"]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    failures += [f"molecular: the step launched {n}" for n, k in res["launches"].items() if k]
+    _, ds = mol.get_wsi_overview_and_dims(slide, power=cfg.molecular.thumb_power)
+    res.update(thumb_shape=list(result.thumb.shape), ds=ds,
+               box=max(int(round(cfg.patch_size / ds)), 1))
+    cols = [f"{t}_prob" for t in tasks]
+    probs = result.features[cols].to_numpy(np.float32)
+    res["prob_min_mean_max"] = [float(probs.min()), float(probs.mean()), float(probs.max())]
+    names = [f"{stem}_molecular_features.csv", f"{stem}_molecular_grid.png"] + [
+        f"{stem}_{t}_overlay.png" for t in tasks]
+    res["artifacts_missing"] = [n for n in names if not (direct_dir / n).exists()]
+    if (len(result.features) != len(sel) or not np.isfinite(probs).all()
+            or not ((probs >= 0) & (probs <= 1)).all() or res["artifacts_missing"]
+            or result.prob_maps.shape != (len(tasks), *result.thumb.shape[:2])):
+        failures.append(f"molecular: features {result.features.shape}, maps "
+                        f"{result.prob_maps.shape}, missing {res['artifacts_missing']}")
+
+    coords = sel[["x", "y"]].to_numpy(np.int64)
+    tiles = np.stack([slide.read_region((int(x), int(y)), 0, (224, 224))
+                      for x, y in coords[:res["batch"]]])
+    tiles = np.resize(tiles, (res["batch"], *tiles.shape[1:]))  # a full batch
+    batch = torch.from_numpy(tiles).cuda()
+    ens(batch)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    p_bf = ens(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    res["forward_256_ms"] = ev[0].elapsed_time(ev[1])
+    res["forward_256_ms_mean_of_3"] = _sync_time(lambda: ens(batch), reps=3, warm=0)
+    flops = 2.0 * _resnet_macs(RESNET34_IDARS) * len(batch) * len(tasks)
+    nbytes = batch.numel() + res["parameters"] * 4 + len(tasks) * len(batch) * 4
+    res["forward_256_bound_ms"], res["forward_256_bound_by"] = _bound_ms(nbytes,
+                                                                         [(flops, PEAK_BF16)])
+    res["forward_256_tflop"] = flops / 1e12
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        ens(batch)
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    res["forward_256_device_ms_profiled"] = sum(e.self_device_time_total for e in ops) / 1e3
+    res["forward_256_device_ms_by_op"] = {e.key: [e.self_device_time_total / 1e3, e.count]
+                                          for e in ops[:12]}
+
+    # the splat on the run's own coordinates, card against CPU
+    h, w = result.thumb.shape[:2]
+    xy = torch.from_numpy((coords / ds).astype(np.int32))
+    p_dev = torch.from_numpy(np.ascontiguousarray(probs.T)).cuda()
+    maps = splat_prob_map(xy, p_dev, h, w, res["box"])
+    res["splat_ms"] = _sync_time(lambda: splat_prob_map(xy, p_dev, h, w, res["box"]), reps=5)
+    maps_cpu = splat_prob_map(xy, p_dev.cpu(), h, w, res["box"])
+    res["splat_counts_equal"] = bool(torch.equal(
+        footprint_counts(xy.cuda(), h, w, res["box"]).cpu(), footprint_counts(xy, h, w, res["box"])))
+    res["splat_max_abs_vs_cpu"] = float((maps.cpu() - maps_cpu).abs().max())
+    res["splat_equal_run"] = bool(np.array_equal(maps.cpu().numpy(), result.prob_maps))
+    if not res["splat_counts_equal"] or res["splat_max_abs_vs_cpu"] > 1e-6:
+        failures.append(f"molecular: splat card vs CPU: counts equal {res['splat_counts_equal']}, "
+                        f"max |d| {res['splat_max_abs_vs_cpu']:.3g}")
+
+    # f32 on the card against the CPU, bf16 against f32, and a swapped-weights mutant
+    ens32 = IDaRSEnsemble(tasks, sds, dtype=torch.float32, device="cuda")
+    p32 = ens32(batch)
+    res["bf16_vs_f32_max_abs_dp"] = float((p_bf - p32).abs().max())
+    if res["bf16_vs_f32_max_abs_dp"] > MOL_BF16_DP:
+        failures.append(f"molecular: bf16 vs f32 max |dp| {res['bf16_vs_f32_max_abs_dp']:.4g} "
+                        f"> {MOL_BF16_DP}")
+    cpu = IDaRSEnsemble(tasks, [{k: v.cpu() for k, v in sd.items()} for sd in sds],
+                        dtype=torch.float32, device="cpu")(tiles[:4])
+
+    def excess(got):
+        return float(((got.cpu() - cpu).abs() / (EMBED_ATOL + EMBED_RTOL * cpu.abs())).max())
+
+    res["f32_card_vs_cpu_excess"] = excess(p32[:, :4])
+    ens32.models[0] = ens32.models[1]
+    res["mutant_swapped_weights_excess"] = excess(ens32(batch[:4]))
+    if res["f32_card_vs_cpu_excess"] > 1:
+        failures.append(f"molecular: f32 card vs CPU excess {res['f32_card_vs_cpu_excess']:.3f}")
+    if res["mutant_swapped_weights_excess"] <= 1:
+        failures.append("molecular: the f32 check does not see task 0 run with task 1's weights")
+    del ens, ens32, batch, p_bf, p32
+    torch.cuda.empty_cache()
+
+    # the CLI in a child process, twice: a run, then a skip
+    data = tmp / "molecular_data"
+    data.mkdir()
+    shutil.copy(tif, data / tif.name)
+    outroot = ann_csv.parent.parent
+    cmd = [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.molecular_loop",
+           "--data-path", str(data), "--outroot", str(outroot)]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        runs.append({"rc": proc.returncode, "s": time.perf_counter() - t0,
+                     "skipped": f"skip {stem}: already done" in proc.stderr,
+                     "stderr_tail": proc.stderr[-1500:]})
+    res["cli"] = [{k: r[k] for k in ("rc", "s", "skipped")} for r in runs]
+    cli_csv = outroot / stem / f"{stem}_molecular_features.csv"
+    same, float_excess = (False, float("inf"))
+    if cli_csv.exists():
+        a, b = pd.read_csv(cli_csv), pd.read_csv(direct_dir / f"{stem}_molecular_features.csv")
+        same, float_excess = _frames_close(a, b, cols)
+        res["cli_csv_bytes_equal"] = cli_csv.read_bytes() == (
+            direct_dir / f"{stem}_molecular_features.csv").read_bytes()
+        res["cli_csv_max_abs_dp"] = float(np.abs(a[cols].to_numpy() - b[cols].to_numpy()).max())
+    res["cli_csv_equal_direct"] = same and res.get("cli_csv_max_abs_dp", 1.0) <= 1e-6
+    res["cli_success_log"] = (outroot / "success_slides.txt").read_text().split() if (
+        outroot / "success_slides.txt").exists() else None
+    if runs[0]["rc"] != 0 or not res["cli_csv_equal_direct"]:
+        failures.append(f"molecular: cli.molecular_loop exited {runs[0]['rc']}, CSV equal to the "
+                        f"direct call's: {res['cli_csv_equal_direct']} (float excess "
+                        f"{float_excess}): {runs[0]['stderr_tail']}")
+    if runs[1]["rc"] != 0 or not runs[1]["skipped"] or res["cli_success_log"] != [stem]:
+        failures.append(f"molecular: the second cli run exited {runs[1]['rc']}, skipped "
+                        f"{runs[1]['skipped']}, success log {res['cli_success_log']}")
+    return res
+
+
+def _molecular_line(res: dict) -> dict:
+    return {k: res.get(k) for k in (
+        "tiles", "batch", "parameters", "setup_s", "extract_s", "tiles_per_s", "peak_gib",
+        "thumb_shape", "ds", "box", "forward_256_ms", "forward_256_bound_ms", "splat_ms",
+        "splat_counts_equal", "splat_max_abs_vs_cpu", "f32_card_vs_cpu_excess",
+        "bf16_vs_f32_max_abs_dp", "mutant_swapped_weights_excess", "prob_min_mean_max",
+        "cli", "cli_csv_equal_direct", "cli_csv_bytes_equal", "launches", "smi")}
+
+
 def _runner_line(res: dict) -> dict:
     return {k: res.get(k) for k in (
         "status", "tiles", "features", "polygons", "polygons_per_class", "predicted",
         "tme_roi_tiles", "min_polygon_area_px_relaxed", "run_s", "tiles_per_s", "stage_s",
         "k5_calls", "k5_launches", "k5_drivers", "k5_ms", "k5_plain_ms", "k5_label_diffs",
         "h5_write_ms", "h5_read_ms", "h5_bytes", "h5_equal", "done_flag_keys_equal_jax",
-        "replay", "class_embeddings_cpu_excess", "rerun_status", "resume", "resume_run_s",
-        "cli_rc", "cli_s", "smi")}
+        "replay", "class_embeddings_cpu_excess", "multiclass", "rerun_status", "resume",
+        "resume_run_s", "cli_rc", "cli_s", "smi")}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4395,17 +4945,48 @@ def main(argv: list[str] | None = None) -> int:
     path_masks, island_launches = _islands(slide, tmp, wrappers, report, failures)
     kernels += _check_cc(path_masks, fg, island_launches, wrappers, failures, out_dir)
 
+    # -- 8b. the real Virchow2 tower (timm ViT-H/14) through the embed stage -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["virchow2"] = _virchow2(slide, tmp / "smoke.svs", roi, wrappers, failures, tmp)
+    report["virchow2"]["phase_s"] = time.perf_counter() - t0
+    virchow2_line = _virchow2_line(report["virchow2"])
+    virchow2_line["phase_s"] = report["virchow2"]["phase_s"]
+    print(json.dumps({"virchow2": virchow2_line}), flush=True)
+
     # -- 9. the 8-step runner and its CLI on the smoke TIFF ---------------------
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     report["runner"] = _runner(slide, tmp / "smoke.svs", wrappers, failures, tmp)
+    report["runner"]["phase_s"] = time.perf_counter() - t0
     runner_line = _runner_line(report["runner"])
+    runner_line["phase_s"] = report["runner"]["phase_s"]
     print(json.dumps({"runner": runner_line}), flush=True)
     k5 = next(k for k in kernels if k["name"] == "label_components_tiled")
+    mc = report["runner"].get("multiclass", {})
     k5["launches_by_path"] = {"islands": k5["launches"],
-                              "runner": report["runner"].get("k5_launches", 0)}
+                              "runner": report["runner"].get("k5_launches", 0),
+                              "runner_multiclass": mc.get("launches", {}).get(
+                                  "label_components_tiled", 0)}
     k5["launches"] = sum(k5["launches_by_path"].values())
-    k5["note"] += ("; launches: the islands path's (max_work_dim 1024) and the runner path's "
-                   "(one call a class on the tile grid), launches_by_path")
+    k5["note"] += ("; launches: the islands path's (max_work_dim 1024), the runner path's "
+                   "(one call a class on the tile grid) and the runner's second pass with the "
+                   "class embeddings taken from tiles, launches_by_path")
+
+    # -- 10. the molecular step and its CLI on the multi-class runner's ROI -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if "multiclass_csv" in report["runner"]:
+        report["molecular"] = _molecular(tmp / "smoke.svs", Path(report["runner"]["multiclass_csv"]),
+                                         wrappers, failures, tmp)
+    else:
+        report["molecular"] = {}
+        failures.append("molecular: the runner phase left no multi-class annotations CSV")
+    report["molecular"]["phase_s"] = time.perf_counter() - t0
+    molecular_line = _molecular_line(report["molecular"])
+    molecular_line["phase_s"] = report["molecular"]["phase_s"]
+    print(json.dumps({"molecular": molecular_line}), flush=True)
+    report["total_s"] = time.perf_counter() - T_START
     real_launches = report["real"]["launches"]
     for k in kernels:
         if k["name"] in ("cc_sizes", "flood", "instance_stats"):
@@ -4426,7 +5007,10 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"feed": feed_line}))
     print(json.dumps({"wsi": wsi_line}))
     print(json.dumps({"real": real_line}))
+    print(json.dumps({"virchow2": virchow2_line}))
     print(json.dumps({"runner": runner_line}))
+    print(json.dumps({"molecular": molecular_line}))
+    print(f"total: {report['total_s']:.1f} s")
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")
     if failures:

@@ -7,8 +7,12 @@ per task by an LSF/Slurm array job); the output root from ``--outroot``
 fleet of independent workers over a shared filesystem. Exit 0 when the
 slide is done (or was already), 1 when it failed (its ``_ERROR.txt`` says
 why), 2 on usage errors: no slide, a missing or unsupported slide path, a
-weights artifact of another kind, no GPU without ``--device cpu``, and
-``--dp``, which is not ported yet (ROADMAP Queue 1 item 18).
+weights artifact of another kind or whose params do not fit its config, no
+GPU without ``--device cpu``, and ``--dp``, which is not ported yet
+(ROADMAP Queue 1 item 18). ``--weights`` takes a converted CLIP tower or a
+converted timm Virchow2 tower (ViT-H/14, 2560-d embeddings; steps 3-4 then
+score it against the 512-d CLIP text tower as the JAX package does, which
+fails at step 4).
 
 Usage:
     WSI_PATH=/data/slide.svs python -m path_gene_multimodal_tpu_torch.cli.main
@@ -50,7 +54,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--weights", default=None, metavar="NPZ",
         help="converted image-tower checkpoint from cli.convert_weights "
-             "(kind clip, or virchow2 with a CLIP-style config); CLIP text weights "
+             "(kind clip, or virchow2: the timm tower or a CLIP-style config); CLIP text weights "
              "auto-load from <stem>_text.npz next to it. Without it the towers run "
              "with RANDOM weights (plumbing mode).",
     )
@@ -93,21 +97,31 @@ def main(argv: list[str] | None = None) -> int:
             load_converted,
             text_sidecar_path,
         )
+        from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig
         from path_gene_multimodal_tpu_torch.models.weights_clip import (
             text_state_dict_from_jax,
             vision_state_dict_from_jax,
+        )
+        from path_gene_multimodal_tpu_torch.models.weights_vit_timm import (
+            timm_state_dict_from_jax,
         )
 
         weights_fp = file_fingerprint(args.weights)
         try:
             kind, vision_cfg, params = load_converted(args.weights)
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             logger.error("%s: %s", args.weights, e)
             return 2
         if kind not in ("clip", "virchow2"):
             logger.error("%s is a %r artifact, expected kind clip|virchow2", args.weights, kind)
             return 2
-        vision_sd = vision_state_dict_from_jax(params, vision_cfg)
+        to_sd = (timm_state_dict_from_jax if isinstance(vision_cfg, TimmViTConfig)
+                 else vision_state_dict_from_jax)
+        try:
+            vision_sd = to_sd(params, vision_cfg)
+        except KeyError as e:
+            logger.error("%s: its params do not fit its %s config (no %s)", args.weights, kind, e)
+            return 2
         tfile = text_sidecar_path(args.weights)
         if tfile.exists():
             _, text_cfg, tparams = load_converted(tfile)

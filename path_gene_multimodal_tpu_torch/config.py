@@ -2,8 +2,9 @@
 
 A copy of what this package reads of ``path_gene_multimodal_tpu/config.py``
 (the port imports nothing of the JAX package): the class lists, the
-tessellation, embedding, TME, polygon, nuclei, graph and compat sections,
-the root fields of the 8-step runner with ``replace`` and ``content_hash``,
+tessellation, embedding, TME, polygon, nuclei, molecular, graph and compat
+sections, the root fields of the 8-step runner and the molecular loop with
+``replace`` and ``content_hash``,
 ``resolve_tile_png_name``, ``WSI_EXTS`` and ``slide_paths``; plus the
 model configuration that lives in the JAX package's ``models/convnext.py``
 and ``models/hovernext.py``. The nuclei section keeps the port's own name
@@ -41,6 +42,17 @@ TYPE_NAMES: dict[int, str] = {
     3: "connective",
     4: "dead",
     5: "epithelial",
+}
+
+# IDaRS molecular endpoints → pretrained-model tags
+# (reference molecular_feature_extraction.py:21-28).
+DEFAULT_MOLECULAR_TASKS: dict[str, str] = {
+    "msi": "resnet34-idars-msi",
+    "hm": "resnet34-idars-hm",
+    "cin": "resnet34-idars-cin",
+    "cimp": "resnet34-idars-cimp",
+    "braf": "resnet34-idars-braf",
+    "tp53": "resnet34-idars-tp53",
 }
 
 
@@ -128,12 +140,24 @@ class EmbeddingConfig:
     # (its throughput knee on a TPU, not a measurement of this port)
     batch_size: int = 512
     # the ViT-H Virchow2 tower's batch, clamped in pipeline/embed.py when
-    # model_type starts with "virchow" (the JAX package's default)
+    # model_type starts with "virchow" or the tower is the timm ViT (the JAX
+    # package's default)
     virchow2_batch_size: int = 64
     dtype: str = "bfloat16"
     # ship JPEG tiles as raw 4:2:0 planes (half the bytes) and finish their
     # decode on the encoder's device (pipeline/embed.py)
     planar_feed: bool = True
+
+
+@dataclass(frozen=True)
+class MolecularConfig:
+    """IDaRS molecular predictors (reference molecular_feature_extraction.py:31-51)."""
+
+    tasks: tuple[str, ...] = tuple(DEFAULT_MOLECULAR_TASKS)
+    # the reference uses 64; 256 is the JAX package's default
+    batch_size: int = 256
+    thumb_power: float = 4.0
+    save_prob_maps: bool = False
 
 
 @dataclass(frozen=True)
@@ -151,11 +175,13 @@ class PipelineConfig:
 
     classes: tuple[str, ...] = DEFAULT_CLASSES
     tme_classes: tuple[str, ...] = DEFAULT_TME_CLASSES
+    data_path: str = ""
     outroot: str = ""
     patch_size: int = 224
     model_type: str = "CLIP"
     thumb_size: tuple[int, int] = (2000, 2000)
     done_flag_name: str = "_DONE.json"
+    done_flag_molecular: str = "_DONE_MOLECULAR.json"
     stale_lock_hours: float = 48.0
 
     tessellation: TessellationConfig = field(default_factory=TessellationConfig)
@@ -163,6 +189,7 @@ class PipelineConfig:
     tme: TMEConfig = field(default_factory=TMEConfig)
     polygon: PolygonConfig = field(default_factory=PolygonConfig)
     hovernext: NucleiConfig = field(default_factory=NucleiConfig)
+    molecular: MolecularConfig = field(default_factory=MolecularConfig)
     graph: GraphConfig = field(default_factory=GraphConfig)
     compat: CompatConfig = field(default_factory=CompatConfig)
 

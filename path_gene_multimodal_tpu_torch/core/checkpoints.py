@@ -11,17 +11,25 @@
   ``decoder.I.convJ|normJ.*``, ``final_conv.*``, ``head_np|hv|tp.*``; the
   JAX package's ``convert_hovernext`` names, which are the port's own
   ``state_dict()`` keys) a ``HoverNeXtConfig`` and a ``HoverNeXt`` one;
+- ``load_virchow2_from_torch``: a timm ViT checkpoint (the published
+  Virchow2 layout) → (``TimmViTConfig``, ``models.vit_timm.TimmViT`` state
+  dict);
+- ``load_resnet_from_torch``: a torchvision-named ResNet checkpoint (the
+  TIAToolbox ``resnet34-idars-*`` layout) → (``ResNetConfig``,
+  ``models.resnet.ResNet`` state dict);
 - ``load_converted``: a ``cli/convert_weights`` ``.npz`` artifact →
   (kind, config, numpy params): kind ``hovernext`` (a ``HoverNeXtConfig``,
   whose state dict ``models.weights_hovernext.params_from_jax`` makes, or
   with ``branches`` a ``RealHoverNeXtConfig``, whose state dict
   ``models.weights_hovernext_real.real_state_dict_from_jax`` makes),
   ``clip`` / ``clip_text`` (a ``VisionConfig`` / ``TextConfig``;
-  ``models.weights_clip`` makes theirs) and ``virchow2`` with a CLIP-style
-  stand-in ``VisionConfig``.
+  ``models.weights_clip`` makes theirs), ``virchow2`` with a timm
+  ``TimmViTConfig`` (``models.weights_vit_timm.timm_state_dict_from_jax``)
+  or a CLIP-style stand-in ``VisionConfig``, and ``resnet34`` (no config;
+  ``models.weights_resnet.resnet_state_dict_from_jax``).
 
-Refused, as not ported yet: the timm Virchow2 tower (ROADMAP Queue 1
-item 15).
+Every loader here loads strict: a checkpoint key the model does not have
+raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -39,10 +47,6 @@ from path_gene_multimodal_tpu_torch.config import (
     HoverNeXtConfig,
     RealHoverNeXtConfig,
 )
-
-_TIMM_VIRCHOW2 = ("the timm Virchow2 tower (models/vit_timm.py in the JAX package) is not "
-                  "ported yet (ROADMAP Queue 1 item 15)")
-
 
 def file_fingerprint(path: str | Path, sample: int = 1 << 20) -> str:
     """Cheap content fingerprint of a weights artifact for resume
@@ -106,7 +110,7 @@ def _load_strict(net: torch.nn.Module, sd: dict, what: str) -> dict[str, torch.T
     # f32 (a bf16 checkpoint was upcast on load), BatchNorm's counter int64
     state = {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith(
         "num_batches_tracked") else np.float32)) for k, v in sd.items()}
-    net.load_state_dict(state, strict=True)
+    net.load_state_dict(state, strict=True, assign=True)  # assign: ``net`` may be on meta
     return state
 
 
@@ -143,11 +147,60 @@ def load_hovernext_from_torch(
     return cfg, _load_strict(HoverNeXt(cfg), sd, "HoverNeXt")
 
 
+def load_virchow2_from_torch(
+    path: str | Path, allow_pickle: bool = False
+) -> tuple[Any, dict[str, torch.Tensor]]:
+    """A published Virchow2 checkpoint (timm ViT-H/14 naming: ``cls_token``,
+    ``reg_token``, ``blocks.N.attn.qkv``, SwiGLU ``mlp.fc1/fc2``,
+    ``ls1/ls2.gamma``) → (``TimmViTConfig`` read from its shapes, state
+    dict loaded strict into ``TimmViT``). Reference consumer:
+    ``extract_embedding_from_tiles.py:14`` (``MODEL_TYPE="Virchow2"``).
+    Build ``models.clip.ImageEncoder`` from both with the ImageNet
+    statistics: the tile embedding is concat(cls, patch mean), 2560-d."""
+    from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViT
+    from path_gene_multimodal_tpu_torch.models.weights import load_torch_checkpoint
+    from path_gene_multimodal_tpu_torch.models.weights_vit_timm import timm_state_dict
+
+    cfg, sd = timm_state_dict(load_torch_checkpoint(path, allow_pickle=allow_pickle))
+    with torch.device("meta"):
+        net = TimmViT(cfg)
+    return cfg, _load_strict(net, sd, "timm ViT")
+
+
+def load_resnet_from_torch(path: str | Path, allow_pickle: bool = False
+                           ) -> tuple[Any, dict[str, torch.Tensor]]:
+    """A torchvision/TIAToolbox ResNet checkpoint (``resnet34-idars-*``) →
+    (``ResNetConfig`` read from its shapes, state dict loaded strict into
+    ``models.resnet.ResNet``), after the JAX converter's ``model.`` /
+    ``module.`` strip; a missing ``num_batches_tracked`` counter reads as
+    0."""
+    from path_gene_multimodal_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from path_gene_multimodal_tpu_torch.models.weights import load_torch_checkpoint
+    from path_gene_multimodal_tpu_torch.models.weights_resnet import strip_prefixes
+
+    sd = strip_prefixes(load_torch_checkpoint(path, allow_pickle=allow_pickle))
+    blocks: dict[int, int] = {}
+    for k in sd:
+        m = re.match(r"layer(\d+)\.(\d+)\.", k)
+        if m:
+            s_, b = int(m.group(1)), int(m.group(2))
+            blocks[s_] = max(blocks.get(s_, 0), b + 1)
+    cfg = ResNetConfig(stage_sizes=tuple(blocks[i] for i in sorted(blocks)),
+                       num_classes=int(sd["fc.weight"].shape[0]),
+                       width=int(sd["conv1.weight"].shape[0]))
+    with torch.device("meta"):
+        net = ResNet(cfg)
+    for k in net.state_dict():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, np.zeros((), np.int64))
+    return cfg, _load_strict(net, sd, "ResNet")
+
+
 def load_converted(path: str | Path) -> tuple[str, Any, Any]:
     """→ (kind, config, variables) of a converted-checkpoint ``.npz``
     (flattened ``p:`` params and a JSON ``__meta__`` record). The port
-    reads kinds ``hovernext``, ``clip``, ``clip_text`` and ``virchow2``
-    (stand-in configs only); other kinds raise ``NotImplementedError``."""
+    reads kinds ``hovernext``, ``clip``, ``clip_text``, ``virchow2`` and
+    ``resnet34``; ``convnext`` raises ``NotImplementedError``."""
     with np.load(Path(path)) as z:
         if "__meta__" not in z.files:
             raise ValueError(
@@ -159,15 +212,18 @@ def load_converted(path: str | Path) -> tuple[str, Any, Any]:
 
 
 def _config_from_meta(kind: str, d: dict | None) -> Any:
+    if kind == "resnet34":
+        return None  # the JAX package stores none: RESNET34_IDARS or the params' shapes
     if kind in ("clip", "clip_text", "virchow2"):
         from dataclasses import fields
 
         from path_gene_multimodal_tpu_torch.models.clip import TextConfig, VisionConfig
+        from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig
 
         klass = TextConfig if kind == "clip_text" else VisionConfig
+        if kind == "virchow2" and d is not None and "mlp_hidden" in d:
+            klass = TimmViTConfig  # the real timm tower, as the JAX package stores it
         if d is None or not set(d) <= {f.name for f in fields(klass)}:
-            if kind == "virchow2":
-                raise NotImplementedError(_TIMM_VIRCHOW2)
             raise ValueError(f"converted {kind} artifact: config {d} is no {klass.__name__}")
         return klass(**d)
     if kind != "hovernext":

@@ -18,8 +18,9 @@ Rounding follows flax (``models/layers.py``): the patch embed is a bf16
 product with f32 accumulation, ``x + pos`` adds in the compute dtype (the
 position embedding rounded first), and the output is cast to f32.
 
-Not ported yet: the timm Virchow2 tower (ROADMAP Queue 1 item 15) and the
-data-parallel ``mesh`` (item 18).
+``ImageEncoder`` also takes a ``models.vit_timm.TimmViTConfig``: the real
+Virchow2 tower, a timm ViT (``models/vit_timm.py``). Not ported yet: the
+data-parallel ``mesh`` (ROADMAP Queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from path_gene_multimodal_tpu_torch.models.layers import (
     product_precision,
     quick_gelu,
 )
+from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViT, TimmViTConfig, seeded_vit
 
 # CLIP preprocessing constants (OpenAI; used by Mussel's feature extractor)
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -253,14 +255,18 @@ def resize_bilinear(pixels: torch.Tensor, size: int) -> torch.Tensor:
 
 class ImageEncoder:
     """The tower with its weights on one device, and the normalize →
-    (resize) → ViT forward. ``state_dict`` (the ``visual.*`` names) or, if
-    it is None, seeded random weights from ``seed``. Runs on the card
+    (resize) → ViT forward. A ``VisionConfig`` builds the CLIP-layout
+    ``VisionTower`` (``state_dict`` in the ``visual.*`` names), a
+    ``TimmViTConfig`` the timm ``TimmViT`` (timm's names; pass the ImageNet
+    ``mean`` / ``std`` with it, as the Virchow2 path does). Without a
+    ``state_dict`` the weights are seeded from ``seed``: the CLIP tower's
+    drawn on the host, the timm tower's on ``device``. Runs on the card
     unless the caller passes ``device="cpu"``; ``dtype`` is the compute
     dtype (bf16 by default, as the JAX package's)."""
 
     def __init__(
         self,
-        cfg: VisionConfig = CLIP_VIT_B16,
+        cfg: VisionConfig | TimmViTConfig = CLIP_VIT_B16,
         state_dict: dict | None = None,
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
@@ -270,12 +276,17 @@ class ImageEncoder:
     ):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = VisionTower(cfg, dtype=dtype)
-        if state_dict is None:
-            init_weights(self.model, torch.Generator().manual_seed(seed))
-        else:
-            self.model.load_state_dict(state_dict)
-        self.model.to(self.device).eval()
+        timm = isinstance(cfg, TimmViTConfig)
+        if timm and state_dict is None:
+            self.model = seeded_vit(cfg, seed, dtype, self.device)
+        else:  # built on the device with no default init: every weight is set below
+            with torch.device("meta"):
+                model = (TimmViT if timm else VisionTower)(cfg, dtype=dtype)
+            self.model = model.to_empty(device=self.device).eval()
+            if state_dict is None:
+                init_weights(self.model, torch.Generator().manual_seed(seed))
+            else:
+                self.model.load_state_dict(state_dict)
         self._mean, self._std = mean, std
 
     @property
@@ -285,7 +296,7 @@ class ImageEncoder:
         there is no projection. Empty-slide artifacts need it to write the
         correct feature-matrix width."""
         c = self.cfg
-        if c.out_dim is not None:
+        if getattr(c, "out_dim", None) is not None:
             return int(c.out_dim)
         return int(c.width) * (2 if c.pool == "cls+mean" else 1)
 

@@ -36,23 +36,26 @@ from path_gene_multimodal_tpu_torch.core.artifacts import write_features_h5
 from path_gene_multimodal_tpu_torch.io.slide import SlideReader
 from path_gene_multimodal_tpu_torch.models.clip import ImageEncoder, TextEncoder
 from path_gene_multimodal_tpu_torch.models.layers import product_precision
+from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig
 from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
 from path_gene_multimodal_tpu_torch.pipeline.tessellate import iter_tile_batches
 
 
 def _is_virchow_tower(cfg: PipelineConfig, encoder) -> bool:
-    """True when the image tower is the ViT-H Virchow2, which gets its own
-    batch clamp and artifact metadata. The JAX package also recognises its
-    timm tower by the encoder's config; that tower is not ported yet, so
-    here ``cfg.model_type`` decides."""
-    return cfg.model_type.lower().startswith("virchow")
+    """True when the image tower is the ViT-H Virchow2, judged by the
+    encoder's config as well as ``cfg.model_type``: a timm Virchow2
+    artifact loaded through ``--weights`` runs under whatever model_type the
+    config left in place, and still gets its batch clamp and its artifact
+    metadata."""
+    if cfg.model_type.lower().startswith("virchow"):
+        return True
+    return isinstance(getattr(encoder, "cfg", None), TimmViTConfig)
 
 
 def _recorded_model_type(cfg: PipelineConfig, encoder) -> str:
-    """model_type written into the features artifact — the actual tower.
-    The JAX package writes "Virchow2" for its timm tower run under another
-    model_type; without that tower, the configured model_type is the
-    tower's."""
+    """model_type written into the features artifact — the actual tower."""
+    if _is_virchow_tower(cfg, encoder) and not cfg.model_type.lower().startswith("virchow"):
+        return "Virchow2"
     return cfg.model_type
 
 

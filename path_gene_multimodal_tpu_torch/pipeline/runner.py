@@ -57,16 +57,13 @@ from path_gene_multimodal_tpu_torch.models.clip import (
     VisionConfig,
 )
 from path_gene_multimodal_tpu_torch.models.tokenizer import open_tokenizer
+from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig
 from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
 from path_gene_multimodal_tpu_torch.pipeline import overlay as overlay_stage
 from path_gene_multimodal_tpu_torch.pipeline import polygons as polygon_stage
 from path_gene_multimodal_tpu_torch.pipeline import spatial as spatial_stage
 from path_gene_multimodal_tpu_torch.pipeline import tessellate as tess_stage
 from path_gene_multimodal_tpu_torch.utils.log import StageTimer, get_logger
-
-_TIMM_REFUSED = ("a timm-layout Virchow2 tower is not ported yet (ROADMAP Queue 1 item 15); "
-                 "the port takes the CLIP-style VisionConfig stand-ins")
-
 
 @dataclass
 class PipelineModels:
@@ -90,7 +87,7 @@ class PipelineModels:
         cfg: PipelineConfig,
         vision_state_dict: dict | None = None,
         text_state_dict: dict | None = None,
-        vision_cfg: VisionConfig | None = None,
+        vision_cfg: VisionConfig | TimmViTConfig | None = None,
         text_cfg: TextConfig | None = None,
         tokenizer=None,
         seed: int = 0,
@@ -98,22 +95,22 @@ class PipelineModels:
         device: str | torch.device = "cuda",
     ) -> "PipelineModels":
         """The towers on ``device``: ``vision_cfg`` (default CLIP ViT-B/16,
-        or the Virchow2 stand-in when ``cfg.model_type`` starts with
-        "virchow", which normalizes with ImageNet statistics) in
+        or the CLIP-style Virchow2 stand-in when ``cfg.model_type`` starts
+        with "virchow"; a ``TimmViTConfig`` is the real Virchow2 tower) in
         ``cfg.embedding.dtype``, the text tower in f32; state dicts in the
-        port's names, else seeded random weights (``seed``, ``seed + 1``)."""
+        port's names, else seeded random weights (``seed``, ``seed + 1``).
+        Either Virchow2 tower normalizes with the ImageNet statistics."""
         virchow = cfg.model_type.lower().startswith("virchow")
         if vision_cfg is None:
             vision_cfg = VIRCHOW2 if virchow else CLIP_VIT_B16
-        if not isinstance(vision_cfg, VisionConfig):
-            raise NotImplementedError(_TIMM_REFUSED)
+        imagenet = virchow or isinstance(vision_cfg, TimmViTConfig)
         text_cfg = text_cfg or CLIP_TEXT
         dtype = torch.bfloat16 if cfg.embedding.dtype == "bfloat16" else torch.float32
         return cls(
             image_encoder=ImageEncoder(
                 vision_cfg, state_dict=vision_state_dict, dtype=dtype, seed=seed,
-                mean=IMAGENET_MEAN if virchow else CLIP_MEAN,
-                std=IMAGENET_STD if virchow else CLIP_STD, device=device,
+                mean=IMAGENET_MEAN if imagenet else CLIP_MEAN,
+                std=IMAGENET_STD if imagenet else CLIP_STD, device=device,
             ),
             text_encoder=TextEncoder(text_cfg, state_dict=text_state_dict, seed=seed + 1,
                                      device=device),

@@ -61,7 +61,9 @@ def test_port_imports_no_jax():
                 "ops.gridops", "ops.tme", "models.tokenizer", "pipeline.spatial",
                 "pipeline.polygons", "pipeline.overlay", "pipeline.runner", "core.jobs",
                 "core.artifacts", "cli.main", "models.hovernext_real",
-                "models.weights_hovernext_real"):
+                "models.weights_hovernext_real", "models.resnet", "models.weights_resnet",
+                "ops.scatter", "pipeline.molecular", "cli.molecular_loop", "models.vit_timm",
+                "models.weights_vit_timm"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 

@@ -36,6 +36,8 @@ from path_gene_multimodal_tpu_torch.core.artifacts import (
 )
 from path_gene_multimodal_tpu_torch.models import clip as tclip
 from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
+from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViT
+from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig as TVirchowConfig
 from path_gene_multimodal_tpu_torch.models.weights_clip import (
     text_state_dict_from_jax,
     vision_state_dict_from_jax,
@@ -248,10 +250,19 @@ def test_crash_then_resume(runs, tmp_path, monkeypatch):
     assert r3.status == "done" and calls == {"tessellation": 2, "features": 2}
 
 
-def test_timm_virchow2_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        trunner.PipelineModels.build(default_config(), vision_cfg=TimmViTConfig(),
-                                     device="cpu")
+def test_timm_virchow2_builds_and_embeds():
+    """A small timm Virchow2 tower (not the full ViT-H on the CPU) builds with
+    the ImageNet statistics and embeds: concat(cls, patch mean), 2 x width."""
+    vcfg = TVirchowConfig(image_size=56, width=64, layers=2, heads=2, mlp_hidden=384)
+    models = trunner.PipelineModels.build(default_config(), vision_cfg=vcfg,
+                                          text_cfg=tclip.TextConfig(**T),
+                                          tokenizer=FallbackTokenizer(), device="cpu")
+    enc = models.image_encoder
+    assert isinstance(enc.model, TimmViT) and enc.out_dim == 128
+    assert enc._mean is tclip.IMAGENET_MEAN and enc._std is tclip.IMAGENET_STD
+    tiles = np.random.default_rng(0).integers(0, 256, (3, 224, 224, 3), dtype=np.uint8)
+    out = enc(tiles)
+    assert out.shape == (3, 128) and out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 def test_cli_exit_codes(runs, tmp_path, monkeypatch):
@@ -264,7 +275,9 @@ def test_cli_exit_codes(runs, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         assert tcli.main(["--wsi", str(runs["path"]), "--outroot", str(tmp_path / "o")]) == 2
         assert not (tmp_path / "o").exists()
-    # a converted timm Virchow2 artifact is refused; a converted CLIP one runs
+    # a converted timm Virchow2 artifact whose params do not fit its config
+    # exits 2 (a well-formed one runs: test_torch_virchow2.py); a converted
+    # CLIP one runs
     vpath = save_converted("virchow2", TimmViTConfig(layers=1), {"w": np.zeros(1)},
                            tmp_path / "v2.npz")
     assert tcli.main(["--wsi", str(runs["path"]), "--weights", str(vpath),
