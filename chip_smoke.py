@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--seed N]
 
 1. builds every kernel of the port from
    ``path_gene_multimodal_tpu_torch/csrc`` with nvcc (one process per
@@ -258,10 +258,42 @@
    path_gene_multimodal_tpu_torch.cli.molecular_loop`` in a child process
    on a data path holding the TIFF, twice: exit 0 with the direct call's
    CSV, then the slide skipped as done. Prints a ``molecular`` JSON line.
+11. the alternative polygon paths and the legacy summaries (``_altpaths``):
+   (a) the smoke TIFF's tiles with the second runner pass's classes (the
+   class that won the most tiles as the tumour class) through both
+   polygon paths (``tumor_polygon_from_patches``,
+   ``mask_contour_from_tiles``),
+   ``tumor_geojson_for_slides``, ``summarize_tumor_area``,
+   ``tumor_bounding_boxes`` and the composite on the TIFF's thumbnail, on
+   the card with the counts set to 0 just before and read just after (K5,
+   four calls, nothing else), each output equal to the same calls on the
+   CPU (rings, GeoJSON bytes, frames, pixels); (b) the tiles of a
+   100,000 x 80,000 px slide (446 x 357 tiles of 224 px, tumour discs
+   drawn from ``--seed``, no pixels) through the same calls: the raster
+   path on its 6144 x 4864 canvas, each K5 call's labels equal to its plain
+   version on the card on the same mask, K5 timed. Prints an ``altpaths``
+   JSON line; K5's kernels-line launches add the phase's
+   (``launches_by_path["altpaths"]``);
+12. the training paths (``_fusion``; no kernel, none launched): (a)
+   ``cli.fusion_train_demo`` at the demo's sizes, exit 0 and held-out
+   accuracy over the hist-only oracle; (b) at full width, 512 bags of up to
+   1,024 CLIP ViT-B/16 features (one the smoke TIFF's 275 tiles from the
+   runner's features H5) pooled by ``AttentionPool(hidden=128)`` under the
+   mask, 20,531 genes through a CSV and ``GeneExpressionTable.from_csv``
+   (write and read timed), ``FusionHead`` at its defaults trained 120
+   full-batch steps with a checkpoint after step 60: the loss falls, the
+   restore and the resumed step are bit-exact, and the first 3 steps
+   replayed on the CPU are within the replay bar; (c) the linear probe on
+   the seeded CLIP ViT-B/16, 5 classes, 64 ROI tiles with the runner's
+   labels: 20 frozen steps in bf16, 3 full fine-tune steps in f32, the loss
+   falling in both and each mode's first step on 8 tiles equal to the
+   CPU's within the bar. Step times and peak memory. Prints a ``fusion``
+   JSON line.
 
-Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner`` and ``molecular``
-JSON lines, the script's seconds, the slice's tiles/s, the kernels' JSON line and the card's
-name and power limit, then, as the last line, ``{"ok": true, "device": {...}}``.
+Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner``, ``molecular``,
+``altpaths`` and ``fusion`` JSON lines, the script's seconds, the slice's tiles/s, the
+kernels' JSON line and the card's name and power limit, then, as the last line, ``{"ok":
+true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 ``build/chip_smoke/``, which git ignores).
 
@@ -377,6 +409,21 @@ REPLAY_ATOL, REPLAY_RTOL = 5e-4, 1e-3
 CLASS_TILE_SEED, CLASS_TILE_TRIES, CLASS_TILE_ROI = 17, 128, 0.8
 # the molecular phase's bar for bf16 against f32 P(class=1) on the card
 MOL_BF16_DP = 0.05
+# the altpaths phase's second input: the tiles (224 px) of a slide this size
+# (446 x 357 tiles; the raster path's 6144 x 4864 canvas), with this many
+# tumour discs drawn from --seed
+ALT_SLIDE_DIMS = (100_000, 80_000)
+ALT_BLOBS = 12
+# the fusion phase at full width: bags of CLIP ViT-B/16 features, TCGA
+# RNASeqV2's gene count, the demo's steps and checkpoint, the CPU replay's
+# steps; the linear probe's tiles, steps and learning rates
+FUSION_SLIDES, FUSION_MAX_TILES, FUSION_FEAT_DIM, FUSION_GENES = 512, 1024, 512, 20_531
+FUSION_STEPS, FUSION_CKPT, FUSION_REPLAY_STEPS, FUSION_LR = 120, 60, 3, 1e-3
+PROBE_TILES, PROBE_REPLAY_TILES, PROBE_FROZEN_STEPS, PROBE_FULL_STEPS = 64, 8, 20, 3
+PROBE_LR, PROBE_FULL_LR = 1e-3, 3e-6
+# the training replays' bars (tests/test_torch_fusion.py): the losses (rtol),
+# the parameters (atol, rtol; see _params_off)
+TRAIN_LOSS_RTOL, TRAIN_ATOL, TRAIN_RTOL = 1e-4, 5e-4, 1e-3
 
 
 def _sync_time(fn, reps: int, warm: int = 1) -> float:
@@ -4250,6 +4297,7 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
               polygons_per_class={c: sum(f["class_name"] == c for f in mc_polys) for c in classes})
     res["multiclass"] = mc
     res["multiclass_csv"] = str(mc_dir / f"{stem}_annotations_with_coords.csv")
+    res["features_h5"] = str(out / f"{stem}_features.h5")
     print(f"runner, {len(classes)} classes from tiles {mc['class_tiles']} (seed "
           f"{seed}): tiles won {mc['classes_won']}; {mc['tme_roi_tiles']} of "
           f"{mc['tiles']} tiles in_tme_roi", flush=True)
@@ -4642,6 +4690,577 @@ def _molecular_line(res: dict) -> dict:
         "cli", "cli_csv_equal_direct", "cli_csv_bytes_equal", "launches", "smi")}
 
 
+def _params_off(got: dict, want: dict, grads: dict, lr: float, steps: int) -> dict:
+    """Parameters of two runs of the same training steps against the
+    replay bar (atol TRAIN_ATOL, rtol TRAIN_RTOL), as
+    ``tests/test_torch_fusion.py`` holds them: entries off the bar are
+    allowed only where the reference's gradient sits near zero (|g| <= 1e-3
+    of its tensor's largest, at some step), where the two f32 gradients can
+    take opposite signs and Adam's normalised step of about ``lr`` goes the
+    other way; those entries may be at most 1% of a tensor and differ by at
+    most 2 lr a step. Returns the counts and ``ok``."""
+    off = off_bad = 0
+    worst_share = worst_diff = 0.0
+    for k, w in want.items():
+        g, w = got[k].float(), w.float()
+        bad = ~torch.isclose(g, w, atol=TRAIN_ATOL, rtol=TRAIN_RTOL)
+        n = int(bad.sum())
+        if not n:
+            continue
+        gk = grads[k].abs()
+        off += n
+        off_bad += int((bad & (gk > 1e-3 * gk.max())).sum())
+        worst_share = max(worst_share, n / bad.numel())
+        worst_diff = max(worst_diff, float((g - w).abs()[bad].max()))
+    ok = off_bad == 0 and worst_share <= 0.01 and worst_diff <= 2 * lr * steps + TRAIN_ATOL
+    return {"off_bar": off, "off_bar_not_near_zero_grad": off_bad,
+            "largest_share_off": worst_share, "largest_diff_off": worst_diff, "ok": ok}
+
+
+class _grad_spy:  # noqa: N801 (a context manager, named as one)
+    """While installed as ``module.value_and_grad``, keeps the entrywise
+    smallest |gradient| of each parameter over the calls (on the host)."""
+
+    def __init__(self, module):
+        self.module, self.orig, self.min_abs = module, module.value_and_grad, {}
+
+    def __enter__(self):
+        self.module.value_and_grad = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.value_and_grad = self.orig
+        return False
+
+    def __call__(self, loss_of, params):
+        loss, grads = self.orig(loss_of, params)
+        for k, g in grads.items():
+            a = g.detach().abs().float().cpu()
+            self.min_abs[k] = torch.minimum(self.min_abs[k], a) if k in self.min_abs else a
+        return loss, grads
+
+
+def _replay_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / (TRAIN_ATOL + TRAIN_RTOL |ref|): passes at <= 1."""
+    return float(((got.float() - ref.float()).abs()
+                  / (TRAIN_ATOL + TRAIN_RTOL * ref.float().abs())).max())
+
+
+def _alt_tiles_b(patch: int, seed: int, tumor_class: str):
+    """The raster path's second input: tile coordinates of a
+    ALT_SLIDE_DIMS slide (446 x 357 tiles of 224 px), tissue in an ellipse
+    over 80% of its width and height, ALT_BLOBS tumour discs of 6-40 tiles'
+    radius and 1% scattered tumour tiles inside it (``tumor_class``), the
+    other tissue tiles of the other classes; drawn from ``seed``. Returns the annotations
+    frame (x, y, predicted_class) and the tumour tiles' coordinates."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+
+    classes = list(default_config().classes)
+    rng = np.random.default_rng(seed)
+    gw, gh = ALT_SLIDE_DIMS[0] // patch, ALT_SLIDE_DIMS[1] // patch
+    gy, gx = np.mgrid[0:gh, 0:gw]
+    tissue = ((gx - gw / 2) / (0.4 * gw)) ** 2 + ((gy - gh / 2) / (0.4 * gh)) ** 2 <= 1
+    tumor = rng.random((gh, gw)) < 0.01
+    for _ in range(ALT_BLOBS):
+        cx, cy, r = rng.uniform(0.15 * gw, 0.85 * gw), rng.uniform(0.15 * gh, 0.85 * gh), \
+            rng.uniform(6, 40)
+        tumor |= (gx - cx) ** 2 + (gy - cy) ** 2 <= r * r
+    tumor &= tissue
+    others = [c for c in classes if c != tumor_class]
+    names = np.where(tumor, tumor_class, rng.choice(others, size=tumor.shape))[tissue]
+    df = pd.DataFrame({"x": gx[tissue] * patch, "y": gy[tissue] * patch,
+                       "predicted_class": names})
+    return df, np.stack([gx[tumor], gy[tumor]], 1).astype(np.int64) * patch
+
+
+def _altpaths_run(df, tumor_classes, coords, dims, thumb, out: Path, stem: str, device) -> dict:
+    """Both polygon paths, the per-slide GeoJSON, the two legacy summaries
+    and (with a thumbnail) the composite of the raster path's rings, each
+    timed."""
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.pipeline import altpaths as alt
+    from path_gene_multimodal_tpu_torch.pipeline import legacy
+
+    cfg = default_config()
+    patch, s, r = cfg.patch_size, {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r[name] = fn()
+        if str(device).startswith("cuda"):
+            torch.cuda.synchronize()
+        s[name] = time.perf_counter() - t0
+
+    timed("patch_union_ring", lambda: alt.tumor_polygon_from_patches(coords, patch, device=device))
+    timed("geojson", lambda: alt.tumor_geojson_for_slides({stem: coords}, patch, out,
+                                                          device=device))
+    timed("raster_rings", lambda: alt.mask_contour_from_tiles(coords, patch, dims, device=device))
+    timed("summary", lambda: legacy.summarize_tumor_area(df, list(cfg.classes), tumor_classes,
+                                                         patch))
+    timed("boxes", lambda: legacy.tumor_bounding_boxes(df, tumor_classes, patch, device=device))
+    if thumb is not None:
+        timed("composite", lambda: alt.composite_polygons_on_thumbnail(
+            thumb, r["raster_rings"], dims[0] / thumb.shape[1]))
+    r["s"] = s
+    return r
+
+
+def _altpaths_equal(a: dict, b: dict) -> dict:
+    """Each output of two ``_altpaths_run``s compared exactly."""
+    ra, rb = a["patch_union_ring"], b["patch_union_ring"]
+    out = {
+        "patch_union_ring": (ra is None and rb is None) or (
+            ra is not None and rb is not None and np.array_equal(ra, rb)),
+        "geojson_bytes": sorted(a["geojson"]) == sorted(b["geojson"]) and all(
+            a["geojson"][k].read_bytes() == b["geojson"][k].read_bytes() for k in a["geojson"]),
+        "raster_rings": len(a["raster_rings"]) == len(b["raster_rings"]) and all(
+            np.array_equal(x, y) for x, y in zip(a["raster_rings"], b["raster_rings"])),
+        "summary": bool(a["summary"].equals(b["summary"])),
+        "boxes": bool(a["boxes"].equals(b["boxes"])),
+    }
+    if "composite" in a:
+        out["composite"] = bool(np.array_equal(a["composite"], b["composite"]))
+    return out
+
+
+def _altpaths(tif: Path, ann_csv: Path, tumor_classes, wrappers, failures, tmp: Path,
+              seed: int) -> dict:
+    """Section 11: the alternative polygon paths and the legacy summaries
+    (``pipeline/altpaths.py``, ``pipeline/legacy.py``), with the kernel
+    counts set to 0 just before each input's run on the card and read just
+    after (K5 labels in both polygon paths and in the raster path's
+    small-object removal; nothing else launches). (a) The smoke TIFF's
+    tiles with the runner's second-pass classes (``tumor_classes``: the
+    caller passes the class that won the most tiles): both polygon paths,
+    ``tumor_geojson_for_slides``, the two legacy summaries and the
+    composite on the TIFF's thumbnail, each
+    equal to a run of the port on the CPU (rings, GeoJSON bytes, frames,
+    pixels). (b) The tiles of a 100,000 x 80,000 px slide (``_alt_tiles_b``,
+    no pixels): the same calls, the raster path on its 6144 x 4864 canvas,
+    each K5 call's labels equal to its plain version on the same mask (run
+    on the card; the CPU takes minutes at that size). Times, launches, ring
+    counts and raster sizes; a failed check fails the run."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.ops.cc import (
+        label_components_tiled, label_components_tiled_plain,
+    )
+    from path_gene_multimodal_tpu_torch.pipeline.altpaths import raster_geometry
+
+    cfg = default_config()
+    patch, stem = cfg.patch_size, tif.stem
+    tumor_classes = list(tumor_classes)
+    res: dict = {"smi": _smi(), "tumor_classes": tumor_classes}
+
+    def counted(df, coords, dims, thumb, out, name):
+        for w in wrappers.values():
+            w.launches = 0
+        with _cc_spy() as spy:
+            r = _altpaths_run(df, tumor_classes, coords, dims, thumb, out, name, "cuda")
+        launches = {n: w.launches for n, w in wrappers.items()}
+        bad = {n: k for n, k in launches.items() if k and n != "label_components_tiled"}
+        calls = spy.calls()
+        want_calls = 4 if len(coords) else 0
+        if bad or len(calls) != want_calls or (want_calls and not launches[
+                "label_components_tiled"]):
+            failures.append(f"altpaths ({name}): {len(calls)} K5 calls (expected {want_calls}), "
+                            f"launches {launches}")
+        return r, launches, calls
+
+    # (a) the smoke TIFF's tiles and classes
+    slide = TiffTileSlide(tif)
+    dims = tuple(slide.level_dimensions[0])
+    df = pd.read_csv(ann_csv)
+    coords = df[df["predicted_class"].isin(tumor_classes)][["x", "y"]].to_numpy(np.int64)
+    thumb = np.asarray(slide.get_thumbnail(THUMB))
+    card, launches, calls = counted(df, coords, dims, thumb, tmp / "altpaths_a", stem)
+    cpu = _altpaths_run(df, tumor_classes, coords, dims, thumb, tmp / "altpaths_a_cpu", stem,
+                        "cpu")
+    a = {"tiles": len(df), "tumor_tiles": len(coords), "slide_dims": list(dims),
+         "thumb_shape": list(thumb.shape), "launches": launches, "k5_calls": len(calls),
+         "raster": raster_geometry(dims, patch), "s": card["s"], "cpu_s": cpu["s"],
+         "raster_rings": len(card["raster_rings"]),
+         "patch_union_vertices": None if card["patch_union_ring"] is None
+         else len(card["patch_union_ring"]),
+         "boxes": len(card["boxes"]), "summary": card["summary"].to_dict("records"),
+         "equal_cpu": _altpaths_equal(card, cpu)}
+    a["k5_label_diffs"] = [int((label_components_tiled(c["mask"].bool(), 1).cpu()
+                                != label_components_tiled_plain(c["mask"].bool().cpu(), 1)).sum())
+                           for c in calls]
+    res["a"] = a
+    if not all(a["equal_cpu"].values()) or any(a["k5_label_diffs"]):
+        failures.append(f"altpaths (a): card against the CPU replay {a['equal_cpu']}, K5 label "
+                        f"diffs {a['k5_label_diffs']}")
+    if not (len(coords) and a["raster_rings"] and a["boxes"]):
+        failures.append(f"altpaths (a): {len(coords)} tumour tiles gave {a['raster_rings']} "
+                        f"raster rings and {a['boxes']} boxes")
+    print(f"altpaths (a): {len(coords)} of {len(df)} tiles {tumor_classes}; "
+          f"{a['raster_rings']} raster rings, {a['boxes']} boxes; K5 {len(calls)} calls, "
+          f"launches {launches['label_components_tiled']}; equal to the CPU {a['equal_cpu']}",
+          flush=True)
+
+    # (b) a 100,000 x 80,000 px slide's tiles, drawn from the seed
+    df_b, coords_b = _alt_tiles_b(patch, seed, tumor_classes[0])
+    card_b, launches_b, calls_b = counted(df_b, coords_b, ALT_SLIDE_DIMS, None,
+                                          tmp / "altpaths_b", "slide_b")
+    diffs, shapes, k5_ms, k5_plain_ms, k5_bound = [], [], [], [], []
+    for c in calls_b:
+        m = c["mask"].bool()
+        shapes.append(list(m.shape))
+        relaxes, rounds = (int(v) for v in c["counts"].tolist())
+        k5_bound.append(_cc_bound(m.numel(), relaxes, 512 * 512, rounds, 1)[0])
+        with torch.inference_mode():
+            k5_ms.append(_sync_time(lambda: label_components_tiled(m, 1), reps=3))
+            plain = label_components_tiled_plain(m, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = label_components_tiled_plain(m, 1)
+            torch.cuda.synchronize()
+            k5_plain_ms.append((time.perf_counter() - t0) * 1e3)
+            diffs.append(int((label_components_tiled(m, 1) != plain).sum()))
+    b = {"tiles": len(df_b), "tumor_tiles": len(coords_b), "grid": [ALT_SLIDE_DIMS[0] // patch,
+                                                                   ALT_SLIDE_DIMS[1] // patch],
+         "slide_dims": list(ALT_SLIDE_DIMS), "raster": raster_geometry(ALT_SLIDE_DIMS, patch),
+         "launches": launches_b, "k5_calls": len(calls_b),
+         "k5_drivers": ["device" if c["device_rounds"] else "host" for c in calls_b],
+         "k5_counts": [[int(v) for v in c["counts"].tolist()] for c in calls_b],
+         "k5_shapes": shapes, "k5_ms": k5_ms, "k5_bound_ms": k5_bound,
+         "k5_plain_card_ms": k5_plain_ms,
+         "k5_label_diffs": diffs, "s": card_b["s"], "raster_rings": len(card_b["raster_rings"]),
+         "patch_union_vertices": None if card_b["patch_union_ring"] is None
+         else len(card_b["patch_union_ring"]),
+         "boxes": len(card_b["boxes"]),
+         "summary_tumor_fraction": float(card_b["summary"]["fraction"].iloc[-1])}
+    res["b"] = b
+    if any(diffs) or not (b["raster_rings"] and b["boxes"] and b["patch_union_vertices"]):
+        failures.append(f"altpaths (b): K5 label diffs {diffs}; {b['raster_rings']} raster "
+                        f"rings, {b['boxes']} boxes, patch union {b['patch_union_vertices']}")
+    res["launches"] = {n: launches[n] + launches_b[n] for n in launches}
+    print(f"altpaths (b): {len(coords_b)} of {len(df_b)} tiles; raster {b['raster']}; "
+          f"{b['raster_rings']} raster rings, {b['boxes']} boxes; K5 {len(calls_b)} calls, "
+          f"{launches_b['label_components_tiled']} launches, label diffs {diffs}; s {b['s']}",
+          flush=True)
+    return res
+
+
+def _altpaths_line(res: dict) -> dict:
+    keep = ("tiles", "tumor_tiles", "slide_dims", "raster", "s", "raster_rings",
+            "patch_union_vertices", "boxes", "k5_calls", "k5_label_diffs")
+    return {"a": {k: res.get("a", {}).get(k) for k in keep + ("equal_cpu", "cpu_s")},
+            "b": {k: res.get("b", {}).get(k) for k in keep + ("k5_drivers", "k5_counts", "k5_ms",
+                                                                "k5_bound_ms",
+                                                                "k5_plain_card_ms")},
+            "launches": res.get("launches"), "smi": res.get("smi")}
+
+
+def _fusion_cohort(features: np.ndarray, seed: int):
+    """The full-width cohort on the card: FUSION_SLIDES bags of 64 to
+    FUSION_MAX_TILES tiles of FUSION_FEAT_DIM-d features, zero-padded to
+    FUSION_MAX_TILES under a mask; bag 0 is ``features`` (the smoke TIFF's
+    tiles), the others a seeded slide signal plus 0.8 x noise a tile.
+    Returns (bags, mask, lengths)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s, t, d = FUSION_SLIDES, FUSION_MAX_TILES, FUSION_FEAT_DIM
+    lengths = torch.randint(64, t + 1, (s,), generator=g, device=dev)
+    lengths[0] = len(features)
+    signal = torch.randn((s, 1, d), generator=g, device=dev)
+    bags = signal + 0.8 * torch.randn((s, t, d), generator=g, device=dev)
+    bags[0, : len(features)] = torch.from_numpy(features).to(dev)
+    mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    return torch.where(mask[..., None], bags, 0.0), mask, lengths
+
+
+def _probe_tiles(tif: Path, ann_csv: Path, n: int):
+    """The first ``n`` TME-ROI tiles of the runner's second pass: uint8
+    pixels read from the TIFF and their class indices."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+
+    cfg = default_config()
+    df = pd.read_csv(ann_csv)
+    roi = df[df["in_tme_roi"]].iloc[:n]
+    slide = TiffTileSlide(tif)
+    tiles = np.stack([slide.read_region((int(x), int(y)), 0, (cfg.patch_size,) * 2)
+                      for x, y in zip(roi["x"], roi["y"])])
+    labels = np.array([list(cfg.classes).index(c) for c in roi["predicted_class"]], np.int64)
+    return tiles, labels
+
+
+def _fusion(tif: Path, ann_csv: Path, features_h5: Path, wrappers, failures, tmp: Path,
+            seed: int) -> dict:
+    """Section 12: the fusion trainer and the linear probe, the port's
+    training paths (no kernel: the counts are set to 0 just before and read
+    just after, and must stay 0). (a) ``cli.fusion_train_demo`` in this
+    process at the demo's sizes: exit 0, held-out accuracy over the
+    hist-only oracle. (b) Full width: ``_fusion_cohort`` (bag 0 the smoke
+    TIFF's 275-tile features H5 from the runner phase, read through
+    ``io/hdf5.py``) through ``AttentionPool(512, hidden=128)`` under the
+    mask (bag 0 and a padded bag held to the pool on the CPU over their
+    unpadded tiles), FUSION_GENES genes through a CSV written and read by
+    ``GeneExpressionTable.from_csv`` (timed apart), ``FusionHead`` at its
+    defaults (proj 256, hidden 256, dropout 0.1) trained FUSION_STEPS
+    full-batch steps with a checkpoint after step FUSION_CKPT: the loss
+    falls, the restore equals the saved state and the resumed step the
+    live one bit for bit, and the first FUSION_REPLAY_STEPS steps replayed
+    on the CPU (the same dropout draws) are within the replay bar
+    (``_params_off``). (c) The linear probe on the seeded CLIP ViT-B/16 at
+    full width, 5 classes, PROBE_TILES ROI tiles with the runner's labels:
+    PROBE_FROZEN_STEPS frozen steps with the tower in bf16, PROBE_FULL_STEPS
+    full fine-tune steps in f32; the loss falls in both, and each mode's
+    first step on PROBE_REPLAY_TILES tiles equals the CPU's within the bar.
+    Step times and peak memory."""
+    import contextlib
+    import io
+    import re
+
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.cli import fusion_train_demo
+    from path_gene_multimodal_tpu_torch.core.artifacts import read_features_h5
+    from path_gene_multimodal_tpu_torch.core.checkpoints import (
+        flatten_params, load_params, save_params,
+    )
+    from path_gene_multimodal_tpu_torch.models import fusion as fus
+    from path_gene_multimodal_tpu_torch.models.clip import (
+        CLIP_VIT_B16, ImageEncoder, VisionTower, preprocess_tiles,
+    )
+    from path_gene_multimodal_tpu_torch.ops.cuda import exact_f32
+    from path_gene_multimodal_tpu_torch.parallel import train as train_mod
+
+    dev = torch.device("cuda")
+    res: dict = {"smi": _smi()}
+    for w in wrappers.values():
+        w.launches = 0
+
+    def host(state):
+        return {k: v.cpu() for k, v in flatten_params(state).items()}
+
+    def equal(a, b) -> int:
+        fa, fb = host(a), host(b)
+        return sum(not torch.equal(fa[k], fb[k]) for k in fa) + len(set(fa) ^ set(fb))
+
+    # (a) the demo at its sizes
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fusion_train_demo.main([str(tmp / "fusion_demo")])
+    out = buf.getvalue()
+    acc = re.search(r"held-out accuracy: ([0-9.]+) \(hist-only oracle: ([0-9.]+)", out)
+    res["demo"] = {"rc": rc, "s": time.perf_counter() - t0, "ok_line": "FUSION DEMO OK" in out,
+                   "accuracy": float(acc.group(1)) if acc else None,
+                   "oracle": float(acc.group(2)) if acc else None,
+                   "lines": out.splitlines()}
+    if rc != 0 or not res["demo"]["ok_line"]:
+        failures.append(f"fusion (a): the demo exited {rc}: {out[-600:]}")
+    print(f"fusion (a): demo rc {rc}, accuracy {res['demo']['accuracy']} against the oracle's "
+          f"{res['demo']['oracle']}", flush=True)
+
+    # (b) full width: pool, genes, head
+    feats = read_features_h5(features_h5)["features"].astype(np.float32)
+    b: dict = {"slides": FUSION_SLIDES, "max_tiles": FUSION_MAX_TILES, "genes": FUSION_GENES,
+               "tiff_bag_tiles": len(feats)}
+    bags, mask, lengths = _fusion_cohort(feats, seed)
+    b["bag_tiles_min_mean_max"] = [int(lengths.min()), float(lengths.float().mean()),
+                                   int(lengths.max())]
+    pool = fus.AttentionPool(FUSION_FEAT_DIM, hidden=128)
+    pool.load_state_dict(fus.flax_init(pool, torch.Generator().manual_seed(seed)))
+    pool_cpu = fus.AttentionPool(FUSION_FEAT_DIM, hidden=128)
+    pool_cpu.load_state_dict(pool.state_dict())
+    pool = pool.to(dev)
+    with torch.no_grad(), exact_f32():
+        vecs = pool(bags, mask)
+        torch.cuda.synchronize()
+        b["pool_ms"] = _sync_time(lambda: pool(bags, mask), reps=3)
+        n1 = int(lengths[1])
+        pool_excess = max(_replay_excess(vecs[0].cpu(), pool_cpu(torch.from_numpy(feats))),
+                          _replay_excess(vecs[1].cpu(), pool_cpu(bags[1, :n1].cpu())))
+    b["pool_vs_cpu_excess"] = pool_excess
+    hist = vecs
+    del bags
+    rng = np.random.default_rng(seed)
+    samples = [f"TCGA-{i:04d}" for i in range(FUSION_SLIDES)]
+    raw = np.exp(rng.normal(size=(FUSION_GENES, FUSION_SLIDES))).astype(np.float32)
+    csv_path = tmp / "expression_full.csv"
+    t0 = time.perf_counter()
+    pd.DataFrame(raw, index=[f"GENE{g}" for g in range(FUSION_GENES)],
+                 columns=samples).to_csv(csv_path)
+    b["csv_write_s"] = time.perf_counter() - t0
+    b["csv_bytes"] = csv_path.stat().st_size
+    t0 = time.perf_counter()
+    table = fus.GeneExpressionTable.from_csv(csv_path)
+    b["csv_read_s"] = time.perf_counter() - t0
+    genes = torch.from_numpy(np.stack([table.vector_for(s) for s in samples])).to(dev)
+    z = (hist[:, 0] - hist[:, 0].mean()) / hist[:, 0].std()
+    labels = ((z + genes[:, 0]) > 0).long()
+    model = fus.FusionHead(FUSION_FEAT_DIM, FUSION_GENES)
+    b["parameters"] = sum(p.numel() for p in model.parameters())
+    state, step, predict = fus.make_fusion_trainer(model, FUSION_FEAT_DIM, FUSION_GENES,
+                                                   FUSION_LR, seed=seed, device=dev)
+    states, losses = [state], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = ckpt_state = None
+    for i in range(FUSION_STEPS):
+        state, loss = step(state, hist, genes, labels)
+        losses.append(loss)
+        if i < FUSION_REPLAY_STEPS:
+            states.append(state)
+        if i == 0:
+            torch.cuda.synchronize()
+            b["first_step_ms"] = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+        if i == FUSION_CKPT:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ckpt, ckpt_state = save_params(state, tmp / "fusion_state"), state
+            b["save_ms"] = (time.perf_counter() - t2) * 1e3
+            t1 += time.perf_counter() - t2
+        if i == FUSION_CKPT + 1:
+            after_ckpt = state
+    torch.cuda.synchronize()
+    b["step_ms"] = (time.perf_counter() - t1) * 1e3 / (FUSION_STEPS - 1)
+    b["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).cpu().tolist()
+    b["losses"] = [losses[0], losses[FUSION_CKPT], losses[-1]]
+    t0 = time.perf_counter()
+    restored = load_params(ckpt, like=state)
+    b["load_ms"] = (time.perf_counter() - t0) * 1e3
+    b["ckpt_bytes"] = ckpt.stat().st_size
+    b["restore_leaves_differing"] = equal(restored, ckpt_state)
+    resumed, _ = step(restored, hist, genes, labels)
+    b["resumed_leaves_differing"] = equal(resumed, after_ckpt)
+    probs = predict(state, hist, genes)
+    b["train_accuracy"] = float(((probs[:, 1] > 0.5).long() == labels).float().mean())
+    b["probs_finite"] = bool(torch.isfinite(probs).all())
+    # the first steps again on the CPU, from the same initial state and draws
+    model_cpu = fus.FusionHead(FUSION_FEAT_DIM, FUSION_GENES)
+    cpu_state, cpu_step, _ = fus.make_fusion_trainer(model_cpu, FUSION_FEAT_DIM, FUSION_GENES,
+                                                     FUSION_LR, seed=seed, device="cpu")
+    b["initial_state_equal_cpu"] = equal(cpu_state, states[0]) == 0
+    h_c, g_c, y_c = hist.cpu(), genes.cpu(), labels.cpu()
+    cpu_losses = []
+    t0 = time.perf_counter()
+    with _grad_spy(fus) as spy:
+        for _ in range(FUSION_REPLAY_STEPS):
+            cpu_state, loss = cpu_step(cpu_state, h_c, g_c, y_c)
+            cpu_losses.append(float(loss))
+    b["cpu_replay_s"] = time.perf_counter() - t0
+    b["replay_losses"] = {"card": losses[:FUSION_REPLAY_STEPS], "cpu": cpu_losses}
+    b["replay_loss_rel"] = max(abs(a - c) / abs(c) for a, c in zip(losses, cpu_losses))
+    b["replay_params"] = _params_off({k: v.cpu() for k, v in states[-1]["params"].items()},
+                                     cpu_state["params"], spy.min_abs, FUSION_LR,
+                                     FUSION_REPLAY_STEPS)
+    res["b"] = b
+    bad = []
+    if not (losses[-1] < losses[0]):
+        bad.append(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if b["restore_leaves_differing"] or b["resumed_leaves_differing"]:
+        bad.append(f"resume not bit-exact ({b['restore_leaves_differing']} restored, "
+                   f"{b['resumed_leaves_differing']} resumed leaves differ)")
+    if not b["initial_state_equal_cpu"] or b["replay_loss_rel"] > TRAIN_LOSS_RTOL \
+            or not b["replay_params"]["ok"]:
+        bad.append(f"CPU replay: losses rel {b['replay_loss_rel']:.3g}, params "
+                   f"{b['replay_params']}, initial state equal {b['initial_state_equal_cpu']}")
+    if pool_excess > 1 or not b["probs_finite"] or not np.isfinite(losses).all():
+        bad.append(f"pool vs CPU excess {pool_excess:.3f}, probs finite {b['probs_finite']}")
+    failures += [f"fusion (b): {x}" for x in bad]
+    print(f"fusion (b): {FUSION_SLIDES} slides x {FUSION_GENES} genes, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {b['step_ms']:.2f} ms a step, peak {b['peak_gib']:.2f} GiB, "
+          f"csv {b['csv_write_s']:.1f} / {b['csv_read_s']:.1f} s, resume bit-exact "
+          f"{not (b['restore_leaves_differing'] or b['resumed_leaves_differing'])}, replay "
+          f"{b['replay_params']}", flush=True)
+    del hist, genes, vecs, state, states, ckpt_state, restored, resumed, after_ckpt
+
+    # (c) the linear probe on the full-width ViT-B/16
+    from path_gene_multimodal_tpu_torch.config import default_config
+
+    n_classes = len(default_config().classes)
+    tiles, y = _probe_tiles(tif, ann_csv, PROBE_TILES)
+    c: dict = {"tiles": len(tiles), "classes_in_labels": sorted(set(y.tolist()))}
+    enc = ImageEncoder(CLIP_VIT_B16, dtype=torch.bfloat16, seed=seed, device=dev)
+    sd = {k: v.detach().cpu() for k, v in enc.model.state_dict().items()}
+    pixels = preprocess_tiles(torch.from_numpy(tiles).to(dev))
+    labels = torch.from_numpy(y).to(dev)
+    px_cpu, y_cpu = pixels[:PROBE_REPLAY_TILES].cpu(), labels[:PROBE_REPLAY_TILES].cpu()
+    for mode, dtype, train_encoder, steps, lr in (
+            ("frozen_bf16", torch.bfloat16, False, PROBE_FROZEN_STEPS, PROBE_LR),
+            ("full_f32", torch.float32, True, PROBE_FULL_STEPS, PROBE_FULL_LR)):
+        tower = VisionTower(CLIP_VIT_B16, dtype=dtype)
+        tower.load_state_dict(sd)
+        tower = tower.to(dev)
+        init_state, pstep = train_mod.make_linear_probe_step(tower, 512, n_classes,
+                                                             lr, train_encoder, device=dev)
+        state = init_state(torch.Generator().manual_seed(seed))
+        plosses = []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, loss = pstep(state, pixels, labels)
+            plosses.append(loss)
+            if i == 0:
+                torch.cuda.synchronize()
+                first = (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        m = {"steps": steps, "lr": lr, "first_step_ms": first,
+             "step_ms": (time.perf_counter() - t1) * 1e3 / max(steps - 1, 1),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "losses": torch.stack(plosses).cpu().tolist()}
+        m["trained_parameters"] = sum(v.numel() for v in state["params"].values())
+        del state
+        # the first step on PROBE_REPLAY_TILES tiles, on the card and on the CPU
+        s1, l1 = pstep(init_state(torch.Generator().manual_seed(seed)), pixels[
+            :PROBE_REPLAY_TILES], labels[:PROBE_REPLAY_TILES])
+        tower_cpu = VisionTower(CLIP_VIT_B16, dtype=dtype)
+        tower_cpu.load_state_dict(sd)
+        init_cpu, step_cpu = train_mod.make_linear_probe_step(tower_cpu, 512, n_classes,
+                                                              lr, train_encoder, device="cpu")
+        t0 = time.perf_counter()
+        with _grad_spy(train_mod) as spy:
+            c1, lc = step_cpu(init_cpu(torch.Generator().manual_seed(seed)), px_cpu, y_cpu)
+        m["cpu_replay_s"] = time.perf_counter() - t0
+        m["replay_loss"] = {"card": float(l1), "cpu": float(lc)}
+        m["replay_loss_rel"] = abs(float(l1) - float(lc)) / abs(float(lc))
+        m["replay_params"] = _params_off({k: v.cpu() for k, v in s1["params"].items()},
+                                         c1["params"], spy.min_abs, lr, 1)
+        del s1, c1, tower, tower_cpu
+        c[mode] = m
+        if not (m["losses"][-1] < m["losses"][0]) or m["replay_loss_rel"] > TRAIN_LOSS_RTOL \
+                or not m["replay_params"]["ok"]:
+            failures.append(f"fusion (c) {mode}: losses {m['losses']}, replay loss rel "
+                            f"{m['replay_loss_rel']:.3g}, params {m['replay_params']}")
+        print(f"fusion (c) {mode}: loss {m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}, "
+              f"{m['step_ms']:.1f} ms a step, peak {m['peak_gib']:.2f} GiB, replay loss rel "
+              f"{m['replay_loss_rel']:.3g}, params {m['replay_params']}", flush=True)
+    res["c"] = c
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    failures += [f"fusion: launched {n}" for n, k in res["launches"].items() if k]
+    return res
+
+
+def _fusion_line(res: dict) -> dict:
+    demo = {k: res.get("demo", {}).get(k) for k in ("rc", "s", "accuracy", "oracle")}
+    b = {k: res.get("b", {}).get(k) for k in (
+        "slides", "genes", "tiff_bag_tiles", "parameters", "pool_ms", "pool_vs_cpu_excess",
+        "csv_write_s", "csv_read_s", "csv_bytes", "first_step_ms", "step_ms", "peak_gib",
+        "losses", "save_ms", "load_ms", "ckpt_bytes", "restore_leaves_differing",
+        "resumed_leaves_differing",
+        "train_accuracy", "replay_loss_rel", "replay_params", "cpu_replay_s")}
+    c = {mode: {k: v for k, v in m.items() if k != "losses"} | {"losses": [m["losses"][0],
+                                                                          m["losses"][-1]]}
+         for mode, m in res.get("c", {}).items() if isinstance(m, dict)}
+    return {"demo": demo, "b": b, "c": c, "launches": res.get("launches"), "smi": res.get("smi")}
+
+
 def _runner_line(res: dict) -> dict:
     return {k: res.get(k) for k in (
         "status", "tiles", "features", "polygons", "polygons_per_class", "predicted",
@@ -4664,6 +5283,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ab-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the altpaths phase's tumour blobs and the fusion phase's "
+                         "cohort and weights")
     args = ap.parse_args(argv)
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -4986,6 +5608,44 @@ def main(argv: list[str] | None = None) -> int:
     molecular_line = _molecular_line(report["molecular"])
     molecular_line["phase_s"] = report["molecular"]["phase_s"]
     print(json.dumps({"molecular": molecular_line}), flush=True)
+
+    # -- 11. the alternative polygon paths and the legacy summaries ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mc = report["runner"].get("multiclass", {})
+    if "multiclass_csv" in report["runner"]:
+        # seeded towers know no tumour: the class that won the most tiles stands for it
+        won = mc["classes_won"]
+        report["altpaths"] = _altpaths(tmp / "smoke.svs", Path(report["runner"]["multiclass_csv"]),
+                                       [max(won, key=won.get)], wrappers, failures, tmp,
+                                       args.seed)
+    else:
+        report["altpaths"] = {}
+        failures.append("altpaths: the runner phase left no multi-class annotations CSV")
+    report["altpaths"]["phase_s"] = time.perf_counter() - t0
+    altpaths_line = _altpaths_line(report["altpaths"])
+    altpaths_line["phase_s"] = report["altpaths"]["phase_s"]
+    print(json.dumps({"altpaths": altpaths_line}), flush=True)
+    k5["launches_by_path"]["altpaths"] = report["altpaths"].get("launches", {}).get(
+        "label_components_tiled", 0)
+    k5["launches"] = sum(k5["launches_by_path"].values())
+    k5["note"] += ("; altpaths: both polygon paths and the raster path's removal on the smoke "
+                   "TIFF's tiles and on a 100,000 x 80,000 px slide's")
+
+    # -- 12. the fusion trainer and the linear probe ----------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if "features_h5" in report["runner"]:
+        report["fusion"] = _fusion(tmp / "smoke.svs", Path(report["runner"]["multiclass_csv"]),
+                                   Path(report["runner"]["features_h5"]), wrappers, failures,
+                                   tmp, args.seed)
+    else:
+        report["fusion"] = {}
+        failures.append("fusion: the runner phase left no features H5")
+    report["fusion"]["phase_s"] = time.perf_counter() - t0
+    fusion_line = _fusion_line(report["fusion"])
+    fusion_line["phase_s"] = report["fusion"]["phase_s"]
+    print(json.dumps({"fusion": fusion_line}), flush=True)
     report["total_s"] = time.perf_counter() - T_START
     real_launches = report["real"]["launches"]
     for k in kernels:
@@ -5010,6 +5670,8 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"virchow2": virchow2_line}))
     print(json.dumps({"runner": runner_line}))
     print(json.dumps({"molecular": molecular_line}))
+    print(json.dumps({"altpaths": altpaths_line}))
+    print(json.dumps({"fusion": fusion_line}))
     print(f"total: {report['total_s']:.1f} s")
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")

@@ -3,6 +3,13 @@
 
 - ``file_fingerprint`` and ``text_sidecar_path``: a weights artifact's
   identity for the resume manifests, and where its CLIP text tower rides;
+- ``save_params`` / ``load_params``: a training state (a nested dict of
+  tensors: parameters, optimiser moments and count, the dropout
+  generator's state) to one ``.pt`` file and back, bit for bit. The port's
+  own format, where the JAX package writes an orbax directory (or a flat
+  ``.npz``): ``torch.save`` of ``{"format": PARAMS_FORMAT, "tensors":
+  {"a/b/c": host tensor}}``, the keys the dict path joined by ``/``, read
+  back with ``weights_only=True``;
 
 - ``load_hovernext_from_torch``: a HoverNeXt torch checkpoint → (config,
   state dict). The published smp/timm ``hover_next`` layout gives a
@@ -74,6 +81,66 @@ def text_sidecar_path(artifact: str | Path) -> Path:
     if name.endswith(".npz"):
         name = name[: -len(".npz")]
     return p.parent / f"{name}_text.npz"
+
+
+PARAMS_FORMAT = "path_gene_multimodal_tpu_torch.params/1"
+
+
+def flatten_params(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """A nested dict → {"a/b/c": leaf}; a key holding ``/`` is refused
+    (it would not come back as it went)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out: dict[str, Any] = {}
+    for k, v in tree.items():
+        if "/" in str(k):
+            raise ValueError(f"param tree key {k!r} contains '/'; cannot flatten")
+        out.update(flatten_params(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _pt_path(path: Path) -> Path:
+    """Append '.pt' without Path.with_suffix, which would truncate dotted
+    stems (TCGA slide names hold '.')."""
+    return path if path.name.endswith(".pt") else path.parent / (path.name + ".pt")
+
+
+def save_params(params: Any, path: str | Path) -> Path:
+    """Write a nested dict of tensors (any device and dtype) to
+    ``<path>.pt`` (through a temporary file, replaced at once); returns the
+    file's path."""
+    out = _pt_path(Path(path))
+    flat = {k: torch.as_tensor(v).detach().cpu() for k, v in flatten_params(params).items()}
+    tmp = out.parent / (out.name + ".tmp")
+    torch.save({"format": PARAMS_FORMAT, "tensors": flat}, tmp)
+    tmp.replace(out)
+    return out
+
+
+def load_params(path: str | Path, like: Any | None = None) -> Any:
+    """Read ``save_params``'s file (``path`` with or without ``.pt``). With
+    ``like`` (a state of the same tree), every leaf must be there with
+    ``like``'s shape and dtype, and goes to ``like``'s leaf's device; a
+    missing or extra key raises. Without it, the nested dict on the
+    host."""
+    path = Path(path)
+    if not path.exists():
+        path = _pt_path(path)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(blob, dict) or blob.get("format") != PARAMS_FORMAT:
+        raise ValueError(f"{path}: not a {PARAMS_FORMAT} file")
+    flat = blob["tensors"]
+    if like is None:
+        return _unflatten(flat)
+    want = flatten_params(like)
+    if set(want) != set(flat):
+        raise ValueError(f"{path}: keys missing {sorted(set(want) - set(flat))}, "
+                         f"extra {sorted(set(flat) - set(want))}")
+    for k, ref in want.items():
+        if flat[k].shape != ref.shape or flat[k].dtype != ref.dtype:
+            raise ValueError(f"{path}: {k} is {flat[k].dtype} {tuple(flat[k].shape)}, "
+                             f"expected {ref.dtype} {tuple(ref.shape)}")
+    return _unflatten({k: flat[k].to(want[k].device) for k in want})
 
 
 def _unflatten(flat: dict[str, np.ndarray]) -> dict:

@@ -24,15 +24,15 @@ for n in names:
 import chip_smoke  # noqa: F401  (defines functions only; runs under __main__)
 
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "path_gene_multimodal_tpu", "cv2", "matplotlib",
-                                    "h5py"))
+             if m.split(".")[0] in ("jax", "flax", "optax", "path_gene_multimodal_tpu", "cv2",
+                                    "matplotlib", "h5py"))
 print("MODULES=" + str(len(names)))
 print("NAMES=" + ",".join(names))
 print("BAD=" + ",".join(bad))
 """
 
 _FORBIDDEN = [
-    re.compile(r"^\s*(import|from)\s+(jax|flax)\b", re.M),
+    re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M),
     re.compile(r"path_gene_multimodal_tpu\."),
     re.compile(r"^\s*(import|from)\s+path_gene_multimodal_tpu(\s|$)", re.M),
     re.compile(r"^\s*(import|from)\s+(cv2|matplotlib|h5py)\b", re.M),
@@ -63,7 +63,9 @@ def test_port_imports_no_jax():
                 "core.artifacts", "cli.main", "models.hovernext_real",
                 "models.weights_hovernext_real", "models.resnet", "models.weights_resnet",
                 "ops.scatter", "pipeline.molecular", "cli.molecular_loop", "models.vit_timm",
-                "models.weights_vit_timm"):
+                "models.weights_vit_timm", "pipeline.legacy", "pipeline.altpaths",
+                "models.fusion", "models.weights_fusion", "parallel.train",
+                "cli.fusion_train_demo"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
