@@ -36,7 +36,8 @@
    main path's own inputs at its shapes (K1 with its bias, LN and GRN
    vectors drawn from a seed, in both GELU modes, also at two ragged shapes
    whose H*W is no multiple of its 128-pixel tile, against three mutants:
-   GRN gamma = 0, no pw2 bias, the dw input edge-replicated; K2 also at
+   GRN gamma = 0, no pw2 bias, the dw input edge-replicated; K1 called
+   four times at each stage shape must give the same bits every time; K2 also at
    slot budgets under which the gated re-run fires and tiles overflow), and
    times kernel, plain version and (where one exists) one PyTorch library
    call computing the same function (for K1 a chain of them); K1's three
@@ -289,9 +290,29 @@
    falling in both and each mode's first step on 8 tiles equal to the
    CPU's within the bar. Step times and peak memory. Prints a ``fusion``
    JSON line.
+13. data parallelism (``_dp``; the card's machine has one H100, so the
+   mesh code is checked on it, and no figure is a scaling figure): (a) on
+   a mesh of 2 shards on ``cuda:0``, ``NucleiModel`` through the per-tile
+   mode on the main path's 256 tiles (K1-K4 on each shard's half of each
+   batch, counted; the table the main path's), its labels and types and
+   ``RealNucleiModel``'s (with K4's features) equal to the unsharded
+   models', ``ImageEncoder`` (CLIP ViT-B/16 bf16, 512 tiles) within cosine
+   0.999 and 2 bf16 ulp, ``IDaRSEnsemble`` (f32) on the second runner
+   pass's ROI tiles and one fewer within 1e-5, ``sharded_stencil`` against
+   the dense stencil; (b) ``cli.main``, ``hovernext_infer`` (both modes),
+   ``molecular_loop`` and ``batch_run`` with ``--dp`` (the mesh of every
+   local device) in this process, each against its run without ``--dp``
+   on the RGB feed: every output file equal (K5 counted on the runner's
+   polygons); (c) ``shard_step_over_mesh`` on the 2-shard mesh for the
+   full-width fusion head (20 steps, dropout on) and the frozen bf16
+   probe (5 steps) against the unsharded steps, and two processes on the
+   card joined by ``init_distributed`` over gloo, each with half the
+   fusion batch, against the one-process run (losses rtol 1e-5, the
+   parameters at the replay bar). Prints a ``dp`` JSON line; K1-K5 get
+   ``launches_by_path["dp"]``.
 
 Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner``, ``molecular``,
-``altpaths`` and ``fusion`` JSON lines, the script's seconds, the slice's tiles/s, the
+``altpaths``, ``fusion`` and ``dp`` JSON lines, the script's seconds, the slice's tiles/s, the
 kernels' JSON line and the card's name and power limit, then, as the last line, ``{"ok":
 true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
@@ -5099,6 +5120,7 @@ def _fusion(tif: Path, ann_csv: Path, features_h5: Path, wrappers, failures, tmp
     genes = torch.from_numpy(np.stack([table.vector_for(s) for s in samples])).to(dev)
     z = (hist[:, 0] - hist[:, 0].mean()) / hist[:, 0].std()
     labels = ((z + genes[:, 0]) > 0).long()
+    _HANDOFF["fusion"] = {"hist": hist, "genes": genes, "labels": labels, "seed": seed}
     model = fus.FusionHead(FUSION_FEAT_DIM, FUSION_GENES)
     b["parameters"] = sum(p.numel() for p in model.parameters())
     state, step, predict = fus.make_fusion_trainer(model, FUSION_FEAT_DIM, FUSION_GENES,
@@ -5271,6 +5293,587 @@ def _runner_line(res: dict) -> dict:
         "resume_run_s", "cli_rc", "cli_s", "smi")}
 
 
+# the dp phase: the shards of its mesh on the one card, the training steps
+# it takes, and the bars of the sharded runs against the unsharded ones
+DP_SHARDS, DP_FUSION_STEPS, DP_PROBE_STEPS, DP_EMBED_TILES = 2, 20, 5, 512
+DP_KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "label_components_tiled")
+# batch_run's second slide, a TIFF of its own (the runner keeps no tissue
+# tile of the wsi phase's crop, which is tissue to its borders, with or
+# without --dp)
+DP_SECOND_SLIDE = dict(width=3072, height=2048, seed=12, n_blobs=3, nuclei_per_blob=600)
+DP_LOSS_RTOL, DP_F32_ATOL, DP_CHILD_TIMEOUT = 1e-5, 1e-5, 240
+_HANDOFF: dict = {}  # objects a later phase takes from an earlier one (not JSON)
+
+
+def _dir_diff(got: Path, want: Path) -> list[str]:
+    """The files of two output directories that differ or exist in only
+    one: in bytes, but a nuclei table by its rows (less the random
+    ``nuc_id`` and the ``tile_path`` under its own directory) and an
+    instance map (npz, zip) by its pixels; the done flag, lock and
+    manifest JSON aside (they hold times and paths)."""
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei_wsi import load_instance_map
+
+    def files(d):
+        return {p.relative_to(d).as_posix(): p for p in d.rglob("*") if p.is_file()
+                and p.suffix != ".json" and not p.name.startswith(".")}
+
+    def same(x: Path, y: Path) -> bool:
+        if x.name.endswith("_hovernet_nuclei_wsi.parquet"):
+            drop = ["nuc_id", "tile_path"]
+            return pd.read_parquet(x).drop(columns=drop).equals(
+                pd.read_parquet(y).drop(columns=drop))
+        if x.name.endswith("_hovernet_nuclei_wsi.csv"):
+            return True  # the parquet beside it holds the same rows
+        if x.name.endswith(("_pinst_pp.npz", "_pinst_pp.zip")):
+            return np.array_equal(load_instance_map(x), load_instance_map(y))
+        return x.read_bytes() == y.read_bytes()
+
+    a, b = files(got), files(want)
+    return sorted(set(a) ^ set(b)) + sorted(k for k in set(a) & set(b) if not same(a[k], b[k]))
+
+
+class _patched:  # noqa: N801 (a context manager, named as one)
+    """``setattr(obj, name, value)`` for the duration."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.orig = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+        return False
+
+
+def _dp_rank(rank: int, port: int, d: Path) -> int:
+    """One of the dp phase's two processes on the one card: joins the other
+    through ``init_distributed`` over gloo (NCCL refuses two ranks on one
+    GPU), takes its half of the full-width fusion cohort the parent saved
+    in ``d`` (with its device, steps and rate), trains through ``shard_step_over_mesh``
+    (gradients summed across the two processes) and saves its losses and
+    final parameters."""
+    import torch.distributed as dist
+
+    from path_gene_multimodal_tpu_torch.models import fusion as fus
+    from path_gene_multimodal_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from path_gene_multimodal_tpu_torch.parallel.train import shard_step_over_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = torch.load(d / "cohort.pt")
+    dev = torch.device(data["device"])
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    n = len(data["labels"])
+    rows = slice(0, n // 2) if rank == 0 else slice(n // 2, n)
+    hist, genes, labels = (data[k][rows].to(dev) for k in ("hist", "genes", "labels"))
+    model = fus.FusionHead(hist.shape[1], genes.shape[1])
+    state, step, _ = fus.make_fusion_trainer(model, hist.shape[1], genes.shape[1], data["lr"],
+                                             seed=data["seed"], device=dev)
+    run, state = shard_step_over_mesh(step, make_mesh(devices=[dev]), state)
+    losses = []
+    for _ in range(data["steps"]):
+        state, loss = run(state, hist, genes, labels)
+        losses.append(float(loss))
+    torch.save({"losses": losses, "rows": [rows.start, rows.stop],
+                "params": {k: v.cpu() for k, v in state["params"].items()}}, d / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_start_ranks(tmp: Path, failures, dev: torch.device) -> tuple[list, Path] | None:
+    """Save the fusion phase's cohort and start the two rank processes
+    (they run beside the CLI part of the phase); None without a cohort."""
+    import atexit
+    import socket
+
+    cohort = _HANDOFF.get("fusion")
+    if cohort is None:
+        failures.append("dp: the fusion phase left no cohort for the two-process step")
+        return None
+    d = tmp / "dp_ranks"
+    d.mkdir()
+    torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in cohort.items()}
+               | {"device": str(dev), "steps": DP_FUSION_STEPS, "lr": FUSION_LR},
+               d / "cohort.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
+                               "--dp-port", str(port), "--dp-dir", str(d)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    # a phase that raises before _dp_wait_ranks leaves no process running
+    atexit.register(lambda: [pr.kill() for pr in procs if pr.poll() is None])
+    return procs, d
+
+
+def _dp_wait_ranks(procs: list) -> list[str]:
+    """Wait for the rank processes, each at most DP_CHILD_TIMEOUT s (killed
+    past it); their output."""
+    logs = []
+    for pr in procs:
+        try:
+            logs.append(pr.communicate(timeout=DP_CHILD_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            logs.append(pr.communicate()[0])
+    return logs
+
+
+def _dp(slide, ann: Path, sd: dict, main_table, tmp: Path, runner: dict, wrappers,
+        failures, dev: torch.device | None = None) -> dict:
+    """Section 13, data parallelism (``parallel/``, the models' ``mesh=``,
+    ``--dp``). The card's machine has one H100, so the phase checks the mesh
+    code on it: a mesh of DP_SHARDS shards on ``cuda:0`` for the models and
+    the training step, the mesh of every local device (one) for the CLIs.
+    No figure here is a scaling figure: two shards on one card can only
+    show the mesh's overhead.
+
+    (a) Models on the 2-shard mesh against the same model without one,
+    which runs each call at the shards' batch (64 tiles), so that every
+    call's shapes, and so cuDNN's choice of convolution algorithm, are the
+    shards': ``NucleiModel`` (bf16, K1, the main path's fitted weights)
+    through the per-tile mode on the main path's 256 ROI tiles (the counts
+    set to 0 just before and read just after: K1-K4 on each shard, each on
+    half of each batch of 128), its table equal to the unsharded run's;
+    labels, types and K4's features equal for it and for
+    ``RealNucleiModel`` (the real phase's checkpoint), and a second
+    unsharded run equal to the first (K1's GRN sums in a fixed order);
+    against the unsharded model at the full batch (the main path's table,
+    labels) the differences are counted, not failed: cuDNN may take other
+    algorithms for a batch of 128 than for 64. ``ImageEncoder`` (CLIP
+    ViT-B/16, bf16) on DP_EMBED_TILES tiles: cosine >= EMBED_MIN_COS and
+    within 2 bf16 ulp + K1_ATOL of the unsharded features;
+    ``IDaRSEnsemble`` (f32, seeded) on the second runner pass's 216 ROI
+    tiles and on 215 (an uneven split): probabilities within DP_F32_ATOL;
+    ``sharded_stencil`` against the dense stencil on the card. Device ms
+    of the sharded and unsharded forwards side by side.
+
+    (b) The CLIs with ``--dp`` in this process, each against its own run
+    without ``--dp``; both on the runner phase's configuration (every
+    class in the TME) with the planar feed off (under a mesh the feed is
+    RGB, as in the JAX package's mesh branch, and the planar route's
+    nearest chroma differs from the RGB decode's): ``cli.main`` on the
+    smoke TIFF; ``hovernext_infer`` on the 2047 x 2049 crop in both modes
+    with the canonical fitted weights (the WSI mode against the wsi phase's
+    run, whose window chunks were all RGB); ``molecular_loop`` on the
+    runner's second pass (against the molecular phase's CLI run);
+    ``batch_run`` over the smoke TIFF and a second seeded slide
+    (DP_SECOND_SLIDE), both in ``success_slides.txt``, each slide's files
+    those of ``cli.main`` on it. Every output file is compared byte for
+    byte, a nuclei table by its rows and a map by its pixels
+    (``_dir_diff``). K5 counts over the runner's paths. After (a), the two
+    rank processes of (c) start; they run beside (b) alone, whose seconds
+    are wall times and no figure, and (c) waits for them before it times
+    anything, so that no timed group shares the card with them.
+
+    (c) Training: ``shard_step_over_mesh`` on the 2-shard mesh for the
+    fusion head at full width (the fusion phase's cohort, dropout 0.1,
+    DP_FUSION_STEPS steps) and the frozen bf16 linear probe (PROBE_TILES
+    tiles, DP_PROBE_STEPS steps) against the unsharded steps: losses within
+    rtol DP_LOSS_RTOL, parameters within the replay bar (``_params_off``);
+    two processes on the card joined by ``init_distributed`` over gloo,
+    each with half the fusion batch: every step's loss and the parameters
+    against the one-process run within the same bars."""
+    from path_gene_multimodal_tpu_torch import config as config_mod
+    from path_gene_multimodal_tpu_torch.cli import batch_run
+    from path_gene_multimodal_tpu_torch.cli import hovernext_infer
+    from path_gene_multimodal_tpu_torch.cli import main as main_cli
+    from path_gene_multimodal_tpu_torch.cli import molecular_loop
+    from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, default_config
+    from path_gene_multimodal_tpu_torch.core.checkpoints import load_hovernext_from_torch
+    from path_gene_multimodal_tpu_torch.models import fusion as fus
+    from path_gene_multimodal_tpu_torch.models.clip import (
+        CLIP_VIT_B16, ImageEncoder, preprocess_tiles,
+    )
+    from path_gene_multimodal_tpu_torch.models.resnet import IDaRSEnsemble
+    from path_gene_multimodal_tpu_torch.ops.instances import instance_features_batch
+    from path_gene_multimodal_tpu_torch.parallel import train as train_mod
+    from path_gene_multimodal_tpu_torch.parallel.halo import sharded_stencil
+    from path_gene_multimodal_tpu_torch.parallel.mesh import make_mesh
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei as nuc
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    mesh = make_mesh(devices=[dev] * DP_SHARDS)
+    res: dict = {"shards": DP_SHARDS, "smi": _smi()}
+    launches = {n: 0 for n in wrappers}
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 just before and read just
+        after, added to the phase's launches."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for n, w in wrappers.items():
+            launches[n] += w.launches
+        return out
+
+    cfg = default_config()
+    tif, crop, crop_ann = tmp / "smoke.svs", tmp / "crop.svs", tmp / "crop_annotations.csv"
+
+    # -- (a) the models on the 2-shard mesh -------------------------------------------
+    a: dict = {}
+    kw = dict(tta=cfg.hovernext.tta, dtype=torch.bfloat16,
+              max_instances=cfg.hovernext.max_instances_per_tile)
+    single = nuc.NucleiModel.build(HOVERNEXT_TINY, state_dict=sd, device=dev, **kw)
+    sharded = nuc.NucleiModel.build(HOVERNEXT_TINY, state_dict=sd, mesh=mesh, **kw)
+    sel = nuc.select_tiles_for_hovernet(nuc.load_tile_annotations(ann))[["x", "y"]].to_numpy()
+    off = (HOVERNEXT_TINY.input_size - cfg.patch_size) // 2
+    tiles = torch.from_numpy(np.stack([
+        np.pad(slide.read_region((int(x), int(y)), 0, (cfg.patch_size,) * 2),
+               ((off, off), (off, off), (0, 0)), mode="reflect") for x, y in sel[:N_TILES]]))
+    tiles_d = tiles.to(dev)
+    batch, half = cfg.hovernext.batch_size, cfg.hovernext.batch_size // DP_SHARDS
+    sharded.segment_async(tiles_d[:batch])  # warm-up: cuDNN plans at the shards' batch
+    sharded.cc_overflow_tiles(reset=True)
+    shard_rows = []
+    real_seg = nuc.NucleiModel.segment_async
+    spy = lambda m, t: shard_rows.append(int(t.shape[0])) or real_seg(m, t)  # noqa: E731
+    for d in ("dp_tiles", "dp_tiles_one"):
+        (tmp / d).mkdir()
+    with _patched(nuc.NucleiModel, "segment_async", spy):
+        t0 = time.perf_counter()
+        table = counted(lambda: nuc.run_hovernet_pipeline_on_wsi_tiles(
+            slide, ann, tmp / "dp_tiles", "smoke", sharded, cfg))
+        a["per_tile_s"] = time.perf_counter() - t0
+    a.update(tiles=N_TILES, per_tile_tiles_per_s=N_TILES / a["per_tile_s"],
+             shard_rows=shard_rows, launches={n: k for n, k in launches.items() if k},
+             nuclei=len(table), cc_slot_overflow_tiles=table.attrs.get("cc_slot_overflow_tiles"))
+    # the unsharded model at the shards' batch computes each call's shapes
+    # as the shards do; at the main path's batch cuDNN may take other
+    # algorithms for the decoder's convolutions (their bits then differ)
+    one = nuc.run_hovernet_pipeline_on_wsi_tiles(slide, ann, tmp / "dp_tiles_one", "smoke",
+                                                 single, cfg, batch_size=half)
+    cols = [c for c in table.columns if c not in ("nuc_id", "tile_path")]
+    a["table_equal_unsharded"] = bool(len(table) == len(one) > 0 and table[cols].equals(
+        one[cols]))
+    a["table_equal_main"] = bool(len(table) == len(main_table) and table[cols].equals(
+        main_table[cols]))
+    a["main_nuclei"] = len(main_table)
+    n_b = -(-N_TILES // batch)
+    k1 = sum(HOVERNEXT_TINY.encoder.depths[:3])  # the blocks of stages 0-2 run K1
+    want = {"convnext_block": k1 * DP_SHARDS * n_b, "cc_sizes": 4 * DP_SHARDS * n_b,
+            "flood": DP_SHARDS * n_b, "instance_stats": DP_SHARDS * n_b}
+    if a["launches"] != want or shard_rows != [half] * (DP_SHARDS * n_b):
+        failures.append(f"dp: the sharded per-tile run launched {a['launches']} on shards of "
+                        f"{shard_rows} rows, expected {want} on shards of {half}")
+    if not a["table_equal_unsharded"]:
+        failures.append(f"dp: the sharded per-tile table ({len(table)} rows) differs from the "
+                        f"unsharded one at batch {half} ({len(one)})")
+
+    def maps(model, size):
+        out = [model.segment_async(tiles_d[i : i + size]) for i in range(0, N_TILES, size)]
+        return [torch.cat([o[i] for o in out]) for i in (0, 1)]
+
+    def feats(lbl, tp):
+        li = lbl[:, off:-off, off:-off].contiguous()
+        ti = tp[:, off:-off, off:-off].to(torch.int32).contiguous()
+        return instance_features_batch(li, ti, max_instances=kw["max_instances"])
+
+    def compare(tag, shd, sgl):
+        """The mesh's labels, types and K4 features against the unsharded
+        model's at the shards' batch (must be equal) and at the full batch
+        (reported); device ms of both at the full batch."""
+        got = counted(lambda: maps(shd, batch))
+        fg = counted(lambda: feats(*got))
+        ref, ref_full = maps(sgl, half), maps(sgl, batch)
+        fr = feats(*ref)
+        a[f"{tag}_equal"] = (all(torch.equal(g, r) for g, r in zip(got, ref))
+                             and all(torch.equal(fg[k], fr[k]) for k in fr))
+        a[f"{tag}_full_batch_pixels_differing"] = int((got[0] != ref_full[0]).sum())
+        a[f"{tag}_instances"] = int(got[0].amax(dim=(1, 2)).sum())
+        a[f"{tag}_segment_ms"] = {"sharded": _sync_time(lambda: maps(shd, batch), reps=2),
+                                  "unsharded": _sync_time(lambda: maps(sgl, batch), reps=2)}
+        if not a[f"{tag}_equal"]:
+            failures.append(f"dp: {tag}: the 2-shard mesh's labels, types or features differ "
+                            f"from the unsharded model's at batch {half}")
+        return ref
+
+    with torch.inference_mode():
+        ref = compare("canonical", sharded, single)
+        # K1 adds its GRN sums in a fixed order: a second run, the same bits
+        a["canonical_unsharded_repeat_equal"] = all(
+            torch.equal(g, r) for g, r in zip(maps(single, half), ref))
+        if not a["canonical_unsharded_repeat_equal"]:
+            failures.append("dp: a second unsharded run gave other labels or types")
+        rcfg, rsd = load_hovernext_from_torch(tmp / "real.pt")
+        rsingle = nuc.RealNucleiModel.build(rcfg, state_dict=rsd, device=dev, **kw)
+        rsharded = nuc.RealNucleiModel.build(rcfg, state_dict=rsd, mesh=mesh, **kw)
+        compare("real", rsharded, rsingle)
+        del single, sharded, rsingle, rsharded, ref
+        torch.cuda.empty_cache()
+
+    # the CLIP tower on DP_EMBED_TILES tiles: the main path's tiles, rotated
+    emb_tiles = torch.cat([torch.rot90(tiles[:, off:-off, off:-off], k, dims=(1, 2))
+                           for k in range(DP_EMBED_TILES // N_TILES)]).contiguous()
+    enc = ImageEncoder(CLIP_VIT_B16, dtype=torch.bfloat16, seed=0, device=dev)
+    enc_m = ImageEncoder(CLIP_VIT_B16, state_dict=enc.model.state_dict(), dtype=torch.bfloat16,
+                         mesh=mesh)
+    with torch.inference_mode():
+        e1, em = enc(emb_tiles), enc_m(emb_tiles)
+        cos = _cosines(em, e1)
+        a["embed"] = {"tiles": DP_EMBED_TILES, "min_cos": float(cos.min()),
+                      "excess": _excess(em, e1, K1_ATOL),
+                      "equal": bool(torch.equal(em, e1)),
+                      "forward_ms": {"sharded": _sync_time(lambda: enc_m(emb_tiles), reps=3),
+                                     "unsharded": _sync_time(lambda: enc(emb_tiles), reps=3)}}
+    a["embed"]["tiles_per_s"] = {k: DP_EMBED_TILES / (v / 1e3)
+                                 for k, v in a["embed"]["forward_ms"].items()}
+    if a["embed"]["min_cos"] < EMBED_MIN_COS or a["embed"]["excess"] > 1:
+        failures.append(f"dp: the sharded CLIP tower's features: min cosine "
+                        f"{a['embed']['min_cos']:.6f}, excess {a['embed']['excess']:.3g}")
+    del enc, enc_m, e1, em
+
+    # the IDaRS ensemble (f32) on the second runner pass's ROI tiles
+    mc_csv = Path(runner["multiclass_csv"]) if "multiclass_csv" in runner else None
+    if mc_csv is not None:
+        from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+        from path_gene_multimodal_tpu_torch.pipeline import molecular as mol
+
+        roi = mol.select_tme_tiles(mol.load_tile_annotations(mc_csv))
+        tslide = TiffTileSlide(tif)
+        mt = torch.from_numpy(np.stack([tslide.read_region((int(x), int(y)), 0, (224, 224))
+                                        for x, y in zip(roi["x"], roi["y"])]))
+        tasks = list(cfg.molecular.tasks)
+        ens = IDaRSEnsemble(tasks, dtype=torch.float32, seed=0, device=dev)
+        ens_m = IDaRSEnsemble(tasks, [m.state_dict() for m in ens.models], dtype=torch.float32,
+                              mesh=mesh)
+        with torch.inference_mode():
+            dps = {}
+            for n in (len(mt), len(mt) - 1):
+                dps[n] = float((ens_m(mt[:n]) - ens(mt[:n])).abs().max())
+            a["idars"] = {"tiles": len(mt), "max_abs_dp": dps,
+                          "forward_ms": {"sharded": _sync_time(lambda: ens_m(mt), reps=2),
+                                         "unsharded": _sync_time(lambda: ens(mt), reps=2)}}
+        if max(dps.values()) > DP_F32_ATOL:
+            failures.append(f"dp: the sharded IDaRS ensemble's probabilities differ by {dps}")
+        del ens, ens_m, mt
+    else:
+        failures.append("dp: the runner phase left no multi-class annotations CSV")
+
+    # a halo stencil over row bands of a 4096 x 4096 field
+    field = torch.randn((4096, 4096), generator=torch.Generator().manual_seed(5)).to(dev)
+    k = 5
+    dense = sum(torch.nn.functional.pad(field[None, None], (0, 0, 2, 2), mode="replicate")
+                [0, 0, i : i + 4096] for i in range(k)) / k
+    band = sharded_stencil(lambda x: sum(torch.roll(x, s, 0) for s in range(-2, 3)) / k, mesh, 2)
+    a["stencil_max_abs"] = float((band(field) - dense).abs().max())
+    if a["stencil_max_abs"] > 1e-6:
+        failures.append(f"dp: the sharded stencil differs from the dense one by "
+                        f"{a['stencil_max_abs']:.3g}")
+    del field, dense
+    res["a"] = a
+    res["a_s"] = time.perf_counter() - t_phase
+    # (c)'s two rank processes share the card with (b) only: every timed
+    # group of (a) is over, and (c) waits for them before its first
+    ranks = _dp_start_ranks(tmp, failures, dev)
+
+    # -- (b) the CLIs with --dp, each against its own run without it --------------------
+    t_b = time.perf_counter()
+    b: dict = {}
+    base = default_config()
+    rgb = base.replace(
+        tme_classes=base.classes,
+        embedding=dataclasses.replace(base.embedding, planar_feed=False),
+        hovernext=dataclasses.replace(base.hovernext, planar_feed=False))
+    cfg_rgb = lambda **kw: rgb  # noqa: E731
+    dp_cli = {n: 0 for n in wrappers}
+
+    def run(cli, argv, dp: bool) -> int:
+        """One CLI call on the RGB configuration; a --dp call's launches
+        counted."""
+        with _patched(config_mod, "default_config", cfg_rgb), \
+                _patched(main_cli, "default_config", cfg_rgb), \
+                _patched(batch_run, "default_config", cfg_rgb):
+            if not dp:
+                return cli.main(argv)
+            before = dict(launches)
+            rc = counted(lambda: cli.main([*argv, "--dp"]))
+            for n in launches:
+                dp_cli[n] += launches[n] - before[n]
+            return rc
+
+    def check(name, rc_pair, got, want):
+        diff = _dir_diff(got, want) if got.exists() and want.exists() else ["missing"]
+        b[name] = {"rc": list(rc_pair), "files": len(list(want.rglob("*"))) if want.exists()
+                   else 0, "differing": diff}
+        if list(rc_pair) != [0, 0] or diff:
+            failures.append(f"dp: {name} with and without --dp: exit {rc_pair}, files "
+                            f"differing {diff[:8]}")
+
+    t0 = time.perf_counter()
+    out1, outd = tmp / "dp_main_one", tmp / "dp_main"
+    on = ["--device", dev.type]
+    rcs = (run(main_cli, ["--wsi", str(tif), "--outroot", str(out1), *on], False),
+           run(main_cli, ["--wsi", str(tif), "--outroot", str(outd), *on], True))
+    check("cli_main", rcs, outd / tif.stem, out1 / tif.stem)
+    b["cli_main_s"] = time.perf_counter() - t0
+    for mode, extra in (("wsi", []), ("tiles", ["--annotations-csv", str(crop_ann)])):
+        t0 = time.perf_counter()
+        argv = ["--input", str(crop), "--mode", mode, "--batch-size",
+                str(cfg.hovernext.batch_size), "--checkpoint", str(tmp / "sd.pt"), *extra, *on]
+        one, dpd = tmp / f"dp_hn_{mode}_one", tmp / f"dp_hn_{mode}"
+        if mode == "wsi":  # the wsi phase's run: every window chunk of the crop was RGB
+            one, rc_one = tmp / "cli_wsi", 0
+        else:
+            rc_one = run(hovernext_infer, [*argv, "--output", str(one)], False)
+        rcs = (rc_one, run(hovernext_infer, [*argv, "--output", str(dpd)], True))
+        check(f"hovernext_{mode}", rcs, dpd, one)
+        b[f"hovernext_{mode}_s"] = time.perf_counter() - t0
+    if mc_csv is not None:
+        t0 = time.perf_counter()
+        stem = tif.stem
+        mol_root = tmp / "dp_molecular"
+        (mol_root / stem).mkdir(parents=True)
+        shutil.copy(mc_csv, mol_root / stem / mc_csv.name)
+        rc = run(molecular_loop, ["--data-path", str(tmp / "molecular_data"), "--outroot",
+                                  str(mol_root), *on], True)
+        name = f"{stem}_molecular_features.csv"
+        want_csv = mc_csv.parent.parent / stem / name
+        same = (mol_root / stem / name).exists() and want_csv.exists() and (
+            mol_root / stem / name).read_bytes() == want_csv.read_bytes()
+        b["molecular_loop"] = {"rc": rc, "csv_bytes_equal": same,
+                               "s": time.perf_counter() - t0}
+        if rc != 0 or not same:
+            failures.append(f"dp: molecular_loop --dp exited {rc}, CSV bytes equal to the "
+                            f"molecular phase's CLI run: {same}")
+    t0 = time.perf_counter()
+    from path_gene_multimodal_tpu_torch.io.slide import synthetic_wsi
+
+    second = _write_smoke_tiff(synthetic_wsi(**DP_SECOND_SLIDE), tmp / "second.svs")
+    second_one = tmp / "dp_second_one"
+    rc_second = run(main_cli, ["--wsi", str(second), "--outroot", str(second_one), *on], False)
+    lst = tmp / "dp_slides.txt"
+    lst.write_text(f"{tif}\n{second}\n")
+    batch_out = tmp / "dp_batch"
+    rc = run(batch_run, ["--slide-list", str(lst), "--outroot", str(batch_out), *on], True)
+    logged = (batch_out / "success_slides.txt").read_text().split() if (
+        batch_out / "success_slides.txt").exists() else None
+    check("batch_run_smoke", (rc, 0), batch_out / tif.stem, outd / tif.stem)
+    check("batch_run_second", (rc, rc_second), batch_out / second.stem,
+          second_one / second.stem)
+    b["batch_run"] = {"rc": rc, "success": logged, "s": time.perf_counter() - t0}
+    if logged != [tif.stem, second.stem]:
+        failures.append(f"dp: batch_run --dp logged {logged} in success_slides.txt")
+    b["launches"] = {n: k for n, k in dp_cli.items() if k}
+    res["b"] = b
+    res["b_s"] = time.perf_counter() - t_b
+
+    # -- (c) training ---------------------------------------------------------------------
+    t_c = time.perf_counter()
+    c: dict = {}
+    rank_logs = _dp_wait_ranks(ranks[0]) if ranks is not None else None
+    cohort = _HANDOFF.get("fusion")
+    if cohort is not None:
+        hist, genes, labels = cohort["hist"], cohort["genes"], cohort["labels"]
+        dims = hist.shape[1], genes.shape[1]
+        model = fus.FusionHead(*dims)
+        state, step, _ = fus.make_fusion_trainer(model, *dims, FUSION_LR, seed=cohort["seed"],
+                                                 device=dev)
+        run_m, sstate = train_mod.shard_step_over_mesh(step, mesh, state)
+        losses, slosses = [], []
+        with _grad_spy(train_mod) as gspy:
+            for _ in range(DP_FUSION_STEPS):
+                state, loss = step(state, hist, genes, labels)
+                losses.append(float(loss))
+        for _ in range(DP_FUSION_STEPS):
+            sstate, loss = run_m(sstate, hist, genes, labels)
+            slosses.append(float(loss))
+        host = lambda p: {k: v.cpu() for k, v in p.items()}  # noqa: E731
+        c["fusion"] = {"steps": DP_FUSION_STEPS, "losses": [losses[0], losses[-1]],
+                       "loss_rel": max(abs(s - u) / abs(u) for s, u in zip(slosses, losses)),
+                       "params": _params_off(host(sstate["params"]), host(state["params"]),
+                                             gspy.min_abs, FUSION_LR, DP_FUSION_STEPS),
+                       "step_ms": {"sharded": _sync_time(
+                           lambda: run_m(sstate, hist, genes, labels), reps=3),
+                                   "unsharded": _sync_time(
+                           lambda: step(state, hist, genes, labels), reps=3)}}
+        f = c["fusion"]
+        if f["loss_rel"] > DP_LOSS_RTOL or not f["params"]["ok"]:
+            failures.append(f"dp: the sharded fusion steps: loss rel {f['loss_rel']:.3g}, "
+                            f"params {f['params']}")
+        ref = {"losses": losses, "params": host(state["params"]), "grads": gspy.min_abs}
+    else:
+        ref = None
+    if mc_csv is not None:
+        n_classes = len(cfg.classes)
+        ptiles, y = _probe_tiles(tif, mc_csv, PROBE_TILES)
+        penc = ImageEncoder(CLIP_VIT_B16, dtype=torch.bfloat16, seed=0, device=dev)
+        tower = penc.model
+        init_state, pstep = train_mod.make_linear_probe_step(tower, penc.out_dim, n_classes,
+                                                             PROBE_LR, False, device=dev,
+                                                             mesh=mesh)
+        pixels = preprocess_tiles(torch.from_numpy(ptiles).to(dev))
+        plabels = torch.from_numpy(y).to(dev)
+        state = init_state(torch.Generator().manual_seed(0))
+        prun, sstate = train_mod.shard_step_over_mesh(
+            pstep, mesh, init_state(torch.Generator().manual_seed(0)))
+        losses, slosses = [], []
+        with _grad_spy(train_mod) as gspy:
+            for _ in range(DP_PROBE_STEPS):
+                state, loss = pstep(state, pixels, plabels)
+                losses.append(float(loss))
+        for _ in range(DP_PROBE_STEPS):
+            sstate, loss = prun(sstate, pixels, plabels)
+            slosses.append(float(loss))
+        c["probe_frozen_bf16"] = {
+            "tiles": len(ptiles), "steps": DP_PROBE_STEPS, "losses": [losses[0], losses[-1]],
+            "loss_rel": max(abs(s - u) / abs(u) for s, u in zip(slosses, losses)),
+            "params": _params_off({k: v.cpu() for k, v in sstate["params"].items()},
+                                  {k: v.cpu() for k, v in state["params"].items()},
+                                  gspy.min_abs, PROBE_LR, DP_PROBE_STEPS)}
+        p = c["probe_frozen_bf16"]
+        if p["loss_rel"] > DP_LOSS_RTOL or not p["params"]["ok"]:
+            failures.append(f"dp: the sharded frozen probe: loss rel {p['loss_rel']:.3g}, "
+                            f"params {p['params']}")
+        del penc, tower, pixels
+    if ranks is not None:
+        procs, d = ranks
+        two: dict = {"rc": [pr.returncode for pr in procs]}
+        if two["rc"] == [0, 0] and ref is not None:
+            outs = [torch.load(d / f"rank{r}.pt") for r in range(2)]
+            two["rows"] = [o["rows"] for o in outs]
+            two["loss_rel"] = max(abs(l - u) / abs(u) for o in outs
+                                  for l, u in zip(o["losses"], ref["losses"]))
+            two["params"] = [_params_off(o["params"], ref["params"], ref["grads"], FUSION_LR,
+                                         DP_FUSION_STEPS) for o in outs]
+            if two["loss_rel"] > DP_LOSS_RTOL or not all(p["ok"] for p in two["params"]):
+                failures.append(f"dp: the two-process fusion steps: loss rel "
+                                f"{two['loss_rel']:.3g}, params {two['params']}")
+        else:
+            failures.append(f"dp: the two rank processes exited {two['rc']}: "
+                            f"{[lg[-1500:] for lg in rank_logs]}")
+        c["two_process_gloo"] = two
+    res["c"] = c
+    res["c_s"] = time.perf_counter() - t_c
+    res["launches"] = {n: k for n, k in launches.items() if k}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _dp_line(res: dict) -> dict:
+    """The ``dp`` JSON line."""
+    a = res.get("a", {})
+    return {"shards": res.get("shards"), "phase_s": res.get("phase_s"),
+            "a_s": res.get("a_s"), "b_s": res.get("b_s"), "c_s": res.get("c_s"),
+            "a": {k: a.get(k) for k in (
+                "per_tile_tiles_per_s", "nuclei", "main_nuclei", "table_equal_unsharded",
+                "table_equal_main", "launches", "canonical_equal",
+                "canonical_full_batch_pixels_differing", "canonical_instances",
+                "canonical_segment_ms", "canonical_unsharded_repeat_equal", "real_equal",
+                "real_full_batch_pixels_differing", "real_instances", "real_segment_ms",
+                "embed", "idars", "stencil_max_abs")},
+            "b": res.get("b"), "c": res.get("c"), "launches": res.get("launches"),
+            "smi": res.get("smi")}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5283,11 +5886,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ab-child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the altpaths phase's tumour blobs and the fusion phase's "
                          "cohort and weights")
     args = ap.parse_args(argv)
     out_dir = args.out
+    if args.dp_rank is not None:  # a rank of the dp phase (its device in its cohort file)
+        return _dp_rank(args.dp_rank, args.dp_port, args.dp_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5448,6 +6056,12 @@ def main(argv: list[str] | None = None) -> int:
                                        see_unfused=s == 0) for exact in (True, False)]
         k1["abs_err"] = max(k1["abs_err"], st["max_abs_err_erf"], st["max_abs_err_tanh"])
         with torch.inference_mode():
+            # no float atomics: every call gives the first call's bits
+            first = convnext_block(x, *wts)
+            st["repeat_equal"] = all(torch.equal(convnext_block(x, *wts), first) for _ in range(3))
+            if not st["repeat_equal"]:
+                failures.append(f"K1 stage {s}: a repeated call gave other bits")
+            del first
             ms = _sync_time(lambda: convnext_block(x, *wts), reps=5)
             pms = _sync_time(lambda: convnext_block_plain(x, *wts), reps=1)
             lms = _sync_time(_k1_library(x, wts), reps=5)
@@ -5475,7 +6089,7 @@ def main(argv: list[str] | None = None) -> int:
                                                      failures) for exact in (True, False)]
     k1["ptxas"] = _k1_ptxas(cuda)
     print(json.dumps({"k1": {"per_stage": [{k: st[k] for k in ("shape", "ms", "library_ms",
-                                                               "launches")}
+                                                               "launches", "repeat_equal")}
                                            for st in k1["per_stage"]],
                              "ptxas": k1["ptxas"]}}), flush=True)
     kernels.append({
@@ -5646,6 +6260,12 @@ def main(argv: list[str] | None = None) -> int:
     fusion_line = _fusion_line(report["fusion"])
     fusion_line["phase_s"] = report["fusion"]["phase_s"]
     print(json.dumps({"fusion": fusion_line}), flush=True)
+
+    # -- 13. data parallelism: models and training on a 2-shard mesh, the --dp CLIs -----
+    torch.cuda.empty_cache()
+    report["dp"] = _dp(slide, ann, sd, nuclei, tmp, report["runner"], wrappers, failures)
+    dp_line = _dp_line(report["dp"])
+    print(json.dumps({"dp": dp_line}), flush=True)
     report["total_s"] = time.perf_counter() - T_START
     real_launches = report["real"]["launches"]
     for k in kernels:
@@ -5655,6 +6275,16 @@ def main(argv: list[str] | None = None) -> int:
             k["note"] = k.get("note", "") + ("; launches: the main path's (HoverNeXt-tiny) and "
                                              "the real path's (the published hover_next layout, "
                                              "RealNucleiModel), launches_by_path")
+    dp_launches = report["dp"].get("launches", {})
+    for k in kernels:
+        if k["name"] in DP_KERNELS:
+            k.setdefault("launches_by_path", {"main": k["launches"]})
+            k["launches_by_path"]["dp"] = dp_launches.get(k["name"], 0)
+            k["launches"] = sum(k["launches_by_path"].values())
+            k["note"] = k.get("note", "") + ("; dp: the dp phase's runs on the 2-shard mesh "
+                                             "and the --dp CLIs")
+    failures += [f"dp: {n} never launched on the dp path" for n in DP_KERNELS
+                 if not dp_launches.get(n)]
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
@@ -5672,6 +6302,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"molecular": molecular_line}))
     print(json.dumps({"altpaths": altpaths_line}))
     print(json.dumps({"fusion": fusion_line}))
+    print(json.dumps({"dp": dp_line}))
     print(f"total: {report['total_s']:.1f} s")
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")

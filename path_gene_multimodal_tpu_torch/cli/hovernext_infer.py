@@ -22,7 +22,9 @@ it: the published layout as ``RealNucleiModel`` (plain encoder, smp
 decoders), the canonical one as ``NucleiModel`` (K1 blocks and the
 low-res final stage). It runs on the card (``--device cuda``, the default)
 and exits with an error without one; ``--device cpu`` runs the kernels'
-plain versions. ``--dp`` is not ported yet.
+plain versions. ``--dp`` builds the model on every local device (the CPU
+is one) and splits each batch over them, in both modes and both layouts;
+a ``--batch-size`` that does not divide that mesh exits 2.
 """
 
 from __future__ import annotations
@@ -103,8 +105,12 @@ def main(argv: list[str] | None = None) -> int:
         help="use the reference's exact-erf GELU (torch nn.GELU) instead of the "
              "default tanh approximation",
     )
-    ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over several devices (not ported yet)")
+    ap.add_argument(
+        "--dp", action="store_true",
+        help="data-parallel inference: replicate the model's weights and shard each "
+             "window batch over a tile-axis mesh of all local devices "
+             "(--batch-size must be a multiple of the device count)",
+    )
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the kernels' "
                          "plain versions)")
@@ -113,10 +119,6 @@ def main(argv: list[str] | None = None) -> int:
     # usage errors fail before any model is built
     if args.mode == "tiles" and not args.annotations_csv:
         logger.error("--mode tiles requires --annotations-csv")
-        return 2
-    if args.dp:
-        logger.error("--dp (data parallel over devices) is not ported yet: ROADMAP Queue 1 "
-                     "item 18")
         return 2
     try:
         inputs = resolve_inputs(args.input)
@@ -203,10 +205,20 @@ def main(argv: list[str] | None = None) -> int:
                        "(plumbing/benchmark mode, not biology)")
     if args.exact_gelu:
         mcfg = replace(mcfg, encoder=replace(mcfg.encoder, exact_gelu=True))
+    mesh = None
+    if args.dp:
+        from path_gene_multimodal_tpu_torch.parallel.mesh import dp_mesh_for_batch
+
+        try:
+            mesh = dp_mesh_for_batch(args.batch_size, config=cfg.mesh, logger=logger,
+                                     label="--batch-size", device=device)
+        except ValueError as e:
+            logger.error("%s", e)
+            return 2
     # one model for the whole input list (the reference rebuilt it per input)
     model = (RealNucleiModel if real else NucleiModel).build(
         mcfg, state_dict=state_dict, tta=args.tta, dtype=torch.bfloat16, device=device,
-        max_instances=cfg.hovernext.max_instances_per_tile)
+        mesh=mesh, max_instances=cfg.hovernext.max_instances_per_tile)
 
     stems = _unique_stems(inputs, logger)
     failed = 0

@@ -8,8 +8,10 @@ fleet of independent workers over a shared filesystem. Exit 0 when the
 slide is done (or was already), 1 when it failed (its ``_ERROR.txt`` says
 why), 2 on usage errors: no slide, a missing or unsupported slide path, a
 weights artifact of another kind or whose params do not fit its config, no
-GPU without ``--device cpu``, and ``--dp``, which is not ported yet
-(ROADMAP Queue 1 item 18). ``--weights`` takes a converted CLIP tower or a
+GPU without ``--device cpu``, and an embedding batch that does not divide
+the ``--dp`` mesh. ``--dp`` replicates the image tower on every local
+device (the CPU is one) and splits each embedding batch over them.
+``--weights`` takes a converted CLIP tower or a
 converted timm Virchow2 tower (ViT-H/14, 2560-d embeddings; steps 3-4 then
 score it against the 512-d CLIP text tower as the JAX package does, which
 fails at step 4).
@@ -58,18 +60,18 @@ def main(argv: list[str] | None = None) -> int:
              "auto-load from <stem>_text.npz next to it. Without it the towers run "
              "with RANDOM weights (plumbing mode).",
     )
-    ap.add_argument("--dp", action="store_true",
-                    help="data-parallel embedding over several devices (not ported yet)")
+    ap.add_argument(
+        "--dp", action="store_true",
+        help="data-parallel embedding: replicate the image tower and shard "
+             "each tile batch over a tile-axis mesh of all local devices "
+             "(the embedding batch size must be a multiple of the device count)",
+    )
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the kernels' "
                          "plain versions)")
     args = ap.parse_args(argv)
 
     logger = get_logger()
-    if args.dp:
-        logger.error("--dp (data parallel over devices) is not ported yet: ROADMAP Queue 1 "
-                     "item 18")
-        return 2
     wsi = args.wsi or os.environ.get("WSI_PATH")
     if not wsi:
         logger.error("no slide given: set WSI_PATH or pass --wsi")
@@ -128,9 +130,19 @@ def main(argv: list[str] | None = None) -> int:
             text_sd = text_state_dict_from_jax(tparams, text_cfg)
             logger.info("loaded text tower from %s", tfile)
         logger.info("loaded %s image tower from %s", kind, args.weights)
+    mesh = None
+    if args.dp:
+        from path_gene_multimodal_tpu_torch.parallel.mesh import dp_mesh_for_batch
+
+        try:
+            mesh = dp_mesh_for_batch(cfg.embedding.batch_size, config=cfg.mesh, logger=logger,
+                                     label="embedding batch", device=device)
+        except ValueError as e:
+            logger.error("%s", e)
+            return 2
     models = PipelineModels.build(
         cfg, vision_state_dict=vision_sd, vision_cfg=vision_cfg, text_cfg=text_cfg,
-        text_state_dict=text_sd, weights_fingerprint=weights_fp, device=device,
+        text_state_dict=text_sd, weights_fingerprint=weights_fp, device=device, mesh=mesh,
     )
     profile_ctx = contextlib.nullcontext()
     if args.profile:

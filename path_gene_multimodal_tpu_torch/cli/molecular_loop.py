@@ -11,8 +11,9 @@ per slide with a per-slide try/except, and appends to
 The IDaRS ensemble is built once for the whole loop. Exit 0 when every
 slide was done or skipped, 1 when one failed, 2 on usage errors: no
 slide under the data path, a ``--weights-dir`` artifact of another kind,
-no GPU without ``--device cpu``, and ``--dp``, which is not ported yet
-(ROADMAP Queue 1 item 18).
+no GPU without ``--device cpu``, and a molecular batch that does not divide
+the ``--dp`` mesh. ``--dp`` copies the six networks to every local device
+(the CPU is one) and splits each tile batch over them.
 
 A task without ``<task>.npz`` in ``--weights-dir`` (or every task, without
 the option) runs on seeded random weights, drawn from a ``torch.Generator``
@@ -67,17 +68,17 @@ def main(argv: list[str] | None = None) -> int:
              "(cli.convert_weights kind=resnet34, one per resnet34-idars-* "
              "checkpoint); tasks without a file run with RANDOM weights",
     )
-    ap.add_argument("--dp", action="store_true",
-                    help="data-parallel over several devices (not ported yet)")
+    ap.add_argument(
+        "--dp", action="store_true",
+        help="data-parallel inference: replicate the ensemble's weights and shard each "
+             "tile batch over a tile-axis mesh of all local devices "
+             "(the molecular batch size must be a multiple of the device count)",
+    )
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
 
     logger = get_logger()
-    if args.dp:
-        logger.error("--dp (data parallel over devices) is not ported yet: ROADMAP Queue 1 "
-                     "item 18")
-        return 2
     import torch
 
     device = torch.device(args.device)
@@ -130,8 +131,18 @@ def main(argv: list[str] | None = None) -> int:
             logger.warning("%s: no converted weights — RANDOM weights for this task", t)
             net = seeded_resnet(rcfg, zlib.crc32(t.encode()) % 2**31, device=device)
             state_dicts.append(net.state_dict())
+    mesh = None
+    if args.dp:
+        from path_gene_multimodal_tpu_torch.parallel.mesh import dp_mesh_for_batch
+
+        try:
+            mesh = dp_mesh_for_batch(cfg.molecular.batch_size, config=cfg.mesh, logger=logger,
+                                     label="molecular batch", device=device)
+        except ValueError as e:
+            logger.error("%s", e)
+            return 2
     # built ONCE for the loop
-    ensemble = IDaRSEnsemble(tasks, state_dicts, cfg=rcfg, device=device)
+    ensemble = IDaRSEnsemble(tasks, state_dicts, cfg=rcfg, device=device, mesh=mesh)
     wsis = slide_paths(data_path)
     if not wsis:
         logger.error("no WSIs under %s", data_path)

@@ -2,8 +2,8 @@
 
 A copy of what this package reads of ``path_gene_multimodal_tpu/config.py``
 (the port imports nothing of the JAX package): the class lists, the
-tessellation, embedding, TME, polygon, nuclei, molecular, graph and compat
-sections, the root fields of the 8-step runner and the molecular loop with
+tessellation, embedding, TME, polygon, nuclei, molecular, graph, mesh and
+compat sections, the root fields of the 8-step runner and the molecular loop with
 ``replace`` and ``content_hash``,
 ``resolve_tile_png_name``, ``WSI_EXTS`` and ``slide_paths``; plus the
 model configuration that lives in the JAX package's ``models/convnext.py``
@@ -170,6 +170,14 @@ class GraphConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh of the data-parallel paths (``parallel/mesh.py``)."""
+
+    data_axis: str = "tiles"
+    num_devices: int | None = None  # None → all local devices
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """Root pipeline config (field names follow tnbc_config.py)."""
 
@@ -191,6 +199,7 @@ class PipelineConfig:
     hovernext: NucleiConfig = field(default_factory=NucleiConfig)
     molecular: MolecularConfig = field(default_factory=MolecularConfig)
     graph: GraphConfig = field(default_factory=GraphConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     compat: CompatConfig = field(default_factory=CompatConfig)
 
     def replace(self, **kw: Any) -> "PipelineConfig":

@@ -844,16 +844,18 @@ using Kernel = void (*)(Params);
 
 Kernel kernel_of(int shared) { return shared ? cc_cluster_kernel<true> : cc_cluster_kernel<false>; }
 
-// a kernel's attributes: the largest shared memory asked for so far, and
-// clusters of 16
+// a kernel's attributes on the current device: the largest shared memory
+// asked for there so far, and clusters of 16
 cudaError_t prepare(int shared, int smem) {
-    static int allowed[2] = {-1, -1};
-    if (smem <= allowed[shared != 0]) return cudaSuccess;
+    static int allowed[kPgmMaxDevices][2];  // per device: that smem + 1 (0: none yet)
+    const int dev = pgm_device();
+    if (dev < 0) return cudaErrorInvalidDevice;
+    if (smem < allowed[dev][shared != 0]) return cudaSuccess;
     cudaError_t e = pgm_set_smem(kernel_of(shared), static_cast<size_t>(smem));
     if (e == cudaSuccess)
         e = cudaFuncSetAttribute(kernel_of(shared),
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e == cudaSuccess) allowed[shared != 0] = smem;
+    if (e == cudaSuccess) allowed[dev][shared != 0] = smem + 1;
     return e;
 }
 

@@ -14,6 +14,16 @@ PGM_EXPORT const char* pgm_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Devices a launcher keeps per-device state for (function attributes and
+// occupancy are set and read on the current device only), and the current
+// device's ordinal (-1 on an error).
+constexpr int kPgmMaxDevices = 64;
+
+static inline int pgm_device() {
+    int d = -1;
+    return cudaGetDevice(&d) == cudaSuccess && d < kPgmMaxDevices ? d : -1;
+}
+
 // Allow `bytes` of dynamic shared memory for `kernel` (needed above 48 KB).
 template <typename K>
 static inline cudaError_t pgm_set_smem(K kernel, size_t bytes) {

@@ -33,8 +33,11 @@
 //     up to 4 taps, each weight 4 rows. Bound by bytes (x in, a out) in
 //     principle; in practice by the CUDA cores' issue rate (49 taps).
 //   1 (pw1_kernel): a @ w1 + b1 -> GELU -> f32 y2 (B, H*W, 4C), and the
-//     per-image, per-channel sums of y2^2 (f32, unrounded) into gsum with one
-//     atomic per (tile, channel). An ordinary pipelined GEMM: 128-pixel x
+//     per-image, per-channel sums of y2^2 (f32, unrounded) into gsum: each
+//     tile stores its own sums, and the last of an image's tiles to finish
+//     (a counter per image and N tile) adds them in tile order, so that the
+//     sums, and the block's output, do not depend on the order in which the
+//     blocks ran. An ordinary pipelined GEMM: 128-pixel x
 //     128-channel tiles, two consumer warpgroups of m64 each on wgmma
 //     (m64n128k16), A and B through a 4-stage cp.async ring of 32-deep K
 //     chunks in wgmma's canonical no-swizzle K-major layout, one wgmma group
@@ -432,11 +435,30 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
             *reinterpret_cast<float4*>(yo + static_cast<long long>(r) * c4 + ch * 4) =
                 *reinterpret_cast<const float4*>(stg + r * kLdY + ch * 4);
     }
+    // the grn scratch behind gsum (B, 4C): the tiles' sums (B, tiles, 4C),
+    // then a counter per (image, N tile), zero between launches
+    const long long nb = gridDim.x / (static_cast<long long>(tiles_per_img) * ntiles);
+    float* part = gsum + nb * c4;
+    unsigned* count = reinterpret_cast<unsigned*>(part + nb * tiles_per_img * c4);
+    const long long row = img * tiles_per_img;
     if (tid < kN1) {
         float t = 0.0f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) t += red[w * kN1 + tid];
-        atomicAdd(gsum + img * c4 + n0 + tid, t);
+        part[(row + mt % tiles_per_img) * c4 + n0 + tid] = t;
+        __threadfence();
+    }
+    __shared__ int last;
+    __syncthreads();
+    if (tid == 0) {
+        last = atomicAdd(count + img * ntiles + nt, 1u) == static_cast<unsigned>(tiles_per_img - 1);
+        if (last) count[img * ntiles + nt] = 0;
+    }
+    __syncthreads();
+    if (last && tid < kN1) {
+        float s = 0.0f;
+        for (int k = 0; k < tiles_per_img; ++k) s += __ldcg(part + (row + k) * c4 + n0 + tid);
+        gsum[img * c4 + n0 + tid] = s;
     }
 }
 
@@ -632,7 +654,8 @@ PGM_EXPORT int convnext_dw_ln_launch(const void* x, const void* dw, const void* 
 }
 
 // Launch 1. a (B, H*W, C); w1t (4C, C); b1 (4C,); y2 (B, H*W, 4C) f32 out;
-// gsum (B, 4C) f32, added to (zeroed by the caller). m_tile, n_tile, smem:
+// gsum: ConvNeXtTiling.grn_words f32 words, the sums (B, 4C) first, its
+// counters zero (as the launch leaves them). m_tile, n_tile, smem:
 // ConvNeXtTiling's pw1 geometry.
 PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b1, void* y2,
                                    void* gsum, int b, int hw, int c, int exact, int m_tile,
@@ -650,7 +673,7 @@ PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 2. y2 (B, H*W, 4C) f32; gsum (B, 4C) f32 from launch 1; gg, gb (4C,);
+// Launch 2. y2 (B, H*W, 4C) f32; gsum: the sums (B, 4C) from launch 1; gg, gb (4C,);
 // w2t (C, 4C); b2 (C,); x, out (B, H*W, C). m_tile, n_tile, smem:
 // ConvNeXtTiling's pw2 geometry.
 PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void* gg,
@@ -673,10 +696,11 @@ PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void*
     return static_cast<int>(e);
 }
 
-// The block: launches 0, 1, 2, with gsum zeroed first. x, out (B, H, W, C);
-// weights bf16: dw (7, 7, C), w1t (4C, C), w2t (C, 4C), vectors (C,) or
-// (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C) f32, gsum (B, 4C) f32. The
-// geometry arguments are ConvNeXtTiling.launch_args().
+// The block: launches 0, 1, 2, with gsum's counters zeroed first. x, out
+// (B, H, W, C); weights bf16: dw (7, 7, C), w1t (4C, C), w2t (C, 4C),
+// vectors (C,) or (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C) f32, gsum
+// ConvNeXtTiling.grn_words f32 words. The geometry arguments are
+// ConvNeXtTiling.launch_args().
 PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* dwb,
                                      const void* lng, const void* lnb, const void* w1t,
                                      const void* b1, const void* gg, const void* gb,
@@ -686,7 +710,9 @@ PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* 
                                      int m_tile, int n1_tile, int n2_tile, int pw1_smem_b,
                                      int pw2_smem_b, void* stream) {
     if (!channels_ok(c) || b <= 0) return cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(gsum, 0, sizeof(float) * size_t(b) * 4 * c,
+    const size_t tiles = (static_cast<size_t>(h) * w + kM - 1) / kM, c4 = 4 * size_t(c);
+    cudaError_t e = cudaMemsetAsync(static_cast<float*>(gsum) + b * c4 * (1 + tiles), 0,
+                                    sizeof(unsigned) * b * (c4 / kN1),
                                     static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     int r = convnext_dw_ln_launch(x, dw, dwb, lng, lnb, a, b, h, w, c, dw_tile, dw_rows,

@@ -430,12 +430,14 @@ cudaLaunchConfig_t launch_config(int grid, cudaStream_t st, cudaLaunchAttribute*
     return cfg;
 }
 
-// blocks of this cout's kernel that fit the card at once, in whole clusters
-// (0 on an error); the same for both GELU modes
+// blocks of this cout's kernel that fit the current device at once, in
+// whole clusters (0 on an error); the same for both GELU modes
 template <int COUT>
 int slots() {
-    static int n = -1;
-    if (n < 0) {
+    static int cached[kPgmMaxDevices];  // per device: the blocks + 1 (0: not asked yet)
+    const int dev = pgm_device();
+    if (dev < 0) return 0;
+    if (cached[dev] == 0) {
         auto kernel = decoder_conv_kernel<COUT, false>;
         int clusters = 0;
         cudaLaunchAttribute attr;
@@ -445,9 +447,9 @@ int slots() {
             pgm_set_smem(decoder_conv_kernel<COUT, true>, Geo<COUT>::kSmem) != cudaSuccess ||
             cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
             return 0;
-        n = clusters * kCluster;
+        cached[dev] = clusters * kCluster + 1;
     }
-    return n;
+    return cached[dev] - 1;
 }
 
 int slots_of(int cout) {

@@ -19,8 +19,9 @@ product with f32 accumulation, ``x + pos`` adds in the compute dtype (the
 position embedding rounded first), and the output is cast to f32.
 
 ``ImageEncoder`` also takes a ``models.vit_timm.TimmViTConfig``: the real
-Virchow2 tower, a timm ViT (``models/vit_timm.py``). Not ported yet: the
-data-parallel ``mesh`` (ROADMAP Queue 1 item 18).
+Virchow2 tower, a timm ViT (``models/vit_timm.py``), and a ``mesh``
+(``parallel/mesh.py``): the tower replicated on each of its devices, each
+batch split over its shards.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from path_gene_multimodal_tpu_torch.models.layers import (
     quick_gelu,
 )
 from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViT, TimmViTConfig, seeded_vit
+from path_gene_multimodal_tpu_torch.parallel.mesh import Mesh, gather, replicate, run_sharded
 
 # CLIP preprocessing constants (OpenAI; used by Mussel's feature extractor)
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -262,7 +264,13 @@ class ImageEncoder:
     ``state_dict`` the weights are seeded from ``seed``: the CLIP tower's
     drawn on the host, the timm tower's on ``device``. Runs on the card
     unless the caller passes ``device="cpu"``; ``dtype`` is the compute
-    dtype (bf16 by default, as the JAX package's)."""
+    dtype (bf16 by default, as the JAX package's).
+
+    With a ``mesh`` the tower is built on the mesh's first device (its
+    ``device``) and copied to each other one; each batch is split on its
+    leading axis over the shards, every shard's forward enqueued on its own
+    device before the features are gathered, in order, on the first. A
+    batch need not divide the mesh (the first shards take a row more)."""
 
     def __init__(
         self,
@@ -273,9 +281,11 @@ class ImageEncoder:
         mean: np.ndarray = CLIP_MEAN,
         std: np.ndarray = CLIP_STD,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
         timm = isinstance(cfg, TimmViTConfig)
         if timm and state_dict is None:
             self.model = seeded_vit(cfg, seed, dtype, self.device)
@@ -288,6 +298,7 @@ class ImageEncoder:
             else:
                 self.model.load_state_dict(state_dict)
         self._mean, self._std = mean, std
+        self._replicas = replicate(self.model, mesh) if mesh is not None else None
 
     @property
     def out_dim(self) -> int:
@@ -307,14 +318,20 @@ class ImageEncoder:
         tiles = tiles_u8 if torch.is_tensor(tiles_u8) else torch.from_numpy(np.asarray(tiles_u8))
         if self.device.type == "cuda" and tiles.device.type == "cpu":
             tiles = tiles.pin_memory()  # so that the copy does not wait for the card
-        pixels = preprocess_tiles(tiles.to(self.device, non_blocking=True), self._mean, self._std)
+        if self.mesh is None:
+            return self._forward(self.model, tiles.to(self.device, non_blocking=True))
+        outs = run_sharded(self.mesh, lambda dev, t: self._forward(self._replicas[dev], t), tiles)
+        return gather(outs, self.device)
+
+    def _forward(self, model: nn.Module, tiles: torch.Tensor) -> torch.Tensor:
+        pixels = preprocess_tiles(tiles, self._mean, self._std)
         s = self.cfg.image_size
         if pixels.shape[1] != s or pixels.shape[2] != s:
             # tile size ≠ model input (e.g. PATCH_SIZE overridden):
             # bilinear resize on device, as Mussel's loader does before
             # feeding CLIP (extract_embedding_from_tiles.py consumer)
             pixels = resize_bilinear(pixels, s)
-        return self.model(pixels).to(torch.float32)
+        return model(pixels).to(torch.float32)
 
 
 class TextEncoder:

@@ -42,7 +42,7 @@ from torch.func import functional_call
 
 from path_gene_multimodal_tpu_torch.models.layers import dense
 from path_gene_multimodal_tpu_torch.ops.cuda import exact_f32
-from path_gene_multimodal_tpu_torch.parallel.train import adamw_init, adamw_update, value_and_grad
+from path_gene_multimodal_tpu_torch.parallel.train import SplitStep, adamw_init, value_and_grad
 
 # ---------------------------------------------------------------------------
 # slide-level aggregation
@@ -155,9 +155,10 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 class FusionHead(nn.Module):
     """Histology + expression → task logits. ``forward(slide_emb (B,
-    hist_dim), gene_expr (B, gene_dim), train=False, generator=None)``;
-    with ``train`` the dropout after fc1 draws its keep mask from
-    ``generator`` (a host ``torch.Generator``)."""
+    hist_dim), gene_expr (B, gene_dim), train=False, generator=None,
+    keep=None)``; with ``train`` the dropout after fc1 takes its keep mask
+    (B, hidden) bool from ``keep``, else draws it from ``generator`` (a host
+    ``torch.Generator``)."""
 
     def __init__(self, hist_dim: int, gene_dim: int, num_outputs: int = 2, proj_dim: int = 256,
                  hidden: int = 256, dropout: float = 0.1):
@@ -169,14 +170,16 @@ class FusionHead(nn.Module):
         self.fc2 = nn.Linear(hidden, num_outputs)
 
     def forward(self, slide_emb: torch.Tensor, gene_expr: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         h = _dense(self.proj_hist, slide_emb)
         g = _dense(self.proj_gene, gene_expr)
         x = torch.cat([_gelu(h), _gelu(g)], dim=-1)
         x = _gelu(_dense(self.fc1, x))
         if train and self.dropout > 0:
             keep_prob = 1.0 - self.dropout
-            keep = torch.rand(x.shape, generator=generator) < keep_prob
+            if keep is None:
+                keep = torch.rand(x.shape, generator=generator) < keep_prob
             x = torch.where(keep.to(x.device), x / keep_prob, 0.0)
         return _dense(self.fc2, x)
 
@@ -214,7 +217,10 @@ def make_fusion_trainer(
     ``opt`` and ``rng`` (the dropout generator's state). The initial
     weights are ``flax_init``'s from ``torch.Generator`` of ``seed``, whose
     state after those draws seeds the dropout. Runs on ``device`` (the card
-    unless the caller passes ``"cpu"``), without TF32."""
+    unless the caller passes ``"cpu"``), without TF32. ``step`` is a
+    ``parallel.train.SplitStep``: its ``draw`` takes the dropout's keep mask
+    for the global batch, (rows, hidden), on the host, so that a shard of
+    ``shard_step_over_mesh`` trains on the single-device run's masks."""
     if (model.proj_hist.in_features, model.proj_gene.in_features) != (hist_dim, gene_dim):
         raise ValueError(f"FusionHead takes ({model.proj_hist.in_features}, "
                          f"{model.proj_gene.in_features}) inputs, not ({hist_dim}, {gene_dim})")
@@ -224,20 +230,24 @@ def make_fusion_trainer(
     params = {k: v.to(dev) for k, v in flax_init(model, gen).items()}
     state = {"params": params, "opt": adamw_init(params), "rng": gen.get_state()}
 
-    def step(state, hist, genes, labels):
-        hist, genes, labels = (torch.as_tensor(a, device=dev) for a in (hist, genes, labels))
+    keep_prob = 1.0 - model.dropout
+
+    def draw(state, n):
+        if model.dropout <= 0:
+            return None, state["rng"]
         g = torch.Generator()
         g.set_state(state["rng"])
+        keep = torch.rand((n, model.fc1.out_features), generator=g) < keep_prob
+        return keep, g.get_state()
 
+    def loss_grad(params, keep, hist, genes, labels, n):
         def loss_of(p):
-            logits = functional_call(model, p, (hist, genes),
-                                     {"train": True, "generator": g})
-            return F.cross_entropy(logits, labels.long())
+            logits = functional_call(model, p, (hist, genes), {"train": True, "keep": keep})
+            return F.cross_entropy(logits, labels.long(), reduction="sum") / n
 
-        with exact_f32():
-            loss, grads = value_and_grad(loss_of, state["params"])
-            params, opt = adamw_update(state["params"], grads, state["opt"], learning_rate)
-        return {"params": params, "opt": opt, "rng": g.get_state()}, loss
+        return value_and_grad(loss_of, params)
+
+    step = SplitStep(draw, loss_grad, learning_rate, dev)
 
     @torch.no_grad()
     def predict(state, hist, genes):

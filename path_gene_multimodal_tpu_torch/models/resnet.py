@@ -25,7 +25,8 @@ dtype, rounded where flax rounds:
 other on the same batch of pixels (six cuDNN forwards a batch). The JAX
 package stacks the six parameter trees and vmaps one forward over them;
 grouped convolutions would be the stacked form here, and a loop is the
-simpler one. There is no data-parallel mesh (ROADMAP Queue 1 item 18).
+simpler one. With a ``mesh`` (``parallel/mesh.py``) the six networks are
+copied to each of its devices and each batch is split over its shards.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from path_gene_multimodal_tpu_torch.models.clip import (
     preprocess_tiles,
 )
 from path_gene_multimodal_tpu_torch.models.layers import dense, product_precision
+from path_gene_multimodal_tpu_torch.parallel.mesh import Mesh, gather, replicate, run_sharded
 
 
 @dataclass(frozen=True)
@@ -172,7 +174,11 @@ class IDaRSEnsemble:
     one a task, f32) or, if it is None, seeded random weights from ``seed +
     i`` for task i. Runs on the card unless the caller passes
     ``device="cpu"``; ``dtype`` is the compute dtype (bf16 by default, as
-    the JAX package's)."""
+    the JAX package's). With a ``mesh``, the networks are built on its first
+    device (``device``) and copied to each other one, and each batch is
+    split over the shards (a last batch that does not divide the mesh
+    unevenly: the first shards take a row more), the probabilities
+    gathered in order on the first device."""
 
     def __init__(
         self,
@@ -182,10 +188,12 @@ class IDaRSEnsemble:
         dtype: torch.dtype = torch.bfloat16,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         self.tasks = list(tasks)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
         if state_dicts is not None and len(state_dicts) != len(self.tasks):
             raise ValueError("one state dict per task required")
         self.models: list[ResNet] = []
@@ -199,6 +207,10 @@ class IDaRSEnsemble:
                 net.load_state_dict(state_dicts[i], strict=True)
             # the kernels in NHWC order, as the activations are laid out
             self.models.append(net.to(memory_format=torch.channels_last))
+        self._replicas = None
+        if mesh is not None:
+            copies = replicate(nn.ModuleList(self.models), mesh)
+            self._replicas = {d: list(nets) for d, nets in copies.items()}
 
     @torch.inference_mode()
     def __call__(self, tiles_u8) -> torch.Tensor:
@@ -209,7 +221,13 @@ class IDaRSEnsemble:
         tiles = tiles_u8 if torch.is_tensor(tiles_u8) else torch.from_numpy(np.asarray(tiles_u8))
         if self.device.type == "cuda" and tiles.device.type == "cpu":
             tiles = tiles.pin_memory()
-        pixels = preprocess_tiles(tiles.to(self.device, non_blocking=True),
-                                  IMAGENET_MEAN, IMAGENET_STD)
-        logits = torch.stack([net(pixels) for net in self.models])  # (T, B, classes)
+        if self.mesh is None:
+            return self._forward(self.models, tiles.to(self.device, non_blocking=True))
+        outs = run_sharded(self.mesh, lambda dev, t: self._forward(self._replicas[dev], t), tiles)
+        return gather(outs, self.device, dim=1)
+
+    @staticmethod
+    def _forward(models: list[nn.Module], tiles: torch.Tensor) -> torch.Tensor:
+        pixels = preprocess_tiles(tiles, IMAGENET_MEAN, IMAGENET_STD)
+        logits = torch.stack([net(pixels) for net in models])  # (T, B, classes)
         return torch.softmax(logits.float(), dim=-1)[..., 1]

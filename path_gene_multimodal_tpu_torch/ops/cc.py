@@ -178,10 +178,11 @@ def _sms(index: int) -> int:
 
 
 @functools.cache
-def max_clusters(n: int, smem: int, shared: bool) -> int:
+def max_clusters(n: int, smem: int, shared: bool, index: int = 0) -> int:
     """Clusters of ``n`` blocks with ``smem`` bytes of shared memory each
-    (their bands in shared memory or not) that the card holds at once."""
-    return cuda.size_query("cc", "cc_max_clusters", n, smem, int(shared))
+    (their bands in shared memory or not) that card ``index`` holds at once."""
+    return cuda.size_query("cc", "cc_max_clusters", torch.device("cuda", index), n, smem,
+                           int(shared))
 
 
 def k5_plan(h: int, w: int, tile: int, device: torch.device) -> tuple[CcTiling, bool]:
@@ -189,8 +190,9 @@ def k5_plan(h: int, w: int, tile: int, device: torch.device) -> tuple[CcTiling, 
     ``device``, and its driver: True runs every round in one launch (every
     tile's cluster resident at once), False a launch a round."""
     tiles = -(-h // tile) * -(-w // tile)
-    geo = tiling(tile, tile, tiles, _sms(device.index or 0))
-    return geo, geo.device_rounds(tiles, max_clusters(geo.n, geo.smem_bytes, geo.shared))
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    geo = tiling(tile, tile, tiles, _sms(index))
+    return geo, geo.device_rounds(tiles, max_clusters(geo.n, geo.smem_bytes, geo.shared, index))
 
 
 def _count(counts: torch.Tensor | None, relaxes, rounds: int) -> None:
@@ -285,7 +287,7 @@ def _launch(m, lbl0, lbl1, flags, bar, counts, geo: CcTiling, b, h, w, connectiv
                 cuda.ptr(scratch), cuda.ptr(flags), cuda.ptr(bar), cuda.ptr(counts), b, h, w,
                 geo.th, geo.tw, connectivity, max_iters, max_outer, rnd, int(device_rounds),
                 geo.n, geo.bh, geo.ls, geo.seg_len, geo.segs, int(geo.shared), geo.smem_bytes,
-                geo.band_bytes, cuda.stream())
+                geo.band_bytes, cuda.stream(m))
 
 
 def label_components_batch(mask: torch.Tensor, connectivity: int = 1, max_iters: int = 256,

@@ -142,7 +142,7 @@ def _launch(mask_u8, lbl, sizes, dense, n_roots, counts, s_slots, min_size, gate
         cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
         cuda.ptr(n_roots), cuda.ptr(counts), b, h, w, s_slots, min_size, MAX_ITERS,
         cuda.ptr(gate), gate_slots, geo.threads, geo.ls, geo.per, geo.seg_len, geo.smem_bytes,
-        cuda.stream(),
+        cuda.stream(mask_u8),
     )
     cc_sizes.launches += 1
 

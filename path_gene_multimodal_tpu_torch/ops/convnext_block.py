@@ -253,6 +253,14 @@ class ConvNeXtTiling:
                 for i in range(self.batch) for t in range(self.tiles_per_img)]
 
     @property
+    def grn_words(self) -> int:
+        """f32 words of the GRN scratch: the per-image sums (B, 4C), each
+        tile's sums (B, tiles_per_img, 4C) that the last tile of an image
+        adds in tile order, and a counter per (image, pw1 N tile)."""
+        c4 = 4 * self.c
+        return self.batch * (c4 * (1 + self.tiles_per_img) + c4 // self.n1_tile)
+
+    @property
     def pw1_grid(self) -> int:
         return self.batch * self.tiles_per_img * (4 * self.c // self.n1_tile)
 
@@ -364,22 +372,22 @@ def launch_parts(x, wts, exact_gelu: bool = False) -> dict:
     dev = xb.device
     a = torch.empty((b, h * w, c), dtype=torch.bfloat16, device=dev)
     y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=dev)
-    gsum = torch.zeros((b, 4 * c), dtype=torch.float32, device=dev)
+    grn = torch.zeros(geo.grn_words, dtype=torch.float32, device=dev)  # pw1 re-zeroes its counters
     out = torch.empty_like(xb)
     dw, dwb, lng, lnb, w1t, b1, gg, gb, w2t, b2 = ptrs
     lib = "convnext_block"
     return {
         "dw_ln": lambda: cuda.launch(lib, "convnext_dw_ln_launch", cuda.ptr(xb), dw, dwb, lng,
                                      lnb, cuda.ptr(a), b, h, w, c, *geo.dw_args(),
-                                     cuda.stream()),
+                                     cuda.stream(dev)),
         "pw1": lambda: cuda.launch(lib, "convnext_pw1_launch", cuda.ptr(a), w1t, b1,
-                                   cuda.ptr(y2), cuda.ptr(gsum), b, h * w, c, int(exact_gelu),
-                                   geo.m_tile, geo.n1_tile, geo.pw1_smem, cuda.stream()),
-        "pw2": lambda: cuda.launch(lib, "convnext_pw2_launch", cuda.ptr(y2), cuda.ptr(gsum),
+                                   cuda.ptr(y2), cuda.ptr(grn), b, h * w, c, int(exact_gelu),
+                                   geo.m_tile, geo.n1_tile, geo.pw1_smem, cuda.stream(dev)),
+        "pw2": lambda: cuda.launch(lib, "convnext_pw2_launch", cuda.ptr(y2), cuda.ptr(grn),
                                    gg, gb, w2t, b2, cuda.ptr(xb), cuda.ptr(out), b, h * w, c,
-                                   geo.m_tile, geo.pw2_n_tile, geo.pw2_smem, cuda.stream()),
+                                   geo.m_tile, geo.pw2_n_tile, geo.pw2_smem, cuda.stream(dev)),
         "tiling": geo,
-        "buffers": (a, y2, gsum, out),
+        "buffers": (a, y2, grn[: b * 4 * c].view(b, 4 * c), out),
     }
 
 
@@ -404,12 +412,12 @@ def convnext_block(
     bf = torch.bfloat16
     a = torch.empty((b, h * w, c), dtype=bf, device=x.device)
     y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=x.device)
-    gsum = torch.empty((b, 4 * c), dtype=torch.float32, device=x.device)  # zeroed by the launcher
+    grn = torch.empty(geo.grn_words, dtype=torch.float32, device=x.device)  # counters zeroed there
     out = torch.empty_like(xb)
     cuda.launch(
         "convnext_block", "convnext_block_launch",
-        cuda.ptr(xb), *ptrs, cuda.ptr(a), cuda.ptr(y2), cuda.ptr(gsum), cuda.ptr(out),
-        b, h, w, c, int(exact_gelu), *geo.launch_args(), cuda.stream(),
+        cuda.ptr(xb), *ptrs, cuda.ptr(a), cuda.ptr(y2), cuda.ptr(grn), cuda.ptr(out),
+        b, h, w, c, int(exact_gelu), *geo.launch_args(), cuda.stream(xb),
     )
     convnext_block.launches += 1
     return out

@@ -7,9 +7,11 @@ Nothing is built when this module is imported: ``library(name)`` builds at
 first use, and ``build_all()`` starts one ``nvcc`` per source at once.
 A library is rebuilt when a source is newer than it.
 
-Wrappers pass tensor pointers (``data_ptr()``) and the current stream as
-``ctypes.c_void_p``; every launcher returns the ``cudaError_t`` of its
-launch, and ``launch`` raises on anything but success.
+Wrappers pass tensor pointers (``data_ptr()``) and ``stream(device)``, the
+current stream of the device their tensors are on, as ``ctypes.c_void_p``;
+``launch`` runs the launcher with that device current (a kernel's
+attributes and occupancy are the current device's), and raises unless it
+returns ``cudaSuccess``.
 """
 
 from __future__ import annotations
@@ -32,10 +34,15 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
 
 
-def gpu_supported() -> bool:
-    """True when a CUDA device of compute capability >= 9.0 is present
-    (the counterpart of the JAX package's ``pallas_supported``)."""
-    return torch.cuda.is_available() and torch.cuda.get_device_capability(0) >= (9, 0)
+def gpu_supported(devices=None) -> bool:
+    """True when each of the CUDA ``devices`` (default every visible one,
+    as a default mesh takes them) has compute capability >= 9.0 (the
+    counterpart of the JAX package's ``pallas_supported``)."""
+    if not torch.cuda.is_available():
+        return False
+    if devices is None:
+        devices = range(torch.cuda.device_count())
+    return all(torch.cuda.get_device_capability(d) >= (9, 0) for d in devices)
 
 
 def sm_count(device: torch.device) -> int:
@@ -136,31 +143,51 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(name: str, fn: str, *args) -> None:
     """Call launcher ``fn`` of library ``name``; arguments are ints (passed
-    as ``c_int``) or ``ctypes.c_void_p``. Raises on a failed launch."""
+    as ``c_int``) or ``ctypes.c_void_p``, one of them ``stream(device)``,
+    whose device is current for the call. Raises on a failed launch."""
     lib = library(name)
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
     f.argtypes = [type(a) if isinstance(a, ctypes.c_void_p) else ctypes.c_int for a in args]
-    err = f(*args)
+    dev = next((a.device for a in args if isinstance(a, _Stream)), None)
+    if dev is None:
+        raise ValueError(f"{name}.{fn}: no stream(device) among the arguments")
+    with torch.cuda.device(dev):
+        err = f(*args)
     if err != 0:
         msg = lib.pgm_error_string(err).decode()
         raise RuntimeError(f"{name}.{fn}: CUDA error {err} ({msg})")
 
 
-def size_query(name: str, fn: str, *ints: int) -> int:
-    """Call a ``size_t f(int, ...)`` helper of library ``name``."""
+def size_query(name: str, fn: str, device: torch.device, *ints: int) -> int:
+    """Call a ``size_t f(int, ...)`` helper of library ``name`` with the
+    CUDA ``device`` current (occupancy is a device's)."""
     f = getattr(library(name), fn)
     f.restype = ctypes.c_size_t
     f.argtypes = [ctypes.c_int] * len(ints)
-    return int(f(*ints))
+    with torch.cuda.device(device):
+        return int(f(*ints))
 
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+class _Stream(ctypes.c_void_p):
+    """A stream handle that carries its device, for ``launch``."""
+
+    device: torch.device
+
+
+def stream(device: torch.device | torch.Tensor) -> ctypes.c_void_p:
+    """The current stream of ``device`` (or of the device a tensor is on),
+    not of the current device."""
+    if torch.is_tensor(device):
+        device = device.device
+    s = torch.cuda.current_stream(device)
+    out = _Stream(s.cuda_stream)
+    out.device = s.device
+    return out
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None) -> None:

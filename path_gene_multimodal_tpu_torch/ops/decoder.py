@@ -547,7 +547,7 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     cuda.launch(
         "decoder_conv", "decoder_conv_launch", cuda.ptr(xb), cuda.ptr(sb), cuda.ptr(wl),
         cuda.ptr(b), cuda.ptr(ln_scale), cuda.ptr(ln_bias), cuda.ptr(out),
-        bsz, h, wd, cx, cs, cout, int(exact_gelu), *geo.launch_args(), cuda.stream(),
+        bsz, h, wd, cx, cs, cout, int(exact_gelu), *geo.launch_args(), cuda.stream(xb),
     )
     decoder_conv.launches += 1
     return out
@@ -557,8 +557,7 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
 def _k7_slots(cout: int, device: torch.device) -> int:
     """Blocks of K7's kernel for ``cout`` that fit the card at once, in
     whole clusters (the kernel's own occupancy query)."""
-    with torch.cuda.device(device):
-        n = cuda.size_query("decoder_conv", "decoder_conv_slots", cout)
+    n = cuda.size_query("decoder_conv", "decoder_conv_slots", device, cout)
     if n <= 0:
         raise RuntimeError(f"decoder_conv: no cluster of the cout {cout} kernel fits the card")
     return n
@@ -591,7 +590,7 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     cuda.launch(
         "conv64", "final_conv_gelu_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
-        cuda.stream(),
+        cuda.stream(xb),
     )
     final_conv_gelu.launches += 1
     return out
@@ -618,7 +617,7 @@ def upsample_final(x, w, b, exact_gelu: bool = False):
     cuda.launch(
         "upsample_conv", "upsample_final_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
-        cuda.stream(),
+        cuda.stream(xb),
     )
     upsample_final.launches += 1
     return out
@@ -650,7 +649,7 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     cuda.launch(
         "upsample_conv", "final_heads_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(wh), cuda.ptr(bh), cuda.ptr(out), bsz, h, wd, cin, cout, n_out,
-        int(exact_gelu), *geo.launch_args(), cuda.stream(),
+        int(exact_gelu), *geo.launch_args(), cuda.stream(xb),
     )
     final_heads.launches += 1
     return out
@@ -710,7 +709,7 @@ def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
     cuda.launch(
         "conv64", "composite_final_heads_launch", cuda.ptr(xb), cuda.ptr(wc),
         cuda.ptr(bias4), cuda.ptr(wh_bd), cuda.ptr(bh4), cuda.ptr(out), bsz, h, wd, cin, c4, n4,
-        int(exact_gelu), *geo.launch_args(), cuda.stream(),
+        int(exact_gelu), *geo.launch_args(), cuda.stream(xb),
     )
     composite_final_heads.launches += 1
     return out

@@ -175,7 +175,7 @@ def marker_watershed(
         "flood", "flood_launch",
         cuda.ptr(d), cuda.ptr(mk), cuda.ptr(m), cuda.ptr(out), cuda.ptr(scratch),
         cuda.ptr(counts), b, h, w, levels, max_rounds, geo.threads, geo.wpr, geo.smem_bytes,
-        cuda.stream(),
+        cuda.stream(d),
     )
     marker_watershed.launches += 1
     return out

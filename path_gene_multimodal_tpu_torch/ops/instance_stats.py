@@ -198,7 +198,7 @@ def _launch(lbl, tp, sums, mins, geo: InstanceStatsTiling) -> None:
     cuda.launch(
         "instance_stats", "instance_stats_launch",
         cuda.ptr(lbl), cuda.ptr(tp), cuda.ptr(sums), cuda.ptr(mins), geo.batch, geo.h, geo.w,
-        geo.slots, geo.num_types, _c_sum(geo.num_types), *geo.launch_args(), cuda.stream(),
+        geo.slots, geo.num_types, _c_sum(geo.num_types), *geo.launch_args(), cuda.stream(lbl),
     )
 
 

@@ -11,7 +11,9 @@ features on the device until one copy at the end, and write
 ``.npy`` sidecar. With the planar feed (``EmbeddingConfig.planar_feed``,
 a reader with ``supports_planar``), JPEG tiles cross to the card as raw
 4:2:0 planes, half the bytes of RGB, and ``ops.jpegcolor.ycbcr420_to_rgb``
-finishes their decode there.
+finishes their decode there. With an encoder over a mesh
+(``ImageEncoder(mesh=)``), the batch is rounded down to a multiple of the
+mesh's shards and the feed is RGB, as in the JAX package's mesh branch.
 
 Step 3, ``run_create_class_embeddings`` (ref ``create_embedding.py:13-69``):
 tokenize the class prompts, run the text tower once, save
@@ -85,9 +87,16 @@ def run_extract_features(
         # the ViT-H Virchow2 tower has its own batch (see
         # EmbeddingConfig.virchow2_batch_size) — clamp to it
         batch = min(batch, cfg.embedding.virchow2_batch_size)
+    mesh = getattr(encoder, "mesh", None)
+    if mesh is not None:
+        # a whole number of rows a shard, rounded down as the JAX package does
+        batch = max((batch // mesh.size) * mesh.size, mesh.size)
     tile = cfg.patch_size
+    # RGB under a mesh: the planar route's nearest chroma differs from the
+    # RGB decode's, and the JAX package's mesh branch feeds RGB
     planar = (
-        cfg.embedding.planar_feed
+        mesh is None
+        and cfg.embedding.planar_feed
         and tile % 2 == 0
         and getattr(slide, "supports_planar", lambda level=0: False)()
     )

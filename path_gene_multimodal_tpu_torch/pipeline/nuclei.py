@@ -30,10 +30,20 @@ The per-tile mode copies its labels and features to the host dense: its
 rows need no pixel groups, and a card's link moves a batch's maps in well
 under a millisecond. The sparse transport (``ops/instances.py``), made for
 a slow TPU link, is the sliding-window mode's (``pipeline/nuclei_wsi.py``).
+
+Data parallelism: ``NucleiModel.build(..., mesh=)`` and
+``RealNucleiModel.build(..., mesh=)`` build one model on each distinct
+device of a mesh (``parallel/mesh.py``); each batch is split over the
+shards and each shard runs the whole ``segment_async`` (forward, K2, K3)
+and, in the per-tile mode, the crop and K4 on its own device, every
+shard's work enqueued before anything is read back, the results gathered
+in shard order on the mesh's first device. As in the JAX package's mesh
+branch there are no collectives, and the planar feed is off.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import uuid
 from concurrent.futures import ThreadPoolExecutor
@@ -72,6 +82,7 @@ from path_gene_multimodal_tpu_torch.ops.instances import (
     instance_features_batch,
 )
 from path_gene_multimodal_tpu_torch.ops.jpegcolor import ycbcr420_to_rgb
+from path_gene_multimodal_tpu_torch.parallel.mesh import Mesh, gather, run_sharded
 from path_gene_multimodal_tpu_torch.pipeline.tessellate import decode_chunk_planar
 from path_gene_multimodal_tpu_torch.utils.log import get_logger
 
@@ -97,9 +108,48 @@ def select_tiles_for_hovernet(df: pd.DataFrame) -> pd.DataFrame:
     return sel.reset_index(drop=True)
 
 
+class _Sharded:
+    """The mesh side of both nuclei models: ``mesh`` and one unsharded model
+    a distinct mesh device (``replicas``), or None and {}."""
+
+    @classmethod
+    def _on_mesh(cls, mesh: Mesh, build_one):
+        """The model over ``mesh``: ``build_one(device)`` builds each
+        replica (the same weights on each: seeded on the host or from one
+        state dict); the first device's replica's fields, its own counter."""
+        replicas = {d: build_one(d) for d in mesh.distinct}
+        return dataclasses.replace(replicas[mesh.devices[0]], mesh=mesh, replicas=replicas,
+                                   _overflow_parts=[])
+
+    def map_shards(self, fn, *batches):
+        """``fn(replica, *rows)`` on each shard of the batches with the
+        replica on its device, every shard enqueued before anything is read
+        back; the outputs gathered in shard order on ``self.device``. Without
+        a mesh, ``fn(self, *batches)``."""
+        if self.mesh is None:
+            return fn(self, *batches)
+        outs = run_sharded(self.mesh, lambda dev, *rows: fn(self.replicas[dev], *rows), *batches)
+        return gather(outs, self.device)
+
+    def cc_overflow_tiles(self, reset: bool = False) -> int:
+        """Tiles (over the batches dispatched so far, on every shard) whose
+        component count exceeded the CC slot budget; their extra components
+        were dropped."""
+        total = int(sum(int(p.sum()) for p in self._overflow_parts))
+        if reset:
+            self._overflow_parts.clear()
+        return total + sum(r.cc_overflow_tiles(reset) for r in self.replicas.values())
+
+    def segment(self, tiles_u8) -> tuple[np.ndarray, np.ndarray]:
+        """(B, S, S, 3) uint8 → (instance maps, type maps) int32 numpy."""
+        lbl, tp = self.segment_async(torch.as_tensor(np.asarray(tiles_u8)))
+        return lbl.cpu().numpy(), tp.cpu().numpy().astype(np.int32)
+
+
 @dataclass
-class NucleiModel:
-    """HoverNeXt + post-processing, built once per process on one device."""
+class NucleiModel(_Sharded):
+    """HoverNeXt + post-processing, built once per process on one device
+    (or on each device of a mesh)."""
 
     cfg: HoverNeXtConfig
     model: HoverNeXt
@@ -108,13 +158,15 @@ class NucleiModel:
     np_threshold: float = 0.5
     marker_threshold: float = 0.4
     max_instances: int = 512
+    mesh: Mesh | None = None
+    replicas: dict = field(default_factory=dict, repr=False)
     _overflow_parts: list = field(default_factory=list, repr=False)
 
     @classmethod
     def build(
         cls, cfg: HoverNeXtConfig = HOVERNEXT_TINY, state_dict: dict | None = None,
         seed: int = 0, dtype: torch.dtype = torch.bfloat16, tta: int = 4,
-        device: str | torch.device = "cuda", **kw,
+        device: str | torch.device = "cuda", mesh: Mesh | None = None, **kw,
     ) -> "NucleiModel":
         """Random weights from ``seed`` unless ``state_dict`` is given.
         Builds what the JAX package's ``NucleiModel.build`` runs on its
@@ -126,7 +178,11 @@ class NucleiModel:
         ``model.apply``). For another decoder configuration, build the
         ``HoverNeXt`` (``fused_decoder`` / ``fused_final``), call its
         ``fuse()`` and pass it to ``NucleiModel(cfg=..., model=...,
-        device=...)``."""
+        device=...)``. With a ``mesh``, one such model a distinct device of
+        it; ``device`` is then the mesh's first."""
+        if mesh is not None:
+            return cls._on_mesh(mesh, lambda d: cls.build(cfg, state_dict, seed, dtype, tta,
+                                                          device=d, **kw))
         device = torch.device(device)
         fused = dtype == torch.bfloat16
         model = HoverNeXt(cfg, fused_final="lowres" if fused else False, run_on=device)
@@ -139,19 +195,14 @@ class NucleiModel:
             model.fuse()
         return cls(cfg=cfg, model=model, device=device, tta=tta, **kw)
 
-    def cc_overflow_tiles(self, reset: bool = False) -> int:
-        """Tiles (over the batches dispatched so far) whose component count
-        exceeded the CC slot budget; their extra components were dropped."""
-        total = int(sum(int(p.sum()) for p in self._overflow_parts))
-        if reset:
-            self._overflow_parts.clear()
-        return total
-
     @torch.inference_mode()
     def segment_async(self, tiles_u8: torch.Tensor):
         """(B, S, S, 3) uint8 on the device → (labels (B, S, S) int32 dense
         ids, 0 background; types (B, S, S) uint8), enqueued on the current
-        stream without waiting for the device."""
+        stream without waiting for the device (over a mesh: on each shard's
+        device, gathered on the first)."""
+        if self.mesh is not None:
+            return self.map_shards(NucleiModel.segment_async, tiles_u8)
         pixels = tiles_u8.to(self.device, non_blocking=True).float() / 255.0
         out = tta_forward(self.model, pixels, tta=self.tta)
         np_prob = torch.softmax(out["np"], dim=-1)[..., 1]
@@ -163,14 +214,9 @@ class NucleiModel:
         self._overflow_parts.append(n_over)
         return torch.where(lbl < INF, lbl, 0), tp_cls
 
-    def segment(self, tiles_u8) -> tuple[np.ndarray, np.ndarray]:
-        """(B, S, S, 3) uint8 → (instance maps, type maps) int32 numpy."""
-        lbl, tp = self.segment_async(torch.as_tensor(np.asarray(tiles_u8)))
-        return lbl.cpu().numpy(), tp.cpu().numpy().astype(np.int32)
-
 
 @dataclass
-class RealNucleiModel:
+class RealNucleiModel(_Sharded):
     """The published hover_next layout (``models.hovernext_real.
     RealHoverNeXt``, loaded from a ``pannuke_convnextv2_tiny_3``-style
     checkpoint by ``core.checkpoints.load_hovernext_from_torch``) +
@@ -195,16 +241,22 @@ class RealNucleiModel:
     fg_threshold: float = 0.5
     seed_threshold: float = 0.8
     max_instances: int = 512
+    mesh: Mesh | None = None
+    replicas: dict = field(default_factory=dict, repr=False)
     _overflow_parts: list = field(default_factory=list, repr=False)
 
     @classmethod
     def build(
         cls, cfg: RealHoverNeXtConfig, state_dict: dict | None = None, seed: int = 0,
         dtype: torch.dtype = torch.bfloat16, tta: int = 4,
-        device: str | torch.device = "cuda", **kw,
+        device: str | torch.device = "cuda", mesh: Mesh | None = None, **kw,
     ) -> "RealNucleiModel":
         """Random weights from ``seed`` unless ``state_dict`` (the port's
-        names: ``models.weights_hovernext_real``) is given; loaded strict."""
+        names: ``models.weights_hovernext_real``) is given; loaded strict.
+        With a ``mesh``, one model a distinct device of it."""
+        if mesh is not None:
+            return cls._on_mesh(mesh, lambda d: cls.build(cfg, state_dict, seed, dtype, tta,
+                                                          device=d, **kw))
         device = torch.device(device)
         model = hovernext_real.RealHoverNeXt(cfg)
         if state_dict is None:
@@ -217,9 +269,6 @@ class RealNucleiModel:
     def __post_init__(self) -> None:
         self.inst_head, self.type_head = _pick_real_branches(self.cfg)
         self.inst_channels = {h: c for _, h, c in self.cfg.branches}[self.inst_head]
-
-    cc_overflow_tiles = NucleiModel.cc_overflow_tiles
-    segment = NucleiModel.segment
 
     def forward(self, pixels: torch.Tensor) -> dict[str, torch.Tensor]:
         """Pixels (B, S, S, 3) in [0, 1] → the TTA-averaged head maps."""
@@ -238,7 +287,10 @@ class RealNucleiModel:
     @torch.inference_mode()
     def segment_async(self, tiles_u8: torch.Tensor):
         """(B, S, S, 3) uint8 → (labels (B, S, S) int32 dense ids, 0
-        background; types (B, S, S) uint8), enqueued without waiting."""
+        background; types (B, S, S) uint8), enqueued without waiting (over
+        a mesh: on each shard's device, gathered on the first)."""
+        if self.mesh is not None:
+            return self.map_shards(RealNucleiModel.segment_async, tiles_u8)
         pixels = tiles_u8.to(self.device, non_blocking=True).float() / 255.0
         out = self.forward(pixels)
         tp_cls = out[self.type_head].argmax(dim=-1).to(torch.uint8)
@@ -343,8 +395,10 @@ def run_hovernet_pipeline_on_wsi_tiles(
     pinned = model.device.type == "cuda"
     # the planar feed: raw 4:2:0 planes to the card; a chunk it cannot
     # serve (odd coordinates, a tile that is not 4:2:0) is read as RGB
+    sharded = getattr(model, "mesh", None) is not None
     planar = (
         cfg.hovernext.planar_feed
+        and not sharded  # as in the JAX package's mesh branch
         and tile_size % 2 == 0
         and tile_size <= input_size
         and getattr(slide, "supports_planar", lambda level=0: False)()
@@ -374,11 +428,9 @@ def run_hovernet_pipeline_on_wsi_tiles(
             tiles = _planar_seg_prep(yb, cbcr, off, pad_hi)
         else:
             routes["rgb"] += 1
-        lbl, tp = model.segment_async(tiles)
-        with torch.inference_mode():
-            li = lbl[:, off : off + tile_size, off : off + tile_size].contiguous()
-            ti = tp[:, off : off + tile_size, off : off + tile_size].to(torch.int32).contiguous()
-            feats = instance_features_batch(li, ti, max_instances=model.max_instances)
+        # over a mesh each shard segments, crops and takes its statistics
+        li, feats = (model.map_shards(_labels_and_features, tiles) if sharded
+                     else _labels_and_features(model, tiles))
         # copies to the host queued behind this batch's work; the event
         # lets _process wait for this batch alone
         host_li = li.to("cpu", non_blocking=pinned)
@@ -386,8 +438,15 @@ def run_hovernet_pipeline_on_wsi_tiles(
         done = None
         if pinned:
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(model.device))
         return chunk, host_li, host_feats, done
+
+    def _labels_and_features(m, tiles: torch.Tensor):
+        lbl, tp = m.segment_async(tiles)
+        with torch.inference_mode():
+            li = lbl[:, off : off + tile_size, off : off + tile_size].contiguous()
+            ti = tp[:, off : off + tile_size, off : off + tile_size].to(torch.int32).contiguous()
+            return li, instance_features_batch(li, ti, max_instances=m.max_instances)
 
     def _process(chunk, host_li, host_feats, done) -> None:
         if done is not None:

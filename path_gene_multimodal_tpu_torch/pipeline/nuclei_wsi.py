@@ -31,9 +31,12 @@ device (``ops.instances.pack_labels_sparse`` / ``pack_features_sparse``)
 and only the packed arrays are copied to the host, behind the batch's
 work. A batch whose count exceeds its budget copies the dense tensors,
 which stay on the device until its rows are built, and later batches pack
-at the next budget of the ladder; the output is the same either way. The
-JAX package's mesh branch (dense maps, features on the host) is not
-ported.
+at the next budget of the ladder; the output is the same either way.
+
+With a model over a mesh (``NucleiModel.build(..., mesh=)``) each shard
+segments and takes K4 on its own device, and the results, gathered on the
+mesh's first device, are packed as above. The planar feed is off, as in
+the JAX package's mesh branch.
 """
 
 from __future__ import annotations
@@ -311,8 +314,10 @@ def run_hovernext_wsi(
 
     # the planar feed, per chunk: the slide-edge windows iter_windows clamps
     # inside can sit at odd coordinates, and their chunk takes the RGB route
+    sharded = getattr(model, "mesh", None) is not None
     planar = (
         hx.planar_feed
+        and not sharded
         and window % 2 == 0
         and getattr(slide, "supports_planar", lambda level=0: False)()
     )
@@ -355,7 +360,7 @@ def run_hovernext_wsi(
         evs = None
         if on_card:
             evs = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            evs[0].record()
+            evs[0].record(torch.cuda.current_stream(device))
         if isinstance(payload, tuple):
             routes["planar"] += 1
             yb, cbcr = (p.to(device, non_blocking=True) for p in payload)
@@ -363,21 +368,27 @@ def run_hovernext_wsi(
         else:
             routes["rgb"] += 1
             tiles = payload
-        lbl_dev, tp_dev = model.segment_async(tiles)
         lb = lbl_budgets[pack_level["labels"]]
         fb = feat_budgets[pack_level["features"]]
+        # over a mesh each shard segments and takes its statistics, the
+        # results gathered on the first device
+        lbl_dev, feats_dev = (model.map_shards(_labels_and_features, tiles) if sharded
+                              else _labels_and_features(model, tiles))
         with torch.inference_mode():
-            feats_dev = instance_features_batch(
-                lbl_dev.to(torch.int32), tp_dev.to(torch.int32),
-                max_instances=model.max_instances)
             packed = (*pack_labels_sparse(lbl_dev, lb), *pack_features_sparse(feats_dev, fb))
         # the packed arrays' copies ride behind this batch's work; the dense
         # tensors stay on the device for a refetch
         host = tuple({k: _to_host(v) for k, v in p.items()} if isinstance(p, dict)
                      else _to_host(p) for p in packed)
         if evs is not None:
-            evs[1].record()
+            evs[1].record(torch.cuda.current_stream(device))
         return chunk, host, evs, _DenseFallback(lbl_dev, feats_dev, lb, fb)
+
+    def _labels_and_features(m, tiles: torch.Tensor):
+        lbl, tp = m.segment_async(tiles)
+        with torch.inference_mode():
+            return lbl, instance_features_batch(lbl.to(torch.int32), tp.to(torch.int32),
+                                                max_instances=m.max_instances)
 
     def _process(chunk, host, evs, fb) -> None:
         if evs is not None:

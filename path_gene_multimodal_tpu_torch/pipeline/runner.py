@@ -17,8 +17,10 @@ The device work runs on ``models.device`` (the card unless the models were
 built with ``device="cpu"``): the tissue mask and tile fractions, both
 towers, the cosine scores, the TME distances and the polygon grids (K5
 labels each class's grid on the card). The models are built once per
-process (``PipelineModels``), not per slide. There is no data-parallel
-mesh (ROADMAP Queue 1 item 18).
+process (``PipelineModels``), not per slide; with a ``mesh``
+(``parallel/mesh.py``) the image tower is replicated over it and each
+embedding batch split over its shards, and the rest runs on its first
+device.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from path_gene_multimodal_tpu_torch.models.clip import (
 )
 from path_gene_multimodal_tpu_torch.models.tokenizer import open_tokenizer
 from path_gene_multimodal_tpu_torch.models.vit_timm import TimmViTConfig
+from path_gene_multimodal_tpu_torch.parallel.mesh import Mesh
 from path_gene_multimodal_tpu_torch.pipeline import embed as embed_stage
 from path_gene_multimodal_tpu_torch.pipeline import overlay as overlay_stage
 from path_gene_multimodal_tpu_torch.pipeline import polygons as polygon_stage
@@ -93,13 +96,18 @@ class PipelineModels:
         seed: int = 0,
         weights_fingerprint: str | None = None,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ) -> "PipelineModels":
         """The towers on ``device``: ``vision_cfg`` (default CLIP ViT-B/16,
         or the CLIP-style Virchow2 stand-in when ``cfg.model_type`` starts
         with "virchow"; a ``TimmViTConfig`` is the real Virchow2 tower) in
         ``cfg.embedding.dtype``, the text tower in f32; state dicts in the
         port's names, else seeded random weights (``seed``, ``seed + 1``).
-        Either Virchow2 tower normalizes with the ImageNet statistics."""
+        Either Virchow2 tower normalizes with the ImageNet statistics. With
+        a ``mesh``, the image tower runs over it and the text tower on its
+        first device (``device`` is then that one)."""
+        if mesh is not None:
+            device = mesh.devices[0]
         virchow = cfg.model_type.lower().startswith("virchow")
         if vision_cfg is None:
             vision_cfg = VIRCHOW2 if virchow else CLIP_VIT_B16
@@ -110,7 +118,7 @@ class PipelineModels:
             image_encoder=ImageEncoder(
                 vision_cfg, state_dict=vision_state_dict, dtype=dtype, seed=seed,
                 mean=IMAGENET_MEAN if imagenet else CLIP_MEAN,
-                std=IMAGENET_STD if imagenet else CLIP_STD, device=device,
+                std=IMAGENET_STD if imagenet else CLIP_STD, device=device, mesh=mesh,
             ),
             text_encoder=TextEncoder(text_cfg, state_dict=text_state_dict, seed=seed + 1,
                                      device=device),

@@ -2,9 +2,11 @@
 loaders (``core/checkpoints.py``, ``models/weights*.py``) against the JAX
 package's: usage errors, input resolution, a ``--device cpu`` WSI run
 equal to a direct ``run_hovernext_wsi`` call, a JAX converted-checkpoint
-``.npz``, the published real layout's loading, and the refusals (``--dp``,
-no GPU)."""
+``.npz``, the published real layout's loading, ``--dp`` over 8 CPU shards
+in both modes equal to the run without it, and the refusals (a batch that
+does not divide the ``--dp`` mesh, no GPU)."""
 
+import contextlib
 import logging
 
 import numpy as np
@@ -71,8 +73,101 @@ def test_usage_errors_exit_2_as_jax(tmp_path, small):
     for name, argv in _usage_cases(tmp_path, p).items():
         assert tcli.main(argv) == 2, name
         assert jcli.main(argv) == 2, name
-    # not ported: --dp (multi-device) exits 2 before anything is built
-    assert tcli.main(["--input", str(p), "--output", str(tmp_path), "--dp"]) == 2
+    # --dp with a --batch-size that does not divide the mesh (8 devices: JAX's
+    # virtual CPU mesh, the port's 8 CPU shards) exits 2 with JAX's message
+    logged = {}
+    for mod, log in ((jcli, "path_gene_multimodal_tpu.utils.log"),
+                     (tcli, "path_gene_multimodal_tpu_torch.utils.log")):
+        with _errors(log) as errs:
+            with _cpu_shards(8):
+                extra = ["--device", "cpu"] if mod is tcli else []
+                assert mod.main(["--input", str(p), "--output", str(tmp_path / "dp"), "--dp",
+                                 "--batch-size", "12", *extra]) == 2
+        logged[mod] = errs
+    assert logged[tcli] == logged[jcli] == [
+        "--batch-size 12 is not a multiple of the 8-device mesh (pick a batch size divisible by 8)"]
+
+
+@contextlib.contextmanager
+def _errors(module: str):
+    """The messages logged at ERROR by a package's logger meanwhile."""
+    import importlib
+
+    logger = importlib.import_module(module).get_logger()
+    errs = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda record: errs.append(record.getMessage())
+    logger.addHandler(handler)
+    try:
+        yield errs
+    finally:
+        logger.removeHandler(handler)
+
+
+@contextlib.contextmanager
+def _cpu_shards(n: int):
+    """The port's ``--dp`` mesh as ``n`` shards on the CPU; yields the
+    meshes ``dp_mesh_for_batch`` built meanwhile."""
+    from path_gene_multimodal_tpu_torch.parallel import mesh
+
+    real_devices, real_make = mesh.local_devices, mesh.make_mesh
+    built = []
+    mesh.local_devices = lambda kind="cuda": [torch.device("cpu")] * n
+    mesh.make_mesh = lambda *a, **k: built.append(real_make(*a, **k)) or built[-1]
+    try:
+        yield built
+    finally:
+        mesh.local_devices, mesh.make_mesh = real_devices, real_make
+
+
+def _dp_not_dividing_exits_2(cli, argv, out, label, batch, monkeypatch):
+    """``cli.main(argv)`` over a 3-shard CPU mesh exits 2 with the message
+    JAX's ``dp_mesh_for_batch`` gives for ``batch`` on a 3-device mesh, and
+    writes nothing under ``out``."""
+    from path_gene_multimodal_tpu.parallel import mesh as jmesh
+
+    three = jmesh.make_mesh(3)
+    monkeypatch.setattr(jmesh, "make_mesh", lambda *a, **k: three)
+    with pytest.raises(ValueError) as want:
+        jmesh.dp_mesh_for_batch(batch, label=label)
+    with _errors("path_gene_multimodal_tpu_torch.utils.log") as errs, _cpu_shards(3):
+        assert cli.main(argv) == 2
+    assert errs == [str(want.value)]
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("mode", ["wsi", "tiles"])
+def test_cli_dp_equals_run_without_dp(tmp_path, small, mode):
+    """``--dp --device cpu`` over 8 CPU shards (the model on each, each batch
+    of 8 split one a shard) writes the table, and in the WSI mode the map,
+    that the same run without ``--dp`` writes."""
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei_wsi import load_instance_map
+
+    p, ckpt, _ = small
+    extra = []
+    if mode == "tiles":
+        ann = tmp_path / "cli_annotations_with_coords.csv"
+        pd.DataFrame([{"tile_index": i, "x": x, "y": y, "predicted_class": "Tumor",
+                       "in_tme_roi": True} for i, (x, y) in enumerate(
+                           [(0, 0), (224, 0), (0, 224), (224, 224), (376, 0), (376, 224)])]
+                     ).to_csv(ann, index=False)
+        extra = ["--annotations-csv", str(ann)]
+    outs = {}
+    for dp in ([], ["--dp"]):
+        out = outs[bool(dp)] = tmp_path / ("dp" if dp else "one")
+        with _cpu_shards(8) as built:
+            assert tcli.main(["--input", str(p), "--output", str(out), "--mode", mode,
+                              "--device", "cpu", "--batch-size", "8", "--tta", "1",
+                              "--checkpoint", str(ckpt), *extra, *dp]) == 0
+        assert [m.size for m in built] == ([8] if dp else [])
+    got, want = (pd.read_parquet(outs[d] / "cli_hovernet_nuclei_wsi.parquet")
+                 .drop(columns=["nuc_id", "tile_path"]) for d in (True, False))
+    assert len(want) > 5
+    pd.testing.assert_frame_equal(got, want)
+    if mode == "wsi":
+        for suffix in (".npz", ".zip"):
+            np.testing.assert_array_equal(load_instance_map(outs[True] / f"cli_pinst_pp{suffix}"),
+                                          load_instance_map(outs[False] / f"cli_pinst_pp{suffix}"))
 
 
 def test_cuda_default_refused_without_a_gpu(tmp_path, small):

@@ -65,7 +65,7 @@ def test_port_imports_no_jax():
                 "ops.scatter", "pipeline.molecular", "cli.molecular_loop", "models.vit_timm",
                 "models.weights_vit_timm", "pipeline.legacy", "pipeline.altpaths",
                 "models.fusion", "models.weights_fusion", "parallel.train",
-                "cli.fusion_train_demo"):
+                "cli.fusion_train_demo", "parallel.mesh", "parallel.halo", "cli.batch_run"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 

@@ -10,6 +10,7 @@ the same artifact names), the overlays' ``jet`` against matplotlib's, and
 
 import dataclasses
 import json
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +33,7 @@ from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
 from path_gene_multimodal_tpu_torch.models.resnet import IDaRSEnsemble, ResNetConfig, seeded_resnet
 from path_gene_multimodal_tpu_torch.ops.scatter import footprint_counts, splat_prob_map
 from path_gene_multimodal_tpu_torch.pipeline import molecular as tmol
+from test_torch_hovernext_infer import _cpu_shards, _dp_not_dividing_exits_2
 
 ATOL, RTOL = 5e-4, 1e-3
 MAP_ATOL = 1e-6
@@ -186,13 +188,36 @@ def tree(slides, tmp_path, monkeypatch):
     return dict(outroot=outroot, wdir=wdir, bad=bad, base=base)
 
 
-def test_molecular_loop_cli(tree):
+def test_molecular_loop_cli_dp_equals_run_without_dp(tree, tmp_path):
+    """``--dp --device cpu`` over 8 CPU shards (each tile batch split over
+    them): the molecular CSV and the overlays of the run without ``--dp``,
+    byte for byte."""
+    outs = {}
+    for dp in ([], ["--dp"]):
+        out = outs[bool(dp)] = tmp_path / ("dp" if dp else "one")
+        shutil.copytree(tree["outroot"], out)
+        args = tree["base"][:2] + ["--outroot", str(out), "--tasks", "msi", "--weights-dir",
+                                   str(tree["wdir"]), "--device", "cpu", *dp]
+        with _cpu_shards(8) as built:
+            assert ml.main(args) == 0
+        assert [m.size for m in built] == ([8] if dp else [])
+    for name in ("caseA_molecular_features.csv", "caseA_msi_overlay.png",
+                 "caseA_molecular_grid.png"):
+        assert (outs[True] / "caseA" / name).read_bytes() == (
+            outs[False] / "caseA" / name).read_bytes(), name
+
+
+def test_molecular_loop_cli(tree, monkeypatch):
     base, outroot = tree["base"], tree["outroot"]
     args = base + ["--weights-dir", str(tree["wdir"])]
     if not torch.cuda.is_available():
         assert ml.main(args) == 2  # no card, no --device cpu
         assert not outroot.joinpath("success_slides.txt").exists()
-    assert ml.main(args + ["--dp", "--device", "cpu"]) == 2
+    # a molecular batch (256) that does not divide the --dp mesh (3 CPU
+    # shards here) exits 2 with JAX's message, before anything is written
+    _dp_not_dividing_exits_2(ml, args + ["--dp", "--device", "cpu"], outroot / "caseA" / "x",
+                             "molecular batch", 256, monkeypatch)
+    assert not outroot.joinpath("success_slides.txt").exists()
     assert ml.main(base + ["--weights-dir", str(tree["bad"]), "--device", "cpu"]) == 2
     assert ml.main(args + ["--device", "cpu"]) == 0
     out = outroot / "caseA"

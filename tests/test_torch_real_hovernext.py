@@ -487,6 +487,32 @@ def test_cli_real_checkpoint_matches_jax_cli(fitted, tmp_path, form, monkeypatch
     assert_maps_match(tmp_path / "j", tmp_path / "t", "one")
 
 
+def test_cli_real_checkpoint_dp_equals_run_without_dp(fitted, tmp_path):
+    """``hovernext_infer --dp --device cpu`` with the published layout (the
+    fitted 5-channel model as a ``.pt``, bf16) over 8 CPU shards on one
+    256² window: the table and the map of the run without ``--dp``."""
+    from path_gene_multimodal_tpu_torch.cli import hovernext_infer as tcli
+    from test_torch_hovernext_infer import _cpu_shards
+    from test_torch_nuclei_wsi import assert_maps_match
+
+    cfg, sd, _, _ = fitted[2][5]
+    pt = tmp_path / "real.pt"
+    torch.save({"state_dict": sd}, pt)
+    one = tmp_path / "one.npy"
+    np.save(one, fitted[0]._levels[0][384:640, 384:640])
+    tables = []
+    for out, dp in ((tmp_path / "one", []), (tmp_path / "dp", ["--dp"])):
+        with _cpu_shards(8) as built:
+            assert tcli.main(["--input", str(one), "--output", str(out), "--batch-size", "8",
+                              "--checkpoint", str(pt), "--device", "cpu", *dp]) == 0
+        assert [m.size for m in built] == ([8] if dp else [])
+        tables.append(pd.read_parquet(out / "one_hovernet_nuclei_wsi.parquet")
+                      .drop(columns=["nuc_id", "tile_path"]))
+    assert len(tables[0]) > 20
+    pd.testing.assert_frame_equal(tables[1], tables[0])
+    assert_maps_match(tmp_path / "one", tmp_path / "dp", "one")
+
+
 def test_real_nuclei_model_build_needs_the_card():
     """No fallback: without a card ``device="cuda"`` (the default) raises."""
     if torch.cuda.is_available():

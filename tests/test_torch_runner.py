@@ -44,6 +44,7 @@ from path_gene_multimodal_tpu_torch.models.weights_clip import (
 )
 from path_gene_multimodal_tpu_torch.pipeline import overlay as toverlay
 from path_gene_multimodal_tpu_torch.pipeline import runner as trunner
+from test_torch_hovernext_infer import _cpu_shards, _dp_not_dividing_exits_2
 
 ATOL, RTOL = 5e-4, 1e-3
 V = dict(image_size=224, patch_size=32, width=64, layers=2, heads=2, out_dim=32)
@@ -271,7 +272,11 @@ def test_cli_exit_codes(runs, tmp_path, monkeypatch):
     assert tcli.main(["--wsi", str(tmp_path / "nope.svs")]) == 2
     (tmp_path / "x.png").write_bytes(b"")
     assert tcli.main(["--wsi", str(tmp_path / "x.png")]) == 2
-    assert tcli.main(["--wsi", str(runs["path"]), "--dp"]) == 2
+    # an embedding batch (512) that does not divide the --dp mesh (3 CPU
+    # shards here) exits 2 with JAX's message, before anything is written
+    _dp_not_dividing_exits_2(tcli, ["--wsi", str(runs["path"]), "--dp", "--device", "cpu",
+                                    "--outroot", str(tmp_path / "o3")], tmp_path / "o3",
+                             "embedding batch", 512, monkeypatch)
     if not torch.cuda.is_available():
         assert tcli.main(["--wsi", str(runs["path"]), "--outroot", str(tmp_path / "o")]) == 2
         assert not (tmp_path / "o").exists()
@@ -301,3 +306,26 @@ def test_cli_exit_codes(runs, tmp_path, monkeypatch):
         runs["jres"].out_dir / f"{STEM}_features.h5")["features"], atol=ATOL, rtol=RTOL)
     assert (tmp_path / "cli" / STEM / f"{STEM}.geojson").exists()
     assert tcli.main(["--outroot", str(tmp_path / "cli"), "--device", "cpu"]) == 0  # done
+    # --dp over 8 CPU shards: the run's artifacts (features and scores at the
+    # bar, the rest byte for byte)
+    with _cpu_shards(8) as built:
+        assert tcli.main(["--outroot", str(tmp_path / "dp"), "--weights", str(cpath),
+                          "--device", "cpu", "--no-locks", "--dp"]) == 0
+    assert [m.size for m in built] == [8]
+    _dp_artifacts_equal(tmp_path / "dp" / STEM, tmp_path / "cli" / STEM, list(base.classes))
+
+
+def _dp_artifacts_equal(got, want, classes):
+    """A ``--dp`` run's slide directory against the run's without it: the
+    same files; features within 1e-5 (the shards' products are smaller); the
+    score columns at the file's bar and every other column exact; the
+    GeoJSON, masks and overlays byte for byte."""
+    assert _listing(got) == _listing(want)
+    fa = read_features_h5(got / f"{STEM}_features.h5")["features"]
+    fb = read_features_h5(want / f"{STEM}_features.h5")["features"]
+    np.testing.assert_allclose(fa, fb, atol=1e-5)
+    for name in (f"{STEM}_annotations.csv", f"{STEM}_annotations_with_coords.csv"):
+        _frames_equal(pd.read_csv(got / name), pd.read_csv(want / name), classes)
+    for name in _listing(want):
+        if name.endswith((".geojson", ".png")):
+            assert (got / name).read_bytes() == (want / name).read_bytes(), name
