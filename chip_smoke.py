@@ -310,9 +310,39 @@
    fusion batch, against the one-process run (losses rtol 1e-5, the
    parameters at the replay bar). Prints a ``dp`` JSON line; K1-K5 get
    ``launches_by_path["dp"]``.
+14. the walkthrough, the converters and the cohort CLIs (``_cohort``): (a)
+   ``cli.full_pipeline_demo.main([out])`` in this process, with the counts
+   set to 0 just before and read just after and each step's launches and
+   seconds caught by spies on the pipeline functions it calls: exit 0,
+   K1-K4 launched in its nuclei step, K5 in its islands step (its runner,
+   as the JAX demo's, sets ``area_min_tiles=0`` and runs none), every
+   artifact the JAX package's demo lists (``full_pipeline_demo.ARTIFACTS``)
+   there; every K1-K5 call of the walkthrough held against its plain
+   version on its own inputs (``_kernel_checks``: K1 within 2 bf16 ulp +
+   K1_ATOL, K2, K3 and K5 labels and counts equal, K4 bit for bit); every
+   kernel row gets ``launches_by_path["cohort"]``. The seeded HoverNeXt
+   finds no nuclei, so K2-K4 see empty masks there: the main path's fitted
+   model then runs the nuclei step over the walkthrough's TME tiles under
+   the same checks, and must find nuclei; (b) a seeded full-width CLIP
+   ViT-B/16 checkpoint (vision + text in OpenAI names) saved with
+   ``torch.save``, through ``cli.convert_weights`` in a child process, the
+   artifact read back by ``load_converted`` and mapped through the
+   ``*_from_jax`` functions equal to the checkpoint exactly (seconds and
+   MB; the other kinds' round trips are the CPU tests'); ``cli.main
+   --weights clip.npz`` in a child process on the smoke TIFF, its features
+   H5 equal bit for bit to ``run_extract_features`` in this process with
+   the same weights over the CLI's tessellation; (c) ``cli.graph_build`` on
+   the main path's nuclei table (nodes and edges equal to
+   ``build_cell_graph`` here), ``cli.cohort_summary`` over an OUTROOT
+   holding the walkthrough's and the runner phase's slide directories (one
+   row a slide, its counts equal to the artifacts read directly),
+   ``cli.slide_info --json`` on both slides (levels equal to the reader's),
+   ``cli.generate_slide_list`` and ``cli.validate_setup
+   --require-accelerator`` in a child process (exit 0). Prints a
+   ``cohort`` JSON line.
 
 Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner``, ``molecular``,
-``altpaths``, ``fusion`` and ``dp`` JSON lines, the script's seconds, the slice's tiles/s, the
+``altpaths``, ``fusion``, ``dp`` and ``cohort`` JSON lines, the script's seconds, the slice's tiles/s, the
 kernels' JSON line and the card's name and power limit, then, as the last line, ``{"ok":
 true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
@@ -351,13 +381,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from path_gene_multimodal_tpu_torch.utils.flops import (
+    PEAK_BF16_FLOPS_H100,
+    PEAK_F32_FLOPS_H100,
+    PEAK_HBM_BYTES_H100,
+    resnet_flops,
+    vit_flops,
+)
+
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12  # non-tensor f32; also used for the int32 scalar work
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W; utils/flops.py);
+# the non-tensor f32 rate also stands for the int32 scalar work
+PEAK_BYTES = PEAK_HBM_BYTES_H100
+PEAK_BF16 = PEAK_BF16_FLOPS_H100
+PEAK_F32 = PEAK_F32_FLOPS_H100
 
 SLIDE = dict(width=6144, height=6144, seed=11, n_blobs=6, nuclei_per_blob=3000)
 N_TILES = 256  # two full batches of 128
@@ -442,6 +481,15 @@ FUSION_SLIDES, FUSION_MAX_TILES, FUSION_FEAT_DIM, FUSION_GENES = 512, 1024, 512,
 FUSION_STEPS, FUSION_CKPT, FUSION_REPLAY_STEPS, FUSION_LR = 120, 60, 3, 1e-3
 PROBE_TILES, PROBE_REPLAY_TILES, PROBE_FROZEN_STEPS, PROBE_FULL_STEPS = 64, 8, 20, 3
 PROBE_LR, PROBE_FULL_LR = 1e-3, 3e-6
+# the cohort phase: what the JAX package's examples/full_pipeline_demo.py lists
+# in the slide's directory (the per-class PNG aside, named after the class
+# that won), and the walkthrough's pipeline calls caught as its steps
+COHORT_STEPS = (("runner", "runner", "run_one_wsi"),
+                ("nuclei", "nuclei", "run_hovernet_pipeline_on_wsi_tiles"),
+                ("molecular", "molecular", "extract_molecular_features"),
+                ("graph", "graph", "build_cell_graph"),
+                ("graph_stats", "graph_stats", "analyze_graph"),
+                ("islands", "morphology", "process_one_slide_make_csv_and_plot"))
 # the training replays' bars (tests/test_torch_fusion.py): the losses (rtol),
 # the parameters (atol, rtol; see _params_off)
 TRAIN_LOSS_RTOL, TRAIN_ATOL, TRAIN_RTOL = 1e-4, 5e-4, 1e-3
@@ -1131,40 +1179,17 @@ def _table_failures(nuclei, patch: int, what: str) -> list[str]:
 
 def _vit_flops(cfg, images: int) -> float:
     """FLOP (2 per multiply-add) of the tower's products for ``images``
-    tiles: the patch embed, per layer the fused QKV, QK^T, PV, the output
-    and both MLP products over every token (cls and registers included),
-    and the projection. A timm config's MLP is fc1 (width → mlp_hidden) and
-    fc2 (mlp_hidden, halved for SwiGLU, → width); a CLIP config's is 2 x
-    width x width * mlp_ratio."""
-    n, d, g, p = cfg.seq_len, cfg.width, cfg.grid, cfg.patch_size
-    if hasattr(cfg, "mlp_hidden"):  # models.vit_timm.TimmViTConfig
-        fc2_in = cfg.mlp_hidden // 2 if cfg.mlp_type == "swiglu" else cfg.mlp_hidden
-        mlp, proj = d * (cfg.mlp_hidden + fc2_in), 0
-    else:
-        mlp, proj = 2 * d * int(d * cfg.mlp_ratio), d * (cfg.out_dim or 0)
-    macs = g * g * 3 * p * p * d + proj
-    macs += cfg.layers * (4 * n * d * d + 2 * n * n * d + n * mlp)
-    return 2.0 * macs * images
+    tiles (``utils/flops.py::vit_flops``): the patch embed, per layer the
+    fused QKV, QK^T, PV, the output and both MLP products over every token
+    (cls and registers included), and the projection."""
+    return float(vit_flops(cfg).total_flops) * images
 
 
 def _resnet_macs(cfg, size: int = 224) -> int:
-    """Multiply-adds of one ResNet forward on a size² tile: the 7 x 7 stem
-    (stride 2), each block's two 3 x 3 convs and its 1 x 1 projection where
-    it has one, and the head (the pools and BatchNorms are not products)."""
-    h = size // 2
-    macs = h * h * cfg.width * 3 * 49
-    h //= 2  # max pool
-    cin = cfg.width
-    for s, blocks in enumerate(cfg.stage_sizes):
-        cout = cfg.width * 2 ** s
-        for b in range(blocks):
-            if s > 0 and b == 0:
-                h //= 2
-            macs += h * h * cout * 9 * (cin + cout)
-            if cin != cout or (s > 0 and b == 0):
-                macs += h * h * cout * cin
-            cin = cout
-    return macs + cin * cfg.num_classes
+    """Multiply-adds of one ResNet forward on a size² tile
+    (``utils/flops.py::resnet_flops``): the 7 x 7 stem, each block's two
+    3 x 3 convs and its 1 x 1 projection, and the head."""
+    return resnet_flops(cfg, size).tensor_macs
 
 
 def _graph_points(seed: int = 21) -> np.ndarray:
@@ -5874,6 +5899,448 @@ def _dp_line(res: dict) -> dict:
             "smi": res.get("smi")}
 
 
+class _kernel_checks:  # noqa: N801 (a context manager, named as one)
+    """While installed, every K1-K5 call the pipeline makes at its call
+    sites (``models/convnext.py`` K1, ``ops/watershed.py`` K2 and K3,
+    ``ops/instances.py`` K4, ``pipeline/morphology.py`` K5) is held against
+    its plain version on the same inputs on the card, at the bars of
+    sections 3 and 8: K1 within 2 bf16 ulp + K1_ATOL, K2, K3 and K5 labels
+    and counts equal (a counts tensor each where the caller passes none),
+    K4 bit for bit. The wrappers count as ever (their counters are not at
+    the call sites); the plain versions launch nothing. ``rec`` holds a
+    kernel's checked calls, worst error and the work its inputs held
+    (foreground pixels, pixels grown, live instances); ``s`` the seconds
+    the checks took, which the step timers take out."""
+
+    SITES = (("convnext_block", "models.convnext", "convnext_block"),
+             ("cc_sizes", "ops.watershed", "cc_sizes_adaptive"),
+             ("flood", "ops.watershed", "marker_watershed"),
+             ("instance_stats", "ops.instances", "instance_stats"),
+             ("label_components_tiled", "pipeline.morphology", "label_components_tiled"))
+    N_COUNTS = {"cc_sizes": 2, "flood": 3, "label_components_tiled": 2}
+
+    def __init__(self, tag: str, failures: list):
+        from path_gene_multimodal_tpu_torch.ops.cc import label_components_tiled_plain
+        from path_gene_multimodal_tpu_torch.ops.cc_sizes import cc_sizes_adaptive_plain
+        from path_gene_multimodal_tpu_torch.ops.convnext_block import convnext_block_plain
+        from path_gene_multimodal_tpu_torch.ops.flood import marker_watershed_plain
+        from path_gene_multimodal_tpu_torch.ops.instance_stats import instance_stats_plain
+
+        self.plain = {"convnext_block": convnext_block_plain, "cc_sizes": cc_sizes_adaptive_plain,
+                      "flood": marker_watershed_plain, "instance_stats": instance_stats_plain,
+                      "label_components_tiled": label_components_tiled_plain}
+        self.tag, self.failures, self.s = tag, failures, 0.0
+        self.rec = {n: {"calls": 0, "worst": 0.0, "work": 0} for n, _, _ in self.SITES}
+
+    def __enter__(self):
+        import functools
+        import importlib
+
+        self.saved = []
+        for name, mod_name, attr in self.SITES:
+            mod = importlib.import_module(f"path_gene_multimodal_tpu_torch.{mod_name}")
+            real = getattr(mod, attr)
+            setattr(mod, attr, functools.partial(self._call, name, real))
+            self.saved.append((mod, attr, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self.saved:
+            setattr(mod, attr, real)
+        return False
+
+    def _call(self, name, real, *a, **k):
+        n = self.N_COUNTS.get(name)
+        own = n is not None and k.get("counts") is None
+        if own:
+            k = {**k, "counts": torch.zeros(n, dtype=torch.int64, device=a[0].device)}
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pk = {**k, "counts": torch.zeros(n, dtype=torch.int64, device=a[0].device)} if own else k
+            ref = self.plain[name](*a, **pk)
+            counts_equal = not own or k["counts"].tolist() == pk["counts"].tolist()
+            if name == "convnext_block":
+                err, work = _excess(out, ref, K1_ATOL), a[0].numel()
+                ok = err <= 1.0
+            elif name == "instance_stats":
+                ok = _bit_equal(out, ref)
+                err = max(float((x - y).abs().max()) for x, y in zip(out, ref))
+                work = int((out[0][:, 1:, 0] > 0).sum())  # live instances (0: background)
+            else:
+                outs, refs = (out, ref) if name == "cc_sizes" else ((out,), (ref,))
+                err = float(max(int((x.long() != y.long()).sum()) for x, y in zip(outs, refs)))
+                ok = err == 0 and counts_equal
+                # K3: pixels grown (its counts); K2, K5: foreground pixels
+                work = int(k["counts"][2]) if name == "flood" else int(a[0].sum())
+        rec = self.rec[name]
+        if not ok:
+            self.failures.append(f"cohort {self.tag}: {name} call {rec['calls']} on "
+                                 f"{list(a[0].shape)} differs from its plain version ({err:.4g}; "
+                                 f"counts equal {counts_equal})")
+        rec["calls"] += 1
+        rec["worst"] = max(rec["worst"], err)
+        rec["work"] += work
+        del ref
+        torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        return out
+
+
+def _cohort_demo(tmp: Path, wrappers, failures) -> dict:
+    """Section 14 (a): the walkthrough in this process, each step's
+    launches and seconds (the kernel checks' taken out) caught by spies on
+    the pipeline functions it calls through their modules, every K1-K5
+    call held against its plain version (``_kernel_checks``)."""
+    import importlib
+
+    from path_gene_multimodal_tpu_torch.cli import full_pipeline_demo as demo
+
+    res: dict = {}
+    steps: dict = {}
+    saved = []
+    checks = _kernel_checks("walkthrough", failures)
+    for step, mod_name, fn_name in COHORT_STEPS:
+        mod = importlib.import_module(f"path_gene_multimodal_tpu_torch.pipeline.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def spy(*a, _real=real, _step=step, **k):
+            torch.cuda.synchronize()
+            before = {n: w.launches for n, w in wrappers.items()}
+            t0, c0 = time.perf_counter(), checks.s
+            out = _real(*a, **k)
+            torch.cuda.synchronize()
+            rec = steps.setdefault(_step, {"s": 0.0, "calls": 0, "launches": {}})
+            rec["s"] += time.perf_counter() - t0 - (checks.s - c0)
+            rec["calls"] += 1
+            for n, w in wrappers.items():
+                if w.launches != before[n]:
+                    rec["launches"][n] = rec["launches"].get(n, 0) + w.launches - before[n]
+            return out
+
+        setattr(mod, fn_name, spy)
+        saved.append((mod, fn_name, real))
+    out = tmp / "cohort_demo"
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with checks:
+            res["rc"] = demo.main([str(out)])
+    finally:
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
+    torch.cuda.synchronize()
+    res["s"] = time.perf_counter() - t0 - checks.s
+    res["launches"] = {n: w.launches for n, w in wrappers.items()}
+    res["steps"] = steps
+    res["other_s"] = res["s"] - sum(r["s"] for r in steps.values())  # slide, TIFF, models
+    res["checks"], res["checks_s"] = checks.rec, checks.s
+    slide_dir = out / demo.STEM
+    res["svs"], res["slide_dir"] = str(out / f"{demo.STEM}.svs"), str(slide_dir)
+    res["artifacts_missing"] = [n.format(s=demo.STEM) for n in demo.ARTIFACTS
+                                if not (slide_dir / n.format(s=demo.STEM)).exists()]
+    if (slide_dir / f"{demo.STEM}._DONE.json").exists():
+        flag = json.loads((slide_dir / f"{demo.STEM}._DONE.json").read_text())
+        res.update(status=flag.get("status"), tiles=flag.get("num_tiles"))
+    if res["rc"] != 0 or res.get("status") != "done":
+        failures.append(f"cohort: the walkthrough exited {res['rc']}, status {res.get('status')}")
+    if res["artifacts_missing"]:
+        failures.append(f"cohort: the walkthrough left out {res['artifacts_missing']}")
+    nuc = steps.get("nuclei", {}).get("launches", {})
+    for n in ("convnext_block", "cc_sizes", "flood", "instance_stats"):
+        if not nuc.get(n):
+            failures.append(f"cohort: {n} never launched in the walkthrough's nuclei step")
+    if not steps.get("islands", {}).get("launches", {}).get("label_components_tiled"):
+        failures.append("cohort: label_components_tiled never launched in the walkthrough's "
+                        "islands step")
+    for n, r in checks.rec.items():
+        if not r["calls"]:
+            failures.append(f"cohort: no {n} call of the walkthrough was checked")
+    return res
+
+
+def _cohort_fitted(demo: dict, model, tmp: Path, failures) -> dict:
+    """Section 14 (a), the second half: the main path's fitted
+    HoverNeXt-tiny through the nuclei step over the walkthrough's TME tiles
+    under ``_kernel_checks``, so that K1-K4 are held against their plain
+    versions on masks with foreground at the walkthrough's batch. Not
+    counted in the walkthrough's launches."""
+    from path_gene_multimodal_tpu_torch.cli import full_pipeline_demo
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.io.slide import open_slide
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei import run_hovernet_pipeline_on_wsi_tiles
+
+    stem = full_pipeline_demo.STEM
+    ann = Path(demo["slide_dir"]) / f"{stem}_annotations_with_coords.csv"
+    slide = open_slide(demo["svs"])
+    d = tmp / "cohort_fitted"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with _kernel_checks("fitted nuclei step", failures) as checks:
+        nuclei = run_hovernet_pipeline_on_wsi_tiles(slide, ann, d, "fitted", model,
+                                                    default_config())
+    getattr(slide, "close", lambda: None)()
+    res = {"s": time.perf_counter() - t0, "checks_s": checks.s, "nuclei": len(nuclei),
+           "checks": {n: r for n, r in checks.rec.items() if n != "label_components_tiled"}}
+    empty = [n for n, r in res["checks"].items() if not (r["calls"] and r["work"])]
+    if not len(nuclei) or empty:
+        failures.append(f"cohort: the fitted nuclei step over the walkthrough's tiles found "
+                        f"{len(nuclei)} nuclei; checked calls with no work: {empty}")
+    return res
+
+
+def _cohort_weights(tif: Path, tmp: Path, failures) -> dict:
+    """Section 14 (b): a seeded full-width CLIP checkpoint →
+    ``cli.convert_weights`` in a child process → ``load_converted`` → the
+    ``*_from_jax`` maps, equal to the checkpoint; ``cli.main --weights`` in
+    a child process against the same weights here. The other kinds' round
+    trips run in the CPU tests (``tests/test_torch_convert_weights.py``)."""
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.core.artifacts import (
+        read_features_h5, read_tessellation_h5,
+    )
+    from path_gene_multimodal_tpu_torch.core.checkpoints import load_converted, text_sidecar_path
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models import clip as mclip
+    from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
+    from path_gene_multimodal_tpu_torch.models.weights_clip import (
+        text_state_dict_from_jax, vision_state_dict_from_jax,
+    )
+    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
+    from path_gene_multimodal_tpu_torch.pipeline.runner import PipelineModels
+
+    d = tmp / "cohort_weights"
+    d.mkdir(parents=True, exist_ok=True)
+    # the towers PipelineModels.build seeds (0 and 1), so that cli.main with
+    # the artifact runs the runner phase's CLI run, whose TME ROI is not empty
+    vis, txt = mclip.VisionTower(mclip.CLIP_VIT_B16), mclip.TextTower(mclip.CLIP_TEXT)
+    mclip.init_weights(vis, torch.Generator().manual_seed(0))
+    mclip.init_weights(txt, torch.Generator().manual_seed(1))
+    ck = {**vis.state_dict(), **txt.state_dict()}
+    del vis, txt
+    src, out = d / "clip.pt", d / "clip.npz"
+    torch.save(ck, src)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.convert_weights", "clip",
+         str(src), str(out)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    rec = {"rc": proc.returncode, "convert_s": time.perf_counter() - t0,
+           "params": int(sum(t.numel() for t in ck.values())),
+           "checkpoint_mb": src.stat().st_size / 2 ** 20,
+           "artifact_mb": sum(p.stat().st_size for p in (out, text_sidecar_path(out))
+                              if p.exists()) / 2 ** 20}
+    res: dict = {"clip": rec}
+    if proc.returncode != 0:
+        failures.append(f"cohort: convert_weights clip exited {proc.returncode}: "
+                        f"{proc.stderr[-1500:]}")
+        return res
+    t0 = time.perf_counter()
+    got_kind, cfg, params = load_converted(out)
+    _, tcfg, tparams = load_converted(text_sidecar_path(out))
+    back = {**vision_state_dict_from_jax(params, cfg), **text_state_dict_from_jax(tparams, tcfg)}
+    rec.update(read_back_s=time.perf_counter() - t0, kind_read=got_kind,
+               config_equal=(cfg, tcfg) == (mclip.CLIP_VIT_B16, mclip.CLIP_TEXT),
+               equal_checkpoint=bool(set(back) == set(ck) and all(
+                   torch.equal(back[k], ck[k].to(back[k].dtype)) for k in ck)))
+    if got_kind != "clip" or not rec["equal_checkpoint"] or not rec["config_equal"]:
+        failures.append(f"cohort: the clip artifact read back as kind {got_kind}, config equal "
+                        f"{rec['config_equal']}, state dict equal to the checkpoint "
+                        f"{rec['equal_checkpoint']}")
+    src.unlink()
+    del back, params, tparams
+
+    # the CLI on the card with the converted CLIP artifact, against the same weights here
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.main", "--wsi", str(tif),
+         "--outroot", str(d / "cli_out"), "--weights", str(out), "--no-locks"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    res["cli_main"] = {"rc": proc.returncode, "s": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        failures.append(f"cohort: cli.main --weights exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+        return res
+    slide_dir = d / "cli_out" / tif.stem
+    coords = read_tessellation_h5(slide_dir / f"{tif.stem}.h5")["coords"]
+    got = read_features_h5(slide_dir / f"{tif.stem}_features.h5")["features"]
+    cfg = default_config()
+    vis_sd = {k: v for k, v in ck.items() if k.startswith("visual.")}
+    t0 = time.perf_counter()
+    models = PipelineModels.build(cfg, vision_state_dict=vis_sd, tokenizer=FallbackTokenizer(),
+                                  device="cuda")
+    direct = run_extract_features(TiffTileSlide(tif), coords, models.image_encoder, d, "unused",
+                                  cfg, write_artifacts=False)
+    res["cli_main"].update(tiles=len(coords), direct_s=time.perf_counter() - t0,
+                           features_equal_direct=bool(got.dtype == direct.dtype
+                                                      and np.array_equal(got, direct)))
+    if not res["cli_main"]["features_equal_direct"]:
+        failures.append("cohort: cli.main --weights features differ from run_extract_features "
+                        "with the same weights")
+    del models, ck
+    return res
+
+
+def _cohort_clis(demo: dict, runner: dict, nuclei_table: Path, nuclei, tif: Path, tmp: Path,
+                 failures) -> dict:
+    """Section 14 (c): the cohort CLIs on the phases' real outputs."""
+    import contextlib
+    import io
+
+    import pandas as pd
+
+    from path_gene_multimodal_tpu_torch.cli import (
+        cohort_summary, generate_slide_list, graph_build, slide_info,
+    )
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.io.slide import open_slide
+    from path_gene_multimodal_tpu_torch.pipeline.graph import build_cell_graph
+
+    d = tmp / "cohort_clis"
+    d.mkdir(parents=True, exist_ok=True)
+    res: dict = {}
+
+    # graph_build on the main path's nuclei table, against build_cell_graph here
+    t0 = time.perf_counter()
+    rc = graph_build.main(["--nuclei", str(nuclei_table), "--output", str(d / "graph")])
+    res["graph_build"] = {"rc": rc, "s": time.perf_counter() - t0}
+    if rc == 0:
+        stem = nuclei_table.stem.removesuffix("_hovernet_nuclei_wsi")
+        g = build_cell_graph(nuclei, default_config().graph, None, write_artifacts=False,
+                             device="cuda")
+        with np.load(d / "graph" / f"{stem}_cell_graph.npz", allow_pickle=True) as z:
+            same = {k: bool(np.array_equal(z[k], np.asarray(getattr(g, k))))
+                    for k in ("pos_um", "types", "edge_index", "knn_index")}
+        res["graph_build"].update(nodes=len(g.node_ids), edges=int(g.edge_index.shape[1]),
+                                  equal_in_process=same)
+    if rc != 0 or not all(res["graph_build"].get("equal_in_process", {0: False}).values()):
+        failures.append(f"cohort: graph_build {res['graph_build']}")
+
+    # cohort_summary over the walkthrough's and the runner's slide directories
+    outroot = d / "outroot"
+    outroot.mkdir()
+    dirs = [Path(demo["slide_dir"])] + (
+        [Path(runner["features_h5"]).parent] if "features_h5" in runner else [])
+    for sdir in dirs:
+        (outroot / sdir.name).symlink_to(sdir, target_is_directory=True)
+    t0 = time.perf_counter()
+    rc = cohort_summary.main(["--outroot", str(outroot)])
+    res["cohort_summary"] = {"rc": rc, "s": time.perf_counter() - t0}
+    ok = rc == 0
+    if ok:
+        df = pd.read_csv(outroot / "cohort_summary.csv")
+        rows = {}
+        for sdir in dirs:
+            s = sdir.name
+            row = df[df["stem"] == s]
+            flag = json.loads((sdir / f"{s}._DONE.json").read_text())
+            want = {"num_tiles": flag["num_tiles"],
+                    "n_annotated_tiles": len(pd.read_csv(sdir / f"{s}_annotations_with_coords.csv"))}
+            if (sdir / f"{s}_hovernet_nuclei_wsi.parquet").exists():
+                want["n_nuclei"] = len(pd.read_parquet(sdir / f"{s}_hovernet_nuclei_wsi.parquet"))
+            if (sdir / f"{s}_graph_stats.json").exists():
+                want["graph_edges"] = json.loads(
+                    (sdir / f"{s}_graph_stats.json").read_text())["n_edges"]
+            if (sdir / f"{s}_molecular_features.csv").exists():
+                want["mean_msi_prob"] = float(
+                    pd.read_csv(sdir / f"{s}_molecular_features.csv")["msi_prob"].mean())
+            got = {k: (row[k].item() if len(row) == 1 and k in row else None) for k in want}
+            rows[s] = {"equal": len(row) == 1 and all(
+                got[k] == want[k] if k != "mean_msi_prob" else abs(got[k] - want[k]) < 1e-12
+                for k in want), **want}
+            ok = ok and rows[s]["equal"]
+        res["cohort_summary"].update(rows=len(df), slides=rows)
+        ok = ok and len(df) == len(dirs)
+    if not ok:
+        failures.append(f"cohort: cohort_summary {res['cohort_summary']}")
+
+    # slide_info --json on both slides, generate_slide_list over them
+    slides = d / "slides"
+    slides.mkdir()
+    for p in (Path(demo["svs"]), tif):
+        (slides / p.name).symlink_to(p)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = slide_info.main([str(slides / Path(demo["svs"]).name), str(slides / tif.name),
+                              "--json"])
+    infos = [json.loads(line) for line in buf.getvalue().splitlines()]
+    levels_equal = []
+    for info in infos:
+        sl = open_slide(info["path"])
+        levels_equal.append(info["level_dimensions"] == [list(x) for x in sl.level_dimensions])
+        getattr(sl, "close", lambda: None)()
+    res["slide_info"] = {"rc": rc, "slides": len(infos), "levels_equal_reader": levels_equal,
+                         "levels": [len(i["level_dimensions"]) for i in infos]}
+    if rc != 0 or len(infos) != 2 or not all(levels_equal):
+        failures.append(f"cohort: slide_info {res['slide_info']}")
+    rc = generate_slide_list.main(["--data-path", str(slides), "--output", str(d / "list.txt")])
+    listed = (d / "list.txt").read_text().split() if (d / "list.txt").exists() else []
+    res["generate_slide_list"] = {"rc": rc, "slides": len(listed)}
+    if rc != 0 or sorted(Path(p).name for p in listed) != sorted(p.name for p in slides.iterdir()):
+        failures.append(f"cohort: generate_slide_list {res['generate_slide_list']}")
+
+    # validate_setup in a child process, requiring the card and its kernels
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.validate_setup",
+         "--require-accelerator", "--data-path", str(slides)], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    res["validate_setup"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                             "passed": "validation PASSED" in proc.stderr}
+    if proc.returncode != 0:
+        failures.append(f"cohort: validate_setup --require-accelerator exited "
+                        f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return res
+
+
+def _cohort(tif: Path, model, nuclei, runner: dict, tmp: Path, wrappers, failures) -> dict:
+    """Section 14: the walkthrough, the converters and the cohort CLIs."""
+    res: dict = {}
+    t0 = time.perf_counter()
+    res["demo"] = _cohort_demo(tmp, wrappers, failures)
+    res["launches"] = res["demo"]["launches"]
+    if "slide_dir" in res["demo"] and res["demo"].get("rc") == 0:
+        res["fitted"] = _cohort_fitted(res["demo"], model, tmp, failures)
+    res["demo_part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["weights"] = _cohort_weights(tif, tmp, failures)
+    res["weights_part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    table = tmp / "smoke_hovernet_nuclei_wsi.parquet"
+    if "slide_dir" in res["demo"] and table.exists():
+        res["clis"] = _cohort_clis(res["demo"], runner, table, nuclei, tif, tmp, failures)
+    else:
+        res["clis"] = {}
+        failures.append("cohort: no walkthrough slide or main-path nuclei table for the CLIs")
+    res["clis_part_s"] = time.perf_counter() - t0
+    return res
+
+
+def _cohort_line(res: dict) -> dict:
+    demo, w, c = res.get("demo", {}), res.get("weights", {}), res.get("clis", {})
+    fitted = res.get("fitted", {})
+    return {
+        "phase_s": res.get("phase_s"),
+        "part_s": {k: res.get(f"{k}_part_s") for k in ("demo", "weights", "clis")},
+        "demo": {"rc": demo.get("rc"), "status": demo.get("status"), "tiles": demo.get("tiles"),
+                 "s": demo.get("s"), "other_s": demo.get("other_s"),
+                 "steps": {k: {"s": v["s"], "launches": v["launches"]}
+                           for k, v in demo.get("steps", {}).items()},
+                 "checks": demo.get("checks"), "checks_s": demo.get("checks_s"),
+                 "artifacts_missing": demo.get("artifacts_missing")},
+        "fitted": fitted,
+        "convert_clip": {f: w.get("clip", {}).get(f) for f in (
+            "convert_s", "read_back_s", "artifact_mb", "checkpoint_mb", "params",
+            "equal_checkpoint")},
+        "cli_main_weights": w.get("cli_main"),
+        "clis": c,
+        "smi": _smi(),
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6266,6 +6733,15 @@ def main(argv: list[str] | None = None) -> int:
     report["dp"] = _dp(slide, ann, sd, nuclei, tmp, report["runner"], wrappers, failures)
     dp_line = _dp_line(report["dp"])
     print(json.dumps({"dp": dp_line}), flush=True)
+
+    # -- 14. the walkthrough, the converters and the cohort CLIs -----------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["cohort"] = _cohort(tmp / "smoke.svs", model, nuclei, report["runner"], tmp,
+                               wrappers, failures)
+    report["cohort"]["phase_s"] = time.perf_counter() - t0
+    cohort_line = _cohort_line(report["cohort"])
+    print(json.dumps({"cohort": cohort_line}), flush=True)
     report["total_s"] = time.perf_counter() - T_START
     real_launches = report["real"]["launches"]
     for k in kernels:
@@ -6285,6 +6761,16 @@ def main(argv: list[str] | None = None) -> int:
                                              "and the --dp CLIs")
     failures += [f"dp: {n} never launched on the dp path" for n in DP_KERNELS
                  if not dp_launches.get(n)]
+    # every row gains the walkthrough's launches; a row without a split till
+    # now names where its count came from
+    cohort_launches = report["cohort"].get("launches", {})
+    config_kernels = {n for _, ks in CONFIGS.values() for n in ks}
+    for k in kernels:
+        first = ("decoder_configs" if k["name"] in config_kernels else
+                 "entry_point" if k["name"] == "label_components_batch" else "main")
+        k.setdefault("launches_by_path", {first: k["launches"]})
+        k["launches_by_path"]["cohort"] = cohort_launches.get(k["name"], 0)
+        k["launches"] = sum(k["launches_by_path"].values())
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
@@ -6303,6 +6789,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"altpaths": altpaths_line}))
     print(json.dumps({"fusion": fusion_line}))
     print(json.dumps({"dp": dp_line}))
+    print(json.dumps({"cohort": cohort_line}))
     print(f"total: {report['total_s']:.1f} s")
     print(f"slice: {report['tiles_per_s']:.2f} tiles/s over {N_TILES} tiles "
           f"({n_batches} batches of {cfg.hovernext.batch_size})")

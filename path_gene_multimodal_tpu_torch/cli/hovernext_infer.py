@@ -170,28 +170,24 @@ def main(argv: list[str] | None = None) -> int:
             load_hovernext_from_torch,
         )
 
-        try:
-            if args.checkpoint.endswith(".npz"):
-                kind, loaded_cfg, params = load_converted(args.checkpoint)
-                if kind != "hovernext":
-                    logger.error("%s is a %r artifact, expected kind=hovernext",
-                                 args.checkpoint, kind)
-                    return 2
-                if isinstance(loaded_cfg, RealHoverNeXtConfig):
-                    from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
-                        real_state_dict_from_jax as from_jax,
-                    )
-                else:
-                    from path_gene_multimodal_tpu_torch.models.weights_hovernext import (
-                        params_from_jax as from_jax,
-                    )
-                state_dict = from_jax(params, loaded_cfg)
+        if args.checkpoint.endswith(".npz"):
+            kind, loaded_cfg, params = load_converted(args.checkpoint)
+            if kind != "hovernext":
+                logger.error("%s is a %r artifact, expected kind=hovernext",
+                             args.checkpoint, kind)
+                return 2
+            if isinstance(loaded_cfg, RealHoverNeXtConfig):
+                from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
+                    real_state_dict_from_jax as from_jax,
+                )
             else:
-                loaded_cfg, state_dict = load_hovernext_from_torch(
-                    args.checkpoint, allow_pickle=args.allow_pickle)
-        except NotImplementedError as e:
-            logger.error("%s: %s", args.checkpoint, e)
-            return 2
+                from path_gene_multimodal_tpu_torch.models.weights_hovernext import (
+                    params_from_jax as from_jax,
+                )
+            state_dict = from_jax(params, loaded_cfg)
+        else:
+            loaded_cfg, state_dict = load_hovernext_from_torch(
+                args.checkpoint, allow_pickle=args.allow_pickle)
         mcfg = replace(loaded_cfg, input_size=cfg.hovernext.tile_size)
         real = isinstance(loaded_cfg, RealHoverNeXtConfig)
         if real:

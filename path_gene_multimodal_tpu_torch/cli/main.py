@@ -111,7 +111,7 @@ def main(argv: list[str] | None = None) -> int:
         weights_fp = file_fingerprint(args.weights)
         try:
             kind, vision_cfg, params = load_converted(args.weights)
-        except (NotImplementedError, ValueError) as e:
+        except ValueError as e:
             logger.error("%s: %s", args.weights, e)
             return 2
         if kind not in ("clip", "virchow2"):

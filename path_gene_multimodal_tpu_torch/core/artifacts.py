@@ -1,7 +1,7 @@
-"""Artifacts: a copy of the JAX package's ``core/artifacts.py`` without
-``tiles_table`` / ``export_tiles_csv``: the tessellation H5
-(``write_tessellation_h5``, ``read_tessellation_h5`` with the reference's
-five schema variants and column rules), ``infer_tile_size_from_attrs``,
+"""Artifacts: a copy of the JAX package's ``core/artifacts.py``: the
+tessellation H5 (``write_tessellation_h5``, ``read_tessellation_h5`` with
+the reference's five schema variants and column rules, ``tiles_table`` and
+its ``export_tiles_csv`` sidecar), ``infer_tile_size_from_attrs``,
 ``savez_fast``, the features H5, the GeoJSON helpers, the annotations-CSV
 contract, ``write_nuclei_table``, ``json_safe`` and
 ``sanitize_for_filename``. The H5 files go through the port's own HDF5
@@ -159,6 +159,50 @@ def infer_tile_size_from_attrs(attrs: Mapping[str, Any]) -> int | None:
             except (TypeError, ValueError):
                 continue
     return None
+
+
+def tiles_table(path: str | Path) -> tuple[pd.DataFrame, dict[str, Any]]:
+    """Tessellation H5 → analysis-ready DataFrame + metadata dict — the
+    ``tiling_info.py:1-58`` ``read_tiles`` surface over this module's
+    5-variant coord reader:
+
+    - all coord columns under their interpreted names (explicit ``columns``
+      attr, else width defaults: 2→x,y; 3→x,y,level; 4→x,y,w,h);
+    - ``w``/``h`` derived from the ``tile_size``/``patch_size``/``size``
+      attr when the dataset itself carries none;
+    - box corners ``x1,y1,x2,y2`` when x/y/w/h are all known;
+    - useful global attrs (level, mpp, stride, downsample, slide_id)
+      tacked on as constant columns (tiling_info.py:52-54).
+    """
+    data = read_tessellation_h5(path)
+    attrs = data["attrs"]
+    df = pd.DataFrame(data["raw_coords"], columns=data["columns"])
+    if "level" not in df.columns and data["level"] is not None:
+        df["level"] = data["level"]
+    if "w" not in df.columns and "h" not in df.columns:
+        ts = infer_tile_size_from_attrs(attrs)
+        if ts is not None:
+            df["w"] = ts
+            df["h"] = ts
+    if {"x", "y", "w", "h"}.issubset(df.columns):
+        df["x1"] = df["x"]
+        df["y1"] = df["y"]
+        df["x2"] = df["x"] + df["w"]
+        df["y2"] = df["y"] + df["h"]
+    for k in ("level", "mpp", "stride", "downsample", "slide_id"):
+        if k in attrs and k not in df.columns:
+            v = attrs[k]
+            df[k] = v.item() if isinstance(v, np.generic) else v
+    return df, attrs
+
+
+def export_tiles_csv(path: str | Path, out: str | Path | None = None) -> Path:
+    """``<h5>.tiles.csv`` sidecar (tiling_info.py:62-64 contract)."""
+    path = Path(path)
+    df, _ = tiles_table(path)
+    out = Path(out) if out is not None else path.with_suffix(".tiles.csv")
+    df.to_csv(out, index=False)
+    return out
 
 
 def savez_fast(path: str | Path, /, compresslevel: int = 1, **arrays: Any) -> Path:

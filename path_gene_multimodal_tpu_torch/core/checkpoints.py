@@ -1,5 +1,5 @@
-"""Checkpoint ingestion: a subset of the JAX package's
-``core/checkpoints.py``.
+"""Checkpoint ingestion and the converted-checkpoint artifacts: the JAX
+package's ``core/checkpoints.py`` in the port.
 
 - ``file_fingerprint`` and ``text_sidecar_path``: a weights artifact's
   identity for the resume manifests, and where its CLIP text tower rides;
@@ -11,6 +11,17 @@
   {"a/b/c": host tensor}}``, the keys the dict path joined by ``/``, read
   back with ``weights_only=True``;
 
+- ``load_clip_from_torch``: a CLIP checkpoint (transformers ``CLIPModel``
+  or OpenAI naming) → (vision config, flax-layout vision params, text
+  config, text params), as the JAX package's; ``models.weights_clip`` maps
+  them onto the port's towers;
+- ``load_convnext_encoder_from_torch``: an FCMAE- or timm-named ConvNeXtV2
+  → (``ConvNeXtConfig``, flax-layout encoder params, the keys left over);
+- ``save_converted``: (kind, config, flax-layout params) → one ``.npz`` in
+  the JAX package's format (``p:``-prefixed keys flattened as its
+  ``_flat_key`` flattens them, a uint8 JSON ``__meta__`` of kind and
+  config, ``np.savez_compressed``), which either package's
+  ``load_converted`` reads;
 - ``load_hovernext_from_torch``: a HoverNeXt torch checkpoint → (config,
   state dict). The published smp/timm ``hover_next`` layout gives a
   ``RealHoverNeXtConfig`` and a ``models.hovernext_real.RealHoverNeXt``
@@ -25,7 +36,9 @@
   TIAToolbox ``resnet34-idars-*`` layout) → (``ResNetConfig``,
   ``models.resnet.ResNet`` state dict);
 - ``load_converted``: a ``cli/convert_weights`` ``.npz`` artifact →
-  (kind, config, numpy params): kind ``hovernext`` (a ``HoverNeXtConfig``,
+  (kind, config, numpy params): kind ``convnext`` (a ``ConvNeXtConfig``;
+  ``models.weights_hovernext.convnext_state_dict_from_jax`` makes the
+  ``ConvNeXtV2`` state dict), ``hovernext`` (a ``HoverNeXtConfig``,
   whose state dict ``models.weights_hovernext.params_from_jax`` makes, or
   with ``branches`` a ``RealHoverNeXtConfig``, whose state dict
   ``models.weights_hovernext_real.real_state_dict_from_jax`` makes),
@@ -36,7 +49,9 @@
   ``models.weights_resnet.resnet_state_dict_from_jax``).
 
 Every loader here loads strict: a checkpoint key the model does not have
-raises ``ValueError`` naming it.
+raises ``ValueError`` naming it. ``cli/convert_weights.py`` makes the
+flax-layout params that ``save_converted`` writes from the converters in
+``models/weights*.py`` directly.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ from path_gene_multimodal_tpu_torch.config import (
     HoverNeXtConfig,
     RealHoverNeXtConfig,
 )
+
 
 def file_fingerprint(path: str | Path, sample: int = 1 << 20) -> str:
     """Cheap content fingerprint of a weights artifact for resume
@@ -263,11 +279,87 @@ def load_resnet_from_torch(path: str | Path, allow_pickle: bool = False
     return cfg, _load_strict(net, sd, "ResNet")
 
 
+def load_clip_from_torch(path: str | Path, allow_pickle: bool = False):
+    """A CLIP checkpoint → (vision_cfg, vision_params, text_cfg | None,
+    text_params | None), the params in the JAX package's flax layout;
+    transformers ``CLIPModel`` or OpenAI naming. ``allow_pickle`` permits
+    the full-unpickle fallback for trusted files
+    (``models.weights.load_torch_checkpoint``)."""
+    from path_gene_multimodal_tpu_torch.models.weights import (
+        convert_clip_text,
+        convert_clip_vision,
+        infer_text_config,
+        infer_vision_config,
+        load_torch_checkpoint,
+    )
+
+    sd = load_torch_checkpoint(path, allow_pickle=allow_pickle)
+    vcfg = infer_vision_config(sd)
+    vparams = convert_clip_vision(sd, vcfg)
+    if any(k.startswith(("text_model.", "transformer.resblocks.", "token_embedding")) for k in sd):
+        tcfg = infer_text_config(sd)
+        return vcfg, vparams, tcfg, convert_clip_text(sd, tcfg)
+    return vcfg, vparams, None, None
+
+
+def load_convnext_encoder_from_torch(path: str | Path, allow_pickle: bool = False):
+    """An FCMAE- or timm-named ConvNeXtV2 checkpoint → (ConvNeXtConfig,
+    flax-layout encoder variables, the unconsumed decoder/head keys)."""
+    from path_gene_multimodal_tpu_torch.models.weights import load_torch_checkpoint
+    from path_gene_multimodal_tpu_torch.models.weights_convnext import (
+        convert_convnextv2,
+        infer_convnext_config,
+        infer_convnext_config_timm,
+    )
+
+    sd = load_torch_checkpoint(path, allow_pickle=allow_pickle)
+    if any(k.startswith("stages.0.blocks.") for k in sd):  # timm naming
+        from path_gene_multimodal_tpu_torch.models.weights_hovernext_real import (
+            convert_convnextv2_timm,
+        )
+
+        cfg = infer_convnext_config_timm(sd)
+        params, consumed = convert_convnextv2_timm(sd, cfg)
+        return cfg, {"params": params}, {k: v for k, v in sd.items() if k not in consumed}
+    cfg = infer_convnext_config(sd)
+    variables, leftover = convert_convnextv2(sd, cfg)
+    return cfg, variables, leftover
+
+
+_CONVERTED_KINDS = ("clip", "clip_text", "virchow2", "hovernext", "resnet34", "convnext")
+
+
+def _npz_path(path: Path) -> Path:
+    """Append '.npz' without Path.with_suffix (dotted stems survive)."""
+    return path if path.name.endswith(".npz") else path.parent / (path.name + ".npz")
+
+
+def save_converted(kind: str, cfg: Any, variables: Any, path: str | Path) -> Path:
+    """Persist a converted checkpoint as the JAX package does: flattened
+    params (``p:`` keys) plus a JSON meta record (``__meta__``: kind and
+    the dataclass config) in one compressed npz at ``<path>[.npz]``."""
+    import dataclasses
+
+    if kind not in _CONVERTED_KINDS:
+        raise ValueError(f"unknown converted-checkpoint kind {kind!r}")
+    path = _npz_path(Path(path))
+    flat = flatten_params(variables)
+    # the JAX package's order: its tree flattening visits a dict's keys sorted
+    flat = {"p:" + k: np.asarray(flat[k]) for k in sorted(flat, key=lambda k: k.split("/"))}
+    meta = {"kind": kind,
+            "config": dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else None}
+    flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **flat)
+    return path
+
+
 def load_converted(path: str | Path) -> tuple[str, Any, Any]:
     """→ (kind, config, variables) of a converted-checkpoint ``.npz``
-    (flattened ``p:`` params and a JSON ``__meta__`` record). The port
-    reads kinds ``hovernext``, ``clip``, ``clip_text``, ``virchow2`` and
-    ``resnet34``; ``convnext`` raises ``NotImplementedError``."""
+    (flattened ``p:`` params and a JSON ``__meta__`` record), written by
+    either package's ``save_converted``: kinds ``convnext``,
+    ``hovernext``, ``clip``, ``clip_text``, ``virchow2`` and
+    ``resnet34``."""
     with np.load(Path(path)) as z:
         if "__meta__" not in z.files:
             raise ValueError(
@@ -293,8 +385,10 @@ def _config_from_meta(kind: str, d: dict | None) -> Any:
         if d is None or not set(d) <= {f.name for f in fields(klass)}:
             raise ValueError(f"converted {kind} artifact: config {d} is no {klass.__name__}")
         return klass(**d)
+    if kind == "convnext":
+        return ConvNeXtConfig(depths=tuple(d["depths"]), dims=tuple(d["dims"]))
     if kind != "hovernext":
-        raise NotImplementedError(f"converted-checkpoint kind {kind!r} is not ported")
+        raise ValueError(f"unknown converted-checkpoint kind {kind!r}")
     enc = ConvNeXtConfig(depths=tuple(d["encoder"]["depths"]), dims=tuple(d["encoder"]["dims"]))
     if "branches" in d:  # the published smp/timm multi-head layout
         return RealHoverNeXtConfig(

@@ -1,10 +1,12 @@
 """The published hover_next checkpoint layout → ``RealHoverNeXtConfig`` and
 the port's ``RealHoverNeXt`` state dict.
 
-Copies of the JAX package's ``models/weights_hovernext_real.py`` pieces
-that read the layout (``infer_real_config``, ``_discover_decoders``,
-``_discover_heads``, ``_pair_branches``, ``synthesize_real_state_dict``),
-plus what the port needs beside them:
+Copies of the JAX package's ``models/weights_hovernext_real.py``
+(``infer_real_config``, ``_discover_decoders``, ``_discover_heads``,
+``_pair_branches``, ``synthesize_real_state_dict``, and the converters to
+its flax layout, ``convert_convnextv2_timm`` and ``convert_real_hovernext``,
+whose trees ``cli/convert_weights`` writes), plus what the port needs
+beside them:
 
 - ``normalize_real_state_dict``: a checkpoint's keys → the port's names.
   It strips a ``module.`` or ``model.`` wrapper, maps the bare ``encoder.``
@@ -34,7 +36,12 @@ import numpy as np
 import torch
 
 from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, RealHoverNeXtConfig
+from path_gene_multimodal_tpu_torch.models.weights import _np
 from path_gene_multimodal_tpu_torch.models.weights_convnext import (
+    _take_conv,
+    _take_dense,
+    _take_ln,
+    convert_convnextv2,
     infer_convnext_config,
     infer_convnext_config_timm,
 )
@@ -303,3 +310,100 @@ def real_state_dict_from_jax(flax_params: Mapping,
                     _bn(blk[f"conv{j}"]["bn"], f"{dec}.blocks.{i}.conv{j}.1", sd)
         _conv(p[head]["conv"], f"{head}.0", sd)
     return sd
+
+
+# ------------------------------------------- torch names → the flax layout
+
+
+def _take_bn(sd: Mapping, key: str, consumed: set[str]) -> dict:
+    consumed.update({f"{key}.weight", f"{key}.bias", f"{key}.running_mean",
+                     f"{key}.running_var"})
+    if f"{key}.num_batches_tracked" in sd:
+        consumed.add(f"{key}.num_batches_tracked")
+    return {
+        "scale": _np(sd[f"{key}.weight"]),
+        "bias": _np(sd[f"{key}.bias"]),
+        "mean": _np(sd[f"{key}.running_mean"]),
+        "var": _np(sd[f"{key}.running_var"]),
+    }
+
+
+def convert_convnextv2_timm(
+    sd: Mapping[str, np.ndarray], cfg: ConvNeXtConfig | None = None
+) -> tuple[dict, set[str]]:
+    """timm-named ConvNeXtV2 → the JAX package's ``ConvNeXtV2`` params.
+    Returns (params, consumed keys)."""
+    if cfg is None:
+        cfg = infer_convnext_config_timm(sd)
+    consumed: set[str] = set()
+    p: dict = {
+        "stem_conv": _take_conv(sd, "stem.0", consumed),
+        "stem_norm": _take_ln(sd, "stem.1", consumed),
+    }
+    for s in range(1, cfg.num_stages):
+        p[f"down{s}_norm"] = _take_ln(sd, f"stages.{s}.downsample.0", consumed)
+        p[f"down{s}_conv"] = _take_conv(sd, f"stages.{s}.downsample.1", consumed)
+    for s in range(cfg.num_stages):
+        for b in range(cfg.depths[s]):
+            t = f"stages.{s}.blocks.{b}"
+            p[f"stage{s}_block{b}"] = {
+                "dwconv": _take_conv(sd, f"{t}.conv_dw", consumed),
+                "norm": _take_ln(sd, f"{t}.norm", consumed),
+                "pwconv1": _take_dense(sd, f"{t}.mlp.fc1", consumed),
+                "pwconv2": _take_dense(sd, f"{t}.mlp.fc2", consumed),
+                "grn": {
+                    "gamma": _np(sd[f"{t}.mlp.grn.weight"]).reshape(-1),
+                    "beta": _np(sd[f"{t}.mlp.grn.bias"]).reshape(-1),
+                },
+            }
+            consumed.update({f"{t}.mlp.grn.weight", f"{t}.mlp.grn.bias"})
+    return p, consumed
+
+
+def _convert_encoder(sd: Mapping[str, np.ndarray]) -> tuple[ConvNeXtConfig, dict, set[str]]:
+    """Detect the encoder's naming, convert it, return the consumed FULL keys."""
+    for prefix in ("encoder.model.", "encoder."):
+        sub = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if "stem.0.weight" in sub:  # timm naming
+            cfg = infer_convnext_config_timm(sub)
+            p, consumed = convert_convnextv2_timm(sub, cfg)
+            return cfg, p, {prefix + k for k in consumed}
+        if "downsample_layers.0.0.weight" in sub:  # official FCMAE naming
+            cfg = infer_convnext_config(sub)
+            variables, left = convert_convnextv2(sub, cfg)
+            return cfg, variables["params"], {prefix + k for k in sub if k not in left}
+    return _encoder_cfg(sd), {}, set()  # raises: no encoder
+
+
+def convert_real_hovernext(
+    sd: Mapping[str, np.ndarray], cfg: RealHoverNeXtConfig | None = None
+) -> tuple[RealHoverNeXtConfig, dict, dict]:
+    """Full published-layout state dict → (cfg, {"params": ...}, unconsumed),
+    the JAX package's ``RealHoverNeXt`` tree."""
+    sd = _strip_wrapper(sd)
+    if cfg is None:
+        cfg = infer_real_config(sd)
+
+    _, enc_params, consumed = _convert_encoder(sd)
+    p: dict = {"encoder": enc_params}
+
+    decoders = _discover_decoders(sd)
+    heads = _discover_heads(sd, decoders)
+    san2orig = {_sanitize(d): d for d in decoders} | {_sanitize(h): h for h in heads}
+
+    for dec_san, head_san, _ in cfg.branches:
+        dec = san2orig.get(dec_san, dec_san)
+        head = san2orig.get(head_san, head_san)
+        if dec_san not in p:
+            p[dec_san] = {
+                f"block{i}": {
+                    f"conv{j}": {
+                        "conv": _take_conv(sd, f"{dec}.blocks.{i}.conv{j}.0", consumed),
+                        "bn": _take_bn(sd, f"{dec}.blocks.{i}.conv{j}.1", consumed),
+                    } for j in (1, 2)
+                } for i in range(len(cfg.decoder_channels))
+            }
+        p[head_san] = {"conv": _take_conv(sd, f"{head}.0", consumed)}
+
+    unconsumed = {k: v for k, v in sd.items() if k not in consumed}
+    return cfg, {"params": p}, unconsumed

@@ -1,8 +1,10 @@
 """ResNet34 weights between the JAX package's flax variables and the
 port's torchvision-named ``state_dict``.
 
-``resnet_state_dict_from_jax`` is the inverse of the JAX package's
-``convert_resnet34`` (``models/weights_resnet.py``): it takes the flax
+``convert_resnet34`` is a copy of the JAX package's
+(``models/weights_resnet.py``): torchvision names → the flax variables
+(``{"params": ..., "batch_stats": ...}``), what ``cli/convert_weights``
+writes. ``resnet_state_dict_from_jax`` is its inverse: it takes the flax
 variables as numpy arrays (``{"params": ..., "batch_stats": ...}``) and
 returns ``models.resnet.ResNet``'s ``state_dict``: conv kernels (kh, kw,
 cin, cout) → (cout, cin, kh, kw), BatchNorm ``scale`` → ``weight`` and
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from path_gene_multimodal_tpu_torch.models.resnet import RESNET34_IDARS, ResNetConfig
+from path_gene_multimodal_tpu_torch.models.weights import _np
 
 
 def _t(a) -> torch.Tensor:
@@ -87,3 +90,37 @@ def strip_prefixes(sd: Mapping) -> dict:
         if any(k.startswith(prefix) for k in sd):
             sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
     return sd
+
+
+def _conv(sd: Mapping, key: str) -> dict:
+    return {"kernel": _np(sd[key]).transpose(2, 3, 1, 0)}
+
+
+def _bn(sd: Mapping, prefix: str) -> tuple[dict, dict]:
+    params = {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+    stats = {"mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])}
+    return params, stats
+
+
+def convert_resnet34(sd: Mapping[str, np.ndarray], cfg: ResNetConfig = RESNET34_IDARS) -> dict:
+    """torchvision names → ``{"params": ..., "batch_stats": ...}`` of the JAX
+    package's ``ResNet`` (a block has a projection where the checkpoint
+    has ``downsample.0.weight``)."""
+    sd = strip_prefixes(sd)
+    params: dict = {"stem_conv": _conv(sd, "conv1.weight")}
+    stats: dict = {}
+    params["stem_bn"], stats["stem_bn"] = _bn(sd, "bn1")
+    for s, blocks in enumerate(cfg.stage_sizes):
+        for b in range(blocks):
+            t, name = f"layer{s + 1}.{b}", f"stage{s}_block{b}"
+            blk_p: dict = {"conv1": _conv(sd, f"{t}.conv1.weight"),
+                           "conv2": _conv(sd, f"{t}.conv2.weight")}
+            blk_s: dict = {}
+            blk_p["bn1"], blk_s["bn1"] = _bn(sd, f"{t}.bn1")
+            blk_p["bn2"], blk_s["bn2"] = _bn(sd, f"{t}.bn2")
+            if f"{t}.downsample.0.weight" in sd:
+                blk_p["down_conv"] = _conv(sd, f"{t}.downsample.0.weight")
+                blk_p["down_bn"], blk_s["down_bn"] = _bn(sd, f"{t}.downsample.1")
+            params[name], stats[name] = blk_p, blk_s
+    params["fc"] = {"kernel": _np(sd["fc.weight"]).T, "bias": _np(sd["fc.bias"])}
+    return {"params": params, "batch_stats": stats}

@@ -1,9 +1,10 @@
 """timm ViT (Virchow2) checkpoints: the layout test, the config read from
-a checkpoint's shapes, and the JAX package's parameters → the port's
-``state_dict``.
+a checkpoint's shapes, the converter to the JAX package's flax layout, and
+the JAX package's parameters → the port's ``state_dict``.
 
-``is_timm_vit_layout`` and ``infer_timm_vit_config`` are copies of the JAX
-package's (``models/weights.py:215-278``). The port's ``TimmViT`` carries
+``is_timm_vit_layout``, ``infer_timm_vit_config`` and ``convert_timm_vit``
+are copies of the JAX package's (``models/weights.py:215-352``);
+``convert_timm_vit``'s tree is what ``cli/convert_weights`` writes. The port's ``TimmViT`` carries
 timm's own names, so a checkpoint needs no renaming: ``timm_state_dict``
 strips a ``module.`` / ``model.`` wrapper and gives the tokens timm's
 shapes. ``timm_state_dict_from_jax`` is the inverse of the JAX package's
@@ -17,10 +18,13 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from path_gene_multimodal_tpu_torch.models.vit_timm import _HEADS_BY_WIDTH, TimmViTConfig
+from path_gene_multimodal_tpu_torch.models.weights import _np
 from path_gene_multimodal_tpu_torch.utils.log import get_logger
 
 
@@ -76,14 +80,91 @@ def infer_timm_vit_config(sd: Mapping[str, np.ndarray]) -> TimmViTConfig:
     )
 
 
+def _strip_wrapper(sd: Mapping) -> dict:
+    """Drop a ``module.`` / ``model.`` wrapper around the timm names."""
+    for prefix in ("module.", "model."):
+        if any(k.startswith(prefix + "patch_embed.") for k in sd):
+            sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
+    return dict(sd)
+
+
+def convert_timm_vit(
+    sd: Mapping[str, np.ndarray], cfg: TimmViTConfig | None = None
+) -> tuple[TimmViTConfig, dict, dict]:
+    """timm ViT (Virchow2) state dict → (TimmViTConfig, {"params": ...},
+    unconsumed). Zero unconsumed keys on a clean checkpoint; ``head.*`` of
+    num_classes=0 exports is absent by construction. A given ``cfg`` whose
+    position count disagrees with the checkpoint's ``pos_embed`` takes the
+    checkpoint's ``pos_embed_mode`` (with a warning), or raises when
+    neither mode fits."""
+    sd = _strip_wrapper(sd)
+    if cfg is None:
+        cfg = infer_timm_vit_config(sd)
+    else:
+        n_pos = int(np.asarray(sd["pos_embed"]).shape[-2])
+        if n_pos != cfg.pos_len:
+            grid2 = cfg.grid * cfg.grid
+            if n_pos == grid2:
+                mode = "patches_only"
+            elif n_pos == grid2 + 1 + cfg.num_registers:
+                mode = "prefix"
+            else:
+                raise ValueError(
+                    f"pos_embed has {n_pos} positions; config expects {cfg.pos_len} (grid "
+                    f"{cfg.grid}², registers {cfg.num_registers}) — architecture mismatch"
+                )
+            get_logger().warning(
+                "checkpoint pos_embed covers %d positions — overriding pos_embed_mode=%r "
+                "(config said %r)", n_pos, mode, cfg.pos_embed_mode,
+            )
+            cfg = dataclasses.replace(cfg, pos_embed_mode=mode)
+    consumed: set[str] = set()
+
+    def take(key: str) -> np.ndarray:
+        consumed.add(key)
+        return _np(sd[key])
+
+    def lin(prefix: str) -> dict:
+        out = {"kernel": take(f"{prefix}.weight").T}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = take(f"{prefix}.bias")
+        return out
+
+    def ln(prefix: str) -> dict:
+        return {"scale": take(f"{prefix}.weight"), "bias": take(f"{prefix}.bias")}
+
+    p: dict = {
+        "patch_embed": {
+            "kernel": take("patch_embed.proj.weight").transpose(2, 3, 1, 0),
+            "bias": take("patch_embed.proj.bias"),
+        },
+        "cls_token": take("cls_token").reshape(-1),
+        "pos_embed": take("pos_embed").reshape(cfg.pos_len, cfg.width),
+        "norm": ln("norm"),
+    }
+    if cfg.num_registers:
+        p["reg_token"] = take("reg_token").reshape(cfg.num_registers, cfg.width)
+    for i in range(cfg.layers):
+        t = f"blocks.{i}"
+        blk = {
+            "norm1": ln(f"{t}.norm1"),
+            "attn": {"qkv": lin(f"{t}.attn.qkv"), "proj": lin(f"{t}.attn.proj")},
+            "norm2": ln(f"{t}.norm2"),
+            "mlp": {"fc1": lin(f"{t}.mlp.fc1"), "fc2": lin(f"{t}.mlp.fc2")},
+        }
+        if cfg.use_layerscale:
+            blk["ls1"] = {"gamma": take(f"{t}.ls1.gamma")}
+            blk["ls2"] = {"gamma": take(f"{t}.ls2.gamma")}
+        p[f"block{i}"] = blk
+    unconsumed = {k: v for k, v in sd.items() if k not in consumed}
+    return cfg, {"params": p}, unconsumed
+
+
 def timm_state_dict(sd: Mapping[str, np.ndarray]) -> tuple[TimmViTConfig, dict[str, np.ndarray]]:
     """A timm ViT checkpoint (numpy) → (its config, the state dict in the
     port's names and shapes). Keys it does not know stay in, for a strict
     load to name."""
-    for prefix in ("module.", "model."):
-        if any(k.startswith(prefix + "patch_embed.") for k in sd):
-            sd = {k[len(prefix):] if k.startswith(prefix) else k: v for k, v in sd.items()}
-    sd = dict(sd)
+    sd = _strip_wrapper(sd)
     cfg = infer_timm_vit_config(sd)
     shapes = {"cls_token": (1, 1, cfg.width), "reg_token": (1, cfg.num_registers, cfg.width),
               "pos_embed": (1, cfg.pos_len, cfg.width)}

@@ -65,7 +65,11 @@ def test_port_imports_no_jax():
                 "ops.scatter", "pipeline.molecular", "cli.molecular_loop", "models.vit_timm",
                 "models.weights_vit_timm", "pipeline.legacy", "pipeline.altpaths",
                 "models.fusion", "models.weights_fusion", "parallel.train",
-                "cli.fusion_train_demo", "parallel.mesh", "parallel.halo", "cli.batch_run"):
+                "cli.fusion_train_demo", "parallel.mesh", "parallel.halo", "cli.batch_run",
+                "cli.convert_weights", "cli.validate_setup", "cli.generate_slide_list",
+                "cli.slide_info", "cli.graph_build", "cli.cohort_summary",
+                "cli.full_pipeline_demo", "pipeline.plotting", "io.asap", "io.gdc",
+                "utils.flops"):
         assert f"path_gene_multimodal_tpu_torch.{mod}" in names, mod
     assert lines["BAD"] == "", lines["BAD"]
 
