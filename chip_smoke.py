@@ -141,6 +141,30 @@
    tiles``, exit 0 and tables equal to direct calls. Prints a ``real`` JSON
    line; K2, K3 and K4 carry ``launches_by_path`` (main, real) on the
    kernels line;
+4e. the shapes phase (``_shapes``), after ``real``: K1 at every ConvNeXtV2
+   stage width it fuses (C = 40, 48, 80, 128, 160, 320, 352, 512, 704,
+   768, 1408 on 8 images of 32^2, or 16^2 above 512 channels; its any
+   route where C is no multiple of 32 or over 384, the weights padded to
+   32 channels where C is no multiple of 32) against its plain version in
+   both GELU modes, timed beside the plain version, the library chain and
+   its bound, the mutants failing at C = 40 and 1408, each launch against
+   its plain part at C = 80 and 1408; K2's global route (tiles over 65,536
+   pixels or a side over 1024) on a 304^2 staircase where the relaxation's
+   cap binds (passes 257), 32 x 512^2 and 4 x 1024^2 blobs (adaptive
+   calls), 2 x 8 x 8200 and 1 x 4096 x 4095 blobs, every output and both
+   counts equal to its plain version, the adaptive call on 32 x 512^2
+   timed; then, each under ``_kernel_checks`` (every K1-K4 call against its
+   plain version) with the counts set to 0 just before and read just
+   after, ``cli.hovernext_infer.main`` on the ``wsi`` phase's crop TIFF
+   with ``--mode wsi --tile-size 512`` and the fitted HoverNeXt-tiny (25
+   windows of 512 at stride 496, batch 32, TTA x4; K2 and K3 on their
+   global routes), and with ``--checkpoint`` a ConvNeXtV2-nano HoverNeXt
+   (80/160/320/640, depths 2/2/8/2, decoder 384/192/96/64) drawn from a
+   seed, its heads fitted, converted by ``convert_hovernext`` and written
+   by ``save_converted`` (81 windows of 256; K1 at C = 80, 160, 320): exit
+   0, rows, K1-K4 launched and nothing else. Prints a ``shapes`` JSON line;
+   K1-K4 get ``launches_by_path["shapes_tile_512"]`` and
+   ``["shapes_nano"]``;
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -341,17 +365,24 @@
    --require-accelerator`` in a child process (exit 0). Prints a
    ``cohort`` JSON line.
 
-Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``virchow2``, ``runner``, ``molecular``,
-``altpaths``, ``fusion``, ``dp`` and ``cohort`` JSON lines, the script's seconds, the slice's tiles/s, the
-kernels' JSON line and the card's name and power limit, then, as the last line, ``{"ok":
+Prints the ``chain``, ``feed``, ``wsi``, ``real``, ``shapes``, ``virchow2``, ``runner``,
+``molecular``, ``altpaths``, ``fusion``, ``dp`` and ``cohort`` JSON lines, the script's
+seconds, the slice's tiles/s, the kernels' JSON line and the card's name and power limit, then, as the last line, ``{"ok":
 true, "device": {...}}``.
 Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
 ``build/chip_smoke/``, which git ignores).
 
+    python3 chip_smoke.py --shapes [--out DIR]
+
+builds the kernels, fits the heads as the main run does and runs the
+shapes phase (4e) alone: its JSON line, the card's name and power limit;
+exit 1 on a failure.
+
     python3 chip_smoke.py --ab PARENT
 
-times K1 (at the three encoder stage shapes, 512 images), K2, K3 and K4
-(on the main path's batch that a main run with the same ``--out`` saved), K5
+times K1 (at the three encoder stage shapes, 512 images), K2 (also its
+device time with the calls queued behind a sleep), K3 and K4 (on the main
+path's batch that a main run with the same ``--out`` saved), K5
 (the islands path's three masks) and K6 (the batch's foreground), K7
 (its 8 call shapes) and K8-K11 (one batch of 4 calls each) of the package
 copy whose root is PARENT (e.g. an earlier commit unpacked with ``git
@@ -943,6 +974,10 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     part at stage 0), K8/K11 on 16 images and K2-K6
     on the saved inputs."""
     sys.path.insert(0, str(root))
+    # this script imported the package beside it (utils.flops, at the top):
+    # drop it, so that every import below takes the one under ``root``
+    for name in [m for m in sys.modules if m.split(".")[0] == "path_gene_multimodal_tpu_torch"]:
+        del sys.modules[name]
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
     from path_gene_multimodal_tpu_torch.models.convnext import Block
     from path_gene_multimodal_tpu_torch.ops import convnext_block as k1
@@ -1052,6 +1087,9 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
         _idle(res, "k2")
         res["k2_batch_ms"] = _sync_time(lambda: (k2.cc_sizes_adaptive(fg),
                                                  k2.cc_sizes_adaptive(mmask, min_size=3)), reps=10)
+        _idle(res, "k2_queued")
+        res["k2_device_ms"] = _queued_ms(lambda: (k2.cc_sizes_adaptive(fg),
+                                                  k2.cc_sizes_adaptive(mmask, min_size=3)), reps=10)
         _idle(res, "k3")
         res["k3_batch_ms"] = _sync_time(lambda: k3.marker_watershed(dist, markers, blb), reps=5)
         if check:  # integers: any difference is a fault
@@ -1109,7 +1147,8 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     return 0
 
 
-AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k3_batch_ms", "k4_batch_ms", "k4_device_ms",
+AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k2_device_ms", "k3_batch_ms", "k4_batch_ms",
+           "k4_device_ms",
            "k5_slide_ms", "k6_ms",
            "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
 
@@ -6341,6 +6380,263 @@ def _cohort_line(res: dict) -> dict:
     }
 
 
+# -- the shapes phase: K1 at every ConvNeXtV2 width, K2's global route --------------------
+# K1's widths: ConvNeXtV2 atto/femto (40, 48), nano (80, 160, 320), base (128,
+# 512), huge (352, 704, 1408) and large (768); stages 0-2, the fused ones
+SHAPE_K1_WIDTHS = (40, 48, 80, 128, 160, 320, 352, 512, 704, 768, 1408)
+SHAPE_K1_MUTANTS = (40, 1408)  # one small and one large width see the mutants
+SHAPE_K1_PARTS = (80, 1408)    # the any route, padded (80 -> 96) and not
+# ConvNeXtV2-nano as a canonical HoverNeXt (the JAX package's CONVNEXTV2_NANO)
+NANO = dict(depths=(2, 2, 8, 2), dims=(80, 160, 320, 640))
+
+
+def _shape_k1_input(c: int) -> tuple[int, int, int, int]:
+    """(B, H, W, C) of K1's width checks: 8 images at the size of the stage
+    the width sits at in a 256-px input (32^2 up to 512 channels, 16^2 above)."""
+    hw = 32 if c <= 512 else 16
+    return (8, hw, hw, c)
+
+
+def _staircase(n: int) -> torch.Tensor:
+    """A 1-px staircase from (0, 0) to (n - 2, n - 1) on an n x n tile, and
+    the same staircase mirrored left to right: each needs about n passes,
+    so at n = 304 the relaxation's cap (257) binds."""
+    m = torch.zeros((1, n, n), dtype=torch.bool)
+    for i in range(n - 1):
+        m[0, i, i : i + 2] = True
+    return m | m.flip(-1)
+
+
+def _shape_k2_cases(gen: torch.Generator) -> dict[str, tuple[torch.Tensor, str]]:
+    """K2's global-route cases (masks on the CPU, the call that takes them)."""
+    def blobs(b, h, w):
+        f = _smooth(gen, b, h, w)
+        return f > f.flatten(1).median(1).values[:, None, None]
+
+    return {"staircase_304": (_staircase(304), "cc_sizes"),
+            "blobs_32x512x512": (blobs(32, 512, 512), "adaptive"),
+            "blobs_4x1024x1024": (blobs(4, 1024, 1024), "adaptive"),
+            "blobs_2x8x8200": (blobs(2, 8, 8200), "cc_sizes"),
+            "blobs_1x4096x4095": (blobs(1, 4096, 4095), "cc_sizes")}
+
+
+def _shapes_k1(dev, failures) -> dict:
+    """K1 at SHAPE_K1_WIDTHS against its plain version (both GELU modes,
+    2 bf16 ulp + K1_ATOL), timed beside its plain version, the library chain
+    and its bound; launch checks at SHAPE_K1_PARTS."""
+    from path_gene_multimodal_tpu_torch.models.convnext import Block
+    from path_gene_multimodal_tpu_torch.ops import convnext_block as k1
+
+    rows = []
+    for j, c in enumerate(SHAPE_K1_WIDTHS):
+        shape = _shape_k1_input(c)
+        wts = _block_weights(Block, c, seed=200 + j, dev=dev)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(220 + j)).to(
+            dev, torch.bfloat16)
+        rec = _k1_check(f"shapes C={c}", x, wts, failures, mutants=c in SHAPE_K1_MUTANTS)
+        geo = k1.ConvNeXtTiling(*shape)
+        rec.update(cp=geo.cp, ring=geo.ring, dw_tile_w=geo.dw_tile_w, pw2_n_tile=geo.pw2_n_tile,
+                   pw2_stages=geo.pw2_stages)
+        if c in SHAPE_K1_PARTS:
+            rec["parts"] = _k1_parts_check(f"shapes C={c}", x, wts, False, failures)
+        with torch.inference_mode():
+            first = k1.convnext_block(x, *wts)
+            rec["repeat_equal"] = all(torch.equal(k1.convnext_block(x, *wts), first)
+                                      for _ in range(2))
+            if not rec["repeat_equal"]:
+                failures.append(f"K1 shapes C={c}: a repeated call gave other bits")
+            rec["ms"] = _sync_time(lambda: k1.convnext_block(x, *wts), reps=5)
+            rec["plain_ms"] = _sync_time(lambda: k1.convnext_block_plain(x, *wts), reps=1)
+            rec["library_ms"] = _sync_time(_k1_library(x, wts), reps=5)
+        rec["launches"] = _k1_launch_times(x, wts)
+        b, h, w, _ = shape
+        px = b * h * w
+        nbytes = 2 * px * c * 2 + sum(t.numel() * 2 for t in wts)
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(
+            nbytes, [(px * 16 * c * c, PEAK_BF16), (px * c * 98, PEAK_F32)])
+        rows.append(rec)
+        del x, wts, first
+    return {"widths": list(SHAPE_K1_WIDTHS), "rows": rows}
+
+
+def _shapes_k2(dev, failures) -> dict:
+    """K2's global route on SHAPE cases against its plain version: every
+    output and both pass counts equal; the staircase's passes at the cap;
+    the adaptive call on 32 windows of 512^2 timed beside its plain version
+    and its bound from the counted passes."""
+    from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
+
+    new = lambda: torch.zeros(2, dtype=torch.int64, device=dev)  # noqa: E731
+    rec: dict = {}
+    calls = {"cc_sizes": (k2.cc_sizes, k2.cc_sizes_plain),
+             "adaptive": (k2.cc_sizes_adaptive, k2.cc_sizes_adaptive_plain)}
+    cases = _shape_k2_cases(torch.Generator().manual_seed(41))
+    with torch.inference_mode():
+        for name, (m, kind) in cases.items():
+            m = m.to(dev)
+            kernel, plain = calls[kind]
+            kw = {"min_size": 3} if kind == "adaptive" else {"s_slots": 4096, "min_size": 3}
+            geo = k2.CcSizesTiling(*m.shape[1:], 4096)
+            ck, cp = new(), new()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = kernel(m, counts=ck, **kw)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t0
+            want = plain(m, counts=cp, **kw)
+            diff = max(int((a.long() != b.long()).sum()) for a, b in zip(got, want))
+            rec[name] = {"shape": list(m.shape), "call": kind, "shared_route": geo.shared,
+                         "row_split": list(geo.row_split), "col_split": list(geo.col_split),
+                         "diff": diff, "counts": ck.tolist(), "plain_counts": cp.tolist(),
+                         "first_call_s": kernel_s, "roots": int(want[3].sum()) if
+                         kind == "cc_sizes" else None}
+            if diff or ck.tolist() != cp.tolist() or geo.shared:
+                failures.append(f"K2 shapes {name}: {diff} values differ from the plain version; "
+                                f"counts {ck.tolist()}, plain {cp.tolist()}, shared {geo.shared}")
+            del got, want
+        if rec["staircase_304"]["counts"] != [257, 257]:
+            failures.append(f"K2 shapes staircase_304: counts {rec['staircase_304']['counts']}, "
+                            "expected the cap [257, 257]")
+        m = cases["blobs_32x512x512"][0].to(dev)
+        ms = _sync_time(lambda: k2.cc_sizes_adaptive(m), reps=5)
+        pms = _sync_time(lambda: k2.cc_sizes_adaptive_plain(m), reps=1)
+        ck = new()
+        k2.cc_sizes_adaptive(m, counts=ck)
+        fired = bool((k2.cc_sizes_plain(m, 512)[3] > 512).any())
+    b, h, w = m.shape
+    passes = int(ck[0])
+    bnd, by = _bound_ms((2 if fired else 1) * b * h * w * 13, [(passes * h * w * 2, PEAK_F32)])
+    return {"cases": rec, "adaptive_32x512": {"ms": ms, "plain_ms": pms, "bound_ms": bnd,
+                                              "bound_by": by, "passes": passes,
+                                              "rerun_fired": fired}}
+
+
+def _shapes_cli(name: str, argv: list[str], dest: Path, wrappers, failures) -> dict:
+    """``hovernext_infer.main(argv)`` in this process under ``_kernel_checks``
+    (every K1-K5 call against its plain version), the counts set to 0 just
+    before and read just after: exit 0, a table with rows, the map, K1-K4
+    launched and no other kernel."""
+    from path_gene_multimodal_tpu_torch.cli import hovernext_infer
+
+    import pandas as pd
+
+    for wr in wrappers.values():
+        wr.launches = 0
+    t0 = time.perf_counter()
+    with _kernel_checks(f"shapes {name}", failures) as chk:
+        rc = hovernext_infer.main([*argv, "--output", str(dest)])
+    torch.cuda.synchronize()
+    launches = {n: wr.launches for n, wr in wrappers.items()}
+    csv = dest / "crop_hovernet_nuclei_wsi.csv"
+    rows = len(pd.read_csv(csv)) if csv.exists() else None
+    res = {"rc": rc, "s": time.perf_counter() - t0, "checks_s": chk.s, "rows": rows,
+           "map": (dest / "crop_pinst_pp.npz").exists(), "launches": launches,
+           "checks": {k: v for k, v in chk.rec.items() if v["calls"]}}
+    main_kernels = ("convnext_block", "cc_sizes", "flood", "instance_stats")
+    if rc != 0 or not rows or not res["map"]:
+        failures.append(f"shapes {name}: the CLI returned {rc}, rows {rows}, map {res['map']}")
+    failures += [f"shapes {name}: {n} never launched" for n in main_kernels if not launches[n]]
+    failures += [f"shapes {name}: {n} launched" for n, k in launches.items()
+                 if n not in main_kernels and k]
+    failures += [f"shapes {name}: {n} never checked" for n in main_kernels
+                 if not chk.rec[n]["calls"]]
+    return res
+
+
+def _shapes(slide, sd, cfg, tmp: Path, wrappers, failures) -> dict:
+    """The shapes phase: (a) K1 at every ConvNeXtV2 width, (b) K2's global
+    route, (c) ``hovernext_infer --mode wsi --tile-size 512`` with the fitted
+    HoverNeXt-tiny on the crop TIFF (windows of 512 at stride 496, K2 and K3
+    on their global routes), (d) a ConvNeXtV2-nano HoverNeXt drawn from a
+    seed, its heads fitted, saved as a converted ``.npz`` by the port's
+    converters and read by ``hovernext_infer --checkpoint`` over the same
+    crop at 256 (K1 at C = 80, 160, 320)."""
+    from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
+    from path_gene_multimodal_tpu_torch.core.checkpoints import save_converted
+    from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights
+    from path_gene_multimodal_tpu_torch.models.weights_hovernext import convert_hovernext
+    from path_gene_multimodal_tpu_torch.ops import flood
+    from path_gene_multimodal_tpu_torch.utils.headfit import fit_heads, sample_tissue_tiles
+
+    dev = torch.device("cuda")
+    res: dict = {}
+    t0 = time.perf_counter()
+    res["k1"] = _shapes_k1(dev, failures)
+    res["k1_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["k2"] = _shapes_k2(dev, failures)
+    res["k2_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    tif = tmp / "crop.svs"
+    if not tif.exists():
+        tif, _, _ = _write_crop(slide, cfg, tmp)
+    ck = tmp / "sd.pt"
+    if not ck.exists():
+        torch.save({k: v.detach().cpu() for k, v in sd.items()}, ck)
+    res["flood_global_at_512"] = not flood.FloodTiling(512, 512).shared
+    res["tile_512"] = _shapes_cli(
+        "tile_512", ["--input", str(tif), "--mode", "wsi", "--tile-size", "512",
+                     "--checkpoint", str(ck)], tmp / "shapes_512", wrappers, failures)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ncfg = HoverNeXtConfig(encoder=ConvNeXtConfig(**NANO))
+    seed_model = HoverNeXt(ncfg)
+    init_weights(seed_model, torch.Generator().manual_seed(3))
+    tiles = sample_tissue_tiles(slide, 16, ncfg.input_size, seed=1)
+    nsd = fit_heads(ncfg, seed_model.state_dict(), tiles, dtype=torch.bfloat16, device=dev)
+    got_cfg, params, left = convert_hovernext({k: v.float().cpu().numpy() for k, v in nsd.items()})
+    if left or got_cfg.encoder.dims != NANO["dims"]:
+        failures.append(f"shapes nano: conversion left {sorted(left)[:5]}, dims "
+                        f"{got_cfg.encoder.dims}")
+    npz = save_converted("hovernext", got_cfg, params, tmp / "nano.npz")
+    res["nano_setup_s"] = time.perf_counter() - t0
+    res["nano_npz_mb"] = npz.stat().st_size / 1e6
+    res["nano"] = _shapes_cli(
+        "nano", ["--input", str(tif), "--mode", "wsi", "--checkpoint", str(npz)],
+        tmp / "shapes_nano", wrappers, failures)
+    del seed_model, nsd, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _shapes_line(res: dict) -> dict:
+    k1, k2 = res.get("k1", {}), res.get("k2", {})
+    return {
+        "k1": [{k: r.get(k) for k in ("shape", "cp", "ring", "excess_tanh", "excess_erf", "ms",
+                                       "plain_ms", "library_ms", "bound_ms")}
+               for r in k1.get("rows", [])],
+        "k2": {n: {k: r[k] for k in ("shape", "diff", "counts", "first_call_s")}
+               for n, r in k2.get("cases", {}).items()},
+        "k2_adaptive_32x512": k2.get("adaptive_32x512"),
+        "tile_512": {k: res.get("tile_512", {}).get(k) for k in ("rc", "s", "rows", "launches",
+                                                                 "checks")},
+        "nano": {k: res.get("nano", {}).get(k) for k in ("rc", "s", "rows", "launches",
+                                                         "checks")},
+        "phase_s": res.get("phase_s"),
+    }
+
+
+def _shapes_only(slide, sd, cfg, tmp: Path, wrappers, report: dict, out_dir: Path) -> int:
+    """``--shapes``: the shapes phase alone, after the build and the fitted
+    weights; its JSON line, the card's name and power limit, and the
+    failures (exit 1 if any)."""
+    failures: list[str] = []
+    t0 = time.perf_counter()
+    report["shapes"] = _shapes(slide, sd, cfg, tmp, wrappers, failures)
+    report["shapes"]["phase_s"] = time.perf_counter() - t0
+    report["failures"] = failures
+    shutil.rmtree(tmp, ignore_errors=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    print(json.dumps({"shapes": _shapes_line(report["shapes"])}))
+    print(report["smi"])
+    for f in failures:
+        print("FAIL:", f, file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6356,6 +6652,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--shapes", action="store_true",
+                    help="only build the kernels and run the shapes phase (K1 at every "
+                         "ConvNeXtV2 width, K2's global route, hovernext_infer at 512 and "
+                         "with a nano checkpoint)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the altpaths phase's tumour blobs and the fusion phase's "
                          "cohort and weights")
@@ -6434,6 +6734,8 @@ def main(argv: list[str] | None = None) -> int:
                               dtype=torch.bfloat16, device=dev,
                               max_instances=cfg.hovernext.max_instances_per_tile)
     report["setup_s"] = time.perf_counter() - t0
+    if args.shapes:
+        return _shapes_only(slide, sd, cfg, tmp, wrappers, report, out_dir)
 
     # warm-up run (cuDNN plans, allocator), then the counted, timed run
     run_hovernet_pipeline_on_wsi_tiles(slide, ann, tmp, "warm", model, cfg)
@@ -6635,6 +6937,14 @@ def main(argv: list[str] | None = None) -> int:
     real_line = _real_line(report["real"])
     print(json.dumps({"real": real_line}), flush=True)
 
+    # -- 4e. K1 at every ConvNeXtV2 width, K2's global route, the paths they open ----------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["shapes"] = _shapes(slide, sd, cfg, tmp, wrappers, failures)
+    report["shapes"]["phase_s"] = time.perf_counter() - t0
+    shapes_line = _shapes_line(report["shapes"])
+    print(json.dumps({"shapes": shapes_line}), flush=True)
+
     # -- 5./6. the decoder configurations and their kernels -----------------
     del out, np_prob, hv, blb, overall, dist, mmask, mdense, markers, lbl, li, ti, lk, lp
     models, counts = _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report,
@@ -6771,6 +7081,13 @@ def main(argv: list[str] | None = None) -> int:
         k.setdefault("launches_by_path", {first: k["launches"]})
         k["launches_by_path"]["cohort"] = cohort_launches.get(k["name"], 0)
         k["launches"] = sum(k["launches_by_path"].values())
+    # K1-K4 gain the shapes phase's two CLI runs (tile 512, the nano checkpoint)
+    for k in kernels:
+        if k["name"] in ("convnext_block", "cc_sizes", "flood", "instance_stats"):
+            for run in ("tile_512", "nano"):
+                k["launches_by_path"][f"shapes_{run}"] = report["shapes"].get(run, {}).get(
+                    "launches", {}).get(k["name"], 0)
+            k["launches"] = sum(k["launches_by_path"].values())
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels
@@ -6783,6 +7100,7 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"feed": feed_line}))
     print(json.dumps({"wsi": wsi_line}))
     print(json.dumps({"real": real_line}))
+    print(json.dumps({"shapes": shapes_line}))
     print(json.dumps({"virchow2": virchow2_line}))
     print(json.dumps({"runner": runner_line}))
     print(json.dumps({"molecular": molecular_line}))

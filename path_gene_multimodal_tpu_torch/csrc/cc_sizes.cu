@@ -21,9 +21,17 @@
 // the cap, is kept: the outputs stay identical to the TPU's on every input.
 //
 // What bounds it: the bytes (1 B of mask in, 3 x 4 B out per pixel); a
-// tile needs a few passes of two run-minimum scans each.
+// tile needs a few passes of two run-minimum scans each. On the global route
+// a tile is one block's, so one SM's: its passes read and write device
+// memory (or L2) at one SM's rate, and a batch of fewer tiles than SMs
+// leaves SMs idle.
 //
-// Design: one block of 1024 threads per tile, the labels as uint16 pixel
+// Two routes, chosen by the tile's geometry (ops/cc_sizes.py::
+// CcSizesTiling.shared): the shared route below, for tiles of up to 65,536
+// pixels with sides up to 1024, and the global route (further down, before
+// the launchers) for every other tile the TPU kernel takes (h * w < 2^24).
+//
+// Shared route: one block of 1024 threads per tile, the labels as uint16 pixel
 // indices in shared memory (a 256 x 256 tile's fit; rows padded to a
 // multiple of 8 for 16-byte loads), the mask and the roots as bit planes.
 // Row runs: one warp per row, PER consecutive pixels a lane (8 at W <=
@@ -45,8 +53,8 @@
 // lane's pixels. With `gate`, the block first reads the n_roots
 // of an earlier call at `gate_slots` slots and returns at once unless some
 // tile overflowed them: `lax.cond` of the adaptive TPU wrapper without a
-// trip to the host. Geometry: ops/cc_sizes.py::CcSizesTiling; the launcher
-// refuses any other.
+// trip to the host. Geometry: ops/cc_sizes.py::CcSizesTiling; each
+// launcher refuses any other.
 //
 // counts (int64[2], optional): += relaxation passes of every tile, max=
 // passes of one tile.
@@ -190,6 +198,44 @@ __device__ bool row_runs(uint16_t* lbl, const uint32_t* mbits, const uint8_t* ro
     return ch;
 }
 
+// The gated launch of the adaptive call: false (the block returns at once)
+// unless some tile of an earlier call overflowed its gate_slots slots.
+__device__ bool gate_open(const int* gate, int gate_slots, int batch) {
+    if (gate == nullptr) return true;
+    __shared__ int any_over;
+    if (threadIdx.x == 0) any_over = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < batch; i += blockDim.x)
+        if (gate[i] > gate_slots) any_over = 1;
+    __syncthreads();
+    return any_over != 0;
+}
+
+// Dense ids: the inclusive count of the kept slots (those of the first
+// min(roots, s_slots) with at least min_size pixels), in slot order, 0 for
+// the others; each thread owns a run of consecutive slots.
+template <typename DN>
+__device__ void dense_ids(const int* cnt, DN* dn, int roots, int s_slots, int min_size,
+                          int* warp_tot) {
+    const int n_used = min(roots, s_slots);
+    const int per = (s_slots + kThreads - 1) / kThreads;
+    const int s0 = threadIdx.x * per, s1 = min(s0 + per, s_slots);
+    int k = 0;
+    for (int s = s0; s < s1; ++s) k += (s < n_used && cnt[s] >= min_size) ? 1 : 0;
+    int run = pgm_block_inclusive_scan(k, warp_tot) - k;
+    for (int s = s0; s < s1; ++s) {
+        const bool keep = s < n_used && cnt[s] >= min_size;
+        run += keep ? 1 : 0;
+        dn[s] = static_cast<DN>(keep ? run : 0);
+    }
+}
+
+// counts[0] += passes, counts[1] = max(counts[1], passes)
+__device__ void add_passes(long long* counts, int passes) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(counts), passes);
+    atomicMax(counts + 1, static_cast<long long>(passes));
+}
+
 template <int PER>
 __global__ void __launch_bounds__(kThreads, 1)
 cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
@@ -197,15 +243,7 @@ cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
                 int* __restrict__ n_roots_out, long long* counts, int h, int w, int ls, int wpr,
                 int seg_len, int s_slots, int min_size, int max_iters,
                 const int* __restrict__ gate, int gate_slots, int batch) {
-    if (gate != nullptr) {
-        __shared__ int any_over;
-        if (threadIdx.x == 0) any_over = 0;
-        __syncthreads();
-        for (int i = threadIdx.x; i < batch; i += blockDim.x)
-            if (gate[i] > gate_slots) any_over = 1;
-        __syncthreads();
-        if (!any_over) return;
-    }
+    if (!gate_open(gate, gate_slots, batch)) return;
     extern __shared__ __align__(16) unsigned char smem[];
     const Layout L = layout(h, w, ls, wpr, s_slots);
     uint16_t* lbl = reinterpret_cast<uint16_t*>(smem);
@@ -445,21 +483,7 @@ cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
     }
     __syncthreads();
 
-    // dense ids: inclusive count of the kept slots, in slot order (each
-    // thread owns a run of consecutive slots)
-    {
-        const int n_used = min(total_roots, s_slots);
-        const int per = (s_slots + kThreads - 1) / kThreads;
-        const int s0 = threadIdx.x * per, s1 = min(s0 + per, s_slots);
-        int k = 0;
-        for (int s = s0; s < s1; ++s) k += (s < n_used && cnt[s] >= min_size) ? 1 : 0;
-        int run = pgm_block_inclusive_scan(k, warp_tot) - k;
-        for (int s = s0; s < s1; ++s) {
-            const bool keep = s < n_used && cnt[s] >= min_size;
-            run += keep ? 1 : 0;
-            dn[s] = static_cast<uint16_t>(keep ? run : 0);
-        }
-    }
+    dense_ids(cnt, dn, total_roots, s_slots, min_size, warp_tot);
     __syncthreads();
 
     for (int r = warp; r < h; r += kWarps) {
@@ -470,10 +494,220 @@ cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
             dense_out[p] = s != kNone ? dn[s] : 0;
         }
     }
-    if (counts != nullptr && threadIdx.x == 0) {
-        atomicAdd(reinterpret_cast<unsigned long long*>(counts), passes);
-        atomicMax(counts + 1, static_cast<long long>(passes));
+    if (counts != nullptr && threadIdx.x == 0) add_passes(counts, passes);
+}
+
+// ------------------------------------------------------------ global route
+//
+// Tiles the shared route cannot hold (more than 65,536 pixels or a side over
+// 1024, up to 2^24 pixels): one block of 1024 threads per tile still, the
+// labels int32 in device memory (the output buffer itself, INF on
+// background, so the mask is the labels' own), the dirty flags of rows and
+// columns in a scratch of 2 (h + w) bytes a tile, the segment records and
+// the slot tables in shared memory. The passes are the shared route's, so
+// labels and pass counts are the same on every input, the cap included: row
+// runs, then column runs, each a run minimum over the labels as the phase
+// found them, a row or column the last phase did not change skipped.
+// A phase walks its lines (rows or columns) in segments: each round takes
+// lpr = 1024 / segs lines, thread (segment, line) walks its segment forward
+// (running minima in place, its head and tail runs' minima and whether it is
+// all foreground into shared records), then, after a barrier, backward (each
+// run its minimum, the runs of the neighbouring segments of its line that
+// reach it joined through the records), eight loads at a time. Then the
+// roots are ranked by a block scan over the tile in row-major chunks, each
+// pixel's slot (its root's rank under s_slots, else none) goes into the
+// sizes buffer, the slot counts are warp-aggregated shared atomics, and the
+// outputs are written from the slots.
+
+struct Lines {
+    long long line_stride, px_stride;  // offset of line l and of its pixel i
+    int lines, len, segs, seg_len;
+};
+
+constexpr int kGroup = 8;  // labels loaded ahead in a segment walk
+
+// One run-minimum phase over the lines: every run of foreground along a line
+// takes its minimum. `dirty_in` (null: every line) names the lines to run;
+// the cross index of each changed pixel is marked in `dirty_out`. Every
+// thread of the block calls it.
+__device__ bool line_runs(int* lbl, const Lines L, const uint8_t* dirty_in, uint8_t* dirty_out,
+                          int* seg_head, int* seg_tail, int* seg_full) {
+    const int lpr = kThreads / L.segs;
+    const int seg = threadIdx.x / lpr, li = threadIdx.x - seg * lpr;
+    bool ch = false;
+    for (int l0 = 0; l0 < L.lines; l0 += lpr) {
+        const int l = l0 + li;
+        const bool mine = seg < L.segs && l < L.lines && (dirty_in == nullptr || dirty_in[l]);
+        const int ra = seg * L.seg_len, rb = min(ra + L.seg_len, L.len);
+        int* line = lbl + l * L.line_stride;
+        int first_bg = rb;
+        if (mine) {
+            int acc = kInf, head = kInf;
+            for (int r0 = ra; r0 < rb; r0 += kGroup) {
+                int v[kGroup];
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k)
+                    v[k] = r0 + k < rb ? line[(r0 + k) * L.px_stride] : kInf;
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k) {
+                    const int r = r0 + k;
+                    if (r >= rb) break;
+                    const bool fg = v[k] < kInf;
+                    acc = fg ? min(acc, v[k]) : kInf;
+                    if (fg && acc != v[k]) {
+                        line[r * L.px_stride] = acc;
+                        dirty_out[r] = 1;
+                        ch = true;
+                    }
+                    if (!fg && first_bg == rb) first_bg = r;
+                    if (first_bg == rb) head = acc;
+                }
+            }
+            seg_head[threadIdx.x] = head;
+            seg_tail[threadIdx.x] = acc;
+            seg_full[threadIdx.x] = first_bg == rb;
+        }
+        __syncthreads();
+        if (mine) {
+            int top = kInf, bottom = kInf;
+            for (int k = seg - 1; k >= 0; --k) {
+                top = min(top, seg_tail[k * lpr + li]);
+                if (!seg_full[k * lpr + li]) break;
+            }
+            for (int k = seg + 1; k < L.segs; ++k) {
+                bottom = min(bottom, seg_head[k * lpr + li]);
+                if (!seg_full[k * lpr + li]) break;
+            }
+            int rm = kInf;
+            bool below = false;
+            for (int r1 = rb - 1; r1 >= ra; r1 -= kGroup) {
+                int v[kGroup];
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k)
+                    v[k] = r1 - k >= ra ? line[(r1 - k) * L.px_stride] : kInf;
+#pragma unroll
+                for (int k = 0; k < kGroup; ++k) {
+                    const int r = r1 - k;
+                    if (r < ra) break;
+                    const bool fg = v[k] < kInf;
+                    if (fg) {
+                        if (!below) {
+                            rm = v[k];
+                            if (r == rb - 1) rm = min(rm, bottom);
+                            if (r < first_bg) rm = min(rm, top);
+                        }
+                        if (rm != v[k]) {
+                            line[r * L.px_stride] = rm;
+                            dirty_out[r] = 1;
+                            ch = true;
+                        }
+                    }
+                    below = fg;
+                }
+            }
+        }
+        __syncthreads();  // the records are the next round's
     }
+    return ch;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+cc_sizes_global_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
+                       int* __restrict__ sizes_out, int* __restrict__ dense_out,
+                       int* __restrict__ n_roots_out, long long* counts,
+                       uint8_t* __restrict__ scratch, int h, int w, Lines rows, Lines cols,
+                       int s_slots, int min_size, int max_iters, const int* __restrict__ gate,
+                       int gate_slots, int batch) {
+    if (!gate_open(gate, gate_slots, batch)) return;
+    extern __shared__ __align__(16) unsigned char smem[];
+    int* seg_head = reinterpret_cast<int*>(smem);
+    int* seg_tail = seg_head + kThreads;
+    int* seg_full = seg_tail + kThreads;
+    int* cnt = seg_full + kThreads;
+    int* dn = cnt + s_slots;
+    __shared__ int warp_tot[32];
+
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x;
+    const int n = h * w;
+    const long long base = static_cast<long long>(b) * n;
+    int* lbl = lbl_out + base;
+    int* slot = sizes_out + base;  // each pixel's slot until the sizes are known
+    uint8_t* row_dirty = scratch + static_cast<long long>(b) * 2 * (h + w);  // [2][h], by parity
+    uint8_t* col_dirty = row_dirty + 2 * h;                                   // [2][w]
+
+    for (int p = threadIdx.x; p < n; p += kThreads) lbl[p] = mask_in[base + p] ? p : kInf;
+    for (int i = threadIdx.x; i < 2 * (h + w); i += kThreads) row_dirty[i] = 0;
+    for (int s = threadIdx.x; s < s_slots; s += kThreads) cnt[s] = 0;
+    __syncthreads();
+
+    // relaxation: row runs, then column runs, to a fixpoint (capped)
+    int passes = 0;
+    while (true) {
+        const int par = passes & 1;
+        const bool first = passes == 0;
+        for (int i = threadIdx.x; i < w; i += kThreads) col_dirty[(par ^ 1) * w + i] = 0;
+        bool ch = line_runs(lbl, rows, first ? nullptr : row_dirty + (par ^ 1) * h,
+                            col_dirty + par * w, seg_head, seg_tail, seg_full);
+        for (int i = threadIdx.x; i < h; i += kThreads) row_dirty[(par ^ 1) * h + i] = 0;
+        ch |= line_runs(lbl, cols, first ? nullptr : col_dirty + par * w, row_dirty + par * h,
+                        seg_head, seg_tail, seg_full);
+        ++passes;
+        if (!__syncthreads_or(ch) || passes >= 1 + max_iters) break;
+    }
+
+    // roots ranked in row-major order: 16 consecutive pixels a thread, a
+    // block scan a chunk; a root's slot (its rank, if under s_slots) into
+    // the slot buffer
+    constexpr int kPer = 16;
+    int total = 0;
+    for (int c0 = 0; c0 < n; c0 += kThreads * kPer) {
+        const int p0 = c0 + threadIdx.x * kPer;
+        int k = 0;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) k += p0 + i < n && lbl[p0 + i] == p0 + i;
+        const int incl = pgm_block_inclusive_scan(k, warp_tot);
+        int rank = total + incl - k;
+        if (k) {
+            for (int i = 0; i < kPer; ++i) {
+                if (p0 + i < n && lbl[p0 + i] == p0 + i) {
+                    slot[p0 + i] = rank < s_slots ? rank : -1;
+                    ++rank;
+                }
+            }
+        }
+        total += warp_tot[kWarps - 1];  // the chunk's roots
+        __syncthreads();                 // ... read by all before the next scan
+    }
+    if (threadIdx.x == 0) n_roots_out[b] = total;
+
+    // every other pixel: its root's slot; none on background or where the
+    // label's pixel is no root (the relaxation cap bound)
+    for (int p = threadIdx.x; p < n; p += kThreads) {
+        const int v = lbl[p];
+        if (v == p) continue;
+        slot[p] = v < kInf && lbl[v] == v ? slot[v] : -1;
+    }
+    __syncthreads();
+
+    // component counts: one shared atomic per group of lanes with one slot
+    for (int p0 = 0; p0 < n; p0 += kThreads) {
+        const int p = p0 + threadIdx.x;
+        const int s = p < n ? slot[p] : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, s);
+        if (s >= 0 && lane == __ffs(peers) - 1) atomicAdd(&cnt[s], __popc(peers));
+    }
+    __syncthreads();
+
+    dense_ids(cnt, dn, total, s_slots, min_size, warp_tot);
+    __syncthreads();
+
+    for (int p = threadIdx.x; p < n; p += kThreads) {
+        const int s = slot[p];
+        slot[p] = s >= 0 ? cnt[s] : 0;
+        dense_out[base + p] = s >= 0 ? dn[s] : 0;
+    }
+    if (counts != nullptr && threadIdx.x == 0) add_passes(counts, passes);
 }
 
 int pixels_per_lane(int ls) { return ls <= 256 ? 8 : (ls <= 512 ? 16 : 32); }
@@ -510,5 +744,48 @@ PGM_EXPORT int cc_sizes_launch(const void* mask, void* lbl, void* sizes, void* d
         static_cast<int*>(dense), static_cast<int*>(n_roots), static_cast<long long*>(counts), h,
         w, ls, wpr, seg_len, s_slots, min_size, max_iters, static_cast<const int*>(gate),
         gate_slots, b);
+    return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// A phase's split of its lines into segments: as many segments a line as
+// the block has threads for its lines (at least one, at most a pixel each).
+bool line_split_ok(const Lines& L) {
+    const int cap = L.lines >= kThreads ? 1 : min(kThreads / L.lines, L.len);
+    const int seg_len = (L.len + cap - 1) / cap;
+    return L.seg_len == seg_len && L.segs == (L.len + seg_len - 1) / seg_len;
+}
+
+size_t global_smem_bytes(int s_slots) { return size_t(3) * kThreads * 4 + size_t(s_slots) * 8; }
+
+}  // namespace
+
+// The global route: tiles of 65,537 .. 2^24 - 1 pixels, or a side over
+// 1024. mask (B, H, W) uint8; lbl, sizes, dense (B, H, W) int32; n_roots
+// (B,) int32; scratch (B, 2 (H + W)) uint8. row_segs, row_seg_len,
+// col_segs, col_seg_len, smem: the launch geometry of
+// ops/cc_sizes.py::CcSizesTiling.
+PGM_EXPORT int cc_sizes_global_launch(const void* mask, void* lbl, void* sizes, void* dense,
+                                      void* n_roots, void* counts, void* scratch, int b, int h,
+                                      int w, int s_slots, int min_size, int max_iters,
+                                      const void* gate, int gate_slots, int threads,
+                                      int row_segs, int row_seg_len, int col_segs,
+                                      int col_seg_len, int smem, void* stream) {
+    const Lines rows{w, 1, h, w, row_segs, row_seg_len};
+    const Lines cols{1, w, w, h, col_segs, col_seg_len};
+    const long long px = static_cast<long long>(h) * w;
+    if (threads != kThreads || b <= 0 || h <= 0 || w <= 0 || px >= (1LL << 24) ||
+        (h <= 1024 && w <= 1024 && px <= 65536) || s_slots <= 0 || s_slots >= kNone ||
+        !line_split_ok(rows) || !line_split_ok(cols) ||
+        static_cast<size_t>(smem) != global_smem_bytes(s_slots))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = pgm_set_smem(cc_sizes_global_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cc_sizes_global_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(mask), static_cast<int*>(lbl), static_cast<int*>(sizes),
+        static_cast<int*>(dense), static_cast<int*>(n_roots), static_cast<long long*>(counts),
+        static_cast<uint8_t*>(scratch), h, w, rows, cols, s_slots, min_size, max_iters,
+        static_cast<const int*>(gate), gate_slots, b);
     return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,20 @@
 // the stages; any other H*W gets a masked last tile per image).
 // The weights of the products come as nn.Linear keeps them: w1t (4C, C)
 // and w2t (C, 4C), K contiguous, which is what a K-major B operand is.
+// Any C from 1 to 2048: where C is no multiple of 32, the products run at
+// cp = C rounded up to 32, on weights the wrapper pads with zeros (w1t
+// (4 cp, cp), w2t (cp, 4 cp), b1 and the GRN vectors 4 cp), so that every K
+// chunk and N tile is whole: launch 0 writes zeros into a's channels past C,
+// pw1's padded channels come out GELU(0) = 0, their GRN sums 0, and pw2
+// takes the GRN mean over the true 4C, writes only the channels below C and
+// reads x there alone. Launch 0 has two routes: the ring above where C is a
+// multiple of 32 up to 384 (HoverNeXt-tiny's widths), and the any route
+// (dw_ln_any_kernel) for every other C: a block of 4 output rows and a
+// column tile keeps its pixels' f32 LN input for all C in shared memory
+// (at most 96 KB: the tile narrows as C grows) while the channels go by in
+// chunks of 32 through an f32 halo, and a warp a pixel takes the two-pass LN
+// over the true C. pw2's ring loses a stage where a wide C's GRN vectors
+// (8 cp f32) would not fit beside it.
 // The launch geometry is ops/convnext_block.py::ConvNeXtTiling; each
 // launcher refuses a geometry that differs from its own.
 // Not yet here: TMA, warp specialisation (the GELU epilogue of pw1 does not
@@ -83,24 +97,45 @@ constexpr int kThreads = 256;  // GEMM blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;       // dw output rows a thread computes per step
 constexpr int kRing = 14;      // dw input rows held: kRows + 6 read, kRows copied ahead
-constexpr int kMaxC = 384;
+constexpr int kRingMaxC = 384;  // the ring route of launch 0: C a multiple of 32 up to here
+constexpr int kMaxC = 2048;     // any route: C (padded to 32) up to here
 constexpr int kMaxStrip = 64;  // dw rows per block
 constexpr int kDwMaxThreads = 768;
 constexpr int kLdY = kN1 + 4;  // f32 row stride of pw1's output staging
 constexpr size_t kChunkA = size_t(kM) * kKc;  // bf16 elements of one A chunk
+constexpr size_t kSmemMax = 232448;           // shared memory a block can take
+// launch 0's any route: output rows a block, channels a chunk, threads,
+// and the f32 LN input it keeps (bytes)
+constexpr int kAnyRows = 4;
+constexpr int kAnyCc = 32;
+constexpr int kAnyThreads = 256;
+constexpr size_t kAnyAccBytes = 96 * 1024;
 
-bool channels_ok(int c) { return c > 0 && c % kKc == 0 && c <= kMaxC; }
+int pad_c(int c) { return (c + kKc - 1) / kKc * kKc; }
+bool channels_ok(int c) { return c > 0 && pad_c(c) <= kMaxC; }
+// launch 0 takes the ring route (the geometry of PR 19) where C fits it
+bool ring_route(int c) { return c % kKc == 0 && c <= kRingMaxC; }
 
 // ------------------------------------------------------------ geometry
 
 int dw_tile_w(int c) {
-    int tw = 64;
-    while (tw * c / 4 > kDwMaxThreads) tw /= 2;
+    int tw = ring_route(c) ? 64 : 16;
+    if (ring_route(c))
+        while (tw * c / 4 > kDwMaxThreads) tw /= 2;
+    else
+        while (tw > 1 && size_t(kAnyRows) * tw * c * 4 > kAnyAccBytes) tw /= 2;
     return tw;
 }
-int dw_strip(int h) { return h < kMaxStrip ? h : kMaxStrip; }
+int dw_strip(int h, int c) {
+    if (!ring_route(c)) return kAnyRows;
+    return h < kMaxStrip ? h : kMaxStrip;
+}
+int dw_threads(int c) { return ring_route(c) ? dw_tile_w(c) * c / 4 : kAnyThreads; }
 size_t dw_smem(int c) {
-    const int tw = dw_tile_w(c), threads = tw * c / 4;
+    const int tw = dw_tile_w(c);
+    if (!ring_route(c))
+        return size_t(kAnyRows) * tw * c * 4 + size_t(kAnyRows + 6) * (tw + 6) * kAnyCc * 4;
+    const int threads = tw * c / 4;
     return size_t(kRing) * (tw + 6) * c * 2 + size_t(49) * c * 4 +
            size_t(kRows) * (threads / 8 + tw) * 4;
 }
@@ -109,19 +144,27 @@ constexpr size_t kStaging1 = size_t(kM) * kLdY * 4;
 // the ring, which the f32 y2 staging later lies over, and the per-warp sums
 constexpr size_t kRegion1 = kRing1 > kStaging1 ? kRing1 : kStaging1;
 size_t pw1_smem() { return kRegion1 + kWarps * kN1 * 4; }
-int pw2_n_tile(int c) {
+int pw2_n_tile(int cp) {
     constexpr int kTiles[] = {192, 128, 96, 64, 32};
     for (int nt : kTiles)
-        if (c % nt == 0) return nt;
+        if (cp % nt == 0) return nt;
     return 0;
 }
 // a pw2 stage: the f32 y2 chunk, its bf16 A tile, the bf16 w2 chunk
 __host__ __device__ constexpr size_t stage2_elems(int nt) {
     return kChunkA * 2 + kChunkA + size_t(nt) * kKc;
 }
-size_t pw2_smem(int c, int nt) {
-    return size_t(stages2(nt)) * stage2_elems(nt) * 2 + size_t(8) * c * 4;
+size_t pw2_smem_at(int cp, int nt, int stages) {
+    return size_t(stages) * stage2_elems(nt) * 2 + size_t(8) * cp * 4;
 }
+// the ring's depth: five stages at the 192-wide N tile, six otherwise, one
+// fewer while the ring and the GRN vectors of a wide C do not fit
+int pw2_stages(int cp, int nt) {
+    int s = stages2(nt);
+    while (s > 3 && pw2_smem_at(cp, nt, s) > kSmemMax) --s;
+    return s;
+}
+size_t pw2_smem(int cp, int nt) { return pw2_smem_at(cp, nt, pw2_stages(cp, nt)); }
 
 // ------------------------------------------------------------ launch 0
 
@@ -313,6 +356,88 @@ __global__ void __launch_bounds__(kDwMaxThreads, 1) dw_ln_kernel(const DwArgs p)
     cp_async_wait<0>();
 }
 
+// Launch 0, any route: C not a multiple of 32, or over the ring's 384. One
+// block of 256 threads: image img, output rows y0 .. y0 + 3, columns x0 ..
+// x0 + tile_w - 1 (P = 4 tile_w pixels). The channels go by in chunks of 32:
+// the chunk's input rows y0 - 3 .. y0 + 6 and columns x0 - 3 .. x0 +
+// tile_w + 2 land in shared memory as f32 (zero outside the image and past
+// C: the conv's padding), then warp k computes pixels k, k + 8, ... with a
+// lane a channel, the 49 weights of its channel in registers, the taps
+// summed dx-major as the TPU kernel sums them, + bias, into the block's f32
+// LN input [P][C]. Then a warp a pixel: the mean over the true C, the
+// centred variance, the affine, bf16 out into a (B, H * W, cp), zeros in
+// channels C .. cp - 1 (the operand pw1's padded K chunk reads).
+// smem: LN input f32 [P][C] | halo f32 [kAnyRows + 6][tile_w + 6][32]
+__global__ void __launch_bounds__(kAnyThreads) dw_ln_any_kernel(const DwArgs p, int cp) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int c = p.c, tw = p.tile_w, np = kAnyRows * tw, hw_ = tw + 6;
+    float* acc = reinterpret_cast<float*>(smem);
+    float* halo = acc + np * c;
+
+    int bid = blockIdx.x;
+    const int ct = bid % p.ctiles;
+    bid /= p.ctiles;
+    const int y0 = (bid % p.strips) * kAnyRows;
+    const long long img = bid / p.strips;
+    const int x0 = ct * tw;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    constexpr int kW = kAnyThreads / 32;
+    const bf16* xi = p.x + img * p.h * p.w * c;
+
+    for (int c0 = 0; c0 < c; c0 += kAnyCc) {
+        const int ch = c0 + lane;
+        for (int i = tid; i < (kAnyRows + 6) * hw_ * kAnyCc; i += kAnyThreads) {
+            const int j = i % kAnyCc, col = (i / kAnyCc) % hw_, row = i / (kAnyCc * hw_);
+            const int sy = y0 - 3 + row, sx = x0 - 3 + col;
+            const bool ok = sy >= 0 && sy < p.h && sx >= 0 && sx < p.w && c0 + j < c;
+            const long long at = (static_cast<long long>(sy) * p.w + sx) * c + c0 + j;
+            halo[i] = ok ? __bfloat162float(xi[at]) : 0.0f;
+        }
+        float wk[49];
+#pragma unroll
+        for (int t = 0; t < 49; ++t) wk[t] = ch < c ? __bfloat162float(p.dw[t * c + ch]) : 0.0f;
+        const float bias = ch < c ? __bfloat162float(p.dwb[ch]) : 0.0f;
+        __syncthreads();
+        for (int px = warp; px < np; px += kW) {
+            const int py = px / tw, pxx = px - py * tw;
+            float a = 0.0f;
+#pragma unroll
+            for (int dx = 0; dx < 7; ++dx)
+#pragma unroll
+                for (int dy = 0; dy < 7; ++dy)
+                    a += halo[((py + dy) * hw_ + pxx + dx) * kAnyCc + lane] * wk[dy * 7 + dx];
+            if (ch < c) acc[px * c + ch] = a + bias;
+        }
+        __syncthreads();  // the halo is the next chunk's
+    }
+
+    const float inv_c = 1.0f / c;
+    for (int px = warp; px < np; px += kW) {
+        const int py = px / tw, pxx = px - py * tw;
+        if (y0 + py >= p.h || x0 + pxx >= p.w) continue;  // uniform over the warp
+        const float* v = acc + px * c;
+        float sm = 0.0f;
+        for (int k = lane; k < c; k += 32) sm += v[k];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sm += __shfl_xor_sync(0xffffffffu, sm, off);
+        const float mu = sm * inv_c;
+        float sq = 0.0f;
+        for (int k = lane; k < c; k += 32) {
+            const float d = v[k] - mu;
+            sq += d * d;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        const float rs = rsqrtf(sq * inv_c + 1e-6f);
+        bf16* out = p.a + ((img * p.h + y0 + py) * p.w + x0 + pxx) * cp;
+        for (int k = lane; k < cp; k += 32)
+            out[k] = __float2bfloat16(k < c ? __fmaf_rn((v[k] - mu) * rs,
+                                                        __bfloat162float(p.lng[k]),
+                                                        __bfloat162float(p.lnb[k]))
+                                            : 0.0f);
+    }
+}
+
 // ------------------------------------------------------------ launches 1, 2
 
 // Chunk kc of a GEMM tile into a ring stage, canonical K-major: element
@@ -462,26 +587,28 @@ pw1_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w1t, const bf16*
     }
 }
 
-// pw2: block (m tile, n tile), n fastest; smem: ring of stages [f32 y2
-// chunk | bf16 A tile | w2 chunk] | scale f32 [4C] | shift f32 [4C]
-template <int NT>
+// pw2: block (m tile, n tile), n fastest; smem: ring of kS stages [f32 y2
+// chunk | bf16 A tile | w2 chunk] | scale f32 [4 cp] | shift f32 [4 cp].
+// K and N run over the padded cp (w2t (cp, 4 cp), the GRN vectors 4 cp;
+// zero past C); x and out are (B, H*W, C), and the GRN mean is over the
+// true 4C.
+template <int NT, int kS>
 __global__ void __launch_bounds__(kThreads, 1)
 pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
            const bf16* __restrict__ gg, const bf16* __restrict__ gb, const bf16* __restrict__ w2t,
            const bf16* __restrict__ b2, const bf16* __restrict__ x, bf16* __restrict__ out,
-           int hw, int c, int tiles_per_img) {
+           int hw, int c, int cp, int tiles_per_img) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int kS = stages2(NT);
     constexpr size_t kStage = stage2_elems(NT);  // bf16 units
     constexpr int kLdO = NT + 8;
     static_assert(kM * kLdO <= kS * kStage, "pw2 staging fits the ring");
     bf16* ring = reinterpret_cast<bf16*>(smem);
-    const int c4 = 4 * c;
+    const int c4 = 4 * cp;
     float* scale = reinterpret_cast<float*>(ring + kS * kStage);
     float* shift = scale + c4;
     __shared__ double warp_sum[kWarps];
 
-    const int ntiles = c / NT;
+    const int ntiles = cp / NT;
     const int nt = blockIdx.x % ntiles, mt = blockIdx.x / ntiles;
     const long long img = mt / tiles_per_img;
     const int p0 = (mt % tiles_per_img) * kM, n0 = nt * NT;
@@ -512,7 +639,7 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
     for (int n = tid; n < c4; n += kThreads) {
         const float gx = sqrtf(gsum[img * c4 + n] + 1e-12f);
         scale[n] = gx;
-        s += gx;
+        if (n < 4 * c) s += gx;
     }
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) warp_sum[warp] = s;
@@ -520,7 +647,7 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
     double tot = 0.0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) tot += warp_sum[w];
-    const float denom = static_cast<float>(tot / c4) + 1e-6f;
+    const float denom = static_cast<float>(tot / (4 * c)) + 1e-6f;
     for (int n = tid; n < c4; n += kThreads) {
         const float nx = scale[n] / denom;
         scale[n] = __fmaf_rn(__bfloat162float(gg[n]), nx, 1.0f);
@@ -576,6 +703,31 @@ pw2_kernel(const float* __restrict__ y2, const float* __restrict__ gsum,
     // + b2 + residual x, rounded once to bf16
     bf16* stg = ring;
     const int r0 = 64 * wg + 16 * wq + g;
+    if (c != cp) {  // C no multiple of 32: channels one by one, those past C dropped
+#pragma unroll
+        for (int nf = 0; nf < NT / 8; ++nf) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int r = r0 + 8 * hf;
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = nf * 8 + 2 * q + e, ch = n0 + col;
+                    float o = 0.0f;
+                    if (r < valid && ch < c)
+                        o = __bfloat162float(x[(img * hw + p0 + r) * c + ch]) +
+                            (acc[4 * nf + 2 * hf + e] + __bfloat162float(b2[ch]));
+                    stg[r * kLdO + col] = __float2bfloat16(o);
+                }
+            }
+        }
+        __syncthreads();
+        for (int i = tid; i < kM * NT; i += kThreads) {
+            const int r = i / NT, col = i % NT;
+            if (r < valid && n0 + col < c)
+                out[(img * hw + p0 + r) * c + n0 + col] = stg[r * kLdO + col];
+        }
+        return;
+    }
 #pragma unroll
     for (int nf = 0; nf < NT / 8; ++nf) {
         const int col = nf * 8 + 2 * q;
@@ -613,33 +765,35 @@ bool gemm_blocks(int b, int hw, int ntiles, int* tiles_per_img, int* blocks) {
     return true;
 }
 
-template <int NT>
+template <int NT, int S>
 cudaError_t launch_pw2(const void* y2, const void* gsum, const void* gg, const void* gb,
                        const void* w2t, const void* b2, const void* x, void* out, int b, int hw,
-                       int c, size_t smem, cudaStream_t st) {
+                       int c, int cp, size_t smem, cudaStream_t st) {
     int tiles, blocks;
-    if (!gemm_blocks(b, hw, c / NT, &tiles, &blocks)) return cudaErrorInvalidValue;
-    cudaError_t e = pgm_set_smem(pw2_kernel<NT>, smem);
+    if (!gemm_blocks(b, hw, cp / NT, &tiles, &blocks)) return cudaErrorInvalidValue;
+    cudaError_t e = pgm_set_smem(pw2_kernel<NT, S>, smem);
     if (e != cudaSuccess) return e;
-    pw2_kernel<NT><<<blocks, kThreads, smem, st>>>(
+    pw2_kernel<NT, S><<<blocks, kThreads, smem, st>>>(
         static_cast<const float*>(y2), static_cast<const float*>(gsum),
         static_cast<const bf16*>(gg), static_cast<const bf16*>(gb),
         static_cast<const bf16*>(w2t), static_cast<const bf16*>(b2),
-        static_cast<const bf16*>(x), static_cast<bf16*>(out), hw, c, tiles);
+        static_cast<const bf16*>(x), static_cast<bf16*>(out), hw, c, cp, tiles);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch 0. x (B, H, W, C); dw (7, 7, C); dwb, lng, lnb (C,); a (B, H*W, C)
-// out. tile_w, strip, threads, smem: ConvNeXtTiling's dw geometry.
+// Launch 0. x (B, H, W, C); dw (7, 7, C); dwb, lng, lnb (C,); a (B, H*W, cp)
+// out, cp = C rounded up to 32 (zeros past C). tile_w, strip, threads, smem:
+// ConvNeXtTiling's dw geometry (the ring route where C is a multiple of 32
+// up to 384, the any route otherwise).
 PGM_EXPORT int convnext_dw_ln_launch(const void* x, const void* dw, const void* dwb,
                                      const void* lng, const void* lnb, void* a, int b, int h,
                                      int w, int c, int tile_w, int strip, int threads, int smem,
                                      void* stream) {
     if (!channels_ok(c) || b <= 0 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
-    if (tile_w != dw_tile_w(c) || strip != dw_strip(h) || threads != tile_w * c / 4 ||
-        threads > kDwMaxThreads || static_cast<size_t>(smem) != dw_smem(c))
+    if (tile_w != dw_tile_w(c) || strip != dw_strip(h, c) || threads != dw_threads(c) ||
+        static_cast<size_t>(smem) != dw_smem(c) || dw_smem(c) > kSmemMax)
         return cudaErrorInvalidValue;
     DwArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(dw),
              static_cast<const bf16*>(dwb), static_cast<const bf16*>(lng),
@@ -647,80 +801,99 @@ PGM_EXPORT int convnext_dw_ln_launch(const void* x, const void* dw, const void* 
              (h + strip - 1) / strip, (w + tile_w - 1) / tile_w};
     const long long blocks = static_cast<long long>(b) * p.strips * p.ctiles;
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (!ring_route(c)) {
+        cudaError_t e = pgm_set_smem(dw_ln_any_kernel, smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        dw_ln_any_kernel<<<static_cast<int>(blocks), threads, smem, st>>>(p, pad_c(c));
+        return static_cast<int>(cudaGetLastError());
+    }
     cudaError_t e = pgm_set_smem(dw_ln_kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dw_ln_kernel<<<static_cast<int>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    dw_ln_kernel<<<static_cast<int>(blocks), threads, smem, st>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 1. a (B, H*W, C); w1t (4C, C); b1 (4C,); y2 (B, H*W, 4C) f32 out;
-// gsum: ConvNeXtTiling.grn_words f32 words, the sums (B, 4C) first, its
+// Launch 1. a (B, H*W, cp); w1t (4 cp, cp); b1 (4 cp,); y2 (B, H*W, 4 cp) f32
+// out; cp a multiple of 32 (C padded with zero weights). gsum:
+// ConvNeXtTiling.grn_words f32 words, the sums (B, 4 cp) first, its
 // counters zero (as the launch leaves them). m_tile, n_tile, smem:
 // ConvNeXtTiling's pw1 geometry.
 PGM_EXPORT int convnext_pw1_launch(const void* a, const void* w1t, const void* b1, void* y2,
-                                   void* gsum, int b, int hw, int c, int exact, int m_tile,
+                                   void* gsum, int b, int hw, int cp, int exact, int m_tile,
                                    int n_tile, int smem, void* stream) {
-    if (!channels_ok(c) || m_tile != kM || n_tile != kN1 ||
+    if (!channels_ok(cp) || cp % kKc || m_tile != kM || n_tile != kN1 ||
         static_cast<size_t>(smem) != pw1_smem())
         return cudaErrorInvalidValue;
     int tiles, blocks;
-    if (!gemm_blocks(b, hw, 4 * c / kN1, &tiles, &blocks)) return cudaErrorInvalidValue;
+    if (!gemm_blocks(b, hw, 4 * cp / kN1, &tiles, &blocks)) return cudaErrorInvalidValue;
     cudaError_t e = pgm_set_smem(pw1_kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     pw1_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(w1t), static_cast<const bf16*>(b1),
-        static_cast<float*>(y2), static_cast<float*>(gsum), hw, c, tiles, exact);
+        static_cast<float*>(y2), static_cast<float*>(gsum), hw, cp, tiles, exact);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 2. y2 (B, H*W, 4C) f32; gsum: the sums (B, 4C) from launch 1; gg, gb (4C,);
-// w2t (C, 4C); b2 (C,); x, out (B, H*W, C). m_tile, n_tile, smem:
-// ConvNeXtTiling's pw2 geometry.
+// Launch 2. y2 (B, H*W, 4 cp) f32; gsum: the sums (B, 4 cp) from launch 1;
+// gg, gb (4 cp,); w2t (cp, 4 cp); b2 (C,); x, out (B, H*W, C). m_tile,
+// n_tile, stages, smem: ConvNeXtTiling's pw2 geometry.
 PGM_EXPORT int convnext_pw2_launch(const void* y2, const void* gsum, const void* gg,
                                    const void* gb, const void* w2t, const void* b2, const void* x,
                                    void* out, int b, int hw, int c, int m_tile, int n_tile,
-                                   int smem, void* stream) {
-    if (!channels_ok(c) || m_tile != kM || n_tile != pw2_n_tile(c) ||
-        static_cast<size_t>(smem) != pw2_smem(c, n_tile))
+                                   int stages, int smem, void* stream) {
+    const int cp = pad_c(c);
+    if (!channels_ok(c) || m_tile != kM || n_tile != pw2_n_tile(cp) ||
+        stages != pw2_stages(cp, n_tile) || static_cast<size_t>(smem) != pw2_smem(cp, n_tile) ||
+        static_cast<size_t>(smem) > kSmemMax)
         return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t e;
-    switch (n_tile) {
-        case 192: e = launch_pw2<192>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
-        case 128: e = launch_pw2<128>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
-        case 96: e = launch_pw2<96>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
-        case 64: e = launch_pw2<64>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
-        case 32: e = launch_pw2<32>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, smem, st); break;
+#define PGM_PW2(NT, S) \
+    e = launch_pw2<NT, S>(y2, gsum, gg, gb, w2t, b2, x, out, b, hw, c, cp, smem, st)
+    switch (n_tile * 10 + stages) {
+        case 1925: PGM_PW2(192, 5); break;
+        case 1924: PGM_PW2(192, 4); break;
+        case 1286: PGM_PW2(128, 6); break;
+        case 1285: PGM_PW2(128, 5); break;
+        case 966: PGM_PW2(96, 6); break;
+        case 965: PGM_PW2(96, 5); break;
+        case 646: PGM_PW2(64, 6); break;
+        case 645: PGM_PW2(64, 5); break;
+        case 326: PGM_PW2(32, 6); break;
         default: e = cudaErrorInvalidValue;
     }
+#undef PGM_PW2
     return static_cast<int>(e);
 }
 
 // The block: launches 0, 1, 2, with gsum's counters zeroed first. x, out
-// (B, H, W, C); weights bf16: dw (7, 7, C), w1t (4C, C), w2t (C, 4C),
-// vectors (C,) or (4C,); scratch a (B, H*W, C), y2 (B, H*W, 4C) f32, gsum
-// ConvNeXtTiling.grn_words f32 words. The geometry arguments are
-// ConvNeXtTiling.launch_args().
+// (B, H, W, C); weights bf16: dw (7, 7, C), dwb, lng, lnb, b2 (C,), and in
+// the padded layout (cp = C rounded up to 32, zeros past C): w1t (4 cp, cp),
+// b1, gg, gb (4 cp,), w2t (cp, 4 cp); scratch a (B, H*W, cp), y2 (B, H*W,
+// 4 cp) f32, gsum ConvNeXtTiling.grn_words f32 words. The geometry arguments
+// are ConvNeXtTiling.launch_args().
 PGM_EXPORT int convnext_block_launch(const void* x, const void* dw, const void* dwb,
                                      const void* lng, const void* lnb, const void* w1t,
                                      const void* b1, const void* gg, const void* gb,
                                      const void* w2t, const void* b2, void* a, void* y2,
                                      void* gsum, void* out, int b, int h, int w, int c, int exact,
-                                     int dw_tile, int dw_rows, int dw_threads, int dw_smem_b,
-                                     int m_tile, int n1_tile, int n2_tile, int pw1_smem_b,
-                                     int pw2_smem_b, void* stream) {
+                                     int dw_tile, int dw_rows, int dw_threads_, int dw_smem_b,
+                                     int m_tile, int n1_tile, int n2_tile, int n2_stages,
+                                     int pw1_smem_b, int pw2_smem_b, void* stream) {
     if (!channels_ok(c) || b <= 0) return cudaErrorInvalidValue;
-    const size_t tiles = (static_cast<size_t>(h) * w + kM - 1) / kM, c4 = 4 * size_t(c);
+    const int cp = pad_c(c);
+    const size_t tiles = (static_cast<size_t>(h) * w + kM - 1) / kM, c4 = 4 * size_t(cp);
     cudaError_t e = cudaMemsetAsync(static_cast<float*>(gsum) + b * c4 * (1 + tiles), 0,
                                     sizeof(unsigned) * b * (c4 / kN1),
                                     static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     int r = convnext_dw_ln_launch(x, dw, dwb, lng, lnb, a, b, h, w, c, dw_tile, dw_rows,
-                                  dw_threads, dw_smem_b, stream);
+                                  dw_threads_, dw_smem_b, stream);
     if (r) return r;
-    r = convnext_pw1_launch(a, w1t, b1, y2, gsum, b, h * w, c, exact, m_tile, n1_tile, pw1_smem_b,
-                            stream);
+    r = convnext_pw1_launch(a, w1t, b1, y2, gsum, b, h * w, cp, exact, m_tile, n1_tile,
+                            pw1_smem_b, stream);
     if (r) return r;
     return convnext_pw2_launch(y2, gsum, gg, gb, w2t, b2, x, out, b, h * w, c, m_tile, n2_tile,
-                               pw2_smem_b, stream);
+                               n2_stages, pw2_smem_b, stream);
 }

@@ -139,7 +139,8 @@ class ConvNeXtV2(nn.Module):
         their weights held once in the kernel's layout. Call it when the
         weights, device and dtype are final: later changes do not reach K1.
         With the weights on the card, refuses a stage whose width K1's
-        kernel cannot take (``ops/convnext_block.py::check_channels``)."""
+        kernel cannot take (``ops/convnext_block.py::check_channels``: C
+        from 1 to ``MAX_C``, every ConvNeXtV2 width of stages 0-2)."""
         if on_card(self):
             for s in DEFAULT_FUSED_STAGES:
                 check_channels(self.stages[s][0].dwconv.in_channels, f"encoder stage {s}")

@@ -16,6 +16,12 @@ pass count of one tile max-ed into ``counts[1]``, by the kernel on the card.
 A pass is one row-runs-then-column-runs relaxation of the TPU kernel's
 ``_relax_fixpoint``, the last one (which changes nothing) included; each
 relaxation that runs is counted, so the adaptive call counts its re-run.
+
+The kernel takes every tile the Pallas kernel takes by size, h * w < 2**24
+at any side length (``CcSizesTiling``): tiles of up to 65,536 pixels with
+sides up to 1024 on its shared-memory route, the others on its global
+route, whose labels live in device memory. Both run the same passes, so
+labels and counts do not depend on the route.
 """
 
 from __future__ import annotations
@@ -29,19 +35,39 @@ from path_gene_multimodal_tpu_torch.ops import cuda
 from path_gene_multimodal_tpu_torch.ops.components import index_seeds, relax_fixpoint
 
 MAX_ITERS = 256  # relaxation cap of the JAX package (first pass + 256)
-MAX_PIXELS = 65_536  # uint16 pixel indices in shared memory
+MAX_PIXELS = 65_536  # the shared route: uint16 pixel indices in shared memory
 MAX_SIDE = 1024
+MAX_TILE_PIXELS = 2**24  # the Pallas kernel's limit (exact f32 label math): h * w below it
+
+
+def _line_split(lines: int, length: int, threads: int) -> tuple[int, int]:
+    """(segments a line, segment length) of a phase of the global route:
+    as many segments a line as the block has threads for its lines, at
+    least one and at most a pixel each."""
+    cap = 1 if lines >= threads else min(threads // lines, length)
+    seg_len = -(-length // cap)
+    return -(-length // seg_len), seg_len
 
 
 @dataclass(frozen=True)
 class CcSizesTiling:
     """Launch geometry of K2 (``csrc/cc_sizes.cu``) on (h, w) tiles at
-    ``s_slots`` slots: one block of ``threads`` per tile. Labels are uint16
-    in shared memory, rows of ``ls`` (w rounded up to 8) for 16-byte loads;
-    the row runs give each lane of a warp ``per`` consecutive pixels of a
-    row; the column runs give each thread a segment of ``seg_len`` rows of
-    one column (``segs`` segments a column). The kernel checks what it is
-    given against its own geometry."""
+    ``s_slots`` slots: one block of ``threads`` per tile, on one of two
+    routes (``shared``).
+
+    The shared route (tiles of <= ``MAX_PIXELS`` pixels and sides <=
+    ``MAX_SIDE``): labels are uint16 in shared memory, rows of ``ls`` (w
+    rounded up to 8) for 16-byte loads; the row runs give each lane of a
+    warp ``per`` consecutive pixels of a row; the column runs give each
+    thread a segment of ``seg_len`` rows of one column (``segs`` segments a
+    column).
+
+    The global route (any other tile of < ``MAX_TILE_PIXELS`` pixels):
+    labels int32 in device memory, the dirty flags of rows and columns in a
+    scratch of ``scratch_bytes`` a tile; both phases walk their lines in
+    segments (``row_split``, ``col_split``: segments a line, their length).
+
+    The kernel checks what it is given against its own geometry."""
 
     threads: ClassVar[int] = 1024
 
@@ -52,15 +78,19 @@ class CcSizesTiling:
     def __post_init__(self):
         if self.h <= 0 or self.w <= 0:
             raise ValueError(f"cc_sizes: empty tile {self.h}x{self.w}")
-        if self.h > MAX_SIDE or self.w > MAX_SIDE or self.h * self.w > MAX_PIXELS:
-            raise ValueError(f"cc_sizes kernel takes tiles of <= {MAX_PIXELS} pixels and "
-                             f"sides <= {MAX_SIDE}, got {self.h}x{self.w}")
+        if self.h * self.w >= MAX_TILE_PIXELS:
+            raise ValueError(f"cc_sizes kernel takes tiles of < {MAX_TILE_PIXELS} pixels (the "
+                             f"Pallas kernel's limit), got {self.h}x{self.w}")
         if not 0 < self.s_slots < 0xFFFF:
             raise ValueError(f"cc_sizes kernel takes 1..65534 slots, got {self.s_slots}")
         if self.smem_bytes > cuda.SMEM_PER_BLOCK:
             raise ValueError(f"cc_sizes: a {self.h}x{self.w} tile at {self.s_slots} slots needs "
                              f"{self.smem_bytes} B of shared memory, more than "
                              f"{cuda.SMEM_PER_BLOCK}")
+
+    @property
+    def shared(self) -> bool:
+        return self.h <= MAX_SIDE and self.w <= MAX_SIDE and self.h * self.w <= MAX_PIXELS
 
     @property
     def ls(self) -> int:
@@ -84,10 +114,28 @@ class CcSizesTiling:
         return -(-self.h // self.seg_len)
 
     @property
+    def row_split(self) -> tuple[int, int]:
+        return _line_split(self.h, self.w, self.threads)
+
+    @property
+    def col_split(self) -> tuple[int, int]:
+        return _line_split(self.w, self.h, self.threads)
+
+    @property
+    def scratch_bytes(self) -> int:
+        """The global route's dirty flags of a tile: rows and columns, two
+        passes' worth."""
+        return 2 * (self.h + self.w)
+
+    @property
     def smem_bytes(self) -> int:
-        """Labels, mask and root bits, per-row root counts, dirty flags of
-        rows and columns (two passes' worth), the segments' head/tail/full
-        records, slot counts (int32) and dense ids (uint16)."""
+        """Shared route: labels, mask and root bits, per-row root counts,
+        dirty flags of rows and columns (two passes' worth), the segments'
+        head/tail/full records, slot counts (int32) and dense ids (uint16).
+        Global route: the segments' records, slot counts and dense ids
+        (int32)."""
+        if not self.shared:
+            return 3 * self.threads * 4 + self.s_slots * 8
         r16 = lambda n: -(-n // 16) * 16  # noqa: E731
         planes = self.h * self.wpr * 4
         return (self.h * self.ls * 2 + 2 * planes + self.h * 4 + r16(2 * (self.h + self.w))
@@ -137,13 +185,23 @@ def cc_sizes_plain(mask: torch.Tensor, s_slots: int = 4096, min_size: int = 0,
 def _launch(mask_u8, lbl, sizes, dense, n_roots, counts, s_slots, min_size, gate, gate_slots):
     b, h, w = mask_u8.shape
     geo = CcSizesTiling(h, w, s_slots)
-    cuda.launch(
-        "cc_sizes", "cc_sizes_launch",
-        cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
-        cuda.ptr(n_roots), cuda.ptr(counts), b, h, w, s_slots, min_size, MAX_ITERS,
-        cuda.ptr(gate), gate_slots, geo.threads, geo.ls, geo.per, geo.seg_len, geo.smem_bytes,
-        cuda.stream(mask_u8),
-    )
+    if geo.shared:
+        cuda.launch(
+            "cc_sizes", "cc_sizes_launch",
+            cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
+            cuda.ptr(n_roots), cuda.ptr(counts), b, h, w, s_slots, min_size, MAX_ITERS,
+            cuda.ptr(gate), gate_slots, geo.threads, geo.ls, geo.per, geo.seg_len,
+            geo.smem_bytes, cuda.stream(mask_u8),
+        )
+    else:
+        scratch = torch.empty((b, geo.scratch_bytes), dtype=torch.uint8, device=mask_u8.device)
+        cuda.launch(
+            "cc_sizes", "cc_sizes_global_launch",
+            cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
+            cuda.ptr(n_roots), cuda.ptr(counts), cuda.ptr(scratch), b, h, w, s_slots, min_size,
+            MAX_ITERS, cuda.ptr(gate), gate_slots, geo.threads, *geo.row_split,
+            *geo.col_split, geo.smem_bytes, cuda.stream(mask_u8),
+        )
     cc_sizes.launches += 1
 
 

@@ -24,8 +24,12 @@ repeats), so that pw2 fed the same y2 and sums rounds y3 exactly as the
 kernel does. The f32 products run with TF32 off whatever the caller's flags
 (``cuda.exact_f32``).
 
-The kernel takes C a multiple of 32 up to 384 (``check_channels``); the
-Pallas kernel and the plain version take any C.
+The kernel takes any C from 1 to ``MAX_C`` (``check_channels``), as the
+Pallas kernel and the plain version take any C: launch 0 on its ring route
+where C is a multiple of 32 up to 384 and on its any route otherwise; where
+C is no multiple of 32 the products run at C rounded up to 32 on weights
+padded with zeros (``pad_weights``), the LayerNorm and the GRN mean over
+the true C.
 """
 
 from __future__ import annotations
@@ -158,34 +162,45 @@ def convnext_block_plain(
     return pw_plain(x, y, w1, b1, grn_gamma, grn_beta, w2, b2, exact_gelu)
 
 
-C_MULTIPLE = 32  # the kernel's K chunk: C and 4C are whole chunks
-MAX_C = 384  # launch 0's ring and weights fill a block's shared memory at C = 384,
-# and launch 2's N tile (its f32 accumulators) is at most 192 wide
+K_CHUNK = 32  # the products' K chunk: C is padded to a whole number of them
+RING_MAX_C = 384  # launch 0's ring route: C a multiple of 32 up to here
+MAX_C = 2048  # the any route's limit: pw2's ring and GRN vectors (8 cp f32) fit a block
+
+
+def padded_channels(c: int) -> int:
+    """C rounded up to K1's K chunk: the width its products run at."""
+    return -(-c // K_CHUNK) * K_CHUNK
 
 
 def check_channels(c: int, what: str = "x") -> None:
-    """Raise unless K1's kernel takes ``c`` channels."""
-    if c <= 0 or c % C_MULTIPLE or c > MAX_C:
-        raise ValueError(f"{what}: the convnext_block kernel (K1) takes C a multiple of "
-                         f"{C_MULTIPLE} up to {MAX_C}, got C = {c}")
+    """Raise unless K1's kernel takes ``c`` channels (1 to ``MAX_C``)."""
+    if c <= 0 or padded_channels(c) > MAX_C:
+        raise ValueError(f"{what}: the convnext_block kernel (K1) takes C from 1 to {MAX_C}, "
+                         f"got C = {c}")
 
 
 @dataclass(frozen=True)
 class ConvNeXtTiling:
     """Launch geometry of K1's three launches (``csrc/convnext_block.cu``)
     on a (batch, h, w, c) block input; the launchers check what they are
-    given against their own.
+    given against their own. The products run at ``cp`` channels (C
+    rounded up to 32, the weights zero-padded by the wrapper).
 
-    - Launch 0 (dw 7x7 + LN): a block per (image, strip of ``dw_strip``
-      rows, column tile of ``dw_tile_w``), one thread per (column, 4
-      channels) computing ``dw_rows`` output rows per step; the input rows
-      slide through a ring of ``ring_rows`` rows of ``dw_tile_w + 6``
-      pixels in shared memory (the rows a step reads and the next step's,
-      copied ahead).
+    - Launch 0 (dw 7x7 + LN), ring route (``ring``: C a multiple of 32 up
+      to 384): a block per (image, strip of ``dw_strip`` rows, column tile
+      of ``dw_tile_w``), one thread per (column, 4 channels) computing
+      ``dw_rows`` output rows per step; the input rows slide through a ring
+      of ``ring_rows`` rows of ``dw_tile_w + 6`` pixels in shared memory
+      (the rows a step reads and the next step's, copied ahead).
+    - Launch 0, any route (every other C): a block of ``any_threads`` per
+      (image, ``any_rows`` output rows, column tile of ``dw_tile_w``), its
+      pixels' f32 LN input for all C in shared memory (the tile halves
+      until that fits ``any_acc_bytes``), the channels in chunks of 32
+      through an f32 halo.
     - Launches 1 (pw1) and 2 (pw2): a block per (128-pixel tile, N tile),
       the N tile fastest; an image's pixels are cut into ``tiles_per_img``
       tiles, the last one masked, so no tile holds two images. N tiles are
-      128 wide in pw1 (of 4C) and ``pw2_n_tile`` in pw2 (of C). A and B
+      128 wide in pw1 (of 4 cp) and ``pw2_n_tile`` in pw2 (of cp). A and B
       stream through a ring of ``pw1_stages`` / ``pw2_stages`` K chunks of
       32. y2 lies in device memory in f32 between them: pw1 writes it
       through an f32 staging, and a pw2 stage holds the f32 chunk beside
@@ -194,12 +209,15 @@ class ConvNeXtTiling:
 
     m_tile: ClassVar[int] = 128
     n1_tile: ClassVar[int] = 128
-    k_chunk: ClassVar[int] = 32
+    k_chunk: ClassVar[int] = K_CHUNK
     pw1_stages: ClassVar[int] = 4
     ring_rows: ClassVar[int] = 14
     dw_rows: ClassVar[int] = 4
     max_strip: ClassVar[int] = 64
     max_dw_threads: ClassVar[int] = 768
+    any_rows: ClassVar[int] = 4
+    any_threads: ClassVar[int] = 256
+    any_acc_bytes: ClassVar[int] = 96 * 1024
     gemm_threads: ClassVar[int] = 256
     gemm_warps: ClassVar[int] = 8
 
@@ -212,11 +230,24 @@ class ConvNeXtTiling:
         check_channels(self.c)
 
     @property
+    def cp(self) -> int:
+        return padded_channels(self.c)
+
+    @property
+    def ring(self) -> bool:
+        return self.c % K_CHUNK == 0 and self.c <= RING_MAX_C
+
+    @property
     def hw(self) -> int:
         return self.h * self.w
 
     @property
     def dw_tile_w(self) -> int:
+        if not self.ring:
+            tw = 16
+            while tw > 1 and self.any_rows * tw * self.c * 4 > self.any_acc_bytes:
+                tw //= 2
+            return tw
         tw = 64
         while tw * self.c // 4 > self.max_dw_threads:
             tw //= 2
@@ -224,11 +255,11 @@ class ConvNeXtTiling:
 
     @property
     def dw_strip(self) -> int:
-        return min(self.h, self.max_strip)
+        return min(self.h, self.max_strip) if self.ring else self.any_rows
 
     @property
     def dw_threads(self) -> int:
-        return self.dw_tile_w * self.c // 4
+        return self.dw_tile_w * self.c // 4 if self.ring else self.any_threads
 
     @property
     def dw_grid(self) -> int:
@@ -236,10 +267,14 @@ class ConvNeXtTiling:
 
     @property
     def dw_smem(self) -> int:
-        """The input ring (bf16), the dw weights (f32), the LayerNorm
-        partial sums (one per 32 channels) and per-pixel statistic (f32)
-        of a step's rows."""
+        """Ring route: the input ring (bf16), the dw weights (f32), the
+        LayerNorm partial sums (one per 32 channels) and per-pixel statistic
+        (f32) of a step's rows. Any route: the block's f32 LN input and the
+        f32 halo of one chunk of 32 channels."""
         tw, c = self.dw_tile_w, self.c
+        if not self.ring:
+            return (self.any_rows * tw * c * 4
+                    + (self.any_rows + 6) * (tw + 6) * self.k_chunk * 4)
         stats = self.dw_rows * (self.dw_threads // 8 + tw)
         return self.ring_rows * (tw + 6) * c * 2 + 49 * c * 4 + stats * 4
 
@@ -254,15 +289,15 @@ class ConvNeXtTiling:
 
     @property
     def grn_words(self) -> int:
-        """f32 words of the GRN scratch: the per-image sums (B, 4C), each
-        tile's sums (B, tiles_per_img, 4C) that the last tile of an image
+        """f32 words of the GRN scratch: the per-image sums (B, 4 cp), each
+        tile's sums (B, tiles_per_img, 4 cp) that the last tile of an image
         adds in tile order, and a counter per (image, pw1 N tile)."""
-        c4 = 4 * self.c
+        c4 = 4 * self.cp
         return self.batch * (c4 * (1 + self.tiles_per_img) + c4 // self.n1_tile)
 
     @property
     def pw1_grid(self) -> int:
-        return self.batch * self.tiles_per_img * (4 * self.c // self.n1_tile)
+        return self.batch * self.tiles_per_img * (4 * self.cp // self.n1_tile)
 
     @property
     def pw1_ring(self) -> int:
@@ -282,30 +317,42 @@ class ConvNeXtTiling:
 
     @property
     def pw2_n_tile(self) -> int:
-        return next(n for n in (192, 128, 96, 64, 32) if self.c % n == 0)
+        return next(n for n in (192, 128, 96, 64, 32) if self.cp % n == 0)
+
+    @property
+    def pw2_stage(self) -> int:
+        """Bytes of a pw2 ring stage: the f32 y2 chunk, its bf16 A tile and
+        the bf16 w2 chunk."""
+        return self.m_tile * self.k_chunk * (4 + 2) + self.pw2_n_tile * self.k_chunk * 2
 
     @property
     def pw2_stages(self) -> int:
         """Five at the 192-wide N tile, where six stages of f32 y2 chunks
-        would not fit a block's shared memory; six otherwise."""
-        return 5 if self.pw2_n_tile >= 192 else 6
+        would not fit a block's shared memory; six otherwise; one fewer
+        while a wide C's GRN vectors do not fit beside them."""
+        s = 5 if self.pw2_n_tile >= 192 else 6
+        while s > 3 and s * self.pw2_stage + self.pw2_grn_bytes > cuda.SMEM_PER_BLOCK:
+            s -= 1
+        return s
+
+    @property
+    def pw2_grn_bytes(self) -> int:
+        """The per-channel GRN scale and shift, f32, 4 cp each."""
+        return 2 * 4 * self.cp * 4
 
     @property
     def pw2_grid(self) -> int:
-        return self.batch * self.tiles_per_img * (self.c // self.pw2_n_tile)
+        return self.batch * self.tiles_per_img * (self.cp // self.pw2_n_tile)
 
     @property
     def pw2_ring(self) -> int:
-        """The ring: per stage the f32 y2 chunk, its bf16 A tile and the
-        bf16 w2 chunk."""
-        stage = self.m_tile * self.k_chunk * (4 + 2) + self.pw2_n_tile * self.k_chunk * 2
-        return self.pw2_stages * stage
+        return self.pw2_stages * self.pw2_stage
 
     @property
     def pw2_smem(self) -> int:
-        """The ring and the per-channel GRN scale and shift (f32, 4C each);
-        the output staging (128 x (N tile + 8) bf16) lies over the ring."""
-        return self.pw2_ring + 2 * 4 * self.c * 4
+        """The ring and the GRN scale and shift; the output staging (128 x
+        (N tile + 8) bf16) lies over the ring."""
+        return self.pw2_ring + self.pw2_grn_bytes
 
     @property
     def pw2_staging(self) -> int:
@@ -316,10 +363,10 @@ class ConvNeXtTiling:
 
     def launch_args(self) -> tuple[int, ...]:
         """As ``convnext_block_launch`` takes them: (dw tile width, dw
-        strip, dw threads, dw smem, M tile, pw1 N tile, pw2 N tile, pw1
-        smem, pw2 smem)."""
-        return (*self.dw_args(), self.m_tile, self.n1_tile, self.pw2_n_tile, self.pw1_smem,
-                self.pw2_smem)
+        strip, dw threads, dw smem, M tile, pw1 N tile, pw2 N tile, pw2
+        stages, pw1 smem, pw2 smem)."""
+        return (*self.dw_args(), self.m_tile, self.n1_tile, self.pw2_n_tile, self.pw2_stages,
+                self.pw1_smem, self.pw2_smem)
 
     def bytes_moved(self) -> dict[str, int]:
         """Device-memory bytes each launch must move at least: its inputs
@@ -336,10 +383,34 @@ class ConvNeXtTiling:
         return {"pw1": 2 * px * c * 4 * c, "pw2": 2 * px * 4 * c * c}
 
 
+def pad_weights(wts, c: int) -> tuple[torch.Tensor, ...]:
+    """The weights in the kernel's padded layout at ``c`` channels: w1
+    (cp, 4 cp) and w2 (4 cp, cp) as transposes of contiguous tensors, b1
+    and the GRN vectors (4 cp,), zeros past C, the rest as they are. Where
+    C is a multiple of 32 the weights come back as they are."""
+    cp = padded_channels(c)
+    if cp == c:
+        return tuple(wts)
+    dw, dwb, lng, lnb, w1, b1, gg, gb, w2, b2 = wts
+
+    def grow(t, shape):
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    # the hidden channel j of 4C stays at j; 4C .. 4 cp are the zeros
+    w1p = grow(w1.t(), (4 * cp, cp)).t()
+    w2p = grow(w2.t(), (cp, 4 * cp)).t()
+    return (dw, dwb, lng, lnb, w1p, grow(b1, (4 * cp,)), grow(gg, (4 * cp,)),
+            grow(gb, (4 * cp,)), w2p, b2)
+
+
 def _kernel_args(x, wts):
     """Check the block's input and weights for the kernel; returns the bf16
     input and the weight pointers in the launcher's order (w1 and w2 as
-    their transposes, nn.Linear's layout)."""
+    their transposes, nn.Linear's layout), in the padded layout where C is
+    no multiple of 32 (``pad_weights``), and the weights themselves, which
+    must outlive the launch."""
     b, h, w, c = x.shape
     check_channels(c)
     bf = torch.bfloat16
@@ -347,7 +418,6 @@ def _kernel_args(x, wts):
     cuda.check(xb, "x", bf, (b, h, w, c))
     shapes = [(KERNEL_SIZE, KERNEL_SIZE, c), (c,), (c,), (c,), (c, 4 * c), (4 * c,),
               (4 * c,), (4 * c,), (4 * c, c), (c,)]
-    ptrs = []
     for i, (t, shp) in enumerate(zip(wts, shapes)):
         if i in (4, 8):  # w1 (C, 4C), w2 (4C, C): transposed views of contiguous tensors
             if tuple(t.shape) != shp:
@@ -358,20 +428,24 @@ def _kernel_args(x, wts):
                                  "tensor (nn.Linear's weight, as Block.kernel_weights holds it)")
             shp = shp[::-1]
         cuda.check(t, f"weight {i}", bf, shp)
-        ptrs.append(cuda.ptr(t))
-    return xb, ptrs
+    wts = pad_weights(wts, c)
+    ptrs = [cuda.ptr(t.t() if i in (4, 8) else t) for i, t in enumerate(wts)]
+    return xb, ptrs, wts
 
 
 def launch_parts(x, wts, exact_gelu: bool = False) -> dict:
     """K1's three launches on their own, for timing them one by one: a
     dict of callables (``dw_ln``, ``pw1``, ``pw2``) on preallocated
-    buffers, and the tiling. They count no launch. x on the card."""
-    xb, ptrs = _kernel_args(x, wts)
+    buffers, and the tiling. They count no launch. x on the card. The
+    buffers are returned at the true C: a (B, pixels, C), y2 (B, pixels,
+    4C), the sums (B, 4C) and the output (views where C is padded)."""
+    xb, ptrs, held = _kernel_args(x, wts)
     b, h, w, c = xb.shape
     geo = ConvNeXtTiling(b, h, w, c)
+    cp = geo.cp
     dev = xb.device
-    a = torch.empty((b, h * w, c), dtype=torch.bfloat16, device=dev)
-    y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=dev)
+    a = torch.empty((b, h * w, cp), dtype=torch.bfloat16, device=dev)
+    y2 = torch.empty((b, h * w, 4 * cp), dtype=torch.float32, device=dev)
     grn = torch.zeros(geo.grn_words, dtype=torch.float32, device=dev)  # pw1 re-zeroes its counters
     out = torch.empty_like(xb)
     dw, dwb, lng, lnb, w1t, b1, gg, gb, w2t, b2 = ptrs
@@ -381,13 +455,16 @@ def launch_parts(x, wts, exact_gelu: bool = False) -> dict:
                                      lnb, cuda.ptr(a), b, h, w, c, *geo.dw_args(),
                                      cuda.stream(dev)),
         "pw1": lambda: cuda.launch(lib, "convnext_pw1_launch", cuda.ptr(a), w1t, b1,
-                                   cuda.ptr(y2), cuda.ptr(grn), b, h * w, c, int(exact_gelu),
+                                   cuda.ptr(y2), cuda.ptr(grn), b, h * w, cp, int(exact_gelu),
                                    geo.m_tile, geo.n1_tile, geo.pw1_smem, cuda.stream(dev)),
         "pw2": lambda: cuda.launch(lib, "convnext_pw2_launch", cuda.ptr(y2), cuda.ptr(grn),
                                    gg, gb, w2t, b2, cuda.ptr(xb), cuda.ptr(out), b, h * w, c,
-                                   geo.m_tile, geo.pw2_n_tile, geo.pw2_smem, cuda.stream(dev)),
+                                   geo.m_tile, geo.pw2_n_tile, geo.pw2_stages, geo.pw2_smem,
+                                   cuda.stream(dev)),
         "tiling": geo,
-        "buffers": (a, y2, grn[: b * 4 * c].view(b, 4 * c), out),
+        "weights": held,
+        "buffers": (a[..., :c], y2[..., : 4 * c], grn[: b * 4 * cp].view(b, 4 * cp)[:, : 4 * c],
+                    out),
     }
 
 
@@ -399,19 +476,22 @@ def convnext_block(
     kernel on a CUDA tensor, the plain version on a CPU tensor. The kernel
     takes its weights as ``Block.kernel_weights`` holds them (bf16, the
     plain version's shapes, w1 and w2 the transposes of contiguous
-    tensors) and C as ``check_channels`` says, and raises on anything
-    else."""
+    tensors; where C is no multiple of 32 it pads them, ``pad_weights``)
+    and C as ``check_channels`` says, and raises on anything else."""
     if not x.is_cuda:
         return convnext_block_plain(
             x, dw, dwb, ln_gamma, ln_beta, w1, b1, grn_gamma, grn_beta, w2, b2,
             exact_gelu,
         )
-    xb, ptrs = _kernel_args(x, (dw, dwb, ln_gamma, ln_beta, w1, b1, grn_gamma, grn_beta, w2, b2))
+    # held: the (padded) weights the pointers point into, alive past the launch
+    xb, ptrs, held = _kernel_args(
+        x, (dw, dwb, ln_gamma, ln_beta, w1, b1, grn_gamma, grn_beta, w2, b2))
     b, h, w, c = xb.shape
     geo = ConvNeXtTiling(b, h, w, c)
+    cp = geo.cp
     bf = torch.bfloat16
-    a = torch.empty((b, h * w, c), dtype=bf, device=x.device)
-    y2 = torch.empty((b, h * w, 4 * c), dtype=torch.float32, device=x.device)
+    a = torch.empty((b, h * w, cp), dtype=bf, device=x.device)
+    y2 = torch.empty((b, h * w, 4 * cp), dtype=torch.float32, device=x.device)
     grn = torch.empty(geo.grn_words, dtype=torch.float32, device=x.device)  # counters zeroed there
     out = torch.empty_like(xb)
     cuda.launch(

@@ -245,8 +245,8 @@ def test_cc_sizes_tiling(h, w, s_slots, ls, per, seg_len, segs, smem):
 
 
 @pytest.mark.parametrize("h, w, s_slots, msg", [
-    (257, 256, 512, "<= 65536 pixels and sides <= 1024, got 257x256"),
-    (1, 1025, 512, "<= 65536 pixels and sides <= 1024, got 1x1025"),
+    (4096, 4096, 512, "tiles of < 16777216 pixels .*, got 4096x4096"),
+    (1, 2**24, 512, "tiles of < 16777216 pixels .*, got 1x16777216"),
     (256, 256, 0, "1..65534 slots, got 0"),
     (256, 256, 65535, "1..65534 slots, got 65535"),
     (256, 256, 20_000, "needs 281792 B of shared memory, more than 232448"),
@@ -255,6 +255,31 @@ def test_cc_sizes_tiling(h, w, s_slots, ls, per, seg_len, segs, smem):
 def test_cc_sizes_tiling_refusals(h, w, s_slots, msg):
     with pytest.raises(ValueError, match=msg):
         tcc.CcSizesTiling(h, w, s_slots)
+
+
+@pytest.mark.parametrize("h, w, s_slots, row_split, col_split", [
+    (257, 256, 512, (3, 86), (4, 65)),
+    (1, 1025, 512, (513, 2), (1, 1)),
+    (304, 304, 4096, (3, 102), (3, 102)),
+    (512, 512, 512, (2, 256), (2, 256)),
+    (8, 8200, 512, (127, 65), (1, 8)),
+    (4096, 4095, 4096, (1, 4095), (1, 4096)),
+    (2**24 - 1, 1, 64, (1, 1), (1024, 16384)),
+])
+def test_cc_sizes_tiling_routes(h, w, s_slots, row_split, col_split):
+    """Tiles over 65,536 pixels or with a side over 1024 take the global
+    route: one block a tile, the labels in device memory, a scratch of
+    2 (h + w) bytes, each phase's lines cut into segments that the block's
+    threads cover; the shared route keeps its geometry."""
+    geo = tcc.CcSizesTiling(h, w, s_slots)
+    assert not geo.shared
+    assert (geo.row_split, geo.col_split) == (row_split, col_split)
+    assert geo.smem_bytes == 3 * 1024 * 4 + 8 * s_slots <= SMEM_PER_BLOCK
+    assert geo.scratch_bytes == 2 * (h + w)
+    for (segs, seg_len), lines, length in ((geo.row_split, h, w), (geo.col_split, w, h)):
+        assert segs * seg_len >= length and (segs - 1) * seg_len < length
+        assert segs * min(lines, geo.threads // segs) <= geo.threads
+    assert tcc.CcSizesTiling(256, 256, 512).shared and tcc.CcSizesTiling(1024, 64, 64).shared
 
 
 # ------------------------------------------------------------ K3 replay

@@ -137,6 +137,26 @@ def test_fake_cases_match_jax(tmp_path, case):
         tw.iter_windows(img.shape[1], img.shape[0], 256, 248)) // 4)}
 
 
+@pytest.mark.parametrize("case", ["dedup", "seam", "edge_seam"])
+def test_fake_cases_match_jax_at_tile_size_512(tmp_path, case):
+    """The same cases with a 512-px model (``hovernext_infer --tile-size
+    512``): windows of 512 at stride 496, tables and maps as JAX's."""
+    img, n = {
+        "dedup": (_squares(1100, 1600, [(100, 110, 120, 130), (700, 710, 1200, 1210)]), 2),
+        "seam": (_squares(600, 1200, [(200, 210, 481, 511)]), 1),
+        "edge_seam": (_squares(600, 1500, [(0, 20, 980, 1004)]), 1),
+    }[case]
+    jdir, tdir, jt, tt = _both(tmp_path, JArraySlide(img), ArraySlide(img),
+                               StripeFakeModel(input_size=512), "w")
+    assert len(tt) == n
+    assert tt["inst_id"].tolist() == list(range(1, n + 1))
+    m = assert_maps_match(jdir, tdir, "w")
+    assert set(np.unique(m)) == set(range(n + 1))
+    windows = tw.iter_windows(img.shape[1], img.shape[0], 512, 496)
+    assert len(windows) > 2 and tt.attrs["feed_routes"] == {"planar": 0,
+                                                           "rgb": -(-len(windows) // 4)}
+
+
 def test_sparse_map_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(jw, "DENSE_MAP_MAX_PIXELS", 10)
     monkeypatch.setattr(tw, "DENSE_MAP_MAX_PIXELS", 10)
