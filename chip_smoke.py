@@ -162,9 +162,33 @@
    (80/160/320/640, depths 2/2/8/2, decoder 384/192/96/64) drawn from a
    seed, its heads fitted, converted by ``convert_hovernext`` and written
    by ``save_converted`` (81 windows of 256; K1 at C = 80, 160, 320): exit
-   0, rows, K1-K4 launched and nothing else. Prints a ``shapes`` JSON line;
-   K1-K4 get ``launches_by_path["shapes_tile_512"]`` and
-   ``["shapes_nano"]``;
+   0, rows, K1-K4 launched and nothing else; K7 at (cx, cs, cout) =
+   (192, 80, 96), (20, 12, 40), (640, 320, 320), (128, 0, 1024) and
+   (2816, 1408, 384) (``SHAPE_K7``: the fixed route as a guard, the any
+   route else), K8-K11 at C = 40, 96, 128, 256 and K10/K11 at 10, 17 and
+   33 head columns, K11 with a full head at C = 64 and 40, each against
+   its plain version in both GELU modes (2 bf16 ulp + DEC_ATOL; heads per
+   logit), timed beside the plain version, cuDNN's conv and the bound,
+   with mutants (K7's, a padded channel leaking into the LayerNorm, a
+   dropped 16-column head chunk, the diagonal blocks only of a full
+   head); then path (4): each decoder configuration (``fused_decoder``,
+   ``fused_final`` True / "heads" / "pallas") of the ConvNeXtV2-nano
+   encoder under its canonical decoder (a) and under decoder widths
+   320/160/80/40 with 12 types (b), seeded, built as ``HoverNeXt(cfg,
+   <configuration>)``, bf16, ``fuse()``, through
+   ``NucleiModel.segment_async`` on one batch of 128 ROI tiles (TTA x4),
+   the counts set to 0 just before and read just after, every K7-K11 call
+   held against its plain version (``_decoder_checks``), each forward on
+   16 tiles within 0.05 of its span of the f32 plain path's. Prints a
+   ``shapes`` JSON line; K1-K4 get ``launches_by_path["shapes_tile_512"]``
+   and ``["shapes_nano"]``, K1-K3 and K7-K11 ``["shapes_path_nano"]`` and
+   ``["shapes_path_nano_dec40"]``, and K7-K11's any routes rows of their
+   own (``decoder_conv_any``, ``final_conv_gelu_any``,
+   ``upsample_final_any``, ``final_heads_any``,
+   ``composite_final_heads_any``: ``ops/decoder.py::ANY_LAUNCHES``, one a
+   column chunk) and the any route's second pass one (``conv_epilogue``,
+   each of path (4)'s calls held against ``conv_epilogue_plain`` on its
+   own inputs);
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -174,7 +198,8 @@
 6. holds K7 (its 8 call shapes), K8, K9, K10 and K11 against their plain
    versions on that batch's own activations at full shape, in both GELU
    modes, with biases and LayerNorm vectors drawn from a seed (K11 also
-   with a different head block per phase), and runs mutants (a dropped
+   with a different head block per phase, stated block-diagonal), and
+   runs mutants (a dropped
    bias, LayerNorm scale 1, K7's skip half zeroed, its skip's weights read
    at offset 0, its LayerNorm statistics over half of cout and its input
    edge-replicated, a dropped head bias, K9 in the other GELU mode, K11's
@@ -323,12 +348,13 @@
    models', ``ImageEncoder`` (CLIP ViT-B/16 bf16, 512 tiles) within cosine
    0.999 and 2 bf16 ulp, ``IDaRSEnsemble`` (f32) on the second runner
    pass's ROI tiles and one fewer within 1e-5, ``sharded_stencil`` against
-   the dense stencil; (b) ``cli.main``, ``hovernext_infer`` (both modes),
+   the dense stencil; (b) ``hovernext_infer`` (both modes),
    ``molecular_loop`` and ``batch_run`` with ``--dp`` (the mesh of every
    local device) in this process, each against its run without ``--dp``
-   on the RGB feed: every output file equal (K5 counted on the runner's
-   polygons); (c) ``shard_step_over_mesh`` on the 2-shard mesh for the
-   full-width fusion head (20 steps, dropout on) and the frozen bf16
+   (``batch_run``'s on the smoke TIFF against ``cli.main``'s) on the RGB
+   feed: every output file equal (K5 counted on the runner's polygons);
+   (c) ``shard_step_over_mesh`` on the 2-shard mesh for the full-width
+   fusion head (20 steps, dropout on) and the frozen bf16
    probe (5 steps) against the unsharded steps, and two processes on the
    card joined by ``init_distributed`` over gloo, each with half the
    fusion batch, against the one-process run (losses rtol 1e-5, the
@@ -375,14 +401,15 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
     python3 chip_smoke.py --shapes [--out DIR]
 
 builds the kernels, fits the heads as the main run does and runs the
-shapes phase (4e) alone: its JSON line, the card's name and power limit;
-exit 1 on a failure.
+shapes phase (4e, with K7-K11's width sweeps and path (4)) alone: its
+JSON line, the card's name and power limit; exit 1 on a failure.
 
     python3 chip_smoke.py --ab PARENT
 
 times K1 (at the three encoder stage shapes, 512 images), K2 (also its
 device time with the calls queued behind a sleep), K3 and K4 (on the main
-path's batch that a main run with the same ``--out`` saved), K5
+path's batch that a main run with the same ``--out`` saved; without one,
+K2-K6 are left out), K5
 (the islands path's three masks) and K6 (the batch's foreground), K7
 (its 8 call shapes) and K8-K11 (one batch of 4 calls each) of the package
 copy whose root is PARENT (e.g. an earlier commit unpacked with ``git
@@ -965,8 +992,9 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 
 def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
-    on seeded inputs, K2 and K3 on the main path's masks, energy and
-    markers saved in ``inputs``, K4 on the batch's labels and types in
+    on seeded inputs, and, where a main run saved them, K2 and K3 on the
+    main path's masks, energy and markers in ``inputs``, K4 on the batch's
+    labels and types in
     ``k4_inputs.pt`` beside it, and K5 (the islands path's three masks)
     and K6 (the batch's foreground) on those in ``cc_inputs.pt``, with
     ``csrc/cc.cu``'s ptxas lines; with ``check``, K1 held against its plain
@@ -1081,25 +1109,27 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
     from path_gene_multimodal_tpu_torch.ops import flood as k3
 
-    t = {k: v.to(dev) for k, v in torch.load(inputs).items()}
-    fg, mmask, dist, markers, blb = (t[k] for k in ("fg", "mmask", "dist", "markers", "blb"))
-    with torch.inference_mode():
-        _idle(res, "k2")
-        res["k2_batch_ms"] = _sync_time(lambda: (k2.cc_sizes_adaptive(fg),
-                                                 k2.cc_sizes_adaptive(mmask, min_size=3)), reps=10)
-        _idle(res, "k2_queued")
-        res["k2_device_ms"] = _queued_ms(lambda: (k2.cc_sizes_adaptive(fg),
-                                                  k2.cc_sizes_adaptive(mmask, min_size=3)), reps=10)
-        _idle(res, "k3")
-        res["k3_batch_ms"] = _sync_time(lambda: k3.marker_watershed(dist, markers, blb), reps=5)
-        if check:  # integers: any difference is a fault
-            res["k2_diff"] = sum(
-                int((a.long() != p.long()).sum())
-                for m, ms_ in ((fg, 0), (mmask, 3))
-                for a, p in zip(k2.cc_sizes_adaptive(m, min_size=ms_),
-                                k2.cc_sizes_adaptive_plain(m, min_size=ms_)))
-            res["k3_diff"] = int((k3.marker_watershed(dist, markers, blb)
-                                  != k3.marker_watershed_plain(dist, markers, blb)).sum())
+    if inputs.exists():  # K2 and K3 on the main run's masks, energy and markers
+        t = {k: v.to(dev) for k, v in torch.load(inputs).items()}
+        fg, mmask, dist, markers, blb = (t[k] for k in ("fg", "mmask", "dist", "markers", "blb"))
+        with torch.inference_mode():
+            _idle(res, "k2")
+            both = lambda: (k2.cc_sizes_adaptive(fg),  # noqa: E731
+                            k2.cc_sizes_adaptive(mmask, min_size=3))
+            res["k2_batch_ms"] = _sync_time(both, reps=10)
+            _idle(res, "k2_queued")
+            res["k2_device_ms"] = _queued_ms(both, reps=10)
+            _idle(res, "k3")
+            res["k3_batch_ms"] = _sync_time(lambda: k3.marker_watershed(dist, markers, blb),
+                                            reps=5)
+            if check:  # integers: any difference is a fault
+                res["k2_diff"] = sum(
+                    int((a.long() != p.long()).sum())
+                    for m, ms_ in ((fg, 0), (mmask, 3))
+                    for a, p in zip(k2.cc_sizes_adaptive(m, min_size=ms_),
+                                    k2.cc_sizes_adaptive_plain(m, min_size=ms_)))
+                res["k3_diff"] = int((k3.marker_watershed(dist, markers, blb)
+                                      != k3.marker_watershed_plain(dist, markers, blb)).sum())
     k4_inputs = inputs.parent / "k4_inputs.pt"
     if k4_inputs.exists():  # K4 on the batch's cropped labels and types
         from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
@@ -1160,9 +1190,8 @@ def _ab(parent: Path, out_dir: Path) -> int:
     (``k23_inputs.pt``, ``k4_inputs.pt``, ``cc_inputs.pt``)."""
     inputs = out_dir / "k23_inputs.pt"
     if not inputs.exists():
-        print(f"chip_smoke --ab: {inputs} is missing; run chip_smoke.py --out {out_dir} first",
-              file=sys.stderr)
-        return 1
+        print(f"chip_smoke --ab: {inputs} is missing (no main run with --out {out_dir}): K2-K6 "
+              "are not timed, K1 and K7-K11 are", file=sys.stderr)
     runs, rc = [], 0
     order = [(parent, True), (ROOT, True), (ROOT, False), (parent, False)]
     for i, (root, check) in enumerate(order):
@@ -1200,6 +1229,48 @@ def _seeded(like: torch.Tensor, seed: int, mean: float = 0.0, std: float = 0.1) 
     """A vector of ``like``'s shape, device and dtype drawn from ``seed``."""
     v = mean + std * torch.randn(like.shape, generator=torch.Generator().manual_seed(seed))
     return v.to(device=like.device, dtype=like.dtype)
+
+
+def _check_modes(failures, name, kernel, plain, atol_of, mutants, rec) -> float:
+    """A kernel against its plain version in both GELU modes (tanh last:
+    its plain output is the mutants' reference), each mutant failing the
+    same tolerance; ``rec`` takes the errors and excesses. Returns the
+    largest |kernel - plain|."""
+    for exact in (True, False):
+        got, ref = kernel(exact), plain(exact)
+        mode = "erf" if exact else "tanh"
+        atol = atol_of(exact)
+        rec[f"max_abs_err_{mode}"] = float((got.float() - ref.float()).abs().max())
+        rec[f"excess_{mode}"] = _excess(got, ref, atol)
+        rec[f"max_atol_{mode}"] = float(torch.as_tensor(atol).max())
+        if rec[f"excess_{mode}"] > 1.0:
+            failures.append(f"{name} ({mode} GELU): |kernel - plain| exceeds 2 ulp + atol "
+                            f"(<= {rec[f'max_atol_{mode}']:.3g}) by x{rec[f'excess_{mode}']:.3g}")
+        del got
+    for what, bad in mutants.items():
+        rec[f"excess_if_{what}"] = _excess(bad(), ref, atol)
+        if rec[f"excess_if_{what}"] <= 1.0:
+            failures.append(f"{name}: the check does not see {what}")
+    return max(rec["max_abs_err_erf"], rec["max_abs_err_tanh"])
+
+
+def _head_atol(y, wh):
+    """Per logit (pixel, n): DEC_ATOL + two flipped bf16 roundings of the
+    pixel's largest GELU output y, each through column n's largest head
+    weight."""
+    return (DEC_ATOL + 2 * _bf16_ulp(y.float().abs().amax(-1, keepdim=True))
+            * wh.float().abs().amax(0))
+
+
+def _roi_tiles(slide, ann: Path, patch: int, size: int, n: int) -> np.ndarray:
+    """The first ``n`` TME-ROI tiles of ``ann``, reflect-padded from
+    ``patch`` to the model's ``size`` as the pipeline pads them."""
+    import pandas as pd
+
+    coords = pd.read_csv(ann).query("in_tme_roi")[["x", "y"]].to_numpy()[:n].tolist()
+    off = (size - patch) // 2
+    return np.stack([np.pad(slide.read_region((x, y), 0, (patch,) * 2),
+                            ((off, off), (off, off), (0, 0)), mode="reflect") for x, y in coords])
 
 
 def _table_failures(nuclei, patch: int, what: str) -> list[str]:
@@ -2551,7 +2622,7 @@ def _decoder_configs(slide, cfg, sd, tmp, pixels, model, wrappers, report, failu
     ann1 = _annotations(slide, cfg.patch_size, bsz, tmp / "batch_annotations_with_coords.csv")
 
     def build(opt):
-        m = HoverNeXt(HOVERNEXT_TINY, **opt, run_on=dev)
+        m = HoverNeXt(HOVERNEXT_TINY, **opt)
         m.load_state_dict(sd)
         m = m.to(device=dev, dtype=torch.bfloat16).eval()
         m.fuse()
@@ -2620,10 +2691,13 @@ def _conv_edge(x, w, b, exact_gelu=False):
     return gelu_kernel(y, exact_gelu)
 
 
-def _k7_mutant(x, skip, w, b, ln_scale, ln_bias, exact_gelu=False, edge=False, ln_half=False):
+def _k7_mutant(x, skip, w, b, ln_scale, ln_bias, exact_gelu=False, edge=False, ln_half=False,
+               ln_width=None):
     """A mutant of K7's plain version: the input padded by edge replication
-    instead of zeros (``edge``), or the LayerNorm statistics taken over the
-    first half of cout only (``ln_half``)."""
+    instead of zeros (``edge``), the LayerNorm statistics taken over the
+    first half of cout only (``ln_half``), or over ``ln_width`` channels,
+    the true cout and the zero columns the any route pads it with (a
+    padded channel leaking into the LayerNorm)."""
     import torch.nn.functional as F
 
     from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
@@ -2639,6 +2713,8 @@ def _k7_mutant(x, skip, w, b, ln_scale, ln_bias, exact_gelu=False, edge=False, l
     del xin
     acc = acc.permute(0, 2, 3, 1) + f(b)
     stats = acc[..., : acc.shape[-1] // 2] if ln_half else acc
+    if ln_width is not None:
+        stats = F.pad(acc, (0, ln_width - acc.shape[-1]))
     mu = stats.mean(-1, keepdim=True)
     var = (stats - mu).square().mean(-1, keepdim=True)
     acc = (acc - mu) * torch.rsqrt(var + 1e-6) * f(ln_scale) + f(ln_bias)
@@ -2706,8 +2782,6 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     batch's activations at full shape, both GELU modes, with mutants; K9
     and K10 also at ragged shapes; timings. Returns the kernels' entries of
     the JSON line."""
-    import torch.nn.functional as F
-
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
 
     bf = torch.bfloat16
@@ -2719,8 +2793,10 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     src_64 = "path_gene_multimodal_tpu_torch/csrc/conv64.cu"
     ptxas_64 = _conv64_ptxas(dec.cuda)
     ptxas_7 = _ptxas_entries(dec.cuda.build_log("decoder_conv"))
-    # K7's and K8/K11's kernels (every instantiation) must not spill
+    # K7's (both routes), its any route's second pass and K8/K11's kernels
+    # (every instantiation) must not spill
     for lib, kern, info_of in (("decoder_conv", "decoder_conv_kernel", ptxas_7),
+                               ("decoder_conv", "conv_epilogue_kernel", ptxas_7),
                                ("conv64", "conv64_kernel", ptxas_64)):
         for kname, info in info_of.items():
             if kern in kname and (info.get("spill_stores", 0) or info.get("spill_loads", 0)):
@@ -2730,31 +2806,8 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     entries = []
 
-    def conv_lib(x_nhwc, w_hwio):
-        """cuDNN's conv at the same shape: bf16, channels-last, no epilogue."""
-        w = w_hwio.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        return lambda: F.conv2d(x_nhwc.permute(0, 3, 1, 2), w, padding=1)
-
     def modes(name, kernel, plain, atol_of, mutants, rec):
-        """Both GELU modes (tanh last: its plain output is the mutants'
-        reference); each mutant must fail the same tolerance."""
-        for exact in (True, False):
-            got, ref = kernel(exact), plain(exact)
-            mode = "erf" if exact else "tanh"
-            atol = atol_of(exact)
-            rec[f"max_abs_err_{mode}"] = float((got.float() - ref.float()).abs().max())
-            rec[f"excess_{mode}"] = _excess(got, ref, atol)
-            rec[f"max_atol_{mode}"] = float(torch.as_tensor(atol).max())
-            if rec[f"excess_{mode}"] > 1.0:
-                failures.append(f"{name} ({mode} GELU): |kernel - plain| exceeds 2 ulp + atol "
-                                f"(<= {rec[f'max_atol_{mode}']:.3g}) by "
-                                f"x{rec[f'excess_{mode}']:.3g}")
-            del got
-        for what, bad in mutants.items():
-            rec[f"excess_if_{what}"] = _excess(bad(), ref, atol)
-            if rec[f"excess_if_{what}"] <= 1.0:
-                failures.append(f"{name}: the check does not see {what}")
-        return max(rec["max_abs_err_erf"], rec["max_abs_err_tanh"])
+        return _check_modes(failures, name, kernel, plain, atol_of, mutants, rec)
 
     def entry(name, replaces, err, ms, pms, bnd, by, lms, note, source=src, **extra):
         entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2795,15 +2848,14 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
             ms = _sync_time(lambda: dec.decoder_conv(xin, skip, w, vb, vg, vl), reps=3)
             pms = _sync_time(lambda: dec.decoder_conv_plain(xin, skip, w, vb, vg, vl), reps=1)
             xcat = xin if skip is None else torch.cat([xin, skip], dim=-1)
-            lms = _sync_time(conv_lib(xcat, w), reps=3)
+            lms = _sync_time(_conv_library(xcat, w), reps=3)
             del xcat
         px = b * h * wd
         cin = cx + cs
         nbytes = 2 * px * (cin + cout) + 2 * w.numel()
         bnd, by = _bound_ms(nbytes, [(2 * px * 9 * cin * cout, PEAK_BF16),
                                      (20 * px * cout, PEAK_F32)])
-        geo = dec.DecoderConvTiling(b, h, wd, cx, cs, cout,
-                                    slots=dec._k7_slots(cout, xin.device))
+        geo = dec._k7_geometry(dec.DecoderConvTiling(b, h, wd, cx, cs, cout), xin.device)
         rec.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bnd, bound_by=by,
                    l2_bytes_estimate=geo.l2_bytes(), hbm_bytes=nbytes,
                    geometry=dict(zip(("tile_h", "tile_w", "taps", "ring_w", "ring_h", "cluster",
@@ -2865,7 +2917,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         ms = _sync_time(lambda: [dec.final_conv_gelu(c, w8, vb) for c in xf.split(CHUNK)], reps=2)
         pms = _sync_time(lambda: [dec.final_conv_gelu_plain(c, w8, vb) for c in xf.split(CHUNK)],
                          reps=1)
-        lms = _sync_time(lambda: [conv_lib(c, w8)() for c in xf.split(CHUNK)], reps=2)
+        lms = _sync_time(lambda: [_conv_library(c, w8)() for c in xf.split(CHUNK)], reps=2)
     px = xf.shape[0] * xf.shape[1] * xf.shape[2]
     cin, cout = w8.shape[2:]
     bnd, by = _bound_ms(2 * px * (cin + cout) + 2 * w8.numel(),
@@ -2903,13 +2955,6 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         xs = x_pl[idx]
     del stacked
 
-    def head_atol(y, wh):
-        """Per logit (pixel, n): DEC_ATOL + two flipped bf16 roundings of the
-        pixel's largest GELU output, each through column n's largest head
-        weight."""
-        return (DEC_ATOL + 2 * _bf16_ulp(y.float().abs().amax(-1, keepdim=True))
-                * wh.float().abs().amax(0))
-
     w10, b10, wh, bh = mh.fused_weights["k10"]
     with torch.inference_mode():
         vb, vbh = _seeded(b10, 400), _seeded(bh, 401)
@@ -2918,7 +2963,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
             "final_heads",
             lambda e: dec.final_heads(x_pl, w10, vb, wh, vbh, exact_gelu=e)[idx],
             lambda e: dec.final_heads_plain(xs, w10, vb, wh, vbh, exact_gelu=e),
-            lambda e: head_atol(dec.final_conv_gelu_plain(dec.upsample2x_bilinear(xs), w10, vb,
+            lambda e: _head_atol(dec.final_conv_gelu_plain(dec.upsample2x_bilinear(xs), w10, vb,
                                                           exact_gelu=e), wh),
             {"no_bias": lambda: dec.final_heads_plain(xs, w10, 0 * vb, wh, vbh),
              "no_head_bias": lambda: dec.final_heads_plain(xs, w10, vb, wh, 0 * vbh),
@@ -2931,7 +2976,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         pms = _sync_time(lambda: [dec.final_heads_plain(c, w10, vb, wh, vbh)
                                   for c in x_pl.split(CHUNK)], reps=1)
         up = dec.upsample2x_bilinear(x_pl[:CHUNK])
-        lib = conv_lib(up, w10)
+        lib = _conv_library(up, w10)
         lms = _sync_time(lambda: [lib() for _ in range(n // CHUNK)], reps=2)
         del up, lib
     px = n * 4 * x_pl.shape[1] * x_pl.shape[2]
@@ -2960,9 +3005,10 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         rec = {"subset": "as final_conv_gelu"}
         err = modes(
             "composite_final_heads",
-            lambda e: dec.composite_final_heads(x_pl, wc, vb, whs, vbh, exact_gelu=e)[idx],
+            lambda e: dec.composite_final_heads(x_pl, wc, vb, whs, vbh, exact_gelu=e,
+                                                block_diagonal=True)[idx],
             lambda e: dec.composite_final_heads_plain(xs, wc, vb, whs, vbh, exact_gelu=e),
-            lambda e: head_atol(dec.final_conv_gelu_plain(xs, wc, vb, exact_gelu=e), whs),
+            lambda e: _head_atol(dec.final_conv_gelu_plain(xs, wc, vb, exact_gelu=e), whs),
             {"no_bias": lambda: dec.composite_final_heads_plain(xs, wc, 0 * vb, whs, vbh),
              "no_head_bias": lambda: dec.composite_final_heads_plain(xs, wc, vb, whs, 0 * vbh),
              "edge_replicated": lambda: _heads_edge(xs, wc, vb, whs, vbh),
@@ -2977,7 +3023,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
                                  for c in x_pl.split(CHUNK)], reps=2)
         pms = _sync_time(lambda: [dec.composite_final_heads_plain(c, wc, vb, whb, vbh)
                                   for c in x_pl.split(CHUNK)], reps=1)
-        lms = _sync_time(lambda: [conv_lib(c, wc)() for c in x_pl.split(CHUNK)], reps=2)
+        lms = _sync_time(lambda: [_conv_library(c, wc)() for c in x_pl.split(CHUNK)], reps=2)
     px = n * x_pl.shape[1] * x_pl.shape[2]
     c4, n4 = whb.shape
     # the block-diagonal head counts its four nonzero (c4/4, n4/4) blocks only
@@ -2998,9 +3044,10 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         with torch.inference_mode():
             vr, vrh = _seeded(b4, 780 + j), _seeded(bh4, 790 + j)
             modes(f"composite_final_heads {rb}x{rh}x{rw}",
-                  lambda e: dec.composite_final_heads(xr, wc, vr, wr, vrh, exact_gelu=e),
+                  lambda e: dec.composite_final_heads(xr, wc, vr, wr, vrh, exact_gelu=e,
+                                                      block_diagonal=True),
                   lambda e: dec.composite_final_heads_plain(xr, wc, vr, wr, vrh, exact_gelu=e),
-                  lambda e: head_atol(dec.final_conv_gelu_plain(xr, wc, vr, exact_gelu=e), wr),
+                  lambda e: _head_atol(dec.final_conv_gelu_plain(xr, wc, vr, exact_gelu=e), wr),
                   {"no_bias": lambda: dec.composite_final_heads_plain(xr, wc, 0 * vr, wr, vrh),
                    "no_head_bias": lambda: dec.composite_final_heads_plain(xr, wc, vr, wr,
                                                                            0 * vrh),
@@ -3008,21 +3055,13 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
                    "phase_permuted": lambda: dec.composite_final_heads_by_phase(
                        xr, wc, vr, wr, vrh, head_of=(1, 2, 3, 0))}, r11)
         rec["ragged"].append(r11)
-    # the kernel reads only the diagonal head blocks: a head with a nonzero
-    # block off the diagonal must be refused, not answered
-    dense = whs.clone()
-    dense[0, -1] = 0.5
-    try:
-        dec.composite_final_heads(xr, wc, vr, dense, vrh)
-        failures.append("K11 answered a head with a nonzero off-diagonal block")
-        rec["off_diagonal_head_refused"] = False
-    except ValueError:
-        rec["off_diagonal_head_refused"] = True
     entry("composite_final_heads", f"{pallas}:462", err, ms, pms, bnd, by, lms,
           "per batch: 4 calls of 128 images with the model's head; the check runs one call over "
           "all 512 and compares the subset, and ragged shapes (see ragged), with a seeded head "
-          "block per phase; bound counts the head's nonzero blocks only (the kernel reads only "
-          "those); library_ms: cuDNN conv2d alone (conv only); tolerance as final_heads",
+          "block per phase, stated block-diagonal (a full head takes the any route: "
+          "composite_final_heads_any); bound counts the head's nonzero blocks only (the kernel "
+          "reads only those); library_ms: cuDNN conv2d alone (conv only); tolerance as "
+          "final_heads",
           source=src_64, ptxas=ptxas_64, **rec)
 
     # K9 on the plain decoder's output (the fused_final=True configuration)
@@ -3044,7 +3083,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
         pms = _sync_time(lambda: [dec.upsample_final_plain(c, w9, vb) for c in x_pl.split(CHUNK)],
                          reps=1)
         up = dec.upsample2x_bilinear(x_pl[:CHUNK])
-        lib = conv_lib(up, w9)
+        lib = _conv_library(up, w9)
         lms = _sync_time(lambda: [lib() for _ in range(n // CHUNK)], reps=2)
         del up, lib
     px = n * 4 * x_pl.shape[1] * x_pl.shape[2]
@@ -3075,7 +3114,7 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
             modes(f"final_heads {rb}x{rh}x{rw}",
                   lambda e: dec.final_heads(xr, w10, vb10, wh, vbh, exact_gelu=e),
                   lambda e: dec.final_heads_plain(xr, w10, vb10, wh, vbh, exact_gelu=e),
-                  lambda e: head_atol(dec.upsample_final_plain(xr, w10, vb10, exact_gelu=e), wh),
+                  lambda e: _head_atol(dec.upsample_final_plain(xr, w10, vb10, exact_gelu=e), wh),
                   {"edge_replicated": lambda: (_edge_padded(xr, w10, vb10).float() @ wh.float()
                                                + vbh.float()).to(bf)}, r10)
         ragged += [r9, r10]
@@ -5522,7 +5561,8 @@ def _dp(slide, ann: Path, sd: dict, main_table, tmp: Path, runner: dict, wrapper
     class in the TME) with the planar feed off (under a mesh the feed is
     RGB, as in the JAX package's mesh branch, and the planar route's
     nearest chroma differs from the RGB decode's): ``cli.main`` on the
-    smoke TIFF; ``hovernext_infer`` on the 2047 x 2049 crop in both modes
+    smoke TIFF without ``--dp`` (its ``--dp`` run is ``batch_run``'s first
+    slide); ``hovernext_infer`` on the 2047 x 2049 crop in both modes
     with the canonical fitted weights (the WSI mode against the wsi phase's
     run, whose window chunks were all RGB); ``molecular_loop`` on the
     runner's second pass (against the molecular phase's CLI run);
@@ -5773,11 +5813,10 @@ def _dp(slide, ann: Path, sd: dict, main_table, tmp: Path, runner: dict, wrapper
                             f"differing {diff[:8]}")
 
     t0 = time.perf_counter()
-    out1, outd = tmp / "dp_main_one", tmp / "dp_main"
+    out1 = tmp / "dp_main_one"
     on = ["--device", dev.type]
-    rcs = (run(main_cli, ["--wsi", str(tif), "--outroot", str(out1), *on], False),
-           run(main_cli, ["--wsi", str(tif), "--outroot", str(outd), *on], True))
-    check("cli_main", rcs, outd / tif.stem, out1 / tif.stem)
+    # cli.main without --dp; its --dp run is batch_run's first slide below
+    rc_main = run(main_cli, ["--wsi", str(tif), "--outroot", str(out1), *on], False)
     b["cli_main_s"] = time.perf_counter() - t0
     for mode, extra in (("wsi", []), ("tiles", ["--annotations-csv", str(crop_ann)])):
         t0 = time.perf_counter()
@@ -5820,7 +5859,7 @@ def _dp(slide, ann: Path, sd: dict, main_table, tmp: Path, runner: dict, wrapper
     rc = run(batch_run, ["--slide-list", str(lst), "--outroot", str(batch_out), *on], True)
     logged = (batch_out / "success_slides.txt").read_text().split() if (
         batch_out / "success_slides.txt").exists() else None
-    check("batch_run_smoke", (rc, 0), batch_out / tif.stem, outd / tif.stem)
+    check("batch_run_smoke", (rc, rc_main), batch_out / tif.stem, out1 / tif.stem)
     check("batch_run_second", (rc, rc_second), batch_out / second.stem,
           second_one / second.stem)
     b["batch_run"] = {"rc": rc, "success": logged, "s": time.perf_counter() - t0}
@@ -6388,6 +6427,32 @@ SHAPE_K1_MUTANTS = (40, 1408)  # one small and one large width see the mutants
 SHAPE_K1_PARTS = (80, 1408)    # the any route, padded (80 -> 96) and not
 # ConvNeXtV2-nano as a canonical HoverNeXt (the JAX package's CONVNEXTV2_NANO)
 NANO = dict(depths=(2, 2, 8, 2), dims=(80, 160, 320, 640))
+# K7's width sweep (B, H = W, cx, cs, cout), each at its stage's size in a
+# 256-px input: dec2.conv0 of nano's canonical HoverNeXt (the skip of 80),
+# inputs no multiple of 8 (the producer warp's loads), dec0.conv0 of the
+# nano encoder with decoder widths 320/160/80/40, a cout past 384 (three
+# column chunks and the second pass), and ConvNeXtV2-huge's dec0.conv0,
+# which K7's fixed route takes, as a guard
+SHAPE_K7 = ((8, 64, 192, 80, 96), (8, 32, 20, 12, 40), (8, 16, 640, 320, 320),
+            (8, 16, 128, 0, 1024), (8, 16, 2816, 1408, 384))
+# K8-K11's width sweep: C, and the head columns of K10/K11 (per phase); K8
+# on 8 x 64^2, K9-K11 on 8 x 32^2 at half resolution
+SHAPE_FINAL_C = (40, 96, 128, 256)
+SHAPE_FINAL_N = (10, 17, 33)
+SHAPE_FINAL_B, SHAPE_FINAL_HALF = 8, 32
+# path (4): the nano encoder under (a) its canonical decoder and 5 types and
+# (b) decoder widths 320/160/80/40 and 12 types (17 head columns), as
+# ``infer_hovernext_config`` reads them from a checkpoint of those shapes
+PATH_MODELS = {"nano": dict(decoder_dims=(384, 192, 96, 64), num_types=5),
+               "nano_dec40": dict(decoder_dims=(320, 160, 80, 40), num_types=12)}
+# a bf16 forward against the f32 plain forward: max |a - b| / span of b
+# (tests/test_torch_hovernext.py's bar for bf16 rounding against f32)
+BF16_SPAN = 0.05
+# the K7-K11 wrappers and the kernels line's names of their any routes
+# (ops/decoder.py::ANY_LAUNCHES)
+DEC_ROUTES = {"decoder_conv": "decoder_conv_any", "final_conv_gelu": "final_conv_gelu_any",
+              "upsample_final": "upsample_final_any", "final_heads": "final_heads_any",
+              "composite_final_heads": "composite_final_heads_any"}
 
 
 def _shape_k1_input(c: int) -> tuple[int, int, int, int]:
@@ -6543,14 +6608,503 @@ def _shapes_cli(name: str, argv: list[str], dest: Path, wrappers, failures) -> d
     return res
 
 
-def _shapes(slide, sd, cfg, tmp: Path, wrappers, failures) -> dict:
+def _conv_library(x_nhwc, w_hwio):
+    """cuDNN's conv at a kernel's shape: bf16, channels-last, no epilogue
+    (timed beside the kernels, never called by the port)."""
+    import torch.nn.functional as F
+
+    w = w_hwio.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(x_nhwc.permute(0, 3, 1, 2), w, padding=1)
+
+
+def _dropped_head_chunk(ref: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+    """A mutant of a head's output: its columns 16-31 (the second 16-column
+    chunk of a head) the bias alone, as if their products were dropped."""
+    bad = ref.clone()
+    bad[..., 16:32] = bh[16:32].to(bad.dtype)
+    return bad
+
+
+def _route_launches(name: str) -> dict:
+    """The launches so far of K7-K11 wrapper ``name``'s own kernel and of
+    its any route."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    return {"own": getattr(dec, name).launches, "any": dec.ANY_LAUNCHES[name].launches}
+
+
+def _shapes_k7(dev, failures) -> list[dict]:
+    """K7 at SHAPE_K7 against its plain version (both GELU modes, 2 bf16
+    ulp + DEC_ATOL) with K7's mutants, the padded LayerNorm's where the
+    route pads cout; timed beside the plain version, cuDNN's conv and the
+    bound."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    rows = []
+    for j, (b, hw, cx, cs, cout) in enumerate(SHAPE_K7):
+        gen = torch.Generator(device=dev).manual_seed(1300 + j)
+        rnd = lambda shape, std=1.0, loc=0.0: (  # noqa: E731
+            loc + std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        x, skip = rnd((b, hw, hw, cx)), rnd((b, hw, hw, cs)) if cs else None
+        w = rnd((3, 3, cx + cs, cout), (9 * (cx + cs)) ** -0.5)
+        vb, vg, vl = rnd(cout, 0.1), rnd(cout, 0.1, 1.0), rnd(cout, 0.1)
+        geo = dec.DecoderConvTiling(b, hw, hw, cx, cs, cout)
+        rec = {"shape": [b, hw, hw, cx, cs, cout], "route": geo.route, "n_tile": geo.n_tile,
+               "n_chunks": geo.n_chunks, "raw": geo.raw, "source_modes": geo.source_modes()}
+        mutants = _k7_mutants(x, skip, w, vb, vg, vl)
+        if geo.n_tile * geo.n_chunks > cout:
+            mutants["padded_channel_in_layernorm"] = lambda: _k7_mutant(
+                x, skip, w, vb, vg, vl, ln_width=geo.n_tile * geo.n_chunks)
+        before = _route_launches("decoder_conv")
+        with torch.inference_mode():
+            rec["max_abs_err"] = _check_modes(
+                failures, f"shapes decoder_conv {rec['shape']}",
+                lambda e: dec.decoder_conv(x, skip, w, vb, vg, vl, exact_gelu=e),
+                lambda e: dec.decoder_conv_plain(x, skip, w, vb, vg, vl, exact_gelu=e),
+                lambda e: DEC_ATOL, mutants, rec)
+            after = _route_launches("decoder_conv")
+            rec["route_seen"] = "any" if after["any"] > before["any"] else "fixed"
+            if rec["route_seen"] != geo.route:
+                failures.append(f"shapes decoder_conv {rec['shape']}: ran the {rec['route_seen']} "
+                                f"route, its tiling says {geo.route}")
+            rec["ms"] = _sync_time(lambda: dec.decoder_conv(x, skip, w, vb, vg, vl), reps=3)
+            rec["plain_ms"] = _sync_time(lambda: dec.decoder_conv_plain(x, skip, w, vb, vg, vl),
+                                         reps=1)
+            xcat = x if skip is None else torch.cat([x, skip], dim=-1)
+            rec["library_ms"] = _sync_time(_conv_library(xcat, w), reps=3)
+            del xcat
+        px, cin = b * hw * hw, cx + cs
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(
+            2 * px * (cin + cout) + 2 * w.numel(),
+            [(2 * px * 9 * cin * cout, PEAK_BF16), (20 * px * cout, PEAK_F32)])
+        rows.append(rec)
+        del x, skip, w
+    return rows
+
+
+def _shapes_final(dev, failures) -> dict:
+    """K8-K11 at SHAPE_FINAL_C (K10/K11 at each SHAPE_FINAL_N; K11 with a
+    seeded block per phase, stated block-diagonal, and with a full head)
+    against their plain versions in both GELU modes, with a mutant each
+    (no bias; a dropped head chunk where the head has one, a full head
+    answered phase by phase for K11); timed beside the plain version,
+    cuDNN's conv (on the upsampled map for K9/K10) and the bound."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    b, half = SHAPE_FINAL_B, SHAPE_FINAL_HALF
+    rows: dict = {"k8": [], "k9": [], "k10": [], "k11": []}
+
+    def timed(rec, kernel, plain, lib, nbytes, ops):
+        rec["ms"] = _sync_time(kernel, reps=3)
+        rec["plain_ms"] = _sync_time(plain, reps=1)
+        rec["library_ms"] = _sync_time(lib, reps=3)
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, ops)
+
+    for j, c in enumerate(SHAPE_FINAL_C):
+        gen = torch.Generator(device=dev).manual_seed(1400 + j)
+        rnd = lambda shape, std=1.0, loc=0.0: (  # noqa: E731
+            loc + std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        w, vb = rnd((3, 3, c, c), (9 * c) ** -0.5), rnd(c, 0.1)
+        x8, xh = rnd((b, 2 * half, 2 * half, c)), rnd((b, half, half, c))
+        full_px, half_px = b * 4 * half * half, b * half * half
+        with torch.inference_mode():
+            rec = {"c": c, "shape": list(x8.shape)}
+            rec["max_abs_err"] = _check_modes(
+                failures, f"shapes final_conv_gelu C={c}",
+                lambda e: dec.final_conv_gelu(x8, w, vb, exact_gelu=e),
+                lambda e: dec.final_conv_gelu_plain(x8, w, vb, exact_gelu=e),
+                lambda e: DEC_ATOL, {"no_bias": lambda: dec.final_conv_gelu_plain(x8, w, 0 * vb)},
+                rec)
+            timed(rec, lambda: dec.final_conv_gelu(x8, w, vb),
+                  lambda: dec.final_conv_gelu_plain(x8, w, vb), _conv_library(x8, w),
+                  2 * full_px * 2 * c + 2 * w.numel(),
+                  [(2 * full_px * 9 * c * c, PEAK_BF16), (10 * full_px * c, PEAK_F32)])
+            rows["k8"].append(rec)
+            up = dec.upsample2x_bilinear(xh)
+            rec = {"c": c, "shape": list(xh.shape)}
+            rec["max_abs_err"] = _check_modes(
+                failures, f"shapes upsample_final C={c}",
+                lambda e: dec.upsample_final(xh, w, vb, exact_gelu=e),
+                lambda e: dec.upsample_final_plain(xh, w, vb, exact_gelu=e),
+                lambda e: DEC_ATOL,
+                {"no_bias": lambda: dec.upsample_final_plain(xh, w, 0 * vb),
+                 "edge_replicated": lambda: _edge_padded(xh, w, vb)}, rec)
+            timed(rec, lambda: dec.upsample_final(xh, w, vb),
+                  lambda: dec.upsample_final_plain(xh, w, vb), _conv_library(up, w),
+                  2 * (half_px * c + full_px * c) + 2 * w.numel(),
+                  [(2 * full_px * 9 * c * c, PEAK_BF16), (16 * full_px * c, PEAK_F32)])
+            rows["k9"].append(rec)
+            wc, b4 = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5), rnd(4 * c, 0.1)
+            for n in SHAPE_FINAL_N:
+                wh, bh = rnd((c, n), 0.3), rnd(n, 0.1)
+                rec = {"c": c, "n_out": n, "shape": list(xh.shape)}
+                mut = {"no_head_bias": lambda: dec.final_heads_plain(xh, w, vb, wh, 0 * bh)}
+                if n > 16:
+                    mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
+                        dec.final_heads_plain(xh, w, vb, wh, bh), bh)
+                rec["max_abs_err"] = _check_modes(
+                    failures, f"shapes final_heads C={c} n_out={n}",
+                    lambda e: dec.final_heads(xh, w, vb, wh, bh, exact_gelu=e),
+                    lambda e: dec.final_heads_plain(xh, w, vb, wh, bh, exact_gelu=e),
+                    lambda e: _head_atol(dec.upsample_final_plain(xh, w, vb, exact_gelu=e), wh),
+                    mut, rec)
+                timed(rec, lambda: dec.final_heads(xh, w, vb, wh, bh),
+                      lambda: dec.final_heads_plain(xh, w, vb, wh, bh), _conv_library(up, w),
+                      2 * (half_px * c + full_px * n) + 2 * (w.numel() + wh.numel()),
+                      [(2 * full_px * (9 * c * c + c * n), PEAK_BF16),
+                       (16 * full_px * c, PEAK_F32)])
+                rows["k10"].append(rec)
+                whb = torch.block_diag(*[rnd((c, n), 0.3) for _ in range(4)]).contiguous()
+                bh4 = rnd(4 * n, 0.1)
+                rec = {"c": c, "n_out": n, "head": "block_diagonal", "shape": list(xh.shape)}
+                mut = {"no_bias": lambda: dec.composite_final_heads_plain(xh, wc, 0 * b4, whb, bh4),
+                       "phase_permuted": lambda: dec.composite_final_heads_by_phase(
+                           xh, wc, b4, whb, bh4, head_of=(1, 2, 3, 0))}
+                if n > 16:
+                    mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
+                        dec.composite_final_heads_plain(xh, wc, b4, whb, bh4), bh4)
+                rec["max_abs_err"] = _check_modes(
+                    failures, f"shapes composite_final_heads C={c} n_out={n}",
+                    lambda e: dec.composite_final_heads(xh, wc, b4, whb, bh4, exact_gelu=e,
+                                                        block_diagonal=True),
+                    lambda e: dec.composite_final_heads_plain(xh, wc, b4, whb, bh4, exact_gelu=e),
+                    lambda e: _head_atol(dec.final_conv_gelu_plain(xh, wc, b4, exact_gelu=e),
+                                         whb), mut, rec)
+                timed(rec, lambda: dec.composite_final_heads(xh, wc, b4, whb, bh4,
+                                                             block_diagonal=True),
+                      lambda: dec.composite_final_heads_plain(xh, wc, b4, whb, bh4),
+                      _conv_library(xh, wc),
+                      2 * half_px * (c + 4 * n) + 2 * (wc.numel() + whb.numel()),
+                      [(2 * half_px * (9 * c * 4 * c + 4 * c * 4 * n), PEAK_BF16),
+                       (10 * half_px * 4 * c, PEAK_F32)])
+                rows["k11"].append(rec)
+            del x8, xh, up
+    # K11 with a full head (every block nonzero), at HoverNeXt-tiny's width
+    # and at model (b)'s: the any route multiplies all of it
+    rows["k11_full_head"] = []
+    for j, (c, n) in enumerate(((64, 10), (40, 17))):
+        gen = torch.Generator(device=dev).manual_seed(1500 + j)
+        rnd = lambda shape, std=1.0: (  # noqa: E731
+            std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        xh, b4 = rnd((b, half, half, c)), rnd(4 * c, 0.1)
+        wc = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5)
+        whf, bh4 = rnd((4 * c, 4 * n), 0.1), rnd(4 * n, 0.1)
+        rec = {"c": c, "n_out": n, "head": "full", "shape": list(xh.shape)}
+        before = _route_launches("composite_final_heads")
+        with torch.inference_mode():
+            rec["max_abs_err"] = _check_modes(
+                failures, f"shapes composite_final_heads full head C={c} n_out={n}",
+                lambda e: dec.composite_final_heads(xh, wc, b4, whf, bh4, exact_gelu=e),
+                lambda e: dec.composite_final_heads_plain(xh, wc, b4, whf, bh4, exact_gelu=e),
+                lambda e: _head_atol(dec.final_conv_gelu_plain(xh, wc, b4, exact_gelu=e), whf),
+                {"diagonal_blocks_only": lambda: dec.composite_final_heads_by_phase(
+                    xh, wc, b4, whf, bh4)}, rec)
+            after = _route_launches("composite_final_heads")
+            if after["any"] == before["any"] or after["own"] != before["own"]:
+                failures.append(f"shapes composite_final_heads full head C={c}: not on the any "
+                                f"route ({before} -> {after})")
+            timed(rec, lambda: dec.composite_final_heads(xh, wc, b4, whf, bh4),
+                  lambda: dec.composite_final_heads_plain(xh, wc, b4, whf, bh4),
+                  _conv_library(xh, wc),
+                  2 * b * half * half * (c + 4 * n) + 2 * (wc.numel() + whf.numel()),
+                  [(2 * b * half * half * (9 * c * 4 * c + 16 * c * n), PEAK_BF16),
+                   (10 * b * half * half * 4 * c, PEAK_F32)])
+        rows["k11_full_head"].append(rec)
+    return rows
+
+
+class _decoder_checks:  # noqa: N801 (a context manager, named as one)
+    """While installed, every K7-K11 call a HoverNeXt forward makes at its
+    call sites (``models/hovernext.py``: K7-K10, ``models/hovernext_fn.py``:
+    K11) is held against its plain version on the same inputs on the card:
+    within 2 bf16 ulp + DEC_ATOL, the heads (K10, K11) within
+    ``_head_atol``; so is every launch of the any route's second pass
+    (``ops/decoder.py::_epilogue``) against ``conv_epilogue_plain`` on its
+    own f32 input. The wrappers count as ever; ``rec`` holds per wrapper
+    the checked calls, how many took the any route, the worst excess and
+    the shapes, ``epi`` the same of the second pass; ``s`` the seconds the
+    checks took. With ``timed``, each call is also timed (the wrapper, its
+    plain version, cuDNN's conv alone at its shape; the second pass and its
+    plain twin) beside its bound, summed into ``rec``'s and ``epi``'s
+    ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``."""
+
+    SITES = (("decoder_conv", "models.hovernext"), ("final_conv_gelu", "models.hovernext"),
+             ("upsample_final", "models.hovernext"), ("final_heads", "models.hovernext"),
+             ("composite_final_heads", "models.hovernext_fn"))
+
+    def __init__(self, tag: str, failures: list, timed: bool = False):
+        self.tag, self.failures, self.s, self.timed = tag, failures, 0.0, timed
+        self.rec = {n: {"calls": 0, "any_calls": 0, "worst": 0.0, "shapes": [], "ms": 0.0,
+                        "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                        "bound_by": {"bytes": 0.0, "operations": 0.0}}
+                    for n, _ in self.SITES}
+        self.epi = {"calls": 0, "worst": 0.0, "max_abs_err": 0.0, "shapes": [], "ms": 0.0,
+                    "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+                    "bound_by": {"bytes": 0.0, "operations": 0.0}}
+        self.quiet = False  # a wrapper timed again: its second pass is not the path's
+
+    def __enter__(self):
+        import functools
+        import importlib
+
+        from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+        self.saved = []
+        for name, mod_name in self.SITES:
+            mod = importlib.import_module(f"path_gene_multimodal_tpu_torch.{mod_name}")
+            real = getattr(mod, name)
+            setattr(mod, name, functools.partial(self._call, name, real))
+            self.saved.append((mod, name, real))
+        real_epilogue = dec._epilogue
+        dec._epilogue = functools.partial(self._epilogue, real_epilogue)
+        self.saved.append((dec, "_epilogue", real_epilogue))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+        return False
+
+    def _epilogue(self, real, acc, c, out, exact_gelu, ln=(None, None), head=(None, None)):
+        """The second pass, then (not when a wrapper is timed again) its
+        check against ``conv_epilogue_plain`` on the same f32 input."""
+        from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+        real(acc, c, out, exact_gelu, ln, head)
+        if self.quiet:
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = self.epi
+        with torch.inference_mode():
+            ref = dec.conv_epilogue_plain(acc, c, exact_gelu, ln, head)
+            atol = (DEC_ATOL if head[0] is None else
+                    _head_atol(dec.conv_epilogue_plain(acc, c, exact_gelu), head[0]))
+            err = _excess(out, ref, atol)
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     float((out.float() - ref.float()).abs().max()))
+            del ref, atol
+            if self.timed:
+                scratch = torch.empty_like(out)
+                saved = dec.EPILOGUE_LAUNCHES.launches
+                rec["ms"] += _sync_time(lambda: real(acc, c, scratch, exact_gelu, ln, head),
+                                        reps=2)
+                dec.EPILOGUE_LAUNCHES.launches = saved
+                rec["plain_ms"] += _sync_time(
+                    lambda: dec.conv_epilogue_plain(acc, c, exact_gelu, ln, head), reps=1)
+                n_pix, nh = acc.numel() // acc.shape[-1], out.shape[-1]
+                bnd, by = _bound_ms(
+                    4 * n_pix * c + 2 * n_pix * nh
+                    + (2 * (head[0].numel() + nh) if head[0] is not None else 0),
+                    [(2 * n_pix * c * nh if head[0] is not None else 0, PEAK_BF16),
+                     ((20 if ln[0] is not None else 10) * n_pix * c, PEAK_F32)])
+                rec["bound_ms"] += bnd
+                rec["bound_by"][by] += bnd
+                del scratch
+        if not err <= 1.0:
+            self.failures.append(f"{self.tag}: conv_epilogue call {rec['calls']} on "
+                                 f"{list(acc.shape)} (c {c}) -> {list(out.shape)} exceeds "
+                                 f"conv_epilogue_plain's bar x{err:.3g}")
+        rec["calls"] += 1
+        rec["worst"] = max(rec["worst"], err)
+        shape = [list(acc.shape), c, list(out.shape)]
+        if shape not in rec["shapes"]:
+            rec["shapes"].append(shape)
+        torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+
+    def _call(self, name, real, *a, **k):
+        from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+        before = dec.ANY_LAUNCHES[name].launches
+        out = real(*a, **k)
+        took_any = dec.ANY_LAUNCHES[name].launches > before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = k.get("exact_gelu", False)
+        with torch.inference_mode():
+            if name == "final_heads":
+                x, w, b, wh = a[:4]
+                ref = dec.final_heads_plain(*a, **k)
+                atol = _head_atol(dec.upsample_final_plain(x, w, b, exact_gelu=e), wh)
+            elif name == "composite_final_heads":
+                x, wc, b4, whd = a[:4]
+                ref = dec.composite_final_heads_plain(
+                    *a, **{n: v for n, v in k.items() if n != "block_diagonal"})
+                atol = _head_atol(dec.final_conv_gelu_plain(x, wc, b4, exact_gelu=e), whd)
+            else:
+                ref, atol = getattr(dec, f"{name}_plain")(*a, **k), DEC_ATOL
+            err = _excess(out, ref, atol)
+            del ref, atol
+            if self.timed:
+                self._time(name, real, a, k, out)
+        rec = self.rec[name]
+        if not err <= 1.0:
+            self.failures.append(f"{self.tag}: {name} call {rec['calls']} on "
+                                 f"{list(a[0].shape)} -> {list(out.shape)} exceeds its plain "
+                                 f"version's bar x{err:.3g}")
+        rec["calls"] += 1
+        rec["any_calls"] += int(took_any)
+        rec["worst"] = max(rec["worst"], err)
+        shape = [list(a[0].shape), list(out.shape)]
+        if shape not in rec["shapes"]:
+            rec["shapes"].append(shape)
+        torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        return out
+
+    def _time(self, name, real, a, k, out):
+        """One call timed: the wrapper, its plain version, cuDNN's conv at
+        its shape (K9/K10: on the upsampled map), and its bound (a
+        block-diagonal K11 head counts its four diagonal blocks only)."""
+        from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+        x, w = a[0], a[2] if name == "decoder_conv" else a[1]
+        plain = {n: v for n, v in k.items() if n != "block_diagonal"}
+        rec = self.rec[name]
+        # the timing's launches are not the path's: the counters are restored
+        counters = [getattr(dec, name), dec.ANY_LAUNCHES[name], dec.EPILOGUE_LAUNCHES]
+        saved = [c.launches for c in counters]
+        self.quiet = True
+        rec["ms"] += _sync_time(lambda: real(*a, **k), reps=2)
+        self.quiet = False
+        for c, n in zip(counters, saved):
+            c.launches = n
+        rec["plain_ms"] += _sync_time(lambda: getattr(dec, f"{name}_plain")(*a, **plain), reps=1)
+        if name == "decoder_conv":
+            xin = x if a[1] is None else torch.cat([x, a[1]], dim=-1)
+        elif name in ("upsample_final", "final_heads"):
+            xin = dec.upsample2x_bilinear(x)
+        else:
+            xin = x
+        rec["library_ms"] += _sync_time(_conv_library(xin, w), reps=2)
+        px, cin, cout = xin.numel() // xin.shape[-1], w.shape[2], w.shape[3]
+        n_out = out.shape[-1] if name in ("final_heads", "composite_final_heads") else 0
+        head = cout * n_out // (dec.K11_PHASES if k.get("block_diagonal") else 1)
+        per_px = {"decoder_conv": 20, "final_conv_gelu": 10}.get(name, 16)
+        read = xin if name == "decoder_conv" else x  # K9/K10 read the half-res map
+        bnd, by = _bound_ms(2 * (read.numel() + px * out.shape[-1]) + 2 * w.numel()
+                            + (2 * a[3].numel() if n_out else 0),
+                            [(2 * px * (9 * cin * cout + head), PEAK_BF16),
+                             (per_px * px * cout, PEAK_F32)])
+        rec["bound_ms"] += bnd
+        rec["bound_by"][by] += bnd
+        del xin
+
+
+def _shapes_paths(slide, ann: Path, cfg, wrappers, failures, dev=None) -> dict:
+    """Path (4): each decoder configuration (CONFIGS) of the nano encoder
+    under PATH_MODELS' decoders, seeded weights (``init_weights``: the
+    names ``convert_hovernext`` and ``save_converted`` carry), built as a
+    user builds it, ``HoverNeXt(cfg, <configuration>)``,
+    bf16, ``fuse()``, wrapped in ``NucleiModel``, through
+    ``segment_async`` on one batch of the smoke slide's ROI tiles (TTA x4),
+    with the counts set to 0 just before and read just after and every
+    K7-K11 call held against its plain version (``_decoder_checks``);
+    labels and types of the batch's shape, each configuration's forward on
+    16 tiles within BF16_SPAN of its span of the f32 plain resize path's."""
+    from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
+    from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei import NucleiModel
+
+    dev = dev or torch.device("cuda")
+    bsz = cfg.hovernext.batch_size
+    tiles = torch.from_numpy(_roi_tiles(slide, ann, cfg.patch_size, 256, bsz)).to(dev)
+    few = tiles[:16].float() / 255.0
+    res: dict = {}
+    for mname, kw in PATH_MODELS.items():
+        mcfg = HoverNeXtConfig(encoder=ConvNeXtConfig(**NANO), **kw)
+        seed = HoverNeXt(mcfg)
+        init_weights(seed, torch.Generator().manual_seed(7))
+        sd = seed.state_dict()
+        del seed
+
+        def build(opt):
+            m = HoverNeXt(mcfg, **opt)
+            m.load_state_dict(sd)
+            m = m.to(device=dev, dtype=torch.bfloat16).eval()
+            m.fuse()
+            return m
+
+        ref = HoverNeXt(mcfg)  # f32, plain blocks and the plain resize path
+        ref.load_state_dict(sd)
+        with torch.inference_mode():
+            plain = ref.to(dev).eval()(few)
+        del ref
+        runs = {}
+        for name, (opt, _) in CONFIGS.items():
+            t_build = time.perf_counter()
+            m = build(opt)
+            nm = NucleiModel(cfg=mcfg, model=m, device=dev, tta=cfg.hovernext.tta,
+                             max_instances=cfg.hovernext.max_instances_per_tile)
+            t_build = time.perf_counter() - t_build
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            with _decoder_checks(f"shapes path {mname} {name}", failures, timed=True) as chk:
+                lbl, tp = nm.segment_async(tiles)
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+            with torch.inference_mode():
+                out = m(few)
+            vs = {k: _rel_span(out[k].float(), plain[k].float()) for k in plain}
+            run = {"s": dt, "checks_s": chk.s, "build_s": t_build, "launches": launches,
+                   "checks": {n: r for n, r in chk.rec.items() if r["calls"]},
+                   "epilogue": chk.epi,
+                   "vs_plain": vs, "nuclei_px": int((lbl > 0).sum()),
+                   "labels_shape": list(lbl.shape)}
+            runs[name] = run
+            want = CONFIGS[name][1]
+            for kname, k in want.items():
+                # each call launches its own kernel once or the any route once a
+                # column chunk (at least once)
+                rec = chk.rec[kname]
+                got = launches.get(kname, 0) + rec["any_calls"]
+                if (got != k or rec["calls"] != k
+                        or launches.get(DEC_ROUTES[kname], 0) < rec["any_calls"]):
+                    failures.append(f"shapes path {mname} {name}: {kname} launched "
+                                    f"{launches.get(kname, 0)} times and its any route "
+                                    f"{launches.get(DEC_ROUTES[kname], 0)} times in "
+                                    f"{rec['any_calls']} calls (checked {rec['calls']}), "
+                                    f"expected {k} calls")
+            if launches.get("conv_epilogue", 0) != chk.epi["calls"]:
+                failures.append(f"shapes path {mname} {name}: conv_epilogue launched "
+                                f"{launches.get('conv_epilogue', 0)} times, checked "
+                                f"{chk.epi['calls']}")
+            allowed = {"convnext_block", "cc_sizes", "flood", "conv_epilogue", *want,
+                       *(DEC_ROUTES[k] for k in want)}
+            others = [n for n in launches if n not in allowed]
+            if others:
+                failures.append(f"shapes path {mname} {name}: launched {others}")
+            if tuple(lbl.shape) != (bsz, 256, 256) or tuple(tp.shape) != (bsz, 256, 256):
+                failures.append(f"shapes path {mname} {name}: labels {tuple(lbl.shape)}, types "
+                                f"{tuple(tp.shape)}")
+            for k, v in vs.items():
+                if not v < BF16_SPAN or not torch.isfinite(out[k]).all():
+                    failures.append(f"shapes path {mname} {name}: forward differs from the f32 "
+                                    f"plain resize path's in {k} by {v:.3g} of its span "
+                                    f"(bar {BF16_SPAN}), or is not finite")
+            print(f"shapes path {mname} {name}: {dt:.2f} s ({chk.s:.2f} s checks), launches "
+                  f"{launches}", flush=True)
+            del m, nm, lbl, tp, out
+            torch.cuda.empty_cache()
+        res[mname] = {"decoder_dims": kw["decoder_dims"], "num_types": kw["num_types"],
+                      "runs": runs}
+        del plain, sd
+    return res
+
+
+def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     """The shapes phase: (a) K1 at every ConvNeXtV2 width, (b) K2's global
     route, (c) ``hovernext_infer --mode wsi --tile-size 512`` with the fitted
     HoverNeXt-tiny on the crop TIFF (windows of 512 at stride 496, K2 and K3
     on their global routes), (d) a ConvNeXtV2-nano HoverNeXt drawn from a
     seed, its heads fitted, saved as a converted ``.npz`` by the port's
     converters and read by ``hovernext_infer --checkpoint`` over the same
-    crop at 256 (K1 at C = 80, 160, 320)."""
+    crop at 256 (K1 at C = 80, 160, 320), (e) K7 at SHAPE_K7 and K8-K11 at
+    SHAPE_FINAL_C x SHAPE_FINAL_N, (f) path (4): every decoder
+    configuration of the nano encoder under PATH_MODELS' decoders."""
     from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
     from path_gene_multimodal_tpu_torch.core.checkpoints import save_converted
     from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights
@@ -6599,7 +7153,101 @@ def _shapes(slide, sd, cfg, tmp: Path, wrappers, failures) -> dict:
         tmp / "shapes_nano", wrappers, failures)
     del seed_model, nsd, params
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res["k7"] = _shapes_k7(dev, failures)
+    res["final"] = _shapes_final(dev, failures)
+    res["sweeps_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["paths"] = _shapes_paths(slide, ann, cfg, wrappers, failures)
+    res["paths_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     return res
+
+
+def _any_route_entries(res: dict) -> list[dict]:
+    """The kernels line's rows of K7-K11's any routes from the shapes
+    phase: launches from path (4)'s runs (``launches_by_path``), the worst
+    error over the sweep's rows and path (4)'s calls on the route, and ms,
+    plain_ms, library_ms and bound_ms per batch (the wrapper's calls in one
+    forward of 512 images) on model (b)'s path, where every call of these
+    wrappers takes the any route."""
+    pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
+    fin = res.get("final", {})
+    runs_b = res.get("paths", {}).get("nano_dec40", {}).get("runs", {})
+    routes = (
+        ("decoder_conv", 168, "fused_decoder", [r for r in res.get("k7", [])
+                                                if r.get("route") == "any"],
+         "K7 at cout not in 64/96/192/384 or inputs no multiple of 32"),
+        ("final_conv_gelu", 591, "fused_decoder", fin.get("k8", []), "K8 at C != 64"),
+        ("upsample_final", 307, "k9", fin.get("k9", []),
+         "K9 at C != 64, the halo upsampled by the producer warp"),
+        ("final_heads", 392, "heads", fin.get("k10", []), "K10 at C != 64 or n_out > 16"),
+        ("composite_final_heads", 462, "pallas", fin.get("k11", []) + fin.get("k11_full_head", []),
+         "K11 at C != 64, n_out > 16 or a head not stated block-diagonal (all of it multiplied)"),
+    )
+    out = []
+    for wrapper, line, config, rows, what in routes:
+        route = DEC_ROUTES[wrapper]
+        by_path = {f"shapes_path_{m}": sum(r["launches"].get(route, 0)
+                                           for r in p["runs"].values())
+                   for m, p in res.get("paths", {}).items()}
+        rec = runs_b.get(config, {}).get("checks", {}).get(wrapper, {})
+        by = rec.get("bound_by") or {"operations": 0.0}
+        out.append({
+            "name": route, "route": "cuda",
+            "source": "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu",
+            "replaces": f"{pallas}:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max((r.get("max_abs_err", 0.0) for r in rows), default=None),
+            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": max(by, key=by.get),
+            "library_ms": rec.get("library_ms"),
+            "note": f"{wrapper}'s any route: {what}; K7's kernel (decoder_conv_kernel<COUT, "
+                    "EXACT, true>) at the next compiled tile width, past 384 columns or with a "
+                    "head f32 conv + bias and conv_epilogue_kernel (its own row); launches: "
+                    "path (4)'s runs (shapes phase), one a column chunk; max_abs_err over the "
+                    "shapes sweep's rows on this route; "
+                    f"ms, plain_ms, bound_ms, library_ms: per batch, the {rec.get('calls')} "
+                    f"calls of one forward of 512 images on model (b)'s path ({config}), each "
+                    "checked against its plain version there (worst excess "
+                    f"{rec.get('worst')}); library_ms: cuDNN conv2d alone at each call's shape "
+                    "(conv only); both GELU modes in the sweep within 2 bf16 ulp + DEC_ATOL "
+                    "(heads: _head_atol)"})
+    # the any route's second pass, checked and timed at each of its calls on
+    # path (4) (model (b): K10 and K11 at 17 head columns)
+    epis = {m: {n: r.get("epilogue", {}) for n, r in p["runs"].items()}
+            for m, p in res.get("paths", {}).items()}
+    epi_b = [e for e in epis.get("nano_dec40", {}).values() if e.get("calls")]
+    by = {k: sum(e["bound_by"][k] for e in epi_b) for k in ("bytes", "operations")}
+    by_path = {f"shapes_path_{m}": sum(r["launches"].get("conv_epilogue", 0)
+                                       for r in p["runs"].values())
+               for m, p in res.get("paths", {}).items()}
+    out.append({
+        "name": "conv_epilogue", "route": "cuda",
+        "source": "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu",
+        "replaces": f"{pallas}:392", "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max((e.get("max_abs_err", 0.0) for m in epis.values()
+                            for e in m.values() if e.get("calls")), default=None),
+        "ms": sum(e["ms"] for e in epi_b) if epi_b else None,
+        "plain_ms": sum(e["plain_ms"] for e in epi_b) if epi_b else None,
+        "bound_ms": sum(e["bound_ms"] for e in epi_b) if epi_b else None,
+        "bound_by": max(by, key=by.get), "library_ms": None,
+        "by_config": {n: {k: e.get(k) for k in ("calls", "worst", "max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms", "shapes")}
+                      for n, e in epis.get("nano_dec40", {}).items() if e.get("calls")},
+        "note": "the any route's second pass (conv_epilogue_kernel): LayerNorm over the true "
+                "channels, GELU, bf16 and the head product with its bias, on the CUDA cores, "
+                "over the f32 conv + bias K7's kernel writes past 384 columns (K7 :168) and for "
+                "K10 (:392) and K11 (:462) on their any routes; launches: path (4)'s runs "
+                "(shapes phase), one a call on a raw route; every one held against "
+                "conv_epilogue_plain on its own f32 input (2 bf16 ulp + DEC_ATOL, heads "
+                "_head_atol); ms, plain_ms, bound_ms: per batch, the calls of one forward of "
+                "512 images summed over model (b)'s configurations that run it (by_config); "
+                "library_ms null: no one PyTorch call computes LayerNorm, GELU and the head"})
+    return out
 
 
 def _shapes_line(res: dict) -> dict:
@@ -6615,17 +7263,34 @@ def _shapes_line(res: dict) -> dict:
                                                                  "checks")},
         "nano": {k: res.get("nano", {}).get(k) for k in ("rc", "s", "rows", "launches",
                                                          "checks")},
+        "k7": [{k: r.get(k) for k in ("shape", "route", "n_tile", "n_chunks", "excess_tanh",
+                                      "excess_erf", "ms", "plain_ms", "library_ms", "bound_ms")}
+               for r in res.get("k7", [])],
+        "final": {n: [{k: r.get(k) for k in ("c", "n_out", "head", "excess_tanh", "excess_erf",
+                                             "ms", "plain_ms", "library_ms", "bound_ms")}
+                      for r in rows] for n, rows in res.get("final", {}).items()},
+        "paths": {m: {n: {**{k: r.get(k) for k in ("s", "checks_s", "launches", "vs_plain")},
+                          "kernels": {w: {k: c.get(k) for k in ("calls", "any_calls", "worst",
+                                                                "ms", "plain_ms", "library_ms",
+                                                                "bound_ms")}
+                                      for w, c in r.get("checks", {}).items()},
+                             "conv_epilogue": {k: r.get("epilogue", {}).get(k)
+                                               for k in ("calls", "worst", "ms", "plain_ms",
+                                                         "bound_ms")}}
+                      for n, r in p["runs"].items()} for m, p in res.get("paths", {}).items()},
+        "sweeps_s": res.get("sweeps_s"), "paths_s": res.get("paths_s"),
         "phase_s": res.get("phase_s"),
     }
 
 
-def _shapes_only(slide, sd, cfg, tmp: Path, wrappers, report: dict, out_dir: Path) -> int:
+def _shapes_only(slide, ann: Path, sd, cfg, tmp: Path, wrappers, report: dict,
+                 out_dir: Path) -> int:
     """``--shapes``: the shapes phase alone, after the build and the fitted
     weights; its JSON line, the card's name and power limit, and the
     failures (exit 1 if any)."""
     failures: list[str] = []
     t0 = time.perf_counter()
-    report["shapes"] = _shapes(slide, sd, cfg, tmp, wrappers, failures)
+    report["shapes"] = _shapes(slide, ann, sd, cfg, tmp, wrappers, failures)
     report["shapes"]["phase_s"] = time.perf_counter() - t0
     report["failures"] = failures
     shutil.rmtree(tmp, ignore_errors=True)
@@ -6704,6 +7369,8 @@ def main(argv: list[str] | None = None) -> int:
                 "decoder_conv": dec.decoder_conv, "final_conv_gelu": dec.final_conv_gelu,
                 "upsample_final": dec.upsample_final, "final_heads": dec.final_heads,
                 "composite_final_heads": dec.composite_final_heads,
+                **{r: dec.ANY_LAUNCHES[n] for n, r in DEC_ROUTES.items()},
+                "conv_epilogue": dec.EPILOGUE_LAUNCHES,
                 "label_components_tiled": cc.label_components_tiled,
                 "label_components_batch": cc.label_components_batch}
 
@@ -6735,7 +7402,7 @@ def main(argv: list[str] | None = None) -> int:
                               max_instances=cfg.hovernext.max_instances_per_tile)
     report["setup_s"] = time.perf_counter() - t0
     if args.shapes:
-        return _shapes_only(slide, sd, cfg, tmp, wrappers, report, out_dir)
+        return _shapes_only(slide, ann, sd, cfg, tmp, wrappers, report, out_dir)
 
     # warm-up run (cuDNN plans, allocator), then the counted, timed run
     run_hovernet_pipeline_on_wsi_tiles(slide, ann, tmp, "warm", model, cfg)
@@ -6940,7 +7607,7 @@ def main(argv: list[str] | None = None) -> int:
     # -- 4e. K1 at every ConvNeXtV2 width, K2's global route, the paths they open ----------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    report["shapes"] = _shapes(slide, sd, cfg, tmp, wrappers, failures)
+    report["shapes"] = _shapes(slide, ann, sd, cfg, tmp, wrappers, failures)
     report["shapes"]["phase_s"] = time.perf_counter() - t0
     shapes_line = _shapes_line(report["shapes"])
     print(json.dumps({"shapes": shapes_line}), flush=True)
@@ -6951,6 +7618,7 @@ def main(argv: list[str] | None = None) -> int:
                                       failures)
     config_launches = {n: counts[cname][n] for cname, (_, ks) in CONFIGS.items() for n in ks}
     kernels += _check_decoder_kernels(models, pixels, config_launches, failures)
+    kernels += _any_route_entries(report["shapes"])
     del models
     torch.cuda.empty_cache()
 
@@ -7088,6 +7756,16 @@ def main(argv: list[str] | None = None) -> int:
                 k["launches_by_path"][f"shapes_{run}"] = report["shapes"].get(run, {}).get(
                     "launches", {}).get(k["name"], 0)
             k["launches"] = sum(k["launches_by_path"].values())
+    # K1-K3 and K7-K11's own kernels gain path (4)'s runs (the any routes'
+    # rows hold theirs already)
+    for k in kernels:
+        if k["name"] in ("convnext_block", "cc_sizes", "flood", *DEC_ROUTES):
+            for m, p in report["shapes"].get("paths", {}).items():
+                k["launches_by_path"][f"shapes_path_{m}"] = sum(
+                    r["launches"].get(k["name"], 0) for r in p["runs"].values())
+            k["launches"] = sum(k["launches_by_path"].values())
+    failures += [f"{k['name']} never launched on path (4)" for k in kernels
+                 if k["name"] in (*DEC_ROUTES.values(), "conv_epilogue") and not k["launches"]]
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels

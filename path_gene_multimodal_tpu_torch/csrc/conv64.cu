@@ -13,8 +13,10 @@
 //       channels, since the off-diagonal head blocks are zero: the kernel
 //       runs the four phases as four independent 64 -> 64 convs, each with
 //       its diagonal head block, and reads no off-diagonal block
-//       (ops/decoder.py::composite_final_heads refuses a head that is not
-//       block-diagonal).
+//       (ops/decoder.py::composite_final_heads takes this route only where
+//       the caller states that the head is block-diagonal; other heads,
+//       widths other than 64 and more than 16 head columns take
+//       csrc/decoder_conv.cu's any route, which multiplies the whole head).
 //
 // Numerics as the TPU kernels: bf16 inputs, weights and vectors, f32
 // accumulation, bf16 outputs; K11 rounds the GELU output to bf16 before the

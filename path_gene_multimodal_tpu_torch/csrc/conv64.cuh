@@ -17,7 +17,10 @@
 //  - the epilogue: bias + GELU in registers (bias_act), rounded to bf16
 //    pairs, and K10's / K11's head product on the tensor cores (mma.sync
 //    m16n8k16: the accumulator layout of a warp's 16 rows is mma's A
-//    layout) with its bias, staged for the store.
+//    layout) with its bias, staged for the store;
+//  - the bilinear 2x's taps and rounding (up_taps, lerp_rn) and the tanh
+//    GELU, which csrc/decoder_conv.cu's any route (the final stage at
+//    widths other than 64) shares.
 // A warpgroup owns R output rows of 64 pixels; in its accumulator (r, 4 nf
 // + j) thread (warp wq, lane 4 g + q) holds pixel 16 wq + g + 8 (j >> 1)
 // of row r, channel 8 nf + 2 q + (j & 1). Include after common.cuh.
@@ -113,6 +116,23 @@ __device__ __forceinline__ void bias_act(uint32_t (&y)[R][8][2], const float (&a
             for (int hf = 0; hf < 2; ++hf)
                 y[r][nf][hf] = pack_bf16(act(acc[r][4 * nf + 2 * hf] + b0),
                                          act(acc[r][4 * nf + 2 * hf + 1] + b1));
+    }
+}
+
+// a * u + b * v, each product and the sum rounded on its own (no FMA), as
+// the TPU kernel's and the plain version's separate f32 operations round
+__device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
+    return __fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v));
+}
+
+// One axis of the bilinear 2x with half-pixel centres and edge clamp:
+// out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]
+__device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a0, float& a1) {
+    const int i = o >> 1;
+    if (o & 1) {
+        i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
+    } else {
+        i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
     }
 }
 

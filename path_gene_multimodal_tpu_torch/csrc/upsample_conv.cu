@@ -60,9 +60,10 @@
 // Shared memory: weights 73,728 B + halo 84,480 + 2 windows 52,224 (+ K10
 // head weights 3,072) = 210,432 (213,504) B; K9's output staging lies over
 // the halo.
-// The resident weight, the product loop over the planar halo and the
-// epilogue's bias + GELU and head product are the 64-channel conv core
-// shared with K8 and K11 (csrc/conv64.cuh).
+// The resident weight, the product loop over the planar halo, the bilinear
+// taps and the epilogue's bias + GELU and head product are the 64-channel
+// conv core shared with K8 and K11 (csrc/conv64.cuh). Other widths and
+// more than 16 head columns take csrc/decoder_conv.cu's any route.
 // Not yet here: overlap of the halo build and the epilogue with the products
 // (warp specialisation), TMA.
 #include "common.cuh"
@@ -112,23 +113,6 @@ struct Args {
     int nout;
     int exact;
 };
-
-// a * u + b * v, each product and the sum rounded on its own (no FMA), as
-// the TPU kernel's and the plain version's separate f32 operations round
-__device__ __forceinline__ float lerp_rn(float a, float u, float b, float v) {
-    return __fadd_rn(__fmul_rn(a, u), __fmul_rn(b, v));
-}
-
-// One axis of the bilinear 2x with half-pixel centres and edge clamp:
-// out[2i] = 0.25 in[i-1] + 0.75 in[i], out[2i+1] = 0.75 in[i] + 0.25 in[i+1]
-__device__ __forceinline__ void up_taps(int o, int n, int& i0, int& i1, float& a0, float& a1) {
-    const int i = o >> 1;
-    if (o & 1) {
-        i0 = i; i1 = min(i + 1, n - 1); a0 = 0.75f; a1 = 0.25f;
-    } else {
-        i0 = max(i - 1, 0); i1 = i; a0 = 0.25f; a1 = 0.75f;
-    }
-}
 
 struct Tile {
     long long img;

@@ -23,14 +23,10 @@ import torch.nn.functional as F
 from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, HoverNeXtConfig
 from path_gene_multimodal_tpu_torch.models import hovernext_fn as fn
 from path_gene_multimodal_tpu_torch.models.convnext import (
-    Conv2dNHWC, ConvNeXtV2, LayerNormNHWC, on_card,
+    Conv2dNHWC, ConvNeXtV2, LayerNormNHWC,
 )
 from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu
 from path_gene_multimodal_tpu_torch.ops.decoder import (
-    CIN_MULTIPLE,
-    KERNEL_COUTS,
-    UP_CHANNELS,
-    UP_HEAD_COLS,
     decoder_conv,
     final_conv_gelu,
     final_heads,
@@ -52,45 +48,6 @@ def _bilinear2x(x: torch.Tensor) -> torch.Tensor:
 
 def _bf16(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(t.detach().to(torch.bfloat16).contiguous() for t in ts)
-
-
-def kernel_width_errors(cfg: HoverNeXtConfig, fused_decoder: bool,
-                        fused_final: bool | str) -> list[str]:
-    """Why the card's kernels of a decoder configuration cannot take
-    ``cfg``'s widths (empty if they can). The Pallas kernels take any
-    width; the card's are compiled for the widths below."""
-    d, dec = cfg.encoder.dims, cfg.decoder_dims
-    last, n_out = dec[-1], 4 + cfg.tp_channels
-    errs = []
-    final = {True: "K9 (fused_final=True)", "heads": 'K10 (fused_final="heads")',
-             "pallas": 'K11 (fused_final="pallas")'}
-    if fused_final in final:
-        kernel = final[fused_final]
-        if last != UP_CHANNELS:
-            errs.append(f"{kernel} takes a last decoder width of {UP_CHANNELS}, got {last}")
-        if fused_final is not True and n_out > UP_HEAD_COLS:
-            errs.append(f"{kernel} takes at most {UP_HEAD_COLS} head columns, got {n_out}")
-    if fused_decoder:
-        ins = [(f"dec{i}.conv0 input", cx) for i, cx in enumerate([d[-1]] + list(dec[:-1]))]
-        ins += [(f"dec{i}.conv0 skip", cs) for i, cs in enumerate((d[2], d[1], d[0]))]
-        ins += [(f"dec{i}.conv1 input", c) for i, c in enumerate(dec)]
-        for what, c in ins:
-            if c % CIN_MULTIPLE:
-                errs.append(f"K7/K8 (fused_decoder) take input widths that are multiples of "
-                            f"{CIN_MULTIPLE}, got {c} ({what})")
-        for i, c in enumerate(dec):
-            if c not in KERNEL_COUTS:
-                errs.append(f"K7/K8 (fused_decoder) take widths in {KERNEL_COUTS}, got {c} "
-                            f"(decoder_dims[{i}])")
-        if last != UP_CHANNELS:
-            errs.append(f"K7/K8 (fused_decoder): K8 takes a last decoder width of "
-                        f"{UP_CHANNELS}, got {last}")
-    return errs
-
-
-def _refuse_widths(errs: list[str]) -> None:
-    if errs:
-        raise ValueError("the card's kernels cannot run this configuration: " + "; ".join(errs))
 
 
 class DecoderBlock(nn.Module):
@@ -156,13 +113,12 @@ class HoverNeXt(nn.Module):
     Call ``fuse()`` once the weights, device and dtype are final, to hold
     the kernels' weights in their layout.
 
-    The card's kernels take fewer widths than the Pallas kernels
-    (``kernel_width_errors``). ``run_on``, the device the model will run
-    on (the module is built on the CPU; ``.to()`` moves it), makes the
-    constructor refuse a configuration whose kernels cannot take
-    ``cfg.decoder_dims`` there; ``fuse()`` refuses it too, for weights on
-    the card. On the CPU every kernel runs its plain version, which takes
-    any width.
+    Every configuration runs on either device at any encoder and decoder
+    width, as the Pallas kernels take them: on the card each kernel runs
+    its own compiled widths and K7's any route for the rest
+    (``ops/decoder.py``); a width past ``ops.decoder.MAX_WIDTH`` is refused
+    by the kernel's wrapper at the first forward, naming the kernel. On
+    the CPU every kernel runs its plain version.
 
     An f32 forward runs its convolutions with cuDNN's TF32 off
     (``torch.backends.cudnn.flags(allow_tf32=False)``, scoped to the
@@ -172,8 +128,7 @@ class HoverNeXt(nn.Module):
     """
 
     def __init__(self, cfg: HoverNeXtConfig = HOVERNEXT_TINY, fused_decoder: bool = False,
-                 fused_final: bool | str | None = None, lowres_decoder: bool = False,
-                 run_on: str | torch.device | None = None):
+                 fused_final: bool | str | None = None, lowres_decoder: bool = False):
         super().__init__()
         if fused_decoder and (fused_final is not None or lowres_decoder):
             raise ValueError(
@@ -185,8 +140,6 @@ class HoverNeXt(nn.Module):
         if fused_final not in FUSED_FINAL:
             raise ValueError(f"fused_final must be one of {FUSED_FINAL} or None, got "
                              f"{fused_final!r}")
-        if run_on is not None and torch.device(run_on).type == "cuda":
-            _refuse_widths(kernel_width_errors(cfg, fused_decoder, fused_final))
         self.cfg = cfg
         self.fused_decoder = fused_decoder
         self.fused_final = fused_final
@@ -231,10 +184,7 @@ class HoverNeXt(nn.Module):
     def fuse(self) -> None:
         """Run the encoder blocks of stages 0-2 as K1 (``ConvNeXtV2.fuse``)
         and hold the configured decoder kernels' weights once in their
-        layout. Later changes to the weights, device or dtype reach neither.
-        With the weights on the card, refuses widths its kernels cannot take."""
-        if on_card(self):
-            _refuse_widths(kernel_width_errors(self.cfg, self.fused_decoder, self.fused_final))
+        layout. Later changes to the weights, device or dtype reach neither."""
         self.encoder.fuse()
         self.fused_weights = self.kernel_weights()
 

@@ -19,9 +19,23 @@ the 64-channel conv core ``csrc/conv64.cuh``) on a CUDA tensor and runs its
   bias + GELU + head product, logits NHWC (the JAX kernel writes NCHW,
   which its caller transposes to this);
 - ``composite_final_heads`` (K11, ``composite_final_heads``): conv3x3 with
-  parity-folded weights + bias + GELU + block-diagonal head product; the
-  kernel runs each parity phase as its own 64-channel conv with its
-  diagonal head block (``StripTiling`` with four phases).
+  parity-folded weights + bias + GELU + head product; given a head the
+  caller states block-diagonal, the kernel runs each parity phase as its
+  own 64-channel conv with its diagonal head block (``StripTiling`` with
+  four phases).
+
+Each takes every width its Pallas kernel takes. Where its own kernel is
+compiled for fewer (K7: cout in ``KERNEL_COUTS``, cx and cs multiples of
+32; K8-K11: cin = cout = 64, at most 16 head columns, K11 a block-diagonal
+head), the wrapper runs K7's any route (``csrc/decoder_conv.cu``,
+``DecoderConvTiling`` with ``route == "any"``): the weights zero-padded to
+the next compiled tile width, past 384 columns (and for a head) f32
+conv + bias and a second pass for LayerNorm, GELU and the head
+(``conv_epilogue_plain`` its plain twin). The any route's launches are
+counted where they are made, apart from the wrappers' own:
+``ANY_LAUNCHES[wrapper]`` one a column chunk, ``EPILOGUE_LAUNCHES`` the
+second pass's. A width past ``MAX_WIDTH`` is refused by the kernel's
+tiling class, which names the kernel and the limit.
 
 The plain versions repeat the TPU kernels' rounding points: inputs,
 weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
@@ -37,6 +51,7 @@ the JAX package they are XLA (exact ``jax.image.resize`` semantics at 2x).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import ClassVar
@@ -50,11 +65,16 @@ from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
 _BF = torch.bfloat16
 KERNEL_COUTS = (64, 96, 192, 384)  # K7's tile widths
 CIN_MULTIPLE = 32  # input channels per K chunk of K7
-UP_CHANNELS = 64  # K8-K11 kernels: cin = cout (per phase, K11)
-UP_HEAD_COLS = 16  # K10/K11 kernels: head columns (per phase, K11), zero-padded
+UP_CHANNELS = 64  # K8-K11's own kernels: cin = cout (per phase, K11)
+UP_HEAD_COLS = 16  # K10/K11's own kernels: head columns (per phase, K11), zero-padded
 K11_PHASES = 4  # the parity phases of K11's composite weights
 FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
 SMEM_PER_BLOCK = cuda.SMEM_PER_BLOCK
+# the widest cout (K7; per phase, K11) and C (K8-K10) the card takes: the
+# any route's column chunks have no limit of their own, and chip_smoke.py
+# holds it against its plain version up to here
+MAX_WIDTH = 1024
+SRC_MODES = {"tma": 0, "plain": 1, "upsample": 2}  # how K7's any route lands a source
 
 
 def k7_weight_layout(w: torch.Tensor) -> torch.Tensor:
@@ -66,6 +86,19 @@ def k7_weight_layout(w: torch.Tensor) -> torch.Tensor:
     k, cout = w.shape[2], w.shape[3]
     return (w.reshape(9, k // CIN_MULTIPLE, 4, 8, cout).permute(1, 0, 2, 4, 3)
             .contiguous())
+
+
+def k7_weight_layout_any(w: torch.Tensor, geo: "DecoderConvTiling") -> torch.Tensor:
+    """K7's any route's weight: w (3, 3, cx + cs, cout) zero-padded to x's
+    and the skip's whole 32-channel chunks (the skip's rows from x's last
+    chunk's end on) and to ``n_chunks`` column chunks of ``n_tile``, each
+    chunk laid out as ``k7_weight_layout``: (n_chunks, K / 32, 9, 4,
+    n_tile, 8)."""
+    (nx, ns), k = geo.chunks, geo.k_chunk
+    wp = w.new_zeros((3, 3, (nx + ns) * k, geo.n_chunks * geo.n_tile))
+    wp[:, :, : geo.cx, : geo.cout] = w[:, :, : geo.cx]
+    wp[:, :, nx * k : nx * k + geo.cs, : geo.cout] = w[:, :, geo.cx :]
+    return torch.stack([k7_weight_layout(c) for c in wp.split(geo.n_tile, -1)])
 
 
 # K7's geometry per cout: cout split over the two consumer warpgroups (2)
@@ -101,7 +134,15 @@ class DecoderConvTiling:
     once); cluster k walks groups k, k + grid / cluster, ...; a block whose
     tile passes the last one repeats the last and writes nothing. The
     kernel is compiled for this geometry and checks what it is given
-    against its own."""
+    against its own.
+
+    ``route``: "fixed" where cout is one of ``KERNEL_COUTS`` and cx, cs are
+    multiples of 32; else "any" (also for K9/K10's upsampled input and the
+    final stage's heads): the kernel at tile width ``n_tile`` over
+    ``n_chunks`` column chunks, its K and N zero-padded
+    (``k7_weight_layout_any``), each source's halo landing as
+    ``source_modes`` says, and where ``raw`` f32 conv + bias finished by
+    the second pass (``conv_epilogue_launch``)."""
 
     k_chunk: ClassVar[int] = CIN_MULTIPLE
     cluster: ClassVar[int] = 2  # clusters of 4 ran slower: fewer of them fit the card at once
@@ -113,13 +154,60 @@ class DecoderConvTiling:
     cs: int
     cout: int
     slots: int = 132
+    upsample: bool = False  # x at (h / 2, w / 2), the conv's input its bilinear 2x (K9/K10)
+    second_pass: bool = False  # f32 conv + bias out, finished by conv_epilogue (a head)
+    kernel: str = "decoder_conv"  # the wrapper it runs for, named in a refusal
 
     def __post_init__(self):
-        _check_conv([self.cx] + ([self.cs] if self.cs else []), self.cout, "decoder_conv")
+        limit = MAX_WIDTH * (K11_PHASES if self.kernel == "composite_final_heads" else 1)
+        if (min(self.batch, self.h, self.w, self.cx) <= 0 or self.cs < 0
+                or not 0 < self.cout <= limit or (self.upsample and (self.cs or self.h % 2
+                                                                     or self.w % 2))):
+            raise ValueError(
+                f"{self.kernel} kernel takes input channels >= 1 and 1 <= cout <= {limit} "
+                f"(MAX_WIDTH {MAX_WIDTH}), got cin {[self.cx, self.cs]}, cout {self.cout}, "
+                f"shape {self.batch}x{self.h}x{self.w}")
+
+    @property
+    def route(self) -> str:
+        """"fixed": the kernel compiled for this cout (cx and cs multiples of
+        32); "any": the any route, at tile width ``n_tile``."""
+        fixed = (self.cout in KERNEL_COUTS and not (self.cx % CIN_MULTIPLE or
+                                                    self.cs % CIN_MULTIPLE)
+                 and not (self.upsample or self.second_pass))
+        return "fixed" if fixed else "any"
+
+    @property
+    def n_tile(self) -> int:
+        """The compiled tile width the kernel runs at: the smallest at or
+        above cout, or the widest, in ``n_chunks`` column chunks."""
+        return next((n for n in KERNEL_COUTS if n >= self.cout), KERNEL_COUTS[-1])
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.cout // self.n_tile)
+
+    @property
+    def raw(self) -> bool:
+        """Whether the kernel writes f32 conv + bias for ``conv_epilogue``
+        (past one tile's columns, or for a head) instead of finishing."""
+        return self.second_pass or self.n_chunks > 1
+
+    def source_modes(self) -> tuple[str, str]:
+        """How the halo chunks of x and of the skip land: by TMA where the
+        rows are whole 16-B groups, else by the producer warp's loads;
+        x's bilinear 2x always by the producer warp."""
+        mode = lambda c: "tma" if c % 8 == 0 else "plain"  # noqa: E731
+        return ("upsample" if self.upsample else mode(self.cx)), mode(self.cs)
+
+    @property
+    def in_hw(self) -> tuple[int, int]:
+        """The resolution of x (half the conv's with ``upsample``)."""
+        return (self.h // 2, self.w // 2) if self.upsample else (self.h, self.w)
 
     @property
     def _geo(self) -> tuple[int, ...]:
-        return _K7_GEOMETRY[self.cout]
+        return _K7_GEOMETRY[self.n_tile]
 
     split = property(lambda self: self._geo[0])
     m_tiles = property(lambda self: self._geo[1])
@@ -132,7 +220,7 @@ class DecoderConvTiling:
     @property
     def n_width(self) -> int:
         """Output channels of one warpgroup's accumulators."""
-        return self.cout // self.split
+        return self.n_tile // self.split
 
     @property
     def tiles_yx(self) -> tuple[int, int]:
@@ -153,8 +241,9 @@ class DecoderConvTiling:
 
     @property
     def chunks(self) -> tuple[int, int]:
-        """32-channel chunks of x and of the skip."""
-        return self.cx // self.k_chunk, self.cs // self.k_chunk
+        """32-channel chunks of x and of the skip (the last one of each
+        zero-padded)."""
+        return -(-self.cx // self.k_chunk), -(-self.cs // self.k_chunk)
 
     def tile(self, t: int) -> tuple[int, int, int]:
         """(image, first row, first column) of tile t."""
@@ -181,7 +270,8 @@ class DecoderConvTiling:
 
     def k_slices(self) -> list[tuple[int, int, int, int, tuple[int, ...]]]:
         """Per weight slice, in the kernel's order: (chunk, source (0 x, 1
-        skip), first channel in the source, first weight row of K, taps)."""
+        skip), first channel in the source, first weight row of the padded
+        K (``k7_weight_layout_any``), taps)."""
         nx, ns = self.chunks
         out = []
         for c in range(nx + ns):
@@ -193,7 +283,7 @@ class DecoderConvTiling:
 
     @property
     def slice_bytes(self) -> int:
-        return self.taps * self.k_chunk * self.cout * 2
+        return self.taps * self.k_chunk * self.n_tile * 2
 
     def multicast_parts(self) -> list[tuple[int, int]]:
         """(byte offset, bytes) of the part of each slice that each rank of
@@ -225,9 +315,10 @@ class DecoderConvTiling:
         weight once (its blocks share it), each block a halo per chunk of
         each tile it walks (repeats included)."""
         nx, ns = self.chunks
-        weights = 9 * (self.cx + self.cs) * self.cout * 2
-        return {"weights": self.groups * weights,
-                "activations": self.groups * self.cluster * (nx + ns) * self.halo_bytes}
+        weights = 9 * (nx + ns) * self.k_chunk * self.n_tile * 2
+        return {"weights": self.n_chunks * self.groups * weights,
+                "activations": self.n_chunks * self.groups * self.cluster * (nx + ns)
+                * self.halo_bytes}
 
     def launch_args(self) -> tuple[int, ...]:
         """(tile_h, tile_w, taps, ring_w, ring_h, cluster, grid, shared
@@ -260,6 +351,27 @@ class UpsampleTiling:
     w: int
     head: bool = False  # K10: the head weights stay resident too
     n_sm: int = 132
+    cin: int = UP_CHANNELS
+    cout: int = UP_CHANNELS
+    n_out: int = UP_HEAD_COLS  # K10's head columns
+
+    def __post_init__(self):
+        _check_final("final_heads" if self.head else "upsample_final", self.cin, self.cout,
+                     self.n_out if self.head else None)
+
+    @property
+    def route(self) -> str:
+        """"upsample_conv": this geometry's kernel; "any": K7's any route
+        (``any_geo``), for other widths and more than 16 head columns."""
+        own = (self.cin == self.cout == UP_CHANNELS
+               and (not self.head or self.n_out <= UP_HEAD_COLS))
+        return "upsample_conv" if own else "any"
+
+    @property
+    def any_geo(self) -> DecoderConvTiling:
+        return DecoderConvTiling(self.batch, 2 * self.h, 2 * self.w, self.cin, 0, self.cout,
+                                 upsample=True, second_pass=self.head,
+                                 kernel="final_heads" if self.head else "upsample_final")
 
     @property
     def out_hw(self) -> tuple[int, int]:
@@ -297,7 +409,9 @@ class UpsampleTiling:
     def smem_bytes(self) -> int:
         """The resident weights, the halo, two windows (the output staging
         lies over the halo) and, for K10, the head weights (rows of 16 + 8
-        bf16)."""
+        bf16); the any route's: ``any_geo``'s."""
+        if self.route == "any":
+            return self.any_geo.smem_bytes
         (hh, hw), (wh, ww) = self.halo_shape, self.window_shape
         weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
         halo_windows = (hh * hw + 2 * wh * ww) * UP_CHANNELS * 2
@@ -340,6 +454,31 @@ class StripTiling:
     w: int
     phases: int = 1
     n_sm: int = 132
+    cin: int = UP_CHANNELS
+    cout: int = UP_CHANNELS  # per phase
+    n_out: int = UP_HEAD_COLS  # K11's head columns per phase
+    block_diagonal: bool = True  # K11: the caller states its head block-diagonal
+
+    def __post_init__(self):
+        k11 = self.phases > 1
+        _check_final("composite_final_heads" if k11 else "final_conv_gelu", self.cin, self.cout,
+                     self.n_out if k11 else None)
+
+    @property
+    def route(self) -> str:
+        """"conv64": this geometry's kernel; "any": K7's any route
+        (``any_geo``), for other widths, more than 16 head columns and a
+        head not stated block-diagonal (K11 then multiplies all of it)."""
+        own = self.cin == self.cout == UP_CHANNELS and (
+            self.phases == 1 or (self.n_out <= UP_HEAD_COLS and self.block_diagonal))
+        return "conv64" if own else "any"
+
+    @property
+    def any_geo(self) -> DecoderConvTiling:
+        k11 = self.phases > 1
+        return DecoderConvTiling(self.batch, self.h, self.w, self.cin, 0, self.phases * self.cout,
+                                 second_pass=k11,
+                                 kernel="composite_final_heads" if k11 else "final_conv_gelu")
 
     @property
     def strips_yx(self) -> tuple[int, int]:
@@ -401,7 +540,9 @@ class StripTiling:
         """The resident weights, a ring of planar input rows per worker, a
         staging row of 16 output pixels (64 + 8 bf16 each) per warp, an
         mbarrier per ring slot and, for K11, the head weights (rows of
-        16 + 8 bf16)."""
+        16 + 8 bf16); the any route's: ``any_geo``'s."""
+        if self.route == "any":
+            return self.any_geo.smem_bytes
         weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
         rings = self.groups * self.ring * (self.strip_w + 2) * UP_CHANNELS * 2
         staging = 8 * 16 * (UP_CHANNELS + 8) * 2
@@ -457,19 +598,33 @@ def _conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @cuda.exact_f32()
-def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
-    xin = _f(x) if skip is None else torch.cat([_f(x), _f(skip)], dim=-1)
-    acc = _conv3x3(xin, _f(w)) + _f(b)
-    if ln_scale is not None:
+def conv_epilogue_plain(acc, c, exact_gelu: bool = False, ln=(None, None), head=(None, None)):
+    """The conv's epilogue: acc (..., ld) f32 conv + bias → its first c
+    values through the LayerNorm ``ln`` (scale, bias), GELU, and with a
+    head (wh (c, nh), bh) the GELU output rounded to bf16 through it; bf16.
+    The plain twin of the any route's second pass (``conv_epilogue_launch``)
+    and the tail of every plain version below."""
+    acc = acc[..., :c]
+    if ln[0] is not None:
         mu = acc.mean(-1, keepdim=True)
         var = (acc - mu).square().mean(-1, keepdim=True)
-        acc = (acc - mu) * torch.rsqrt(var + 1e-6) * _f(ln_scale) + _f(ln_bias)
-    return gelu_kernel(acc, exact_gelu).to(_BF)
+        acc = (acc - mu) * torch.rsqrt(var + 1e-6) * _f(ln[0]) + _f(ln[1])
+    y = gelu_kernel(acc, exact_gelu)
+    if head[0] is None:
+        return y.to(_BF)
+    return (_f(y) @ _f(head[0]) + _f(head[1])).to(_BF)
+
+
+@cuda.exact_f32()
+def decoder_conv_plain(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
+    xin = _f(x) if skip is None else torch.cat([_f(x), _f(skip)], dim=-1)
+    return conv_epilogue_plain(_conv3x3(xin, _f(w)) + _f(b), w.shape[-1], exact_gelu,
+                               (ln_scale, ln_bias))
 
 
 @cuda.exact_f32()
 def final_conv_gelu_plain(x, w, b, exact_gelu: bool = False):
-    return gelu_kernel(_conv3x3(_f(x), _f(w)) + _f(b), exact_gelu).to(_BF)
+    return conv_epilogue_plain(_conv3x3(_f(x), _f(w)) + _f(b), w.shape[-1], exact_gelu)
 
 
 def upsample_final_plain(x, w, b, exact_gelu: bool = False):
@@ -479,14 +634,14 @@ def upsample_final_plain(x, w, b, exact_gelu: bool = False):
 @cuda.exact_f32()
 def final_heads_plain(x, w, b, wh, bh, exact_gelu: bool = False):
     up = upsample2x_bilinear(x.to(_BF)).float()
-    y = gelu_kernel(_conv3x3(up, _f(w)) + _f(b), exact_gelu)
-    return (_f(y) @ _f(wh) + _f(bh)).to(_BF)
+    return conv_epilogue_plain(_conv3x3(up, _f(w)) + _f(b), w.shape[-1], exact_gelu,
+                               head=(wh, bh))
 
 
 @cuda.exact_f32()
 def composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False):
-    y = gelu_kernel(_conv3x3(_f(x), _f(wc)) + _f(bias4), exact_gelu)
-    return (_f(y) @ _f(wh_bd) + _f(bh4)).to(_BF)
+    return conv_epilogue_plain(_conv3x3(_f(x), _f(wc)) + _f(bias4), wc.shape[-1], exact_gelu,
+                               head=(wh_bd, bh4))
 
 
 @cuda.exact_f32()
@@ -513,10 +668,106 @@ def _act(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(_BF).contiguous()
 
 
-def _check_conv(cins: list[int], cout: int, name: str) -> None:
-    if cout not in KERNEL_COUTS or any(c <= 0 or c % CIN_MULTIPLE for c in cins):
-        raise ValueError(f"{name} kernel takes cout in {KERNEL_COUTS} and input channels that "
-                         f"are multiples of {CIN_MULTIPLE}, got cin {cins}, cout {cout}")
+def _check_final(name: str, cin: int, cout: int, n_out: int | None) -> None:
+    """K8-K11's widths: 1 <= cin, cout <= MAX_WIDTH (per phase, K11), and
+    with a head at least one column."""
+    if not (0 < cin <= MAX_WIDTH and 0 < cout <= MAX_WIDTH) or (n_out is not None and n_out <= 0):
+        raise ValueError(f"{name} kernel takes 1 <= cin, cout <= {MAX_WIDTH} (MAX_WIDTH) and "
+                         f"n_out >= 1, got cin {cin}, cout {cout}, n_out {n_out}")
+
+
+@functools.cache
+def _k7_slots(n_tile: int, any_route: bool, device: torch.device) -> int:
+    """Blocks of K7's kernel of tile width ``n_tile`` (its fixed route's or
+    its any route's instantiation) that fit the card at once, in whole
+    clusters (the kernel's own occupancy query)."""
+    n = cuda.size_query("decoder_conv", "decoder_conv_slots", device, n_tile, int(any_route))
+    if n <= 0:
+        raise RuntimeError(f"decoder_conv: no cluster of the {n_tile}-wide kernel fits the card")
+    return n
+
+
+def _k7_geometry(geo: DecoderConvTiling, device: torch.device) -> DecoderConvTiling:
+    """``geo`` with the slots of the instantiation it runs on."""
+    return dataclasses.replace(geo, slots=_k7_slots(geo.n_tile, geo.route == "any", device))
+
+
+def _padded(v: torch.Tensor | None, n: int) -> torch.Tensor | None:
+    """A (c,) vector zero-padded to (n,), bf16 (the any route's padded
+    output columns take zero bias and LayerNorm vectors)."""
+    if v is None:
+        return None
+    out = torch.zeros(n, dtype=_BF, device=v.device)
+    out[: v.shape[0]] = v
+    return out
+
+
+class LaunchCount:
+    """The launches of a kernel that no wrapper of its own launches, read
+    and reset as a wrapper's: K7's any route for each wrapper that runs it
+    (``ANY_LAUNCHES``, one a column chunk) and its second pass
+    (``EPILOGUE_LAUNCHES``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+ANY_LAUNCHES = {n: LaunchCount() for n in ("decoder_conv", "final_conv_gelu", "upsample_final",
+                                           "final_heads", "composite_final_heads")}
+EPILOGUE_LAUNCHES = LaunchCount()
+
+
+def _epilogue(acc, c, out, exact_gelu, ln=(None, None), head=(None, None)) -> None:
+    """The any route's second pass (``conv_epilogue_launch``): acc (..., ld)
+    f32 → LayerNorm over its first c values (``ln``), GELU, bf16, through
+    ``head`` (wh (c, nh), bh) when given, into out; ``conv_epilogue_plain``
+    is its plain twin."""
+    ld = acc.shape[-1]
+    n_pix = acc.numel() // ld
+    if n_pix >= 2**31:
+        raise ValueError(f"conv_epilogue takes fewer than 2^31 pixels, got {n_pix}")
+    wh, bh = head
+    pix = 8 if wh is None else max(8, min(64, 96 * 1024 // (2 * c) // 8 * 8))
+    smem = 0 if wh is None else pix * c * 2
+    grid = min(-(-n_pix // pix), 8 * cuda.sm_count(acc.device))
+    cuda.launch("decoder_conv", "conv_epilogue_launch", cuda.ptr(acc), ld, n_pix, c,
+                cuda.ptr(ln[0]), cuda.ptr(ln[1]), cuda.ptr(wh), cuda.ptr(bh),
+                0 if wh is None else wh.shape[-1], cuda.ptr(out), int(exact_gelu), pix, grid,
+                smem, cuda.stream(acc))
+    EPILOGUE_LAUNCHES.launches += 1
+
+
+def _conv_any(geo: DecoderConvTiling, x, skip, w, b, ln=(None, None), exact_gelu=False,
+              head=(None, None), n_out=None) -> torch.Tensor:
+    """K7's any route for ``geo.kernel``'s wrapper, on checked bf16,
+    contiguous CUDA tensors: one launch per column chunk at tile width
+    ``geo.n_tile``, the weights and vectors zero-padded; where ``geo.raw``,
+    f32 conv + bias into a scratch, then ``_epilogue`` (LayerNorm ``ln``,
+    GELU and ``head``)."""
+    geo = _k7_geometry(geo, x.device)
+    wl = k7_weight_layout_any(w, geo)
+    npad = geo.n_chunks * geo.n_tile
+    bp = _padded(b, npad)
+    modes = [SRC_MODES[m] for m in geo.source_modes()]
+    in_h, in_w = geo.in_hw
+    out = torch.empty((geo.batch, geo.h, geo.w, n_out or geo.cout), dtype=_BF, device=x.device)
+    raw = (torch.empty((geo.batch, geo.h, geo.w, npad), dtype=torch.float32, device=x.device)
+           if geo.raw else None)
+    lp = (None, None) if raw is not None else tuple(_padded(v, npad) for v in ln)
+    for j in range(geo.n_chunks):
+        n0 = j * geo.n_tile
+        cuda.launch(
+            "decoder_conv", "decoder_conv_any_launch", cuda.ptr(x), cuda.ptr(skip),
+            cuda.ptr(wl[j]), cuda.ptr(bp[n0:]), cuda.ptr(lp[0]), cuda.ptr(lp[1]),
+            cuda.ptr(None if raw is not None else out),
+            cuda.ptr(None if raw is None else raw[..., n0:]), npad, geo.batch, geo.h, geo.w,
+            geo.cx, geo.cs, min(geo.cout, geo.n_tile), geo.n_tile, *modes, in_h, in_w,
+            int(exact_gelu), *geo.launch_args(), cuda.stream(x),
+        )
+        ANY_LAUNCHES[geo.kernel].launches += 1
+    if raw is not None:
+        _epilogue(raw, geo.cout, out, exact_gelu, ln, head)
+    return out
 
 
 def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = False):
@@ -525,13 +776,14 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     LayerNorm vectors (cout,) → (B, H, W, cout) bf16. The kernel takes the
     weights bf16 and contiguous (``HoverNeXt.fuse``) and raises on anything
     else; it reads them laid out by ``k7_weight_layout`` (one copy per
-    call), the skip's rows at an offset of cx."""
+    call), the skip's rows at an offset of cx. Shapes its compiled widths
+    do not take run its any route (``_conv_any``)."""
     if not x.is_cuda:
         return decoder_conv_plain(x, skip, w, b, ln_scale, ln_bias, exact_gelu)
     bsz, h, wd, cx = x.shape
     cs = 0 if skip is None else skip.shape[-1]
     cout = w.shape[-1]
-    _check_conv([cx] + ([cs] if cs else []), cout, "decoder_conv")
+    geo = DecoderConvTiling(bsz, h, wd, cx, cs, cout)
     xb, sb = _act(x), _act(skip)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cx))
     if sb is not None:
@@ -541,8 +793,10 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     if ln_scale is not None:
         cuda.check(ln_scale, "ln_scale", _BF, (cout,))
         cuda.check(ln_bias, "ln_bias", _BF, (cout,))
+    if geo.route == "any":
+        return _conv_any(geo, xb, sb, w, b, (ln_scale, ln_bias), exact_gelu)
     out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
-    geo = DecoderConvTiling(bsz, h, wd, cx, cs, cout, slots=_k7_slots(cout, x.device))
+    geo = _k7_geometry(geo, x.device)
     wl = k7_weight_layout(w)
     cuda.launch(
         "decoder_conv", "decoder_conv_launch", cuda.ptr(xb), cuda.ptr(sb), cuda.ptr(wl),
@@ -553,40 +807,27 @@ def decoder_conv(x, skip, w, b, ln_scale=None, ln_bias=None, exact_gelu: bool = 
     return out
 
 
-@functools.cache
-def _k7_slots(cout: int, device: torch.device) -> int:
-    """Blocks of K7's kernel for ``cout`` that fit the card at once, in
-    whole clusters (the kernel's own occupancy query)."""
-    n = cuda.size_query("decoder_conv", "decoder_conv_slots", device, cout)
-    if n <= 0:
-        raise RuntimeError(f"decoder_conv: no cluster of the cout {cout} kernel fits the card")
-    return n
-
-
-def _check_up(cin: int, cout: int, name: str) -> None:
-    if cin != UP_CHANNELS or cout != UP_CHANNELS:
-        raise ValueError(f"{name} kernel takes cin = cout = {UP_CHANNELS}, got {cin}, {cout}")
-
-
 def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     """Full-resolution 3x3 conv + bias + GELU: x (B, H, W, cin), w (3, 3,
     cin, cout) → (B, H, W, cout) bf16. H must be a multiple of 32, on both
     devices, as the TPU kernel requires at its default ``rows=32``; any W
     and batch: offsets are 64-bit, so one call takes a TTA x4 batch of 128
-    tiles (2^31 elements). The kernel takes cin = cout = 64."""
+    tiles (2^31 elements). Its kernel takes cin = cout = 64; other widths
+    run K7's any route."""
     bsz, h, wd, cin = x.shape
     if h % FINAL_CONV_ROWS:
         raise ValueError(f"H={h} must be a multiple of rows={FINAL_CONV_ROWS}")
     if not x.is_cuda:
         return final_conv_gelu_plain(x, w, b, exact_gelu)
     cout = w.shape[-1]
-    _check_up(cin, cout, "final_conv_gelu")
+    geo = StripTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device), cin=cin, cout=cout)
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
+    if geo.route == "any":
+        return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu)
     out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
-    geo = StripTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device))
     cuda.launch(
         "conv64", "final_conv_gelu_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
@@ -599,21 +840,24 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
 def upsample_final(x, w, b, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → (B, 2H,
     2W, cout) bf16. The kernel upsamples each output tile's halo once into
-    shared memory; it takes cin = cout = 64. 2H must be a multiple of 4, as
-    the TPU kernel requires (it writes the output in 4 row chunks)."""
+    shared memory; it takes cin = cout = 64, other widths run K7's any
+    route, whose producer warp builds each halo
+    chunk upsampled. 2H must be a multiple of 4, as the TPU kernel requires
+    (it writes the output in 4 row chunks)."""
     bsz, h, wd, cin = x.shape
     if (2 * h) % 4:
         raise ValueError(f"2*H must be a multiple of 4, got H={h}")
     if not x.is_cuda:
         return upsample_final_plain(x, w, b, exact_gelu)
     cout = w.shape[-1]
-    _check_up(cin, cout, "upsample_final")
+    geo = UpsampleTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device), cin=cin, cout=cout)
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
+    if geo.route == "any":
+        return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu)
     out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=_BF, device=x.device)
-    geo = UpsampleTiling(bsz, h, wd, n_sm=cuda.sm_count(x.device))
     cuda.launch(
         "upsample_conv", "upsample_final_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(out), bsz, h, wd, cin, cout, int(exact_gelu), *geo.launch_args(),
@@ -627,25 +871,28 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
     product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
     The kernel (K9's, with the head product in its epilogue) takes cin =
-    cout = 64 and n_out <= 16. 2H must be a multiple of 4, on both devices,
-    as the TPU kernel requires (it writes the output in 4 row chunks)."""
+    cout = 64 and n_out <= 16; other shapes run K7's any route
+    (conv + bias in f32, then GELU and the head in its
+    second pass). 2H must be a multiple of 4, on both devices, as the TPU
+    kernel requires (it writes the output in 4 row chunks)."""
     bsz, h, wd, cin = x.shape
     if (2 * h) % 4:
         raise ValueError(f"2*H must be a multiple of 4, got H={h}")
     if not x.is_cuda:
         return final_heads_plain(x, w, b, wh, bh, exact_gelu)
     cout, n_out = w.shape[-1], wh.shape[-1]
-    _check_up(cin, cout, "final_heads")
-    if not 0 < n_out <= UP_HEAD_COLS:
-        raise ValueError(f"final_heads kernel takes 0 < n_out <= {UP_HEAD_COLS}, got {n_out}")
+    geo = UpsampleTiling(bsz, h, wd, head=True, n_sm=cuda.sm_count(x.device), cin=cin,
+                         cout=cout, n_out=n_out)
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
     cuda.check(wh, "wh", _BF, (cout, n_out))
     cuda.check(bh, "bh", _BF, (n_out,))
+    if geo.route == "any":
+        return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu, head=(wh, bh),
+                         n_out=n_out)
     out = torch.empty((bsz, 2 * h, 2 * wd, n_out), dtype=_BF, device=x.device)
-    geo = UpsampleTiling(bsz, h, wd, head=True, n_sm=cuda.sm_count(x.device))
     cuda.launch(
         "upsample_conv", "final_heads_launch", cuda.ptr(xb), cuda.ptr(w), cuda.ptr(b),
         cuda.ptr(wh), cuda.ptr(bh), cuda.ptr(out), bsz, h, wd, cin, cout, n_out,
@@ -655,57 +902,43 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     return out
 
 
-def check_block_diagonal(wh_bd: torch.Tensor, phases: int = K11_PHASES) -> None:
-    """Raise unless ``wh_bd`` (phases c, phases n) is zero off its diagonal
-    (c, n) blocks, which K11's kernel does not read. Costs one device sync
-    for a head on the card."""
-    c4, n4 = wh_bd.shape
-    if c4 % phases or n4 % phases:
-        raise ValueError(f"wh_bd {tuple(wh_bd.shape)} is no {phases} x {phases} grid of blocks")
-    blocks = wh_bd.reshape(phases, c4 // phases, phases, n4 // phases).transpose(1, 2)
-    off = ~torch.eye(phases, dtype=torch.bool, device=wh_bd.device)
-    if bool(blocks[off].any()):
-        raise ValueError("composite_final_heads: wh_bd has nonzero blocks off its diagonal; the "
-                         "kernel reads only the diagonal (cout, n_out) block of each phase")
-
-
 def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
                           block_diagonal: bool = False):
     """The final stage in the low-res parity domain: x (B, H, W, cin), wc
     (3, 3, cin, 4 cout) parity-folded weights, bias4 (4 cout,), wh_bd
-    (4 cout, 4 n_out) block-diagonal heads, bh4 (4 n_out,) → (B, H, W,
-    4 n_out) bf16 parity logits, phase-major (a, b) = 00, 01, 10, 11.
+    (4 cout, 4 n_out) heads, bh4 (4 n_out,) → (B, H, W, 4 n_out) bf16
+    parity logits, phase-major (a, b) = 00, 01, 10, 11.
 
-    Precondition, as the TPU kernel's: wh_bd is block-diagonal (the head
-    repeated per phase, ``hovernext_fn._block_diag_heads``), so that phase
-    p's logits depend only on its own cout channels. The plain version
-    multiplies the whole matrix; the kernel runs each phase as a conv
-    cin → cout with its diagonal head block and reads no other block, so
-    on the card a head with nonzero off-diagonal blocks is refused
-    (``check_block_diagonal``, one device sync) rather than answered
-    wrongly. ``block_diagonal=True`` states that wh_bd was built
-    block-diagonal, as ``hovernext_fn.k11_weights`` builds it, and skips
-    that check, so that the call is enqueued without waiting for the
-    device. The kernel takes cin = cout = 64 and n_out <= 16."""
+    The TPU kernel multiplies the whole of wh_bd, which its caller builds
+    block-diagonal (the head repeated per phase,
+    ``hovernext_fn._block_diag_heads``), as the plain version does.
+    ``block_diagonal=True`` states that wh_bd is so, as
+    ``hovernext_fn.k11_weights`` builds it: then, at cin = cout = 64 and
+    n_out <= 16, the kernel runs each phase as a conv cin → cout with its
+    diagonal head block and reads no other block. Any other call runs K7's
+    any route: the conv cin → 4 cout with
+    each pixel's four phases kept in f32, then GELU and the whole head
+    product in its second pass; nothing waits for the device."""
     if not x.is_cuda:
         return composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu)
     bsz, h, wd, cin = x.shape
     c4, n4 = wc.shape[-1], wh_bd.shape[-1]
-    _check_up(cin, c4 // K11_PHASES, "composite_final_heads")
-    if c4 % K11_PHASES or n4 % K11_PHASES or not 0 < n4 // K11_PHASES <= UP_HEAD_COLS:
-        raise ValueError(f"composite_final_heads kernel takes c4 = {K11_PHASES} x {UP_CHANNELS} "
-                         f"and n4 = {K11_PHASES} x n_out, 0 < n_out <= {UP_HEAD_COLS}, got "
-                         f"{c4}, {n4}")
+    if c4 % K11_PHASES or n4 % K11_PHASES:
+        raise ValueError(f"composite_final_heads kernel takes c4 = {K11_PHASES} x cout and "
+                         f"n4 = {K11_PHASES} x n_out, got {c4}, {n4}")
+    geo = StripTiling(bsz, h, wd, phases=K11_PHASES, n_sm=cuda.sm_count(x.device), cin=cin,
+                      cout=c4 // K11_PHASES, n_out=n4 // K11_PHASES,
+                      block_diagonal=block_diagonal)
     xb = _act(x)
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(wc, "wc", _BF, (3, 3, cin, c4))
     cuda.check(bias4, "bias4", _BF, (c4,))
     cuda.check(wh_bd, "wh_bd", _BF, (c4, n4))
     cuda.check(bh4, "bh4", _BF, (n4,))
-    if not block_diagonal:
-        check_block_diagonal(wh_bd)
+    if geo.route == "any":
+        return _conv_any(geo.any_geo, xb, None, wc, bias4, exact_gelu=exact_gelu,
+                         head=(wh_bd, bh4), n_out=n4)
     out = torch.empty((bsz, h, wd, n4), dtype=_BF, device=x.device)
-    geo = StripTiling(bsz, h, wd, phases=K11_PHASES, n_sm=cuda.sm_count(x.device))
     cuda.launch(
         "conv64", "composite_final_heads_launch", cuda.ptr(xb), cuda.ptr(wc),
         cuda.ptr(bias4), cuda.ptr(wh_bd), cuda.ptr(bh4), cuda.ptr(out), bsz, h, wd, cin, c4, n4,

@@ -185,7 +185,7 @@ class NucleiModel(_Sharded):
                                                           device=d, **kw))
         device = torch.device(device)
         fused = dtype == torch.bfloat16
-        model = HoverNeXt(cfg, fused_final="lowres" if fused else False, run_on=device)
+        model = HoverNeXt(cfg, fused_final="lowres" if fused else False)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:

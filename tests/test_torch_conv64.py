@@ -13,9 +13,12 @@ block-diagonal head it requires, and the widths the card's kernels take.
   ``composite_final_heads_plain`` on ``k11_weights`` and the Pallas kernel
   in interpret mode, within 2 bf16 ulp + 1e-3 (the head's f32 sums run in
   another order); with the head blocks of the wrong phases it does not.
-- A head with a nonzero off-diagonal block is refused where the card's
-  path checks it (``check_block_diagonal``); the model's call vouches for
-  the head ``k11_weights`` builds and skips the device check.
+- K11's per-phase route is taken only for a head the caller states
+  block-diagonal (the model's call vouches for the head ``k11_weights``
+  builds); for a full head the per-phase decomposition is wrong, and the
+  call takes K7's any route, which multiplies the whole head.
+- A last decoder width of 96 takes K7's any route in every final-stage
+  kernel; HoverNeXt-tiny's widths keep the kernels' own routes.
 """
 
 import dataclasses
@@ -32,9 +35,9 @@ from path_gene_multimodal_tpu.models import hovernext_fn as jfn
 from path_gene_multimodal_tpu.ops.pallas import decoder as jdec
 from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
 from path_gene_multimodal_tpu_torch.models import hovernext_fn as tfn
-from path_gene_multimodal_tpu_torch.models.hovernext import kernel_width_errors
 from path_gene_multimodal_tpu_torch.ops import decoder as tdec
 from test_torch_decoder import _assert_elementwise, _final_params, _j_block_diag, _normal
+from test_torch_shape_refusals import _kernel_tilings
 
 T = torch.from_numpy
 
@@ -156,23 +159,26 @@ def test_k11_phase_decomposition_sees_permuted_head_blocks():
         _assert_elementwise(bad, plain)
 
 
-def test_off_diagonal_head_is_refused():
-    wh_bd = tfn.k11_weights(_torch_params(_k11_inputs(134)[0]), torch.float32)[2]
-    tdec.check_block_diagonal(wh_bd)  # what k11_weights builds passes
-    wh_bd[0, 39] = 0.5
-    with pytest.raises(ValueError, match="off its diagonal"):
-        tdec.check_block_diagonal(wh_bd)
-    dense = torch.full((256, 40), 0.1)
-    with pytest.raises(ValueError, match="off its diagonal"):
-        tdec.check_block_diagonal(dense)
-    with pytest.raises(ValueError, match="grid of blocks"):
-        tdec.check_block_diagonal(torch.zeros(256, 42))
-    with torch.inference_mode():
-        tdec.check_block_diagonal(torch.block_diag(*[torch.ones(64, 10)] * 4))
-    # zeros off the diagonal even where the head holds no finite number
-    wcat = torch.full((8, 10), float("nan"))
-    bd = tfn._block_diag_heads(wcat, torch.zeros(10))[0]
-    tdec.check_block_diagonal(bd)
+def test_k11_full_head_leaves_the_per_phase_route():
+    """A head with nonzero blocks off its diagonal: the per-phase
+    decomposition (the conv64 route's) no longer equals the plain version,
+    so such a call takes the any route, as every call that does not state
+    ``block_diagonal=True`` does; the head ``k11_weights`` builds passes
+    either way."""
+    p, x = _k11_inputs(134)
+    wc, bias4, wh_bd, bh4 = tfn.k11_weights(_torch_params(p), torch.float32)[:4]
+    per_phase = lambda wh: tdec.composite_final_heads_by_phase(  # noqa: E731
+        T(x), wc, bias4, wh, bh4).float().numpy()
+    plain = lambda wh: tdec.composite_final_heads_plain(  # noqa: E731
+        T(x), wc, bias4, wh, bh4).float().numpy()
+    _assert_elementwise(per_phase(wh_bd), plain(wh_bd))
+    full = wh_bd.clone()
+    full[: wh_bd.shape[0] // 4, wh_bd.shape[1] // 4 :] = 0.5
+    with pytest.raises(AssertionError):
+        _assert_elementwise(per_phase(full), plain(full))
+    geo = lambda bd: tdec.StripTiling(2, 9, 7, phases=4, n_out=10, block_diagonal=bd)  # noqa: E731
+    assert (geo(True).route, geo(False).route) == ("conv64", "any")
+    assert geo(False).any_geo.raw and geo(False).any_geo.cout == 256
 
 
 def test_model_path_vouches_for_its_head(monkeypatch):
@@ -192,16 +198,12 @@ def test_model_path_vouches_for_its_head(monkeypatch):
 
 
 @pytest.mark.parametrize("option", ["fused_decoder", "pallas", "heads", "k9"])
-def test_kernel_width_errors_name_k8_and_k11_at_last_width_96(option):
-    """A last decoder width of 96 (which K7 takes) is refused by K8 under
-    ``fused_decoder`` and by K11 under ``"pallas"`` (as by K9 and K10);
-    HoverNeXt-tiny passes."""
+def test_last_width_96_takes_the_any_route(option):
+    """A last decoder width of 96 (K7's fixed widths all) puts K8 under
+    ``fused_decoder``, K9, K10 and K11 on K7's any route; HoverNeXt-tiny's
+    widths keep every kernel on its own."""
     cfg = dataclasses.replace(HOVERNEXT_TINY, decoder_dims=(384, 192, 96, 96))
-    fused_decoder = option == "fused_decoder"
-    final = {"pallas": "pallas", "heads": "heads", "k9": True}.get(option, False)
-    errs = kernel_width_errors(cfg, fused_decoder, final)
-    kernel = {"fused_decoder": "K8", "pallas": "K11", "heads": "K10", "k9": "K9"}[option]
-    assert len(errs) == 1 and kernel in errs[0] and "got 96" in errs[0], errs
-    if option == "fused_decoder":
-        assert "K7/K8" in errs[0]
-    assert kernel_width_errors(HOVERNEXT_TINY, fused_decoder, final) == []
+    routes = [geo.route for _, geo in _kernel_tilings(cfg, option)]
+    assert routes[-1] == "any", routes
+    assert all(r == "fixed" for r in routes[:-1]), routes
+    assert "any" not in [geo.route for _, geo in _kernel_tilings(HOVERNEXT_TINY, option)]

@@ -4,7 +4,10 @@ package's, on the CPU: the f32 port model against the flax forward within
 atol 5e-4 / rtol 1e-3, and the bf16 port model (K1 on stages 0-2 at C = 80,
 160, 320: its plain version here, as on any CPU tensor) against
 ``hovernext_forward(dtype=bf16, fused_blocks=True, interpret=True)`` within
-the bf16 bar of ``tests/test_torch_hovernext.py``. The weights are drawn
+the bf16 bar of ``tests/test_torch_hovernext.py``, and each decoder
+configuration (``fused_decoder``; ``fused_final`` True, "heads", "pallas")
+against ``hovernext_forward`` with the same option in interpret mode at the
+bar of ``tests/test_torch_decoder.py``. The weights are drawn
 from a seed in the JAX layout and carried across by ``params_from_jax``;
 the card runs the same model from a converted checkpoint in chip_smoke.py's
 ``shapes`` phase."""
@@ -21,6 +24,7 @@ from path_gene_multimodal_tpu.models.convnext import ConvNeXtConfig as JConvNeXt
 from path_gene_multimodal_tpu.models.hovernext import HoverNeXt as JHoverNeXt
 from path_gene_multimodal_tpu.models.hovernext import HoverNeXtConfig as JHoverNeXtConfig
 from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
+from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
 from path_gene_multimodal_tpu_torch.models.weights_hovernext import params_from_jax
 from path_gene_multimodal_tpu_torch.pipeline.nuclei import NucleiModel
 
@@ -103,3 +107,29 @@ def test_nano_bf16_forward_tracks_hovernext_forward_fused_blocks(nano):
         assert g.shape == r.shape, k
         span = float(r.max() - r.min()) or 1.0
         assert float(np.abs(g - r).max()) / span < 0.05, k
+
+
+@pytest.mark.parametrize("option", [{"fused_decoder": True}, {"fused_final": True},
+                                    {"fused_final": "heads"}, {"fused_final": "pallas"}],
+                         ids=["fused_decoder", "k9", "heads", "pallas"])
+def test_nano_decoder_configurations_match_hovernext_forward(nano, option):
+    """Each decoder configuration at nano's widths (K7 at the skip of 80,
+    the final stage at 64) against ``hovernext_forward`` with the same
+    option, its Pallas kernels in interpret mode, f32 on both sides: max
+    |port - jax| / span < 2e-2 per head, ``test_torch_decoder.py``'s bar
+    for the kernel configurations."""
+    jcfg, tcfg, params = nano
+    model = HoverNeXt(tcfg, **option).eval()
+    model.load_state_dict(params_from_jax(params, tcfg))
+    model.fuse()
+    x = _pixels(24)
+    ref = jax.jit(lambda p, px: jfn.hovernext_forward(
+        p, px, jcfg, dtype=jnp.float32, interpret=True, **option))(params, jnp.asarray(x))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    for k in ("np", "hv", "tp"):
+        r = np.asarray(ref[k], np.float32)
+        g = got[k].float().numpy()
+        assert g.shape == r.shape, k
+        span = float(r.max() - r.min()) or 1.0
+        assert float(np.abs(g - r).max()) / span < 2e-2, k

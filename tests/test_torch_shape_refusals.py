@@ -4,9 +4,16 @@ and the f32 path's cuDNN precision, on the CPU.
 - Wider on the card: ``final_heads`` (K10) and ``final_conv_gelu`` (K8)
   refuse the H that ``fused_final_heads`` / ``fused_final_conv_gelu``
   refuse, on both devices.
-- Narrower on the card: ``HoverNeXt(..., run_on="cuda")`` refuses a decoder
-  configuration whose kernels cannot take ``cfg.decoder_dims``, and names
-  the width and the kernel; on the CPU every width runs (plain versions).
+- The same widths on the card: ``HoverNeXt(...)`` and ``fuse()``
+  build every decoder configuration for any encoder and decoder
+  widths (the small test configuration, ConvNeXtV2-nano's canonical
+  HoverNeXt, and the same encoder with decoder widths 320/160/80/40 and 12
+  types); the kernels' tiling classes take each of their calls' shapes
+  within a block's shared memory, on the route the shape needs; the plain
+  versions equal the Pallas kernels in interpret mode at the shapes the
+  card's own kernels do not take (their any route's), within
+  ``test_torch_decoder.py``'s bar; a width past ``MAX_WIDTH`` is refused by
+  the kernel's tiling class, which names the kernel and the limit.
 - TF32: an f32 ``HoverNeXt`` forward runs its convs with
   ``torch.backends.cudnn.allow_tf32`` off, and restores it after.
 """
@@ -15,17 +22,24 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from path_gene_multimodal_tpu.models import hovernext_fn as jfn
 from path_gene_multimodal_tpu.ops.pallas import decoder as jdec
-from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
-from path_gene_multimodal_tpu_torch.models import hovernext as thn
-from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, kernel_width_errors
+from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
+from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt
 from path_gene_multimodal_tpu_torch.ops import decoder as tdec
+from test_torch_decoder import _assert_elementwise, _final_params, _j_block_diag
 from test_torch_hovernext import _configs
 
 CONFIGS = {"k9": {"fused_final": True}, "heads": {"fused_final": "heads"},
            "pallas": {"fused_final": "pallas"}, "fused_decoder": {"fused_decoder": True}}
+NANO = ConvNeXtConfig(depths=(2, 2, 8, 2), dims=(80, 160, 320, 640))
+MODELS = {"small": None,
+          "nano": HoverNeXtConfig(encoder=NANO),  # (a): K7 sees the skip of 80
+          "nano_dec40": HoverNeXtConfig(encoder=NANO, decoder_dims=(320, 160, 80, 40),
+                                        num_types=12)}  # (b): n_out 17
 
 
 @pytest.mark.parametrize("h", [3, 5, 4, 6])
@@ -59,39 +73,157 @@ def test_final_conv_gelu_refuses_what_the_pallas_kernel_refuses(h):
         assert tdec.final_conv_gelu(*map(torch.from_numpy, (x, w, b))).shape == (1, h, 8, 8)
 
 
+def _kernel_tilings(cfg: HoverNeXtConfig, name: str, batch: int = 2):
+    """(call, tiling) of each kernel call a forward of ``cfg`` makes in
+    configuration ``name`` at its input size, as the wrappers build them."""
+    d, dec, side = cfg.encoder.dims, cfg.decoder_dims, cfg.input_size
+    last, n_out = dec[-1], 4 + cfg.tp_channels
+    half = side // 2
+    if name == "fused_decoder":
+        out = []
+        for i, (cx, cs, c) in enumerate(zip([d[-1]] + list(dec[:-1]),
+                                            (d[2], d[1], d[0], 0), dec)):
+            hw = side // 2 ** (4 - i)
+            out.append((f"dec{i}.conv0", tdec.DecoderConvTiling(batch, hw, hw, cx, cs, c)))
+            out.append((f"dec{i}.conv1", tdec.DecoderConvTiling(batch, hw, hw, c, 0, c)))
+        return out + [("final", tdec.StripTiling(batch, side, side, cin=last, cout=last))]
+    if name == "k9":
+        return [("final", tdec.UpsampleTiling(batch, half, half, cin=last, cout=last))]
+    if name == "heads":
+        return [("final", tdec.UpsampleTiling(batch, half, half, head=True, cin=last,
+                                              cout=last, n_out=n_out))]
+    return [("final", tdec.StripTiling(batch, half, half, phases=4, cin=last, cout=last,
+                                       n_out=n_out))]
+
+
+@pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_hovernext_refuses_widths_its_kernels_cannot_take_on_the_card(name):
-    """The small test configuration (decoder widths 32, 16, 8, 8) runs every
-    configuration on the CPU, and none of the kernel ones on the card."""
-    _, tcfg = _configs(False)
-    HoverNeXt(tcfg, **CONFIGS[name])
-    HoverNeXt(tcfg, **CONFIGS[name], run_on="cpu")
-    kernel = {"k9": "K9", "heads": "K10", "pallas": "K11", "fused_decoder": "K7/K8"}[name]
-    with pytest.raises(ValueError, match=kernel) as err:
-        HoverNeXt(tcfg, **CONFIGS[name], run_on="cuda")
-    assert "got 8" in str(err.value) or "= 32" in str(err.value)
+def test_hovernext_builds_every_configuration_on_the_card(name, model):
+    """Every decoder configuration builds for the card and fuses, for the
+    small test configuration (decoder 32/16/8/8), ConvNeXtV2-nano's
+    canonical HoverNeXt and the same encoder with decoder widths
+    320/160/80/40 and 12 types; each of its kernel calls' tilings takes its
+    shape within a block's shared memory, on the kernels' own compiled
+    widths where they take it (HoverNeXt-tiny's route) and on K7's any
+    route otherwise."""
+    cfg = MODELS[model] or _configs(False)[1]
+    m = HoverNeXt(cfg, **CONFIGS[name])
+    m.fuse()
+    key = {"k9": "k9", "heads": "k10", "pallas": "k11", "fused_decoder": "k7"}[name]
+    assert key in m.fused_weights
+    routes = []
+    for call, geo in _kernel_tilings(cfg, name):
+        assert geo.smem_bytes <= tdec.SMEM_PER_BLOCK, (call, geo)
+        routes.append(geo.route)
+        if geo.route == "any":
+            assert geo.smem_bytes == (geo if isinstance(geo, tdec.DecoderConvTiling)
+                                      else geo.any_geo).smem_bytes
+    if model == "nano_dec40":  # no width of (b) is one the kernels are compiled for
+        assert set(routes) == {"any"}, routes
+    if model == "nano" and name == "fused_decoder":  # only dec2.conv0 (skip 80) leaves them
+        assert routes.count("any") == 1 and routes[4] == "any", routes
+    if model == "nano" and name != "fused_decoder":  # decoder width 64, 10 head columns
+        assert len(routes) == 1 and routes[0] != "any", routes
 
 
-@pytest.mark.parametrize("name", list(CONFIGS) + ["lowres", "plain"])
-def test_hovernext_tiny_widths_pass_on_the_card(name):
-    """HoverNeXt-tiny's published widths pass every configuration's check,
-    and the plain configurations have nothing to check."""
-    opt = CONFIGS.get(name, {"fused_final": "lowres"} if name == "lowres" else {})
-    assert kernel_width_errors(HOVERNEXT_TINY, opt.get("fused_decoder", False),
-                               opt.get("fused_final", False)) == []
-    _, tcfg = _configs(False)
-    if name in ("lowres", "plain"):
-        HoverNeXt(tcfg, **opt, run_on="cuda")
+# K7 (cx, cs, cout) and K8-K11 (C, n_out) at the widths chip_smoke.py sweeps
+K7_WIDTHS = [(192, 80, 96), (20, 12, 40), (640, 320, 320), (128, 0, 1024), (2816, 1408, 384)]
+FINAL_WIDTHS = [(40, 10), (96, 17), (128, 33), (256, 17)]
 
 
-def test_hovernext_fuse_refuses_widths_on_the_card(monkeypatch):
-    """A model built without ``run_on`` and moved to the card is refused
-    at ``fuse()``, before its first forward."""
-    _, tcfg = _configs(False)
-    model = HoverNeXt(tcfg, fused_final="heads")
-    monkeypatch.setattr(thn, "on_card", lambda m: True)
-    with pytest.raises(ValueError, match="K10"):
-        model.fuse()
+@pytest.mark.parametrize("shape", K7_WIDTHS, ids=lambda s: "x".join(map(str, s)))
+def test_k7_tiling_takes_the_widths_the_pallas_kernel_takes(shape):
+    cx, cs, cout = shape
+    geo = tdec.DecoderConvTiling(4, 16, 16, cx, cs, cout)
+    assert geo.smem_bytes <= tdec.SMEM_PER_BLOCK
+    fixed = cout in tdec.KERNEL_COUTS and not (cx % 32 or cs % 32)
+    assert geo.route == ("fixed" if fixed else "any")
+    assert geo.n_chunks * geo.n_tile >= cout and geo.raw == (cout > 384)
+    assert geo.l2_bytes()["weights"] > 0
+
+
+@pytest.mark.parametrize("width", FINAL_WIDTHS, ids=lambda s: f"C{s[0]}-n{s[1]}")
+def test_final_tilings_take_the_widths_the_pallas_kernels_take(width):
+    c, n_out = width
+    tilings = [tdec.StripTiling(2, 64, 64, cin=c, cout=c),
+               tdec.UpsampleTiling(2, 32, 32, cin=c, cout=c),
+               tdec.UpsampleTiling(2, 32, 32, head=True, cin=c, cout=c, n_out=n_out),
+               tdec.StripTiling(2, 32, 32, phases=4, cin=c, cout=c, n_out=n_out)]
+    for geo in tilings:
+        assert geo.route == "any" and geo.smem_bytes <= tdec.SMEM_PER_BLOCK
+        assert geo.any_geo.raw == (geo is tilings[2] or geo is tilings[3] or c > 384)
+    # HoverNeXt-tiny's widths keep their own kernels; a full K11 head does not
+    assert tdec.StripTiling(2, 64, 64).route == "conv64"
+    assert tdec.UpsampleTiling(2, 32, 32, head=True, n_out=10).route == "upsample_conv"
+    assert tdec.StripTiling(2, 32, 32, phases=4, n_out=10).route == "conv64"
+    assert tdec.StripTiling(2, 32, 32, phases=4, n_out=10, block_diagonal=False).route == "any"
+
+
+@pytest.mark.parametrize("kernel", ["decoder_conv", "final_conv_gelu", "upsample_final",
+                                    "final_heads", "composite_final_heads"])
+def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
+    over = tdec.MAX_WIDTH + 1
+    make = {"decoder_conv": lambda: tdec.DecoderConvTiling(1, 8, 8, 64, 0, over),
+            "final_conv_gelu": lambda: tdec.StripTiling(1, 32, 8, cin=over, cout=over),
+            "upsample_final": lambda: tdec.UpsampleTiling(1, 4, 4, cin=64, cout=over),
+            "final_heads": lambda: tdec.UpsampleTiling(1, 4, 4, head=True, n_out=0),
+            "composite_final_heads": lambda: tdec.StripTiling(1, 4, 4, phases=4, cout=over)}
+    with pytest.raises(ValueError, match=f"{kernel} kernel takes.*{tdec.MAX_WIDTH}"):
+        make[kernel]()
+
+
+def _n(rng, shape, scale=1.0, loc=0.0):
+    return (loc + scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(20, 12, 40), (64, 48, 80)], ids=["20+12-40", "64+48-80"])
+def test_k7_plain_matches_pallas_at_any_route_widths(shape):
+    cx, cs, cout = shape
+    rng = np.random.default_rng(cx + cs + cout)
+    x, skip = _n(rng, (2, 10, 12, cx)), _n(rng, (2, 10, 12, cs))
+    wk = _n(rng, (3, 3, cx + cs, cout), (9 * (cx + cs)) ** -0.5)
+    b, g, lb = _n(rng, cout, 0.1), _n(rng, cout, 0.1, 1.0), _n(rng, cout, 0.1)
+    ref = jdec.fused_decoder_conv(*map(jnp.asarray, (x, skip, wk, b, g, lb)), interpret=True)
+    got = tdec.decoder_conv(*map(torch.from_numpy, (x, skip, wk, b, g, lb)))
+    _assert_elementwise(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("kernel", ["k8", "k9", "k10_n17", "k11_n17", "k11_full_head"])
+def test_final_plain_matches_pallas_at_c40(kernel):
+    """K8-K11 at C = 40, K10/K11 with 17 head columns, and K11 with a head
+    that is not block-diagonal (the card's any route takes all of them)."""
+    rng = np.random.default_rng({"k8": 40, "k9": 41, "k10_n17": 42, "k11_n17": 43,
+                                 "k11_full_head": 44}[kernel])
+    c, n_out = 40, 17
+    T, J = torch.from_numpy, jnp.asarray
+    w, b = _n(rng, (3, 3, c, c), (9 * c) ** -0.5), _n(rng, c, 0.1)
+    if kernel == "k8":
+        x = _n(rng, (1, 32, 12, c))
+        ref = jdec.fused_final_conv_gelu(J(x), J(w), J(b), rows=32, interpret=True)
+        got = tdec.final_conv_gelu(T(x), T(w), T(b))
+    elif kernel == "k9":
+        x = _n(rng, (2, 6, 10, c))
+        ref = jdec.fused_upsample_final(J(x), J(w), J(b), interpret=True)
+        got = tdec.upsample_final(T(x), T(w), T(b))
+    elif kernel == "k10_n17":
+        x, wh, bh = _n(rng, (2, 6, 10, c)), _n(rng, (c, n_out), 0.3), _n(rng, n_out, 0.1)
+        ref = jnp.transpose(jdec.fused_final_heads(*map(J, (x, w, b, wh, bh)), interpret=True),
+                            (0, 2, 3, 1))
+        got = tdec.final_heads(*map(T, (x, w, b, wh, bh)))
+    else:
+        p = _final_params(rng, c, c)
+        p["head_tp"] = {"kernel": _n(rng, (1, 1, c, n_out - 4), 0.3),
+                        "bias": _n(rng, n_out - 4, 0.1)}
+        jp = jax.tree.map(J, p)
+        wc, b4, wcat, bcat = jfn._lowres_head_weights(jp, jp["final_conv"], jnp.float32)
+        wh, bh = _j_block_diag(wcat, bcat)
+        if kernel == "k11_full_head":  # every block of the head nonzero
+            wh = J(_n(rng, wh.shape, 0.1))
+        x = _n(rng, (2, 9, 7, c))
+        ref = jdec.composite_final_heads(J(x), wc, b4, wh, bh, interpret=True)
+        got = tdec.composite_final_heads(T(x), *(T(np.array(a)) for a in (wc, b4, wh, bh)))
+        assert got.shape[-1] == 4 * n_out
+    _assert_elementwise(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
