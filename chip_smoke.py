@@ -163,15 +163,31 @@
    seed, its heads fitted, converted by ``convert_hovernext`` and written
    by ``save_converted`` (81 windows of 256; K1 at C = 80, 160, 320): exit
    0, rows, K1-K4 launched and nothing else; K7 at (cx, cs, cout) =
-   (192, 80, 96), (20, 12, 40), (640, 320, 320), (128, 0, 1024) and
-   (2816, 1408, 384) (``SHAPE_K7``: the fixed route as a guard, the any
-   route else), K8-K11 at C = 40, 96, 128, 256 and K10/K11 at 10, 17 and
-   33 head columns, K11 with a full head at C = 64 and 40, each against
+   (192, 80, 96), (20, 12, 40), (640, 320, 320), (128, 0, 1024),
+   (2816, 1408, 384), (704, 352, 1408) and (1408, 704, 2816)
+   (``SHAPE_K7``: the fixed route as a guard, the any route else), K8-K11
+   at C = 40, 96, 128, 256 (K8 and K9 also at 1152) and K10/K11 at 10, 17
+   and 33 head columns, K11 with a full head at C = 64 and 40, each against
    its plain version in both GELU modes (2 bf16 ulp + DEC_ATOL; heads per
    logit), timed beside the plain version, cuDNN's conv and the bound,
    with mutants (K7's, a padded channel leaking into the LayerNorm, a
    dropped 16-column head chunk, the diagonal blocks only of a full
-   head); then path (4): each decoder configuration (``fused_decoder``,
+   head); K3 at 1, 2, 63, 65, 128, 256 and 4096 levels on ``_flood_cases``'
+   tiles, K4 at 1, 6, 9, 10, 12 and 16 types x 512, 3,363, 4,096 and
+   16,384 slots on 2 tiles of 256^2 and of 512^2, K2 at 11,777, 27,521,
+   65,535 and 100,000 slots on 4 x 256^2 and 2 x 512^2 (a checkerboard
+   tile each), each call against its plain version (integers and counts
+   exactly, K4 bit for bit) on the route its tiling names, with mutants
+   (q in 6 slices past 64 levels, K4's table route's three, K2's tiles
+   sharing one slot table), the new routes timed beside their plain
+   versions and bounds (the kernels line's ``cc_sizes_dev_tables``,
+   ``flood_wide`` and ``instance_stats_table`` rows); path (5): the
+   nuclei stage through ``run_hovernext_wsi`` with the fitted
+   HoverNeXt-tiny in windows of 1024 on the densest 1024 x 2016 region of
+   the slide, at 512 slots a window (its windows capped) and at 4096
+   (none capped, more nuclei; every K2-K4 call under ``_kernel_checks``,
+   K4 on its table route), nuclei, capped windows and windows/s for both;
+   then path (4): each decoder configuration (``fused_decoder``,
    ``fused_final`` True / "heads" / "pallas") of the ConvNeXtV2-nano
    encoder under its canonical decoder (a) and under decoder widths
    320/160/80/40 with 12 types (b), seeded, built as ``HoverNeXt(cfg,
@@ -180,8 +196,9 @@
    the counts set to 0 just before and read just after, every K7-K11 call
    held against its plain version (``_decoder_checks``), each forward on
    16 tiles within 0.05 of its span of the f32 plain path's. Prints a
-   ``shapes`` JSON line; K1-K4 get ``launches_by_path["shapes_tile_512"]``
-   and ``["shapes_nano"]``, K1-K3 and K7-K11 ``["shapes_path_nano"]`` and
+   ``shapes`` JSON line; K1-K4 get ``launches_by_path["shapes_tile_512"]``,
+   ``["shapes_nano"]`` and ``["shapes_path_5_<slots>"]``, K1-K3 and K7-K11
+   ``["shapes_path_nano"]`` and
    ``["shapes_path_nano_dec40"]``, and K7-K11's any routes rows of their
    own (``decoder_conv_any``, ``final_conv_gelu_any``,
    ``upsample_final_any``, ``final_heads_any``,
@@ -360,7 +377,7 @@
    fusion batch, against the one-process run (losses rtol 1e-5, the
    parameters at the replay bar). Prints a ``dp`` JSON line; K1-K5 get
    ``launches_by_path["dp"]``.
-14. the walkthrough, the converters and the cohort CLIs (``_cohort``): (a)
+14. the walkthrough and the cohort CLIs (``_cohort``): (a)
    ``cli.full_pipeline_demo.main([out])`` in this process, with the counts
    set to 0 just before and read just after and each step's launches and
    seconds caught by spies on the pipeline functions it calls: exit 0,
@@ -373,15 +390,11 @@
    kernel row gets ``launches_by_path["cohort"]``. The seeded HoverNeXt
    finds no nuclei, so K2-K4 see empty masks there: the main path's fitted
    model then runs the nuclei step over the walkthrough's TME tiles under
-   the same checks, and must find nuclei; (b) a seeded full-width CLIP
-   ViT-B/16 checkpoint (vision + text in OpenAI names) saved with
-   ``torch.save``, through ``cli.convert_weights`` in a child process, the
-   artifact read back by ``load_converted`` and mapped through the
-   ``*_from_jax`` functions equal to the checkpoint exactly (seconds and
-   MB; the other kinds' round trips are the CPU tests'); ``cli.main
-   --weights clip.npz`` in a child process on the smoke TIFF, its features
-   H5 equal bit for bit to ``run_extract_features`` in this process with
-   the same weights over the CLI's tessellation; (c) ``cli.graph_build`` on
+   the same checks, and must find nuclei (the CLIP conversion through
+   ``cli.convert_weights`` in a child, 46-51 s of one zlib thread, and
+   ``cli.main --weights`` on its artifact are left to the CPU tests,
+   ``tests/test_torch_convert_weights.py`` and ``test_torch_runner.py``,
+   to keep the script within its time); (c) ``cli.graph_build`` on
    the main path's nuclei table (nodes and edges equal to
    ``build_cell_graph`` here), ``cli.cohort_summary`` over an OUTROOT
    holding the walkthrough's and the runner phase's slide directories (one
@@ -401,7 +414,8 @@ Any failure exits non-zero. Details go to ``DIR/chip_smoke.json`` (default
     python3 chip_smoke.py --shapes [--out DIR]
 
 builds the kernels, fits the heads as the main run does and runs the
-shapes phase (4e, with K7-K11's width sweeps and path (4)) alone: its
+shapes phase (4e, with K7-K11's width sweeps, K2-K4's sweeps, path (5)
+and path (4)) alone: its
 JSON line, the card's name and power limit; exit 1 on a failure.
 
     python3 chip_smoke.py --ab PARENT
@@ -3135,7 +3149,9 @@ def _flood_mutant(dist, markers, mask, kind: str, levels: int = 64):
     odd rows reading the even rows' new labels, so a label can cross two
     rows in one step), ``"no_fresh"`` lets phase 0 grow from markers whose
     own q is the level, ``"cap64"`` stops a phase after 64 steps (the XLA
-    flood's cap). Returns (labels, counts as the kernel's)."""
+    flood's cap), ``"slices6"`` keeps q and the level in 6 bit-slices (the
+    first instantiation's, past 64 levels: every comparison on their low 6
+    bits). Returns (labels, counts as the kernel's)."""
     from path_gene_multimodal_tpu_torch.ops.components import INF
     from path_gene_multimodal_tpu_torch.ops.flood import _neighbor_min, quantize
 
@@ -3146,11 +3162,14 @@ def _flood_mutant(dist, markers, mask, kind: str, levels: int = 64):
     steps = torch.zeros(lbl.shape[0], dtype=torch.int64, device=lbl.device)
     max_rounds = 63 if kind == "cap64" else 64
     even = (torch.arange(lbl.shape[1], device=lbl.device) % 2 == 0)[None, :, None]
+    if kind == "slices6":
+        q = q & 63
     for level in range(levels - 1, -1, -1):
-        eligible = mask & (q >= level)
-        fresh = is_marker & (q == level)
+        lv = level & 63 if kind == "slices6" else level
+        eligible = mask & (q >= lv)
+        fresh = is_marker & (q == lv)
         for allow_fresh in (False, True):
-            base = q >= level
+            base = q >= lv
             if not (allow_fresh or kind == "no_fresh"):
                 base = base & ~fresh
 
@@ -3172,6 +3191,35 @@ def _flood_mutant(dist, markers, mask, kind: str, levels: int = 64):
                 lbl, it = new, it + 1
     counts = torch.stack([steps.sum(), steps.max(), (lbl < INF).sum() - is_marker.sum()])
     return lbl, counts
+
+
+def _cc_table_mutant(mask, s_slots: int, min_size: int = 0):
+    """A mutant of K2's device slot tables that the check must catch: every
+    tile of the batch counts into one table (the tile's offset dropped)
+    and takes its sizes and dense ids from those shared counts. Returns
+    (labels, sizes, dense, n_roots) as ``cc_sizes_plain``."""
+    from path_gene_multimodal_tpu_torch.ops.cc_sizes import MAX_ITERS
+    from path_gene_multimodal_tpu_torch.ops.components import index_seeds, relax_fixpoint
+
+    b, h, w = mask.shape
+    mask = mask.bool()
+    lbl, _ = relax_fixpoint(mask, index_seeds(mask), 1, MAX_ITERS)
+    flat, m = lbl.reshape(b, h * w).long(), mask.reshape(b, h * w)
+    is_root = m & (flat == torch.arange(h * w, device=mask.device))
+    n_roots = is_root.sum(1)
+    rank = torch.cumsum(is_root.long(), 1) - 1
+    slot_at = torch.where(is_root & (rank < s_slots), rank, -1)
+    slot = torch.where(m, slot_at.gather(1, torch.where(m, flat, 0)), -1)
+    idx = torch.where(slot >= 0, slot, s_slots).reshape(-1)
+    cnt = torch.zeros(s_slots + 1, dtype=torch.int64, device=mask.device)
+    cnt = cnt.scatter_add_(0, idx, torch.ones_like(idx))[:s_slots].expand(b, -1)
+    exists = torch.arange(s_slots, device=mask.device) < n_roots.clamp(max=s_slots)[:, None]
+    keep = ((cnt >= min_size) & exists).long()
+    newrank = torch.cumsum(keep, 1) * keep
+    sizes = torch.where(slot >= 0, cnt.gather(1, slot.clamp(min=0)), 0)
+    dense = torch.where(slot >= 0, newrank.gather(1, slot.clamp(min=0)), 0)
+    shape = (b, h, w)
+    return lbl, sizes.reshape(shape).int(), dense.reshape(shape).int(), n_roots.int()
 
 
 def _cc_late_mutant(mask, seg_len: int, max_iters: int = 256):
@@ -3462,6 +3510,57 @@ def _k4_mutant(li, ti, slots: int, num_types: int, kind: str, geo):
         mins = mins.clone()
         mins[:, 2] = head[:, 2]
         return sums, mins
+    raise ValueError(kind)
+
+
+def _k4_first_stretch(li, ti, slots: int, chunk: int = 16) -> torch.Tensor:
+    """The pixels of each run of K4's table route (a thread's chunk of
+    ``chunk`` pixels cut into runs of one id) that lie in the run's first
+    stretch of one type. (B, H, W) bool."""
+    import torch.nn.functional as F
+
+    b, h, w = li.shape
+    pad = -w % chunk
+    ids = F.pad(torch.where((li >= 0) & (li < slots), li, -1), (0, pad), value=-1)
+    tys = F.pad(ti, (0, pad)).reshape(b, h, -1, chunk)
+    ids = ids.reshape(b, h, -1, chunk)
+    i = torch.arange(chunk, device=li.device)
+    start = (i == 0) | (ids != ids.roll(1, -1))
+    changes = ((tys != tys.roll(1, -1)) & ~start).long().cumsum(-1)
+    at_start = torch.where(start, i, 0).cummax(-1).values
+    first = changes == changes.gather(-1, at_start)
+    return first.reshape(b, h, -1)[..., :w]
+
+
+def _k4_table_mutant(li, ti, slots: int, num_types: int, kind: str):
+    """A mutant of K4's table route that the bit-equality check must catch,
+    from the plain version: ``"chunk_double"`` adds a run that continues
+    from the chunk before with its first pixel one to the left (the last
+    pixel of the chunk before counted twice in the sums); ``"first_stretch_votes"``
+    takes each run's votes from its first stretch of one type only;
+    ``"slot0_no_votes"`` drops the background's votes. Returns (sums,
+    mins)."""
+    from path_gene_multimodal_tpu_torch.ops.instance_stats import (
+        InstanceStatsTiling, instance_stats_plain,
+    )
+
+    sums, mins = instance_stats_plain(li, ti, slots, num_types)
+    if kind == "slot0_no_votes":
+        sums = sums.clone()
+        sums[:, 0, 6:] = 0.0
+        return sums, mins
+    if kind == "first_stretch_votes":
+        first = _k4_first_stretch(li, ti, slots, InstanceStatsTiling.chunk)
+        votes, _ = instance_stats_plain(li, torch.where(first, ti, 0), slots, num_types)
+        return torch.cat([sums[..., :6], votes[..., 6:]], -1), mins
+    if kind == "chunk_double":
+        x = torch.arange(li.shape[-1], device=li.device)
+        valid = (li >= 0) & (li < slots)
+        nxt = torch.roll(li, -1, -1)
+        again = valid & (nxt == li) & ((x + 1) % InstanceStatsTiling.chunk == 0) & (
+            x + 1 < li.shape[-1])
+        extra, _ = instance_stats_plain(torch.where(again, li, -1), ti, slots, num_types)
+        return torch.cat([sums[..., :6] + extra[..., :6], sums[..., 6:]], -1), mins
     raise ValueError(kind)
 
 
@@ -6169,97 +6268,6 @@ def _cohort_fitted(demo: dict, model, tmp: Path, failures) -> dict:
     return res
 
 
-def _cohort_weights(tif: Path, tmp: Path, failures) -> dict:
-    """Section 14 (b): a seeded full-width CLIP checkpoint →
-    ``cli.convert_weights`` in a child process → ``load_converted`` → the
-    ``*_from_jax`` maps, equal to the checkpoint; ``cli.main --weights`` in
-    a child process against the same weights here. The other kinds' round
-    trips run in the CPU tests (``tests/test_torch_convert_weights.py``)."""
-    from path_gene_multimodal_tpu_torch.config import default_config
-    from path_gene_multimodal_tpu_torch.core.artifacts import (
-        read_features_h5, read_tessellation_h5,
-    )
-    from path_gene_multimodal_tpu_torch.core.checkpoints import load_converted, text_sidecar_path
-    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
-    from path_gene_multimodal_tpu_torch.models import clip as mclip
-    from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
-    from path_gene_multimodal_tpu_torch.models.weights_clip import (
-        text_state_dict_from_jax, vision_state_dict_from_jax,
-    )
-    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
-    from path_gene_multimodal_tpu_torch.pipeline.runner import PipelineModels
-
-    d = tmp / "cohort_weights"
-    d.mkdir(parents=True, exist_ok=True)
-    # the towers PipelineModels.build seeds (0 and 1), so that cli.main with
-    # the artifact runs the runner phase's CLI run, whose TME ROI is not empty
-    vis, txt = mclip.VisionTower(mclip.CLIP_VIT_B16), mclip.TextTower(mclip.CLIP_TEXT)
-    mclip.init_weights(vis, torch.Generator().manual_seed(0))
-    mclip.init_weights(txt, torch.Generator().manual_seed(1))
-    ck = {**vis.state_dict(), **txt.state_dict()}
-    del vis, txt
-    src, out = d / "clip.pt", d / "clip.npz"
-    torch.save(ck, src)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.convert_weights", "clip",
-         str(src), str(out)], cwd=ROOT, capture_output=True, text=True, timeout=600)
-    rec = {"rc": proc.returncode, "convert_s": time.perf_counter() - t0,
-           "params": int(sum(t.numel() for t in ck.values())),
-           "checkpoint_mb": src.stat().st_size / 2 ** 20,
-           "artifact_mb": sum(p.stat().st_size for p in (out, text_sidecar_path(out))
-                              if p.exists()) / 2 ** 20}
-    res: dict = {"clip": rec}
-    if proc.returncode != 0:
-        failures.append(f"cohort: convert_weights clip exited {proc.returncode}: "
-                        f"{proc.stderr[-1500:]}")
-        return res
-    t0 = time.perf_counter()
-    got_kind, cfg, params = load_converted(out)
-    _, tcfg, tparams = load_converted(text_sidecar_path(out))
-    back = {**vision_state_dict_from_jax(params, cfg), **text_state_dict_from_jax(tparams, tcfg)}
-    rec.update(read_back_s=time.perf_counter() - t0, kind_read=got_kind,
-               config_equal=(cfg, tcfg) == (mclip.CLIP_VIT_B16, mclip.CLIP_TEXT),
-               equal_checkpoint=bool(set(back) == set(ck) and all(
-                   torch.equal(back[k], ck[k].to(back[k].dtype)) for k in ck)))
-    if got_kind != "clip" or not rec["equal_checkpoint"] or not rec["config_equal"]:
-        failures.append(f"cohort: the clip artifact read back as kind {got_kind}, config equal "
-                        f"{rec['config_equal']}, state dict equal to the checkpoint "
-                        f"{rec['equal_checkpoint']}")
-    src.unlink()
-    del back, params, tparams
-
-    # the CLI on the card with the converted CLIP artifact, against the same weights here
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.main", "--wsi", str(tif),
-         "--outroot", str(d / "cli_out"), "--weights", str(out), "--no-locks"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
-    res["cli_main"] = {"rc": proc.returncode, "s": time.perf_counter() - t0}
-    if proc.returncode != 0:
-        failures.append(f"cohort: cli.main --weights exited {proc.returncode}: "
-                        f"{proc.stderr[-2000:]}")
-        return res
-    slide_dir = d / "cli_out" / tif.stem
-    coords = read_tessellation_h5(slide_dir / f"{tif.stem}.h5")["coords"]
-    got = read_features_h5(slide_dir / f"{tif.stem}_features.h5")["features"]
-    cfg = default_config()
-    vis_sd = {k: v for k, v in ck.items() if k.startswith("visual.")}
-    t0 = time.perf_counter()
-    models = PipelineModels.build(cfg, vision_state_dict=vis_sd, tokenizer=FallbackTokenizer(),
-                                  device="cuda")
-    direct = run_extract_features(TiffTileSlide(tif), coords, models.image_encoder, d, "unused",
-                                  cfg, write_artifacts=False)
-    res["cli_main"].update(tiles=len(coords), direct_s=time.perf_counter() - t0,
-                           features_equal_direct=bool(got.dtype == direct.dtype
-                                                      and np.array_equal(got, direct)))
-    if not res["cli_main"]["features_equal_direct"]:
-        failures.append("cohort: cli.main --weights features differ from run_extract_features "
-                        "with the same weights")
-    del models, ck
-    return res
-
-
 def _cohort_clis(demo: dict, runner: dict, nuclei_table: Path, nuclei, tif: Path, tmp: Path,
                  failures) -> dict:
     """Section 14 (c): the cohort CLIs on the phases' real outputs."""
@@ -6373,7 +6381,7 @@ def _cohort_clis(demo: dict, runner: dict, nuclei_table: Path, nuclei, tif: Path
 
 
 def _cohort(tif: Path, model, nuclei, runner: dict, tmp: Path, wrappers, failures) -> dict:
-    """Section 14: the walkthrough, the converters and the cohort CLIs."""
+    """Section 14: the walkthrough and the cohort CLIs."""
     res: dict = {}
     t0 = time.perf_counter()
     res["demo"] = _cohort_demo(tmp, wrappers, failures)
@@ -6381,10 +6389,6 @@ def _cohort(tif: Path, model, nuclei, runner: dict, tmp: Path, wrappers, failure
     if "slide_dir" in res["demo"] and res["demo"].get("rc") == 0:
         res["fitted"] = _cohort_fitted(res["demo"], model, tmp, failures)
     res["demo_part_s"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res["weights"] = _cohort_weights(tif, tmp, failures)
-    res["weights_part_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     table = tmp / "smoke_hovernet_nuclei_wsi.parquet"
@@ -6398,11 +6402,11 @@ def _cohort(tif: Path, model, nuclei, runner: dict, tmp: Path, wrappers, failure
 
 
 def _cohort_line(res: dict) -> dict:
-    demo, w, c = res.get("demo", {}), res.get("weights", {}), res.get("clis", {})
+    demo, c = res.get("demo", {}), res.get("clis", {})
     fitted = res.get("fitted", {})
     return {
         "phase_s": res.get("phase_s"),
-        "part_s": {k: res.get(f"{k}_part_s") for k in ("demo", "weights", "clis")},
+        "part_s": {k: res.get(f"{k}_part_s") for k in ("demo", "clis")},
         "demo": {"rc": demo.get("rc"), "status": demo.get("status"), "tiles": demo.get("tiles"),
                  "s": demo.get("s"), "other_s": demo.get("other_s"),
                  "steps": {k: {"s": v["s"], "launches": v["launches"]}
@@ -6410,10 +6414,6 @@ def _cohort_line(res: dict) -> dict:
                  "checks": demo.get("checks"), "checks_s": demo.get("checks_s"),
                  "artifacts_missing": demo.get("artifacts_missing")},
         "fitted": fitted,
-        "convert_clip": {f: w.get("clip", {}).get(f) for f in (
-            "convert_s", "read_back_s", "artifact_mb", "checkpoint_mb", "params",
-            "equal_checkpoint")},
-        "cli_main_weights": w.get("cli_main"),
         "clis": c,
         "smi": _smi(),
     }
@@ -6431,13 +6431,17 @@ NANO = dict(depths=(2, 2, 8, 2), dims=(80, 160, 320, 640))
 # 256-px input: dec2.conv0 of nano's canonical HoverNeXt (the skip of 80),
 # inputs no multiple of 8 (the producer warp's loads), dec0.conv0 of the
 # nano encoder with decoder widths 320/160/80/40, a cout past 384 (three
-# column chunks and the second pass), and ConvNeXtV2-huge's dec0.conv0,
-# which K7's fixed route takes, as a guard
+# column chunks and the second pass), ConvNeXtV2-huge's dec0.conv0, which
+# K7's fixed route takes, as a guard, and couts past 1024 at ConvNeXtV2-huge's
+# widths (1408 and 2816: four and eight column chunks)
 SHAPE_K7 = ((8, 64, 192, 80, 96), (8, 32, 20, 12, 40), (8, 16, 640, 320, 320),
-            (8, 16, 128, 0, 1024), (8, 16, 2816, 1408, 384))
+            (8, 16, 128, 0, 1024), (8, 16, 2816, 1408, 384), (4, 16, 704, 352, 1408),
+            (2, 8, 1408, 704, 2816))
 # K8-K11's width sweep: C, and the head columns of K10/K11 (per phase); K8
-# on 8 x 64^2, K9-K11 on 8 x 32^2 at half resolution
+# on 8 x 64^2, K9-K11 on 8 x 32^2 at half resolution; K8 and K9 also at a C
+# past 1024
 SHAPE_FINAL_C = (40, 96, 128, 256)
+SHAPE_FINAL_WIDE_C = 1152
 SHAPE_FINAL_N = (10, 17, 33)
 SHAPE_FINAL_B, SHAPE_FINAL_HALF = 8, 32
 # path (4): the nano encoder under (a) its canonical decoder and 5 types and
@@ -6683,9 +6687,10 @@ def _shapes_k7(dev, failures) -> list[dict]:
 
 
 def _shapes_final(dev, failures) -> dict:
-    """K8-K11 at SHAPE_FINAL_C (K10/K11 at each SHAPE_FINAL_N; K11 with a
-    seeded block per phase, stated block-diagonal, and with a full head)
-    against their plain versions in both GELU modes, with a mutant each
+    """K8-K11 at SHAPE_FINAL_C, K8 and K9 also at SHAPE_FINAL_WIDE_C
+    (K10/K11 at each SHAPE_FINAL_N; K11 with a seeded block per phase,
+    stated block-diagonal, and with a full head) against their plain
+    versions in both GELU modes, with a mutant each
     (no bias; a dropped head chunk where the head has one, a full head
     answered phase by phase for K11); timed beside the plain version,
     cuDNN's conv (on the upsampled map for K9/K10) and the bound."""
@@ -6700,7 +6705,7 @@ def _shapes_final(dev, failures) -> dict:
         rec["library_ms"] = _sync_time(lib, reps=3)
         rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, ops)
 
-    for j, c in enumerate(SHAPE_FINAL_C):
+    for j, c in enumerate((*SHAPE_FINAL_C, SHAPE_FINAL_WIDE_C)):
         gen = torch.Generator(device=dev).manual_seed(1400 + j)
         rnd = lambda shape, std=1.0, loc=0.0: (  # noqa: E731
             loc + std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
@@ -6734,6 +6739,8 @@ def _shapes_final(dev, failures) -> dict:
                   2 * (half_px * c + full_px * c) + 2 * w.numel(),
                   [(2 * full_px * 9 * c * c, PEAK_BF16), (16 * full_px * c, PEAK_F32)])
             rows["k9"].append(rec)
+            if c == SHAPE_FINAL_WIDE_C:  # K8 and K9 only
+                continue
             wc, b4 = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5), rnd(4 * c, 0.1)
             for n in SHAPE_FINAL_N:
                 wh, bh = rnd((c, n), 0.3), rnd(n, 0.1)
@@ -7095,6 +7102,362 @@ def _shapes_paths(slide, ann: Path, cfg, wrappers, failures, dev=None) -> dict:
     return res
 
 
+# -- the shapes phase, continued: K2-K4 at every shape their Pallas kernels take ----------
+# K3's level counts (6 bit-slices of q up to 64, more above), K4's type and
+# slot counts at 256^2 and 512^2 (the table route past shared memory and at
+# types outside 2..9), K2's slot counts on both routes (device slot tables
+# past shared memory and at 0xFFFF slots and more)
+SHAPE_K3_LEVELS = (1, 2, 63, 65, 128, 256, 4096)
+SHAPE_K3_LONG = 4096  # run on the 2 x 40 x 56 case only: its plain version takes seconds
+SHAPE_K4_TYPES = (1, 6, 9, 10, 12, 16)
+SHAPE_K4_SLOTS = (512, 3363, 4096, 16384)
+SHAPE_K4_SIDES = (256, 512)
+SHAPE_K4_TIMED = (8, 1024, 1024, 4096, 6)  # path (5)'s K4 calls at batch 8
+SHAPE_K2_SLOTS = (11_777, 27_521, 65_535, 100_000)
+K4_TABLE_MUTANTS = ("chunk_double", "first_stretch_votes", "slot0_no_votes")
+# the kernels line's rows of those routes: (source and Pallas file, the
+# TPU kernel's line, what the route is)
+NEW_ROUTES = {
+    "cc_sizes_dev_tables": ("cc_sizes", 174, "K2 with its slot counts and dense ids in device "
+                            "memory (cc_sizes_kernel<PER, true>, cc_sizes_global_kernel<true>): "
+                            "tables past shared memory, or 0xFFFF slots and more"),
+    "flood_wide": ("flood", 131, "K3 past 64 levels: q in (levels - 1).bit_length() slices "
+                   "(flood_kernel<SHARED, 0>)"),
+    "instance_stats_table": ("instance_stats", 123, "K4's table route (table_init_kernel, "
+                             "table_stats_kernel, table_finish_kernel): tables past shared "
+                             "memory, types outside 2..9"),
+}
+# path (5): the nuclei stage in windows of 1024 at 512 and at 4096 slots,
+# on the densest 1024 x 2016 region of the smoke slide (two windows)
+PATH5_TILE, PATH5_SLOTS, PATH5_CROP = 1024, (512, 4096), (1024, 2016)
+
+
+def _k4_cells(gen: torch.Generator, b: int, side: int, cell: int, max_id: int,
+              num_types: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels, types) of cell x cell squares on a side x side tile: each
+    square a random id in [1, max_id) or, three in ten, background; its
+    type random, an eighth of its pixels another (CPU tensors)."""
+    n = -(-side // cell)
+
+    def grow(t):
+        return t.repeat_interleave(cell, 1).repeat_interleave(cell, 2)[:, :side, :side]
+
+    ids = torch.randint(1, max_id, (b, n, n), generator=gen, dtype=torch.int32)
+    ids = torch.where(torch.rand((b, n, n), generator=gen) < 0.3, 0, ids)
+    tys = grow(torch.randint(0, num_types, (b, n, n), generator=gen, dtype=torch.int32))
+    noise = torch.randint(0, num_types, (b, side, side), generator=gen, dtype=torch.int32)
+    ti = torch.where(torch.rand((b, side, side), generator=gen) < 0.125, noise, tys)
+    return grow(ids).contiguous(), ti.contiguous()
+
+
+def _checkerboard(b: int, h: int, w: int) -> torch.Tensor:
+    """Every other pixel: h w / 2 components of one pixel, the most a tile
+    holds."""
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    return ((yy + xx) % 2 == 0)[None].repeat(b, 1, 1)
+
+
+def _shapes_k3(dev, failures) -> dict:
+    """K3 at SHAPE_K3_LEVELS on ``_flood_cases``' tiles (the 512^2 one
+    aside; SHAPE_K3_LONG levels on 2 x 40 x 56 only) against its plain
+    version, labels and counts equal, each call on the instantiation its
+    level count takes; the slices6, gauss_seidel and cap64 mutants at 128
+    levels must each fail on some case; timed at 128 levels on 32 seeded
+    256^2 tiles beside the plain version and the bound from the counted
+    steps, and at 64 levels (the first instantiation) on the same tiles."""
+    from path_gene_multimodal_tpu_torch.ops import flood
+    from path_gene_multimodal_tpu_torch.ops.components import INF
+
+    new = lambda: torch.zeros(3, dtype=torch.int64, device=dev)  # noqa: E731
+    cases = {k: tuple(t.to(dev) for t in v)
+             for k, v in _flood_cases(torch.Generator().manual_seed(32)).items()
+             if k != "2x512x512_global_planes"}
+    rec: dict = {}
+    with torch.inference_mode():
+        for levels in SHAPE_K3_LEVELS:
+            for name, (d, mk, m) in cases.items():
+                if levels == SHAPE_K3_LONG and name != "2x40x56":
+                    continue
+                ck, cp = new(), new()
+                before = (flood.marker_watershed.launches, flood.WIDE_LAUNCHES.launches)
+                a = flood.marker_watershed(d, mk, m, levels=levels, counts=ck)
+                after = (flood.marker_watershed.launches, flood.WIDE_LAUNCHES.launches)
+                p = flood.marker_watershed_plain(d, mk, m, levels=levels, counts=cp)
+                diff = int((a != p).sum())
+                wide = after[1] > before[1]
+                rec[f"{name}@{levels}"] = {"levels": levels, "shape": list(d.shape),
+                                           "diff": diff, "counts": ck.tolist(),
+                                           "plain_counts": cp.tolist(), "wide": wide,
+                                           "nq": flood.FloodTiling(*d.shape[1:], levels).nq}
+                if diff or ck.tolist() != cp.tolist() or wide != (levels > 64):
+                    failures.append(f"K3 shapes {name} at {levels} levels: {diff} labels differ; "
+                                    f"counts {ck.tolist()}, plain {cp.tolist()}; wide {wide}")
+        mutants = {}
+        for kind in ("slices6", "gauss_seidel", "cap64"):
+            caught = []
+            for name, (d, mk, m) in cases.items():
+                ml, mc = _flood_mutant(d, mk, m, kind, levels=128)
+                ref = rec[f"{name}@128"]
+                p = flood.marker_watershed_plain(d, mk, m, levels=128)
+                if bool((ml != p).any()) or mc.tolist() != ref["plain_counts"]:
+                    caught.append(name)
+            mutants[kind] = caught
+            if not caught:
+                failures.append(f"K3 shapes: the {kind} mutant passes the check at 128 levels")
+        gen = torch.Generator().manual_seed(33)
+        dist = _smooth(gen, 32, 256, 256)
+        blb = dist > 0.15
+        mk = torch.full(dist.shape, INF, dtype=torch.int32)
+        for i in range(32):
+            ys, xs = torch.randint(0, 256, (2, 60), generator=gen)
+            mk[i, ys, xs] = torch.arange(1, 61, dtype=torch.int32)
+        dist, blb, mk = dist.to(dev), blb.to(dev), torch.where(blb, mk, INF).to(dev)
+        ck, ck64 = new(), new()
+        flood.marker_watershed(dist, mk, blb, levels=128, counts=ck)
+        ms = _sync_time(lambda: flood.marker_watershed(dist, mk, blb, levels=128), reps=5)
+        pms = _sync_time(lambda: flood.marker_watershed_plain(dist, mk, blb, levels=128), reps=1)
+        # the same tiles at 64 levels, on the first instantiation: its time
+        # a step beside the wide one's
+        flood.marker_watershed(dist, mk, blb, levels=64, counts=ck64)
+        ms64 = _sync_time(lambda: flood.marker_watershed(dist, mk, blb, levels=64), reps=5)
+    steps, _, grown = ck.tolist()
+    b, h, w = dist.shape
+    bnd, by = _bound_ms(b * h * w * 13, [(steps * h * w * 2 + grown * 8, PEAK_F32)])
+    return {"cases": rec, "mutants_caught_on": mutants,
+            "timed": {"shape": [b, h, w], "levels": 128, "ms": ms, "plain_ms": pms,
+                      "bound_ms": bnd, "bound_by": by, "counts": ck.tolist(),
+                      "us_a_step_of_the_slowest_tile": 1e3 * ms / max(1, int(ck[1])),
+                      "at_64_levels": {"ms": ms64, "counts": ck64.tolist(),
+                                       "us_a_step_of_the_slowest_tile":
+                                           1e3 * ms64 / max(1, int(ck64[1]))}},
+            "max_diff": max(r["diff"] for r in rec.values())}
+
+
+def _shapes_k4(dev, failures) -> dict:
+    """K4 at SHAPE_K4_TYPES x SHAPE_K4_SLOTS on 2 tiles of each of
+    SHAPE_K4_SIDES against its plain version, bit for bit, each call on
+    the route its tiling names (``TABLE_LAUNCHES`` counts the table
+    route's); the table route's mutants must differ; the table route timed
+    at SHAPE_K4_TIMED beside the plain version, ``index_add_`` and the
+    bound."""
+    from path_gene_multimodal_tpu_torch.ops import cuda
+    from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
+
+    gen = torch.Generator().manual_seed(45)
+    rows, worst = [], 0.0
+    mutant_case = None
+    with torch.inference_mode():
+        for side in SHAPE_K4_SIDES:
+            for nt in SHAPE_K4_TYPES:
+                for slots in SHAPE_K4_SLOTS:
+                    li, ti = (t.to(dev) for t in _k4_cells(gen, 2, side, 4, slots + slots // 8,
+                                                           nt))
+                    geo = k4.tiling(2, side, side, slots, nt, cuda.sm_count(dev))
+                    before = (k4.instance_stats.launches, k4.TABLE_LAUNCHES.launches)
+                    got = k4.instance_stats(li, ti, slots, nt)
+                    after = (k4.instance_stats.launches, k4.TABLE_LAUNCHES.launches)
+                    want = k4.instance_stats_plain(li, ti, slots, nt)
+                    ok = _bit_equal(got, want)
+                    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+                    worst = max(worst, err)
+                    route = "table" if after[1] > before[1] else "cluster"
+                    rows.append({"side": side, "num_types": nt, "slots": slots, "route": route,
+                                 "bit_equal": ok,
+                                 "live_slots": int((want[0][..., 0] > 0).sum())})
+                    if not ok or route != geo.route or sum(after) - sum(before) != 1:
+                        failures.append(f"K4 shapes {side}^2 S={slots} types={nt}: bit equal "
+                                        f"{ok}, route {route} (tiling {geo.route}), launches "
+                                        f"{before} -> {after}")
+                    if (side, nt, slots) == (256, 10, 4096):
+                        mutant_case = (li, ti, slots, nt, want)
+        li, ti, slots, nt, want = mutant_case
+        mutants = {kind: not _bit_equal(_k4_table_mutant(li, ti, slots, nt, kind), want)
+                   for kind in K4_TABLE_MUTANTS}
+        for kind, seen in mutants.items():
+            if not seen:
+                failures.append(f"K4 shapes: the bit-equality check does not see the {kind} "
+                                "mutant")
+        b, h, w, slots, nt = SHAPE_K4_TIMED
+        li, ti = (t.to(dev) for t in _k4_cells(gen, b, h, 16, slots, nt))
+        ms = _sync_time(lambda: k4.instance_stats(li, ti, slots, nt), reps=10)
+        pms = _sync_time(lambda: k4.instance_stats_plain(li, ti, slots, nt), reps=1)
+        got = k4.instance_stats(li, ti, slots, nt)
+        if not _bit_equal(got, k4.instance_stats_plain(li, ti, slots, nt)):
+            failures.append(f"K4 shapes {SHAPE_K4_TIMED}: kernel and plain differ")
+        idx = (li.long() + torch.arange(b, device=dev)[:, None, None] * slots).reshape(-1)
+        vals = torch.ones((idx.numel(), 6 + nt - 1), device=dev)
+        acc = torch.zeros((b * slots, vals.shape[1]), device=dev)
+        lms = _sync_time(lambda: acc.index_add_(0, idx, vals), reps=5)
+    nbytes = li.numel() * 8 + got[0].numel() * 4 + got[1].numel() * 4
+    bnd, by = _bound_ms(nbytes, [(li.numel() * 12, PEAK_F32)])
+    return {"rows": rows, "max_abs_err": worst, "mutants_differ": mutants,
+            "timed": {"shape": list(SHAPE_K4_TIMED), "ms": ms, "plain_ms": pms,
+                      "library_ms": lms, "bound_ms": bnd, "bound_by": by,
+                      "route": k4.tiling(b, h, w, slots, nt, cuda.sm_count(dev)).route}}
+
+
+def _shapes_k2_slots(dev, failures) -> dict:
+    """K2 at SHAPE_K2_SLOTS on 4 tiles of 256^2 (the shared route) and 2 of
+    512^2 (the global route), each batch with a checkerboard tile (h w / 2
+    one-pixel components: past 100,000 slots at 512^2), against its plain
+    version: every output and both counts equal, each launch on the slot
+    tables its tiling names (``TABLE_LAUNCHES`` counts the device tables);
+    an adaptive call whose gated launch takes 65,535 slots; the
+    shared-table mutant must differ; timed at 65,535 slots (shared route)
+    and 100,000 (global) beside the plain version and the bound."""
+    from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
+
+    new = lambda: torch.zeros(2, dtype=torch.int64, device=dev)  # noqa: E731
+    gen = torch.Generator().manual_seed(46)
+    batches = {"shared_4x256x256": torch.cat([torch.rand((3, 256, 256), generator=gen) < 0.4,
+                                              _checkerboard(1, 256, 256)]),
+               "global_2x512x512": torch.cat([torch.rand((1, 512, 512), generator=gen) < 0.4,
+                                              _checkerboard(1, 512, 512)])}
+    batches = {k: v.to(dev) for k, v in batches.items()}
+    rec, worst, timed = {}, 0, {}
+    with torch.inference_mode():
+        for s in SHAPE_K2_SLOTS:
+            for name, m in batches.items():
+                geo = k2.CcSizesTiling(*m.shape[1:], min(s, m.shape[1] * m.shape[2]))
+                ck, cp = new(), new()
+                before = (k2.cc_sizes.launches, k2.TABLE_LAUNCHES.launches)
+                got = k2.cc_sizes(m, s, min_size=3, counts=ck)
+                after = (k2.cc_sizes.launches, k2.TABLE_LAUNCHES.launches)
+                want = k2.cc_sizes_plain(m, s, min_size=3, counts=cp)
+                diff = max(int((a.long() != b.long()).sum()) for a, b in zip(got, want))
+                worst = max(worst, diff)
+                dev_tables = after[1] > before[1]
+                rec[f"{name}@{s}"] = {"slots": s, "shared_route": geo.shared,
+                                      "dev_tables": dev_tables, "diff": diff,
+                                      "counts": ck.tolist(), "roots": want[3].tolist()}
+                if diff or ck.tolist() != cp.tolist() or dev_tables != geo.dev_tables:
+                    failures.append(f"K2 shapes {name} at {s} slots: {diff} values differ; "
+                                    f"counts {ck.tolist()}, plain {cp.tolist()}; device tables "
+                                    f"{dev_tables} (tiling {geo.dev_tables})")
+        m = batches["shared_4x256x256"]
+        ck, cp = new(), new()
+        got = k2.cc_sizes_adaptive(m, min_size=3, small=512, big=65_535, counts=ck)
+        want = k2.cc_sizes_adaptive_plain(m, min_size=3, small=512, big=65_535, counts=cp)
+        diff = max(int((a.long() != b.long()).sum()) for a, b in zip(got, want))
+        rec["adaptive_512_65535"] = {"diff": diff, "counts": ck.tolist()}
+        if diff or ck.tolist() != cp.tolist():
+            failures.append(f"K2 shapes adaptive 512/65,535: {diff} values differ; counts "
+                            f"{ck.tolist()}, plain {cp.tolist()}")
+        plain = k2.cc_sizes_plain(m, 65_535, min_size=3)
+        mutant = not all(torch.equal(a, b) for a, b in
+                         zip(_cc_table_mutant(m, 65_535, min_size=3), plain))
+        if not mutant:
+            failures.append("K2 shapes: the shared-table mutant passes the check")
+        for name, s in (("shared_4x256x256", 65_535), ("global_2x512x512", 100_000)):
+            m = batches[name]
+            ck = new()
+            k2.cc_sizes(m, s, counts=ck)
+            ms = _sync_time(lambda: k2.cc_sizes(m, s), reps=5)
+            pms = _sync_time(lambda: k2.cc_sizes_plain(m, s), reps=1)
+            b, h, w = m.shape
+            bnd, by = _bound_ms(b * h * w * 13, [(int(ck[0]) * h * w * 2, PEAK_F32)])
+            timed[name] = {"slots": s, "ms": ms, "plain_ms": pms, "bound_ms": bnd,
+                           "bound_by": by, "passes": ck.tolist()}
+    return {"cases": rec, "max_diff": worst, "shared_table_mutant_differs": mutant,
+            "timed": timed}
+
+
+def _path5(slide, sd, cfg, tmp: Path, wrappers, failures, dev=None) -> dict:
+    """Path (5): the nuclei stage through ``run_hovernext_wsi`` with the
+    fitted HoverNeXt-tiny at its published widths in windows of PATH5_TILE,
+    ``cfg.hovernext`` at each of PATH5_SLOTS slots a window, on the
+    densest PATH5_CROP region of the smoke slide, a batch of its two
+    windows; the counts set to 0 just before each run and read just after.
+    Windows whose labels reach the slot count are capped (their last
+    nuclei dropped): the default 512 must cap some, 4096 none. Every K2-K4
+    call of the 4096 run is held against its plain version
+    (``_kernel_checks``: integers exactly, K4 bit for bit) and K4 runs its
+    table route there; nuclei, capped windows and windows/s (the checks'
+    seconds taken out) for both."""
+    from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY
+    from path_gene_multimodal_tpu_torch.io.slide import ArraySlide
+    from path_gene_multimodal_tpu_torch.pipeline import nuclei_wsi
+    from path_gene_multimodal_tpu_torch.pipeline.nuclei import NucleiModel
+
+    dev = dev or torch.device("cuda")
+    lv0 = slide._levels[0]
+    ch, cw = PATH5_CROP
+    tissue = (lv0[::16, ::16] != 243).any(-1)
+    y0, x0 = max(((y, x) for y in range(0, lv0.shape[0] - ch + 1, 256)
+                  for x in range(0, lv0.shape[1] - cw + 1, 256)),
+                 key=lambda p: tissue[p[0] // 16: (p[0] + ch) // 16,
+                                      p[1] // 16: (p[1] + cw) // 16].mean())
+    crop = ArraySlide(lv0[y0: y0 + ch, x0: x0 + cw])
+    n_windows = len(nuclei_wsi.iter_windows(cw, ch, PATH5_TILE,
+                                            int(round(PATH5_TILE * cfg.hovernext.overlap))))
+    res: dict = {"region": [x0, y0, cw, ch], "windows": n_windows}
+    real_features = nuclei_wsi.instance_features_batch
+    for slots in PATH5_SLOTS:
+        hx = dataclasses.replace(cfg.hovernext, tile_size=PATH5_TILE,
+                                 max_instances_per_tile=slots)
+        run_cfg = dataclasses.replace(cfg, hovernext=hx)
+        model = NucleiModel.build(dataclasses.replace(HOVERNEXT_TINY, input_size=PATH5_TILE),
+                                  state_dict=sd, tta=hx.tta, dtype=torch.bfloat16, device=dev,
+                                  max_instances=slots)
+        capped = {"windows": 0, "max_id": 0}
+
+        def features(lbl, tp, max_instances):
+            top = lbl.amax((1, 2))
+            capped["windows"] += int((top >= max_instances).sum())
+            capped["max_id"] = max(capped["max_id"], int(top.max()))
+            return real_features(lbl, tp, max_instances=max_instances)
+
+        nuclei_wsi.instance_features_batch = features
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            if slots == max(PATH5_SLOTS):
+                with _kernel_checks(f"path (5) at {slots} slots", failures) as chk:
+                    _, table = nuclei_wsi.run_hovernext_wsi(
+                        crop, tmp / f"path5_{slots}", "path5", model, run_cfg,
+                        batch_size=n_windows, write_instance_map=False, write_artifacts=False)
+                checks_s = chk.s
+                checks = {k: v for k, v in chk.rec.items() if v["calls"]}
+            else:
+                _, table = nuclei_wsi.run_hovernext_wsi(
+                    crop, tmp / f"path5_{slots}", "path5", model, run_cfg,
+                    batch_size=n_windows, write_instance_map=False, write_artifacts=False)
+                checks_s, checks = 0.0, {}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            nuclei_wsi.instance_features_batch = real_features
+        launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+        run = {"slots": slots, "s": dt, "checks_s": checks_s, "nuclei": len(table),
+               "capped_windows": capped["windows"], "max_id": capped["max_id"],
+               "windows_per_s": n_windows / (dt - checks_s), "launches": launches,
+               "checks": checks, "cc_slot_overflow_tiles":
+                   table.attrs.get("cc_slot_overflow_tiles")}
+        res[f"slots_{slots}"] = run
+        print(f"path (5) at {slots} slots: {len(table)} nuclei, {capped['windows']} capped "
+              f"windows, {run['windows_per_s']:.3f} windows/s, launches {launches}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    lo, hi = (res[f"slots_{s}"] for s in PATH5_SLOTS)
+    if not lo["capped_windows"] or hi["capped_windows"]:
+        failures.append(f"path (5): {lo['capped_windows']} capped windows at {lo['slots']} slots "
+                        f"(want > 0), {hi['capped_windows']} at {hi['slots']} (want 0)")
+    if hi["nuclei"] <= lo["nuclei"]:
+        failures.append(f"path (5): {hi['nuclei']} nuclei at {hi['slots']} slots, not more than "
+                        f"{lo['nuclei']} at {lo['slots']}")
+    if (not hi["launches"].get("instance_stats_table") or hi["launches"].get("instance_stats")
+            or not lo["launches"].get("instance_stats")
+            or lo["launches"].get("instance_stats_table")):
+        failures.append(f"path (5): K4's routes {lo['launches']} at {lo['slots']} slots, "
+                        f"{hi['launches']} at {hi['slots']} (want the cluster kernel, then the "
+                        "table route)")
+    for name in ("cc_sizes", "flood", "instance_stats"):
+        if not hi["checks"].get(name, {}).get("calls"):
+            failures.append(f"path (5): no {name} call checked at {hi['slots']} slots")
+    return res
+
+
 def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     """The shapes phase: (a) K1 at every ConvNeXtV2 width, (b) K2's global
     route, (c) ``hovernext_infer --mode wsi --tile-size 512`` with the fitted
@@ -7103,8 +7466,11 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     seed, its heads fitted, saved as a converted ``.npz`` by the port's
     converters and read by ``hovernext_infer --checkpoint`` over the same
     crop at 256 (K1 at C = 80, 160, 320), (e) K7 at SHAPE_K7 and K8-K11 at
-    SHAPE_FINAL_C x SHAPE_FINAL_N, (f) path (4): every decoder
-    configuration of the nano encoder under PATH_MODELS' decoders."""
+    SHAPE_FINAL_C x SHAPE_FINAL_N, (f) K3 at SHAPE_K3_LEVELS, K4 at
+    SHAPE_K4_TYPES x SHAPE_K4_SLOTS, K2 at SHAPE_K2_SLOTS, (g) path (5):
+    the nuclei stage in windows of 1024 at 512 and 4096 slots, (h) path
+    (4): every decoder configuration of the nano encoder under PATH_MODELS'
+    decoders."""
     from path_gene_multimodal_tpu_torch.config import ConvNeXtConfig, HoverNeXtConfig
     from path_gene_multimodal_tpu_torch.core.checkpoints import save_converted
     from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights
@@ -7158,6 +7524,19 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     res["k7"] = _shapes_k7(dev, failures)
     res["final"] = _shapes_final(dev, failures)
     res["sweeps_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name in NEW_ROUTES:
+        wrappers[name].launches = 0
+    res["k3_levels"] = _shapes_k3(dev, failures)
+    res["k4_shapes"] = _shapes_k4(dev, failures)
+    res["k2_slots"] = _shapes_k2_slots(dev, failures)
+    res["k234_launches"] = {name: wrappers[name].launches for name in NEW_ROUTES}
+    res["k234_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["path5"] = _path5(slide, sd, cfg, tmp, wrappers, failures)
+    res["path5_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res["paths"] = _shapes_paths(slide, ann, cfg, wrappers, failures)
@@ -7250,6 +7629,47 @@ def _any_route_entries(res: dict) -> list[dict]:
     return out
 
 
+def _new_route_entries(res: dict) -> list[dict]:
+    """The kernels line's rows of NEW_ROUTES from the shapes phase:
+    launches from the K2-K4 sweeps (and path (5)'s 4096-slot run for K4's
+    table route), the worst error over them, ms, plain_ms, bound_ms and
+    library_ms at each sweep's timed shape."""
+    pallas = "path_gene_multimodal_tpu/ops/pallas"
+    sweep = res.get("k234_launches", {})
+    p5 = res.get("path5", {}).get(f"slots_{max(PATH5_SLOTS)}", {})
+    k3, k4s, k2s = (res.get(k, {}) for k in ("k3_levels", "k4_shapes", "k2_slots"))
+    t2 = k2s.get("timed", {}).get("shared_4x256x256", {})
+    timed = {"cc_sizes_dev_tables": (t2, float(k2s.get("max_diff", 0)), None,
+                                     f"timed: 4 x 256^2 at 65,535 slots (shared route); "
+                                     f"also {k2s.get('timed', {}).get('global_2x512x512')} "
+                                     "(2 x 512^2 at 100,000, global route); bound as K2's"),
+             "flood_wide": (k3.get("timed", {}), float(k3.get("max_diff", 0)), None,
+                            "timed: 32 x 256^2 at 128 levels; bound as K3's, from the "
+                            "counted steps"),
+             "instance_stats_table": (k4s.get("timed", {}), max(
+                 k4s.get("max_abs_err", 0.0), p5.get("checks", {}).get(
+                     "instance_stats", {}).get("worst", 0.0)),
+                 k4s.get("timed", {}).get("library_ms"),
+                 f"timed: {SHAPE_K4_TIMED} (B, H, W, S, types), path (5)'s shape; bound as "
+                 "K4's; library_ms: index_add_ of a (pixels, 11) matrix (sums only)")}
+    out = []
+    for name, (stem, line, what) in NEW_ROUTES.items():
+        t, err, lms, note = timed[name]
+        by_path = {"shapes_sweep": sweep.get(name, 0)}
+        if name == "instance_stats_table":
+            by_path["shapes_path_5"] = p5.get("launches", {}).get(name, 0)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"path_gene_multimodal_tpu_torch/csrc/{stem}.cu",
+            "replaces": f"{pallas}/{stem}.py:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err, "ms": t.get("ms"),
+            "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
+            "bound_by": t.get("bound_by"), "library_ms": lms,
+            "note": f"{what}; every sweep call equal to the plain version (K4 bit for bit); "
+                    f"launches: {', '.join(by_path)} (the shapes phase); {note}"})
+    return out
+
+
 def _shapes_line(res: dict) -> dict:
     k1, k2 = res.get("k1", {}), res.get("k2", {})
     return {
@@ -7278,7 +7698,20 @@ def _shapes_line(res: dict) -> dict:
                                                for k in ("calls", "worst", "ms", "plain_ms",
                                                          "bound_ms")}}
                       for n, r in p["runs"].items()} for m, p in res.get("paths", {}).items()},
-        "sweeps_s": res.get("sweeps_s"), "paths_s": res.get("paths_s"),
+        "k3_levels": {k: res.get("k3_levels", {}).get(k) for k in ("max_diff",
+                                                                    "mutants_caught_on", "timed")},
+        "k4_shapes": {**{k: res.get("k4_shapes", {}).get(k) for k in (
+            "max_abs_err", "mutants_differ", "timed")}, "routes": [
+            (r["side"], r["num_types"], r["slots"], r["route"], r["bit_equal"])
+            for r in res.get("k4_shapes", {}).get("rows", [])]},
+        "k2_slots": {k: res.get("k2_slots", {}).get(k) for k in (
+            "max_diff", "shared_table_mutant_differs", "timed")},
+        "k234_launches": res.get("k234_launches"),
+        "path5": {k: ({kk: v.get(kk) for kk in ("nuclei", "capped_windows", "max_id",
+                                                 "windows_per_s", "s", "checks_s", "launches")}
+                      if isinstance(v, dict) else v) for k, v in res.get("path5", {}).items()},
+        "sweeps_s": res.get("sweeps_s"), "k234_s": res.get("k234_s"),
+        "path5_s": res.get("path5_s"), "paths_s": res.get("paths_s"),
         "phase_s": res.get("phase_s"),
     }
 
@@ -7320,7 +7753,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shapes", action="store_true",
                     help="only build the kernels and run the shapes phase (K1 at every "
                          "ConvNeXtV2 width, K2's global route, hovernext_infer at 512 and "
-                         "with a nano checkpoint)")
+                         "with a nano checkpoint, K7-K11 past 1024, K2-K4 at every slot, "
+                         "level and type count, path (5), path (4))")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the altpaths phase's tumour blobs and the fusion phase's "
                          "cohort and weights")
@@ -7341,7 +7775,9 @@ def main(argv: list[str] | None = None) -> int:
     from path_gene_multimodal_tpu_torch.config import HOVERNEXT_TINY, default_config
     from path_gene_multimodal_tpu_torch.io.slide import synthetic_wsi
     from path_gene_multimodal_tpu_torch.models.hovernext import HoverNeXt, init_weights, tta_forward
-    from path_gene_multimodal_tpu_torch.ops import cc, cuda
+    from path_gene_multimodal_tpu_torch.ops import cc, cuda, flood
+    from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
+    from path_gene_multimodal_tpu_torch.ops import instance_stats as k4
     from path_gene_multimodal_tpu_torch.ops import watershed as ws
     from path_gene_multimodal_tpu_torch.ops.cc_sizes import cc_sizes, cc_sizes_adaptive
     from path_gene_multimodal_tpu_torch.ops.components import INF
@@ -7372,7 +7808,10 @@ def main(argv: list[str] | None = None) -> int:
                 **{r: dec.ANY_LAUNCHES[n] for n, r in DEC_ROUTES.items()},
                 "conv_epilogue": dec.EPILOGUE_LAUNCHES,
                 "label_components_tiled": cc.label_components_tiled,
-                "label_components_batch": cc.label_components_batch}
+                "label_components_batch": cc.label_components_batch,
+                # K2-K4's routes for the shapes their first kernels do not take
+                "cc_sizes_dev_tables": k2.TABLE_LAUNCHES, "flood_wide": flood.WIDE_LAUNCHES,
+                "instance_stats_table": k4.TABLE_LAUNCHES}
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -7619,6 +8058,7 @@ def main(argv: list[str] | None = None) -> int:
     config_launches = {n: counts[cname][n] for cname, (_, ks) in CONFIGS.items() for n in ks}
     kernels += _check_decoder_kernels(models, pixels, config_launches, failures)
     kernels += _any_route_entries(report["shapes"])
+    kernels += _new_route_entries(report["shapes"])
     del models
     torch.cuda.empty_cache()
 
@@ -7712,7 +8152,7 @@ def main(argv: list[str] | None = None) -> int:
     dp_line = _dp_line(report["dp"])
     print(json.dumps({"dp": dp_line}), flush=True)
 
-    # -- 14. the walkthrough, the converters and the cohort CLIs -----------------------
+    # -- 14. the walkthrough and the cohort CLIs ----------------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     report["cohort"] = _cohort(tmp / "smoke.svs", model, nuclei, report["runner"], tmp,
@@ -7749,12 +8189,15 @@ def main(argv: list[str] | None = None) -> int:
         k.setdefault("launches_by_path", {first: k["launches"]})
         k["launches_by_path"]["cohort"] = cohort_launches.get(k["name"], 0)
         k["launches"] = sum(k["launches_by_path"].values())
-    # K1-K4 gain the shapes phase's two CLI runs (tile 512, the nano checkpoint)
+    # K1-K4 gain the shapes phase's two CLI runs (tile 512, the nano
+    # checkpoint) and path (5)'s two runs
+    shapes_runs = {f"shapes_{run}": report["shapes"].get(run, {}) for run in ("tile_512", "nano")}
+    shapes_runs.update({f"shapes_path_5_{s}": report["shapes"].get("path5", {}).get(
+        f"slots_{s}", {}) for s in PATH5_SLOTS})
     for k in kernels:
         if k["name"] in ("convnext_block", "cc_sizes", "flood", "instance_stats"):
-            for run in ("tile_512", "nano"):
-                k["launches_by_path"][f"shapes_{run}"] = report["shapes"].get(run, {}).get(
-                    "launches", {}).get(k["name"], 0)
+            for run, r in shapes_runs.items():
+                k["launches_by_path"][run] = r.get("launches", {}).get(k["name"], 0)
             k["launches"] = sum(k["launches_by_path"].values())
     # K1-K3 and K7-K11's own kernels gain path (4)'s runs (the any routes'
     # rows hold theirs already)
@@ -7766,6 +8209,8 @@ def main(argv: list[str] | None = None) -> int:
             k["launches"] = sum(k["launches_by_path"].values())
     failures += [f"{k['name']} never launched on path (4)" for k in kernels
                  if k["name"] in (*DEC_ROUTES.values(), "conv_epilogue") and not k["launches"]]
+    failures += [f"{k['name']} never launched in the shapes phase" for k in kernels
+                 if k["name"] in NEW_ROUTES and not k["launches"]]
 
     shutil.rmtree(tmp, ignore_errors=True)
     report["kernels"] = kernels

@@ -30,6 +30,10 @@
 // CcSizesTiling.shared): the shared route below, for tiles of up to 65,536
 // pixels with sides up to 1024, and the global route (further down, before
 // the launchers) for every other tile the TPU kernel takes (h * w < 2^24).
+// On either route, where the slot counts and dense ids do not fit shared
+// memory beside the rest, they live in device memory (`tables`, int32, 2
+// s_slots words a tile; the kernel's kDevTables instantiations), so any
+// s_slots runs; the passes do not change.
 //
 // Shared route: one block of 1024 threads per tile, the labels as uint16 pixel
 // indices in shared memory (a 256 x 256 tile's fit; rows padded to a
@@ -59,6 +63,8 @@
 // counts (int64[2], optional): += relaxation passes of every tile, max=
 // passes of one tile.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -236,16 +242,18 @@ __device__ void add_passes(long long* counts, int passes) {
     atomicMax(counts + 1, static_cast<long long>(passes));
 }
 
-template <int PER>
+// kDevTables: the slot counts and dense ids (int32) in `tables`, 2 s_slots
+// words a tile, instead of shared memory.
+template <int PER, bool kDevTables>
 __global__ void __launch_bounds__(kThreads, 1)
 cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
                 int* __restrict__ sizes_out, int* __restrict__ dense_out,
                 int* __restrict__ n_roots_out, long long* counts, int h, int w, int ls, int wpr,
                 int seg_len, int s_slots, int min_size, int max_iters,
-                const int* __restrict__ gate, int gate_slots, int batch) {
+                const int* __restrict__ gate, int gate_slots, int batch, int* tables) {
     if (!gate_open(gate, gate_slots, batch)) return;
     extern __shared__ __align__(16) unsigned char smem[];
-    const Layout L = layout(h, w, ls, wpr, s_slots);
+    const Layout L = layout(h, w, ls, wpr, kDevTables ? 0 : s_slots);
     uint16_t* lbl = reinterpret_cast<uint16_t*>(smem);
     uint32_t* mbits = reinterpret_cast<uint32_t*>(smem + L.mask);
     uint32_t* rbits = reinterpret_cast<uint32_t*>(smem + L.roots);
@@ -255,14 +263,15 @@ cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
     int* seg_head = reinterpret_cast<int*>(smem + L.seg);
     int* seg_tail = seg_head + kThreads;
     int* seg_full = seg_tail + kThreads;
-    int* cnt = reinterpret_cast<int*>(smem + L.cnt);
-    uint16_t* dn = reinterpret_cast<uint16_t*>(smem + L.dn);
+    const int b = blockIdx.x;
+    using DN = typename std::conditional<kDevTables, int, uint16_t>::type;
+    int* cnt = kDevTables ? tables + 2LL * b * s_slots : reinterpret_cast<int*>(smem + L.cnt);
+    DN* dn = kDevTables ? reinterpret_cast<DN*>(cnt + s_slots) : reinterpret_cast<DN*>(smem + L.dn);
     __shared__ int warp_tot[32];
     __shared__ int total_roots;
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int c0 = PER * lane;
-    const int b = blockIdx.x;
     const long long base = static_cast<long long>(b) * h * w;
 
     // labels = pixel indices; the mask as bits (each lane PER pixels of a
@@ -395,7 +404,9 @@ cc_sizes_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
     __syncthreads();
 
     // roots: their slot (rank, if under s_slots) in place of their label, and
-    // their bit in the root plane
+    // their bit in the root plane. A root has no foreground pixel left of it
+    // or above it, so a tile of at most 65,536 pixels has at most 32,768
+    // roots and a slot never reaches kNone, whatever s_slots.
     for (int r = warp; r < h; r += kWarps) {
         uint16_t* row = lbl + static_cast<size_t>(r) * ls;
         const uint32_t mb = chunk_bits<PER>(mbits + r * wpr, c0, ls);
@@ -611,24 +622,25 @@ __device__ bool line_runs(int* lbl, const Lines L, const uint8_t* dirty_in, uint
     return ch;
 }
 
+template <bool kDevTables>
 __global__ void __launch_bounds__(kThreads, 1)
 cc_sizes_global_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lbl_out,
                        int* __restrict__ sizes_out, int* __restrict__ dense_out,
                        int* __restrict__ n_roots_out, long long* counts,
                        uint8_t* __restrict__ scratch, int h, int w, Lines rows, Lines cols,
                        int s_slots, int min_size, int max_iters, const int* __restrict__ gate,
-                       int gate_slots, int batch) {
+                       int gate_slots, int batch, int* tables) {
     if (!gate_open(gate, gate_slots, batch)) return;
     extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.x;
     int* seg_head = reinterpret_cast<int*>(smem);
     int* seg_tail = seg_head + kThreads;
     int* seg_full = seg_tail + kThreads;
-    int* cnt = seg_full + kThreads;
+    int* cnt = kDevTables ? tables + 2LL * b * s_slots : seg_full + kThreads;
     int* dn = cnt + s_slots;
     __shared__ int warp_tot[32];
 
     const int lane = threadIdx.x & 31;
-    const int b = blockIdx.x;
     const int n = h * w;
     const long long base = static_cast<long long>(b) * n;
     int* lbl = lbl_out + base;
@@ -712,39 +724,55 @@ cc_sizes_global_kernel(const uint8_t* __restrict__ mask_in, int* __restrict__ lb
 
 int pixels_per_lane(int ls) { return ls <= 256 ? 8 : (ls <= 512 ? 16 : 32); }
 
+// Shared memory of the shared route; s_slots 0 with the tables in device
+// memory.
 size_t smem_bytes(int h, int w, int s_slots) {
     return layout(h, w, (w + 7) / 8 * 8, (w + 31) / 32, s_slots).total;
 }
 
+template <int PER>
+cudaError_t run_shared(bool dev_tables, int smem, int b, cudaStream_t st,
+                       const uint8_t* mask, int* lbl, int* sizes, int* dense, int* n_roots,
+                       long long* counts, int h, int w, int ls, int wpr, int seg_len, int s_slots,
+                       int min_size, int max_iters, const int* gate, int gate_slots, int* tables) {
+    void (*kernel)(const uint8_t*, int*, int*, int*, int*, long long*, int, int, int, int, int,
+                   int, int, int, const int*, int, int, int*) =
+        dev_tables ? cc_sizes_kernel<PER, true> : cc_sizes_kernel<PER, false>;
+    cudaError_t e = pgm_set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<b, kThreads, smem, st>>>(mask, lbl, sizes, dense, n_roots, counts, h, w, ls, wpr,
+                                      seg_len, s_slots, min_size, max_iters, gate, gate_slots, b,
+                                      tables);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// mask (B, H, W) uint8; lbl, sizes, dense (B, H, W) int32, n_roots (B,) int32.
-// ls, per, seg_len, smem: the launch geometry of
-// ops/cc_sizes.py::CcSizesTiling.
+// mask (B, H, W) uint8; lbl, sizes, dense (B, H, W) int32, n_roots (B,) int32;
+// tables: null (the slot counts and dense ids in shared memory) or a device
+// scratch of B x 2 s_slots int32 (any s_slots). ls, per, seg_len, smem: the
+// launch geometry of ops/cc_sizes.py::CcSizesTiling.
 PGM_EXPORT int cc_sizes_launch(const void* mask, void* lbl, void* sizes, void* dense,
                                void* n_roots, void* counts, int b, int h, int w, int s_slots,
                                int min_size, int max_iters, const void* gate, int gate_slots,
-                               int threads, int ls, int per, int seg_len, int smem,
+                               int threads, int ls, int per, int seg_len, int smem, void* tables,
                                void* stream) {
     const int wpr = (w + 31) / 32;
     const int cols = w < kThreads ? kThreads / w : 1;
+    const bool dev = tables != nullptr;
     if (threads != kThreads || b <= 0 || h <= 0 || w <= 0 || h > 1024 || w > 1024 ||
-        h * w > 65536 || s_slots <= 0 || s_slots >= kNone || ls != (w + 7) / 8 * 8 ||
+        h * w > 65536 || s_slots <= 0 || (!dev && s_slots >= kNone) || ls != (w + 7) / 8 * 8 ||
         per != pixels_per_lane(ls) || seg_len != (h + cols - 1) / cols ||
-        static_cast<size_t>(smem) != smem_bytes(h, w, s_slots))
+        static_cast<size_t>(smem) != smem_bytes(h, w, dev ? 0 : s_slots))
         return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    void (*kernel)(const uint8_t*, int*, int*, int*, int*, long long*, int, int, int, int, int,
-                   int, int, int, const int*, int, int) =
-        per == 8 ? cc_sizes_kernel<8> : (per == 16 ? cc_sizes_kernel<16> : cc_sizes_kernel<32>);
-    cudaError_t e = pgm_set_smem(kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<b, kThreads, smem, st>>>(
-        static_cast<const uint8_t*>(mask), static_cast<int*>(lbl), static_cast<int*>(sizes),
-        static_cast<int*>(dense), static_cast<int*>(n_roots), static_cast<long long*>(counts), h,
-        w, ls, wpr, seg_len, s_slots, min_size, max_iters, static_cast<const int*>(gate),
-        gate_slots, b);
-    return static_cast<int>(cudaGetLastError());
+    auto run = per == 8 ? run_shared<8> : (per == 16 ? run_shared<16> : run_shared<32>);
+    return static_cast<int>(run(dev, smem, b, static_cast<cudaStream_t>(stream),
+                                static_cast<const uint8_t*>(mask), static_cast<int*>(lbl),
+                                static_cast<int*>(sizes), static_cast<int*>(dense),
+                                static_cast<int*>(n_roots), static_cast<long long*>(counts), h, w,
+                                ls, wpr, seg_len, s_slots, min_size, max_iters,
+                                static_cast<const int*>(gate), gate_slots,
+                                static_cast<int*>(tables)));
 }
 
 namespace {
@@ -757,35 +785,40 @@ bool line_split_ok(const Lines& L) {
     return L.seg_len == seg_len && L.segs == (L.len + seg_len - 1) / seg_len;
 }
 
+// s_slots 0 with the tables in device memory
 size_t global_smem_bytes(int s_slots) { return size_t(3) * kThreads * 4 + size_t(s_slots) * 8; }
 
 }  // namespace
 
 // The global route: tiles of 65,537 .. 2^24 - 1 pixels, or a side over
 // 1024. mask (B, H, W) uint8; lbl, sizes, dense (B, H, W) int32; n_roots
-// (B,) int32; scratch (B, 2 (H + W)) uint8. row_segs, row_seg_len,
-// col_segs, col_seg_len, smem: the launch geometry of
-// ops/cc_sizes.py::CcSizesTiling.
+// (B,) int32; scratch (B, 2 (H + W)) uint8; tables as cc_sizes_launch's.
+// row_segs, row_seg_len, col_segs, col_seg_len, smem: the launch geometry
+// of ops/cc_sizes.py::CcSizesTiling.
 PGM_EXPORT int cc_sizes_global_launch(const void* mask, void* lbl, void* sizes, void* dense,
                                       void* n_roots, void* counts, void* scratch, int b, int h,
                                       int w, int s_slots, int min_size, int max_iters,
                                       const void* gate, int gate_slots, int threads,
                                       int row_segs, int row_seg_len, int col_segs,
-                                      int col_seg_len, int smem, void* stream) {
+                                      int col_seg_len, int smem, void* tables, void* stream) {
     const Lines rows{w, 1, h, w, row_segs, row_seg_len};
     const Lines cols{1, w, w, h, col_segs, col_seg_len};
     const long long px = static_cast<long long>(h) * w;
+    const bool dev = tables != nullptr;
     if (threads != kThreads || b <= 0 || h <= 0 || w <= 0 || px >= (1LL << 24) ||
-        (h <= 1024 && w <= 1024 && px <= 65536) || s_slots <= 0 || s_slots >= kNone ||
+        (h <= 1024 && w <= 1024 && px <= 65536) || s_slots <= 0 ||
         !line_split_ok(rows) || !line_split_ok(cols) ||
-        static_cast<size_t>(smem) != global_smem_bytes(s_slots))
+        static_cast<size_t>(smem) != global_smem_bytes(dev ? 0 : s_slots))
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = pgm_set_smem(cc_sizes_global_kernel, smem);
+    void (*kernel)(const uint8_t*, int*, int*, int*, int*, long long*, uint8_t*, int, int, Lines,
+                   Lines, int, int, int, const int*, int, int, int*) =
+        dev ? cc_sizes_global_kernel<true> : cc_sizes_global_kernel<false>;
+    cudaError_t e = pgm_set_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    cc_sizes_global_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(mask), static_cast<int*>(lbl), static_cast<int*>(sizes),
         static_cast<int*>(dense), static_cast<int*>(n_roots), static_cast<long long*>(counts),
         static_cast<uint8_t*>(scratch), h, w, rows, cols, s_slots, min_size, max_iters,
-        static_cast<const int*>(gate), gate_slots, b);
+        static_cast<const int*>(gate), gate_slots, b, static_cast<int*>(tables));
     return static_cast<int>(cudaGetLastError());
 }

@@ -21,9 +21,11 @@
 //
 // Design: one block per tile; the tile's state as 1-bit planes (a 32-bit
 // word holds 32 pixels of a row; a row takes ceil(W / 32) words whose bits
-// past W stay 0 in every plane): q as 6 bit-slices, mask, marker, labelled,
-// U = eligible & ~labelled, and the active plane A = labelled & (q >= level)
-// (minus fresh markers in phase 0), double-buffered. A step computes, a word
+// past W stay 0 in every plane): q as nq bit-slices (6 up to 64 levels, the
+// instantiation the main path runs; else the bit length of levels - 1, up
+// to 31, in an instantiation that takes nq at run time), mask, marker,
+// labelled, U = eligible & ~labelled, and the active plane A = labelled & (q
+// >= level) (minus fresh markers in phase 0), double-buffered. A step computes, a word
 // at a time, cand = U & dilate8(A) with shifts that carry bits across words,
 // and only the set bits of cand read labels: the min over their active
 // neighbours, whose labels (in `out`, the one label buffer) never change
@@ -31,8 +33,9 @@
 // buffer is touched where pixels grow, not in every step. A grows by cand
 // into the other buffer (an in-place update would let a label cross several
 // pixels in one step); __syncthreads_or ends the step and gives the "changed"
-// flag. At 256^2 the 12 planes take 96 KB of shared memory; a tile whose
-// planes do not fit keeps them in global memory (`scratch`), same code.
+// flag. At 256^2 the 12 planes of 64 levels take 96 KB of shared memory; a
+// tile whose planes do not fit keeps them in global memory (`scratch`),
+// same code.
 // Geometry: ops/flood.py::FloodTiling; the launcher refuses any other.
 //
 // counts (int64[3], optional): += steps of every tile, max= steps of one
@@ -43,9 +46,10 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kInf = 1 << 30;
-constexpr int kPlanes = 12;
-// plane order: q bit-slices 0-5, mask, marker, labelled, U, A (two buffers)
-constexpr int kMask = 6, kMarker = 7, kLab = 8, kUnl = 9, kAct = 10;
+constexpr int kMaxSlices = 31;  // q's bit-slices: levels - 1 < 2^31
+// plane order: q bit-slices 0..nq-1, mask, marker, labelled, U, A (two
+// buffers); nq is 6 for levels <= 64 (the main path's instantiation, NQ = 6)
+// and (levels - 1)'s bit length above (NQ = 0: nq a runtime argument)
 
 // Horizontal 3-dilation of a row word, bits carried in from its neighbours.
 __device__ __forceinline__ uint32_t hdil(uint32_t l, uint32_t m, uint32_t r) {
@@ -60,15 +64,17 @@ __device__ __forceinline__ bool bit_at(uint32_t l, uint32_t m, uint32_t r, int b
     return (m >> bb) & 1u;
 }
 
-template <bool kShared>
+template <bool kShared, int NQ>
 __global__ void __launch_bounds__(kThreads, 1)
 flood_kernel(const float* __restrict__ dist, const int* __restrict__ markers,
              const uint8_t* __restrict__ mask, int* out, uint32_t* scratch,
-             long long* counts, int h, int w, int wpr, int levels, int max_rounds) {
+             long long* counts, int h, int w, int wpr, int levels, int max_rounds, int nq_arg) {
     extern __shared__ __align__(16) uint32_t smem_planes[];
+    const int nq = NQ ? NQ : nq_arg;
+    const int kMask = nq, kMarker = nq + 1, kLab = nq + 2, kUnl = nq + 3, kAct = nq + 4;
     const int words = h * wpr;
     uint32_t* planes = kShared ? smem_planes
-                               : scratch + static_cast<size_t>(blockIdx.x) * kPlanes * words;
+                               : scratch + static_cast<size_t>(blockIdx.x) * (nq + 6) * words;
     auto plane = [&](int i) { return planes + static_cast<size_t>(i) * words; };
     const long long base = static_cast<long long>(blockIdx.x) * h * w;
     int* lbl = out + base;
@@ -90,17 +96,29 @@ flood_kernel(const float* __restrict__ dist, const int* __restrict__ markers,
             mk = v < kInf;
             lbl[p - base] = mk ? v : kInf;
         }
-        // lane i < 8 keeps plane i's word, lane 8 the labelled one (the
-        // markers), lane 9 zeroes A
-        uint32_t mine = 0u;
+        if constexpr (NQ == 6) {
+            // lane i < 8 keeps plane i's word, lane 8 the labelled one (the
+            // markers), lane 9 zeroes A
+            uint32_t mine = 0u;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const bool bit = i < 6 ? (q >> i) & 1 : (i == kMask ? m : mk);
-            const uint32_t word = __ballot_sync(0xffffffffu, bit);
-            if (lane == i || (lane == kLab && i == kMarker)) mine = word;
+            for (int i = 0; i < 8; ++i) {
+                const bool bit = i < 6 ? (q >> i) & 1 : (i == kMask ? m : mk);
+                const uint32_t word = __ballot_sync(0xffffffffu, bit);
+                if (lane == i || (lane == kLab && i == kMarker)) mine = word;
+            }
+            if (lane < 9) plane(lane == 8 ? kLab : lane)[k] = mine;
+            if (lane == 9) plane(kAct)[k] = 0u;
+        } else {
+            // up to 33 planes: lane 0 writes each ballot's word, lane 1 the
+            // labelled one (the markers), lane 2 zeroes A
+            for (int i = 0; i < nq + 2; ++i) {
+                const bool bit = i < nq ? (q >> i) & 1 : (i == kMask ? m : mk);
+                const uint32_t word = __ballot_sync(0xffffffffu, bit);
+                if (lane == 0) plane(i)[k] = word;
+                if (lane == 1 && i == kMarker) plane(kLab)[k] = word;
+            }
+            if (lane == 2) plane(kAct)[k] = 0u;
         }
-        if (lane < 9) plane(lane == 8 ? kLab : lane)[k] = mine;
-        if (lane == 9) plane(kAct)[k] = 0u;
     }
     __syncthreads();
 
@@ -120,7 +138,8 @@ flood_kernel(const float* __restrict__ dist, const int* __restrict__ markers,
             for (int k = threadIdx.x; k < words; k += kThreads) {
                 uint32_t ge = ~0u, eq = ~0u;
 #pragma unroll
-                for (int b = 0; b < 6; ++b) {
+                for (int b = 0; b < (NQ ? NQ : kMaxSlices); ++b) {
+                    if (!NQ && b >= nq) break;
                     const uint32_t qb = plane(b)[k];
                     const bool one = (level >> b) & 1;
                     ge = one ? (qb & ge) : (qb | ge);
@@ -207,23 +226,49 @@ flood_kernel(const float* __restrict__ dist, const int* __restrict__ markers,
     }
 }
 
-size_t plane_bytes(int h, int w) {
-    return static_cast<size_t>(kPlanes) * h * ((w + 31) / 32) * 4;
+// q's bit-slices at `levels` levels: 6 up to 64 levels (the NQ = 6
+// instantiation), else the bit length of levels - 1
+int slices(int levels) {
+    int n = 0;
+    while (n < kMaxSlices && (levels - 1) >> n) ++n;
+    return levels <= 64 ? 6 : n;
+}
+
+size_t plane_bytes(int h, int w, int nq) {
+    return static_cast<size_t>(nq + 6) * h * ((w + 31) / 32) * 4;
+}
+
+template <int NQ>
+cudaError_t run(const float* d, const int* mk, const uint8_t* m, int* o, uint32_t* sc,
+                long long* cn, int b, int h, int w, int wpr, int levels, int max_rounds, int nq,
+                int smem, cudaStream_t st) {
+    if (smem) {
+        cudaError_t e = pgm_set_smem(flood_kernel<true, NQ>, smem);
+        if (e != cudaSuccess) return e;
+        flood_kernel<true, NQ><<<b, kThreads, smem, st>>>(d, mk, m, o, sc, cn, h, w, wpr, levels,
+                                                          max_rounds, nq);
+    } else {
+        flood_kernel<false, NQ><<<b, kThreads, 0, st>>>(d, mk, m, o, sc, cn, h, w, wpr, levels,
+                                                        max_rounds, nq);
+    }
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 // dist (B, H, W) f32, markers (B, H, W) int32 (>= INF: none), mask (B, H, W)
-// uint8; out (B, H, W) int32. threads, wpr, smem: the launch geometry of
-// ops/flood.py::FloodTiling (smem 0: the planes in `scratch`, kPlanes * H *
-// wpr words per tile).
+// uint8; out (B, H, W) int32. threads, wpr, planes, smem: the launch
+// geometry of ops/flood.py::FloodTiling (planes = q's slices + 6; smem 0:
+// the planes in `scratch`, planes * H * wpr words per tile).
 PGM_EXPORT int flood_launch(const void* dist, const void* markers, const void* mask, void* out,
                             void* scratch, void* counts, int b, int h, int w, int levels,
-                            int max_rounds, int threads, int wpr, int smem, void* stream) {
-    const size_t planes = plane_bytes(h, w);
+                            int max_rounds, int threads, int wpr, int planes, int smem,
+                            void* stream) {
+    const int nq = levels >= 1 ? slices(levels) : 0;
     if (threads != kThreads || wpr != (w + 31) / 32 || b <= 0 || h <= 0 || w <= 0 ||
-        levels < 1 || levels > 64 || max_rounds < 0 ||
-        (smem != 0 && static_cast<size_t>(smem) != planes) || (smem == 0 && scratch == nullptr))
+        levels < 1 || max_rounds < 0 || planes != nq + 6 ||
+        (smem != 0 && static_cast<size_t>(smem) != plane_bytes(h, w, nq)) ||
+        (smem == 0 && scratch == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* d = static_cast<const float*>(dist);
@@ -232,14 +277,8 @@ PGM_EXPORT int flood_launch(const void* dist, const void* markers, const void* m
     int* o = static_cast<int*>(out);
     uint32_t* sc = static_cast<uint32_t*>(scratch);
     long long* cn = static_cast<long long*>(counts);
-    if (smem) {
-        cudaError_t e = pgm_set_smem(flood_kernel<true>, smem);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        flood_kernel<true><<<b, kThreads, smem, st>>>(d, mk, m, o, sc, cn, h, w, wpr, levels,
-                                                      max_rounds);
-    } else {
-        flood_kernel<false><<<b, kThreads, 0, st>>>(d, mk, m, o, sc, cn, h, w, wpr, levels,
-                                                    max_rounds);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(nq == 6 ? run<6>(d, mk, m, o, sc, cn, b, h, w, wpr, levels, max_rounds,
+                                             nq, smem, st)
+                                    : run<0>(d, mk, m, o, sc, cn, b, h, w, wpr, levels, max_rounds,
+                                             nq, smem, st));
 }

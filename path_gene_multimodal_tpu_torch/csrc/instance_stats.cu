@@ -55,6 +55,10 @@
 //   (`map_shared_rank`; each peer's count read first, the rest only for a
 //   slot live there), turns them into f32 and writes them; a last cluster
 //   barrier keeps every table alive until its peers have read it.
+// - The cluster kernel takes 2..9 types, tables that fit a block's shared
+//   memory and sides under 2^27. Every other shape the TPU kernel takes
+//   (any slot count, any num_types >= 1) goes to the table route (further
+//   down): the same sums, kept in device memory.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -526,6 +530,209 @@ cudaError_t launch(const Params& p, int b, int k, int smem, cudaStream_t st) {
     return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// ------------------------------------------------------------ table route
+//
+// Every shape the cluster kernel does not take (a table past a block's
+// shared memory, num_types outside 2..9, a side of 2^27 or more): the slot
+// table in device memory, [B][5][S] int64 sums (sum x, sum y, the three
+// moments) and [B][1 + nv + 4][S] int32 (the count, the votes of types
+// 1..nv, xmin, ymin, xmax, ymax), filled by global atomics. A thread takes
+// a chunk of 16 pixels of a row (whole chunks by 16-byte loads where rows
+// are 16-byte aligned), walks its runs of one id (slot 0 like any other)
+// and adds each run's closed-form sums once (a run that crosses chunks is
+// added in pieces: the sums are exact integers, so the pieces add up to
+// the same), its votes once per stretch of one type. Slot 0, which holds
+// most pixels, is summed in registers and added once per warp at the end
+// (its votes go by atomics, as any slot's). A block takes chunks of one
+// image; a last kernel turns each slot into f32 once, as the cluster
+// kernel does, so the outputs equal instance_stats_plain bit for bit.
+
+constexpr int kTabThreads = 256;
+constexpr int kChunk = 16;  // pixels a thread
+
+struct TabParams {
+    const int* lbl;
+    const int* tp;
+    float* sums;
+    float* mins;
+    long long* tsum;  // [B][5][S]
+    int* t32;         // [B][1 + nv + 4][S]
+    int b, h, w, S, nv, c_sum;
+    int cpr;  // chunks a row
+    int vec;  // rows 16-byte aligned: whole chunks by vector loads
+    int bpi;  // blocks an image
+};
+
+__global__ void __launch_bounds__(kTabThreads) table_init_kernel(const TabParams p) {
+    const long long n64 = 5LL * p.b * p.S, rows32 = 1LL + p.nv + 4;
+    const long long n32 = rows32 * p.b * p.S;
+    const long long stride = static_cast<long long>(gridDim.x) * kTabThreads;
+    for (long long i = static_cast<long long>(blockIdx.x) * kTabThreads + threadIdx.x; i < n64;
+         i += stride)
+        p.tsum[i] = 0;
+    for (long long i = static_cast<long long>(blockIdx.x) * kTabThreads + threadIdx.x; i < n32;
+         i += stride) {
+        const long long row = (i / p.S) % rows32;  // 0 count, 1..nv votes, then the extrema
+        p.t32[i] = row <= p.nv ? 0 : (row < p.nv + 3 ? INT_MAX : INT_MIN);
+    }
+}
+
+// The closed-form sums of a run of slot id >= 1, pixels x0..x1 of row y,
+// into the table (64-bit throughout: a side may pass 2^27).
+__device__ __forceinline__ void table_run(const TabParams& p, long long* ts, int* t32, int id,
+                                          int x0, int x1, int y) {
+    const long long S = p.S, n = x1 - x0 + 1, a = 2LL * x0 - p.w, dy = 2LL * y - p.h;
+    const long long sx = static_cast<long long>(x0) + x1;
+    u64* s = reinterpret_cast<u64*>(ts) + id;
+    atomicAdd(t32 + id, static_cast<int>(n));
+    atomicAdd(s, static_cast<u64>(n * sx / 2));
+    atomicAdd(s + S, static_cast<u64>(n * y));
+    atomicAdd(s + 2 * S, static_cast<u64>(n * a * a + 2 * a * n * (n - 1) +
+                                          2 * ((n - 1) * n * (2 * n - 1) / 3)));
+    atomicAdd(s + 3 * S, static_cast<u64>(n * dy * dy));
+    atomicAdd(s + 4 * S, static_cast<u64>(dy * n * (sx - p.w)));
+    int* e = t32 + (1 + p.nv) * S;
+    atomicMin(e + id, x0);
+    atomicMin(e + S + id, y);
+    atomicMax(e + 2 * S + id, x1);
+    atomicMax(e + 3 * S + id, y);
+}
+
+// Slot 0's sums of a thread, added once per warp at the end.
+struct Slot0Table {
+    long long cnt, sx, sy, mxx, myy, mxy;
+    int xmn, ymn, xmx, ymx;
+};
+
+__global__ void __launch_bounds__(kTabThreads) table_stats_kernel(const TabParams p) {
+    const int img = blockIdx.x / p.bpi, part = blockIdx.x - img * p.bpi;
+    const long long S = p.S;
+    long long* ts = p.tsum + img * 5 * S;
+    int* t32 = p.t32 + img * (5 + p.nv) * S;
+    const long long img_px = static_cast<long long>(img) * p.h * p.w;
+    const long long chunks = static_cast<long long>(p.h) * p.cpr;
+    Slot0Table z{0, 0, 0, 0, 0, 0, INT_MAX, INT_MAX, INT_MIN, INT_MIN};
+
+    for (long long c = static_cast<long long>(part) * kTabThreads + threadIdx.x; c < chunks;
+         c += static_cast<long long>(p.bpi) * kTabThreads) {
+        const int y = static_cast<int>(c / p.cpr);
+        const int xs = static_cast<int>(c - static_cast<long long>(y) * p.cpr) * kChunk;
+        const int nval = min(kChunk, p.w - xs);
+        const long long px = img_px + static_cast<long long>(y) * p.w + xs;
+        int id[kChunk], ty[kChunk];
+        if (p.vec && nval == kChunk) {
+#pragma unroll
+            for (int q = 0; q < kChunk / 4; ++q) {
+                const int4 l = __ldg(reinterpret_cast<const int4*>(p.lbl + px) + q);
+                const int4 t = __ldg(reinterpret_cast<const int4*>(p.tp + px) + q);
+                id[4 * q] = l.x; id[4 * q + 1] = l.y; id[4 * q + 2] = l.z; id[4 * q + 3] = l.w;
+                ty[4 * q] = t.x; ty[4 * q + 1] = t.y; ty[4 * q + 2] = t.z; ty[4 * q + 3] = t.w;
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < kChunk; ++i) {
+                id[i] = i < nval ? __ldg(p.lbl + px + i) : -1;
+                ty[i] = i < nval ? __ldg(p.tp + px + i) : 0;
+            }
+        }
+        // the run [x0, xs + i) of slot cur (-1: ignored ids), its current
+        // stretch of type tcur, tn pixels long
+        int cur = -1, x0 = xs, tcur = 0, tn = 0;
+        auto close_votes = [&]() {
+            if (cur >= 0 && tcur >= 1 && tcur <= p.nv)
+                atomicAdd(t32 + tcur * S + cur, tn);
+        };
+        auto close_run = [&](int x1) {
+            if (cur == 0) {
+                const long long n = x1 - x0 + 1, a = 2LL * x0 - p.w, dy = 2LL * y - p.h;
+                const long long sx = static_cast<long long>(x0) + x1;
+                z.cnt += n;
+                z.sx += n * sx / 2;
+                z.sy += n * y;
+                z.mxx += n * a * a + 2 * a * n * (n - 1) + 2 * ((n - 1) * n * (2 * n - 1) / 3);
+                z.myy += n * dy * dy;
+                z.mxy += dy * n * (sx - p.w);
+                z.xmn = min(z.xmn, x0);
+                z.ymn = min(z.ymn, y);
+                z.xmx = max(z.xmx, x1);
+                z.ymx = max(z.ymx, y);
+            } else if (cur > 0) {
+                table_run(p, ts, t32, cur, x0, x1, y);
+            }
+        };
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+            if (i >= nval) break;
+            const int v = (id[i] >= 0 && id[i] < p.S) ? id[i] : -1;
+            if (i == 0 || v != cur) {
+                if (i > 0) {
+                    close_votes();
+                    close_run(xs + i - 1);
+                }
+                cur = v;
+                x0 = xs + i;
+                tcur = ty[i];
+                tn = 0;
+            } else if (ty[i] != tcur) {
+                close_votes();
+                tcur = ty[i];
+                tn = 0;
+            }
+            ++tn;
+        }
+        close_votes();
+        close_run(xs + nval - 1);
+    }
+
+    const long long cnt = warp_sum(z.cnt);
+    const long long sx = warp_sum(z.sx), sy = warp_sum(z.sy);
+    const long long mxx = warp_sum(z.mxx), myy = warp_sum(z.myy), mxy = warp_sum(z.mxy);
+    const int xmn = __reduce_min_sync(kFull, z.xmn), ymn = __reduce_min_sync(kFull, z.ymn);
+    const int xmx = __reduce_max_sync(kFull, z.xmx), ymx = __reduce_max_sync(kFull, z.ymx);
+    if ((threadIdx.x & 31) == 0 && cnt > 0) {
+        u64* s = reinterpret_cast<u64*>(ts);
+        atomicAdd(t32, static_cast<int>(cnt));
+        atomicAdd(s, static_cast<u64>(sx));
+        atomicAdd(s + S, static_cast<u64>(sy));
+        atomicAdd(s + 2 * S, static_cast<u64>(mxx));
+        atomicAdd(s + 3 * S, static_cast<u64>(myy));
+        atomicAdd(s + 4 * S, static_cast<u64>(mxy));
+        int* e = t32 + (1 + p.nv) * S;
+        atomicMin(e, xmn);
+        atomicMin(e + S, ymn);
+        atomicMax(e + 2 * S, xmx);
+        atomicMax(e + 3 * S, ymx);
+    }
+}
+
+// Each slot of the table as f32, once: the outputs' layout as the cluster
+// kernel writes them.
+__global__ void __launch_bounds__(kTabThreads) table_finish_kernel(const TabParams p) {
+    const long long S = p.S, total = static_cast<long long>(p.b) * S;
+    for (long long i = static_cast<long long>(blockIdx.x) * kTabThreads + threadIdx.x; i < total;
+         i += static_cast<long long>(gridDim.x) * kTabThreads) {
+        const long long img = i / S, s = i - img * S;
+        const long long* ts = p.tsum + img * 5 * S + s;
+        const int* t32 = p.t32 + img * (5 + p.nv) * S + s;
+        const int cnt = t32[0];
+        float* so = p.sums + i * p.c_sum;
+        so[0] = static_cast<float>(cnt);
+        so[1] = static_cast<float>(ts[0]);
+        so[2] = static_cast<float>(ts[S]);
+        for (int j = 0; j < 3; ++j)
+            so[3 + j] = static_cast<float>(static_cast<double>(ts[(2 + j) * S]) * 0.25);
+        for (int t = 0; t < p.nv; ++t) so[kFixed + t] = static_cast<float>(t32[(1 + t) * S]);
+        for (int c = kFixed + p.nv; c < p.c_sum; ++c) so[c] = 0.0f;
+        const int* e = t32 + (1 + p.nv) * S;
+        float* mo = p.mins + img * 4 * S + s;
+        const bool live = cnt > 0;
+        mo[0] = live ? static_cast<float>(e[0]) : kBig;
+        mo[S] = live ? static_cast<float>(e[S]) : kBig;
+        mo[2 * S] = live ? static_cast<float>(-e[2 * S]) : kBig;
+        mo[3 * S] = live ? static_cast<float>(-e[3 * S]) : kBig;
+    }
+}
+
 // sum_{x < n} (2x - n)^2, the sum of (2x - w)^2 over a whole row of a tile:
 // 4 sum x^2 - 4 n sum x + n^3
 long long row_moment(long long n) {
@@ -591,4 +798,45 @@ PGM_EXPORT int instance_stats_launch(const void* lbl, const void* tp, void* sums
     p.drain = static_cast<int>(min(8191LL, 0x7fffffffLL / (8 * m * (wide ? 1 : m))));
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     return static_cast<int>(wide ? launch<u64>(p, b, k, smem, st) : launch<unsigned>(p, b, k, smem, st));
+}
+
+// The table route (ops/instance_stats.py::InstanceStatsTiling.route ==
+// "table"): lbl, tp, sums, mins as instance_stats_launch's; table: a device
+// scratch of b S (5 x 8 + (4 + num_types) x 4) bytes, 8-byte aligned (its
+// layout above); vec: whole chunks by vector loads; bpi: blocks an image of
+// the statistics pass; grid: blocks of the table's first and last pass. As
+// InstanceStatsTiling computes them, and refused if they differ from this
+// file's.
+PGM_EXPORT int instance_stats_table_launch(const void* lbl, const void* tp, void* sums, void* mins,
+                                           void* table, int b, int h, int w, int s_slots,
+                                           int num_types, int c_sum, int vec, int bpi, int grid,
+                                           void* stream) {
+    const int nv = num_types - 1;
+    if (b <= 0 || h <= 0 || w <= 0 || s_slots <= 0 || num_types < 1 || table == nullptr ||
+        c_sum != ((kFixed + nv + 7) / 8) * 8 || vec != (w % 4 == 0) ||
+        static_cast<long long>(h) * w >= (1LL << 31) || bpi <= 0 ||
+        static_cast<long long>(b) * bpi > 0x7fffffffLL || grid <= 0 ||
+        reinterpret_cast<uintptr_t>(table) % 8)
+        return static_cast<int>(cudaErrorInvalidValue);
+    TabParams p;
+    p.lbl = static_cast<const int*>(lbl);
+    p.tp = static_cast<const int*>(tp);
+    p.sums = static_cast<float*>(sums);
+    p.mins = static_cast<float*>(mins);
+    p.tsum = static_cast<long long*>(table);
+    p.t32 = reinterpret_cast<int*>(p.tsum + 5LL * b * s_slots);
+    p.b = b;
+    p.h = h;
+    p.w = w;
+    p.S = s_slots;
+    p.nv = nv;
+    p.c_sum = c_sum;
+    p.cpr = (w + kChunk - 1) / kChunk;
+    p.vec = vec;
+    p.bpi = bpi;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    table_init_kernel<<<grid, kTabThreads, 0, st>>>(p);
+    table_stats_kernel<<<b * bpi, kTabThreads, 0, st>>>(p);
+    table_finish_kernel<<<grid, kTabThreads, 0, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }

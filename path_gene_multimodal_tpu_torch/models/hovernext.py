@@ -116,9 +116,10 @@ class HoverNeXt(nn.Module):
     Every configuration runs on either device at any encoder and decoder
     width, as the Pallas kernels take them: on the card each kernel runs
     its own compiled widths and K7's any route for the rest
-    (``ops/decoder.py``); a width past ``ops.decoder.MAX_WIDTH`` is refused
-    by the kernel's wrapper at the first forward, naming the kernel. On
-    the CPU every kernel runs its plain version.
+    (``ops/decoder.py``); only a head's input past
+    ``ops.decoder.HEAD_MAX_WIDTH`` channels is refused, by the kernel's
+    wrapper at the first forward, naming the kernel. On the CPU every
+    kernel runs its plain version.
 
     An f32 forward runs its convolutions with cuDNN's TF32 off
     (``torch.backends.cudnn.flags(allow_tf32=False)``, scoped to the

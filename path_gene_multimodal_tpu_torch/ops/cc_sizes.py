@@ -21,7 +21,11 @@ The kernel takes every tile the Pallas kernel takes by size, h * w < 2**24
 at any side length (``CcSizesTiling``): tiles of up to 65,536 pixels with
 sides up to 1024 on its shared-memory route, the others on its global
 route, whose labels live in device memory. Both run the same passes, so
-labels and counts do not depend on the route.
+labels and counts do not depend on the route. It takes any ``s_slots >=
+1``: where the slot counts and dense ids do not fit shared memory, the
+route keeps them in device memory (``CcSizesTiling.dev_tables``; those
+launches are counted in ``TABLE_LAUNCHES``, the others in
+``cc_sizes.launches``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,12 @@ class CcSizesTiling:
     scratch of ``scratch_bytes`` a tile; both phases walk their lines in
     segments (``row_split``, ``col_split``: segments a line, their length).
 
+    On either route the slot counts (int32) and dense ids (uint16 on the
+    shared route, int32 on the global one) live in shared memory unless
+    they do not fit beside the rest, or ``s_slots >= 0xFFFF`` on the
+    shared route (``dev_tables``): then both are int32 in a device scratch
+    of ``table_words`` a tile.
+
     The kernel checks what it is given against its own geometry."""
 
     threads: ClassVar[int] = 1024
@@ -81,12 +91,8 @@ class CcSizesTiling:
         if self.h * self.w >= MAX_TILE_PIXELS:
             raise ValueError(f"cc_sizes kernel takes tiles of < {MAX_TILE_PIXELS} pixels (the "
                              f"Pallas kernel's limit), got {self.h}x{self.w}")
-        if not 0 < self.s_slots < 0xFFFF:
-            raise ValueError(f"cc_sizes kernel takes 1..65534 slots, got {self.s_slots}")
-        if self.smem_bytes > cuda.SMEM_PER_BLOCK:
-            raise ValueError(f"cc_sizes: a {self.h}x{self.w} tile at {self.s_slots} slots needs "
-                             f"{self.smem_bytes} B of shared memory, more than "
-                             f"{cuda.SMEM_PER_BLOCK}")
+        if self.s_slots <= 0:
+            raise ValueError(f"cc_sizes kernel takes s_slots >= 1, got {self.s_slots}")
 
     @property
     def shared(self) -> bool:
@@ -127,19 +133,32 @@ class CcSizesTiling:
         passes' worth."""
         return 2 * (self.h + self.w)
 
+    def _smem(self, slots: int) -> int:
+        if not self.shared:
+            return 3 * self.threads * 4 + slots * 8
+        r16 = lambda n: -(-n // 16) * 16  # noqa: E731
+        planes = self.h * self.wpr * 4
+        return (self.h * self.ls * 2 + 2 * planes + self.h * 4 + r16(2 * (self.h + self.w))
+                + 3 * self.threads * 4 + slots * 4 + r16(slots * 2))
+
+    @property
+    def dev_tables(self) -> bool:
+        return (self._smem(self.s_slots) > cuda.SMEM_PER_BLOCK
+                or (self.shared and self.s_slots >= 0xFFFF))
+
     @property
     def smem_bytes(self) -> int:
         """Shared route: labels, mask and root bits, per-row root counts,
         dirty flags of rows and columns (two passes' worth), the segments'
         head/tail/full records, slot counts (int32) and dense ids (uint16).
         Global route: the segments' records, slot counts and dense ids
-        (int32)."""
-        if not self.shared:
-            return 3 * self.threads * 4 + self.s_slots * 8
-        r16 = lambda n: -(-n // 16) * 16  # noqa: E731
-        planes = self.h * self.wpr * 4
-        return (self.h * self.ls * 2 + 2 * planes + self.h * 4 + r16(2 * (self.h + self.w))
-                + 3 * self.threads * 4 + self.s_slots * 4 + r16(self.s_slots * 2))
+        (int32). Without the slot tables where they are in device memory."""
+        return self._smem(0 if self.dev_tables else self.s_slots)
+
+    @property
+    def table_words(self) -> int:
+        """int32 words a tile of the device slot tables (counts, dense ids)."""
+        return 2 * self.s_slots if self.dev_tables else 0
 
 
 def _check_counts(counts: torch.Tensor | None, device) -> None:
@@ -183,15 +202,20 @@ def cc_sizes_plain(mask: torch.Tensor, s_slots: int = 4096, min_size: int = 0,
 
 
 def _launch(mask_u8, lbl, sizes, dense, n_roots, counts, s_slots, min_size, gate, gate_slots):
+    """One launch at ``s_slots`` clamped to the tile's pixels: a tile has
+    no more roots than pixels, so no output changes."""
     b, h, w = mask_u8.shape
+    s_slots = min(s_slots, h * w)
     geo = CcSizesTiling(h, w, s_slots)
+    tables = (torch.empty((b, geo.table_words), dtype=torch.int32, device=mask_u8.device)
+              if geo.dev_tables else None)
     if geo.shared:
         cuda.launch(
             "cc_sizes", "cc_sizes_launch",
             cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
             cuda.ptr(n_roots), cuda.ptr(counts), b, h, w, s_slots, min_size, MAX_ITERS,
             cuda.ptr(gate), gate_slots, geo.threads, geo.ls, geo.per, geo.seg_len,
-            geo.smem_bytes, cuda.stream(mask_u8),
+            geo.smem_bytes, cuda.ptr(tables), cuda.stream(mask_u8),
         )
     else:
         scratch = torch.empty((b, geo.scratch_bytes), dtype=torch.uint8, device=mask_u8.device)
@@ -200,15 +224,20 @@ def _launch(mask_u8, lbl, sizes, dense, n_roots, counts, s_slots, min_size, gate
             cuda.ptr(mask_u8), cuda.ptr(lbl), cuda.ptr(sizes), cuda.ptr(dense),
             cuda.ptr(n_roots), cuda.ptr(counts), cuda.ptr(scratch), b, h, w, s_slots, min_size,
             MAX_ITERS, cuda.ptr(gate), gate_slots, geo.threads, *geo.row_split,
-            *geo.col_split, geo.smem_bytes, cuda.stream(mask_u8),
+            *geo.col_split, geo.smem_bytes, cuda.ptr(tables), cuda.stream(mask_u8),
         )
-    cc_sizes.launches += 1
+    if geo.dev_tables:
+        TABLE_LAUNCHES.launches += 1
+    else:
+        cc_sizes.launches += 1
 
 
 def cc_sizes(mask: torch.Tensor, s_slots: int = 4096, min_size: int = 0,
              counts: torch.Tensor | None = None):
     """(B, H, W) bool → (labels, sizes, dense, n_roots), int32: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor. The kernel
+    takes ``s_slots`` clamped to H * W before its route is chosen: a tile
+    has no more roots than pixels, so no output changes."""
     if not mask.is_cuda:
         return cc_sizes_plain(mask, s_slots, min_size, counts)
     lbl, sizes, dense, n_roots, mask_u8 = _outputs(mask, counts)
@@ -260,3 +289,4 @@ def cc_sizes_adaptive(
 
 
 cc_sizes.launches = 0
+TABLE_LAUNCHES = cuda.LaunchCount()

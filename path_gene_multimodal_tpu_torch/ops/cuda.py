@@ -159,6 +159,16 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{name}.{fn}: CUDA error {err} ({msg})")
 
 
+class LaunchCount:
+    """The launches of a kernel route that no wrapper of its own counts,
+    read and reset as a wrapper's ``launches`` (K7's any route, its second
+    pass; the routes of K2-K4 for the shapes their first kernels do not
+    take)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 def size_query(name: str, fn: str, device: torch.device, *ints: int) -> int:
     """Call a ``size_t f(int, ...)`` helper of library ``name`` with the
     CUDA ``device`` current (occupancy is a device's)."""

@@ -34,8 +34,11 @@ conv + bias and a second pass for LayerNorm, GELU and the head
 (``conv_epilogue_plain`` its plain twin). The any route's launches are
 counted where they are made, apart from the wrappers' own:
 ``ANY_LAUNCHES[wrapper]`` one a column chunk, ``EPILOGUE_LAUNCHES`` the
-second pass's. A width past ``MAX_WIDTH`` is refused by the kernel's
-tiling class, which names the kernel and the limit.
+second pass's. The any route's column chunks take any width; the one
+limit is a head's: its second pass stages a pixel's bf16 conv output in
+shared memory, so a head's input past ``HEAD_MAX_WIDTH`` channels is
+refused by the kernel's tiling class, which names the kernel and the
+limit.
 
 The plain versions repeat the TPU kernels' rounding points: inputs,
 weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
@@ -70,10 +73,9 @@ UP_HEAD_COLS = 16  # K10/K11's own kernels: head columns (per phase, K11), zero-
 K11_PHASES = 4  # the parity phases of K11's composite weights
 FINAL_CONV_ROWS = 32  # K8: the TPU kernel's default strip (H % rows == 0)
 SMEM_PER_BLOCK = cuda.SMEM_PER_BLOCK
-# the widest cout (K7; per phase, K11) and C (K8-K10) the card takes: the
-# any route's column chunks have no limit of their own, and chip_smoke.py
-# holds it against its plain version up to here
-MAX_WIDTH = 1024
+# the widest conv output a head's second pass takes (K10; K11 over its
+# phases): one pixel's bf16 row in a block's shared memory
+HEAD_MAX_WIDTH = SMEM_PER_BLOCK // 2
 SRC_MODES = {"tma": 0, "plain": 1, "upsample": 2}  # how K7's any route lands a source
 
 
@@ -159,14 +161,13 @@ class DecoderConvTiling:
     kernel: str = "decoder_conv"  # the wrapper it runs for, named in a refusal
 
     def __post_init__(self):
-        limit = MAX_WIDTH * (K11_PHASES if self.kernel == "composite_final_heads" else 1)
-        if (min(self.batch, self.h, self.w, self.cx) <= 0 or self.cs < 0
-                or not 0 < self.cout <= limit or (self.upsample and (self.cs or self.h % 2
-                                                                     or self.w % 2))):
+        if (min(self.batch, self.h, self.w, self.cx, self.cout) <= 0 or self.cs < 0
+                or (self.second_pass and self.cout > HEAD_MAX_WIDTH)
+                or (self.upsample and (self.cs or self.h % 2 or self.w % 2))):
             raise ValueError(
-                f"{self.kernel} kernel takes input channels >= 1 and 1 <= cout <= {limit} "
-                f"(MAX_WIDTH {MAX_WIDTH}), got cin {[self.cx, self.cs]}, cout {self.cout}, "
-                f"shape {self.batch}x{self.h}x{self.w}")
+                f"{self.kernel} kernel takes input channels >= 1, cout >= 1 and, with a head, "
+                f"cout <= {HEAD_MAX_WIDTH} (HEAD_MAX_WIDTH), got cin {[self.cx, self.cs]}, "
+                f"cout {self.cout}, shape {self.batch}x{self.h}x{self.w}")
 
     @property
     def route(self) -> str:
@@ -462,7 +463,7 @@ class StripTiling:
     def __post_init__(self):
         k11 = self.phases > 1
         _check_final("composite_final_heads" if k11 else "final_conv_gelu", self.cin, self.cout,
-                     self.n_out if k11 else None)
+                     self.n_out if k11 else None, self.phases)
 
     @property
     def route(self) -> str:
@@ -668,12 +669,15 @@ def _act(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(_BF).contiguous()
 
 
-def _check_final(name: str, cin: int, cout: int, n_out: int | None) -> None:
-    """K8-K11's widths: 1 <= cin, cout <= MAX_WIDTH (per phase, K11), and
-    with a head at least one column."""
-    if not (0 < cin <= MAX_WIDTH and 0 < cout <= MAX_WIDTH) or (n_out is not None and n_out <= 0):
-        raise ValueError(f"{name} kernel takes 1 <= cin, cout <= {MAX_WIDTH} (MAX_WIDTH) and "
-                         f"n_out >= 1, got cin {cin}, cout {cout}, n_out {n_out}")
+def _check_final(name: str, cin: int, cout: int, n_out: int | None, phases: int = 1) -> None:
+    """K8-K11's widths: cin, cout >= 1 (per phase, K11); with a head at
+    least one column and a conv output (over K11's phases) of at most
+    ``HEAD_MAX_WIDTH`` channels."""
+    head = n_out is not None
+    if min(cin, cout) <= 0 or (head and (n_out <= 0 or phases * cout > HEAD_MAX_WIDTH)):
+        raise ValueError(f"{name} kernel takes cin, cout >= 1 and, with a head, n_out >= 1 and "
+                         f"{phases} x cout <= {HEAD_MAX_WIDTH} (HEAD_MAX_WIDTH), got cin {cin}, "
+                         f"cout {cout}, n_out {n_out}")
 
 
 @functools.cache
@@ -702,19 +706,12 @@ def _padded(v: torch.Tensor | None, n: int) -> torch.Tensor | None:
     return out
 
 
-class LaunchCount:
-    """The launches of a kernel that no wrapper of its own launches, read
-    and reset as a wrapper's: K7's any route for each wrapper that runs it
-    (``ANY_LAUNCHES``, one a column chunk) and its second pass
-    (``EPILOGUE_LAUNCHES``)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-ANY_LAUNCHES = {n: LaunchCount() for n in ("decoder_conv", "final_conv_gelu", "upsample_final",
-                                           "final_heads", "composite_final_heads")}
-EPILOGUE_LAUNCHES = LaunchCount()
+# K7's any route for each wrapper that runs it (one a column chunk) and its
+# second pass
+ANY_LAUNCHES = {n: cuda.LaunchCount() for n in ("decoder_conv", "final_conv_gelu",
+                                                "upsample_final", "final_heads",
+                                                "composite_final_heads")}
+EPILOGUE_LAUNCHES = cuda.LaunchCount()
 
 
 def _epilogue(acc, c, out, exact_gelu, ln=(None, None), head=(None, None)) -> None:
@@ -727,7 +724,8 @@ def _epilogue(acc, c, out, exact_gelu, ln=(None, None), head=(None, None)) -> No
     if n_pix >= 2**31:
         raise ValueError(f"conv_epilogue takes fewer than 2^31 pixels, got {n_pix}")
     wh, bh = head
-    pix = 8 if wh is None else max(8, min(64, 96 * 1024 // (2 * c) // 8 * 8))
+    pix = 8 if wh is None else min(64, max(8, 96 * 1024 // (2 * c) // 8 * 8),
+                                    SMEM_PER_BLOCK // (2 * c))
     smem = 0 if wh is None else pix * c * 2
     grid = min(-(-n_pix // pix), 8 * cuda.sm_count(acc.device))
     cuda.launch("decoder_conv", "conv_epilogue_launch", cuda.ptr(acc), ld, n_pix, c,

@@ -5,9 +5,9 @@ Counterpart of the JAX package's ``ops/pallas/flood.py``
 launches ``csrc/flood.cu``; on a CPU tensor it runs
 ``marker_watershed_plain``. Both follow the Pallas kernel, which is what
 runs on the accelerator: per level and phase, 1 + ``max_rounds`` (= 65)
-synchronous steps at most. (The JAX package's XLA flood,
-``ops/watershed.py::marker_watershed``, runs 64; the two differ wherever
-that cap binds.)
+synchronous steps at most, at any number of levels >= 1. (The JAX
+package's XLA flood, ``ops/watershed.py::marker_watershed``, runs 64; the
+two differ wherever that cap binds.)
 
 A ``counts`` tensor (int64 (3,), on the input's device), when given, gets
 the synchronous steps of every tile added to ``counts[0]``, the largest
@@ -33,24 +33,42 @@ gpu_supported = cuda.gpu_supported
 
 @dataclass(frozen=True)
 class FloodTiling:
-    """Launch geometry of K3 (``csrc/flood.cu``) on (batch, h, w) tiles: one
-    block of ``threads`` per tile; the tile's state as ``planes`` 1-bit
-    planes of ``words`` 32-bit words, row-major, ``wpr`` words a row (bit b
-    of word j of a row is column 32 j + b; the bits past w of each row's
-    last word stay 0 in every plane). The planes live in shared
-    memory (``smem_bytes``) when they fit in a block's, else in a global
-    scratch of ``scratch_words`` words a tile (``smem_bytes`` 0). The kernel
-    checks what it is given against its own geometry."""
+    """Launch geometry of K3 (``csrc/flood.cu``) on (batch, h, w) tiles at
+    ``levels`` levels: one block of ``threads`` per tile; the tile's state
+    as ``planes`` 1-bit planes (``nq`` bit-slices of q, then mask, marker,
+    labelled, U and A x 2) of ``words`` 32-bit words, row-major, ``wpr``
+    words a row (bit b of word j of a row is column 32 j + b; the bits past
+    w of each row's last word stay 0 in every plane). ``nq`` is 6 up to 64
+    levels (the kernel's instantiation for them, the main path's), else
+    the bit length of ``levels - 1`` (its instantiation that takes the
+    slice count at run time, ``wide``). The planes live in shared memory
+    (``smem_bytes``) when they fit in a block's, else in a global scratch
+    of ``scratch_words`` words a tile (``smem_bytes`` 0). The kernel checks
+    what it is given against its own geometry."""
 
     threads: ClassVar[int] = 1024
-    planes: ClassVar[int] = 12  # q bit-slices 0-5, mask, marker, labelled, U, A x 2
 
     h: int
     w: int
+    levels: int = 64
 
     def __post_init__(self):
         if self.h <= 0 or self.w <= 0:
             raise ValueError(f"FloodTiling: empty tile {self.h}x{self.w}")
+        if not 1 <= self.levels < 2**31:
+            raise ValueError(f"FloodTiling: levels must be in 1..2^31 - 1, got {self.levels}")
+
+    @property
+    def wide(self) -> bool:
+        return self.levels > 64
+
+    @property
+    def nq(self) -> int:
+        return (self.levels - 1).bit_length() if self.wide else 6
+
+    @property
+    def planes(self) -> int:
+        return self.nq + 6
 
     @property
     def wpr(self) -> int:
@@ -153,13 +171,14 @@ def marker_watershed(
     dist: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
     levels: int = 64, max_rounds: int = 64, counts: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The flood: the CUDA kernel on CUDA tensors, the plain version on CPU
+    """The flood: the CUDA kernel on CUDA tensors (its instantiation for up
+    to 64 levels, counted in ``marker_watershed.launches``, or the one that
+    takes more, counted in ``WIDE_LAUNCHES``), the plain version on CPU
     tensors."""
     if not dist.is_cuda:
         return marker_watershed_plain(dist, markers, mask, levels, max_rounds, counts)
     b, h, w = dist.shape
-    if not 1 <= levels <= 64:
-        raise ValueError(f"marker_watershed kernel takes 1..64 levels, got {levels}")
+    geo = FloodTiling(h, w, levels)
     _check_counts(counts, dist.device)
     d = dist.float().contiguous()
     mk = markers.to(torch.int32).contiguous()
@@ -167,18 +186,21 @@ def marker_watershed(
     cuda.check(d, "dist", torch.float32, (b, h, w))
     cuda.check(mk, "markers", torch.int32, (b, h, w))
     cuda.check(m, "mask", torch.uint8, (b, h, w))
-    geo = FloodTiling(h, w)
     out = torch.empty((b, h, w), dtype=torch.int32, device=dist.device)
     scratch = (torch.empty(b * geo.scratch_words, dtype=torch.int32, device=dist.device)
                if geo.scratch_words else None)
     cuda.launch(
         "flood", "flood_launch",
         cuda.ptr(d), cuda.ptr(mk), cuda.ptr(m), cuda.ptr(out), cuda.ptr(scratch),
-        cuda.ptr(counts), b, h, w, levels, max_rounds, geo.threads, geo.wpr, geo.smem_bytes,
-        cuda.stream(d),
+        cuda.ptr(counts), b, h, w, levels, max_rounds, geo.threads, geo.wpr, geo.planes,
+        geo.smem_bytes, cuda.stream(d),
     )
-    marker_watershed.launches += 1
+    if geo.wide:
+        WIDE_LAUNCHES.launches += 1
+    else:
+        marker_watershed.launches += 1
     return out
 
 
 marker_watershed.launches = 0
+WIDE_LAUNCHES = cuda.LaunchCount()

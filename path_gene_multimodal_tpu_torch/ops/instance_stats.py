@@ -14,7 +14,11 @@ round to f32 once, so the kernel equals the plain version bit for bit.
 The kernel cuts each row into spans of 8 pixels, a lane each, sums runs of
 equal id (joined across the lanes of a warp), and splits each tile's rows
 over a thread-block cluster whose blocks merge their slot tables through
-distributed shared memory; ``InstanceStatsTiling`` is its geometry.
+distributed shared memory; ``InstanceStatsTiling`` is its geometry. It
+takes 2..9 types and tables that fit a block's shared memory; every other
+shape the TPU kernel takes (any slot count, any ``num_types >= 1``) runs
+the kernel's table route, whose slot table lives in device memory
+(``InstanceStatsTiling.route``; its launches are ``TABLE_LAUNCHES``'s).
 """
 
 from __future__ import annotations
@@ -87,26 +91,37 @@ CLUSTERS = (1, 2, 4, 8)  # portable thread-block cluster sizes
 @dataclass(frozen=True)
 class InstanceStatsTiling:
     """Launch geometry of K4 (``csrc/instance_stats.cu``) on (batch, h, w)
-    maps with ``slots`` slots and ``num_types`` types: each tile's rows cut
-    into bands of ``band`` rows, dealt in turn to the ``cluster`` blocks of
-    ``threads`` of a tile (block r takes bands r, r + cluster, ...), the
-    blocks of a tile one thread-block cluster; each block holds
-    a slot table in shared memory (32-bit sums where the tile is
-    ``narrow``, its lanes' slot-0 records beside it: ``smem_bytes`` in
-    all), and rank r owns slots [r, r + 1) * ``owner_chunk``
-    of the merged table. A lane takes a span of ``span`` pixels of a row
+    maps with ``slots`` slots and ``num_types`` types.
+
+    ``route`` "cluster" (2..9 types, a table that fits a block's shared
+    memory, sides under 2^27): each tile's rows cut into bands of ``band``
+    rows, dealt in turn to the ``cluster`` blocks of ``threads`` of a tile
+    (block r takes bands r, r + cluster, ...), the blocks of a tile one
+    thread-block cluster; each block holds a slot table in shared memory
+    (32-bit sums where the tile is ``narrow``, its lanes' slot-0 records
+    beside it: ``smem_bytes`` in all), and rank r owns slots [r, r + 1) *
+    ``owner_chunk`` of the merged table. A lane takes a span of ``span`` pixels of a row
     (``spans_per_row`` a row), whole spans by 16-byte loads where rows are
     16-byte aligned (``vector_rows``).
 
     ``cluster`` is the largest whose grid is one wave of at most
     ``resident_blocks`` blocks on each of the card's ``sms``
     multiprocessors (a tile alone gives too few blocks: 128 tiles on 132
-    SMs take clusters of 2), no larger than the tile has rows. The kernel
-    checks what it is given against its own geometry."""
+    SMs take clusters of 2), no larger than the tile has rows.
+
+    ``route`` "table" (every other shape): the slot table in device memory
+    (``table_bytes``), each thread a chunk of ``chunk`` pixels of a row,
+    ``table_blocks`` blocks of ``table_threads`` an image, ``table_grid``
+    blocks for the table's first and last pass.
+
+    The kernel checks what it is given against its own geometry; only an
+    empty input and a tile of 2^31 pixels or more are refused."""
 
     threads: ClassVar[int] = 512
     span: ClassVar[int] = 8
     band: ClassVar[int] = 8
+    chunk: ClassVar[int] = 16
+    table_threads: ClassVar[int] = 256
 
     batch: int
     h: int
@@ -116,17 +131,19 @@ class InstanceStatsTiling:
     sms: int = 132
 
     def __post_init__(self):
-        if not 2 <= self.num_types <= 9:
-            raise ValueError(f"instance_stats kernel takes 2..9 types, got {self.num_types}")
-        if min(self.batch, self.h, self.w, self.slots) <= 0:
+        if min(self.batch, self.h, self.w, self.slots, self.num_types) <= 0:
             raise ValueError(f"instance_stats: empty input {self.batch}x{self.h}x{self.w}, "
-                             f"{self.slots} slots")
-        if self.smem_bytes > cuda.SMEM_PER_BLOCK:
-            raise ValueError(f"instance_stats: {self.slots} slots need {self.smem_bytes} B of "
-                             "shared memory")
-        if self.h * self.w >= 2**31 or max(self.h, self.w) >= 2**27:
-            raise ValueError(f"instance_stats: a {self.h}x{self.w} tile has 2^31 pixels or more, "
-                             "or a side of 2^27")
+                             f"{self.slots} slots, {self.num_types} types")
+        if self.h * self.w >= 2**31:
+            raise ValueError(f"instance_stats: a {self.h}x{self.w} tile has 2^31 pixels or more")
+
+    @property
+    def route(self) -> str:
+        """"cluster": the cluster kernel (2..9 types, its table in a block's
+        shared memory, sides under 2^27); "table": the table route."""
+        fits = (2 <= self.num_types <= 9 and max(self.h, self.w) < 2**27
+                and self.smem_bytes <= cuda.SMEM_PER_BLOCK)
+        return "cluster" if fits else "table"
 
     @property
     def narrow(self) -> bool:
@@ -177,6 +194,30 @@ class InstanceStatsTiling:
         whole spans by vector loads, 64-bit sums, shared memory bytes."""
         return self.cluster, self.band, int(self.vector_rows), int(not self.narrow), self.smem_bytes
 
+    @property
+    def table_bytes(self) -> int:
+        """The table route's device table: [batch][5][slots] int64 sums,
+        then [batch][1 + (num_types - 1) + 4][slots] int32 (count, votes,
+        extrema)."""
+        return self.batch * self.slots * (5 * 8 + (4 + self.num_types) * 4)
+
+    @property
+    def table_blocks(self) -> int:
+        """Blocks an image of the table route's statistics pass: its chunks'
+        blocks, no more than one wave of 8 blocks an SM over the batch."""
+        chunks = self.h * -(-self.w // self.chunk)
+        return max(1, min(-(-chunks // self.table_threads), -(-8 * self.sms // self.batch)))
+
+    @property
+    def table_grid(self) -> int:
+        """Blocks of the table route's first and last pass (grid-stride)."""
+        return max(1, min(-(-self.batch * self.slots // self.table_threads), 8 * self.sms))
+
+    def table_args(self) -> tuple[int, int, int]:
+        """As ``instance_stats_table_launch`` takes them: whole chunks by
+        vector loads, blocks an image, grid of the table's passes."""
+        return int(self.vector_rows), self.table_blocks, self.table_grid
+
 
 def _row_moment(n: int) -> int:
     """sum_{x < n} (2x - n)^2: the sum of (2x - w)^2 over a whole row."""
@@ -202,12 +243,24 @@ def _launch(lbl, tp, sums, mins, geo: InstanceStatsTiling) -> None:
     )
 
 
+def _launch_table(lbl, tp, sums, mins, geo: InstanceStatsTiling) -> None:
+    table = torch.empty(-(-geo.table_bytes // 8), dtype=torch.int64, device=lbl.device)
+    cuda.launch(
+        "instance_stats", "instance_stats_table_launch",
+        cuda.ptr(lbl), cuda.ptr(tp), cuda.ptr(sums), cuda.ptr(mins), cuda.ptr(table), geo.batch,
+        geo.h, geo.w, geo.slots, geo.num_types, _c_sum(geo.num_types), *geo.table_args(),
+        cuda.stream(lbl),
+    )
+
+
 def instance_stats(
     inst_maps: torch.Tensor, type_maps: torch.Tensor, max_instances: int = 512,
     num_types: int = 6,
 ):
     """(B, H, W) dense labels + types → (sums, mins): the CUDA kernel on
-    CUDA tensors (one launch), the plain version on CPU tensors."""
+    CUDA tensors (one launch of its cluster route, counted in
+    ``instance_stats.launches``, or of its table route, counted in
+    ``TABLE_LAUNCHES``), the plain version on CPU tensors."""
     if not inst_maps.is_cuda:
         return instance_stats_plain(inst_maps, type_maps, max_instances, num_types)
     b, h, w = inst_maps.shape
@@ -219,12 +272,17 @@ def instance_stats(
     sums = torch.empty((b, max_instances, _c_sum(num_types)), dtype=torch.float32,
                        device=lbl.device)
     mins = torch.empty((b, 4, max_instances), dtype=torch.float32, device=lbl.device)
-    _launch(lbl, tp, sums, mins, geo)
-    instance_stats.launches += 1
+    if geo.route == "cluster":
+        _launch(lbl, tp, sums, mins, geo)
+        instance_stats.launches += 1
+    else:
+        _launch_table(lbl, tp, sums, mins, geo)
+        TABLE_LAUNCHES.launches += 1
     return sums, mins
 
 
 instance_stats.launches = 0
+TABLE_LAUNCHES = cuda.LaunchCount()
 
 
 def features_from_stats(

@@ -247,12 +247,20 @@ def test_cc_sizes_tiling(h, w, s_slots, ls, per, seg_len, segs, smem):
 @pytest.mark.parametrize("h, w, s_slots, msg", [
     (4096, 4096, 512, "tiles of < 16777216 pixels .*, got 4096x4096"),
     (1, 2**24, 512, "tiles of < 16777216 pixels .*, got 1x16777216"),
-    (256, 256, 0, "1..65534 slots, got 0"),
-    (256, 256, 65535, "1..65534 slots, got 65535"),
-    (256, 256, 20_000, "needs 281792 B of shared memory, more than 232448"),
+    (256, 256, 0, "s_slots >= 1, got 0"),
+    (256, 256, 65535, None),
+    (256, 256, 20_000, None),
     (0, 8, 64, "empty tile 0x8"),
 ])
 def test_cc_sizes_tiling_refusals(h, w, s_slots, msg):
+    """Only an empty tile, a tile of 2^24 pixels and no slot are refused:
+    65,535 and 20,000 slots, whose tables pass shared memory beside a
+    256^2 tile's labels, keep them in device memory."""
+    if msg is None:
+        geo = tcc.CcSizesTiling(h, w, s_slots)
+        assert geo.shared and geo.dev_tables and geo.table_words == 2 * s_slots
+        assert geo.smem_bytes == tcc.CcSizesTiling(h, w, 1).smem_bytes - 4 - 16
+        return
     with pytest.raises(ValueError, match=msg):
         tcc.CcSizesTiling(h, w, s_slots)
 
@@ -307,16 +315,16 @@ def _hdil(l, m, r):
 
 
 def _flood_replay(dist, markers, mask, levels=64, max_rounds=64):
-    """csrc/flood.cu's design on one tile in numpy: the bit planes, the
-    word-level dilation with bits carried across words, the phase starts,
+    """csrc/flood.cu's design on one tile in numpy: the bit planes (q in
+    ``FloodTiling.nq`` bit-slices at ``levels``), the word-level dilation with bits carried across words, the phase starts,
     the A double buffer and U, the step and cap counting; labels resolved
     only where cand is set. Asserts that the bits past W stay 0."""
     h, w = dist.shape
-    geo = FloodTiling(h, w)
+    geo = FloodTiling(h, w, levels)
     wpr = geo.wpr
     q = quantize(T(dist[None]), levels)[0].numpy()
     valid = _pack(np.ones((h, w), bool), wpr)
-    qb = [_pack((q >> b) & 1 == 1, wpr) for b in range(6)]
+    qb = [_pack((q >> b) & 1 == 1, wpr) for b in range(geo.nq)]
     msk, mk = _pack(mask, wpr), _pack(markers < INF, wpr)
     lbl = np.where(markers < INF, markers, INF).astype(np.int64)
     lab = mk.copy()
@@ -325,7 +333,7 @@ def _flood_replay(dist, markers, mask, levels=64, max_rounds=64):
     for level in range(levels - 1, -1, -1):
         ge = np.full_like(lab, 0xFFFFFFFF)
         eq = np.full_like(lab, 0xFFFFFFFF)
-        for b in range(6):
+        for b in range(geo.nq):
             one = (level >> b) & 1
             ge = (qb[b] & ge) if one else (qb[b] | ge)
             eq &= qb[b] if one else ~qb[b]

@@ -308,7 +308,8 @@ def test_tiling():
     background, 256 slots a rank; the cluster
     never exceeds the rows; tiles whose sums could pass 2^31 get 64-bit
     sums and one block an SM (128 tiles of 300^2: clusters of 1, one
-    wave); types, tables and tiles it cannot take are refused."""
+    wave); the types, tables and sides it cannot take go to the table
+    route."""
     geo = InstanceStatsTiling(128, 224, 224, 512, 6, 132)
     assert (geo.cluster, geo.spans_per_row, geo.vector_rows) == (2, 28, True)
     assert rows_of(geo, 1)[:10] == [8, 9, 10, 11, 12, 13, 14, 15, 24, 25]
@@ -331,10 +332,14 @@ def test_tiling():
         assert InstanceStatsTiling(1, h, w).narrow == (worst < 2**31 and h * w * w < 2**31
                                                        and w * h * h < 2**31
                                                        and w * int(((2 * np.arange(h) - h) ** 2).sum()) < 2**31)
+    assert geo.route == "cluster" and wide.route == "cluster"
+    # types, tables and sides the cluster kernel cannot take go to the table route
     for nt in (1, 10):
-        with pytest.raises(ValueError, match="2..9 types"):
-            InstanceStatsTiling(1, 8, 8, 16, nt)
-    with pytest.raises(ValueError, match="shared memory"):
-        InstanceStatsTiling(1, 8, 8, 4096, 9)
-    with pytest.raises(ValueError, match="2\\^27"):
-        InstanceStatsTiling(1, 1, 2**27)
+        assert InstanceStatsTiling(1, 8, 8, 16, nt).route == "table"
+    assert InstanceStatsTiling(1, 8, 8, 4096, 9).route == "table"
+    assert InstanceStatsTiling(1, 1, 2**27).route == "table"
+    # only an empty input and a tile of 2^31 pixels are refused
+    with pytest.raises(ValueError, match="empty input"):
+        InstanceStatsTiling(1, 8, 8, 16, 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        InstanceStatsTiling(1, 2, 2**30)

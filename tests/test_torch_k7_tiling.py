@@ -119,10 +119,15 @@ def test_shared_memory_fits_a_block(cout):
 
 @pytest.mark.parametrize("bad", [(64, 0, 1025), (48, -1, 64), (64, 40, 0), (0, 0, 64)])
 def test_geometry_refuses_what_the_kernel_does_not_take(bad):
-    """What no route takes: no input or output channel, a negative skip,
-    cout past MAX_WIDTH (the message names the kernel and the limit)."""
+    """What no route takes: no input or output channel, a negative skip
+    (the message names the kernel). A cout past 1024, refused until the
+    any route took every width, runs there in 384-column chunks."""
     cx, cs, cout = bad
-    with pytest.raises(ValueError, match="decoder_conv kernel takes.*1024"):
+    if cout > 1024:
+        geo = DecoderConvTiling(1, 16, 16, cx, cs, cout)
+        assert (geo.route, geo.n_tile, geo.n_chunks, geo.raw) == ("any", 384, 3, True)
+        return
+    with pytest.raises(ValueError, match="decoder_conv kernel takes.*cout >= 1"):
         DecoderConvTiling(1, 16, 16, cx, cs, cout)
 
 

@@ -12,8 +12,10 @@ and the f32 path's cuDNN precision, on the CPU.
   within a block's shared memory, on the route the shape needs; the plain
   versions equal the Pallas kernels in interpret mode at the shapes the
   card's own kernels do not take (their any route's), within
-  ``test_torch_decoder.py``'s bar; a width past ``MAX_WIDTH`` is refused by
-  the kernel's tiling class, which names the kernel and the limit.
+  ``test_torch_decoder.py``'s bar; a width past 1024 runs on the any
+  route, and only a head's input past ``HEAD_MAX_WIDTH`` channels is
+  refused by the kernel's tiling class, which names the kernel and the
+  limit.
 - TF32: an f32 ``HoverNeXt`` forward runs its convs with
   ``torch.backends.cudnn.allow_tf32`` off, and restores it after.
 """
@@ -162,14 +164,26 @@ def test_final_tilings_take_the_widths_the_pallas_kernels_take(width):
 @pytest.mark.parametrize("kernel", ["decoder_conv", "final_conv_gelu", "upsample_final",
                                     "final_heads", "composite_final_heads"])
 def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
-    over = tdec.MAX_WIDTH + 1
-    make = {"decoder_conv": lambda: tdec.DecoderConvTiling(1, 8, 8, 64, 0, over),
-            "final_conv_gelu": lambda: tdec.StripTiling(1, 32, 8, cin=over, cout=over),
-            "upsample_final": lambda: tdec.UpsampleTiling(1, 4, 4, cin=64, cout=over),
-            "final_heads": lambda: tdec.UpsampleTiling(1, 4, 4, head=True, n_out=0),
-            "composite_final_heads": lambda: tdec.StripTiling(1, 4, 4, phases=4, cout=over)}
-    with pytest.raises(ValueError, match=f"{kernel} kernel takes.*{tdec.MAX_WIDTH}"):
-        make[kernel]()
+    """A width past 1024 (the limit until the any route took every width)
+    runs on the any route; what is still refused names the kernel and its
+    limit: a head's input past HEAD_MAX_WIDTH channels (its second pass
+    stages a pixel's bf16 row in shared memory), no output channel
+    elsewhere."""
+    past = 1025
+    make = {"decoder_conv": lambda c: tdec.DecoderConvTiling(1, 8, 8, 64, 0, c),
+            "final_conv_gelu": lambda c: tdec.StripTiling(1, 32, 8, cin=c, cout=c),
+            "upsample_final": lambda c: tdec.UpsampleTiling(1, 4, 4, cin=64, cout=c),
+            "final_heads": lambda c: tdec.UpsampleTiling(1, 4, 4, head=True, cout=c),
+            "composite_final_heads": lambda c: tdec.StripTiling(1, 4, 4, phases=4, cout=c)}
+    geo = make[kernel](past)
+    assert geo.route == "any"
+    any_geo = geo if kernel == "decoder_conv" else geo.any_geo
+    assert any_geo.n_chunks == -(-any_geo.cout // 384) and any_geo.raw
+    over = {"final_heads": tdec.HEAD_MAX_WIDTH + 1,
+            "composite_final_heads": tdec.HEAD_MAX_WIDTH // 4 + 1}.get(kernel, 0)
+    limit = "HEAD_MAX_WIDTH" if over else "cout >= 1"
+    with pytest.raises(ValueError, match=f"{kernel} kernel takes.*{limit}"):
+        make[kernel](over)
 
 
 def _n(rng, shape, scale=1.0, loc=0.0):
