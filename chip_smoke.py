@@ -281,8 +281,19 @@
    rings and overlay bytes equal) and the tessellation on the CPU (coords
    equal); a second run returns ``already_done``; without the done flag,
    GeoJSON and overlays a third takes steps 1-2 from the resume manifest;
-   ``python -m path_gene_multimodal_tpu_torch.cli.main --wsi TIFF
-   --outroot D`` in a child process exits 0. Then steps 3-8 once more
+   the CLI as a user runs it (``_cli_weights``): the same seeded CLIP
+   towers saved with ``torch.save`` (vision + text in OpenAI names),
+   through ``cli.convert_weights.convert`` in this process with its npz
+   members stored, not deflated (46-51 s of one zlib thread in a child;
+   the CPU tests, ``tests/test_torch_convert_weights.py``, hold the
+   compressed artifact's bytes), the artifact read back by
+   ``load_converted`` and mapped through the ``*_from_jax`` functions
+   equal to the checkpoint exactly (seconds and MB), then ``python -m
+   path_gene_multimodal_tpu_torch.cli.main --wsi TIFF --outroot D
+   --weights clip.npz`` in a child process, exit 0 and its features H5
+   equal bit for bit to ``run_extract_features`` in this process with the
+   same weights over the CLI's tessellation (the CLI's seeded default is
+   the ``dp`` phase's in-process ``cli.main`` run). Then steps 3-8 once more
    with more than one class (``run_steps_3_to_7`` + ``run_overlays``, the
    counts set to 0 just before and read just after): the class
    embeddings are the features of 5 tiles drawn from the first seed from
@@ -390,11 +401,8 @@
    kernel row gets ``launches_by_path["cohort"]``. The seeded HoverNeXt
    finds no nuclei, so K2-K4 see empty masks there: the main path's fitted
    model then runs the nuclei step over the walkthrough's TME tiles under
-   the same checks, and must find nuclei (the CLIP conversion through
-   ``cli.convert_weights`` in a child, 46-51 s of one zlib thread, and
-   ``cli.main --weights`` on its artifact are left to the CPU tests,
-   ``tests/test_torch_convert_weights.py`` and ``test_torch_runner.py``,
-   to keep the script within its time); (c) ``cli.graph_build`` on
+   the same checks, and must find nuclei (the CLIP conversion and
+   ``cli.main --weights`` run in section 9); (c) ``cli.graph_build`` on
    the main path's nuclei table (nodes and edges equal to
    ``build_cell_graph`` here), ``cli.cohort_summary`` over an OUTROOT
    holding the walkthrough's and the runner phase's slide directories (one
@@ -4299,6 +4307,101 @@ def _replay_bad(replay: dict) -> list[str]:
             or (isinstance(v, dict) and (not v["other_columns_equal"] or v["float_excess"] > 1))]
 
 
+def _cli_weights(tif: Path, tmp: Path, failures) -> dict:
+    """Section 9's CLI run: the seeded full-width CLIP towers →
+    ``cli.convert_weights.convert`` here, its npz members stored →
+    ``load_converted`` → the ``*_from_jax`` maps, equal to the checkpoint;
+    ``cli.main --weights`` in a child process against the same weights
+    here. The other kinds' round trips, and the compressed artifact's
+    bytes, run in the CPU tests (``tests/test_torch_convert_weights.py``)."""
+    from unittest import mock
+
+    from path_gene_multimodal_tpu_torch.cli import convert_weights
+    from path_gene_multimodal_tpu_torch.config import default_config
+    from path_gene_multimodal_tpu_torch.core.artifacts import (
+        read_features_h5, read_tessellation_h5,
+    )
+    from path_gene_multimodal_tpu_torch.core.checkpoints import load_converted, text_sidecar_path
+    from path_gene_multimodal_tpu_torch.io.tiff import TiffTileSlide
+    from path_gene_multimodal_tpu_torch.models import clip as mclip
+    from path_gene_multimodal_tpu_torch.models.tokenizer import FallbackTokenizer
+    from path_gene_multimodal_tpu_torch.models.weights_clip import (
+        text_state_dict_from_jax, vision_state_dict_from_jax,
+    )
+    from path_gene_multimodal_tpu_torch.pipeline.embed import run_extract_features
+    from path_gene_multimodal_tpu_torch.pipeline.runner import PipelineModels
+
+    d = tmp / "runner_cli"
+    d.mkdir(parents=True, exist_ok=True)
+    # the towers PipelineModels.build seeds (0 and 1): the runner's own, whose
+    # TME ROI is not empty
+    vis, txt = mclip.VisionTower(mclip.CLIP_VIT_B16), mclip.TextTower(mclip.CLIP_TEXT)
+    mclip.init_weights(vis, torch.Generator().manual_seed(0))
+    mclip.init_weights(txt, torch.Generator().manual_seed(1))
+    ck = {**vis.state_dict(), **txt.state_dict()}
+    del vis, txt
+    src, out = d / "clip.pt", d / "clip.npz"
+    torch.save(ck, src)
+    t0 = time.perf_counter()
+    # the converter as the CLI calls it, its npz members stored rather than
+    # deflated (load_converted reads both)
+    with mock.patch.object(np, "savez_compressed", np.savez):
+        written = convert_weights.convert("clip", src, out)
+    rec = {"written": [p.name for p in written], "convert_s": time.perf_counter() - t0,
+           "params": int(sum(t.numel() for t in ck.values())),
+           "checkpoint_mb": src.stat().st_size / 2 ** 20,
+           "artifact_mb": sum(p.stat().st_size for p in (out, text_sidecar_path(out))
+                              if p.exists()) / 2 ** 20}
+    res: dict = {"clip": rec}
+    if [p.name for p in written] != [out.name, text_sidecar_path(out).name]:
+        failures.append(f"runner: convert_weights clip wrote {rec['written']}")
+        return res
+    t0 = time.perf_counter()
+    got_kind, cfg, params = load_converted(out)
+    _, tcfg, tparams = load_converted(text_sidecar_path(out))
+    back = {**vision_state_dict_from_jax(params, cfg), **text_state_dict_from_jax(tparams, tcfg)}
+    rec.update(read_back_s=time.perf_counter() - t0, kind_read=got_kind,
+               config_equal=(cfg, tcfg) == (mclip.CLIP_VIT_B16, mclip.CLIP_TEXT),
+               equal_checkpoint=bool(set(back) == set(ck) and all(
+                   torch.equal(back[k], ck[k].to(back[k].dtype)) for k in ck)))
+    if got_kind != "clip" or not rec["equal_checkpoint"] or not rec["config_equal"]:
+        failures.append(f"runner: the clip artifact read back as kind {got_kind}, config equal "
+                        f"{rec['config_equal']}, state dict equal to the checkpoint "
+                        f"{rec['equal_checkpoint']}")
+    src.unlink()
+    del back, params, tparams
+
+    # the CLI on the card with the converted CLIP artifact, against the same weights here
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.main", "--wsi", str(tif),
+         "--outroot", str(d / "cli_out"), "--weights", str(out), "--no-locks"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    res["cli_main"] = {"rc": proc.returncode, "s": time.perf_counter() - t0}
+    if proc.returncode != 0:
+        failures.append(f"runner: cli.main --weights exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+        return res
+    slide_dir = d / "cli_out" / tif.stem
+    coords = read_tessellation_h5(slide_dir / f"{tif.stem}.h5")["coords"]
+    got = read_features_h5(slide_dir / f"{tif.stem}_features.h5")["features"]
+    cfg = default_config()
+    vis_sd = {k: v for k, v in ck.items() if k.startswith("visual.")}
+    t0 = time.perf_counter()
+    models = PipelineModels.build(cfg, vision_state_dict=vis_sd, tokenizer=FallbackTokenizer(),
+                                  device="cuda")
+    direct = run_extract_features(TiffTileSlide(tif), coords, models.image_encoder, d, "unused",
+                                  cfg, write_artifacts=False)
+    res["cli_main"].update(tiles=len(coords), direct_s=time.perf_counter() - t0,
+                           features_equal_direct=bool(got.dtype == direct.dtype
+                                                      and np.array_equal(got, direct)))
+    if not res["cli_main"]["features_equal_direct"]:
+        failures.append("runner: cli.main --weights features differ from run_extract_features "
+                        "with the same weights")
+    del models, ck
+    return res
+
+
 def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     """Section 9: the 8-step runner (``pipeline/runner.py::run_one_wsi``) on
     the smoke TIFF with CLIP ViT-B/16 bf16 and the CLIP text tower at full
@@ -4313,9 +4416,10 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
     embeddings (the CSVs, TME flags, rings and overlays equal) and the
     tessellation on the CPU (coords equal); a second run skips
     (``already_done``); without the done flag, GeoJSON and overlays a third
-    run takes steps 1-2 from the resume manifest; ``cli.main`` in a child
-    process exits 0. Then steps 3-8 once more from the same features with
-    more than one class (``run_steps_3_to_7`` + ``run_overlays``, the
+    run takes steps 1-2 from the resume manifest; ``cli.main --weights``
+    in a child process on the converted towers (``_cli_weights``). Then
+    steps 3-8 once more from the same features with more than one class
+    (``run_steps_3_to_7`` + ``run_overlays``, the
     counts set to 0 just before and read just after): the class embeddings
     are the features of ``len(classes)`` tiles drawn by ``_class_tiles``,
     the TME class the first; every class must win a tile, the TME ROI must
@@ -4556,15 +4660,13 @@ def _runner(slide, tif: Path, wrappers, failures, tmp: Path) -> dict:
             res["resume"]["tessellation"] and res["resume"]["extract_features"]):
         failures.append(f"runner: rerun {again.status}, resume {res['resume']}")
 
-    # the CLI in a child process, as a user runs it
+    # the CLI in a child process, as a user runs it, on the CLIP artifact
+    # that cli.convert_weights makes of this phase's seeded towers
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "path_gene_multimodal_tpu_torch.cli.main", "--wsi", str(tif),
-         "--outroot", str(tmp / "runner_cli")], cwd=ROOT, capture_output=True, text=True,
-        timeout=600)
-    res.update(cli_rc=proc.returncode, cli_s=time.perf_counter() - t0)
-    if proc.returncode != 0:
-        failures.append(f"runner: cli.main exited {proc.returncode}: {proc.stderr[-2000:]}")
+    res["weights"] = _cli_weights(tif, tmp, failures)
+    res["weights_s"] = time.perf_counter() - t0
+    cli = res["weights"].get("cli_main", {})
+    res.update(cli_rc=cli.get("rc"), cli_s=cli.get("s"))
     return res
 
 
@@ -5492,7 +5594,7 @@ def _runner_line(res: dict) -> dict:
         "k5_calls", "k5_launches", "k5_drivers", "k5_ms", "k5_plain_ms", "k5_label_diffs",
         "h5_write_ms", "h5_read_ms", "h5_bytes", "h5_equal", "done_flag_keys_equal_jax",
         "replay", "class_embeddings_cpu_excess", "multiclass", "rerun_status", "resume",
-        "resume_run_s", "cli_rc", "cli_s", "smi")}
+        "resume_run_s", "cli_rc", "cli_s", "weights", "weights_s", "smi")}
 
 
 # the dp phase: the shards of its mesh on the one card, the training steps

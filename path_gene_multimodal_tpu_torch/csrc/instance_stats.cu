@@ -58,7 +58,9 @@
 // - The cluster kernel takes 2..9 types, tables that fit a block's shared
 //   memory and sides under 2^27. Every other shape the TPU kernel takes
 //   (any slot count, any num_types >= 1) goes to the table route (further
-//   down): the same sums, kept in device memory.
+//   down): the same sums, kept in device memory. Both refuse a tile whose
+//   64-bit moment sums could reach 2^63 (moments_fit; no side of 2^27
+//   passes it).
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -533,7 +535,7 @@ cudaError_t launch(const Params& p, int b, int k, int smem, cudaStream_t st) {
 // ------------------------------------------------------------ table route
 //
 // Every shape the cluster kernel does not take (a table past a block's
-// shared memory, num_types outside 2..9, a side of 2^27 or more): the slot
+// shared memory, num_types outside 2..9): the slot
 // table in device memory, [B][5][S] int64 sums (sum x, sum y, the three
 // moments) and [B][1 + nv + 4][S] int32 (the count, the votes of types
 // 1..nv, xmin, ymin, xmax, ymax), filled by global atomics. A thread takes
@@ -578,7 +580,8 @@ __global__ void __launch_bounds__(kTabThreads) table_init_kernel(const TabParams
 }
 
 // The closed-form sums of a run of slot id >= 1, pixels x0..x1 of row y,
-// into the table (64-bit throughout: a side may pass 2^27).
+// into the table (64-bit throughout; a run lies within one chunk, so its
+// terms stay far below the 2^63 that moments_fit bounds the sums by).
 __device__ __forceinline__ void table_run(const TabParams& p, long long* ts, int* t32, int id,
                                           int x0, int x1, int y) {
     const long long S = p.S, n = x1 - x0 + 1, a = 2LL * x0 - p.w, dy = 2LL * y - p.h;
@@ -750,6 +753,16 @@ bool narrow(int h, int w) {
     return mx < lim && my < lim;  // and so sqrt(mx my) < 2^31
 }
 
+// Whether a slot's 64-bit moment sums stay under 2^63: h (w^3 + 2w) / 3, h
+// times a row's sum of (2x - w)^2, bounds a slot's, w (h^3 + 2h) / 3 its
+// sum of (2y - h)^2, and Cauchy-Schwarz its cross moment (as
+// ops/instance_stats.py::_check_moments).
+bool moments_fit(int h, int w) {
+    using u128 = unsigned __int128;
+    const u128 hh = h, ww = w, lim = static_cast<u128>(1) << 63;
+    return hh * (ww * ww * ww + 2 * ww) / 3 < lim && ww * (hh * hh * hh + 2 * hh) / 3 < lim;
+}
+
 // Shared memory of one block: its slot table (five sums of 4 or 8 bytes,
 // the count, the votes of types 1..num_types-1 and four extrema a slot)
 // and, with 32-bit sums, each lane's slot-0 record.
@@ -775,7 +788,7 @@ PGM_EXPORT int instance_stats_launch(const void* lbl, const void* tp, void* sums
     if (b <= 0 || h <= 0 || w <= 0 || s_slots <= 0 || num_types < 2 || num_types > 9 ||
         c_sum != ((kFixed + nv + 7) / 8) * 8 || !valid_cluster(k) || band != kBand ||
         vec != (w % 4 == 0) || static_cast<long long>(h) * w >= (1LL << 31) ||
-        max(h, w) >= (1 << 27) || static_cast<long long>(b) * k > 0x7fffffffLL ||
+        max(h, w) >= (1 << 27) || !moments_fit(h, w) || static_cast<long long>(b) * k > 0x7fffffffLL ||
         wide != !narrow(h, w) || static_cast<size_t>(smem) != smem_bytes(s_slots, num_types, wide))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p;
@@ -814,7 +827,7 @@ PGM_EXPORT int instance_stats_table_launch(const void* lbl, const void* tp, void
     const int nv = num_types - 1;
     if (b <= 0 || h <= 0 || w <= 0 || s_slots <= 0 || num_types < 1 || table == nullptr ||
         c_sum != ((kFixed + nv + 7) / 8) * 8 || vec != (w % 4 == 0) ||
-        static_cast<long long>(h) * w >= (1LL << 31) || bpi <= 0 ||
+        static_cast<long long>(h) * w >= (1LL << 31) || !moments_fit(h, w) || bpi <= 0 ||
         static_cast<long long>(b) * bpi > 0x7fffffffLL || grid <= 0 ||
         reinterpret_cast<uintptr_t>(table) % 8)
         return static_cast<int>(cudaErrorInvalidValue);

@@ -50,6 +50,7 @@ def instance_stats_plain(
 ):
     """Exact integer segment sums (int64), converted to f32 once."""
     b, h, w = inst_maps.shape
+    _check_moments(h, w)
     s = max_instances
     dev = inst_maps.device
     lbl = inst_maps.reshape(b, h * w).long()
@@ -94,7 +95,7 @@ class InstanceStatsTiling:
     maps with ``slots`` slots and ``num_types`` types.
 
     ``route`` "cluster" (2..9 types, a table that fits a block's shared
-    memory, sides under 2^27): each tile's rows cut into bands of ``band``
+    memory): each tile's rows cut into bands of ``band``
     rows, dealt in turn to the ``cluster`` blocks of ``threads`` of a tile
     (block r takes bands r, r + cluster, ...), the blocks of a tile one
     thread-block cluster; each block holds a slot table in shared memory
@@ -115,7 +116,8 @@ class InstanceStatsTiling:
     blocks for the table's first and last pass.
 
     The kernel checks what it is given against its own geometry; only an
-    empty input and a tile of 2^31 pixels or more are refused."""
+    empty input, a tile of 2^31 pixels or more and a tile whose moments
+    pass 64 bits (``_check_moments``) are refused."""
 
     threads: ClassVar[int] = 512
     span: ClassVar[int] = 8
@@ -136,16 +138,17 @@ class InstanceStatsTiling:
                              f"{self.slots} slots, {self.num_types} types")
         if self.h * self.w >= 2**31:
             raise ValueError(f"instance_stats: a {self.h}x{self.w} tile has 2^31 pixels or more")
+        _check_moments(self.h, self.w)
 
-    @property
+    @functools.cached_property
     def route(self) -> str:
         """"cluster": the cluster kernel (2..9 types, its table in a block's
-        shared memory, sides under 2^27); "table": the table route."""
-        fits = (2 <= self.num_types <= 9 and max(self.h, self.w) < 2**27
-                and self.smem_bytes <= cuda.SMEM_PER_BLOCK)
+        shared memory; its sides under 2^27 hold for every tile
+        ``_check_moments`` passes); "table": the table route."""
+        fits = 2 <= self.num_types <= 9 and self.smem_bytes <= cuda.SMEM_PER_BLOCK
         return "cluster" if fits else "table"
 
-    @property
+    @functools.cached_property
     def narrow(self) -> bool:
         """Whether every sum of a slot stays under 2^31, so that the table's
         sums are 32-bit (native shared-memory atomics; 64-bit adds run as
@@ -157,13 +160,13 @@ class InstanceStatsTiling:
             return False
         return h * _row_moment(w) < lim and w * _row_moment(h) < lim
 
-    @property
+    @functools.cached_property
     def resident_blocks(self) -> int:
         """Blocks an SM holds at once: 2 with 32-bit sums (the kernel's
         launch bounds cap it at 64 registers), 1 with 64-bit ones (112)."""
         return 2 if self.narrow else 1
 
-    @property
+    @functools.cached_property
     def smem_bytes(self) -> int:
         """The slot table (five sums of 4 or 8 bytes, the count, the votes and
         four extrema a slot) and, with 32-bit sums, each lane's slot-0
@@ -222,6 +225,16 @@ class InstanceStatsTiling:
 def _row_moment(n: int) -> int:
     """sum_{x < n} (2x - n)^2: the sum of (2x - w)^2 over a whole row."""
     return 4 * ((n - 1) * n * (2 * n - 1) // 6) - 2 * n * n * (n - 1) + n**3
+
+
+def _check_moments(h: int, w: int) -> None:
+    """Refuse a tile whose moments pass the kernel's 64-bit sums: h times a
+    row's sum of (2x - w)^2 bounds a slot's, w times a column's its sum of
+    (2y - h)^2, and by Cauchy-Schwarz its cross moment. Square tiles pass
+    up to 2^31 pixels; a single row up to about 3 million pixels."""
+    if h * _row_moment(w) >= 2**63 or w * _row_moment(h) >= 2**63:
+        raise ValueError(f"instance_stats: a {h}x{w} tile's moments reach 2^63 (h * sum (2x - w)^2 "
+                         f"or w * sum (2y - h)^2), past the kernel's 64-bit sums")
 
 
 @functools.cache

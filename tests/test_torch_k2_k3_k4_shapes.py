@@ -246,6 +246,36 @@ def test_k4_tiling_routes():
     assert small.table_args() == (0, 1, 16) and small.table_bytes == 4096 * (40 + 20 * 4)
 
 
+def _row_moment_sum(n):
+    """sum_{x < n} (2x - n)^2 as exact Python integers."""
+    return sum((2 * x - n) ** 2 for x in range(n)) if n < 4096 else (n**3 + 2 * n) // 3
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 3), (46340, 46340), (1, 3_024_616),
+                                   (1, 3_024_617), (3_024_617, 1), (2, 2_400_639),
+                                   (2, 2_400_640)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k4_refuses_only_tiles_whose_moments_pass_64_bits(shape):
+    """Both routes sum a slot's moments in 64 bits, and so does the plain
+    version: a tile is refused, by the tiling class and by the plain
+    version alike, exactly where h * sum (2x - w)^2 or w * sum (2y - h)^2
+    (a slot covering the whole tile) reaches 2^63. Square tiles pass up
+    to 2^31 pixels; a single row up to 3,024,616 pixels."""
+    h, w = shape
+    assert _row_moment_sum(7) == (7**3 + 14) // 3
+    over = h * _row_moment_sum(w) >= 2**63 or w * _row_moment_sum(h) >= 2**63
+    maps = torch.zeros((1, 1, 1), dtype=torch.int32).expand(1, h, w)
+    if over:
+        with pytest.raises(ValueError, match="instance_stats: .*2\\^63"):
+            InstanceStatsTiling(1, h, w)
+        with pytest.raises(ValueError, match="instance_stats: .*2\\^63"):
+            instance_stats_plain(maps, maps, 4)
+    else:
+        geo = InstanceStatsTiling(1, h, w, 4096)
+        assert geo.route == "table" and InstanceStatsTiling(1, h, w).route == "cluster"
+    assert over == (shape in ((1, 3_024_617), (3_024_617, 1), (2, 2_400_640)))
+
+
 def _table_replay(li, ti, slots, num_types, mutant=None):
     """K4's table route on numpy maps: a thread's chunk of 16 pixels of a
     row cut into runs of one id, each run's closed-form sums added once

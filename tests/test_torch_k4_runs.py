@@ -308,8 +308,8 @@ def test_tiling():
     background, 256 slots a rank; the cluster
     never exceeds the rows; tiles whose sums could pass 2^31 get 64-bit
     sums and one block an SM (128 tiles of 300^2: clusters of 1, one
-    wave); the types, tables and sides it cannot take go to the table
-    route."""
+    wave); the types and tables it cannot take go to the table route;
+    a tile whose moments could pass the 64-bit sums is refused."""
     geo = InstanceStatsTiling(128, 224, 224, 512, 6, 132)
     assert (geo.cluster, geo.spans_per_row, geo.vector_rows) == (2, 28, True)
     assert rows_of(geo, 1)[:10] == [8, 9, 10, 11, 12, 13, 14, 15, 24, 25]
@@ -333,13 +333,15 @@ def test_tiling():
                                                        and w * h * h < 2**31
                                                        and w * int(((2 * np.arange(h) - h) ** 2).sum()) < 2**31)
     assert geo.route == "cluster" and wide.route == "cluster"
-    # types, tables and sides the cluster kernel cannot take go to the table route
+    # types and tables the cluster kernel cannot take go to the table route
     for nt in (1, 10):
         assert InstanceStatsTiling(1, 8, 8, 16, nt).route == "table"
     assert InstanceStatsTiling(1, 8, 8, 4096, 9).route == "table"
-    assert InstanceStatsTiling(1, 1, 2**27).route == "table"
-    # only an empty input and a tile of 2^31 pixels are refused
+    # refused: an empty input, a tile of 2^31 pixels, and a tile whose
+    # moments reach 2^63 (a row of 2^27 px; its sums would wrap in 64 bits)
     with pytest.raises(ValueError, match="empty input"):
         InstanceStatsTiling(1, 8, 8, 16, 0)
     with pytest.raises(ValueError, match="2\\^31"):
         InstanceStatsTiling(1, 2, 2**30)
+    with pytest.raises(ValueError, match="2\\^63"):
+        InstanceStatsTiling(1, 1, 2**27)

@@ -186,6 +186,16 @@ def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
         make[kernel](over)
 
 
+@pytest.mark.parametrize("kernel", ["final_heads", "composite_final_heads"])
+def test_heads_with_no_column_are_refused_naming_the_kernel(kernel):
+    """A head of no column (n_out 0) is refused at any width, naming the
+    kernel and the bound it breaks."""
+    make = {"final_heads": lambda: tdec.UpsampleTiling(1, 4, 4, head=True, n_out=0),
+            "composite_final_heads": lambda: tdec.StripTiling(1, 4, 4, phases=4, n_out=0)}
+    with pytest.raises(ValueError, match=f"{kernel} kernel takes.*n_out >= 1.*n_out 0"):
+        make[kernel]()
+
+
 def _n(rng, shape, scale=1.0, loc=0.0):
     return (loc + scale * rng.standard_normal(shape)).astype(np.float32)
 
