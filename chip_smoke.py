@@ -167,12 +167,16 @@
    (2816, 1408, 384), (704, 352, 1408) and (1408, 704, 2816)
    (``SHAPE_K7``: the fixed route as a guard, the any route else), K8-K11
    at C = 40, 96, 128, 256 (K8 and K9 also at 1152) and K10/K11 at 10, 17
-   and 33 head columns, K11 with a full head at C = 64 and 40, each against
-   its plain version in both GELU modes (2 bf16 ulp + DEC_ATOL; heads per
-   logit), timed beside the plain version, cuDNN's conv and the bound,
-   with mutants (K7's, a padded channel leaking into the LayerNorm, a
-   dropped 16-column head chunk, the diagonal blocks only of a full
-   head); K3 at 1, 2, 63, 65, 128, 256 and 4096 levels on ``_flood_cases``'
+   and 33 head columns, K11 with a full head at C = 64 and 40, K10/K11 on
+   ragged tiles and at cin != cout (``SHAPE_WIDE_EXTRA``; all these on the
+   wide head route) and past it (``SHAPE_PAST_WIDE``: K7's any route and
+   its second pass), each against its plain version in both GELU modes (2
+   bf16 ulp + DEC_ATOL; heads per logit) on the route it must take, timed
+   beside the plain version, cuDNN's conv and the bound, with mutants
+   (K7's, a padded channel leaking into the LayerNorm, a dropped 16-column
+   head chunk, the diagonal blocks only of a full head, K11's phase p
+   through block p + 1, a dropped N chunk of the wide route's head sums);
+   K3 at 1, 2, 63, 65, 128, 256 and 4096 levels on ``_flood_cases``'
    tiles, K4 at 1, 6, 9, 10, 12 and 16 types x 512, 3,363, 4,096 and
    16,384 slots on 2 tiles of 256^2 and of 512^2, K2 at 11,777, 27,521,
    65,535 and 100,000 slots on 4 x 256^2 and 2 x 512^2 (a checkerboard
@@ -199,13 +203,16 @@
    ``shapes`` JSON line; K1-K4 get ``launches_by_path["shapes_tile_512"]``,
    ``["shapes_nano"]`` and ``["shapes_path_5_<slots>"]``, K1-K3 and K7-K11
    ``["shapes_path_nano"]`` and
-   ``["shapes_path_nano_dec40"]``, and K7-K11's any routes rows of their
+   ``["shapes_path_nano_dec40"]``, K7-K11's any routes rows of their
    own (``decoder_conv_any``, ``final_conv_gelu_any``,
    ``upsample_final_any``, ``final_heads_any``,
    ``composite_final_heads_any``: ``ops/decoder.py::ANY_LAUNCHES``, one a
-   column chunk) and the any route's second pass one (``conv_epilogue``,
-   each of path (4)'s calls held against ``conv_epilogue_plain`` on its
-   own inputs);
+   column chunk), K10's and K11's wide head route theirs
+   (``final_heads_wide``, ``composite_final_heads_wide``:
+   ``ops/decoder.py::WIDE_LAUNCHES``, one a call; model (b)'s path runs
+   them) and the any route's second pass one (``conv_epilogue``, each of
+   its calls held against ``conv_epilogue_plain`` on its own inputs), each
+   with ``["shapes_sweep"]`` too;
 5. drives the three decoder configurations of HoverNeXt (``fused_decoder``:
    K7 + K8; ``fused_final="heads"``: K10; ``fused_final="pallas"``: K11)
    through ``run_hovernet_pipeline_on_wsi_tiles`` over one batch of 128
@@ -1014,7 +1021,9 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 
 def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
-    on seeded inputs, and, where a main run saved them, K2 and K3 on the
+    on seeded inputs (K10 and K11 also at path (4)'s model (b) shapes,
+    ``k10_any_batch_ms``, ``k11_any_batch_ms``: the parent's any route or
+    the wide head route), and, where a main run saved them, K2 and K3 on the
     main path's masks, energy and markers in ``inputs``, K4 on the batch's
     labels and types in
     ``k4_inputs.pt`` beside it, and K5 (the islands path's three masks)
@@ -1128,6 +1137,33 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
             got = dec.final_conv_gelu(x8[:16], w, b)
             res["k8_excess"] = _excess(got, dec.final_conv_gelu_plain(x8[:16], w, b), DEC_ATOL)
         del x8
+        # K10 and K11 at path (4)'s model (b) shapes (C = 40, 17 head
+        # columns, K11's head stated block-diagonal), which the 64-channel
+        # kernels do not take: K7's any route, or the wide head route
+        xb = rnd((512, 128, 128, 40))
+        wb, bb = rnd((3, 3, 40, 40), (9 * 40) ** -0.5), rnd(40, 0.1)
+        whb, bhb = rnd((40, 17), 0.3), rnd(17, 0.1)
+        wcb, b4b = rnd((3, 3, 40, 160), (9 * 40) ** -0.5), rnd(160, 0.1)
+        whd, bh4b = torch.block_diag(*[rnd((40, 17), 0.3) for _ in range(4)]).contiguous(), rnd(
+            68, 0.1)
+        _idle(res, "k10_any")
+        res["k10_any_batch_ms"] = _sync_time(
+            lambda: [dec.final_heads(c_, wb, bb, whb, bhb) for c_ in xb.split(CHUNK)], reps=2)
+        _idle(res, "k11_any")
+        res["k11_any_batch_ms"] = _sync_time(
+            lambda: [dec.composite_final_heads(c_, wcb, b4b, whd, bh4b, **k11_kw)
+                     for c_ in xb.split(CHUNK)], reps=2)
+        res["wide_launches"] = {k: v.launches for k, v in getattr(dec, "WIDE_LAUNCHES", {}).items()}
+        if check:  # tolerance as the main run's head checks
+            xs = xb[:8]
+            res["k10_any_excess"] = _excess(
+                dec.final_heads(xs, wb, bb, whb, bhb), dec.final_heads_plain(xs, wb, bb, whb, bhb),
+                _head_atol(dec.upsample_final_plain(xs, wb, bb), whb))
+            res["k11_any_excess"] = _excess(
+                dec.composite_final_heads(xs, wcb, b4b, whd, bh4b, **k11_kw),
+                dec.composite_final_heads_plain(xs, wcb, b4b, whd, bh4b),
+                _head_atol(dec.final_conv_gelu_plain(xs, wcb, b4b), whd))
+        del xb
     from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
     from path_gene_multimodal_tpu_torch.ops import flood as k3
 
@@ -1188,7 +1224,7 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
                                      for m in path_masks)
                 res["k6_diff"] = int((cc.label_components_batch(fg6)
                                       != cc.label_components_batch_plain(fg6)).sum())
-    for k in ("k8_excess", "k11_excess"):
+    for k in ("k8_excess", "k11_excess", "k10_any_excess", "k11_any_excess"):
         if res.get(k, 0.0) > 1.0:
             over.append(f"{k} {res[k]:.3g}")
     for k in ("k2_diff", "k3_diff", "k4_diff", "k5_diff", "k6_diff"):
@@ -1202,7 +1238,8 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
 AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k2_device_ms", "k3_batch_ms", "k4_batch_ms",
            "k4_device_ms",
            "k5_slide_ms", "k6_ms",
-           "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms")
+           "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms",
+           "k10_any_batch_ms", "k11_any_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
@@ -2815,11 +2852,13 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     src_64 = "path_gene_multimodal_tpu_torch/csrc/conv64.cu"
     ptxas_64 = _conv64_ptxas(dec.cuda)
     ptxas_7 = _ptxas_entries(dec.cuda.build_log("decoder_conv"))
-    # K7's (both routes), its any route's second pass and K8/K11's kernels
-    # (every instantiation) must not spill
+    ptxas_w = _ptxas_entries(dec.cuda.build_log("final_heads_wide"))
+    # K7's (both routes), its any route's second pass, K8/K11's kernels and
+    # K10/K11's wide head kernel (every instantiation) must not spill
     for lib, kern, info_of in (("decoder_conv", "decoder_conv_kernel", ptxas_7),
                                ("decoder_conv", "conv_epilogue_kernel", ptxas_7),
-                               ("conv64", "conv64_kernel", ptxas_64)):
+                               ("conv64", "conv64_kernel", ptxas_64),
+                               ("final_heads_wide", "heads_wide_kernel", ptxas_w)):
         for kname, info in info_of.items():
             if kern in kname and (info.get("spill_stores", 0) or info.get("spill_loads", 0)):
                 failures.append(f"{lib} kernel {kname} spills: {info}")
@@ -3080,8 +3119,8 @@ def _check_decoder_kernels(models, pixels, counts, failures) -> list[dict]:
     entry("composite_final_heads", f"{pallas}:462", err, ms, pms, bnd, by, lms,
           "per batch: 4 calls of 128 images with the model's head; the check runs one call over "
           "all 512 and compares the subset, and ragged shapes (see ragged), with a seeded head "
-          "block per phase, stated block-diagonal (a full head takes the any route: "
-          "composite_final_heads_any); bound counts the head's nonzero blocks only (the kernel "
+          "block per phase, stated block-diagonal (a full head takes the wide head route: "
+          "composite_final_heads_wide); bound counts the head's nonzero blocks only (the kernel "
           "reads only those); library_ms: cuDNN conv2d alone (conv only); tolerance as "
           "final_heads",
           source=src_64, ptxas=ptxas_64, **rec)
@@ -6555,10 +6594,21 @@ PATH_MODELS = {"nano": dict(decoder_dims=(384, 192, 96, 64), num_types=5),
 # (tests/test_torch_hovernext.py's bar for bf16 rounding against f32)
 BF16_SPAN = 0.05
 # the K7-K11 wrappers and the kernels line's names of their any routes
-# (ops/decoder.py::ANY_LAUNCHES)
+# (ops/decoder.py::ANY_LAUNCHES) and of K10's and K11's wide head route
+# (ops/decoder.py::WIDE_LAUNCHES)
 DEC_ROUTES = {"decoder_conv": "decoder_conv_any", "final_conv_gelu": "final_conv_gelu_any",
               "upsample_final": "upsample_final_any", "final_heads": "final_heads_any",
               "composite_final_heads": "composite_final_heads_any"}
+WIDE_ROUTES = {"final_heads": "final_heads_wide",
+               "composite_final_heads": "composite_final_heads_wide"}
+# the wide route's extra sweep rows, (B, H, W of x, cin, cout, head columns
+# per phase): model (b)'s widths at ragged shapes, cin != cout (and, at
+# cin 20, inputs loaded by the threads: TMA needs C % 8 == 0); and past it
+# (more than HEAD_COLS_MAX columns summed at once), K7's any route with its
+# second pass: K10 with 96 columns, K11 with a full head of 4 x 24
+SHAPE_WIDE_EXTRA = ((3, 34, 34, 40, 40, 17), (2, 6, 10, 40, 40, 17), (4, 32, 32, 96, 40, 17),
+                    (4, 32, 32, 20, 72, 10))
+SHAPE_PAST_WIDE = {"k10": (4, 32, 32, 40, 40, 96), "k11_full_head": (4, 32, 32, 40, 40, 24)}
 
 
 def _shape_k1_input(c: int) -> tuple[int, int, int, int]:
@@ -6731,12 +6781,39 @@ def _dropped_head_chunk(ref: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
     return bad
 
 
+def _dropped_n_chunk(x, w, b, wh, bh, geo, j: int = 1, exact_gelu: bool = False) -> torch.Tensor:
+    """A mutant of the wide head route (``ops/decoder.py::HeadTiling``
+    ``geo``): the plain version with N chunk j's GELU outputs left out of
+    the head's sums in every phase, as if the kernel dropped that chunk."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+    from path_gene_multimodal_tpu_torch.ops.convnext_block import gelu_kernel
+
+    f = dec._f
+    with dec.cuda.exact_f32():
+        xin = dec.upsample2x_bilinear(x.to(torch.bfloat16)).float() if geo.upsample else f(x)
+        y = f(gelu_kernel(dec._conv3x3(xin, f(w)) + f(b), exact_gelu))
+        n0, nw = geo.n_chunks[j]
+        for p in range(geo.phases):
+            y[..., p * geo.cout + n0 : p * geo.cout + n0 + nw] = 0.0
+        return (y @ f(wh) + f(bh)).to(torch.bfloat16)
+
+
 def _route_launches(name: str) -> dict:
-    """The launches so far of K7-K11 wrapper ``name``'s own kernel and of
-    its any route."""
+    """The launches so far of K7-K11 wrapper ``name``'s own kernel, of its
+    any route and (K10, K11) of the wide head route."""
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
 
-    return {"own": getattr(dec, name).launches, "any": dec.ANY_LAUNCHES[name].launches}
+    wide = dec.WIDE_LAUNCHES.get(name)
+    return {"own": getattr(dec, name).launches, "any": dec.ANY_LAUNCHES[name].launches,
+            "wide": wide.launches if wide is not None else 0}
+
+
+def _route_taken(name: str, before: dict) -> str:
+    """The route K7-K11 wrapper ``name``'s calls since ``before``
+    (``_route_launches``) took: "own", "any" or "wide", or "mixed"."""
+    after = _route_launches(name)
+    took = [k for k in after if after[k] > before[k]]
+    return took[0] if len(took) == 1 else ("none" if not took else "mixed")
 
 
 def _shapes_k7(dev, failures) -> list[dict]:
@@ -6791,11 +6868,16 @@ def _shapes_k7(dev, failures) -> list[dict]:
 def _shapes_final(dev, failures) -> dict:
     """K8-K11 at SHAPE_FINAL_C, K8 and K9 also at SHAPE_FINAL_WIDE_C
     (K10/K11 at each SHAPE_FINAL_N; K11 with a seeded block per phase,
-    stated block-diagonal, and with a full head) against their plain
-    versions in both GELU modes, with a mutant each
+    stated block-diagonal, and with a full head; K10/K11 also at
+    SHAPE_WIDE_EXTRA and past the wide head route at SHAPE_PAST_WIDE, each
+    of whose second passes is checked and timed by a ``_decoder_checks``)
+    against their plain versions in both GELU modes, with a mutant each
     (no bias; a dropped head chunk where the head has one, a full head
-    answered phase by phase for K11); timed beside the plain version,
-    cuDNN's conv (on the upsampled map for K9/K10) and the bound."""
+    answered phase by phase for K11, K11's phase p through block p + 1, on
+    the wide route a dropped N chunk where it has two); each K10/K11 row on
+    the route it must take (``rec["route"]``); timed beside the plain
+    version, cuDNN's conv (on the upsampled map for K9/K10) and the
+    bound."""
     from path_gene_multimodal_tpu_torch.ops import decoder as dec
 
     b, half = SHAPE_FINAL_B, SHAPE_FINAL_HALF
@@ -6846,50 +6928,14 @@ def _shapes_final(dev, failures) -> dict:
             wc, b4 = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5), rnd(4 * c, 0.1)
             for n in SHAPE_FINAL_N:
                 wh, bh = rnd((c, n), 0.3), rnd(n, 0.1)
-                rec = {"c": c, "n_out": n, "shape": list(xh.shape)}
-                mut = {"no_head_bias": lambda: dec.final_heads_plain(xh, w, vb, wh, 0 * bh)}
-                if n > 16:
-                    mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
-                        dec.final_heads_plain(xh, w, vb, wh, bh), bh)
-                rec["max_abs_err"] = _check_modes(
-                    failures, f"shapes final_heads C={c} n_out={n}",
-                    lambda e: dec.final_heads(xh, w, vb, wh, bh, exact_gelu=e),
-                    lambda e: dec.final_heads_plain(xh, w, vb, wh, bh, exact_gelu=e),
-                    lambda e: _head_atol(dec.upsample_final_plain(xh, w, vb, exact_gelu=e), wh),
-                    mut, rec)
-                timed(rec, lambda: dec.final_heads(xh, w, vb, wh, bh),
-                      lambda: dec.final_heads_plain(xh, w, vb, wh, bh), _conv_library(up, w),
-                      2 * (half_px * c + full_px * n) + 2 * (w.numel() + wh.numel()),
-                      [(2 * full_px * (9 * c * c + c * n), PEAK_BF16),
-                       (16 * full_px * c, PEAK_F32)])
-                rows["k10"].append(rec)
+                rows["k10"].append(_final_k10(failures, timed, xh, w, vb, wh, bh))
                 whb = torch.block_diag(*[rnd((c, n), 0.3) for _ in range(4)]).contiguous()
-                bh4 = rnd(4 * n, 0.1)
-                rec = {"c": c, "n_out": n, "head": "block_diagonal", "shape": list(xh.shape)}
-                mut = {"no_bias": lambda: dec.composite_final_heads_plain(xh, wc, 0 * b4, whb, bh4),
-                       "phase_permuted": lambda: dec.composite_final_heads_by_phase(
-                           xh, wc, b4, whb, bh4, head_of=(1, 2, 3, 0))}
-                if n > 16:
-                    mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
-                        dec.composite_final_heads_plain(xh, wc, b4, whb, bh4), bh4)
-                rec["max_abs_err"] = _check_modes(
-                    failures, f"shapes composite_final_heads C={c} n_out={n}",
-                    lambda e: dec.composite_final_heads(xh, wc, b4, whb, bh4, exact_gelu=e,
-                                                        block_diagonal=True),
-                    lambda e: dec.composite_final_heads_plain(xh, wc, b4, whb, bh4, exact_gelu=e),
-                    lambda e: _head_atol(dec.final_conv_gelu_plain(xh, wc, b4, exact_gelu=e),
-                                         whb), mut, rec)
-                timed(rec, lambda: dec.composite_final_heads(xh, wc, b4, whb, bh4,
-                                                             block_diagonal=True),
-                      lambda: dec.composite_final_heads_plain(xh, wc, b4, whb, bh4),
-                      _conv_library(xh, wc),
-                      2 * half_px * (c + 4 * n) + 2 * (wc.numel() + whb.numel()),
-                      [(2 * half_px * (9 * c * 4 * c + 4 * c * 4 * n), PEAK_BF16),
-                       (10 * half_px * 4 * c, PEAK_F32)])
-                rows["k11"].append(rec)
+                rows["k11"].append(_final_k11(failures, timed, xh, wc, b4, whb, rnd(4 * n, 0.1),
+                                              True))
             del x8, xh, up
     # K11 with a full head (every block nonzero), at HoverNeXt-tiny's width
-    # and at model (b)'s: the any route multiplies all of it
+    # and at model (b)'s: the wide route multiplies all of it, its four
+    # phases' sums kept on chip
     rows["k11_full_head"] = []
     for j, (c, n) in enumerate(((64, 10), (40, 17))):
         gen = torch.Generator(device=dev).manual_seed(1500 + j)
@@ -6897,29 +6943,138 @@ def _shapes_final(dev, failures) -> dict:
             std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
         xh, b4 = rnd((b, half, half, c)), rnd(4 * c, 0.1)
         wc = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5)
-        whf, bh4 = rnd((4 * c, 4 * n), 0.1), rnd(4 * n, 0.1)
-        rec = {"c": c, "n_out": n, "head": "full", "shape": list(xh.shape)}
-        before = _route_launches("composite_final_heads")
-        with torch.inference_mode():
-            rec["max_abs_err"] = _check_modes(
-                failures, f"shapes composite_final_heads full head C={c} n_out={n}",
-                lambda e: dec.composite_final_heads(xh, wc, b4, whf, bh4, exact_gelu=e),
-                lambda e: dec.composite_final_heads_plain(xh, wc, b4, whf, bh4, exact_gelu=e),
-                lambda e: _head_atol(dec.final_conv_gelu_plain(xh, wc, b4, exact_gelu=e), whf),
-                {"diagonal_blocks_only": lambda: dec.composite_final_heads_by_phase(
-                    xh, wc, b4, whf, bh4)}, rec)
-            after = _route_launches("composite_final_heads")
-            if after["any"] == before["any"] or after["own"] != before["own"]:
-                failures.append(f"shapes composite_final_heads full head C={c}: not on the any "
-                                f"route ({before} -> {after})")
-            timed(rec, lambda: dec.composite_final_heads(xh, wc, b4, whf, bh4),
-                  lambda: dec.composite_final_heads_plain(xh, wc, b4, whf, bh4),
-                  _conv_library(xh, wc),
-                  2 * b * half * half * (c + 4 * n) + 2 * (wc.numel() + whf.numel()),
-                  [(2 * b * half * half * (9 * c * 4 * c + 16 * c * n), PEAK_BF16),
-                   (10 * b * half * half * 4 * c, PEAK_F32)])
-        rows["k11_full_head"].append(rec)
+        rows["k11_full_head"].append(_final_k11(failures, timed, xh, wc, b4,
+                                                rnd((4 * c, 4 * n), 0.1), rnd(4 * n, 0.1), False))
+    # the wide route at model (b)'s widths on ragged tiles, and at cin != cout
+    rows["wide_extra"] = []
+    for j, (bb, hh, ww, cin, c, n) in enumerate(SHAPE_WIDE_EXTRA):
+        gen = torch.Generator(device=dev).manual_seed(1600 + j)
+        rnd = lambda shape, std=1.0: (  # noqa: E731
+            std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        xh = rnd((bb, hh, ww, cin))
+        w, vb = rnd((3, 3, cin, c), (9 * cin) ** -0.5), rnd(c, 0.1)
+        rows["wide_extra"].append(_final_k10(failures, timed, xh, w, vb, rnd((c, n), 0.3),
+                                             rnd(n, 0.1)))
+        wc, b4 = rnd((3, 3, cin, 4 * c), (9 * cin) ** -0.5), rnd(4 * c, 0.1)
+        whb = torch.block_diag(*[rnd((c, n), 0.3) for _ in range(4)]).contiguous()
+        rows["wide_extra"].append(_final_k11(failures, timed, xh, wc, b4, whb, rnd(4 * n, 0.1),
+                                             True))
+    # past the wide route: K7's any route and its second pass, each launch
+    # of the pass held against conv_epilogue_plain and timed
+    gen = torch.Generator(device=dev).manual_seed(1700)
+    rnd = lambda shape, std=1.0: (  # noqa: E731
+        std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+    bb, hh, ww, cin, c, n = SHAPE_PAST_WIDE["k10"]
+    xh, w, vb = rnd((bb, hh, ww, cin)), rnd((3, 3, cin, c), (9 * cin) ** -0.5), rnd(c, 0.1)
+    with _decoder_checks("shapes past the wide route", failures, timed=True) as chk:
+        rows["k10_past_wide"] = [_final_k10(failures, timed, xh, w, vb, rnd((c, n), 0.3),
+                                            rnd(n, 0.1), route="any", spy=chk)]
+        bb, hh, ww, cin, c, n = SHAPE_PAST_WIDE["k11_full_head"]
+        xh, b4 = rnd((bb, hh, ww, cin)), rnd(4 * c, 0.1)
+        wc = rnd((3, 3, cin, 4 * c), (9 * cin) ** -0.5)
+        rows["k11_past_wide"] = [_final_k11(failures, timed, xh, wc, b4, rnd((4 * c, 4 * n), 0.1),
+                                            rnd(4 * n, 0.1), False, route="any", spy=chk)]
+    rows["past_wide_epilogue"] = chk.epi
     return rows
+
+
+def _final_k10(failures, timed, xh, w, vb, wh, bh, route="wide", spy=None) -> dict:
+    """K10 on xh against its plain version in both GELU modes, with mutants
+    (no head bias; past 16 columns a dropped head chunk; on the wide route
+    with more than one N chunk a dropped N chunk), the route its calls took
+    (it must be ``route``), timed beside its plain version, cuDNN's conv on
+    the upsampled map and the bound. With ``spy`` (a ``_decoder_checks``),
+    the checked calls' second passes are checked and timed there, the
+    timing's are not."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    (bb, hh, ww, cin), (c, n) = xh.shape, wh.shape
+    geo = dec.UpsampleTiling(bb, hh, ww, head=True, cin=cin, cout=c, n_out=n)
+    rec = {"c": c, "cin": cin, "n_out": n, "shape": list(xh.shape)}
+    mut = {"no_head_bias": lambda: dec.final_heads_plain(xh, w, vb, wh, 0 * bh)}
+    if n > 16:
+        mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
+            dec.final_heads_plain(xh, w, vb, wh, bh), bh)
+    if geo.route == "wide" and len(geo.head_geo.n_chunks) > 1:
+        mut["dropped_n_chunk"] = lambda: _dropped_n_chunk(xh, w, vb, wh, bh, geo.head_geo)
+    before = _route_launches("final_heads")
+    with torch.inference_mode():
+        rec["max_abs_err"] = _check_modes(
+            failures, f"shapes final_heads {list(xh.shape)} -> {c} n_out={n}",
+            lambda e: dec.final_heads(xh, w, vb, wh, bh, exact_gelu=e),
+            lambda e: dec.final_heads_plain(xh, w, vb, wh, bh, exact_gelu=e),
+            lambda e: _head_atol(dec.upsample_final_plain(xh, w, vb, exact_gelu=e), wh), mut, rec)
+        rec["route"] = _route_taken("final_heads", before)
+        if rec["route"] != route:
+            failures.append(f"shapes final_heads {list(xh.shape)} -> {c} n_out={n}: took the "
+                            f"{rec['route']} route, expected {route}")
+        if spy is not None:
+            spy.quiet = True
+        up = dec.upsample2x_bilinear(xh)
+        full_px, half_px = up.numel() // cin, xh.numel() // cin
+        timed(rec, lambda: dec.final_heads(xh, w, vb, wh, bh),
+              lambda: dec.final_heads_plain(xh, w, vb, wh, bh), _conv_library(up, w),
+              2 * (half_px * cin + full_px * n) + 2 * (w.numel() + wh.numel()),
+              [(2 * full_px * (9 * cin * c + c * n), PEAK_BF16),
+               (6 * full_px * cin + 10 * full_px * c, PEAK_F32)])
+        if spy is not None:
+            spy.quiet = False
+    return rec
+
+
+def _final_k11(failures, timed, xh, wc, b4, wh, bh4, bd: bool, route="wide", spy=None) -> dict:
+    """K11 on xh against its plain version in both GELU modes, its head
+    stated block-diagonal (``bd``) or full, with mutants (no bias; a stated
+    block-diagonal head: phase p multiplied by block p + 1, and past 16
+    columns a dropped head chunk; a full head: its diagonal blocks only; on
+    the wide route with more than one N chunk a dropped N chunk), the route
+    its calls took (it must be ``route``), timed beside its plain version,
+    cuDNN's conv alone and the bound (a block-diagonal head counts its
+    diagonal blocks only); ``spy`` as ``_final_k10``'s."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    (bb, hh, ww, cin), (c4, n4) = xh.shape, wh.shape
+    c, n = c4 // 4, n4 // 4
+    geo = dec.StripTiling(bb, hh, ww, phases=4, cin=cin, cout=c, n_out=n, block_diagonal=bd)
+    rec = {"c": c, "cin": cin, "n_out": n, "head": "block_diagonal" if bd else "full",
+           "shape": list(xh.shape)}
+    if bd:
+        mut = {"no_bias": lambda: dec.composite_final_heads_plain(xh, wc, 0 * b4, wh, bh4),
+               "phase_permuted": lambda: dec.composite_final_heads_by_phase(
+                   xh, wc, b4, wh, bh4, head_of=(1, 2, 3, 0))}
+        if n > 16:
+            mut["dropped_head_chunk"] = lambda: _dropped_head_chunk(
+                dec.composite_final_heads_plain(xh, wc, b4, wh, bh4), bh4)
+    else:
+        mut = {"diagonal_blocks_only": lambda: dec.composite_final_heads_by_phase(
+            xh, wc, b4, wh, bh4)}
+    if geo.route == "wide" and len(geo.head_geo.n_chunks) > 1:
+        mut["dropped_n_chunk"] = lambda: _dropped_n_chunk(xh, wc, b4, wh, bh4, geo.head_geo)
+    tag = f"shapes composite_final_heads {list(xh.shape)} -> {c} n_out={n} {rec['head']}"
+    before = _route_launches("composite_final_heads")
+    with torch.inference_mode():
+        rec["max_abs_err"] = _check_modes(
+            failures, tag,
+            lambda e: dec.composite_final_heads(xh, wc, b4, wh, bh4, exact_gelu=e,
+                                                block_diagonal=bd),
+            lambda e: dec.composite_final_heads_plain(xh, wc, b4, wh, bh4, exact_gelu=e),
+            lambda e: _head_atol(dec.final_conv_gelu_plain(xh, wc, b4, exact_gelu=e), wh), mut,
+            rec)
+        rec["route"] = _route_taken("composite_final_heads", before)
+        if rec["route"] != route:
+            failures.append(f"{tag}: took the {rec['route']} route, expected {route}")
+        if spy is not None:
+            spy.quiet = True
+        px = xh.numel() // cin
+        head = c4 * n4 // (4 if bd else 1)
+        timed(rec, lambda: dec.composite_final_heads(xh, wc, b4, wh, bh4, block_diagonal=bd),
+              lambda: dec.composite_final_heads_plain(xh, wc, b4, wh, bh4),
+              _conv_library(xh, wc),
+              2 * px * (cin + n4) + 2 * (wc.numel() + wh.numel()),
+              [(2 * px * (9 * cin * c4 + head), PEAK_BF16), (10 * px * c4, PEAK_F32)])
+        if spy is not None:
+            spy.quiet = False
+    return rec
 
 
 class _decoder_checks:  # noqa: N801 (a context manager, named as one)
@@ -6930,8 +7085,9 @@ class _decoder_checks:  # noqa: N801 (a context manager, named as one)
     ``_head_atol``; so is every launch of the any route's second pass
     (``ops/decoder.py::_epilogue``) against ``conv_epilogue_plain`` on its
     own f32 input. The wrappers count as ever; ``rec`` holds per wrapper
-    the checked calls, how many took the any route, the worst excess and
-    the shapes, ``epi`` the same of the second pass; ``s`` the seconds the
+    the checked calls, how many took the any route and how many the wide
+    head route, the worst excess and the shapes, ``epi`` the same of the
+    second pass; ``s`` the seconds the
     checks took. With ``timed``, each call is also timed (the wrapper, its
     plain version, cuDNN's conv alone at its shape; the second pass and its
     plain twin) beside its bound, summed into ``rec``'s and ``epi``'s
@@ -6943,7 +7099,8 @@ class _decoder_checks:  # noqa: N801 (a context manager, named as one)
 
     def __init__(self, tag: str, failures: list, timed: bool = False):
         self.tag, self.failures, self.s, self.timed = tag, failures, 0.0, timed
-        self.rec = {n: {"calls": 0, "any_calls": 0, "worst": 0.0, "shapes": [], "ms": 0.0,
+        self.rec = {n: {"calls": 0, "any_calls": 0, "wide_calls": 0, "worst": 0.0, "shapes": [],
+                        "ms": 0.0,
                         "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                         "bound_by": {"bytes": 0.0, "operations": 0.0}}
                     for n, _ in self.SITES}
@@ -7025,9 +7182,10 @@ class _decoder_checks:  # noqa: N801 (a context manager, named as one)
     def _call(self, name, real, *a, **k):
         from path_gene_multimodal_tpu_torch.ops import decoder as dec
 
-        before = dec.ANY_LAUNCHES[name].launches
+        before = _route_launches(name)
         out = real(*a, **k)
-        took_any = dec.ANY_LAUNCHES[name].launches > before
+        after = _route_launches(name)
+        took_any, took_wide = after["any"] > before["any"], after["wide"] > before["wide"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         e = k.get("exact_gelu", False)
@@ -7054,6 +7212,7 @@ class _decoder_checks:  # noqa: N801 (a context manager, named as one)
                                  f"version's bar x{err:.3g}")
         rec["calls"] += 1
         rec["any_calls"] += int(took_any)
+        rec["wide_calls"] += int(took_wide)
         rec["worst"] = max(rec["worst"], err)
         shape = [list(a[0].shape), list(out.shape)]
         if shape not in rec["shapes"]:
@@ -7072,7 +7231,8 @@ class _decoder_checks:  # noqa: N801 (a context manager, named as one)
         plain = {n: v for n, v in k.items() if n != "block_diagonal"}
         rec = self.rec[name]
         # the timing's launches are not the path's: the counters are restored
-        counters = [getattr(dec, name), dec.ANY_LAUNCHES[name], dec.EPILOGUE_LAUNCHES]
+        counters = [getattr(dec, name), dec.ANY_LAUNCHES[name], dec.EPILOGUE_LAUNCHES,
+                    *([dec.WIDE_LAUNCHES[name]] if name in dec.WIDE_LAUNCHES else [])]
         saved = [c.launches for c in counters]
         self.quiet = True
         rec["ms"] += _sync_time(lambda: real(*a, **k), reps=2)
@@ -7166,23 +7326,32 @@ def _shapes_paths(slide, ann: Path, cfg, wrappers, failures, dev=None) -> dict:
             runs[name] = run
             want = CONFIGS[name][1]
             for kname, k in want.items():
-                # each call launches its own kernel once or the any route once a
-                # column chunk (at least once)
+                # each call launches its own kernel once, the wide head route
+                # once (K10, K11) or the any route once a column chunk (at
+                # least once)
                 rec = chk.rec[kname]
-                got = launches.get(kname, 0) + rec["any_calls"]
-                if (got != k or rec["calls"] != k
+                wide = launches.get(WIDE_ROUTES.get(kname), 0)
+                got = launches.get(kname, 0) + rec["any_calls"] + rec["wide_calls"]
+                if (got != k or rec["calls"] != k or wide != rec["wide_calls"]
                         or launches.get(DEC_ROUTES[kname], 0) < rec["any_calls"]):
                     failures.append(f"shapes path {mname} {name}: {kname} launched "
-                                    f"{launches.get(kname, 0)} times and its any route "
-                                    f"{launches.get(DEC_ROUTES[kname], 0)} times in "
-                                    f"{rec['any_calls']} calls (checked {rec['calls']}), "
-                                    f"expected {k} calls")
+                                    f"{launches.get(kname, 0)} times, its wide route {wide} "
+                                    f"and its any route {launches.get(DEC_ROUTES[kname], 0)} "
+                                    f"times in {rec['any_calls']} calls (checked "
+                                    f"{rec['calls']}), expected {k} calls")
+                # model (b)'s heads (C = 40, 17 columns) take the wide route
+                # and no second pass
+                if mname == "nano_dec40" and kname in WIDE_ROUTES and (
+                        rec["wide_calls"] != k or launches.get("conv_epilogue", 0)):
+                    failures.append(f"shapes path {mname} {name}: {kname}'s {k} calls took "
+                                    f"the wide route {rec['wide_calls']} times, conv_epilogue "
+                                    f"launched {launches.get('conv_epilogue', 0)} times")
             if launches.get("conv_epilogue", 0) != chk.epi["calls"]:
                 failures.append(f"shapes path {mname} {name}: conv_epilogue launched "
                                 f"{launches.get('conv_epilogue', 0)} times, checked "
                                 f"{chk.epi['calls']}")
             allowed = {"convnext_block", "cc_sizes", "flood", "conv_epilogue", *want,
-                       *(DEC_ROUTES[k] for k in want)}
+                       *(DEC_ROUTES[k] for k in want), *(WIDE_ROUTES.get(k) for k in want)}
             others = [n for n in launches if n not in allowed]
             if others:
                 failures.append(f"shapes path {mname} {name}: launched {others}")
@@ -7568,7 +7737,9 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     seed, its heads fitted, saved as a converted ``.npz`` by the port's
     converters and read by ``hovernext_infer --checkpoint`` over the same
     crop at 256 (K1 at C = 80, 160, 320), (e) K7 at SHAPE_K7 and K8-K11 at
-    SHAPE_FINAL_C x SHAPE_FINAL_N, (f) K3 at SHAPE_K3_LEVELS, K4 at
+    SHAPE_FINAL_C x SHAPE_FINAL_N (K10/K11 also at SHAPE_WIDE_EXTRA and
+    SHAPE_PAST_WIDE; the launches of their routes in ``sweep_launches``),
+    (f) K3 at SHAPE_K3_LEVELS, K4 at
     SHAPE_K4_TYPES x SHAPE_K4_SLOTS, K2 at SHAPE_K2_SLOTS, (g) path (5):
     the nuclei stage in windows of 1024 at 512 and 4096 slots, (h) path
     (4): every decoder configuration of the nano encoder under PATH_MODELS'
@@ -7623,8 +7794,11 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    sweep = [*DEC_ROUTES.values(), *WIDE_ROUTES.values(), "conv_epilogue"]
+    before = {n: wrappers[n].launches for n in sweep}
     res["k7"] = _shapes_k7(dev, failures)
     res["final"] = _shapes_final(dev, failures)
+    res["sweep_launches"] = {n: wrappers[n].launches - before[n] for n in sweep}
     res["sweeps_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7648,85 +7822,131 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
 
 
 def _any_route_entries(res: dict) -> list[dict]:
-    """The kernels line's rows of K7-K11's any routes from the shapes
-    phase: launches from path (4)'s runs (``launches_by_path``), the worst
-    error over the sweep's rows and path (4)'s calls on the route, and ms,
-    plain_ms, library_ms and bound_ms per batch (the wrapper's calls in one
-    forward of 512 images) on model (b)'s path, where every call of these
-    wrappers takes the any route."""
+    """The kernels line's rows of K7-K11's any routes and of K10's and
+    K11's wide head route from the shapes phase: launches from path (4)'s
+    runs and the sweeps (``launches_by_path``), the worst error over the
+    sweeps' rows and path (4)'s calls on the route; ms, plain_ms, library_ms
+    and bound_ms per batch (the wrapper's calls in one forward of 512 images)
+    on model (b)'s path where it runs them (K7-K9's any routes, the wide
+    route), else per call at the sweep's row past the wide route (K10's and
+    K11's any routes, the second pass)."""
+    from path_gene_multimodal_tpu_torch.ops.decoder import HEAD_COLS_MAX
+
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     fin = res.get("final", {})
     runs_b = res.get("paths", {}).get("nano_dec40", {}).get("runs", {})
+    sweep = res.get("sweep_launches", {})
+    wide_rows = fin.get("k10", []) + fin.get("k11", []) + fin.get("k11_full_head", []) + fin.get(
+        "wide_extra", [])
+
+    def by_path(route):
+        out = {f"shapes_path_{m}": sum(r["launches"].get(route, 0) for r in p["runs"].values())
+               for m, p in res.get("paths", {}).items()}
+        out["shapes_sweep"] = sweep.get(route, 0)
+        return out
+
     routes = (
         ("decoder_conv", 168, "fused_decoder", [r for r in res.get("k7", [])
                                                 if r.get("route") == "any"],
-         "K7 at cout not in 64/96/192/384 or inputs no multiple of 32"),
-        ("final_conv_gelu", 591, "fused_decoder", fin.get("k8", []), "K8 at C != 64"),
+         "K7 at cout not in 64/96/192/384 or inputs no multiple of 32", "decoder_conv"),
+        ("final_conv_gelu", 591, "fused_decoder", fin.get("k8", []), "K8 at C != 64",
+         "decoder_conv"),
         ("upsample_final", 307, "k9", fin.get("k9", []),
-         "K9 at C != 64, the halo upsampled by the producer warp"),
-        ("final_heads", 392, "heads", fin.get("k10", []), "K10 at C != 64 or n_out > 16"),
-        ("composite_final_heads", 462, "pallas", fin.get("k11", []) + fin.get("k11_full_head", []),
-         "K11 at C != 64, n_out > 16 or a head not stated block-diagonal (all of it multiplied)"),
+         "K9 at C != 64, the halo upsampled by the producer warp", "decoder_conv"),
+        ("final_heads", 392, None, fin.get("k10_past_wide", []),
+         f"K10 past the wide route (more than {HEAD_COLS_MAX} head columns)", "decoder_conv"),
+        ("composite_final_heads", 462, None, fin.get("k11_past_wide", []),
+         f"K11 past the wide route (more than {HEAD_COLS_MAX} head columns summed at once)",
+         "decoder_conv"),
     )
+    wide = (("final_heads", 392, "heads", "K10 at C != 64 or 17-80 head columns"),
+            ("composite_final_heads", 462, "pallas",
+             "K11 at C != 64, 17-80 head columns a phase (a head stated block-diagonal), or a "
+             "full head of up to 80 columns"))
     out = []
-    for wrapper, line, config, rows, what in routes:
+    for wrapper, line, config, rows, what, stem in routes:
         route = DEC_ROUTES[wrapper]
-        by_path = {f"shapes_path_{m}": sum(r["launches"].get(route, 0)
-                                           for r in p["runs"].values())
-                   for m, p in res.get("paths", {}).items()}
-        rec = runs_b.get(config, {}).get("checks", {}).get(wrapper, {})
-        by = rec.get("bound_by") or {"operations": 0.0}
+        if config is not None:
+            rec = runs_b.get(config, {}).get("checks", {}).get(wrapper, {})
+            where = (f"per batch, the {rec.get('calls')} calls of one forward of 512 images on "
+                     f"model (b)'s path ({config}), each checked against its plain version "
+                     f"there (worst excess {rec.get('worst')})")
+            by = rec.get("bound_by") or {"operations": 0.0}
+            bound_by = max(by, key=by.get)
+        else:
+            rec = rows[0] if rows else {}
+            where = f"per call at the sweep's row past the wide route {rec.get('shape')}"
+            bound_by = rec.get("bound_by")
         out.append({
             "name": route, "route": "cuda",
-            "source": "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu",
-            "replaces": f"{pallas}:{line}", "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "source": f"path_gene_multimodal_tpu_torch/csrc/{stem}.cu",
+            "replaces": f"{pallas}:{line}", "launches": sum(by_path(route).values()),
+            "launches_by_path": by_path(route),
             "max_abs_err": max((r.get("max_abs_err", 0.0) for r in rows), default=None),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
-            "bound_ms": rec.get("bound_ms"), "bound_by": max(by, key=by.get),
+            "bound_ms": rec.get("bound_ms"), "bound_by": bound_by,
             "library_ms": rec.get("library_ms"),
             "note": f"{wrapper}'s any route: {what}; K7's kernel (decoder_conv_kernel<COUT, "
                     "EXACT, true>) at the next compiled tile width, past 384 columns or with a "
                     "head f32 conv + bias and conv_epilogue_kernel (its own row); launches: "
-                    "path (4)'s runs (shapes phase), one a column chunk; max_abs_err over the "
-                    "shapes sweep's rows on this route; "
-                    f"ms, plain_ms, bound_ms, library_ms: per batch, the {rec.get('calls')} "
-                    f"calls of one forward of 512 images on model (b)'s path ({config}), each "
-                    "checked against its plain version there (worst excess "
-                    f"{rec.get('worst')}); library_ms: cuDNN conv2d alone at each call's shape "
+                    "path (4)'s runs and the sweeps (shapes phase), one a column chunk; "
+                    "max_abs_err over the sweeps' rows on this route; ms, plain_ms, bound_ms, "
+                    f"library_ms: {where}; library_ms: cuDNN conv2d alone at each call's shape "
                     "(conv only); both GELU modes in the sweep within 2 bf16 ulp + DEC_ATOL "
                     "(heads: _head_atol)"})
-    # the any route's second pass, checked and timed at each of its calls on
-    # path (4) (model (b): K10 and K11 at 17 head columns)
-    epis = {m: {n: r.get("epilogue", {}) for n, r in p["runs"].items()}
-            for m, p in res.get("paths", {}).items()}
-    epi_b = [e for e in epis.get("nano_dec40", {}).values() if e.get("calls")]
-    by = {k: sum(e["bound_by"][k] for e in epi_b) for k in ("bytes", "operations")}
-    by_path = {f"shapes_path_{m}": sum(r["launches"].get("conv_epilogue", 0)
-                                       for r in p["runs"].values())
-               for m, p in res.get("paths", {}).items()}
+    for wrapper, line, config, what in wide:
+        route = WIDE_ROUTES[wrapper]
+        rec = runs_b.get(config, {}).get("checks", {}).get(wrapper, {})
+        by = rec.get("bound_by") or {"operations": 0.0}
+        rows = [r for r in wide_rows if r.get("route") == "wide" and
+                (r.get("head") is None) == (wrapper == "final_heads")]
+        out.append({
+            "name": route, "route": "cuda",
+            "source": "path_gene_multimodal_tpu_torch/csrc/final_heads_wide.cu",
+            "replaces": f"{pallas}:{line}", "launches": sum(by_path(route).values()),
+            "launches_by_path": by_path(route),
+            "max_abs_err": max((r.get("max_abs_err", 0.0) for r in rows), default=None),
+            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": max(by, key=by.get),
+            "library_ms": rec.get("library_ms"),
+            "note": f"{wrapper}'s wide head route: {what}; heads_wide_kernel<"
+                    f"{'true' if wrapper == 'final_heads' else 'false'}> (wgmma conv in N "
+                    "chunks, the head on mma.sync in the epilogue, no f32 scratch, no second "
+                    "pass); launches: path (4)'s runs and the sweeps (shapes phase), one a call; "
+                    "max_abs_err over the sweeps' rows on this route; ms, plain_ms, bound_ms, "
+                    f"library_ms: per batch, the {rec.get('calls')} calls of one forward of 512 "
+                    f"images on model (b)'s path ({config}), each checked against its plain "
+                    f"version there (worst excess {rec.get('worst')}); library_ms: cuDNN conv2d "
+                    "alone at each call's shape (conv only); both GELU modes within 2 bf16 ulp "
+                    "+ DEC_ATOL (heads: _head_atol)"})
+    # the any route's second pass, checked and timed at each of its calls in
+    # the sweep past the wide route (and on path (4), where K7 passes 384
+    # columns)
+    epi = fin.get("past_wide_epilogue", {})
     out.append({
         "name": "conv_epilogue", "route": "cuda",
         "source": "path_gene_multimodal_tpu_torch/csrc/decoder_conv.cu",
-        "replaces": f"{pallas}:392", "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
-        "max_abs_err": max((e.get("max_abs_err", 0.0) for m in epis.values()
-                            for e in m.values() if e.get("calls")), default=None),
-        "ms": sum(e["ms"] for e in epi_b) if epi_b else None,
-        "plain_ms": sum(e["plain_ms"] for e in epi_b) if epi_b else None,
-        "bound_ms": sum(e["bound_ms"] for e in epi_b) if epi_b else None,
-        "bound_by": max(by, key=by.get), "library_ms": None,
-        "by_config": {n: {k: e.get(k) for k in ("calls", "worst", "max_abs_err", "ms",
-                                                 "plain_ms", "bound_ms", "shapes")}
-                      for n, e in epis.get("nano_dec40", {}).items() if e.get("calls")},
+        "replaces": f"{pallas}:392", "launches": sum(by_path("conv_epilogue").values()),
+        "launches_by_path": by_path("conv_epilogue"),
+        "max_abs_err": max([epi.get("max_abs_err", 0.0)] + [
+            r.get("epilogue", {}).get("max_abs_err", 0.0) for p in res.get("paths", {}).values()
+            for r in p["runs"].values() if r.get("epilogue", {}).get("calls")]),
+        "ms": epi.get("ms") if epi.get("calls") else None,
+        "plain_ms": epi.get("plain_ms") if epi.get("calls") else None,
+        "bound_ms": epi.get("bound_ms") if epi.get("calls") else None,
+        "bound_by": max(epi.get("bound_by") or {"bytes": 0.0},
+                        key=(epi.get("bound_by") or {"bytes": 0.0}).get),
+        "library_ms": None,
+        "by_call": {k: epi.get(k) for k in ("calls", "worst", "max_abs_err", "shapes")},
         "note": "the any route's second pass (conv_epilogue_kernel): LayerNorm over the true "
                 "channels, GELU, bf16 and the head product with its bias, on the CUDA cores, "
                 "over the f32 conv + bias K7's kernel writes past 384 columns (K7 :168) and for "
-                "K10 (:392) and K11 (:462) on their any routes; launches: path (4)'s runs "
-                "(shapes phase), one a call on a raw route; every one held against "
-                "conv_epilogue_plain on its own f32 input (2 bf16 ulp + DEC_ATOL, heads "
-                "_head_atol); ms, plain_ms, bound_ms: per batch, the calls of one forward of "
-                "512 images summed over model (b)'s configurations that run it (by_config); "
+                "K10 (:392) and K11 (:462) past the wide route; launches: path (4)'s runs and "
+                "the sweeps (shapes phase), one a call on a raw route; the calls past the wide "
+                "route held against conv_epilogue_plain on their own f32 input (2 bf16 ulp + "
+                "DEC_ATOL, heads _head_atol), path (4)'s too; ms, plain_ms, bound_ms: summed "
+                "over the checked calls past the wide route (by_call: one a GELU mode of K10 "
+                f"{SHAPE_PAST_WIDE['k10']} and of K11 {SHAPE_PAST_WIDE['k11_full_head']}); "
                 "library_ms null: no one PyTorch call computes LayerNorm, GELU and the head"})
     return out
 
@@ -7788,12 +8008,16 @@ def _shapes_line(res: dict) -> dict:
         "k7": [{k: r.get(k) for k in ("shape", "route", "n_tile", "n_chunks", "excess_tanh",
                                       "excess_erf", "ms", "plain_ms", "library_ms", "bound_ms")}
                for r in res.get("k7", [])],
-        "final": {n: [{k: r.get(k) for k in ("c", "n_out", "head", "excess_tanh", "excess_erf",
-                                             "ms", "plain_ms", "library_ms", "bound_ms")}
-                      for r in rows] for n, rows in res.get("final", {}).items()},
+        "final": {n: [{k: r.get(k) for k in ("c", "cin", "n_out", "head", "shape", "route",
+                                             "excess_tanh", "excess_erf", "ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+                      for r in rows] for n, rows in res.get("final", {}).items()
+                  if isinstance(rows, list)},
+        "sweep_launches": res.get("sweep_launches"),
         "paths": {m: {n: {**{k: r.get(k) for k in ("s", "checks_s", "launches", "vs_plain")},
-                          "kernels": {w: {k: c.get(k) for k in ("calls", "any_calls", "worst",
-                                                                "ms", "plain_ms", "library_ms",
+                          "kernels": {w: {k: c.get(k) for k in ("calls", "any_calls",
+                                                                "wide_calls", "worst", "ms",
+                                                                "plain_ms", "library_ms",
                                                                 "bound_ms")}
                                       for w, c in r.get("checks", {}).items()},
                              "conv_epilogue": {k: r.get("epilogue", {}).get(k)
@@ -7908,6 +8132,7 @@ def main(argv: list[str] | None = None) -> int:
                 "upsample_final": dec.upsample_final, "final_heads": dec.final_heads,
                 "composite_final_heads": dec.composite_final_heads,
                 **{r: dec.ANY_LAUNCHES[n] for n, r in DEC_ROUTES.items()},
+                **{r: dec.WIDE_LAUNCHES[n] for n, r in WIDE_ROUTES.items()},
                 "conv_epilogue": dec.EPILOGUE_LAUNCHES,
                 "label_components_tiled": cc.label_components_tiled,
                 "label_components_batch": cc.label_components_batch,
@@ -7925,7 +8150,9 @@ def main(argv: list[str] | None = None) -> int:
     print(f"built {len(cuda.KERNELS)} kernels in {report['build_s']:.1f} s", flush=True)
     print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"],
                       "ptxas_conv64": report["ptxas"]["conv64"],
-                      "ptxas_decoder_conv": report["ptxas"]["decoder_conv"]}), flush=True)
+                      "ptxas_decoder_conv": report["ptxas"]["decoder_conv"],
+                      "ptxas_final_heads_wide": report["ptxas"]["final_heads_wide"]}),
+          flush=True)
 
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()
@@ -8309,8 +8536,11 @@ def main(argv: list[str] | None = None) -> int:
                 k["launches_by_path"][f"shapes_path_{m}"] = sum(
                     r["launches"].get(k["name"], 0) for r in p["runs"].values())
             k["launches"] = sum(k["launches_by_path"].values())
-    failures += [f"{k['name']} never launched on path (4)" for k in kernels
+    failures += [f"{k['name']} never launched on path (4) or in the sweeps" for k in kernels
                  if k["name"] in (*DEC_ROUTES.values(), "conv_epilogue") and not k["launches"]]
+    failures += [f"{k['name']} never launched on path (4)'s model (b)" for k in kernels
+                 if k["name"] in WIDE_ROUTES.values()
+                 and not k["launches_by_path"].get("shapes_path_nano_dec40")]
     failures += [f"{k['name']} never launched in the shapes phase" for k in kernels
                  if k["name"] in NEW_ROUTES and not k["launches"]]
 

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("convnext_block", "cc_sizes", "flood", "instance_stats", "decoder_conv",
-           "upsample_conv", "conv64", "cc")
+           "upsample_conv", "conv64", "cc", "final_heads_wide")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SMEM_PER_BLOCK = 232_448  # shared memory a block can take on the H100
 

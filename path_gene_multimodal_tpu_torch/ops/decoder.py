@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
 launches its hand-written kernel (K7: ``csrc/decoder_conv.cu``; K9, K10:
 ``csrc/upsample_conv.cu``; K8, K11: ``csrc/conv64.cu``; the last two share
-the 64-channel conv core ``csrc/conv64.cuh``) on a CUDA tensor and runs its
-``*_plain`` twin on a CPU tensor:
+the 64-channel conv core ``csrc/conv64.cuh``; K10 and K11 at other widths:
+``csrc/final_heads_wide.cu``) on a CUDA tensor and runs its ``*_plain``
+twin on a CPU tensor:
 
 - ``decoder_conv`` (K7, ``fused_decoder_conv``): conv3x3(concat(x, skip))
   + bias + LayerNorm + GELU, the concat never built (``DecoderConvTiling``
@@ -27,18 +28,22 @@ the 64-channel conv core ``csrc/conv64.cuh``) on a CUDA tensor and runs its
 Each takes every width its Pallas kernel takes. Where its own kernel is
 compiled for fewer (K7: cout in ``KERNEL_COUTS``, cx and cs multiples of
 32; K8-K11: cin = cout = 64, at most 16 head columns, K11 a block-diagonal
-head), the wrapper runs K7's any route (``csrc/decoder_conv.cu``,
+head), K10 and K11 run the wide head kernel (``csrc/final_heads_wide.cu``,
+``HeadTiling``; route "wide") for heads of up to ``HEAD_COLS_MAX`` columns
+summed at once: the conv in N chunks on wgmma, each chunk's bias + GELU
+multiplied by its head rows on the tensor cores in the epilogue, no f32
+scratch. Every other shape runs K7's any route (``csrc/decoder_conv.cu``,
 ``DecoderConvTiling`` with ``route == "any"``): the weights zero-padded to
 the next compiled tile width, past 384 columns (and for a head) f32
 conv + bias and a second pass for LayerNorm, GELU and the head
-(``conv_epilogue_plain`` its plain twin). The any route's launches are
+(``conv_epilogue_plain`` its plain twin). These routes' launches are
 counted where they are made, apart from the wrappers' own:
-``ANY_LAUNCHES[wrapper]`` one a column chunk, ``EPILOGUE_LAUNCHES`` the
-second pass's. The any route's column chunks take any width; the one
-limit is a head's: its second pass stages a pixel's bf16 conv output in
-shared memory, so a head's input past ``HEAD_MAX_WIDTH`` channels is
-refused by the kernel's tiling class, which names the kernel and the
-limit.
+``WIDE_LAUNCHES[wrapper]`` one a call, ``ANY_LAUNCHES[wrapper]`` one a
+column chunk, ``EPILOGUE_LAUNCHES`` the second pass's. The any route's
+column chunks take any width; the one limit is a head's: its second pass
+stages a pixel's bf16 conv output in shared memory, so a head's input past
+``HEAD_MAX_WIDTH`` channels is refused by the kernel's tiling class, which
+names the kernel and the limit.
 
 The plain versions repeat the TPU kernels' rounding points: inputs,
 weights and vectors rounded to bf16, f32 sums, bf16 outputs; K10 rounds its
@@ -76,6 +81,10 @@ SMEM_PER_BLOCK = cuda.SMEM_PER_BLOCK
 # the widest conv output a head's second pass takes (K10; K11 over its
 # phases): one pixel's bf16 row in a block's shared memory
 HEAD_MAX_WIDTH = SMEM_PER_BLOCK // 2
+# the wide head route's head columns summed at once (K10; K11 per phase, or
+# over its four phases with a full head): its f32 sums, 2 rows x 80 columns
+# a thread, live in registers across the N chunks
+HEAD_COLS_MAX = 80
 SRC_MODES = {"tma": 0, "plain": 1, "upsample": 2}  # how K7's any route lands a source
 
 
@@ -329,6 +338,212 @@ class DecoderConvTiling:
 
 
 @dataclass(frozen=True)
+class HeadTiling:
+    """Launch geometry of the wide head kernel (``csrc/final_heads_wide.cu``):
+    K10 (``upsample``: x at (h / 2, w / 2), the conv's input its bilinear
+    2x) and K11 at the shapes their own kernels do not take, on a conv of
+    (batch, h, w) output pixels, cin input channels and, per phase, cout
+    conv columns and n_out head columns (K11 stated block-diagonal: 4
+    phases of (cout, n_out); K11 with a full head: one phase of (4 cout,
+    4 n_out); K10: one phase).
+
+    Persistent blocks, one per SM, block b running phase b % phases and
+    walking output tiles t = b // phases, += grid / phases (images, tile
+    rows, tile columns) of tile_h x tile_w pixels; each of the two
+    warpgroups owns ``rows`` tile rows, one m64 wgmma tile each. cin is
+    zero-padded to ``cin_p`` (16-channel steps) and walked in ``k_chunks``
+    of at most ``k_max`` channels; per chunk the tile's halo (``halo_shape``
+    at ``halo_origin``: K11 copied, K10 upsampled from the low-res window
+    ``window_shape`` at ``window_origin``) lands planar. cout is zero-padded
+    to ``cout_p`` and walked in ``n_chunks`` of at most ``n_max`` columns;
+    each N chunk's k-slices (9 taps x 16 input channels x its columns,
+    ``head_weight_layout``) come through a ring of ``ring`` slots, resident
+    where all ``slices`` fit it. After each N chunk its bias + GELU, rounded
+    to bf16, multiply the chunk's head rows into ``cols_p`` f32 sums a pixel,
+    kept across the chunks: ``n_out`` is at most ``HEAD_COLS_MAX``. The
+    kernel is compiled for this tile and checks what it is given against
+    its own layout; ``fits`` says whether the shape takes this route."""
+
+    tile_h: ClassVar[int] = 4
+    tile_w: ClassVar[int] = 64
+    rows: ClassVar[int] = 2   # m64 rows per warpgroup
+    warps: ClassVar[int] = 8
+    k_max: ClassVar[int] = 64
+    n_max: ClassVar[int] = 64
+    max_ring: ClassVar[int] = 8
+
+    batch: int
+    h: int
+    w: int
+    cin: int
+    cout: int
+    n_out: int
+    phases: int = 1
+    upsample: bool = False
+    n_sm: int = 132
+    kernel: str = "final_heads"  # the wrapper it runs for
+
+    cin_p = property(lambda self: -(-self.cin // 16) * 16)
+    cout_p = property(lambda self: -(-self.cout // 16) * 16)
+    cols_p = property(lambda self: -(-self.n_out // 16) * 16)
+
+    @property
+    def k_chunks(self) -> list[tuple[int, int]]:
+        """(first channel, channels) of each K chunk of the padded cin: the
+        fewest chunks of at most ``k_max``, as even as 16-channel steps allow
+        (the last may be narrower)."""
+        n = -(-self.cin_p // self.k_max)
+        kw = 16 * -(-(self.cin_p // 16) // n)
+        return [(c0, min(kw, self.cin_p - c0)) for c0 in range(0, self.cin_p, kw)]
+
+    @property
+    def n_chunks(self) -> list[tuple[int, int]]:
+        """(first column, columns) of each N chunk of the padded cout."""
+        return [(n0, min(self.n_max, self.cout_p - n0))
+                for n0 in range(0, self.cout_p, self.n_max)]
+
+    @property
+    def slices(self) -> int:
+        """k-slices a tile's products read: per N chunk, one per 16 input
+        channels."""
+        return len(self.n_chunks) * self.cin_p // 16
+
+    def slice_order(self) -> list[tuple[int, int]]:
+        """(N chunk, 16-channel step) of each slice, in the order a tile
+        reads them (the ring's order)."""
+        return [(j, c) for j in range(len(self.n_chunks)) for c in range(self.cin_p // 16)]
+
+    def slice_offset(self, j: int, c: int) -> int:
+        """Element offset of slice (N chunk j, 16-channel step c) in a
+        phase's ``head_weight_layout``."""
+        return (j * self.n_max * (self.cin_p // 16) + self.n_chunks[j][1] * c) * 144
+
+    @property
+    def in_hw(self) -> tuple[int, int]:
+        return (self.h // 2, self.w // 2) if self.upsample else (self.h, self.w)
+
+    @property
+    def tiles_yx(self) -> tuple[int, int]:
+        return -(-self.h // self.tile_h), -(-self.w // self.tile_w)
+
+    @property
+    def n_tiles(self) -> int:
+        ty, tx = self.tiles_yx
+        return self.batch * ty * tx
+
+    @property
+    def grid(self) -> int:
+        return self.phases * min(self.n_tiles, self.n_sm // self.phases)
+
+    def tile(self, t: int) -> tuple[int, int, int]:
+        """(image, first row, first column) of tile t."""
+        ty_n, tx_n = self.tiles_yx
+        img, rem = divmod(t, ty_n * tx_n)
+        ty, tx = divmod(rem, tx_n)
+        return img, ty * self.tile_h, tx * self.tile_w
+
+    def block_tiles(self, block: int) -> tuple[int, list[int]]:
+        """(phase, tiles in walking order) of block ``block``."""
+        return block % self.phases, list(range(block // self.phases, self.n_tiles,
+                                               self.grid // self.phases))
+
+    def items(self, block: int) -> list[tuple[int, int]]:
+        """(tile, K chunk) of each input item block ``block`` copies, in
+        order: one a tile where cin is one K chunk (its halo serves every N
+        chunk), else one per (N chunk, K chunk)."""
+        reps = 1 if len(self.k_chunks) == 1 else len(self.n_chunks)
+        return [(t, k) for t in self.block_tiles(block)[1] for _ in range(reps)
+                for k in range(len(self.k_chunks))]
+
+    halo_shape = property(lambda self: (self.tile_h + 2, self.tile_w + 2))
+    window_shape = property(lambda self: (self.tile_h // 2 + 2, self.tile_w // 2 + 2))
+
+    def halo_origin(self, ty: int, tx: int) -> tuple[int, int]:
+        return ty * self.tile_h - 1, tx * self.tile_w - 1
+
+    def window_origin(self, ty: int, tx: int) -> tuple[int, int]:
+        return ty * self.tile_h // 2 - 1, tx * self.tile_w // 2 - 1
+
+    def _smem(self, ring: int) -> tuple[int, int]:
+        """(bytes of a ring slot, shared memory bytes with ``ring`` slots):
+        the ring, the input buffers (K10: the halo and two windows; K11: two
+        halos; the output staging, rows of cols_p + 2 bf16, over a halo),
+        the head rows (cols_p + 8 bf16 apart), the f32 bias and head bias, an mbarrier a slot and
+        two for the inputs; as the kernel lays them out."""
+        planes = self.k_chunks[0][1] // 8
+        slot = 288 * min(self.cout_p, self.n_max)
+        hh, hw = self.halo_shape
+        wh, ww = self.window_shape
+        halo = max(hh * hw * 16 * planes, self.warps * self.rows * 16 * (self.cols_p + 2) * 2)
+        inputs = halo + 2 * wh * ww * 16 * planes if self.upsample else 2 * halo
+        vec = -(-(self.cout_p + self.cols_p) * 4 // 16) * 16
+        return slot, (ring * slot + inputs + self.cout_p * (self.cols_p + 8) * 2 + vec
+                      + (ring + 2) * 8)
+
+    @property
+    def ring(self) -> int:
+        """Weight slots: every slice (resident) where they fit, else as many
+        as fit, at most ``max_ring``."""
+        slot, rest = self._smem(0)
+        fit = min(self.max_ring, (SMEM_PER_BLOCK - rest) // (slot + 8))
+        return self.slices if self.slices <= fit else fit
+
+    @property
+    def resident(self) -> bool:
+        return self.slices <= self.ring
+
+    @property
+    def fits(self) -> bool:
+        """Whether the shape takes this route: at most ``HEAD_COLS_MAX``
+        head columns, a ring of 2 slots (or every slice) in shared memory,
+        32-bit tile and item counts."""
+        per = 1 if len(self.k_chunks) == 1 else len(self.n_chunks) * len(self.k_chunks)
+        return (self.n_out <= HEAD_COLS_MAX and self.ring >= min(2, self.slices)
+                and self.n_tiles * per < 2**31)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self._smem(self.ring)[1]
+
+    def launch_args(self) -> tuple[int, int, int, int, int, int]:
+        """(tile_h, tile_w, K chunk width, ring slots, grid, shared memory
+        bytes), as the launcher takes them."""
+        return (self.tile_h, self.tile_w, self.k_chunks[0][1], self.ring, self.grid,
+                self.smem_bytes)
+
+
+def head_weight_layout(w: torch.Tensor, geo: HeadTiling) -> torch.Tensor:
+    """The wide head kernel's weights: w (3, 3, cin, phases x cout) as
+    (phases, slices): per phase its columns zero-padded to (3, 3, cin_p,
+    cout_p), each N chunk's k-slices (16-channel step c, then tap, the
+    channel's 8-channel half, the chunk's column, the channel within the
+    half: wgmma's canonical K-major B) one after another, so that slice
+    (j, c) starts at ``geo.slice_offset(j, c)``."""
+    p = geo.phases
+    wp = w.new_zeros((3, 3, geo.cin_p, p, geo.cout_p))
+    wp[:, :, : geo.cin, :, : geo.cout] = w.reshape(3, 3, geo.cin, p, geo.cout)
+    wp = wp.reshape(9, geo.cin_p // 16, 2, 8, p, geo.cout_p)
+    return torch.cat([wp[..., n0 : n0 + nw].permute(4, 1, 0, 2, 5, 3).reshape(p, -1)
+                      for n0, nw in geo.n_chunks], 1).contiguous()
+
+
+def head_vectors(b, wh, bh, geo: HeadTiling):
+    """The wide head kernel's bias (phases, cout_p) f32, head (phases,
+    cout_p, cols_p + 8) bf16 and head bias (phases, cols_p) f32, zero past
+    cout and n_out: phase p's head is block p of wh's diagonal (p rows of
+    cout and columns of n_out; the whole head with one phase), so a
+    block-diagonal head's other blocks are never read."""
+    p, c, n = geo.phases, geo.cout, geo.n_out
+    bias = torch.zeros((p, geo.cout_p), dtype=torch.float32, device=b.device)
+    bias[:, :c] = b.float().reshape(p, c)
+    head = torch.zeros((p, geo.cout_p, geo.cols_p + 8), dtype=_BF, device=wh.device)
+    head[:, :c, :n] = wh.reshape(p, c, p, n).diagonal(dim1=0, dim2=2).permute(2, 0, 1)
+    hb = torch.zeros((p, geo.cols_p), dtype=torch.float32, device=bh.device)
+    hb[:, :n] = bh.float().reshape(p, n)
+    return bias, head, hb
+
+
+@dataclass(frozen=True)
 class UpsampleTiling:
     """Launch geometry of the K9/K10 kernel (``csrc/upsample_conv.cu``) on a
     (batch, h, w, 64) half-resolution input: persistent blocks, one per SM,
@@ -362,11 +577,21 @@ class UpsampleTiling:
 
     @property
     def route(self) -> str:
-        """"upsample_conv": this geometry's kernel; "any": K7's any route
-        (``any_geo``), for other widths and more than 16 head columns."""
+        """"upsample_conv": this geometry's kernel; "wide": K10 at other
+        widths or more than 16 head columns, up to ``HEAD_COLS_MAX``, on the
+        wide head kernel (``head_geo``); "any": K7's any route
+        (``any_geo``), for K9 at other widths and K10 past the wide
+        route."""
         own = (self.cin == self.cout == UP_CHANNELS
                and (not self.head or self.n_out <= UP_HEAD_COLS))
-        return "upsample_conv" if own else "any"
+        if own:
+            return "upsample_conv"
+        return "wide" if self.head and self.head_geo.fits else "any"
+
+    @property
+    def head_geo(self) -> HeadTiling:
+        return HeadTiling(self.batch, 2 * self.h, 2 * self.w, self.cin, self.cout, self.n_out,
+                          upsample=True, n_sm=self.n_sm, kernel="final_heads")
 
     @property
     def any_geo(self) -> DecoderConvTiling:
@@ -410,9 +635,9 @@ class UpsampleTiling:
     def smem_bytes(self) -> int:
         """The resident weights, the halo, two windows (the output staging
         lies over the halo) and, for K10, the head weights (rows of 16 + 8
-        bf16); the any route's: ``any_geo``'s."""
-        if self.route == "any":
-            return self.any_geo.smem_bytes
+        bf16); the other routes': ``head_geo``'s or ``any_geo``'s."""
+        if self.route != "upsample_conv":
+            return (self.head_geo if self.route == "wide" else self.any_geo).smem_bytes
         (hh, hw), (wh, ww) = self.halo_shape, self.window_shape
         weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
         halo_windows = (hh * hw + 2 * wh * ww) * UP_CHANNELS * 2
@@ -467,12 +692,27 @@ class StripTiling:
 
     @property
     def route(self) -> str:
-        """"conv64": this geometry's kernel; "any": K7's any route
-        (``any_geo``), for other widths, more than 16 head columns and a
-        head not stated block-diagonal (K11 then multiplies all of it)."""
+        """"conv64": this geometry's kernel; "wide": K11 at other widths,
+        more than 16 head columns or with a head not stated block-diagonal,
+        up to ``HEAD_COLS_MAX`` columns summed at once, on the wide head
+        kernel (``head_geo``); "any": K7's any route (``any_geo``), for K8
+        at other widths and K11 past the wide route (it multiplies all of
+        the head)."""
         own = self.cin == self.cout == UP_CHANNELS and (
             self.phases == 1 or (self.n_out <= UP_HEAD_COLS and self.block_diagonal))
-        return "conv64" if own else "any"
+        if own:
+            return "conv64"
+        return "wide" if self.phases > 1 and self.head_geo.fits else "any"
+
+    @property
+    def head_geo(self) -> HeadTiling:
+        """K11's wide route: a head stated block-diagonal as four phases of
+        (cout, n_out), each block reading only its diagonal head block;
+        any other as one phase of (4 cout, 4 n_out)."""
+        k = 1 if self.block_diagonal else self.phases
+        return HeadTiling(self.batch, self.h, self.w, self.cin, k * self.cout, k * self.n_out,
+                          phases=self.phases // k, n_sm=self.n_sm,
+                          kernel="composite_final_heads")
 
     @property
     def any_geo(self) -> DecoderConvTiling:
@@ -541,9 +781,9 @@ class StripTiling:
         """The resident weights, a ring of planar input rows per worker, a
         staging row of 16 output pixels (64 + 8 bf16 each) per warp, an
         mbarrier per ring slot and, for K11, the head weights (rows of
-        16 + 8 bf16); the any route's: ``any_geo``'s."""
-        if self.route == "any":
-            return self.any_geo.smem_bytes
+        16 + 8 bf16); the other routes': ``head_geo``'s or ``any_geo``'s."""
+        if self.route != "conv64":
+            return (self.head_geo if self.route == "wide" else self.any_geo).smem_bytes
         weights = 9 * UP_CHANNELS * UP_CHANNELS * 2
         rings = self.groups * self.ring * (self.strip_w + 2) * UP_CHANNELS * 2
         staging = 8 * 16 * (UP_CHANNELS + 8) * 2
@@ -714,6 +954,29 @@ ANY_LAUNCHES = {n: cuda.LaunchCount() for n in ("decoder_conv", "final_conv_gelu
 EPILOGUE_LAUNCHES = cuda.LaunchCount()
 
 
+# the wide head kernel, per wrapper that runs it (one a call)
+WIDE_LAUNCHES = {n: cuda.LaunchCount() for n in ("final_heads", "composite_final_heads")}
+
+
+def _heads_wide(geo: HeadTiling, x, w, b, wh, bh, exact_gelu) -> torch.Tensor:
+    """The wide head kernel (``csrc/final_heads_wide.cu``) for
+    ``geo.kernel``'s wrapper on checked bf16, contiguous CUDA tensors: one
+    launch, the weights and vectors laid out as it reads them
+    (``head_weight_layout``, ``head_vectors``); logits (batch, h, w, phases
+    x n_out) bf16."""
+    wl = head_weight_layout(w, geo)
+    bias, head, hb = head_vectors(b, wh, bh, geo)
+    out = torch.empty((geo.batch, geo.h, geo.w, geo.phases * geo.n_out), dtype=_BF,
+                      device=x.device)
+    in_h, in_w = geo.in_hw
+    cuda.launch("final_heads_wide", "heads_wide_launch", cuda.ptr(x), cuda.ptr(wl),
+                cuda.ptr(bias), cuda.ptr(head), cuda.ptr(hb), cuda.ptr(out), geo.batch, in_h,
+                in_w, geo.cin, geo.cout_p, geo.cols_p, geo.n_out, geo.phases, int(geo.upsample),
+                int(exact_gelu), *geo.launch_args(), cuda.stream(x))
+    WIDE_LAUNCHES[geo.kernel].launches += 1
+    return out
+
+
 def _epilogue(acc, c, out, exact_gelu, ln=(None, None), head=(None, None)) -> None:
     """The any route's second pass (``conv_epilogue_launch``): acc (..., ld)
     f32 → LayerNorm over its first c values (``ln``), GELU, bf16, through
@@ -869,10 +1132,12 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → head
     product (wh (cout, n_out), bh) → logits (B, 2H, 2W, n_out) bf16, NHWC.
     The kernel (K9's, with the head product in its epilogue) takes cin =
-    cout = 64 and n_out <= 16; other shapes run K7's any route
-    (conv + bias in f32, then GELU and the head in its
-    second pass). 2H must be a multiple of 4, on both devices, as the TPU
-    kernel requires (it writes the output in 4 row chunks)."""
+    cout = 64 and n_out <= 16; other widths and heads of up to
+    ``HEAD_COLS_MAX`` columns run the wide head kernel (``_heads_wide``:
+    the head on the tensor cores in the conv's epilogue), wider heads K7's
+    any route (conv + bias in f32, then GELU and the head in its second
+    pass). 2H must be a multiple of 4, on both devices, as the TPU kernel
+    requires (it writes the output in 4 row chunks)."""
     bsz, h, wd, cin = x.shape
     if (2 * h) % 4:
         raise ValueError(f"2*H must be a multiple of 4, got H={h}")
@@ -887,6 +1152,8 @@ def final_heads(x, w, b, wh, bh, exact_gelu: bool = False):
     cuda.check(b, "b", _BF, (cout,))
     cuda.check(wh, "wh", _BF, (cout, n_out))
     cuda.check(bh, "bh", _BF, (n_out,))
+    if geo.route == "wide":
+        return _heads_wide(geo.head_geo, xb, w, b, wh, bh, exact_gelu)
     if geo.route == "any":
         return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu, head=(wh, bh),
                          n_out=n_out)
@@ -913,10 +1180,13 @@ def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
     ``block_diagonal=True`` states that wh_bd is so, as
     ``hovernext_fn.k11_weights`` builds it: then, at cin = cout = 64 and
     n_out <= 16, the kernel runs each phase as a conv cin → cout with its
-    diagonal head block and reads no other block. Any other call runs K7's
-    any route: the conv cin → 4 cout with
-    each pixel's four phases kept in f32, then GELU and the whole head
-    product in its second pass; nothing waits for the device."""
+    diagonal head block and reads no other block, and at other widths and
+    up to ``HEAD_COLS_MAX`` columns so does the wide head kernel
+    (``_heads_wide``). Without it the wide head kernel runs the conv cin →
+    4 cout and multiplies the whole head, its four phases' sums kept on
+    chip (up to ``HEAD_COLS_MAX`` columns in all); past that, K7's any
+    route: the conv in f32, then GELU and the whole head product in its
+    second pass. Nothing waits for the device."""
     if not x.is_cuda:
         return composite_final_heads_plain(x, wc, bias4, wh_bd, bh4, exact_gelu)
     bsz, h, wd, cin = x.shape
@@ -933,6 +1203,8 @@ def composite_final_heads(x, wc, bias4, wh_bd, bh4, exact_gelu: bool = False,
     cuda.check(bias4, "bias4", _BF, (c4,))
     cuda.check(wh_bd, "wh_bd", _BF, (c4, n4))
     cuda.check(bh4, "bh4", _BF, (n4,))
+    if geo.route == "wide":
+        return _heads_wide(geo.head_geo, xb, wc, bias4, wh_bd, bh4, exact_gelu)
     if geo.route == "any":
         return _conv_any(geo.any_geo, xb, None, wc, bias4, exact_gelu=exact_gelu,
                          head=(wh_bd, bh4), n_out=n4)

@@ -162,7 +162,8 @@ def test_k11_phase_decomposition_sees_permuted_head_blocks():
 def test_k11_full_head_leaves_the_per_phase_route():
     """A head with nonzero blocks off its diagonal: the per-phase
     decomposition (the conv64 route's) no longer equals the plain version,
-    so such a call takes the any route, as every call that does not state
+    so such a call takes the wide head route with the whole head (one phase
+    of 4 cout, 4 n_out), as every call that does not state
     ``block_diagonal=True`` does; the head ``k11_weights`` builds passes
     either way."""
     p, x = _k11_inputs(134)
@@ -177,8 +178,9 @@ def test_k11_full_head_leaves_the_per_phase_route():
     with pytest.raises(AssertionError):
         _assert_elementwise(per_phase(full), plain(full))
     geo = lambda bd: tdec.StripTiling(2, 9, 7, phases=4, n_out=10, block_diagonal=bd)  # noqa: E731
-    assert (geo(True).route, geo(False).route) == ("conv64", "any")
+    assert (geo(True).route, geo(False).route) == ("conv64", "wide")
     assert geo(False).any_geo.raw and geo(False).any_geo.cout == 256
+    assert (geo(False).head_geo.phases, geo(False).head_geo.cout) == (1, 256)
 
 
 def test_model_path_vouches_for_its_head(monkeypatch):
@@ -200,10 +202,10 @@ def test_model_path_vouches_for_its_head(monkeypatch):
 @pytest.mark.parametrize("option", ["fused_decoder", "pallas", "heads", "k9"])
 def test_last_width_96_takes_the_any_route(option):
     """A last decoder width of 96 (K7's fixed widths all) puts K8 under
-    ``fused_decoder``, K9, K10 and K11 on K7's any route; HoverNeXt-tiny's
-    widths keep every kernel on its own."""
+    ``fused_decoder`` and K9 on K7's any route, K10 and K11 on the wide head
+    route; HoverNeXt-tiny's widths keep every kernel on its own."""
     cfg = dataclasses.replace(HOVERNEXT_TINY, decoder_dims=(384, 192, 96, 96))
     routes = [geo.route for _, geo in _kernel_tilings(cfg, option)]
-    assert routes[-1] == "any", routes
+    assert routes[-1] == ("wide" if option in ("heads", "pallas") else "any"), routes
     assert all(r == "fixed" for r in routes[:-1]), routes
     assert "any" not in [geo.route for _, geo in _kernel_tilings(HOVERNEXT_TINY, option)]

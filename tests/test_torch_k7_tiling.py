@@ -327,11 +327,13 @@ def test_any_route_modes_and_the_padded_layernorm():
 
 @pytest.mark.parametrize("kernel", ["k9", "k10", "k11_full_head"])
 def test_final_stage_any_route_replay_reassembles_plain(kernel):
-    """K9 and K10 at C = 40 (K10 with 17 head columns) on the any route's
-    upsampled halos, and K11 with a full (not block-diagonal) head through
-    the second pass, reassemble their plain versions."""
+    """K9 and K10 at C = 40 on the any route's upsampled halos, and K11
+    with a full (not block-diagonal) head through the second pass,
+    reassemble their plain versions. K10 and K11 take the any route past
+    the wide head route's HEAD_COLS_MAX columns: K10 with 96 head columns,
+    K11 with a full head of 4 x 24."""
     rng = np.random.default_rng({"k9": 1, "k10": 2, "k11_full_head": 3}[kernel])
-    c, n_out = 40, 17
+    c, n_out = 40, {"k9": 17, "k10": 96, "k11_full_head": 24}[kernel]
     if kernel == "k11_full_head":
         x = _bf(rng, (1, 9, 7, c))
         wc, b4 = _bf(rng, (3, 3, c, 4 * c), (9 * c) ** -0.5), _bf(rng, 4 * c, 0.1)

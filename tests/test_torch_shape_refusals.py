@@ -13,9 +13,9 @@ and the f32 path's cuDNN precision, on the CPU.
   versions equal the Pallas kernels in interpret mode at the shapes the
   card's own kernels do not take (their any route's), within
   ``test_torch_decoder.py``'s bar; a width past 1024 runs on the any
-  route, and only a head's input past ``HEAD_MAX_WIDTH`` channels is
-  refused by the kernel's tiling class, which names the kernel and the
-  limit.
+  route (K10 and K11 on the wide head route), and only a head's input past
+  ``HEAD_MAX_WIDTH`` channels is refused by the kernel's tiling class,
+  which names the kernel and the limit.
 - TF32: an f32 ``HoverNeXt`` forward runs its convs with
   ``torch.backends.cudnn.allow_tf32`` off, and restores it after.
 """
@@ -120,8 +120,11 @@ def test_hovernext_builds_every_configuration_on_the_card(name, model):
         if geo.route == "any":
             assert geo.smem_bytes == (geo if isinstance(geo, tdec.DecoderConvTiling)
                                       else geo.any_geo).smem_bytes
+        if geo.route == "wide":
+            assert geo.smem_bytes == geo.head_geo.smem_bytes and geo.head_geo.fits
     if model == "nano_dec40":  # no width of (b) is one the kernels are compiled for
-        assert set(routes) == {"any"}, routes
+        # K10 and K11 (17 head columns) take the wide head route, the rest K7's any route
+        assert set(routes) == {"wide" if name in ("heads", "pallas") else "any"}, routes
     if model == "nano" and name == "fused_decoder":  # only dec2.conv0 (skip 80) leaves them
         assert routes.count("any") == 1 and routes[4] == "any", routes
     if model == "nano" and name != "fused_decoder":  # decoder width 64, 10 head columns
@@ -151,24 +154,26 @@ def test_final_tilings_take_the_widths_the_pallas_kernels_take(width):
                tdec.UpsampleTiling(2, 32, 32, cin=c, cout=c),
                tdec.UpsampleTiling(2, 32, 32, head=True, cin=c, cout=c, n_out=n_out),
                tdec.StripTiling(2, 32, 32, phases=4, cin=c, cout=c, n_out=n_out)]
-    for geo in tilings:
-        assert geo.route == "any" and geo.smem_bytes <= tdec.SMEM_PER_BLOCK
-        assert geo.any_geo.raw == (geo is tilings[2] or geo is tilings[3] or c > 384)
+    for geo in tilings:  # K8, K9 on K7's any route; K10, K11 on the wide head route
+        head = geo is tilings[2] or geo is tilings[3]
+        assert geo.route == ("wide" if head else "any")
+        assert geo.smem_bytes <= tdec.SMEM_PER_BLOCK
+        assert geo.any_geo.raw == (head or c > 384)
     # HoverNeXt-tiny's widths keep their own kernels; a full K11 head does not
     assert tdec.StripTiling(2, 64, 64).route == "conv64"
     assert tdec.UpsampleTiling(2, 32, 32, head=True, n_out=10).route == "upsample_conv"
     assert tdec.StripTiling(2, 32, 32, phases=4, n_out=10).route == "conv64"
-    assert tdec.StripTiling(2, 32, 32, phases=4, n_out=10, block_diagonal=False).route == "any"
+    assert tdec.StripTiling(2, 32, 32, phases=4, n_out=10, block_diagonal=False).route == "wide"
 
 
 @pytest.mark.parametrize("kernel", ["decoder_conv", "final_conv_gelu", "upsample_final",
                                     "final_heads", "composite_final_heads"])
 def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
     """A width past 1024 (the limit until the any route took every width)
-    runs on the any route; what is still refused names the kernel and its
-    limit: a head's input past HEAD_MAX_WIDTH channels (its second pass
-    stages a pixel's bf16 row in shared memory), no output channel
-    elsewhere."""
+    runs on the any route (K10 and K11: the wide head route, in N chunks of
+    64 columns); what is still refused names the kernel and its limit: a
+    head's input past HEAD_MAX_WIDTH channels (its second pass stages a
+    pixel's bf16 row in shared memory), no output channel elsewhere."""
     past = 1025
     make = {"decoder_conv": lambda c: tdec.DecoderConvTiling(1, 8, 8, 64, 0, c),
             "final_conv_gelu": lambda c: tdec.StripTiling(1, 32, 8, cin=c, cout=c),
@@ -176,7 +181,11 @@ def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
             "final_heads": lambda c: tdec.UpsampleTiling(1, 4, 4, head=True, cout=c),
             "composite_final_heads": lambda c: tdec.StripTiling(1, 4, 4, phases=4, cout=c)}
     geo = make[kernel](past)
-    assert geo.route == "any"
+    if kernel in ("final_heads", "composite_final_heads"):
+        assert geo.route == "wide" and geo.smem_bytes <= tdec.SMEM_PER_BLOCK
+        assert len(geo.head_geo.n_chunks) == -(-past // 64)
+    else:
+        assert geo.route == "any"
     any_geo = geo if kernel == "decoder_conv" else geo.any_geo
     assert any_geo.n_chunks == -(-any_geo.cout // 384) and any_geo.raw
     over = {"final_heads": tdec.HEAD_MAX_WIDTH + 1,
@@ -212,13 +221,15 @@ def test_k7_plain_matches_pallas_at_any_route_widths(shape):
     _assert_elementwise(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("kernel", ["k8", "k9", "k10_n17", "k11_n17", "k11_full_head"])
+@pytest.mark.parametrize("kernel", ["k8", "k9", "k10_n17", "k11_n17", "k11_full_head",
+                                    "k10_n33", "k11_n33"])
 def test_final_plain_matches_pallas_at_c40(kernel):
-    """K8-K11 at C = 40, K10/K11 with 17 head columns, and K11 with a head
-    that is not block-diagonal (the card's any route takes all of them)."""
+    """K8-K11 at C = 40, K10/K11 with 17 and 33 head columns, and K11 with
+    a head that is not block-diagonal (on the card K8 and K9 take the any
+    route, K10 and K11 the wide head route)."""
     rng = np.random.default_rng({"k8": 40, "k9": 41, "k10_n17": 42, "k11_n17": 43,
-                                 "k11_full_head": 44}[kernel])
-    c, n_out = 40, 17
+                                 "k11_full_head": 44, "k10_n33": 45, "k11_n33": 46}[kernel])
+    c, n_out = 40, 33 if kernel.endswith("n33") else 17
     T, J = torch.from_numpy, jnp.asarray
     w, b = _n(rng, (3, 3, c, c), (9 * c) ** -0.5), _n(rng, c, 0.1)
     if kernel == "k8":
@@ -229,7 +240,7 @@ def test_final_plain_matches_pallas_at_c40(kernel):
         x = _n(rng, (2, 6, 10, c))
         ref = jdec.fused_upsample_final(J(x), J(w), J(b), interpret=True)
         got = tdec.upsample_final(T(x), T(w), T(b))
-    elif kernel == "k10_n17":
+    elif kernel.startswith("k10"):
         x, wh, bh = _n(rng, (2, 6, 10, c)), _n(rng, (c, n_out), 0.3), _n(rng, n_out, 0.1)
         ref = jnp.transpose(jdec.fused_final_heads(*map(J, (x, w, b, wh, bh)), interpret=True),
                             (0, 2, 3, 1))
