@@ -166,16 +166,19 @@
    (192, 80, 96), (20, 12, 40), (640, 320, 320), (128, 0, 1024),
    (2816, 1408, 384), (704, 352, 1408) and (1408, 704, 2816)
    (``SHAPE_K7``: the fixed route as a guard, the any route else), K8-K11
-   at C = 40, 96, 128, 256 (K8 and K9 also at 1152) and K10/K11 at 10, 17
-   and 33 head columns, K11 with a full head at C = 64 and 40, K10/K11 on
-   ragged tiles and at cin != cout (``SHAPE_WIDE_EXTRA``; all these on the
-   wide head route) and past it (``SHAPE_PAST_WIDE``: K7's any route and
-   its second pass), each against its plain version in both GELU modes (2
-   bf16 ulp + DEC_ATOL; heads per logit) on the route it must take, timed
-   beside the plain version, cuDNN's conv and the bound, with mutants
-   (K7's, a padded channel leaking into the LayerNorm, a dropped 16-column
-   head chunk, the diagonal blocks only of a full head, K11's phase p
-   through block p + 1, a dropped N chunk of the wide route's head sums);
+   at C = 40, 96, 128, 256 (K8 and K9 also at 1152; their rows also on
+   K7's any route, forced) and K10/K11 at 10, 17 and 33 head columns, K11
+   with a full head at C = 64 and 40, K8-K11 on ragged tiles and at cin !=
+   cout (``SHAPE_WIDE_EXTRA``, ``SHAPE_WIDE_CONV``; all these on the wide
+   route but K8 where its weights would stream) and K10/K11 past it
+   (``SHAPE_PAST_WIDE``: K7's any route and its second pass), each
+   against its plain version in both GELU modes (2 bf16 ulp + DEC_ATOL;
+   heads per logit) on the route it must take, timed beside the plain
+   version, cuDNN's conv and the bound, with mutants (K7's, a padded
+   channel leaking into the LayerNorm, a dropped 16-column head chunk, the
+   diagonal blocks only of a full head, K11's phase p through block p + 1,
+   a dropped N chunk of the wide route's head sums, K8's and K9's N chunk
+   dropped or stored 16 columns left of its offset);
    K3 at 1, 2, 63, 65, 128, 256 and 4096 levels on ``_flood_cases``'
    tiles, K4 at 1, 6, 9, 10, 12 and 16 types x 512, 3,363, 4,096 and
    16,384 slots on 2 tiles of 256^2 and of 512^2, K2 at 11,777, 27,521,
@@ -207,9 +210,11 @@
    own (``decoder_conv_any``, ``final_conv_gelu_any``,
    ``upsample_final_any``, ``final_heads_any``,
    ``composite_final_heads_any``: ``ops/decoder.py::ANY_LAUNCHES``, one a
-   column chunk), K10's and K11's wide head route theirs
-   (``final_heads_wide``, ``composite_final_heads_wide``:
-   ``ops/decoder.py::WIDE_LAUNCHES``, one a call; model (b)'s path runs
+   column chunk; model (b)'s path runs K7's, and none of K8's and K9's),
+   K8-K11's wide route theirs (``final_conv_gelu_wide``,
+   ``upsample_final_wide``, ``final_heads_wide``,
+   ``composite_final_heads_wide``: ``ops/decoder.py::WIDE_LAUNCHES``, one
+   a call, with their instantiations' ptxas lines; model (b)'s path runs
    them) and the any route's second pass one (``conv_epilogue``, each of
    its calls held against ``conv_epilogue_plain`` on its own inputs), each
    with ``["shapes_sweep"]`` too;
@@ -766,6 +771,20 @@ def _ptxas_entries(log: str) -> dict[str, dict]:
     return out
 
 
+def _ptxas_advisories(log: str) -> dict[str, int]:
+    """ptxas's performance advisories (C75xx: wgmma serialized, warpgroup
+    arrives injected) counted by code and kernel entry."""
+    import re
+
+    out: dict[str, int] = {}
+    for ln in log.splitlines():
+        m = re.search(r"\((C75\d\d)\).*function '([^']+)'", ln)
+        if m:
+            key = f"{m.group(1)} {m.group(2)}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def _k1_ptxas(cuda) -> dict[str, dict]:
     """K1's kernels' ptxas lines by launch (pw2 per N tile)."""
     names = {"dw_ln_kernel": "dw_ln", "pw1_kernel": "pw1", "pw2_kernel": "pw2"}
@@ -1021,9 +1040,10 @@ def _block_weights(block_cls, c: int, seed: int, dev) -> list[torch.Tensor]:
 
 def _ab_child(root: Path, check: bool, inputs: Path) -> int:
     """One A/B run: K1, K7 and K8-K11 of the package under ``root``, timed
-    on seeded inputs (K10 and K11 also at path (4)'s model (b) shapes,
-    ``k10_any_batch_ms``, ``k11_any_batch_ms``: the parent's any route or
-    the wide head route), and, where a main run saved them, K2 and K3 on the
+    on seeded inputs (K8-K11 also at path (4)'s model (b) shapes,
+    ``k10_any_batch_ms``, ``k11_any_batch_ms``, ``k9_any_batch_ms``,
+    ``k8_any_batch_ms``: an earlier package's any route or the wide route),
+    and, where a main run saved them, K2 and K3 on the
     main path's masks, energy and markers in ``inputs``, K4 on the batch's
     labels and types in
     ``k4_inputs.pt`` beside it, and K5 (the islands path's three masks)
@@ -1153,7 +1173,11 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
         res["k11_any_batch_ms"] = _sync_time(
             lambda: [dec.composite_final_heads(c_, wcb, b4b, whd, bh4b, **k11_kw)
                      for c_ in xb.split(CHUNK)], reps=2)
-        res["wide_launches"] = {k: v.launches for k, v in getattr(dec, "WIDE_LAUNCHES", {}).items()}
+        # K9 and K8 at the same width on model (b)'s shapes (K9 on x, K8 on
+        # 512 x 256^2 x 40): K7's any route, or the wide route
+        _idle(res, "k9_any")
+        res["k9_any_batch_ms"] = _sync_time(
+            lambda: [dec.upsample_final(c_, wb, bb) for c_ in xb.split(CHUNK)], reps=2)
         if check:  # tolerance as the main run's head checks
             xs = xb[:8]
             res["k10_any_excess"] = _excess(
@@ -1163,7 +1187,19 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
                 dec.composite_final_heads(xs, wcb, b4b, whd, bh4b, **k11_kw),
                 dec.composite_final_heads_plain(xs, wcb, b4b, whd, bh4b),
                 _head_atol(dec.final_conv_gelu_plain(xs, wcb, b4b), whd))
+            res["k9_any_excess"] = _excess(dec.upsample_final(xs, wb, bb),
+                                           dec.upsample_final_plain(xs, wb, bb), DEC_ATOL)
         del xb
+        x8b = rnd((512, 256, 256, 40))
+        _idle(res, "k8_any")
+        res["k8_any_batch_ms"] = _sync_time(
+            lambda: [dec.final_conv_gelu(c_, wb, bb) for c_ in x8b.split(CHUNK)], reps=2)
+        if check:
+            xs = x8b[:8]
+            res["k8_any_excess"] = _excess(dec.final_conv_gelu(xs, wb, bb),
+                                           dec.final_conv_gelu_plain(xs, wb, bb), DEC_ATOL)
+        res["wide_launches"] = {k: v.launches for k, v in getattr(dec, "WIDE_LAUNCHES", {}).items()}
+        del x8b
     from path_gene_multimodal_tpu_torch.ops import cc_sizes as k2
     from path_gene_multimodal_tpu_torch.ops import flood as k3
 
@@ -1224,7 +1260,8 @@ def _ab_child(root: Path, check: bool, inputs: Path) -> int:
                                      for m in path_masks)
                 res["k6_diff"] = int((cc.label_components_batch(fg6)
                                       != cc.label_components_batch_plain(fg6)).sum())
-    for k in ("k8_excess", "k11_excess", "k10_any_excess", "k11_any_excess"):
+    for k in ("k8_excess", "k11_excess", "k10_any_excess", "k11_any_excess", "k9_any_excess",
+              "k8_any_excess"):
         if res.get(k, 0.0) > 1.0:
             over.append(f"{k} {res[k]:.3g}")
     for k in ("k2_diff", "k3_diff", "k4_diff", "k5_diff", "k6_diff"):
@@ -1239,7 +1276,7 @@ AB_KEYS = ("k1_batch_ms", "k2_batch_ms", "k2_device_ms", "k3_batch_ms", "k4_batc
            "k4_device_ms",
            "k5_slide_ms", "k6_ms",
            "k7_batch_ms", "k8_batch_ms", "k9_batch_ms", "k10_batch_ms", "k11_batch_ms",
-           "k10_any_batch_ms", "k11_any_batch_ms")
+           "k10_any_batch_ms", "k11_any_batch_ms", "k9_any_batch_ms", "k8_any_batch_ms")
 
 
 def _ab(parent: Path, out_dir: Path) -> int:
@@ -6594,12 +6631,13 @@ PATH_MODELS = {"nano": dict(decoder_dims=(384, 192, 96, 64), num_types=5),
 # (tests/test_torch_hovernext.py's bar for bf16 rounding against f32)
 BF16_SPAN = 0.05
 # the K7-K11 wrappers and the kernels line's names of their any routes
-# (ops/decoder.py::ANY_LAUNCHES) and of K10's and K11's wide head route
+# (ops/decoder.py::ANY_LAUNCHES) and of K8-K11's wide route
 # (ops/decoder.py::WIDE_LAUNCHES)
 DEC_ROUTES = {"decoder_conv": "decoder_conv_any", "final_conv_gelu": "final_conv_gelu_any",
               "upsample_final": "upsample_final_any", "final_heads": "final_heads_any",
               "composite_final_heads": "composite_final_heads_any"}
-WIDE_ROUTES = {"final_heads": "final_heads_wide",
+WIDE_ROUTES = {"final_conv_gelu": "final_conv_gelu_wide", "upsample_final": "upsample_final_wide",
+               "final_heads": "final_heads_wide",
                "composite_final_heads": "composite_final_heads_wide"}
 # the wide route's extra sweep rows, (B, H, W of x, cin, cout, head columns
 # per phase): model (b)'s widths at ragged shapes, cin != cout (and, at
@@ -6609,6 +6647,14 @@ WIDE_ROUTES = {"final_heads": "final_heads_wide",
 SHAPE_WIDE_EXTRA = ((3, 34, 34, 40, 40, 17), (2, 6, 10, 40, 40, 17), (4, 32, 32, 96, 40, 17),
                     (4, 32, 32, 20, 72, 10))
 SHAPE_PAST_WIDE = {"k10": (4, 32, 32, 40, 40, 96), "k11_full_head": (4, 32, 32, 40, 40, 24)}
+# K8's and K9's extra wide-route rows, (kernel, B, H, W of x, cin, cout):
+# tiles that are not whole (K9 at model (b)'s width, K8 too), cin 20
+# (inputs loaded by the threads), cin != cout, and K8 at a cout past 80
+# (N chunks of 128 and 16, 16-B stores of 136 columns; at cin 96 its
+# weights would stream, so K7's any route takes it)
+SHAPE_WIDE_CONV = (("k9", 3, 18, 35, 40, 40), ("k9", 2, 6, 10, 20, 72), ("k9", 4, 32, 32, 96, 40),
+                   ("k8", 3, 32, 70, 40, 40), ("k8", 2, 32, 10, 20, 72),
+                   ("k8", 2, 32, 32, 16, 136), ("k8", 2, 32, 32, 96, 136))
 
 
 def _shape_k1_input(c: int) -> tuple[int, int, int, int]:
@@ -6866,7 +6912,9 @@ def _shapes_k7(dev, failures) -> list[dict]:
 
 
 def _shapes_final(dev, failures) -> dict:
-    """K8-K11 at SHAPE_FINAL_C, K8 and K9 also at SHAPE_FINAL_WIDE_C
+    """K8-K11 at SHAPE_FINAL_C, K8 and K9 also at SHAPE_FINAL_WIDE_C and
+    SHAPE_WIDE_CONV (``_final_conv``; their rows at SHAPE_FINAL_C and
+    SHAPE_FINAL_WIDE_C also on K7's any route, forced)
     (K10/K11 at each SHAPE_FINAL_N; K11 with a seeded block per phase,
     stated block-diagonal, and with a full head; K10/K11 also at
     SHAPE_WIDE_EXTRA and past the wide head route at SHAPE_PAST_WIDE, each
@@ -6895,34 +6943,9 @@ def _shapes_final(dev, failures) -> dict:
             loc + std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
         w, vb = rnd((3, 3, c, c), (9 * c) ** -0.5), rnd(c, 0.1)
         x8, xh = rnd((b, 2 * half, 2 * half, c)), rnd((b, half, half, c))
-        full_px, half_px = b * 4 * half * half, b * half * half
         with torch.inference_mode():
-            rec = {"c": c, "shape": list(x8.shape)}
-            rec["max_abs_err"] = _check_modes(
-                failures, f"shapes final_conv_gelu C={c}",
-                lambda e: dec.final_conv_gelu(x8, w, vb, exact_gelu=e),
-                lambda e: dec.final_conv_gelu_plain(x8, w, vb, exact_gelu=e),
-                lambda e: DEC_ATOL, {"no_bias": lambda: dec.final_conv_gelu_plain(x8, w, 0 * vb)},
-                rec)
-            timed(rec, lambda: dec.final_conv_gelu(x8, w, vb),
-                  lambda: dec.final_conv_gelu_plain(x8, w, vb), _conv_library(x8, w),
-                  2 * full_px * 2 * c + 2 * w.numel(),
-                  [(2 * full_px * 9 * c * c, PEAK_BF16), (10 * full_px * c, PEAK_F32)])
-            rows["k8"].append(rec)
-            up = dec.upsample2x_bilinear(xh)
-            rec = {"c": c, "shape": list(xh.shape)}
-            rec["max_abs_err"] = _check_modes(
-                failures, f"shapes upsample_final C={c}",
-                lambda e: dec.upsample_final(xh, w, vb, exact_gelu=e),
-                lambda e: dec.upsample_final_plain(xh, w, vb, exact_gelu=e),
-                lambda e: DEC_ATOL,
-                {"no_bias": lambda: dec.upsample_final_plain(xh, w, 0 * vb),
-                 "edge_replicated": lambda: _edge_padded(xh, w, vb)}, rec)
-            timed(rec, lambda: dec.upsample_final(xh, w, vb),
-                  lambda: dec.upsample_final_plain(xh, w, vb), _conv_library(up, w),
-                  2 * (half_px * c + full_px * c) + 2 * w.numel(),
-                  [(2 * full_px * 9 * c * c, PEAK_BF16), (16 * full_px * c, PEAK_F32)])
-            rows["k9"].append(rec)
+            rows["k8"].append(_final_conv(failures, timed, "k8", x8, w, vb, any_route=True))
+            rows["k9"].append(_final_conv(failures, timed, "k9", xh, w, vb, any_route=True))
             if c == SHAPE_FINAL_WIDE_C:  # K8 and K9 only
                 continue
             wc, b4 = rnd((3, 3, c, 4 * c), (9 * c) ** -0.5), rnd(4 * c, 0.1)
@@ -6932,7 +6955,16 @@ def _shapes_final(dev, failures) -> dict:
                 whb = torch.block_diag(*[rnd((c, n), 0.3) for _ in range(4)]).contiguous()
                 rows["k11"].append(_final_k11(failures, timed, xh, wc, b4, whb, rnd(4 * n, 0.1),
                                               True))
-            del x8, xh, up
+            del x8, xh
+    # K8 and K9 on ragged tiles, at cin != cout and at cin 20
+    rows["wide_conv_extra"] = []
+    for j, (kind, bb, hh, ww, cin, c) in enumerate(SHAPE_WIDE_CONV):
+        gen = torch.Generator(device=dev).manual_seed(1650 + j)
+        rnd = lambda shape, std=1.0: (  # noqa: E731
+            std * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        x = rnd((bb, hh, ww, cin))
+        w, vb = rnd((3, 3, cin, c), (9 * cin) ** -0.5), rnd(c, 0.1)
+        rows["wide_conv_extra"].append(_final_conv(failures, timed, kind, x, w, vb))
     # K11 with a full head (every block nonzero), at HoverNeXt-tiny's width
     # and at model (b)'s: the wide route multiplies all of it, its four
     # phases' sums kept on chip
@@ -6976,6 +7008,82 @@ def _shapes_final(dev, failures) -> dict:
                                             rnd(4 * n, 0.1), False, route="any", spy=chk)]
     rows["past_wide_epilogue"] = chk.epi
     return rows
+
+
+def _conv_chunk_mutant(ref: torch.Tensor, geo, how: str, j: int = 1) -> torch.Tensor:
+    """A mutant of K8's or K9's wide route (``ops/decoder.py::HeadTiling``
+    ``geo``, no head) on its plain output ``ref``: N chunk j's columns left
+    at zero ("dropped", as if the chunk were never stored), or stored 16
+    columns left of their offset ("shifted")."""
+    n0, nw = geo.n_chunks[j]
+    vc = min(nw, geo.cout - n0)
+    bad = ref.clone()
+    if how == "dropped":
+        bad[..., n0 : n0 + vc] = 0
+    else:
+        bad[..., n0 - 16 : n0 - 16 + vc] = ref[..., n0 : n0 + vc]
+    return bad
+
+
+def _final_conv(failures, timed, kind, x, w, vb, any_route=False) -> dict:
+    """K8 (``kind`` "k8") or K9 ("k9") on x against its plain version in
+    both GELU modes, with mutants (no bias; K9 an edge-replicated input; on
+    the wide route with more than one N chunk, N chunk 1 dropped and stored
+    16 columns left of its offset), on the route its tiling names
+    (``rec["route"]``), timed beside its plain version, cuDNN's conv (K9: on
+    the upsampled map) and the bound. With ``any_route``, K7's any route
+    (``ops/decoder.py::_conv_any``) at the same shape too, forced, held to
+    the same bar and timed (``rec["any"]``: the ``*_any`` rows, and the
+    times the wide route's static rule rests on)."""
+    from path_gene_multimodal_tpu_torch.ops import decoder as dec
+
+    k9 = kind == "k9"
+    name = "upsample_final" if k9 else "final_conv_gelu"
+    wrapper, plain = getattr(dec, name), getattr(dec, f"{name}_plain")
+    (bb, hh, ww, cin), c = x.shape, w.shape[-1]
+    tiling = (dec.UpsampleTiling if k9 else dec.StripTiling)(
+        bb, hh, ww, n_sm=dec.cuda.sm_count(x.device), cin=cin, cout=c)
+    rec = {"kernel": name, "c": c, "cin": cin, "shape": list(x.shape)}
+    mut = {"no_bias": lambda: plain(x, w, 0 * vb)}
+    if k9:
+        mut["edge_replicated"] = lambda: _edge_padded(x, w, vb)
+    geo = tiling.head_geo
+    if tiling.route == "wide":
+        rec["n_max"], rec["n_chunks"] = geo.n_max, len(geo.n_chunks)
+        if len(geo.n_chunks) > 1:
+            mut["dropped_n_chunk"] = lambda: _conv_chunk_mutant(plain(x, w, vb), geo, "dropped")
+            mut["n_chunk_shifted"] = lambda: _conv_chunk_mutant(plain(x, w, vb), geo, "shifted")
+    tag = f"shapes {name} {list(x.shape)} -> {c}"
+    before = _route_launches(name)
+    with torch.inference_mode():
+        rec["max_abs_err"] = _check_modes(
+            failures, tag, lambda e: wrapper(x, w, vb, exact_gelu=e),
+            lambda e: plain(x, w, vb, exact_gelu=e), lambda e: DEC_ATOL, mut, rec)
+        rec["route"] = _route_taken(name, before)
+        if rec["route"] != tiling.route:
+            failures.append(f"{tag}: took the {rec['route']} route, expected {tiling.route}")
+        xin = dec.upsample2x_bilinear(x) if k9 else x
+        px = xin.numel() // cin
+        timed(rec, lambda: wrapper(x, w, vb), lambda: plain(x, w, vb), _conv_library(xin, w),
+              2 * (x.numel() + px * c) + 2 * w.numel(),
+              [(2 * px * 9 * cin * c, PEAK_BF16), ((16 if k9 else 10) * px * c, PEAK_F32)])
+        if any_route:
+            forced = lambda e=False: dec._conv_any(tiling.any_geo, x, None, w, vb,  # noqa: E731
+                                                   exact_gelu=e)
+            rec["any"] = {}
+            for e in (False, True):
+                got, ref = forced(e), plain(x, w, vb, exact_gelu=e)
+                mode = "erf" if e else "tanh"
+                rec["any"][f"excess_{mode}"] = _excess(got, ref, DEC_ATOL)
+                rec["any"][f"max_abs_err_{mode}"] = float((got.float() - ref.float()).abs().max())
+                if rec["any"][f"excess_{mode}"] > 1.0:
+                    failures.append(f"{tag} ({mode} GELU), K7's any route forced: exceeds its "
+                                    f"plain version's bar x{rec['any'][f'excess_{mode}']:.3g}")
+            rec["any"]["max_abs_err"] = max(rec["any"]["max_abs_err_tanh"],
+                                            rec["any"]["max_abs_err_erf"])
+            rec["any"]["ms"] = _sync_time(forced, reps=3)
+        del xin
+    return rec
 
 
 def _final_k10(failures, timed, xh, w, vb, wh, bh, route="wide", spy=None) -> dict:
@@ -7339,13 +7447,17 @@ def _shapes_paths(slide, ann: Path, cfg, wrappers, failures, dev=None) -> dict:
                                     f"and its any route {launches.get(DEC_ROUTES[kname], 0)} "
                                     f"times in {rec['any_calls']} calls (checked "
                                     f"{rec['calls']}), expected {k} calls")
-                # model (b)'s heads (C = 40, 17 columns) take the wide route
-                # and no second pass
+                # model (b)'s final stage (C = 40, heads of 17 columns) takes
+                # the wide route, no second pass and none of K8's and K9's
+                # any routes
                 if mname == "nano_dec40" and kname in WIDE_ROUTES and (
-                        rec["wide_calls"] != k or launches.get("conv_epilogue", 0)):
+                        rec["wide_calls"] != k or launches.get("conv_epilogue", 0)
+                        or launches.get(DEC_ROUTES[kname], 0)):
                     failures.append(f"shapes path {mname} {name}: {kname}'s {k} calls took "
-                                    f"the wide route {rec['wide_calls']} times, conv_epilogue "
-                                    f"launched {launches.get('conv_epilogue', 0)} times")
+                                    f"the wide route {rec['wide_calls']} times, its any route "
+                                    f"launched {launches.get(DEC_ROUTES[kname], 0)} times, "
+                                    "conv_epilogue "
+                                    f"{launches.get('conv_epilogue', 0)} times")
             if launches.get("conv_epilogue", 0) != chk.epi["calls"]:
                 failures.append(f"shapes path {mname} {name}: conv_epilogue launched "
                                 f"{launches.get('conv_epilogue', 0)} times, checked "
@@ -7821,23 +7933,41 @@ def _shapes(slide, ann: Path, sd, cfg, tmp: Path, wrappers, failures) -> dict:
     return res
 
 
+def _wide_ptxas(head: bool) -> dict[str, dict]:
+    """The ptxas lines of the wide kernel's instantiations with a head
+    (K10, K11) or without (K8, K9)."""
+    import re
+
+    from path_gene_multimodal_tpu_torch.ops import cuda
+
+    entries = _ptxas_entries(cuda.build_log("final_heads_wide"))
+    return {k: v for k, v in entries.items()
+            if re.search(rf"heads_wide_kernelILb\dELb\dELb{int(head)}E", k)}
+
+
 def _any_route_entries(res: dict) -> list[dict]:
-    """The kernels line's rows of K7-K11's any routes and of K10's and
-    K11's wide head route from the shapes phase: launches from path (4)'s
-    runs and the sweeps (``launches_by_path``), the worst error over the
-    sweeps' rows and path (4)'s calls on the route; ms, plain_ms, library_ms
-    and bound_ms per batch (the wrapper's calls in one forward of 512 images)
-    on model (b)'s path where it runs them (K7-K9's any routes, the wide
-    route), else per call at the sweep's row past the wide route (K10's and
-    K11's any routes, the second pass)."""
+    """The kernels line's rows of K7-K11's any routes and of K8-K11's wide
+    route from the shapes phase: launches from path (4)'s runs and the
+    sweeps (``launches_by_path``), the worst error over the sweeps' rows
+    and path (4)'s calls on the route; ms, plain_ms, library_ms and
+    bound_ms per batch (the wrapper's calls in one forward of 512 images)
+    on model (b)'s path where it runs them (K7's any route, the wide
+    route), else per call: K8's and K9's any routes at the sweep's C = 40
+    row (forced), K10's and K11's at the sweep's row past the wide route,
+    the second pass there."""
     from path_gene_multimodal_tpu_torch.ops.decoder import HEAD_COLS_MAX
 
     pallas = "path_gene_multimodal_tpu/ops/pallas/decoder.py"
     fin = res.get("final", {})
     runs_b = res.get("paths", {}).get("nano_dec40", {}).get("runs", {})
     sweep = res.get("sweep_launches", {})
-    wide_rows = fin.get("k10", []) + fin.get("k11", []) + fin.get("k11_full_head", []) + fin.get(
-        "wide_extra", [])
+    wide_rows = (fin.get("k8", []) + fin.get("k9", []) + fin.get("wide_conv_extra", [])
+                 + fin.get("k10", []) + fin.get("k11", []) + fin.get("k11_full_head", [])
+                 + fin.get("wide_extra", []))
+
+    def forced_any(rows):  # K8's or K9's sweep rows, as their forced any route read
+        return [{**r, "ms": r["any"]["ms"], "max_abs_err": r["any"]["max_abs_err"]}
+                for r in rows if "any" in r]
 
     def by_path(route):
         out = {f"shapes_path_{m}": sum(r["launches"].get(route, 0) for r in p["runs"].values())
@@ -7849,20 +7979,28 @@ def _any_route_entries(res: dict) -> list[dict]:
         ("decoder_conv", 168, "fused_decoder", [r for r in res.get("k7", [])
                                                 if r.get("route") == "any"],
          "K7 at cout not in 64/96/192/384 or inputs no multiple of 32", "decoder_conv"),
-        ("final_conv_gelu", 591, "fused_decoder", fin.get("k8", []), "K8 at C != 64",
-         "decoder_conv"),
-        ("upsample_final", 307, "k9", fin.get("k9", []),
-         "K9 at C != 64, the halo upsampled by the producer warp", "decoder_conv"),
+        ("final_conv_gelu", 591, None, forced_any(fin.get("k8", [])),
+         "K8 at C != 64 until the wide route took it; forced here", "decoder_conv"),
+        ("upsample_final", 307, None, forced_any(fin.get("k9", [])),
+         "K9 at C != 64 until the wide route took it, the halo upsampled by the producer warp; "
+         "forced here", "decoder_conv"),
         ("final_heads", 392, None, fin.get("k10_past_wide", []),
          f"K10 past the wide route (more than {HEAD_COLS_MAX} head columns)", "decoder_conv"),
         ("composite_final_heads", 462, None, fin.get("k11_past_wide", []),
          f"K11 past the wide route (more than {HEAD_COLS_MAX} head columns summed at once)",
          "decoder_conv"),
     )
-    wide = (("final_heads", 392, "heads", "K10 at C != 64 or 17-80 head columns"),
+    wide = (("final_conv_gelu", 591, "fused_decoder",
+             "K8 at C != 64, no head: each N chunk's bias + GELU stored as it is done"),
+            ("upsample_final", 307, "k9",
+             "K9 at C != 64, no head: the halo upsampled by the whole block, each N chunk's bias "
+             "+ GELU stored as it is done"),
+            ("final_heads", 392, "heads", "K10 at C != 64 or 17-80 head columns"),
             ("composite_final_heads", 462, "pallas",
              "K11 at C != 64, 17-80 head columns a phase (a head stated block-diagonal), or a "
              "full head of up to 80 columns"))
+    kind_of = lambda r: r.get("kernel", "composite_final_heads" if "head" in r  # noqa: E731
+                              else "final_heads")
     out = []
     for wrapper, line, config, rows, what, stem in routes:
         route = DEC_ROUTES[wrapper]
@@ -7875,7 +8013,10 @@ def _any_route_entries(res: dict) -> list[dict]:
             bound_by = max(by, key=by.get)
         else:
             rec = rows[0] if rows else {}
-            where = f"per call at the sweep's row past the wide route {rec.get('shape')}"
+            where = (f"per call at the sweep's row {rec.get('shape')}, the any route forced "
+                     "(ops/decoder.py::_conv_any)" if wrapper in ("final_conv_gelu",
+                                                                 "upsample_final")
+                     else f"per call at the sweep's row past the wide route {rec.get('shape')}")
             bound_by = rec.get("bound_by")
         out.append({
             "name": route, "route": "cuda",
@@ -7898,8 +8039,9 @@ def _any_route_entries(res: dict) -> list[dict]:
         route = WIDE_ROUTES[wrapper]
         rec = runs_b.get(config, {}).get("checks", {}).get(wrapper, {})
         by = rec.get("bound_by") or {"operations": 0.0}
-        rows = [r for r in wide_rows if r.get("route") == "wide" and
-                (r.get("head") is None) == (wrapper == "final_heads")]
+        rows = [r for r in wide_rows if r.get("route") == "wide" and kind_of(r) == wrapper]
+        head = wrapper in ("final_heads", "composite_final_heads")
+        up = wrapper in ("upsample_final", "final_heads")
         out.append({
             "name": route, "route": "cuda",
             "source": "path_gene_multimodal_tpu_torch/csrc/final_heads_wide.cu",
@@ -7908,11 +8050,13 @@ def _any_route_entries(res: dict) -> list[dict]:
             "max_abs_err": max((r.get("max_abs_err", 0.0) for r in rows), default=None),
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
             "bound_ms": rec.get("bound_ms"), "bound_by": max(by, key=by.get),
-            "library_ms": rec.get("library_ms"),
-            "note": f"{wrapper}'s wide head route: {what}; heads_wide_kernel<"
-                    f"{'true' if wrapper == 'final_heads' else 'false'}> (wgmma conv in N "
-                    "chunks, the head on mma.sync in the epilogue, no f32 scratch, no second "
-                    "pass); launches: path (4)'s runs and the sweeps (shapes phase), one a call; "
+            "library_ms": rec.get("library_ms"), "ptxas": _wide_ptxas(head),
+            "note": f"{wrapper}'s wide route: {what}; heads_wide_kernel<"
+                    f"{str(up).lower()}, EXACT, {str(head).lower()}, "
+                    f"{'64' if head else 'n_max'}> (wgmma conv in N chunks, "
+                    f"{'the head on mma.sync in the epilogue' if head else 'no head'}, no f32 "
+                    "scratch, no second pass); launches: path (4)'s runs and the sweeps (shapes "
+                    "phase), one a call; ptxas: its instantiations' registers and spills; "
                     "max_abs_err over the sweeps' rows on this route; ms, plain_ms, bound_ms, "
                     f"library_ms: per batch, the {rec.get('calls')} calls of one forward of 512 "
                     f"images on model (b)'s path ({config}), each checked against its plain "
@@ -8147,11 +8291,14 @@ def main(argv: list[str] | None = None) -> int:
     report["ptxas"] = {n: [ln.strip() for ln in cuda.build_log(n).splitlines()
                            if "registers" in ln or "bytes stack" in ln]
                        for n in cuda.KERNELS}
+    report["ptxas_advisories"] = {n: _ptxas_advisories(cuda.build_log(n)) for n in cuda.KERNELS}
     print(f"built {len(cuda.KERNELS)} kernels in {report['build_s']:.1f} s", flush=True)
     print(json.dumps({"ptxas_upsample_conv": report["ptxas"]["upsample_conv"],
                       "ptxas_conv64": report["ptxas"]["conv64"],
                       "ptxas_decoder_conv": report["ptxas"]["decoder_conv"],
-                      "ptxas_final_heads_wide": report["ptxas"]["final_heads_wide"]}),
+                      "ptxas_final_heads_wide": report["ptxas"]["final_heads_wide"],
+                      "ptxas_advisories_final_heads_wide":
+                          report["ptxas_advisories"]["final_heads_wide"]}),
           flush=True)
 
     # -- 2. main path ---------------------------------------------------
@@ -8541,6 +8688,10 @@ def main(argv: list[str] | None = None) -> int:
     failures += [f"{k['name']} never launched on path (4)'s model (b)" for k in kernels
                  if k["name"] in WIDE_ROUTES.values()
                  and not k["launches_by_path"].get("shapes_path_nano_dec40")]
+    failures += [f"{k['name']} launched on path (4)'s model (b), whose K8 and K9 run the wide "
+                 "route" for k in kernels
+                 if k["name"] in (DEC_ROUTES["final_conv_gelu"], DEC_ROUTES["upsample_final"])
+                 and k["launches_by_path"].get("shapes_path_nano_dec40")]
     failures += [f"{k['name']} never launched in the shapes phase" for k in kernels
                  if k["name"] in NEW_ROUTES and not k["launches"]]
 

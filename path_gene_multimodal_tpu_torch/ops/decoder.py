@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``ops/pallas/decoder.py``. Each wrapper
 launches its hand-written kernel (K7: ``csrc/decoder_conv.cu``; K9, K10:
 ``csrc/upsample_conv.cu``; K8, K11: ``csrc/conv64.cu``; the last two share
-the 64-channel conv core ``csrc/conv64.cuh``; K10 and K11 at other widths:
+the 64-channel conv core ``csrc/conv64.cuh``; K8-K11 at other widths:
 ``csrc/final_heads_wide.cu``) on a CUDA tensor and runs its ``*_plain``
 twin on a CPU tensor:
 
@@ -28,10 +28,11 @@ twin on a CPU tensor:
 Each takes every width its Pallas kernel takes. Where its own kernel is
 compiled for fewer (K7: cout in ``KERNEL_COUTS``, cx and cs multiples of
 32; K8-K11: cin = cout = 64, at most 16 head columns, K11 a block-diagonal
-head), K10 and K11 run the wide head kernel (``csrc/final_heads_wide.cu``,
-``HeadTiling``; route "wide") for heads of up to ``HEAD_COLS_MAX`` columns
-summed at once: the conv in N chunks on wgmma, each chunk's bias + GELU
-multiplied by its head rows on the tensor cores in the epilogue, no f32
+head), K8-K11 run the wide kernel (``csrc/final_heads_wide.cu``,
+``HeadTiling``; route "wide"): the conv in N chunks on wgmma; K8 and K9
+store each chunk's bias + GELU as it is done (any cout), K10 and K11
+multiply it by its head rows on the tensor cores in the epilogue, for
+heads of up to ``HEAD_COLS_MAX`` columns summed at once; no f32
 scratch. Every other shape runs K7's any route (``csrc/decoder_conv.cu``,
 ``DecoderConvTiling`` with ``route == "any"``): the weights zero-padded to
 the next compiled tile width, past 384 columns (and for a head) f32
@@ -339,13 +340,14 @@ class DecoderConvTiling:
 
 @dataclass(frozen=True)
 class HeadTiling:
-    """Launch geometry of the wide head kernel (``csrc/final_heads_wide.cu``):
-    K10 (``upsample``: x at (h / 2, w / 2), the conv's input its bilinear
-    2x) and K11 at the shapes their own kernels do not take, on a conv of
-    (batch, h, w) output pixels, cin input channels and, per phase, cout
-    conv columns and n_out head columns (K11 stated block-diagonal: 4
-    phases of (cout, n_out); K11 with a full head: one phase of (4 cout,
-    4 n_out); K10: one phase).
+    """Launch geometry of the wide kernel (``csrc/final_heads_wide.cu``):
+    K9 and K10 (``upsample``: x at (h / 2, w / 2), the conv's input its
+    bilinear 2x), K8 and K11 at the shapes their own kernels do not take,
+    on a conv of (batch, h, w) output pixels, cin input channels and, per
+    phase, cout conv columns and n_out head columns (K11 stated
+    block-diagonal: 4 phases of (cout, n_out); K11 with a full head: one
+    phase of (4 cout, 4 n_out); K10: one phase; K8 and K9: one phase and
+    no head, ``n_out`` 0).
 
     Persistent blocks, one per SM, block b running phase b % phases and
     walking output tiles t = b // phases, += grid / phases (images, tile
@@ -360,16 +362,18 @@ class HeadTiling:
     ``head_weight_layout``) come through a ring of ``ring`` slots, resident
     where all ``slices`` fit it. After each N chunk its bias + GELU, rounded
     to bf16, multiply the chunk's head rows into ``cols_p`` f32 sums a pixel,
-    kept across the chunks: ``n_out`` is at most ``HEAD_COLS_MAX``. The
-    kernel is compiled for this tile and checks what it is given against
-    its own layout; ``fits`` says whether the shape takes this route."""
+    kept across the chunks: ``n_out`` is at most ``HEAD_COLS_MAX``. Without
+    a head each N chunk's bias + GELU, rounded to bf16, is stored at its
+    column offset as soon as it is done (any cout), in N chunks of
+    ``n_max`` 64 or 128 columns (with a head 64). The kernel is compiled
+    for this tile and checks what it is given against its own layout;
+    ``fits`` says whether the shape takes this route."""
 
     tile_h: ClassVar[int] = 4
     tile_w: ClassVar[int] = 64
     rows: ClassVar[int] = 2   # m64 rows per warpgroup
     warps: ClassVar[int] = 8
     k_max: ClassVar[int] = 64
-    n_max: ClassVar[int] = 64
     max_ring: ClassVar[int] = 8
 
     batch: int
@@ -382,7 +386,14 @@ class HeadTiling:
     upsample: bool = False
     n_sm: int = 132
     kernel: str = "final_heads"  # the wrapper it runs for
+    n_max: int = 64  # conv columns of an N chunk, at most (128 only without a head)
 
+    def __post_init__(self):
+        if self.n_max not in (64, 128) or (self.head and self.n_max != 64):
+            raise ValueError(f"{self.kernel}: the wide kernel takes N chunks of 64 columns, or "
+                             f"128 without a head, got {self.n_max} (n_out {self.n_out})")
+
+    head = property(lambda self: self.n_out > 0)
     cin_p = property(lambda self: -(-self.cin // 16) * 16)
     cout_p = property(lambda self: -(-self.cout // 16) * 16)
     cols_p = property(lambda self: -(-self.n_out // 16) * 16)
@@ -466,19 +477,26 @@ class HeadTiling:
 
     def _smem(self, ring: int) -> tuple[int, int]:
         """(bytes of a ring slot, shared memory bytes with ``ring`` slots):
-        the ring, the input buffers (K10: the halo and two windows; K11: two
-        halos; the output staging, rows of cols_p + 2 bf16, over a halo),
-        the head rows (cols_p + 8 bf16 apart), the f32 bias and head bias, an mbarrier a slot and
-        two for the inputs; as the kernel lays them out."""
+        the ring, the input buffers (upsampling: the halo and two windows;
+        else two halos), with a head the head rows (cols_p + 8 bf16 apart;
+        the logits' staging, rows of cols_p + 2 bf16, over a halo) and the
+        f32 bias and head bias, without one each warp's output staging (16
+        pixels x (n_max + 8) bf16); an mbarrier a slot and two for the
+        inputs; as the kernel lays them out."""
         planes = self.k_chunks[0][1] // 8
         slot = 288 * min(self.cout_p, self.n_max)
         hh, hw = self.halo_shape
         wh, ww = self.window_shape
-        halo = max(hh * hw * 16 * planes, self.warps * self.rows * 16 * (self.cols_p + 2) * 2)
+        halo = hh * hw * 16 * planes
+        if self.head:
+            halo = max(halo, self.warps * self.rows * 16 * (self.cols_p + 2) * 2)
         inputs = halo + 2 * wh * ww * 16 * planes if self.upsample else 2 * halo
-        vec = -(-(self.cout_p + self.cols_p) * 4 // 16) * 16
-        return slot, (ring * slot + inputs + self.cout_p * (self.cols_p + 8) * 2 + vec
-                      + (ring + 2) * 8)
+        if self.head:
+            out = (self.cout_p * (self.cols_p + 8) * 2
+                   + -(-(self.cout_p + self.cols_p) * 4 // 16) * 16)
+        else:
+            out = self.warps * 16 * (self.n_max + 8) * 2
+        return slot, ring * slot + inputs + out + (ring + 2) * 8
 
     @property
     def ring(self) -> int:
@@ -505,10 +523,12 @@ class HeadTiling:
     def smem_bytes(self) -> int:
         return self._smem(self.ring)[1]
 
-    def launch_args(self) -> tuple[int, int, int, int, int, int]:
+    def launch_args(self) -> tuple[int, ...]:
         """(tile_h, tile_w, K chunk width, ring slots, grid, shared memory
-        bytes), as the launcher takes them."""
-        return (self.tile_h, self.tile_w, self.k_chunks[0][1], self.ring, self.grid,
+        bytes), as ``heads_wide_launch`` takes them; without a head, with
+        ``n_max`` after the K chunk width, as ``conv_wide_launch`` does."""
+        nm = () if self.head else (self.n_max,)
+        return (self.tile_h, self.tile_w, self.k_chunks[0][1], *nm, self.ring, self.grid,
                 self.smem_bytes)
 
 
@@ -541,6 +561,18 @@ def head_vectors(b, wh, bh, geo: HeadTiling):
     hb = torch.zeros((p, geo.cols_p), dtype=torch.float32, device=bh.device)
     hb[:, :n] = bh.float().reshape(p, n)
     return bias, head, hb
+
+
+def wide_n_max(cout: int) -> int:
+    """The N chunk width of K8's and K9's wide route (no head): 128 columns
+    past 64 output channels, else 64. At full size (128 images of 128^2
+    (K9) and 256^2 (K8), NVIDIA H100 80GB HBM3, 700.00 W,
+    ``tools/final_wide_probe.py``) 128 took K9 6.09 / 8.57 / 29.05 ms at C
+    = 96 / 128 / 256 against 64's 9.82 / 13.51 / 47.40 (16 images at 1152:
+    65.1 / 111.7), K8 4.94 / 7.01 / 25.22 against 7.30 / 9.77 / 33.33; at
+    C = 40 (one chunk of 48 either way) 64 took a 512-image batch 9.17 (K9)
+    / 6.59 (K8) against 10.26 / 7.69."""
+    return 128 if cout > 64 else 64
 
 
 @dataclass(frozen=True)
@@ -577,21 +609,32 @@ class UpsampleTiling:
 
     @property
     def route(self) -> str:
-        """"upsample_conv": this geometry's kernel; "wide": K10 at other
-        widths or more than 16 head columns, up to ``HEAD_COLS_MAX``, on the
-        wide head kernel (``head_geo``); "any": K7's any route
-        (``any_geo``), for K9 at other widths and K10 past the wide
-        route."""
+        """"upsample_conv": this geometry's kernel; "wide": K9 at other
+        widths, K10 at other widths or more than 16 head columns, up to
+        ``HEAD_COLS_MAX``, on the wide kernel (``head_geo``); "any": K7's
+        any route (``any_geo``), for K10 past the wide route.
+
+        K9 takes the wide route at every width: it beat the any route at
+        each one measured (NVIDIA H100 80GB HBM3, 700.00 W,
+        ``tools/final_wide_probe.py``): a 512-image batch at C = 40 9.17
+        ms against 42.01, 128 images of 128^2 at C = 96 / 128 / 256 6.09 /
+        8.57 / 29.05 against 21.42 / 34.45 / 97.80, 16 at 1152 65.15
+        against 170.30."""
         own = (self.cin == self.cout == UP_CHANNELS
                and (not self.head or self.n_out <= UP_HEAD_COLS))
         if own:
             return "upsample_conv"
-        return "wide" if self.head and self.head_geo.fits else "any"
+        return "wide" if self.head_geo.fits else "any"
 
     @property
     def head_geo(self) -> HeadTiling:
-        return HeadTiling(self.batch, 2 * self.h, 2 * self.w, self.cin, self.cout, self.n_out,
-                          upsample=True, n_sm=self.n_sm, kernel="final_heads")
+        """The wide route's geometry (K9: no head, N chunks of
+        ``wide_n_max``)."""
+        n_out = self.n_out if self.head else 0
+        return HeadTiling(self.batch, 2 * self.h, 2 * self.w, self.cin, self.cout, n_out,
+                          upsample=True, n_sm=self.n_sm,
+                          kernel="final_heads" if self.head else "upsample_final",
+                          n_max=64 if self.head else wide_n_max(self.cout))
 
     @property
     def any_geo(self) -> DecoderConvTiling:
@@ -692,23 +735,38 @@ class StripTiling:
 
     @property
     def route(self) -> str:
-        """"conv64": this geometry's kernel; "wide": K11 at other widths,
-        more than 16 head columns or with a head not stated block-diagonal,
-        up to ``HEAD_COLS_MAX`` columns summed at once, on the wide head
-        kernel (``head_geo``); "any": K7's any route (``any_geo``), for K8
-        at other widths and K11 past the wide route (it multiplies all of
-        the head)."""
+        """"conv64": this geometry's kernel; "wide": K8 at other widths where
+        its weights stay resident in the wide kernel's ring (``head_geo``'s
+        ``resident``), K11 at other widths, more than 16 head columns or with
+        a head not stated block-diagonal, up to ``HEAD_COLS_MAX`` columns
+        summed at once, on the wide kernel (``head_geo``); "any": K7's any
+        route (``any_geo``), for K8 whose weights would stream (every SM
+        copies each slice for each tile, where K7's any route shares them
+        over a cluster) and K11 past the wide route (it multiplies all of
+        the head).
+
+        K8's rule rests on these times (full size: 128 images of 256^2, one
+        call; NVIDIA H100 80GB HBM3, 700.00 W, ``tools/final_wide_probe.py``):
+        C = 96 / 128 / 256, streamed on the wide route, 4.94 / 7.01 / 25.22
+        ms against the any route's 3.01 / 6.53 / 24.37 (16 images at 1152:
+        57.50 against 45.41); C = 40, resident (3 slices), a 512-image batch
+        6.59 against 6.93."""
         own = self.cin == self.cout == UP_CHANNELS and (
             self.phases == 1 or (self.n_out <= UP_HEAD_COLS and self.block_diagonal))
         if own:
             return "conv64"
-        return "wide" if self.phases > 1 and self.head_geo.fits else "any"
+        geo = self.head_geo
+        return "wide" if geo.fits and (self.phases > 1 or geo.resident) else "any"
 
     @property
     def head_geo(self) -> HeadTiling:
-        """K11's wide route: a head stated block-diagonal as four phases of
-        (cout, n_out), each block reading only its diagonal head block;
-        any other as one phase of (4 cout, 4 n_out)."""
+        """The wide route's geometry. K8: one phase, no head, N chunks of
+        ``wide_n_max``. K11: a head stated block-diagonal as four phases of
+        (cout, n_out), each block reading only its diagonal head block; any
+        other as one phase of (4 cout, 4 n_out)."""
+        if self.phases == 1:
+            return HeadTiling(self.batch, self.h, self.w, self.cin, self.cout, 0, n_sm=self.n_sm,
+                              kernel="final_conv_gelu", n_max=wide_n_max(self.cout))
         k = 1 if self.block_diagonal else self.phases
         return HeadTiling(self.batch, self.h, self.w, self.cin, k * self.cout, k * self.n_out,
                           phases=self.phases // k, n_sm=self.n_sm,
@@ -954,8 +1012,9 @@ ANY_LAUNCHES = {n: cuda.LaunchCount() for n in ("decoder_conv", "final_conv_gelu
 EPILOGUE_LAUNCHES = cuda.LaunchCount()
 
 
-# the wide head kernel, per wrapper that runs it (one a call)
-WIDE_LAUNCHES = {n: cuda.LaunchCount() for n in ("final_heads", "composite_final_heads")}
+# the wide kernel, per wrapper that runs it (one a call)
+WIDE_LAUNCHES = {n: cuda.LaunchCount() for n in ("final_conv_gelu", "upsample_final",
+                                                 "final_heads", "composite_final_heads")}
 
 
 def _heads_wide(geo: HeadTiling, x, w, b, wh, bh, exact_gelu) -> torch.Tensor:
@@ -973,6 +1032,24 @@ def _heads_wide(geo: HeadTiling, x, w, b, wh, bh, exact_gelu) -> torch.Tensor:
                 cuda.ptr(bias), cuda.ptr(head), cuda.ptr(hb), cuda.ptr(out), geo.batch, in_h,
                 in_w, geo.cin, geo.cout_p, geo.cols_p, geo.n_out, geo.phases, int(geo.upsample),
                 int(exact_gelu), *geo.launch_args(), cuda.stream(x))
+    WIDE_LAUNCHES[geo.kernel].launches += 1
+    return out
+
+
+def _conv_wide(geo: HeadTiling, x, w, b, exact_gelu) -> torch.Tensor:
+    """The wide kernel with no head (``conv_wide_launch``) for K8 or K9
+    (``geo.kernel``) on checked bf16, contiguous CUDA tensors: one launch,
+    the weight laid out as it reads it (``head_weight_layout``), the bias
+    f32 zero-padded to ``cout_p``; (batch, h, w, cout) bf16."""
+    wl = head_weight_layout(w, geo)
+    bias = torch.zeros(geo.cout_p, dtype=torch.float32, device=b.device)
+    bias[: geo.cout] = b.float()
+    out = torch.empty((geo.batch, geo.h, geo.w, geo.cout), dtype=_BF, device=x.device)
+    in_h, in_w = geo.in_hw
+    cuda.launch("final_heads_wide", "conv_wide_launch", cuda.ptr(x), cuda.ptr(wl),
+                cuda.ptr(bias), cuda.ptr(out), geo.batch, in_h, in_w, geo.cin, geo.cout_p,
+                geo.cout, int(geo.upsample), int(exact_gelu), *geo.launch_args(),
+                cuda.stream(x))
     WIDE_LAUNCHES[geo.kernel].launches += 1
     return out
 
@@ -1074,7 +1151,7 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     devices, as the TPU kernel requires at its default ``rows=32``; any W
     and batch: offsets are 64-bit, so one call takes a TTA x4 batch of 128
     tiles (2^31 elements). Its kernel takes cin = cout = 64; other widths
-    run K7's any route."""
+    run the wide kernel with no head (``_conv_wide``)."""
     bsz, h, wd, cin = x.shape
     if h % FINAL_CONV_ROWS:
         raise ValueError(f"H={h} must be a multiple of rows={FINAL_CONV_ROWS}")
@@ -1086,6 +1163,8 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
+    if geo.route == "wide":
+        return _conv_wide(geo.head_geo, xb, w, b, exact_gelu)
     if geo.route == "any":
         return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu)
     out = torch.empty((bsz, h, wd, cout), dtype=_BF, device=x.device)
@@ -1101,10 +1180,10 @@ def final_conv_gelu(x, w, b, exact_gelu: bool = False):
 def upsample_final(x, w, b, exact_gelu: bool = False):
     """x (B, H, W, cin) → bilinear 2x → 3x3 conv (w, b) → GELU → (B, 2H,
     2W, cout) bf16. The kernel upsamples each output tile's halo once into
-    shared memory; it takes cin = cout = 64, other widths run K7's any
-    route, whose producer warp builds each halo
-    chunk upsampled. 2H must be a multiple of 4, as the TPU kernel requires
-    (it writes the output in 4 row chunks)."""
+    shared memory; it takes cin = cout = 64, other widths run the wide
+    kernel with no head (``_conv_wide``: the whole block upsamples each
+    tile's halo from a window TMA lands). 2H must be a multiple of 4, as
+    the TPU kernel requires (it writes the output in 4 row chunks)."""
     bsz, h, wd, cin = x.shape
     if (2 * h) % 4:
         raise ValueError(f"2*H must be a multiple of 4, got H={h}")
@@ -1116,6 +1195,8 @@ def upsample_final(x, w, b, exact_gelu: bool = False):
     cuda.check(xb, "x", _BF, (bsz, h, wd, cin))
     cuda.check(w, "w", _BF, (3, 3, cin, cout))
     cuda.check(b, "b", _BF, (cout,))
+    if geo.route == "wide":
+        return _conv_wide(geo.head_geo, xb, w, b, exact_gelu)
     if geo.route == "any":
         return _conv_any(geo.any_geo, xb, None, w, b, exact_gelu=exact_gelu)
     out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=_BF, device=x.device)

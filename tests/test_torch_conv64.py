@@ -202,10 +202,11 @@ def test_model_path_vouches_for_its_head(monkeypatch):
 @pytest.mark.parametrize("option", ["fused_decoder", "pallas", "heads", "k9"])
 def test_last_width_96_takes_the_any_route(option):
     """A last decoder width of 96 (K7's fixed widths all) puts K8 under
-    ``fused_decoder`` and K9 on K7's any route, K10 and K11 on the wide head
-    route; HoverNeXt-tiny's widths keep every kernel on its own."""
+    ``fused_decoder`` on K7's any route (its weights would stream through
+    the wide kernel's ring), K9, K10 and K11 on the wide route;
+    HoverNeXt-tiny's widths keep every kernel on its own."""
     cfg = dataclasses.replace(HOVERNEXT_TINY, decoder_dims=(384, 192, 96, 96))
     routes = [geo.route for _, geo in _kernel_tilings(cfg, option)]
-    assert routes[-1] == ("wide" if option in ("heads", "pallas") else "any"), routes
+    assert routes[-1] == ("any" if option == "fused_decoder" else "wide"), routes
     assert all(r == "fixed" for r in routes[:-1]), routes
     assert "any" not in [geo.route for _, geo in _kernel_tilings(HOVERNEXT_TINY, option)]

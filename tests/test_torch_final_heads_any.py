@@ -115,9 +115,9 @@ def test_route_is_chosen_by_the_tiling():
     assert (k11(40, cap), k11(40, cap + 1)) == ("wide", "any")
     assert (k11(40, cap // 4, False), k11(40, cap // 4 + 1, False)) == ("wide", "any")
     assert k11(96, 33, False) == "any"  # 132 columns summed at once
-    # K8 and K9 never take it
-    assert dec.UpsampleTiling(2, 16, 16, cin=40, cout=40).route == "any"
-    assert dec.StripTiling(2, 32, 32, cin=40, cout=40).route == "any"
+    # K8 and K9 take it too, with no head
+    assert dec.UpsampleTiling(2, 16, 16, cin=40, cout=40).route == "wide"
+    assert dec.StripTiling(2, 32, 32, cin=40, cout=40).route == "wide"
     # the wide route's geometry: K10 upsamples, a block-diagonal K11 has four
     # phases of (cout, n_out), a full one one phase of (4 cout, 4 n_out)
     g = dec.UpsampleTiling(2, 16, 16, head=True, cin=40, cout=40, n_out=17)

@@ -106,8 +106,8 @@ def test_hovernext_builds_every_configuration_on_the_card(name, model):
     canonical HoverNeXt and the same encoder with decoder widths
     320/160/80/40 and 12 types; each of its kernel calls' tilings takes its
     shape within a block's shared memory, on the kernels' own compiled
-    widths where they take it (HoverNeXt-tiny's route) and on K7's any
-    route otherwise."""
+    widths where they take it (HoverNeXt-tiny's route), on the wide kernel
+    at K8-K11's other widths and on K7's any route at K7's."""
     cfg = MODELS[model] or _configs(False)[1]
     m = HoverNeXt(cfg, **CONFIGS[name])
     m.fuse()
@@ -123,8 +123,8 @@ def test_hovernext_builds_every_configuration_on_the_card(name, model):
         if geo.route == "wide":
             assert geo.smem_bytes == geo.head_geo.smem_bytes and geo.head_geo.fits
     if model == "nano_dec40":  # no width of (b) is one the kernels are compiled for
-        # K10 and K11 (17 head columns) take the wide head route, the rest K7's any route
-        assert set(routes) == {"wide" if name in ("heads", "pallas") else "any"}, routes
+        # K8-K11 take the wide route (K10 and K11 with 17 head columns), K7 its any route
+        assert routes[-1] == "wide" and set(routes[:-1]) <= {"any"}, routes
     if model == "nano" and name == "fused_decoder":  # only dec2.conv0 (skip 80) leaves them
         assert routes.count("any") == 1 and routes[4] == "any", routes
     if model == "nano" and name != "fused_decoder":  # decoder width 64, 10 head columns
@@ -154,9 +154,11 @@ def test_final_tilings_take_the_widths_the_pallas_kernels_take(width):
                tdec.UpsampleTiling(2, 32, 32, cin=c, cout=c),
                tdec.UpsampleTiling(2, 32, 32, head=True, cin=c, cout=c, n_out=n_out),
                tdec.StripTiling(2, 32, 32, phases=4, cin=c, cout=c, n_out=n_out)]
-    for geo in tilings:  # K8, K9 on K7's any route; K10, K11 on the wide head route
+    for geo in tilings:  # K8-K11 on the wide route (K8 and K9 with no head)
         head = geo is tilings[2] or geo is tilings[3]
-        assert geo.route == ("wide" if head else "any")
+        # K8 whose weights would stream takes K7's any route instead
+        want = "any" if geo is tilings[0] and not geo.head_geo.resident else "wide"
+        assert geo.route == want and geo.head_geo.head == head
         assert geo.smem_bytes <= tdec.SMEM_PER_BLOCK
         assert geo.any_geo.raw == (head or c > 384)
     # HoverNeXt-tiny's widths keep their own kernels; a full K11 head does not
@@ -170,8 +172,8 @@ def test_final_tilings_take_the_widths_the_pallas_kernels_take(width):
                                     "final_heads", "composite_final_heads"])
 def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
     """A width past 1024 (the limit until the any route took every width)
-    runs on the any route (K10 and K11: the wide head route, in N chunks of
-    64 columns); what is still refused names the kernel and its limit: a
+    runs on the any route (K7) or the wide route (K8-K11, in N chunks of
+    ``n_max`` columns); what is still refused names the kernel and its limit: a
     head's input past HEAD_MAX_WIDTH channels (its second pass stages a
     pixel's bf16 row in shared memory), no output channel elsewhere."""
     past = 1025
@@ -181,9 +183,11 @@ def test_widths_past_the_limit_are_refused_naming_the_kernel(kernel):
             "final_heads": lambda c: tdec.UpsampleTiling(1, 4, 4, head=True, cout=c),
             "composite_final_heads": lambda c: tdec.StripTiling(1, 4, 4, phases=4, cout=c)}
     geo = make[kernel](past)
-    if kernel in ("final_heads", "composite_final_heads"):
-        assert geo.route == "wide" and geo.smem_bytes <= tdec.SMEM_PER_BLOCK
-        assert len(geo.head_geo.n_chunks) == -(-past // 64)
+    if kernel != "decoder_conv":
+        assert len(geo.head_geo.n_chunks) == -(-past // geo.head_geo.n_max)
+        # K8's weights (1025 x 1025) would stream: K7's any route takes it
+        assert geo.route == ("any" if kernel == "final_conv_gelu" else "wide")
+        assert geo.smem_bytes <= tdec.SMEM_PER_BLOCK
     else:
         assert geo.route == "any"
     any_geo = geo if kernel == "decoder_conv" else geo.any_geo
@@ -225,8 +229,8 @@ def test_k7_plain_matches_pallas_at_any_route_widths(shape):
                                     "k10_n33", "k11_n33"])
 def test_final_plain_matches_pallas_at_c40(kernel):
     """K8-K11 at C = 40, K10/K11 with 17 and 33 head columns, and K11 with
-    a head that is not block-diagonal (on the card K8 and K9 take the any
-    route, K10 and K11 the wide head route)."""
+    a head that is not block-diagonal (on the card all of them take the
+    wide route)."""
     rng = np.random.default_rng({"k8": 40, "k9": 41, "k10_n17": 42, "k11_n17": 43,
                                  "k11_full_head": 44, "k10_n33": 45, "k11_n33": 46}[kernel])
     c, n_out = 40, 33 if kernel.endswith("n33") else 17
